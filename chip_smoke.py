@@ -1,0 +1,373 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (an H100 for sm_90a).
+
+    python3 chip_smoke.py
+
+Phases, each of which fails the run (non-zero exit) when it goes wrong:
+
+1. device and build: print the card's name and power limit, build every
+   CUDA kernel of the serving path from ``gofr_tpu_torch/ops/csrc`` (one
+   ``nvcc`` per source, all started together);
+2. kernels against their plain PyTorch versions on the card, in bf16, at the
+   shapes the Llama-3-8B serving path gives them; each kernel, its plain
+   version and one PyTorch library call computing the same function
+   (``scaled_dot_product_attention``, a yardstick the port never calls) are
+   timed with CUDA events, beside the least time the card could take;
+3. the main path: Llama-3-8B at full width (32 layers, random weights from
+   seed 0, bf16) -> ``Generator`` -> ``LLMServer`` answering 8 concurrent
+   requests, with the kernels' launch counts read around that run; then the
+   greedy repeat check, the kernel-vs-plain check of the model's prefill
+   logits, and the prefill / decode timings.
+
+The line before the last is the card; the last is the JSON verdict.
+Without a CUDA device the script exits non-zero and prints no verdict.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+import subprocess
+import sys
+import time
+
+import torch
+
+# H100 SXM published peaks (NVIDIA data sheet): dense bf16 tensor-core
+# rate and HBM3 bandwidth; the card's power limit is printed beside them
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def timed_ms(fn, iters: int = 20, warm: int = 3) -> float:
+    """Mean device time of ``fn`` over ``iters`` launches (CUDA events)."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_profile(fn, n: int) -> dict:
+    """``n`` calls of ``fn`` under torch.profiler: host wall per call, the
+    device's kernel time per call, their ratio (the busy share; the rest of
+    the wall the card sat idle waiting for the host) and the kernels that
+    took the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    return {"wall_ms": wall * 1e3 / n, "device_ms": busy_us / 1e3 / n,
+            "busy_share": busy_us / 1e6 / wall,
+            "top_device_ms": {e.key[:80]: e.self_device_time_total / 1e3 / n
+                              for e in top}}
+
+
+def bound(flops: float, nbytes: float) -> tuple[float, str]:
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops > t_bytes else "bytes")
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise SystemExit(f"chip_smoke: FAILED: {what}")
+
+
+def kernel_phase(dev) -> list[dict]:
+    """Each kernel against its plain version at the 8b serving shapes."""
+    import torch.nn.functional as F
+
+    from gofr_tpu_torch.ops.decode_attention import (
+        gqa_decode_attention_cuda, gqa_decode_attention_plain)
+    from gofr_tpu_torch.ops.flash_attention import (flash_attention_cuda,
+                                                    flash_attention_plain)
+
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    rows = []
+    # bf16 tolerance: outputs are O(1); one bf16 ulp there is 2**-7, and
+    # the kernel rounds P to bf16 before P@V where the plain version
+    # normalises first — 2e-2 absolute covers both
+    tol = 2e-2
+
+    # flash prefill: wave of 2 prompts in the 512 bucket, ragged kv_len
+    B, T, H, KV, D = 2, 512, 32, 8, 128
+    q, k, v = rnd(B, T, H, D), rnd(B, T, KV, D), rnd(B, T, KV, D)
+    kv_len = torch.tensor([512, 301], dtype=torch.int32, device=dev)
+    n0 = flash_attention_cuda.launches
+    out = flash_attention_cuda(q, k, v, kv_len, causal=True)
+    check(flash_attention_cuda.launches == n0 + 1, "flash counter did not move")
+    ref = flash_attention_plain(q, k, v, kv_len, causal=True)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    check(bool(torch.isfinite(out.float()).all()), "flash output not finite")
+    check(err <= tol, f"flash kernel vs plain max_abs_err {err} > {tol}")
+    kpos = torch.arange(T, device=dev)
+    mask = ((kpos[None, :] <= kpos[:, None])[None]
+            & (kpos[None, None, :] < kv_len[:, None, None]))[:, None]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    pairs = sum(min(i + 1, n) for n in kv_len.tolist() for i in range(T))
+    flops = 4 * D * H * pairs
+    nbytes = 2 * (2 * B * T * H * D + 2 * sum(kv_len.tolist()) * KV * D) + 4 * B
+    b_ms, b_by = bound(flops, nbytes)
+    rows.append({
+        "name": "flash_attention_cuda", "route": "cuda",
+        "source": "gofr_tpu_torch/ops/csrc/flash_attention.cu",
+        "replaces": "gofr_tpu/ops/flash_attention.py:89",
+        "shape": f"q[{B},{T},{H},{D}] kv[{B},{T},{KV},{D}] causal "
+                 f"kv_len={kv_len.tolist()}",
+        "max_abs_err": err, "tol": tol,
+        "ms": timed_ms(lambda: flash_attention_cuda(q, k, v, kv_len)),
+        "plain_ms": timed_ms(lambda: flash_attention_plain(q, k, v, kv_len),
+                             iters=5),
+        "library_ms": timed_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)),
+        "bound_ms": b_ms, "bound_by": b_by})
+
+    # GQA decode: the stacked 8b cache at 4 slots x 1024, ragged kv_len
+    # including a row at capacity (pos + 1 = S_max + 1, clamped)
+    L, B, S, KV, D, H, layer = 32, 4, 1024, 8, 128, 32, 7
+    kc, vc = rnd(L, B, S, KV, D), rnd(L, B, S, KV, D)
+    q = rnd(B, 1, H, D)
+    kv_len = torch.tensor([1, 1000, 1024, 1025], dtype=torch.int32, device=dev)
+    n0 = gqa_decode_attention_cuda.launches
+    out = gqa_decode_attention_cuda(q, kc, vc, kv_len, layer=layer)
+    check(gqa_decode_attention_cuda.launches == n0 + 1,
+          "decode counter did not move")
+    ref = gqa_decode_attention_plain(q, kc, vc, kv_len, layer=layer)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    check(bool(torch.isfinite(out.float()).all()), "decode output not finite")
+    check(err <= tol, f"decode kernel vs plain max_abs_err {err} > {tol}")
+    live = [min(n, S) for n in kv_len.tolist()]
+    smask = (torch.arange(S, device=dev)[None, :]
+             < kv_len.clamp(max=S)[:, None])[:, None, None, :]
+    qt = q.transpose(1, 2)
+    kt, vt = kc[layer].transpose(1, 2), vc[layer].transpose(1, 2)
+    flops = 4 * D * H * sum(live)
+    nbytes = 2 * (2 * sum(live) * KV * D + 2 * B * H * D) + 4 * B
+    b_ms, b_by = bound(flops, nbytes)
+    rows.append({
+        "name": "gqa_decode_attention_cuda", "route": "cuda",
+        "source": "gofr_tpu_torch/ops/csrc/decode_attention.cu",
+        "replaces": "gofr_tpu/ops/decode_attention.py:160",
+        "shape": f"q[{B},1,{H},{D}] cache[{L},{B},{S},{KV},{D}] "
+                 f"layer={layer} kv_len={kv_len.tolist()}",
+        "max_abs_err": err, "tol": tol,
+        "ms": timed_ms(lambda: gqa_decode_attention_cuda(
+            q, kc, vc, kv_len, layer=layer), iters=50),
+        "plain_ms": timed_ms(lambda: gqa_decode_attention_plain(
+            q, kc, vc, kv_len, layer=layer)),
+        "library_ms": timed_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=smask, enable_gqa=True), iters=50),
+        "bound_ms": b_ms, "bound_by": b_by})
+    return rows
+
+
+def main_path(dev) -> dict:
+    """Llama-3-8B at full width behind LLMServer: 8 concurrent requests."""
+    import numpy as np
+
+    from gofr_tpu_torch.ml.generate import Generator
+    from gofr_tpu_torch.ml.llm import LLMServer
+    from gofr_tpu_torch.models import llama
+    from gofr_tpu_torch.ops.decode_attention import (
+        gqa_decode_attention_cuda, gqa_decode_attention_plain)
+    from gofr_tpu_torch.ops.flash_attention import (flash_attention_cuda,
+                                                    flash_attention_plain)
+
+    cfg = llama.llama3_8b()
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                               device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    max_new = 32
+    gen = Generator(params, cfg, batch_slots=4, max_seq=1024, chunk=4,
+                    prefill_buckets=(128, 512), device=dev)
+    t0 = time.perf_counter()
+    gen.warmup()
+    warm_s = time.perf_counter() - t0
+    r = np.random.default_rng(0)
+    prompts = [r.integers(0, cfg.vocab_size, n).tolist()
+               for n in (5, 17, 60, 128, 200, 333, 480, 500)]
+
+    async def serve():
+        server = LLMServer(gen, name="chat")
+
+        async def chunks(p):
+            out = []
+            async for burst in server.stream_chunks(p, max_new):
+                out.extend(burst)
+            return out
+
+        try:
+            t = time.perf_counter()
+            outs = await asyncio.gather(*(
+                server.generate(p, max_new) if i % 2 else chunks(p)
+                for i, p in enumerate(prompts)))
+            wall = time.perf_counter() - t
+            again = [await server.generate(prompts[3], max_new)
+                     for _ in range(2)]
+            return outs, wall, again
+        finally:
+            server.close()
+
+    torch.cuda.reset_peak_memory_stats()
+    steps0, waves0 = gen.steps, gen.prefill_waves
+    flash_attention_cuda.launches = 0
+    gqa_decode_attention_cuda.launches = 0
+    outs, wall, again = asyncio.run(serve())
+    torch.cuda.synchronize()
+    launches = {"flash_attention_cuda": flash_attention_cuda.launches,
+                "gqa_decode_attention_cuda": gqa_decode_attention_cuda.launches}
+    steps, waves = gen.steps - steps0, gen.prefill_waves - waves0
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+
+    check(len(outs) == len(prompts), "not every request answered")
+    check(all(len(o) == max_new and all(0 <= t < cfg.vocab_size for t in o)
+              for o in outs + again),
+          "every request returns max_new ids inside the vocabulary")
+    check(again[0] == again[1], "one prompt served twice alone differs")
+    check(launches["flash_attention_cuda"] >= cfg.n_layers * waves > 0,
+          f"flash launched {launches['flash_attention_cuda']} times for "
+          f"{waves} prefill waves")
+    check(launches["gqa_decode_attention_cuda"] >= cfg.n_layers * steps > 0,
+          f"decode launched {launches['gqa_decode_attention_cuda']} times "
+          f"for {steps} decode steps")
+
+    # prefill logits through the kernels vs the plain path, on the card
+    ids = np.asarray(prompts[6], np.int32)[None]
+    tokens = np.zeros((1, 512), np.int32)
+    tokens[0, :ids.shape[1]] = ids
+    lens = np.array([ids.shape[1]], np.int32)
+    cache = llama.init_cache(cfg, 1, 1024, device=dev)
+    with torch.no_grad():
+        got, _ = llama.prefill(params, tokens, lens, cfg, cache)
+        kernel_flash = llama.flash_attention
+        llama.flash_attention = (lambda q, k, v, *, causal=True, kv_len=None:
+                                 flash_attention_plain(q, k, v, kv_len,
+                                                       causal=causal))
+        try:
+            want, _ = llama.prefill(params, tokens, lens, cfg, cache)
+        finally:
+            llama.flash_attention = kernel_flash
+    scale = want.abs().max().item()
+    logit_err = (got - want).abs().max().item() / scale
+    # 32 bf16 layers amplify the kernels' last-bit differences: held at 5%
+    # of the logits' range, and both paths must pick the same token
+    check(logit_err <= 5e-2, f"prefill logits kernel vs plain rel err "
+          f"{logit_err} > 5e-2")
+    check(int(got.argmax()) == int(want.argmax()),
+          "prefill argmax differs between kernel and plain path")
+
+    # decode logits of one step, kernel vs plain, on the same cache
+    with torch.no_grad():
+        _, cache = llama.prefill(params, tokens, lens, cfg, cache)
+        tok = torch.tensor([int(got.argmax())], device=dev)
+        c1 = {k: v.clone() for k, v in cache.items()}
+        d_got, _ = llama.decode_step(params, tok, c1, cfg)
+        kernel_dec = llama.cached_decode_attention
+        llama.cached_decode_attention = gqa_decode_attention_plain
+        try:
+            d_want, _ = llama.decode_step(params, tok, cache, cfg)
+        finally:
+            llama.cached_decode_attention = kernel_dec
+    dec_err = (d_got - d_want).abs().max().item() / d_want.abs().max().item()
+    check(dec_err <= 5e-2, f"decode logits kernel vs plain rel err {dec_err}")
+
+    # timings: one 512-bucket prefill wave of one prompt, and decode steps
+    # of the full 4-slot batch
+    def one_prefill():
+        llama.prefill_into(params, tokens, lens, cfg, gen.cache, 0)
+
+    prefill_ms = timed_ms(one_prefill, iters=5, warm=1)
+    gen.cache["len"].fill_(500)
+    step_tok = torch.zeros(4, dtype=torch.int32, device=dev)
+
+    def one_step():
+        llama.decode_step(params, step_tok, gen.cache, cfg)
+        gen.cache["len"].fill_(500)
+
+    step_ms = timed_ms(one_step, iters=10, warm=2)
+    prefill_prof = device_profile(one_prefill, 3)
+    step_prof = device_profile(one_step, 5)
+    served = sum(len(o) for o in outs)
+    return {
+        "launches": launches, "prefill_waves": waves, "decode_steps": steps,
+        "init_s": init_s, "warmup_s": warm_s,
+        "served_tokens": served, "served_wall_s": wall,
+        "served_tok_per_s": served / wall,
+        "prefill_ms_b1_s512": prefill_ms, "decode_step_ms_b4": step_ms,
+        "decode_tok_per_s_b4": 4 / (step_ms / 1e3),
+        "peak_mem_gib": peak_gb,
+        "prefill_logit_rel_err": logit_err, "decode_logit_rel_err": dec_err,
+        "prefill_profile": prefill_prof, "decode_step_profile": step_prof,
+    }
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    import gofr_tpu_torch
+    from gofr_tpu_torch.ops import _build
+
+    dev = gofr_tpu_torch.resolve_device()
+    card = card_line()
+    # f32 checks run in full f32 (the kernels under test are bf16)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
+    build_s = _build.build()
+    print(f"kernels built from {_build.CSRC.relative_to(_build.CSRC.parents[2])}"
+          f" in {build_s:.1f} s")
+    rows = kernel_phase(dev)
+    for row in rows:
+        print(f"{row['name']}: max_abs_err {row['max_abs_err']:.3g} "
+              f"kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms "
+              f"library {row['library_ms']:.4f} ms bound {row['bound_ms']:.4f}"
+              f" ms ({row['bound_by']})")
+    path = main_path(dev)
+    for row in rows:
+        row["launches"] = path["launches"][row["name"]]
+        row["kernel_ms"] = row["ms"]
+    print("main path: " + json.dumps(path))
+    print(json.dumps({"kernels": rows}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -36,6 +36,10 @@ def pytest_configure(config):
         "slow: long soak tests excluded from tier-1 (-m 'not slow')")
     config.addinivalue_line(
         "markers",
+        "cuda: needs an NVIDIA card and nvcc (the PyTorch port's CUDA "
+        "kernels); skips without one — run on the card with -m cuda")
+    config.addinivalue_line(
+        "markers",
         "timeout(seconds): per-test wall-clock bound (SIGALRM; main "
         "thread, POSIX only) — a wedged socket test fails ALONE with a "
         "stack dump instead of eating the whole suite's budget")
