@@ -7,16 +7,25 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
 1. device and build: print the card's name and power limit, build every
    CUDA kernel of the serving path from ``gofr_tpu_torch/ops/csrc`` (one
    ``nvcc`` per source, all started together);
-2. kernels against their plain PyTorch versions on the card, in bf16, at the
-   shapes the Llama-3-8B serving path gives them; each kernel, its plain
-   version and one PyTorch library call computing the same function
-   (``scaled_dot_product_attention``, a yardstick the port never calls) are
-   timed with CUDA events, beside the least time the card could take;
-3. the main path: Llama-3-8B at full width (32 layers, random weights from
-   seed 0, bf16) -> ``Generator`` -> ``LLMServer`` answering 8 concurrent
-   requests, with the kernels' launch counts read around that run; then the
-   greedy repeat check, the kernel-vs-plain check of the model's prefill
-   logits, and the prefill / decode timings.
+2. kernels against their plain PyTorch versions on the card, at the shapes
+   the Llama-3-8B serving paths give them: flash prefill, GQA decode over
+   the bf16 cache, GQA decode over the int8 cache. Each kernel, its plain
+   version and a PyTorch library call (``scaled_dot_product_attention``, a
+   yardstick the port never calls) are timed with CUDA events, beside the
+   least time the card could take;
+3. the bf16 main path: Llama-3-8B at full width (32 layers, random weights
+   from seed 0, bf16) -> ``Generator`` -> ``LLMServer`` answering 8
+   concurrent requests, with the kernels' launch counts read around that
+   run; then the greedy repeat check, the kernel-vs-plain check of the
+   model's prefill and decode logits, and the prefill / decode timings;
+4. the int8 main path: the same model with ``kv_quant=True, w8=True``
+   (weights quantized on the card from the seed-0 bf16 draw) behind
+   ``LLMServer`` with 8 slots x 4096 positions answering 16 concurrent
+   requests, launch counts read around that run (the int8 decode kernel
+   only, never the bf16 one); the kernel-vs-plain check of one decode
+   step's logits; prefill and decode timings, and as measurements only,
+   the decode step at the same shape with bf16 weights over the int8
+   cache and fully in bf16, and the cost of quantize-on-write.
 
 The line before the last is the card; the last is the JSON verdict.
 Without a CUDA device the script exits non-zero and prints no verdict.
@@ -98,12 +107,34 @@ def check(ok: bool, what: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
 
 
+def counters() -> dict:
+    """The launch counter of every kernel wrapper."""
+    from gofr_tpu_torch.ops.decode_attention import (
+        gqa_decode_attention_cuda, gqa_decode_attention_int8_cuda)
+    from gofr_tpu_torch.ops.flash_attention import flash_attention_cuda
+
+    return {"flash_attention_cuda": flash_attention_cuda,
+            "gqa_decode_attention_cuda": gqa_decode_attention_cuda,
+            "gqa_decode_attention_int8_cuda": gqa_decode_attention_int8_cuda}
+
+
+def reset_launches() -> None:
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in counters().items()}
+
+
 def kernel_phase(dev) -> list[dict]:
     """Each kernel against its plain version at the 8b serving shapes."""
     import torch.nn.functional as F
 
+    from gofr_tpu_torch.ops import dequantize_kv, quantize_kv
     from gofr_tpu_torch.ops.decode_attention import (
-        gqa_decode_attention_cuda, gqa_decode_attention_plain)
+        gqa_decode_attention_cuda, gqa_decode_attention_int8_cuda,
+        gqa_decode_attention_int8_plain, gqa_decode_attention_plain)
     from gofr_tpu_torch.ops.flash_attention import (flash_attention_cuda,
                                                     flash_attention_plain)
 
@@ -189,20 +220,133 @@ def kernel_phase(dev) -> list[dict]:
         "library_ms": timed_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=smask, enable_gqa=True), iters=50),
         "bound_ms": b_ms, "bound_by": b_by})
+    del kc, vc
+
+    # GQA decode over the int8 cache: the stacked 8b cache at 8 slots x
+    # 4096 (values flat, scales seq-minor), quantized one layer at a time,
+    # ragged kv_len from 1 to a row at capacity
+    L, B, S, KV, D, H, layer = 32, 8, 4096, 8, 128, 32, 7
+    kc, vc = (torch.empty((L, B, S, KV * D), dtype=torch.int8, device=dev)
+              for _ in range(2))
+    ks, vs = (torch.empty((L, B, KV, S), dtype=torch.bfloat16, device=dev)
+              for _ in range(2))
+    for i in range(L):
+        for values, scales in ((kc, ks), (vc, vs)):
+            codes, scale = quantize_kv(rnd(B, S, KV, D))
+            values[i] = codes.reshape(B, S, KV * D)
+            scales[i] = scale.transpose(1, 2)
+    q = rnd(B, 1, H, D)
+    kv_len = torch.tensor([1, 129, 1000, 2048, 2049, 4000, 4096, 4097],
+                          dtype=torch.int32, device=dev)
+    n0 = gqa_decode_attention_int8_cuda.launches
+    out = gqa_decode_attention_int8_cuda(q, kc, vc, kv_len, layer=layer,
+                                         k_scale=ks, v_scale=vs)
+    check(gqa_decode_attention_int8_cuda.launches == n0 + 1,
+          "int8 decode counter did not move")
+    ref = gqa_decode_attention_int8_plain(q, kc, vc, kv_len, layer=layer,
+                                          k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    check(bool(torch.isfinite(out.float()).all()),
+          "int8 decode output not finite")
+    check(err <= tol, f"int8 decode kernel vs plain max_abs_err {err} > {tol}")
+    live = [min(n, S) for n in kv_len.tolist()]
+    smask = (torch.arange(S, device=dev)[None, :]
+             < kv_len.clamp(max=S)[:, None])[:, None, None, :]
+    kt, vt = (dequantize_kv(values[layer].view(B, S, KV, D),
+                            scales[layer].transpose(1, 2)).transpose(1, 2)
+              for values, scales in ((kc, ks), (vc, vs)))
+    qt = q.transpose(1, 2)
+    flops = 4 * D * H * sum(live)
+    # int8 values and one bf16 scale per (position, KV head), K and V
+    nbytes = 2 * sum(live) * KV * (D + 2) + 2 * (2 * B * H * D) + 4 * B
+    b_ms, b_by = bound(flops, nbytes)
+    rows.append({
+        "name": "gqa_decode_attention_int8_cuda", "route": "cuda",
+        "source": "gofr_tpu_torch/ops/csrc/decode_attention.cu",
+        "replaces": "gofr_tpu/ops/decode_attention.py:147",
+        "shape": f"q[{B},1,{H},{D}] int8 cache[{L},{B},{S},{KV * D}] "
+                 f"scales[{L},{B},{KV},{S}] layer={layer} "
+                 f"kv_len={kv_len.tolist()}",
+        "max_abs_err": err, "tol": tol,
+        "ms": timed_ms(lambda: gqa_decode_attention_int8_cuda(
+            q, kc, vc, kv_len, layer=layer, k_scale=ks, v_scale=vs),
+            iters=50),
+        "plain_ms": timed_ms(lambda: gqa_decode_attention_int8_plain(
+            q, kc, vc, kv_len, layer=layer, k_scale=ks, v_scale=vs)),
+        # no PyTorch call attends over an int8 cache
+        "library_ms": None,
+        "yardstick": "scaled_dot_product_attention over the dequantized "
+                     "bf16 layer (twice the cache bytes of the int8 read)",
+        "yardstick_ms": timed_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=smask, enable_gqa=True), iters=50),
+        "bound_ms": b_ms, "bound_by": b_by})
     return rows
 
 
-def main_path(dev) -> dict:
-    """Llama-3-8B at full width behind LLMServer: 8 concurrent requests."""
+def serve(gen, prompts, max_new: int, repeat) -> tuple[list, float, list]:
+    """Every prompt through ``LLMServer`` at once (half ``generate``, half
+    ``stream_chunks``), then ``repeat`` twice alone. Returns (outputs, wall
+    seconds of the concurrent run, the two repeats)."""
+    from gofr_tpu_torch.ml.llm import LLMServer
+
+    async def run():
+        server = LLMServer(gen, name="chat")
+
+        async def chunks(p):
+            out = []
+            async for burst in server.stream_chunks(p, max_new):
+                out.extend(burst)
+            return out
+
+        try:
+            t = time.perf_counter()
+            outs = await asyncio.gather(*(
+                server.generate(p, max_new) if i % 2 else chunks(p)
+                for i, p in enumerate(prompts)))
+            wall = time.perf_counter() - t
+            again = [await server.generate(repeat, max_new) for _ in range(2)]
+            return outs, wall, again
+        finally:
+            server.close()
+
+    return asyncio.run(run())
+
+
+def check_served(cfg, prompts, outs, again, max_new: int) -> None:
+    check(len(outs) == len(prompts), "not every request answered")
+    check(all(len(o) == max_new and all(0 <= t < cfg.vocab_size for t in o)
+              for o in outs + again),
+          "every request returns max_new ids inside the vocabulary")
+    check(again[0] == again[1], "one prompt served twice alone differs")
+
+
+def decode_logit_err(llama, params, cfg, tok, cache, plain) -> float:
+    """One decode step's logits on the prefilled ``cache``, through the
+    decode kernel (on a copy) and through its plain version ``plain``:
+    the largest difference over the logits' range."""
+    with torch.no_grad():
+        got, _ = llama.decode_step(params, tok,
+                                   {k: v.clone() for k, v in cache.items()},
+                                   cfg)
+        kernel = llama.cached_decode_attention
+        llama.cached_decode_attention = plain
+        try:
+            want, _ = llama.decode_step(params, tok, cache, cfg)
+        finally:
+            llama.cached_decode_attention = kernel
+    return (got - want).abs().max().item() / want.abs().max().item()
+
+
+def main_path(dev) -> tuple[dict, dict]:
+    """Llama-3-8B bf16 at full width behind LLMServer: 8 concurrent
+    requests. Returns (results, the seed-0 bf16 weights)."""
     import numpy as np
 
     from gofr_tpu_torch.ml.generate import Generator
-    from gofr_tpu_torch.ml.llm import LLMServer
     from gofr_tpu_torch.models import llama
-    from gofr_tpu_torch.ops.decode_attention import (
-        gqa_decode_attention_cuda, gqa_decode_attention_plain)
-    from gofr_tpu_torch.ops.flash_attention import (flash_attention_cuda,
-                                                    flash_attention_plain)
+    from gofr_tpu_torch.ops.decode_attention import gqa_decode_attention_plain
+    from gofr_tpu_torch.ops.flash_attention import flash_attention_plain
 
     cfg = llama.llama3_8b()
     t0 = time.perf_counter()
@@ -220,49 +364,24 @@ def main_path(dev) -> dict:
     prompts = [r.integers(0, cfg.vocab_size, n).tolist()
                for n in (5, 17, 60, 128, 200, 333, 480, 500)]
 
-    async def serve():
-        server = LLMServer(gen, name="chat")
-
-        async def chunks(p):
-            out = []
-            async for burst in server.stream_chunks(p, max_new):
-                out.extend(burst)
-            return out
-
-        try:
-            t = time.perf_counter()
-            outs = await asyncio.gather(*(
-                server.generate(p, max_new) if i % 2 else chunks(p)
-                for i, p in enumerate(prompts)))
-            wall = time.perf_counter() - t
-            again = [await server.generate(prompts[3], max_new)
-                     for _ in range(2)]
-            return outs, wall, again
-        finally:
-            server.close()
-
     torch.cuda.reset_peak_memory_stats()
     steps0, waves0 = gen.steps, gen.prefill_waves
-    flash_attention_cuda.launches = 0
-    gqa_decode_attention_cuda.launches = 0
-    outs, wall, again = asyncio.run(serve())
+    reset_launches()
+    outs, wall, again = serve(gen, prompts, max_new, prompts[3])
     torch.cuda.synchronize()
-    launches = {"flash_attention_cuda": flash_attention_cuda.launches,
-                "gqa_decode_attention_cuda": gqa_decode_attention_cuda.launches}
+    launches = read_launches()
     steps, waves = gen.steps - steps0, gen.prefill_waves - waves0
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
 
-    check(len(outs) == len(prompts), "not every request answered")
-    check(all(len(o) == max_new and all(0 <= t < cfg.vocab_size for t in o)
-              for o in outs + again),
-          "every request returns max_new ids inside the vocabulary")
-    check(again[0] == again[1], "one prompt served twice alone differs")
+    check_served(cfg, prompts, outs, again, max_new)
     check(launches["flash_attention_cuda"] >= cfg.n_layers * waves > 0,
           f"flash launched {launches['flash_attention_cuda']} times for "
           f"{waves} prefill waves")
     check(launches["gqa_decode_attention_cuda"] >= cfg.n_layers * steps > 0,
           f"decode launched {launches['gqa_decode_attention_cuda']} times "
           f"for {steps} decode steps")
+    check(launches["gqa_decode_attention_int8_cuda"] == 0,
+          "the bf16 path launched the int8 decode kernel")
 
     # prefill logits through the kernels vs the plain path, on the card
     ids = np.asarray(prompts[6], np.int32)[None]
@@ -292,16 +411,9 @@ def main_path(dev) -> dict:
     # decode logits of one step, kernel vs plain, on the same cache
     with torch.no_grad():
         _, cache = llama.prefill(params, tokens, lens, cfg, cache)
-        tok = torch.tensor([int(got.argmax())], device=dev)
-        c1 = {k: v.clone() for k, v in cache.items()}
-        d_got, _ = llama.decode_step(params, tok, c1, cfg)
-        kernel_dec = llama.cached_decode_attention
-        llama.cached_decode_attention = gqa_decode_attention_plain
-        try:
-            d_want, _ = llama.decode_step(params, tok, cache, cfg)
-        finally:
-            llama.cached_decode_attention = kernel_dec
-    dec_err = (d_got - d_want).abs().max().item() / d_want.abs().max().item()
+    dec_err = decode_logit_err(llama, params, cfg,
+                               torch.tensor([int(got.argmax())], device=dev),
+                               cache, gqa_decode_attention_plain)
     check(dec_err <= 5e-2, f"decode logits kernel vs plain rel err {dec_err}")
 
     # timings: one 512-bucket prefill wave of one prompt, and decode steps
@@ -331,6 +443,151 @@ def main_path(dev) -> dict:
         "peak_mem_gib": peak_gb,
         "prefill_logit_rel_err": logit_err, "decode_logit_rel_err": dec_err,
         "prefill_profile": prefill_prof, "decode_step_profile": step_prof,
+    }, params
+
+
+def _nbytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_nbytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def int8_path(dev, bf16_params) -> dict:
+    """Llama-3-8B with the int8 cache and int8 weights at full width and
+    depth behind LLMServer: 8 slots x 4096 positions, 16 concurrent
+    requests with prompts of 5-2000 tokens."""
+    import numpy as np
+
+    from gofr_tpu_torch.ml.generate import Generator
+    from gofr_tpu_torch.models import llama
+    from gofr_tpu_torch.ops.decode_attention import (
+        gqa_decode_attention_int8_cuda, gqa_decode_attention_int8_plain)
+
+    cfg = llama.llama3_8b(kv_quant=True, w8=True)
+    t0 = time.perf_counter()
+    params = llama.params_from_config(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    slots, max_seq, max_new, fill = 8, 4096, 32, 2000
+    gen = Generator(params, cfg, batch_slots=slots, max_seq=max_seq, chunk=4,
+                    prefill_buckets=(128, 512, 2048), device=dev)
+    n0 = gqa_decode_attention_int8_cuda.launches
+    t0 = time.perf_counter()
+    gen.warmup()
+    warm_s = time.perf_counter() - t0
+    check(gqa_decode_attention_int8_cuda.launches > n0,
+          "warmup did not launch the int8 decode kernel")
+    r = np.random.default_rng(0)
+    prompts = [r.integers(0, cfg.vocab_size, int(n)).tolist()
+               for n in r.integers(5, 2001, 16)]
+
+    torch.cuda.reset_peak_memory_stats()
+    steps0, waves0 = gen.steps, gen.prefill_waves
+    reset_launches()
+    outs, wall, again = serve(gen, prompts, max_new, prompts[0])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    steps, waves = gen.steps - steps0, gen.prefill_waves - waves0
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+
+    check_served(cfg, prompts, outs, again, max_new)
+    check(launches["gqa_decode_attention_int8_cuda"]
+          >= cfg.n_layers * steps > 0,
+          f"int8 decode launched {launches['gqa_decode_attention_int8_cuda']}"
+          f" times for {steps} decode steps")
+    check(launches["flash_attention_cuda"] >= cfg.n_layers * waves > 0,
+          f"flash launched {launches['flash_attention_cuda']} times for "
+          f"{waves} prefill waves")
+    check(launches["gqa_decode_attention_cuda"] == 0,
+          "the int8 path launched the bf16 decode kernel")
+
+    # one decode step's logits on a prefilled int8 cache, kernel vs plain;
+    # and the int8 model's prefill logits beside the bf16 model's
+    ids = np.asarray(max(prompts, key=len), np.int32)[None]
+    tokens = np.zeros((1, 2048), np.int32)
+    tokens[0, :ids.shape[1]] = ids
+    lens = np.array([ids.shape[1]], np.int32)
+    cfg16 = llama.llama3_8b()
+    with torch.no_grad():
+        logits, cache = llama.prefill(params, tokens, lens, cfg,
+                                      llama.init_cache(cfg, 1, max_seq,
+                                                       device=dev))
+        ref16, _ = llama.prefill(bf16_params, tokens, lens, cfg16,
+                                 llama.init_cache(cfg16, 1, 2048, device=dev))
+    dec_err = decode_logit_err(llama, params, cfg,
+                               torch.tensor([int(logits.argmax())],
+                                            device=dev),
+                               cache, gqa_decode_attention_int8_plain)
+    del cache
+    check(dec_err <= 5e-2,
+          f"int8 decode logits kernel vs plain rel err {dec_err} > 5e-2")
+    vs_bf16 = (logits - ref16).abs().max().item() / ref16.abs().max().item()
+
+    # timings: one 2048-bucket prefill of one prompt; decode steps of the
+    # full 8-slot batch at len 2000: int8 weights + int8 cache, bf16 weights
+    # + int8 cache, all bf16 (measurements only), in turns A B C C B A
+    def one_prefill():
+        llama.prefill_into(params, tokens, lens, cfg, gen.cache, 0)
+
+    prefill_ms = timed_ms(one_prefill, iters=5, warm=1)
+    step_tok = torch.zeros(slots, dtype=torch.int32, device=dev)
+    cache16 = llama.init_cache(cfg16, slots, max_seq, device=dev)
+    arms = {"w8_kv8": (params, cfg, gen.cache),
+            "bf16_kv8": (bf16_params, llama.llama3_8b(kv_quant=True),
+                         gen.cache),
+            "bf16": (bf16_params, cfg16, cache16)}
+
+    def stepper(name):
+        p, c, cache = arms[name]
+
+        def one_step():
+            cache["len"].fill_(fill)
+            llama.decode_step(p, step_tok, cache, c)
+        return one_step
+
+    step_ms = {name: [] for name in arms}
+    for name in [*arms, *reversed(arms)]:
+        step_ms[name].append(timed_ms(stepper(name), iters=10, warm=2))
+    profiles = {name: device_profile(stepper(name), 5)
+                for name in ("w8_kv8", "bf16")}
+    # quantize-on-write alone: one token's K/V of every slot into all 32
+    # layers, int8 (quantize + 4 masked scatters a layer) vs bf16 (2)
+    g = torch.Generator(device=dev).manual_seed(1)
+    k_new, v_new = (torch.randn((slots, cfg.n_kv_heads, cfg.head_dim),
+                                generator=g, device=dev).to(torch.bfloat16)
+                    for _ in range(2))
+    rows = torch.arange(slots, device=dev)
+    pos = torch.full((slots,), fill, dtype=torch.long, device=dev)
+    fits = torch.ones(slots, dtype=torch.bool, device=dev)
+
+    def writes(c, cache):
+        def run():
+            for layer in range(c.n_layers):
+                llama._write_token_kv(c, cache, layer, k_new, v_new, rows,
+                                      pos, fits)
+        return run
+
+    write_prof = {"int8": device_profile(writes(cfg, gen.cache), 5),
+                  "bf16": device_profile(writes(cfg16, cache16), 5)}
+    served = sum(len(o) for o in outs)
+    w8 = min(step_ms["w8_kv8"])
+    return {
+        "launches": launches, "prefill_waves": waves, "decode_steps": steps,
+        "init_and_quantize_s": init_s, "warmup_s": warm_s,
+        "weight_gb": _nbytes(params) / 1e9,
+        "prompt_lens": [len(p) for p in prompts],
+        "served_tokens": served, "served_wall_s": wall,
+        "served_tok_per_s": served / wall,
+        "prefill_ms_b1_s2048": prefill_ms,
+        "decode_step_ms_b8_len2000": step_ms,
+        "decode_tok_per_s_b8": slots / (w8 / 1e3),
+        "peak_mem_gib": peak_gb,
+        "decode_logit_rel_err": dec_err,
+        "prefill_logit_rel_err_vs_bf16_model": vs_bf16,
+        "prefill_argmax_equal_bf16_model":
+            int(logits.argmax()) == int(ref16.argmax()),
+        "decode_step_profile": profiles,
+        "quantize_on_write_profile_32_layers": write_prof,
     }
 
 
@@ -352,15 +609,24 @@ def main() -> int:
           f" in {build_s:.1f} s")
     rows = kernel_phase(dev)
     for row in rows:
+        lib = row["library_ms"] if row["library_ms"] is not None else \
+            row["yardstick_ms"]
         print(f"{row['name']}: max_abs_err {row['max_abs_err']:.3g} "
               f"kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms "
-              f"library {row['library_ms']:.4f} ms bound {row['bound_ms']:.4f}"
+              f"library/yardstick {lib:.4f} ms bound {row['bound_ms']:.4f}"
               f" ms ({row['bound_by']})")
-    path = main_path(dev)
+    path, bf16_params = main_path(dev)
+    print("main path (bf16): " + json.dumps(path))
+    qpath = int8_path(dev, bf16_params)
+    print("main path (int8 cache + int8 weights): " + json.dumps(qpath))
     for row in rows:
-        row["launches"] = path["launches"][row["name"]]
+        by_path = {"bf16": path["launches"][row["name"]],
+                   "int8": qpath["launches"][row["name"]]}
+        own = "int8" if row["name"] == "gqa_decode_attention_int8_cuda" \
+            else "bf16"
+        row["launches"] = by_path[own]
+        row["launches_by_path"] = by_path
         row["kernel_ms"] = row["ms"]
-    print("main path: " + json.dumps(path))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -4,26 +4,35 @@ Layouts are the JAX package's, so the two hold the same parameters and the
 tests compare like with like:
 
 - every layer weight is STACKED on a leading [n_layers] axis, and a matmul
-  is ``x @ W`` with W stored [in, out];
+  is ``x @ W`` with W stored [in, out]; with ``w8`` the seven layer
+  matmuls and ``lm_head`` are ``{"q": int8, "s": f32}`` (``_mm``);
 - activations are [batch, seq, dim]; attention tensors are BSHD;
-- the KV cache is a padded [L, B, S_max, KV, D] pair plus a per-row ``len``.
+- the KV cache is a padded [L, B, S_max, KV, D] pair plus a per-row ``len``;
+  with ``kv_quant`` the values are int8 stored FLAT [L, B, S_max, KV*D] and
+  bf16 ``k_scale``/``v_scale`` planes ride seq-minor [L, B, KV, S_max].
 
 What differs from JAX, and why:
 
 - PyTorch runs eagerly, so the layer ``scan`` is a Python loop over the
   stacked weights, and the cache is updated IN PLACE (one [B, KV, D] write
-  per layer per decode step) instead of donated and re-bound;
+  per layer per decode step) instead of donated and re-bound; the int8
+  cache's prefill writes each layer as the layer finishes, where JAX
+  quantizes the stacked K/V after the scan (the same values: the
+  quantization is per vector);
 - an out-of-range cache write is dropped by JAX's ``.at[].set`` but is a
   device-side fault in torch, so ``decode_step`` masks the writes of rows
   already at capacity explicitly (their ``len`` stays capped at S_max);
 - attention goes through the two dispatchers of ``ops``: the hand-written
   CUDA kernels for a CUDA tensor, their plain versions for a CPU tensor.
   The device decides, so the JAX config's ``use_flash`` has no
-  counterpart.
+  counterpart;
+- ``quantize_weights`` quantizes one layer at a time, so no f32 copy of a
+  whole stacked weight exists on the card.
 
-Only the dense bf16/f32 serving path is ported in this slice: int8 weights,
-quantized KV caches, paged caches and sequence-parallel attention raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+The dense serving path is ported at bf16/f32, with the int8 cache and int8
+weights. int4 caches (a paged-cache precision), sequence-parallel attention
+and checkpoint restore raise ``NotImplementedError`` naming the ROADMAP
+item that brings them.
 """
 
 from __future__ import annotations
@@ -34,14 +43,16 @@ import numpy as np
 import torch
 
 from ..ops import (apply_rope, cached_decode_attention, flash_attention,
-                   rms_norm, rope_table)
+                   quantize_kv, quantize_weight, rms_norm, rope_table)
 
-__all__ = ["LlamaConfig", "llama3_8b", "tiny_llama", "config_from_env",
-           "init_params", "params_from_jax", "forward", "init_cache",
+__all__ = ["LlamaConfig", "llama3_8b", "tiny_llama", "kv_bits_from_env",
+           "config_from_env", "init_params", "quantize_weights",
+           "params_from_config", "params_from_jax", "forward", "init_cache",
            "prefill", "prefill_into", "prefill_into_many", "decode_step"]
 
 _LAYER_KEYS = ("attn_norm", "mlp_norm", "wq", "wk", "wv", "wo", "w_gate",
                "w_up", "w_down")
+_QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
 
 class LlamaConfig:
@@ -67,13 +78,19 @@ class LlamaConfig:
             raise NotImplementedError(
                 f"attn_impl={attn_impl!r}: sequence-parallel attention is not "
                 "ported yet (ROADMAP A.11)")
-        if kv_quant or (kv_bits is not None and int(kv_bits) != 16):
+        # kv_bits as in the JAX config: 8 (the int8 cache, the default with
+        # kv_quant) or 16 (the fp cache); setting 8 implies kv_quant
+        if kv_bits is None:
+            kv_bits = 8 if kv_quant else 16
+        kv_bits = int(kv_bits)
+        if kv_bits not in (4, 8, 16):
+            raise ValueError(f"kv_bits must be 4, 8 or 16, got {kv_bits}")
+        if kv_bits == 16 and kv_quant:
+            raise ValueError("kv_quant=True contradicts kv_bits=16")
+        if kv_bits == 4:
             raise NotImplementedError(
-                "quantized KV caches (kv_quant / kv_bits < 16) are not ported "
-                "yet (ROADMAP A.5 and B.3, the int8 decode kernel)")
-        if w8:
-            raise NotImplementedError(
-                "int8 weights (w8) are not ported yet (ROADMAP A.5)")
+                "kv_bits=4: int4 KV is a paged-cache precision, and the paged "
+                "cache is not ported yet (ROADMAP A.8)")
         if dtype not in (torch.bfloat16, torch.float32):
             raise ValueError(f"dtype must be bfloat16 or float32, got {dtype}")
         self.vocab_size = vocab_size
@@ -88,6 +105,9 @@ class LlamaConfig:
         self.rope_scaling = rope_scaling
         self.norm_eps = norm_eps
         self.dtype = dtype
+        self.kv_bits = kv_bits
+        self.kv_quant = kv_bits < 16
+        self.w8 = bool(w8)
 
     @property
     def n_rep(self) -> int:
@@ -109,12 +129,37 @@ def tiny_llama(**kw) -> LlamaConfig:
     return LlamaConfig(**defaults)
 
 
+def kv_bits_from_env() -> int | None:
+    """``GOFR_ML_KV_BITS`` -> 4 | 8 | 16, or None when unset. A malformed
+    value raises here, as in the JAX package, instead of serving at the
+    wrong precision."""
+    raw = os.environ.get("GOFR_ML_KV_BITS", "").strip()
+    if not raw:
+        return None
+    try:
+        bits = int(raw)
+    except ValueError:
+        raise ValueError(
+            f"GOFR_ML_KV_BITS must be 4, 8 or 16, got {raw!r}") from None
+    if bits not in (4, 8, 16):
+        raise ValueError(f"GOFR_ML_KV_BITS must be 4, 8 or 16, got {bits}")
+    return bits
+
+
 def config_from_env(tiny_vocab_size: int | None = None) -> LlamaConfig:
-    """``LLAMA_PRESET=tiny|1b|8b`` and ``LLAMA_DTYPE=bf16|f32``, as in the
-    JAX package. ``LLAMA_KV_QUANT=1`` and ``LLAMA_W8=1`` raise
-    ``NotImplementedError`` through ``LlamaConfig``."""
+    """``LLAMA_PRESET=tiny|1b|8b``, ``LLAMA_DTYPE=bf16|f32``,
+    ``LLAMA_KV_QUANT=1`` (the int8 cache), ``GOFR_ML_KV_BITS=8|16`` (the KV
+    precision, over ``LLAMA_KV_QUANT``; 4 raises through ``LlamaConfig``)
+    and ``LLAMA_W8=1`` (int8 weights: pair with ``params_from_config``), as
+    in the JAX package."""
     preset = os.environ.get("LLAMA_PRESET", "tiny")
-    kw: dict = {"kv_quant": os.environ.get("LLAMA_KV_QUANT") == "1",
+    kv_quant = os.environ.get("LLAMA_KV_QUANT") == "1"
+    kv_bits = kv_bits_from_env()
+    if kv_bits is not None:
+        kv_quant = kv_bits < 16
+    elif kv_quant:
+        kv_bits = 8
+    kw: dict = {"kv_quant": kv_quant, "kv_bits": kv_bits,
                 "w8": os.environ.get("LLAMA_W8") == "1"}
     raw_dtype = os.environ.get("LLAMA_DTYPE", "").strip().lower()
     if raw_dtype:
@@ -189,6 +234,50 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
             "lm_head": lm_head}
 
 
+def quantize_weights(params: dict) -> dict:
+    """int8 weights (w8a16): the seven layer matmuls and ``lm_head`` become
+    ``{"q": int8, "s": f32}`` (``ops.quantize_weight``); norms and the
+    embedding stay as they are. One layer (and ``lm_head`` a block of
+    columns) at a time on the weights' device: the scale reduces over each
+    layer's contraction axis, so the result equals quantizing the stack,
+    and no f32 copy of a stacked weight (7.5 GB for ``w_gate`` at 8b) is
+    ever made. Returns a new tree; the caller drops the fp one."""
+    layers = dict(params["layers"])
+    for name in _QUANT_KEYS:
+        w = layers[name]
+        q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+        s = torch.empty((w.shape[0], w.shape[2]), dtype=torch.float32,
+                        device=w.device)
+        for layer in range(w.shape[0]):
+            q[layer], s[layer] = quantize_weight(w[layer])
+        layers[name] = {"q": q, "s": s}
+    head = params["lm_head"]
+    q = torch.empty(head.shape, dtype=torch.int8, device=head.device)
+    s = torch.empty(head.shape[1:], dtype=torch.float32, device=head.device)
+    cols = 16_384
+    for c in range(0, head.shape[1], cols):
+        q[:, c:c + cols], s[c:c + cols] = quantize_weight(head[:, c:c + cols])
+    return {**params, "layers": layers, "lm_head": {"q": q, "s": s}}
+
+
+def params_from_config(cfg: LlamaConfig, seed: int = 0,
+                       checkpoint_dir: str | None = None, device=None) -> dict:
+    """Random weights from ``seed`` (``init_params``), quantized when
+    ``cfg.w8`` — the one place that applies ``w8``, as in the JAX package.
+    A checkpoint (``checkpoint_dir`` or ``LLAMA_CKPT``) raises: restoring
+    one is not ported yet."""
+    from .. import resolve_device
+
+    if checkpoint_dir or os.environ.get("LLAMA_CKPT"):
+        raise NotImplementedError(
+            "checkpoint restore (LLAMA_CKPT / checkpoint_dir) is not ported "
+            "yet (ROADMAP A.12)")
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = init_params(cfg, gen, device=device)
+    return quantize_weights(params) if cfg.w8 else params
+
+
 def _tensor_from_numpy(a, device) -> torch.Tensor:
     """numpy -> torch, bit for bit. bfloat16 (``ml_dtypes``, the dtype JAX
     hands to numpy) goes through its raw 16-bit pattern."""
@@ -201,33 +290,49 @@ def _tensor_from_numpy(a, device) -> torch.Tensor:
 
 def params_from_jax(tree: dict, device=None) -> dict:
     """The JAX parameter tree as numpy arrays (``jax.tree.map(np.asarray,
-    llama.init_params(cfg, key))``) -> the port's parameters on ``device``,
-    bit-exact: bf16 stays bf16, the f32 norms stay f32."""
+    llama.init_params(cfg, key))``, or of ``llama.quantize_weights`` of it)
+    -> the port's parameters on ``device``, bit-exact: bf16 stays bf16, the
+    f32 norms stay f32, an int8 weight's ``{"q", "s"}`` stays int8 and
+    f32."""
     from .. import resolve_device
 
     device = resolve_device(device)
-    if isinstance(tree["lm_head"], dict) or any(
-            isinstance(tree["layers"][k], dict) for k in _LAYER_KEYS):
-        raise NotImplementedError(
-            "int8 weights (w8) are not ported yet (ROADMAP A.5)")
+
+    def leaf(a):
+        if isinstance(a, dict):
+            return {k: _tensor_from_numpy(a[k], device) for k in ("q", "s")}
+        return _tensor_from_numpy(a, device)
+
     return {
-        "embed": _tensor_from_numpy(tree["embed"], device),
-        "layers": {k: _tensor_from_numpy(tree["layers"][k], device)
-                   for k in _LAYER_KEYS},
-        "final_norm": _tensor_from_numpy(tree["final_norm"], device),
-        "lm_head": _tensor_from_numpy(tree["lm_head"], device),
+        "embed": leaf(tree["embed"]),
+        "layers": {k: leaf(tree["layers"][k]) for k in _LAYER_KEYS},
+        "final_norm": leaf(tree["final_norm"]),
+        "lm_head": leaf(tree["lm_head"]),
     }
 
 
 # -- the model ------------------------------------------------------------------
 
+def _mm(x, w):
+    """x @ w for a plain or an int8 (``{"q": int8, "s": f32}``) weight. The
+    per-output-channel scale commutes out of the contraction:
+    ``(x @ q) * s``, in ``x.dtype``, in the JAX code's order. Eager PyTorch
+    materialises the widened copy of ``q`` for each call; a fused int8-weight
+    GEMM is later work."""
+    if isinstance(w, dict):
+        return (x @ w["q"].to(x.dtype)) * w["s"].to(x.dtype)
+    return x @ w
+
+
 def _swiglu(x, lp):
-    g = torch.nn.functional.silu(x @ lp["w_gate"])
-    return (g * (x @ lp["w_up"])) @ lp["w_down"]
+    g = torch.nn.functional.silu(_mm(x, lp["w_gate"]))
+    return _mm(g * _mm(x, lp["w_up"]), lp["w_down"])
 
 
 def _layer_params(params: dict, layer: int) -> dict:
-    return {k: v[layer] for k, v in params["layers"].items()}
+    return {k: ({n: t[layer] for n, t in v.items()} if isinstance(v, dict)
+                else v[layer])
+            for k, v in params["layers"].items()}
 
 
 def _layer(cfg: LlamaConfig, x, lp, cos, sin, *, kv_len=None):
@@ -237,12 +342,12 @@ def _layer(cfg: LlamaConfig, x, lp, cos, sin, *, kv_len=None):
     b, s, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-    q = apply_rope((h @ lp["wq"]).reshape(b, s, H, hd), cos, sin)
-    k = apply_rope((h @ lp["wk"]).reshape(b, s, KV, hd), cos, sin)
-    v = (h @ lp["wv"]).reshape(b, s, KV, hd)
+    q = apply_rope(_mm(h, lp["wq"]).reshape(b, s, H, hd), cos, sin)
+    k = apply_rope(_mm(h, lp["wk"]).reshape(b, s, KV, hd), cos, sin)
+    v = _mm(h, lp["wv"]).reshape(b, s, KV, hd)
     o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                         causal=True, kv_len=kv_len)
-    x = x + o.reshape(b, s, H * hd) @ lp["wo"]
+    x = x + _mm(o.reshape(b, s, H * hd), lp["wo"])
     x = x + _swiglu(rms_norm(x, lp["mlp_norm"], cfg.norm_eps), lp)
     return x, k, v
 
@@ -281,23 +386,50 @@ def forward(params: dict, tokens, cfg: LlamaConfig, *, seq_lens=None
         x, _, _ = _layer(cfg, x, _layer_params(params, layer), cos, sin,
                          kv_len=kv_len)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return (x @ params["lm_head"]).float()
+    return _mm(x, params["lm_head"]).float()
 
 
 # -- KV-cache serving path ------------------------------------------------------
 
 def init_cache(cfg: LlamaConfig, batch: int, max_seq: int | None = None,
                device=None) -> dict:
-    """Dense fp cache: k/v [L, B, S_max, KV, D] in ``cfg.dtype``, ``len`` [B]
-    int32, all zeros."""
+    """Dense cache, all zeros, with the JAX package's keys, shapes and
+    dtypes: k/v [L, B, S_max, KV, D] in ``cfg.dtype``, or with
+    ``kv_quant`` k/v int8 FLAT [L, B, S_max, KV*D] and ``k_scale``/
+    ``v_scale`` bf16 [L, B, KV, S_max] (seq minor); ``len`` [B] int32."""
     from .. import resolve_device
 
     device = resolve_device(device)
     S = max_seq or cfg.max_seq_len
-    shape = (cfg.n_layers, batch, S, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-            "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
-            "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    L, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    if cfg.kv_quant:
+        cache = {name: torch.zeros((L, batch, S, KV * hd), dtype=torch.int8,
+                                   device=device) for name in ("k", "v")}
+        for name in ("k_scale", "v_scale"):
+            cache[name] = torch.zeros((L, batch, KV, S), dtype=torch.bfloat16,
+                                      device=device)
+    else:
+        cache = {name: torch.zeros((L, batch, S, KV, hd), dtype=cfg.dtype,
+                                   device=device) for name in ("k", "v")}
+    cache["len"] = torch.zeros((batch,), dtype=torch.int32, device=device)
+    return cache
+
+
+def _kv_planes(cfg: LlamaConfig, k, v) -> dict:
+    """One layer's prefilled K/V [B, s, KV, D] as the cache stores them:
+    name -> (tensor [B, ...], seq axis within one row). fp: k/v as they are;
+    int8: the quantized values flat [B, s, KV*D] and the scales transposed
+    to seq-minor [B, KV, s]. Prefill attends the fp K/V: only what is
+    stored is quantized."""
+    if not cfg.kv_quant:
+        return {"k": (k, 0), "v": (v, 0)}
+    b, s = k.shape[:2]
+    planes = {}
+    for name, x in (("k", k), ("v", v)):
+        codes, scale = quantize_kv(x)
+        planes[name] = (codes.reshape(b, s, -1), 0)
+        planes[f"{name}_scale"] = (scale.transpose(1, 2), 1)
+    return planes
 
 
 def _prefill_layers(params, tokens, seq_lens, cfg, write):
@@ -315,7 +447,7 @@ def _prefill_layers(params, tokens, seq_lens, cfg, write):
         write(layer, k, v)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     last = x[torch.arange(b, device=dev), seq_lens.long() - 1]
-    return (last @ params["lm_head"]).float()
+    return _mm(last, params["lm_head"]).float()
 
 
 @torch.no_grad()
@@ -333,8 +465,8 @@ def prefill(params: dict, tokens, seq_lens, cfg: LlamaConfig, cache: dict
     out = init_cache(cfg, b, S_max, device=dev)
 
     def write(layer, k, v):
-        out["k"][layer, :, :s] = k
-        out["v"][layer, :, :s] = v
+        for name, (new, axis) in _kv_planes(cfg, k, v).items():
+            out[name][layer].narrow(axis + 1, 0, s).copy_(new)
 
     logits = _prefill_layers(params, tokens, seq_lens, cfg, write)
     out["len"] = seq_lens.clone()
@@ -347,9 +479,9 @@ def prefill_into_many(params: dict, tokens, seq_lens, cfg: LlamaConfig,
     """Prefill a WAVE of B prompts [B, S_pad] into rows ``slots`` [B] of the
     shared cache, in place. ``valid`` [B] masks padding rows (B is a shape
     bucket): an invalid row writes nothing. A valid row's cache row is
-    replaced whole — the prompt's K/V, then zeros to S_max — and its ``len``
-    set, as the JAX version's fresh-cache scatter does. Returns
-    (last-token logits [B, V], cache)."""
+    replaced whole — the prompt's K/V (values and scales of an int8 cache),
+    then zeros to S_max — and its ``len`` set, as the JAX version's
+    fresh-cache scatter does. Returns (last-token logits [B, V], cache)."""
     dev = params["embed"].device
     tokens, seq_lens = _tokens(tokens, cfg, dev), _int32(seq_lens, dev)
     s = tokens.shape[1]
@@ -360,11 +492,12 @@ def prefill_into_many(params: dict, tokens, seq_lens, cfg: LlamaConfig,
     rows = [i for i, ok in enumerate(np.asarray(valid).reshape(-1)) if ok]
 
     def write(layer, k, v):
+        planes = _kv_planes(cfg, k, v)
         for i in rows:  # in order: a later row for the same slot wins
-            for name, new in (("k", k), ("v", v)):
+            for name, (new, axis) in planes.items():
                 dst = cache[name][layer, slots[i]]
-                dst[:s] = new[i]
-                dst[s:] = 0
+                dst.narrow(axis, 0, s).copy_(new[i])
+                dst.narrow(axis, s, S_max - s).zero_()
 
     logits = _prefill_layers(params, tokens, seq_lens, cfg, write)
     for i in rows:
@@ -380,6 +513,31 @@ def prefill_into(params: dict, tokens, seq_lens, cfg: LlamaConfig,
                              [int(slot)], [True])
 
 
+def _masked_set(arr, idx, new, fits) -> None:
+    """arr[idx] = new, in place, for the rows where ``fits`` [B] holds."""
+    keep = fits.view(-1, *([1] * (new.dim() - 1)))
+    arr[idx] = torch.where(keep, new, arr[idx])
+
+
+def _write_token_kv(cfg: LlamaConfig, cache: dict, layer: int, k, v, rows,
+                    pos, fits) -> None:
+    """Write one token's K/V [B, KV, D] of each row at ``[layer, rows,
+    pos]``, in place, masked to the rows where ``fits``. int8: quantize,
+    scatter the flat [B, KV*D] values at ``[layer, rows, pos]`` and the
+    [B, KV] scales at ``[layer, rows, :, pos]`` (seq minor)."""
+    if not cfg.kv_quant:
+        for name, x in (("k", k), ("v", v)):
+            _masked_set(cache[name][layer], (rows, pos), x, fits)
+        return
+    heads = torch.arange(cfg.n_kv_heads, device=k.device)[None, :]
+    for name, x in (("k", k), ("v", v)):
+        codes, scale = quantize_kv(x)
+        _masked_set(cache[name][layer], (rows, pos),
+                    codes.reshape(x.shape[0], -1), fits)
+        _masked_set(cache[f"{name}_scale"][layer],
+                    (rows[:, None], heads, pos[:, None]), scale, fits)
+
+
 @torch.no_grad()
 def decode_step(params: dict, tokens, cache: dict, cfg: LlamaConfig
                 ) -> tuple[torch.Tensor, dict]:
@@ -389,8 +547,10 @@ def decode_step(params: dict, tokens, cache: dict, cfg: LlamaConfig
     writes its K/V at its own ``len`` and attends to len+1 keys. A row at
     capacity (len == S_max) writes nothing — its write is masked here, where
     JAX drops it as out of bounds — and attends the whole row (the decode
-    kernel clamps kv_len to S_max). The cache is updated in place; ``len``
-    comes back as a new tensor capped at S_max."""
+    kernels clamp kv_len to S_max). The cache is updated in place; ``len``
+    comes back as a new tensor capped at S_max. With an int8 cache the new
+    token's K/V are quantized on write and attention reads the int8 cache
+    with its scales."""
     dev = params["embed"].device
     tokens = torch.as_tensor(tokens).to(dev)
     b = tokens.shape[0]
@@ -398,26 +558,26 @@ def decode_step(params: dict, tokens, cache: dict, cfg: LlamaConfig
     S_max = cache["k"].shape[2]
     pos = cache["len"]
     kv_len = pos + 1
-    fits = (pos < S_max)[:, None, None]
+    fits = pos < S_max
     pos_w = pos.clamp(max=S_max - 1).long()
     rows = torch.arange(b, device=dev)
+    scales = ({"k_scale": cache["k_scale"], "v_scale": cache["v_scale"]}
+              if cfg.kv_quant else {})
     x = _embed(params, tokens, cfg)[:, None, :]
     cos, sin = rope_table(pos[:, None], hd, cfg.rope_theta,
                           scaling=cfg.rope_scaling)
     for layer in range(cfg.n_layers):
         lp = _layer_params(params, layer)
         h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-        q = apply_rope((h @ lp["wq"]).reshape(b, 1, H, hd), cos, sin)
-        k = apply_rope((h @ lp["wk"]).reshape(b, 1, KV, hd), cos, sin)
-        v = (h @ lp["wv"]).reshape(b, 1, KV, hd)
-        for name, new in (("k", k), ("v", v)):
-            arr = cache[name][layer]
-            arr[rows, pos_w] = torch.where(fits, new[:, 0], arr[rows, pos_w])
+        q = apply_rope(_mm(h, lp["wq"]).reshape(b, 1, H, hd), cos, sin)
+        k = apply_rope(_mm(h, lp["wk"]).reshape(b, 1, KV, hd), cos, sin)
+        v = _mm(h, lp["wv"]).reshape(b, 1, KV, hd)
+        _write_token_kv(cfg, cache, layer, k[:, 0], v[:, 0], rows, pos_w, fits)
         o = cached_decode_attention(q.contiguous(), cache["k"], cache["v"],
-                                    kv_len, layer=layer)
-        x = x + o.reshape(b, 1, H * hd) @ lp["wo"]
+                                    kv_len, layer=layer, **scales)
+        x = x + _mm(o.reshape(b, 1, H * hd), lp["wo"])
         x = x + _swiglu(rms_norm(x, lp["mlp_norm"], cfg.norm_eps), lp)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = (x[:, 0] @ params["lm_head"]).float()
+    logits = _mm(x[:, 0], params["lm_head"]).float()
     cache["len"] = torch.clamp(kv_len, max=S_max).to(torch.int32)
     return logits, cache

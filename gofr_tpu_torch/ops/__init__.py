@@ -5,7 +5,8 @@ Two tiers, as in the JAX package:
 - plain PyTorch versions (this file): the arithmetic of the JAX reference,
   run on any device; the CPU tests hold them against the JAX functions;
 - hand-written CUDA kernels (``flash_attention.py``, ``decode_attention.py``
-  with sources in ``csrc/``) behind the two dispatchers at the bottom.
+  with sources in ``csrc/``) behind the two dispatchers at the bottom; the
+  decode dispatcher takes an fp cache or an int8 cache with its scales.
 
 The dispatchers take no gate on shapes: a CUDA tensor always goes through
 its kernel (which masks its own ragged edges), a CPU tensor always goes to
@@ -30,6 +31,9 @@ __all__ = [
     "attention",
     "gqa_decode_attention",
     "swiglu",
+    "quantize_kv",
+    "dequantize_kv",
+    "quantize_weight",
     "flash_attention",
     "cached_decode_attention",
 ]
@@ -163,10 +167,39 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     return (g * (x @ w_up)) @ w_down
 
 
+def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-vector int8 quantization over the last (head_dim)
+    axis: (int8 values, bf16 scales with the last axis dropped). As in the
+    JAX code, the values divide by the f32 scale and only then is the scale
+    rounded to bf16; codes round half to even and clip to +-127."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1), min=1e-6) / 127.0
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale.to(torch.bfloat16)
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
+                  dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    return (q.float() * scale.float()[..., None]).to(dtype)
+
+
+def quantize_weight(w: torch.Tensor, eps: float = 1e-8
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-output-channel int8 weight quantization (w8a16): the
+    f32 scale reduces over the contraction axis (second-to-last), so
+    ``x @ W == (x @ q) * s``. No clip, and ``eps`` floors the scale after
+    the division by 127, as in the JAX code."""
+    wf = w.float()
+    s = torch.clamp(wf.abs().amax(dim=-2, keepdim=True) / 127.0, min=eps)
+    return torch.round(wf / s).to(torch.int8), s.squeeze(-2)
+
+
 # The kernel modules share their names with the dispatchers below: import
 # them first, so the dispatcher functions (defined after) are what
 # ``ops.flash_attention`` and ``ops.cached_decode_attention`` name.
 from .decode_attention import (gqa_decode_attention_cuda,  # noqa: E402
+                               gqa_decode_attention_int8_cuda,
+                               gqa_decode_attention_int8_plain,
                                gqa_decode_attention_plain)
 from .flash_attention import (flash_attention_cuda,  # noqa: E402
                               flash_attention_plain)
@@ -184,11 +217,22 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
     return fn(q, k, v, kv_len, causal=causal, q_offset=q_offset)
 
 
-def cached_decode_attention(q, k_cache, v_cache, kv_len, *, layer: int = 0):
-    """One-token decode attention over the STACKED cache [L, B, S_max, KV, D]
-    at ``layer``: the CUDA kernel for a CUDA tensor (it reads the layer's
-    slab in place and only the first ``kv_len`` positions), the plain
-    grouped version for a CPU tensor."""
-    fn = (gqa_decode_attention_plain if q.device.type == "cpu"
-          else gqa_decode_attention_cuda)
-    return fn(q, k_cache, v_cache, kv_len, layer=layer)
+def cached_decode_attention(q, k_cache, v_cache, kv_len, *, layer: int = 0,
+                            k_scale=None, v_scale=None):
+    """One-token decode attention over the STACKED cache at ``layer``: the
+    CUDA kernel for a CUDA tensor (it reads the layer's slab in place and
+    only the first ``kv_len`` positions), the plain grouped version for a
+    CPU tensor.
+
+    An fp cache is [L, B, S_max, KV, D]. With ``k_scale``/``v_scale`` the
+    cache is int8, stored FLAT [L, B, S_max, KV*D] with bf16 scales
+    seq-minor [L, B, KV, S_max] (the JAX package's layouts), and goes to
+    the int8 kernel or its plain version."""
+    cpu = q.device.type == "cpu"
+    if k_scale is None:
+        fn = gqa_decode_attention_plain if cpu else gqa_decode_attention_cuda
+        return fn(q, k_cache, v_cache, kv_len, layer=layer)
+    fn = (gqa_decode_attention_int8_plain if cpu
+          else gqa_decode_attention_int8_cuda)
+    return fn(q, k_cache, v_cache, kv_len, layer=layer, k_scale=k_scale,
+              v_scale=v_scale)

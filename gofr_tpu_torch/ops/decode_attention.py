@@ -1,12 +1,18 @@
-"""GQA decode attention: the CUDA kernel, its wrapper and its plain version.
+"""GQA decode attention: the CUDA kernels, their wrappers and their plain
+versions, for an fp cache and for an int8 cache.
 
 Replaces the Pallas TPU kernel ``gofr_tpu/ops/decode_attention.py``
-(``gqa_decode_attention_tpu`` over the fp cache). The kernel
-(``csrc/decode_attention.cu``) is bounded by the bytes of the live cache
-prefix; it splits each row's cache over CTAs (flash-decoding) so a small
-slot count still fills the card, reads the stacked cache in place at
-``layer``, and clamps ``kv_len`` to S_max. ``gqa_decode_attention_cuda
-.launches`` counts kernel launches (one per call: split and combine pass).
+(``gqa_decode_attention_tpu``: ``_decode_kernel`` over the fp cache and
+``_decode_kernel_quant`` over the int8 one). Both kernels
+(``csrc/decode_attention.cu``) are bounded by the bytes of the live cache
+prefix; they split each row's cache over CTAs (flash-decoding) so a small
+slot count still fills the card, read the stacked cache in place at
+``layer``, and clamp ``kv_len`` to S_max. The int8 kernel reads the flat
+int8 values and the bf16 seq-minor scales and folds the scales into the
+scores and the probabilities, so only int8 and the scales leave HBM.
+``gqa_decode_attention_cuda.launches`` and
+``gqa_decode_attention_int8_cuda.launches`` count kernel launches (one per
+call: split and combine pass).
 """
 
 from __future__ import annotations
@@ -15,10 +21,11 @@ import ctypes
 
 import torch
 
-from . import gqa_decode_attention
+from . import dequantize_kv, gqa_decode_attention
 from ._build import library
 
-__all__ = ["gqa_decode_attention_cuda", "gqa_decode_attention_plain"]
+__all__ = ["gqa_decode_attention_cuda", "gqa_decode_attention_plain",
+           "gqa_decode_attention_int8_cuda", "gqa_decode_attention_int8_plain"]
 
 _HEAD_DIMS = (16, 64, 128)
 _N_REPS = (1, 2, 4, 8)
@@ -32,6 +39,9 @@ def _kernel():
         lib.gofr_gqa_decode_attention.argtypes = (
             [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
         lib.gofr_gqa_decode_attention.restype = ctypes.c_int
+        lib.gofr_gqa_decode_attention_int8.argtypes = (
+            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        lib.gofr_gqa_decode_attention_int8.restype = ctypes.c_int
         lib.gofr_decode_split_len.argtypes = []
         lib.gofr_decode_split_len.restype = ctypes.c_int
         _lib = lib
@@ -52,40 +62,35 @@ def gqa_decode_attention_plain(q, k_cache, v_cache, kv_len, *, layer: int = 0):
     return gqa_decode_attention(q, k_cache[layer], v_cache[layer], kv_len)
 
 
-def gqa_decode_attention_cuda(q, k_cache, v_cache, kv_len, *, layer: int = 0):
-    """Launch the CUDA decode kernel. q: [B, 1, H, D] bf16; caches: stacked
-    [L, B, S_max, KV, D] bf16 (or [B, S_max, KV, D]); kv_len: int32 [B];
-    ``layer`` a Python int. All on one CUDA device, contiguous. Returns
-    [B, 1, H, D] bf16. Raises on anything the kernel does not take."""
-    k_cache, v_cache, layer = _stacked(k_cache, v_cache, layer)
-    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
-                    ("kv_len", kv_len)):
+def _check_tensors(name: str, q, tensors) -> None:
+    """Each (what, tensor, dtype) on q's CUDA device, contiguous and of its
+    dtype (None: checked elsewhere); q one token per row."""
+    for what, t, dtype in tensors:
         if t.device.type != "cuda" or t.device != q.device:
-            raise ValueError(f"gqa_decode_attention_cuda: {name} must be on "
-                             f"{q.device} (CUDA), got {t.device}")
+            raise ValueError(f"{name}: {what} must be on {q.device} (CUDA), "
+                             f"got {t.device}")
         if not t.is_contiguous():
-            raise ValueError(f"gqa_decode_attention_cuda: {name} must be contiguous")
-    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"gqa_decode_attention_cuda: {name} must be "
-                             f"bfloat16, got {t.dtype}")
+            raise ValueError(f"{name}: {what} must be contiguous")
+        if dtype is not None and t.dtype != dtype:
+            raise ValueError(f"{name}: {what} must be {dtype}, got {t.dtype}")
     if q.dim() != 4 or q.shape[1] != 1:
-        raise ValueError(f"gqa_decode_attention_cuda: q must be [B, 1, H, D], "
-                         f"got {tuple(q.shape)}")
-    n_layers, b, s_max, kv, d = k_cache.shape
-    h = q.shape[2]
-    if (v_cache.shape != k_cache.shape or q.shape[0] != b or q.shape[3] != d
-            or h % kv):
-        raise ValueError(f"gqa_decode_attention_cuda: q {tuple(q.shape)} does "
-                         f"not match caches {tuple(k_cache.shape)}")
+        raise ValueError(f"{name}: q must be [B, 1, H, D], got {tuple(q.shape)}")
+
+
+def _launch(name: str, entry: str, q, caches, kv_len, *, n_layers: int,
+            s_max: int, kv: int, layer: int):
+    """The checks both kernels share (head_dim, n_rep, kv_len, layer), then
+    the partials, the output and one launch of ``entry`` on the current
+    stream: (q, *caches, kv_len, partials, out, sizes, stream)."""
+    b, _, h, d = q.shape
     if d not in _HEAD_DIMS or h // kv not in _N_REPS:
-        raise ValueError(f"gqa_decode_attention_cuda: head_dim {d} / n_rep "
-                         f"{h // kv} not in {_HEAD_DIMS} / {_N_REPS}")
+        raise ValueError(f"{name}: head_dim {d} / n_rep {h // kv} not in "
+                         f"{_HEAD_DIMS} / {_N_REPS}")
     if kv_len.dtype != torch.int32 or kv_len.shape != (b,):
-        raise ValueError("gqa_decode_attention_cuda: kv_len must be int32 [B]")
+        raise ValueError(f"{name}: kv_len must be int32 [B]")
     if not isinstance(layer, int) or not 0 <= layer < n_layers:
-        raise ValueError(f"gqa_decode_attention_cuda: layer {layer!r} out of "
-                         f"range for {n_layers} layers")
+        raise ValueError(f"{name}: layer {layer!r} out of range for "
+                         f"{n_layers} layers")
     lib = _kernel()
     n_rep = h // kv
     n_splits = -(-s_max // lib.gofr_decode_split_len())
@@ -96,14 +101,102 @@ def gqa_decode_attention_cuda(q, k_cache, v_cache, kv_len, *, layer: int = 0):
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.gofr_gqa_decode_attention(
-            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            kv_len.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
-            out.data_ptr(), b, s_max, kv, n_rep, d, layer, n_splits, stream)
+        err = getattr(lib, entry)(
+            q.data_ptr(), *(t.data_ptr() for t in caches), kv_len.data_ptr(),
+            part_acc.data_ptr(), part_ml.data_ptr(), out.data_ptr(),
+            b, s_max, kv, n_rep, d, layer, n_splits, stream)
     if err:
-        raise RuntimeError(f"decode attention kernel launch failed: cudaError_t {err}")
+        raise RuntimeError(f"{name}: kernel launch failed: cudaError_t {err}")
+    return out
+
+
+def gqa_decode_attention_cuda(q, k_cache, v_cache, kv_len, *, layer: int = 0):
+    """Launch the CUDA decode kernel. q: [B, 1, H, D] bf16; caches: stacked
+    [L, B, S_max, KV, D] bf16 (or [B, S_max, KV, D]); kv_len: int32 [B];
+    ``layer`` a Python int. All on one CUDA device, contiguous. Returns
+    [B, 1, H, D] bf16. Raises on anything the kernel does not take."""
+    name = "gqa_decode_attention_cuda"
+    k_cache, v_cache, layer = _stacked(k_cache, v_cache, layer)
+    _check_tensors(name, q, (("q", q, torch.bfloat16),
+                             ("k_cache", k_cache, torch.bfloat16),
+                             ("v_cache", v_cache, torch.bfloat16),
+                             ("kv_len", kv_len, None)))
+    n_layers, b, s_max, kv, d = k_cache.shape
+    if (v_cache.shape != k_cache.shape or q.shape[0] != b or q.shape[3] != d
+            or q.shape[2] % kv):
+        raise ValueError(f"{name}: q {tuple(q.shape)} does not match caches "
+                         f"{tuple(k_cache.shape)}")
+    out = _launch(name, "gofr_gqa_decode_attention", q, (k_cache, v_cache),
+                  kv_len, n_layers=n_layers, s_max=s_max, kv=kv, layer=layer)
     gqa_decode_attention_cuda.launches += 1
     return out
 
 
 gqa_decode_attention_cuda.launches = 0
+
+
+def _stacked_int8(k_cache, v_cache, k_scale, v_scale, layer: int):
+    if k_cache.dim() == 3:  # one layer's [B, S, KV*D] and [B, KV, S]
+        return k_cache[None], v_cache[None], k_scale[None], v_scale[None], 0
+    return k_cache, v_cache, k_scale, v_scale, layer
+
+
+def gqa_decode_attention_int8_plain(q, k_cache, v_cache, kv_len, *,
+                                    layer: int = 0, k_scale, v_scale):
+    """The int8 kernel's function in plain PyTorch, as the JAX package's
+    XLA path computes it: unflatten the layer's values to [B, S, KV, D],
+    dequantize them with the transposed scales to ``q.dtype``, then
+    ``gqa_decode_attention``. q: [B, 1, H, D]; values: stacked int8
+    [L, B, S_max, KV*D] (or [B, S_max, KV*D]); scales: bf16
+    [L, B, KV, S_max] (or [B, KV, S_max]); kv_len [B]."""
+    k_cache, v_cache, k_scale, v_scale, layer = _stacked_int8(
+        k_cache, v_cache, k_scale, v_scale, layer)
+    b, s = k_cache.shape[1], k_cache.shape[2]
+    kv = k_scale.shape[2]
+
+    def fp(values, scale):
+        return dequantize_kv(values[layer].reshape(b, s, kv, -1),
+                             scale[layer].transpose(1, 2), q.dtype)
+
+    return gqa_decode_attention(q, fp(k_cache, k_scale), fp(v_cache, v_scale),
+                                kv_len)
+
+
+def gqa_decode_attention_int8_cuda(q, k_cache, v_cache, kv_len, *,
+                                   layer: int = 0, k_scale, v_scale):
+    """Launch the int8 CUDA decode kernel. q: [B, 1, H, D] bf16; values:
+    stacked int8 [L, B, S_max, KV*D] (or [B, S_max, KV*D]); scales: bf16
+    [L, B, KV, S_max] (or [B, KV, S_max]); kv_len: int32 [B]; ``layer`` a
+    Python int. All on one CUDA device, contiguous. Returns [B, 1, H, D]
+    bf16. Raises on anything the kernel does not take."""
+    k_cache, v_cache, k_scale, v_scale, layer = _stacked_int8(
+        k_cache, v_cache, k_scale, v_scale, layer)
+    name = "gqa_decode_attention_int8_cuda"
+    _check_tensors(name, q, (("q", q, torch.bfloat16),
+                             ("k_cache", k_cache, torch.int8),
+                             ("v_cache", v_cache, torch.int8),
+                             ("k_scale", k_scale, torch.bfloat16),
+                             ("v_scale", v_scale, torch.bfloat16),
+                             ("kv_len", kv_len, None)))
+    if k_cache.dim() != 4 or k_scale.dim() != 4:
+        raise ValueError(f"{name}: values must be [L, B, S, KV*D] and scales "
+                         f"[L, B, KV, S], got {tuple(k_cache.shape)} and "
+                         f"{tuple(k_scale.shape)}")
+    n_layers, b, s_max, width = k_cache.shape
+    kv, h, d = k_scale.shape[2], q.shape[2], q.shape[3]
+    if (v_cache.shape != k_cache.shape or v_scale.shape != k_scale.shape
+            or tuple(k_scale.shape) != (n_layers, b, kv, s_max)
+            or width != kv * d or q.shape[0] != b or h % kv):
+        raise ValueError(f"{name}: q {tuple(q.shape)}, values "
+                         f"{tuple(k_cache.shape)} and scales "
+                         f"{tuple(k_scale.shape)} do not match")
+    if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
+        raise ValueError(f"{name}: values must be 16-byte aligned")
+    out = _launch(name, "gofr_gqa_decode_attention_int8", q,
+                  (k_cache, v_cache, k_scale, v_scale), kv_len,
+                  n_layers=n_layers, s_max=s_max, kv=kv, layer=layer)
+    gqa_decode_attention_int8_cuda.launches += 1
+    return out
+
+
+gqa_decode_attention_int8_cuda.launches = 0

@@ -1,6 +1,7 @@
-"""PyTorch port on the card: the CUDA kernels against their plain versions
-at ragged shapes, and the tiny model through the kernels against the plain
-path. Marked ``cuda``: each test skips where there is no card (decided in
+"""PyTorch port on the card: the CUDA kernels (flash prefill, fp decode,
+int8 decode) against their plain versions at ragged shapes, and the tiny
+model through the kernels against the plain path, with the fp cache and
+with the int8 cache and int8 weights. Marked ``cuda``: each test skips where there is no card (decided in
 the fixture, never at import). Run on the card with
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
@@ -27,6 +28,12 @@ def dev():
 
 def _rnd(g, dev, *shape):
     return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
 
 
 @pytest.mark.parametrize("case", [
@@ -77,6 +84,67 @@ def test_decode_kernel_matches_plain(dev, case):
     assert (out.float() - ref.float()).abs().max().item() <= TOL
 
 
+@pytest.mark.parametrize("case", [
+    # L, B, S, KV, D, n_rep, layer, kv_len (S + 1 = a row at capacity)
+    (8, 8, 4096, 8, 128, 4, 7, [1, 129, 1000, 2048, 2049, 4000, 4096, 4097]),
+    (2, 3, 256, 1, 128, 8, 1, [1, 256, 257]),
+    (2, 3, 200, 2, 64, 4, 1, [1, 130, 201]),
+    (2, 2, 64, 4, 16, 1, 0, [1, 65]),
+])
+def test_int8_decode_kernel_matches_plain(dev, case):
+    from gofr_tpu_torch.ops import quantize_kv
+    from gofr_tpu_torch.ops.decode_attention import (
+        gqa_decode_attention_int8_cuda, gqa_decode_attention_int8_plain)
+
+    L, B, S, KV, D, n_rep, layer, kvl = case
+    g = torch.Generator(device=dev).manual_seed(2)
+
+    def int8_cache():
+        codes, scale = quantize_kv(torch.randn((L, B, S, KV, D), generator=g,
+                                               device=dev))
+        return (codes.reshape(L, B, S, KV * D),
+                scale.transpose(2, 3).contiguous())
+
+    (kc, ks), (vc, vs) = int8_cache(), int8_cache()
+    q = _rnd(g, dev, B, 1, KV * n_rep, D)
+    kv_len = torch.tensor(kvl, dtype=torch.int32, device=dev)
+    n0 = gqa_decode_attention_int8_cuda.launches
+    out = gqa_decode_attention_int8_cuda(q, kc, vc, kv_len, layer=layer,
+                                         k_scale=ks, v_scale=vs)
+    ref = gqa_decode_attention_int8_plain(q, kc, vc, kv_len, layer=layer,
+                                          k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert gqa_decode_attention_int8_cuda.launches == n0 + 1
+    assert torch.isfinite(out.float()).all()
+    assert (out.float() - ref.float()).abs().max().item() <= TOL
+
+
+def test_int8_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    from gofr_tpu_torch.ops.decode_attention import (
+        gqa_decode_attention_int8_cuda)
+
+    q = torch.zeros((1, 1, 4, 16), dtype=torch.bfloat16, device=dev)
+    vals = torch.zeros((2, 1, 8, 32), dtype=torch.int8, device=dev)
+    sc = torch.zeros((2, 1, 2, 8), dtype=torch.bfloat16, device=dev)
+    kv_len = torch.ones(1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="torch.int8"):
+        gqa_decode_attention_int8_cuda(q, vals.bfloat16(), vals.bfloat16(),
+                                       kv_len, k_scale=sc, v_scale=sc)
+    with pytest.raises(ValueError, match="bfloat16"):
+        gqa_decode_attention_int8_cuda(q, vals, vals, kv_len,
+                                       k_scale=sc.float(), v_scale=sc.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        t = torch.zeros((2, 1, 8, 2), dtype=torch.bfloat16,
+                        device=dev).transpose(2, 3)
+        gqa_decode_attention_int8_cuda(q, vals, vals, kv_len, k_scale=t,
+                                       v_scale=t)
+    with pytest.raises(ValueError, match="head_dim"):
+        gqa_decode_attention_int8_cuda(
+            torch.zeros((1, 1, 4, 8), dtype=torch.bfloat16, device=dev),
+            vals[..., :16].contiguous(), vals[..., :16].contiguous(), kv_len,
+            k_scale=sc, v_scale=sc)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     from gofr_tpu_torch.ops.decode_attention import gqa_decode_attention_cuda
     from gofr_tpu_torch.ops.flash_attention import flash_attention_cuda
@@ -116,4 +184,28 @@ def test_tiny_generator_on_the_card_matches_plain_path(dev):
     kw = dict(batch_slots=2, max_seq=64, prefill_buckets=(16,), chunk=4)
     cpu = Generator(params, cfg, device="cpu", **kw).generate(prompt, 4)
     card = Generator(on_card, cfg, device=dev, **kw).generate(prompt, 4)
+    assert card[:2] == cpu[:2]
+
+
+def test_tiny_int8_generator_on_the_card_matches_plain_path(dev):
+    """kv_quant + w8 on the card: warmup and decode launch the int8 kernel
+    and never the fp one, and the greedy tokens are the CPU plain path's
+    for the first tokens (bf16)."""
+    from gofr_tpu_torch.ml.generate import Generator
+    from gofr_tpu_torch.models import llama
+    from gofr_tpu_torch.ops.decode_attention import (
+        gqa_decode_attention_cuda, gqa_decode_attention_int8_cuda)
+
+    cfg = llama.tiny_llama(kv_quant=True, w8=True)
+    params = llama.params_from_config(cfg, seed=0, device="cpu")
+    prompt = np.arange(1, 12).tolist()
+    kw = dict(batch_slots=2, max_seq=64, prefill_buckets=(16,), chunk=4)
+    cpu = Generator(params, cfg, device="cpu", **kw).generate(prompt, 4)
+    gen = Generator(_to(params, dev), cfg, device=dev, **kw)
+    fp0, q0 = (gqa_decode_attention_cuda.launches,
+               gqa_decode_attention_int8_cuda.launches)
+    gen.warmup()
+    assert gqa_decode_attention_int8_cuda.launches > q0
+    card = gen.generate(prompt, 4)
+    assert gqa_decode_attention_cuda.launches == fp0
     assert card[:2] == cpu[:2]

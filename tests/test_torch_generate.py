@@ -1,6 +1,7 @@
 """PyTorch port, serving: the port's Generator against the JAX Generator
 (greedy tokens identical on the tiny config at f32, same weights, the same
-staggered admission schedule), the port's LLMServer answering concurrent
+staggered admission schedule; with the fp cache and with the int8 cache and
+int8 weights), the port's LLMServer answering concurrent
 callers, the device rule of the entry points, and the port's independence
 from JAX.
 """
@@ -37,6 +38,20 @@ def pair():
     jcfg = jllama.tiny_llama(dtype=jnp.float32, use_flash=False)
     tcfg = tllama.tiny_llama(dtype=torch.float32)
     jparams = jllama.init_params(jcfg, jax.random.PRNGKey(0))
+    tparams = tllama.params_from_jax(jax.tree.map(np.asarray, jparams),
+                                     device="cpu")
+    return jcfg, jparams, tcfg, tparams
+
+
+@pytest.fixture(scope="module")
+def q_pair():
+    """The tiny config at f32 with the int8 cache and int8 weights, the
+    JAX-quantized tree carried across."""
+    jcfg = jllama.tiny_llama(dtype=jnp.float32, use_flash=False,
+                             kv_quant=True, w8=True)
+    tcfg = tllama.tiny_llama(dtype=torch.float32, kv_quant=True, w8=True)
+    jparams = jllama.quantize_weights(
+        jllama.init_params(jcfg, jax.random.PRNGKey(0)))
     tparams = tllama.params_from_jax(jax.tree.map(np.asarray, jparams),
                                      device="cpu")
     return jcfg, jparams, tcfg, tparams
@@ -81,6 +96,46 @@ def test_staggered_greedy_tokens_match_jax_generator(pair):
                      prompts, max_new)
     assert [len(t) for t in got] == list(max_new)
     assert got == want
+
+
+def test_int8_staggered_greedy_tokens_match_jax_generator(q_pair):
+    """kv_quant + w8 at f32: the same staggered schedule gives the JAX
+    Generator's greedy tokens, token for token."""
+    jcfg, jparams, tcfg, tparams = q_pair
+    prompts = _prompts(3, (6, 14, 2, 11), jcfg.vocab_size)
+    max_new = (10, 5, 12, 8)
+    want = _staggered(JGenerator(jparams, jcfg, **GEN_KW), prompts, max_new)
+    gen = Generator(tparams, tcfg, device="cpu", **GEN_KW)
+    assert gen.cache["k"].dtype == torch.int8 and "k_scale" in gen.cache
+    got = _staggered(gen, prompts, max_new)
+    assert [len(t) for t in got] == list(max_new)
+    assert got == want
+
+
+def test_int8_warmup_reaches_the_int8_decode_path(q_pair, monkeypatch):
+    """Warmup over the int8 cache runs decode through the int8 dispatch
+    (its plain version on the CPU), never the fp one, and leaves greedy
+    output unchanged; the Generator itself needs nothing new."""
+    from gofr_tpu_torch import ops as tops
+
+    _, _, tcfg, tparams = q_pair
+    calls = {"int8": 0, "fp": 0}
+
+    def counting(fn, key):
+        def wrapped(*a, **kw):
+            calls[key] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(tops, "gqa_decode_attention_int8_plain", counting(
+        tops.gqa_decode_attention_int8_plain, "int8"))
+    monkeypatch.setattr(tops, "gqa_decode_attention_plain", counting(
+        tops.gqa_decode_attention_plain, "fp"))
+    cold = Generator(tparams, tcfg, device="cpu", **GEN_KW)
+    warm = Generator(tparams, tcfg, device="cpu", **GEN_KW)
+    warm.warmup()
+    assert calls == {"int8": tcfg.n_layers * (GEN_KW["chunk"] + 1), "fp": 0}
+    assert warm.generate([4, 5, 6], 8) == cold.generate([4, 5, 6], 8)
 
 
 def test_eos_and_capacity_finish_like_jax(pair):
