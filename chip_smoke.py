@@ -8,16 +8,22 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    CUDA kernel of the serving path from ``gofr_tpu_torch/ops/csrc`` (one
    ``nvcc`` per source, all started together);
 2. kernels against their plain PyTorch versions on the card, at the shapes
-   the Llama-3-8B serving paths give them: flash prefill, GQA decode over
-   the bf16 cache, GQA decode over the int8 cache. Each kernel, its plain
-   version and a PyTorch library call (``scaled_dot_product_attention``, a
-   yardstick the port never calls) are timed with CUDA events, beside the
-   least time the card could take;
+   the Llama-3-8B serving paths give them: flash prefill; GQA decode over
+   the bf16 cache and over the int8 cache, each at its phase-2 shape, at
+   the 8-slot decode step (len 2000 of 4096) and for one row of 4096. Each
+   kernel, its plain version and a PyTorch library call
+   (``scaled_dot_product_attention``, a yardstick the port never calls)
+   are timed by ``sweep_ms``: one launch per layer over all 32 layers, so
+   each finds its layer cold in the L2 as on the main path, captured in a
+   CUDA graph and replayed under CUDA events so the device, not the
+   Python wrapper, sets the pace; printed beside the least time the card
+   could take, the share of it reached and the TB/s;
 3. the bf16 main path: Llama-3-8B at full width (32 layers, random weights
    from seed 0, bf16) -> ``Generator`` -> ``LLMServer`` answering 8
    concurrent requests, with the kernels' launch counts read around that
    run; then the greedy repeat check, the kernel-vs-plain check of the
    model's prefill and decode logits, and the prefill / decode timings;
+   the decode step's profile must hold one decode kernel a layer;
 4. the int8 main path: the same model with ``kv_quant=True, w8=True``
    (weights quantized on the card from the seed-0 bf16 draw) behind
    ``LLMServer`` with 8 slots x 4096 positions answering 16 concurrent
@@ -68,6 +74,66 @@ def timed_ms(fn, iters: int = 20, warm: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def sweep_ms(launch, n_layers: int, reps: int = 10, graph: bool = True) -> float:
+    """Device ms per launch of ``launch(layer)`` swept once over
+    ``n_layers`` layers, so each launch finds its layer cold in the L2 as on
+    the main path. The sweep is captured in a CUDA graph and replayed
+    ``reps`` times under CUDA events, so the device, not the Python
+    wrapper, sets the pace. If capture fails, the kernels' own device time
+    under torch.profiler is used instead; ``graph=False`` times the sweep
+    eagerly (for the plain versions, whose ms dwarf the host's pace)."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    if not graph:
+        for layer in range(n_layers):
+            launch(layer)
+        torch.cuda.synchronize()
+        start.record()
+        for layer in range(n_layers):
+            launch(layer)
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / n_layers
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):  # warm: per-stream state, allocations
+        for layer in range(n_layers):
+            launch(layer)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(g, stream=stream):
+            for layer in range(n_layers):
+                launch(layer)
+    except RuntimeError as exc:
+        print(f"chip_smoke: graph capture failed ({exc}); timing with "
+              "torch.profiler", file=sys.stderr)
+        return profiled_ms(launch, n_layers, reps)
+    g.replay()
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * n_layers)
+
+
+def profiled_ms(launch, n_layers: int, reps: int) -> float:
+    """The device time of the kernels ``launch`` runs, per launch, under
+    torch.profiler (the fallback of ``sweep_ms``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            for layer in range(n_layers):
+                launch(layer)
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    return us / 1e3 / (reps * n_layers)
+
+
 def device_profile(fn, n: int) -> dict:
     """``n`` calls of ``fn`` under torch.profiler: host wall per call, the
     device's kernel time per call, their ratio (the busy share; the rest of
@@ -93,7 +159,22 @@ def device_profile(fn, n: int) -> dict:
     return {"wall_ms": wall * 1e3 / n, "device_ms": busy_us / 1e3 / n,
             "busy_share": busy_us / 1e6 / wall,
             "top_device_ms": {e.key[:80]: e.self_device_time_total / 1e3 / n
-                              for e in top}}
+                              for e in top},
+            # launches per call of every attention kernel of the port
+            "attention_launches": {e.key[:80]: e.count / n for e in kernels
+                                   if "decode" in e.key or "flash" in e.key}}
+
+
+def check_one_decode_launch_per_layer(prof: dict, n_layers: int) -> None:
+    """A decode step's profile holds one decode kernel per layer and
+    nothing else of the decode attention (no combine pass). The count is
+    rounded: the profiler can miss a kernel record at the edge of its
+    window (31.8 a step over 5 steps has been seen on the H100)."""
+    decode = {k: v for k, v in prof["attention_launches"].items()
+              if "decode" in k}
+    check(len(decode) == 1 and round(list(decode.values())[0]) == n_layers,
+          f"decode step profile: expected one decode kernel launched "
+          f"{n_layers} times a step, got {decode}")
 
 
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
@@ -127,31 +208,186 @@ def read_launches() -> dict:
     return {name: fn.launches for name, fn in counters().items()}
 
 
-def kernel_phase(dev) -> list[dict]:
-    """Each kernel against its plain version at the 8b serving shapes."""
+def rnd_bf16(g, dev, *shape):
+    return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+
+def int8_cache(g, dev, L, B, S, KV, D):
+    """A seeded stacked int8 cache as the serving path keeps it: values
+    [L, B, S, KV*D] and seq-minor bf16 scales [L, B, KV, S], K and V,
+    quantized one layer at a time."""
+    from gofr_tpu_torch.ops import quantize_kv
+
+    kc, vc = (torch.empty((L, B, S, KV * D), dtype=torch.int8, device=dev)
+              for _ in range(2))
+    ks, vs = (torch.empty((L, B, KV, S), dtype=torch.bfloat16, device=dev)
+              for _ in range(2))
+    for i in range(L):
+        for values, scales in ((kc, ks), (vc, vs)):
+            codes, scale = quantize_kv(rnd_bf16(g, dev, B, S, KV, D))
+            values[i] = codes.reshape(B, S, KV * D)
+            scales[i] = scale.transpose(1, 2)
+    return kc, vc, ks, vs
+
+
+def decode_bound(kv_len, S: int, KV: int, D: int, H: int, int8: bool):
+    """(bound ms, bound_by, bytes): the live cache (int8: values and one
+    bf16 scale per position and KV head), q and o once, kv_len."""
+    live = sum(min(n, S) if n > 0 else S for n in kv_len)
+    row = KV * (D + 2) if int8 else KV * D * 2
+    nbytes = 2 * live * row + 2 * (2 * len(kv_len) * H * D) + 4 * len(kv_len)
+    return (*bound(4 * D * H * live, nbytes), nbytes)
+
+
+def decode_cases(dev):
+    """The decode kernels' inputs at the serving shapes, made from seed 0:
+    yields (kernel name, case label, stacked inputs). Each cache holds all
+    32 layers of Llama-3-8B, so a sweep over the layers finds each cold."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    L, KV, D, H = 32, 8, 128, 32
+
+    def case(label, B, S, lens, kc, vc, scales=None):
+        return {"label": label, "L": L, "B": B, "S": S, "KV": KV, "D": D,
+                "H": H, "q": rnd_bf16(g, dev, B, 1, H, D), "kc": kc,
+                "vc": vc, "scales": scales,
+                "kv_len": torch.tensor(lens, dtype=torch.int32, device=dev)}
+
+    # bf16: the phase-2 shape (4 slots x 1024, a row at capacity carries
+    # S_max + 1), the 8-slot decode step at len 2000 (S_max 4096), one row
+    kc, vc = rnd_bf16(g, dev, L, 4, 1024, KV, D), rnd_bf16(g, dev, L, 4, 1024, KV, D)
+    yield "gqa_decode_attention_cuda", case(
+        "4x1024 ragged", 4, 1024, [1, 1000, 1024, 1025], kc, vc)
+    kc, vc = rnd_bf16(g, dev, L, 8, 4096, KV, D), rnd_bf16(g, dev, L, 8, 4096, KV, D)
+    yield "gqa_decode_attention_cuda", case("8x2000", 8, 4096, [2000] * 8, kc, vc)
+    del kc, vc
+    kc, vc = rnd_bf16(g, dev, L, 1, 4096, KV, D), rnd_bf16(g, dev, L, 1, 4096, KV, D)
+    yield "gqa_decode_attention_cuda", case("1x4096", 1, 4096, [4096], kc, vc)
+    del kc, vc
+    # int8: the phase-2 shape (8 slots x 4096, ragged 1 .. capacity), the
+    # int8 path's decode step (8 x len 2000), one row of 4096
+    kc, vc, ks, vs = int8_cache(g, dev, L, 8, 4096, KV, D)
+    yield "gqa_decode_attention_int8_cuda", case(
+        "8x4096 ragged", 8, 4096, [1, 129, 1000, 2048, 2049, 4000, 4096, 4097],
+        kc, vc, (ks, vs))
+    yield "gqa_decode_attention_int8_cuda", case(
+        "8x2000", 8, 4096, [2000] * 8, kc, vc, (ks, vs))
+    del kc, vc, ks, vs
+    kc, vc, ks, vs = int8_cache(g, dev, L, 1, 4096, KV, D)
+    yield "gqa_decode_attention_int8_cuda", case(
+        "1x4096", 1, 4096, [4096], kc, vc, (ks, vs))
+
+
+def decode_launchers(c):
+    """(kernel(layer), plain(layer), library(layer), library layers, what
+    the library call is) for one decode case."""
     import torch.nn.functional as F
 
-    from gofr_tpu_torch.ops import dequantize_kv, quantize_kv
+    from gofr_tpu_torch.ops import dequantize_kv
     from gofr_tpu_torch.ops.decode_attention import (
         gqa_decode_attention_cuda, gqa_decode_attention_int8_cuda,
         gqa_decode_attention_int8_plain, gqa_decode_attention_plain)
+
+    q, kc, vc, kv_len = c["q"], c["kc"], c["vc"], c["kv_len"]
+    B, S, KV, D = c["B"], c["S"], c["KV"], c["D"]
+    qt = q.transpose(1, 2)
+    smask = (torch.arange(S, device=q.device)[None, :]
+             < kv_len.clamp(max=S)[:, None])[:, None, None, :]
+    if c["scales"] is None:
+        def kernel(layer):
+            return gqa_decode_attention_cuda(q, kc, vc, kv_len, layer=layer)
+
+        def plain(layer):
+            return gqa_decode_attention_plain(q, kc, vc, kv_len, layer=layer)
+
+        def library(layer):
+            return F.scaled_dot_product_attention(
+                qt, kc[layer].transpose(1, 2), vc[layer].transpose(1, 2),
+                attn_mask=smask, enable_gqa=True)
+        return kernel, plain, library, c["L"], "scaled_dot_product_attention"
+    ks, vs = c["scales"]
+    sc = {"k_scale": ks, "v_scale": vs}
+
+    def kernel(layer):
+        return gqa_decode_attention_int8_cuda(q, kc, vc, kv_len, layer=layer,
+                                              **sc)
+
+    def plain(layer):
+        return gqa_decode_attention_int8_plain(q, kc, vc, kv_len, layer=layer,
+                                               **sc)
+
+    # the yardstick reads dequantized bf16 layers: enough of them that a
+    # sweep reads >= 4 x the 50 MB L2
+    per_layer = 2 * B * S * KV * D * 2
+    n_deq = min(c["L"], -(-4 * 50 * 2**20 // per_layer))
+    deq = [tuple(dequantize_kv(values[i].view(B, S, KV, D),
+                               scales[i].transpose(1, 2)).transpose(1, 2)
+                 for values, scales in ((kc, ks), (vc, vs)))
+           for i in range(n_deq)]
+
+    def library(layer):
+        kt, vt = deq[layer]
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=smask,
+                                              enable_gqa=True)
+    return (kernel, plain, library, n_deq,
+            "yardstick: scaled_dot_product_attention over dequantized bf16 "
+            "layers (twice the cache bytes of the int8 read)")
+
+
+def measure_decode(c, tol: float) -> dict:
+    """One decode case: the kernel against its plain version at the case's
+    layer 7, then the kernel, the library call and the plain version timed
+    by ``sweep_ms`` (the plain version eagerly, over 4 layers)."""
+    kernel, plain, library, n_lib, lib_what = decode_launchers(c)
+    out, ref = kernel(7), plain(7)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out.float()).all()),
+          f"decode {c['label']}: output not finite")
+    err = (out.float() - ref.float()).abs().max().item()
+    check(err <= tol, f"decode {c['label']}: kernel vs plain max_abs_err "
+          f"{err} > {tol}")
+    lens = c["kv_len"].tolist()
+    b_ms, b_by, nbytes = decode_bound(lens, c["S"], c["KV"], c["D"], c["H"],
+                                      c["scales"] is not None)
+    ms = sweep_ms(kernel, c["L"])
+    lib_ms = sweep_ms(library, n_lib)
+    int8 = c["scales"] is not None
+    return {"case": c["label"],
+            "shape": f"q[{c['B']},1,{c['H']},{c['D']}] cache L={c['L']} "
+                     f"B={c['B']} S={c['S']} KV={c['KV']} "
+                     f"{'int8' if int8 else 'bf16'} "
+                     f"kv_len={lens}",
+            "max_abs_err": err, "ms": ms,
+            # no PyTorch call attends over an int8 cache: a yardstick there
+            "library_ms": None if int8 else lib_ms,
+            **({"yardstick": lib_what, "yardstick_ms": lib_ms} if int8
+               else {}),
+            "plain_ms": sweep_ms(plain, 4, graph=False),
+            "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms,
+            "tb_per_s": nbytes / (ms * 1e-3) / 1e12}
+
+
+def kernel_phase(dev) -> list[dict]:
+    """Each kernel against its plain version at the 8b serving shapes, and
+    timed by ``sweep_ms``: cold L2, paced by the device."""
+    import torch.nn.functional as F
+
     from gofr_tpu_torch.ops.flash_attention import (flash_attention_cuda,
                                                     flash_attention_plain)
 
     g = torch.Generator(device=dev).manual_seed(0)
-
-    def rnd(*shape):
-        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
-
     rows = []
     # bf16 tolerance: outputs are O(1); one bf16 ulp there is 2**-7, and
     # the kernel rounds P to bf16 before P@V where the plain version
     # normalises first — 2e-2 absolute covers both
     tol = 2e-2
 
-    # flash prefill: wave of 2 prompts in the 512 bucket, ragged kv_len
-    B, T, H, KV, D = 2, 512, 32, 8, 128
-    q, k, v = rnd(B, T, H, D), rnd(B, T, KV, D), rnd(B, T, KV, D)
+    # flash prefill: wave of 2 prompts in the 512 bucket, ragged kv_len;
+    # 32 layers' worth of inputs, as a prefill gives the kernel
+    L, B, T, H, KV, D = 32, 2, 512, 32, 8, 128
+    qs = [rnd_bf16(g, dev, B, T, H, D) for _ in range(L)]
+    ks = [rnd_bf16(g, dev, B, T, KV, D) for _ in range(L)]
+    vs = [rnd_bf16(g, dev, B, T, KV, D) for _ in range(L)]
+    q, k, v = qs[0], ks[0], vs[0]
     kv_len = torch.tensor([512, 301], dtype=torch.int32, device=dev)
     n0 = flash_attention_cuda.launches
     out = flash_attention_cuda(q, k, v, kv_len, causal=True)
@@ -164,124 +400,51 @@ def kernel_phase(dev) -> list[dict]:
     kpos = torch.arange(T, device=dev)
     mask = ((kpos[None, :] <= kpos[:, None])[None]
             & (kpos[None, None, :] < kv_len[:, None, None]))[:, None]
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     pairs = sum(min(i + 1, n) for n in kv_len.tolist() for i in range(T))
     flops = 4 * D * H * pairs
     nbytes = 2 * (2 * B * T * H * D + 2 * sum(kv_len.tolist()) * KV * D) + 4 * B
     b_ms, b_by = bound(flops, nbytes)
+    ms = sweep_ms(lambda i: flash_attention_cuda(qs[i], ks[i], vs[i], kv_len), L)
     rows.append({
         "name": "flash_attention_cuda", "route": "cuda",
         "source": "gofr_tpu_torch/ops/csrc/flash_attention.cu",
         "replaces": "gofr_tpu/ops/flash_attention.py:89",
         "shape": f"q[{B},{T},{H},{D}] kv[{B},{T},{KV},{D}] causal "
                  f"kv_len={kv_len.tolist()}",
-        "max_abs_err": err, "tol": tol,
-        "ms": timed_ms(lambda: flash_attention_cuda(q, k, v, kv_len)),
-        "plain_ms": timed_ms(lambda: flash_attention_plain(q, k, v, kv_len),
-                             iters=5),
-        "library_ms": timed_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, enable_gqa=True)),
-        "bound_ms": b_ms, "bound_by": b_by})
+        "max_abs_err": err, "tol": tol, "ms": ms,
+        "plain_ms": sweep_ms(lambda i: flash_attention_plain(
+            qs[i], ks[i], vs[i], kv_len), 4, graph=False),
+        "library_ms": sweep_ms(lambda i: F.scaled_dot_product_attention(
+            qs[i].transpose(1, 2), ks[i].transpose(1, 2),
+            vs[i].transpose(1, 2), attn_mask=mask, enable_gqa=True), L),
+        "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms,
+        "tb_per_s": nbytes / (ms * 1e-3) / 1e12})
+    del qs, ks, vs, q, k, v
 
-    # GQA decode: the stacked 8b cache at 4 slots x 1024, ragged kv_len
-    # including a row at capacity (pos + 1 = S_max + 1, clamped)
-    L, B, S, KV, D, H, layer = 32, 4, 1024, 8, 128, 32, 7
-    kc, vc = rnd(L, B, S, KV, D), rnd(L, B, S, KV, D)
-    q = rnd(B, 1, H, D)
-    kv_len = torch.tensor([1, 1000, 1024, 1025], dtype=torch.int32, device=dev)
-    n0 = gqa_decode_attention_cuda.launches
-    out = gqa_decode_attention_cuda(q, kc, vc, kv_len, layer=layer)
-    check(gqa_decode_attention_cuda.launches == n0 + 1,
-          "decode counter did not move")
-    ref = gqa_decode_attention_plain(q, kc, vc, kv_len, layer=layer)
-    torch.cuda.synchronize()
-    err = (out.float() - ref.float()).abs().max().item()
-    check(bool(torch.isfinite(out.float()).all()), "decode output not finite")
-    check(err <= tol, f"decode kernel vs plain max_abs_err {err} > {tol}")
-    live = [min(n, S) for n in kv_len.tolist()]
-    smask = (torch.arange(S, device=dev)[None, :]
-             < kv_len.clamp(max=S)[:, None])[:, None, None, :]
-    qt = q.transpose(1, 2)
-    kt, vt = kc[layer].transpose(1, 2), vc[layer].transpose(1, 2)
-    flops = 4 * D * H * sum(live)
-    nbytes = 2 * (2 * sum(live) * KV * D + 2 * B * H * D) + 4 * B
-    b_ms, b_by = bound(flops, nbytes)
-    rows.append({
-        "name": "gqa_decode_attention_cuda", "route": "cuda",
-        "source": "gofr_tpu_torch/ops/csrc/decode_attention.cu",
-        "replaces": "gofr_tpu/ops/decode_attention.py:160",
-        "shape": f"q[{B},1,{H},{D}] cache[{L},{B},{S},{KV},{D}] "
-                 f"layer={layer} kv_len={kv_len.tolist()}",
-        "max_abs_err": err, "tol": tol,
-        "ms": timed_ms(lambda: gqa_decode_attention_cuda(
-            q, kc, vc, kv_len, layer=layer), iters=50),
-        "plain_ms": timed_ms(lambda: gqa_decode_attention_plain(
-            q, kc, vc, kv_len, layer=layer)),
-        "library_ms": timed_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=smask, enable_gqa=True), iters=50),
-        "bound_ms": b_ms, "bound_by": b_by})
-    del kc, vc
-
-    # GQA decode over the int8 cache: the stacked 8b cache at 8 slots x
-    # 4096 (values flat, scales seq-minor), quantized one layer at a time,
-    # ragged kv_len from 1 to a row at capacity
-    L, B, S, KV, D, H, layer = 32, 8, 4096, 8, 128, 32, 7
-    kc, vc = (torch.empty((L, B, S, KV * D), dtype=torch.int8, device=dev)
-              for _ in range(2))
-    ks, vs = (torch.empty((L, B, KV, S), dtype=torch.bfloat16, device=dev)
-              for _ in range(2))
-    for i in range(L):
-        for values, scales in ((kc, ks), (vc, vs)):
-            codes, scale = quantize_kv(rnd(B, S, KV, D))
-            values[i] = codes.reshape(B, S, KV * D)
-            scales[i] = scale.transpose(1, 2)
-    q = rnd(B, 1, H, D)
-    kv_len = torch.tensor([1, 129, 1000, 2048, 2049, 4000, 4096, 4097],
-                          dtype=torch.int32, device=dev)
-    n0 = gqa_decode_attention_int8_cuda.launches
-    out = gqa_decode_attention_int8_cuda(q, kc, vc, kv_len, layer=layer,
-                                         k_scale=ks, v_scale=vs)
-    check(gqa_decode_attention_int8_cuda.launches == n0 + 1,
-          "int8 decode counter did not move")
-    ref = gqa_decode_attention_int8_plain(q, kc, vc, kv_len, layer=layer,
-                                          k_scale=ks, v_scale=vs)
-    torch.cuda.synchronize()
-    err = (out.float() - ref.float()).abs().max().item()
-    check(bool(torch.isfinite(out.float()).all()),
-          "int8 decode output not finite")
-    check(err <= tol, f"int8 decode kernel vs plain max_abs_err {err} > {tol}")
-    live = [min(n, S) for n in kv_len.tolist()]
-    smask = (torch.arange(S, device=dev)[None, :]
-             < kv_len.clamp(max=S)[:, None])[:, None, None, :]
-    kt, vt = (dequantize_kv(values[layer].view(B, S, KV, D),
-                            scales[layer].transpose(1, 2)).transpose(1, 2)
-              for values, scales in ((kc, ks), (vc, vs)))
-    qt = q.transpose(1, 2)
-    flops = 4 * D * H * sum(live)
-    # int8 values and one bf16 scale per (position, KV head), K and V
-    nbytes = 2 * sum(live) * KV * (D + 2) + 2 * (2 * B * H * D) + 4 * B
-    b_ms, b_by = bound(flops, nbytes)
-    rows.append({
-        "name": "gqa_decode_attention_int8_cuda", "route": "cuda",
-        "source": "gofr_tpu_torch/ops/csrc/decode_attention.cu",
-        "replaces": "gofr_tpu/ops/decode_attention.py:147",
-        "shape": f"q[{B},1,{H},{D}] int8 cache[{L},{B},{S},{KV * D}] "
-                 f"scales[{L},{B},{KV},{S}] layer={layer} "
-                 f"kv_len={kv_len.tolist()}",
-        "max_abs_err": err, "tol": tol,
-        "ms": timed_ms(lambda: gqa_decode_attention_int8_cuda(
-            q, kc, vc, kv_len, layer=layer, k_scale=ks, v_scale=vs),
-            iters=50),
-        "plain_ms": timed_ms(lambda: gqa_decode_attention_int8_plain(
-            q, kc, vc, kv_len, layer=layer, k_scale=ks, v_scale=vs)),
-        # no PyTorch call attends over an int8 cache
-        "library_ms": None,
-        "yardstick": "scaled_dot_product_attention over the dequantized "
-                     "bf16 layer (twice the cache bytes of the int8 read)",
-        "yardstick_ms": timed_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=smask, enable_gqa=True), iters=50),
-        "bound_ms": b_ms, "bound_by": b_by})
-    return rows
+    # GQA decode, both kernels, each at its shapes; the row's headline is
+    # its first (phase-2) shape, every shape is under "by_shape"
+    decode = {
+        "gqa_decode_attention_cuda": {
+            "name": "gqa_decode_attention_cuda", "route": "cuda",
+            "source": "gofr_tpu_torch/ops/csrc/decode_attention.cu",
+            "replaces": "gofr_tpu/ops/decode_attention.py:42"},
+        "gqa_decode_attention_int8_cuda": {
+            "name": "gqa_decode_attention_int8_cuda", "route": "cuda",
+            "source": "gofr_tpu_torch/ops/csrc/decode_attention.cu",
+            "replaces": "gofr_tpu/ops/decode_attention.py:147"}}
+    from gofr_tpu_torch.ops import decode_attention as da
+    for name, c in decode_cases(dev):
+        fn = getattr(da, name)
+        n0 = fn.launches
+        res = measure_decode(c, tol)
+        check(fn.launches > n0, f"{name} counter did not move")
+        row = decode[name]
+        if "by_shape" not in row:
+            row.update({k: v for k, v in res.items() if k != "case"},
+                       tol=tol, by_shape=[])
+        row["by_shape"].append(res)
+        row["max_abs_err"] = max(row["max_abs_err"], res["max_abs_err"])
+    return rows + list(decode.values())
 
 
 def serve(gen, prompts, max_new: int, repeat) -> tuple[list, float, list]:
@@ -432,6 +595,7 @@ def main_path(dev) -> tuple[dict, dict]:
     step_ms = timed_ms(one_step, iters=10, warm=2)
     prefill_prof = device_profile(one_prefill, 3)
     step_prof = device_profile(one_step, 5)
+    check_one_decode_launch_per_layer(step_prof, cfg.n_layers)
     served = sum(len(o) for o in outs)
     return {
         "launches": launches, "prefill_waves": waves, "decode_steps": steps,
@@ -550,6 +714,8 @@ def int8_path(dev, bf16_params) -> dict:
         step_ms[name].append(timed_ms(stepper(name), iters=10, warm=2))
     profiles = {name: device_profile(stepper(name), 5)
                 for name in ("w8_kv8", "bf16")}
+    for prof in profiles.values():
+        check_one_decode_launch_per_layer(prof, cfg.n_layers)
     # quantize-on-write alone: one token's K/V of every slot into all 32
     # layers, int8 (quantize + 4 masked scatters a layer) vs bf16 (2)
     g = torch.Generator(device=dev).manual_seed(1)
@@ -609,12 +775,15 @@ def main() -> int:
           f" in {build_s:.1f} s")
     rows = kernel_phase(dev)
     for row in rows:
-        lib = row["library_ms"] if row["library_ms"] is not None else \
-            row["yardstick_ms"]
-        print(f"{row['name']}: max_abs_err {row['max_abs_err']:.3g} "
-              f"kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms "
-              f"library/yardstick {lib:.4f} ms bound {row['bound_ms']:.4f}"
-              f" ms ({row['bound_by']})")
+        for r in row.get("by_shape", [row]):
+            lib = r["library_ms"] if r["library_ms"] is not None else \
+                r["yardstick_ms"]
+            print(f"{row['name']} [{r.get('case', r['shape'])}]: max_abs_err "
+                  f"{r['max_abs_err']:.3g} kernel {r['ms']:.4f} ms plain "
+                  f"{r['plain_ms']:.4f} ms library/yardstick {lib:.4f} ms "
+                  f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) = "
+                  f"{100 * r['bound_share']:.1f} % of the bound, "
+                  f"{r['tb_per_s']:.3f} TB/s")
     path, bf16_params = main_path(dev)
     print("main path (bf16): " + json.dumps(path))
     qpath = int8_path(dev, bf16_params)

@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds), loaded with ``ctypes``. Builds happen at first use, land in
 ``build/gofr_tpu_torch/`` at the root of the checkout (listed in
-``.gitignore``) and are keyed by a hash of the source and the flags, so an
-edited source rebuilds and an unchanged one loads as it is.
+``.gitignore``) and are keyed by a hash of the source, of every header in
+``csrc/`` and of the flags, so an edited source or header rebuilds and an
+unchanged one loads as it is.
 
 Unlike ``gofr_tpu/native`` there is no pure-Python fallback: a missing
 ``nvcc`` or a failed build raises, with the compiler's stderr.
@@ -49,8 +50,11 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes())
+    """The library of kernel ``name``, keyed by what its build reads: the
+    source, the headers beside it (by name and content) and the flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 

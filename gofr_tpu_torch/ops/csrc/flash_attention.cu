@@ -33,9 +33,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+
 typedef __nv_bfloat16 bf16;
 
 namespace {
+
+using gofr::cp_async16;
+using gofr::cp_commit;
+using gofr::cp_wait;
+using gofr::smem_addr;
 
 constexpr int BQ = 64;          // query rows per CTA
 constexpr int BK = 64;          // keys per staged tile
@@ -50,27 +57,6 @@ struct Smem {
   static constexpr size_t v = k + sizeof(bf16) * 2 * BK * LD;     // [2][BK][LD]
   static constexpr size_t total = v + sizeof(bf16) * 2 * BK * LD;
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy global -> shared; a row outside the tensor is
-// zero-filled (src-size 0: nothing is read)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // rows [row0, row0 + 64) of a strided bf16 matrix into padded smem rows;
 // rows at or past `valid` become zeros

@@ -5,14 +5,19 @@ Replaces the Pallas TPU kernel ``gofr_tpu/ops/decode_attention.py``
 (``gqa_decode_attention_tpu``: ``_decode_kernel`` over the fp cache and
 ``_decode_kernel_quant`` over the int8 one). Both kernels
 (``csrc/decode_attention.cu``) are bounded by the bytes of the live cache
-prefix; they split each row's cache over CTAs (flash-decoding) so a small
-slot count still fills the card, read the stacked cache in place at
-``layer``, and clamp ``kv_len`` to S_max. The int8 kernel reads the flat
-int8 values and the bf16 seq-minor scales and folds the scales into the
-scores and the probabilities, so only int8 and the scales leave HBM.
+prefix. Each call is one launch: the grid splits every row's cache over
+CTAs (``split_plan``) so a few slots still fill the card, each CTA streams
+its tiles through a shared-memory ring with an online softmax on the
+tensor cores, and the splits of a row and KV head form one thread-block
+cluster that merges them through distributed shared memory (no scratch in
+HBM, no state between calls). The stacked cache is
+read in place at ``layer`` and ``kv_len`` is clamped to S_max on the
+device. The int8 kernel reads the flat int8 values and the bf16 seq-minor
+scales and folds the scales into the scores and the probabilities, so only
+int8 and the scales leave HBM.
 ``gqa_decode_attention_cuda.launches`` and
 ``gqa_decode_attention_int8_cuda.launches`` count kernel launches (one per
-call: split and combine pass).
+call).
 """
 
 from __future__ import annotations
@@ -25,11 +30,16 @@ from . import dequantize_kv, gqa_decode_attention
 from ._build import library
 
 __all__ = ["gqa_decode_attention_cuda", "gqa_decode_attention_plain",
-           "gqa_decode_attention_int8_cuda", "gqa_decode_attention_int8_plain"]
+           "gqa_decode_attention_int8_cuda", "gqa_decode_attention_int8_plain",
+           "split_plan"]
 
 _HEAD_DIMS = (16, 64, 128)
 _N_REPS = (1, 2, 4, 8)
+# positions per staged tile, per CTA at most, and splits (one cluster) per
+# row at most, as csrc/decode_attention.cu has them (checked on load)
+TILE, MAX_SPAN, MAX_SPLITS = 64, 8192, 8
 _lib = None
+_sms: dict = {}
 
 
 def _kernel():
@@ -37,15 +47,45 @@ def _kernel():
     if _lib is None:
         lib = library("decode_attention")
         lib.gofr_gqa_decode_attention.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
         lib.gofr_gqa_decode_attention.restype = ctypes.c_int
         lib.gofr_gqa_decode_attention_int8.argtypes = (
-            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
         lib.gofr_gqa_decode_attention_int8.restype = ctypes.c_int
-        lib.gofr_decode_split_len.argtypes = []
-        lib.gofr_decode_split_len.restype = ctypes.c_int
+        limits = (lib.gofr_decode_tile_len, lib.gofr_decode_max_span,
+                  lib.gofr_decode_max_splits)
+        for fn in limits:
+            fn.argtypes, fn.restype = [], ctypes.c_int
+        if tuple(fn() for fn in limits) != (TILE, MAX_SPAN, MAX_SPLITS):
+            raise RuntimeError("decode_attention library and wrapper disagree "
+                               "on the tile, the span or the splits")
         _lib = lib
     return _lib
+
+
+def split_plan(b: int, kv: int, s_max: int, n_sm: int) -> tuple[int, int]:
+    """(span, n_splits) of one launch: CTAs per row and KV head (one
+    cluster, at most ``MAX_SPLITS``) and the most positions one of them
+    takes (a multiple of ``TILE``, at most ``MAX_SPAN``). The grid
+    (KV, B, n_splits) holds about 2 CTAs per SM: a power of two of splits,
+    no more than S_max has tiles. Split k takes the tiles k, k + n_splits,
+    ... of each row's live prefix. Raises for an S_max past
+    ``MAX_SPLITS * MAX_SPAN``."""
+    if s_max > MAX_SPLITS * MAX_SPAN:
+        raise ValueError(f"decode attention: S_max {s_max} above "
+                         f"{MAX_SPLITS * MAX_SPAN}")
+    tiles = -(-s_max // TILE)
+    want = max(1, 2 * n_sm // (b * kv))
+    n_splits = min(MAX_SPLITS, tiles, 1 << (want.bit_length() - 1))
+    n_splits = max(n_splits, -(-tiles * TILE // MAX_SPAN))
+    return -(-tiles // n_splits) * TILE, n_splits
+
+
+def _n_sm(device) -> int:
+    if device not in _sms:
+        _sms[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _sms[device]
 
 
 def _stacked(k_cache, v_cache, layer: int):
@@ -80,8 +120,8 @@ def _check_tensors(name: str, q, tensors) -> None:
 def _launch(name: str, entry: str, q, caches, kv_len, *, n_layers: int,
             s_max: int, kv: int, layer: int):
     """The checks both kernels share (head_dim, n_rep, kv_len, layer), then
-    the partials, the output and one launch of ``entry`` on the current
-    stream: (q, *caches, kv_len, partials, out, sizes, stream)."""
+    the output and one launch of ``entry`` on the current stream:
+    (q, *caches, kv_len, out, sizes, stream)."""
     b, _, h, d = q.shape
     if d not in _HEAD_DIMS or h // kv not in _N_REPS:
         raise ValueError(f"{name}: head_dim {d} / n_rep {h // kv} not in "
@@ -91,20 +131,18 @@ def _launch(name: str, entry: str, q, caches, kv_len, *, n_layers: int,
     if not isinstance(layer, int) or not 0 <= layer < n_layers:
         raise ValueError(f"{name}: layer {layer!r} out of range for "
                          f"{n_layers} layers")
+    if q.data_ptr() % 16:
+        raise ValueError(f"{name}: q must be 16-byte aligned")
     lib = _kernel()
     n_rep = h // kv
-    n_splits = -(-s_max // lib.gofr_decode_split_len())
-    part_acc = torch.empty((b, kv, n_splits, n_rep, d), dtype=torch.float32,
-                           device=q.device)
-    part_ml = torch.empty((b, kv, n_splits, n_rep, 2), dtype=torch.float32,
-                          device=q.device)
+    span, n_splits = split_plan(b, kv, s_max, _n_sm(q.device))
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, entry)(
             q.data_ptr(), *(t.data_ptr() for t in caches), kv_len.data_ptr(),
-            part_acc.data_ptr(), part_ml.data_ptr(), out.data_ptr(),
-            b, s_max, kv, n_rep, d, layer, n_splits, stream)
+            out.data_ptr(), b, s_max, kv, n_rep, d, layer, span, n_splits,
+            stream)
     if err:
         raise RuntimeError(f"{name}: kernel launch failed: cudaError_t {err}")
     return out

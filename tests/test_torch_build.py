@@ -1,0 +1,63 @@
+"""PyTorch port, kernel build and launch planning, on the CPU (no nvcc, no
+card): a library is keyed on every file its build reads, and the decode
+kernels' split plan fills the card at the serving shapes."""
+
+import shutil
+
+import pytest
+
+from gofr_tpu_torch.ops import _build
+from gofr_tpu_torch.ops.decode_attention import (MAX_SPAN, MAX_SPLITS, TILE,
+                                                 split_plan)
+
+
+@pytest.fixture
+def csrc(tmp_path, monkeypatch):
+    """A copy of the kernel sources, standing in for ``csrc/``."""
+    copy = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, copy)
+    monkeypatch.setattr(_build, "CSRC", copy)
+    return copy
+
+
+@pytest.mark.parametrize("name", _build.KERNELS)
+def test_build_key_follows_the_source_and_every_header(csrc, name):
+    key = _build._target(name)
+    assert key == _build._target(name)
+    header = csrc / "cp_async.cuh"
+    text = header.read_text()
+    header.write_text(text + "// edited\n")
+    assert _build._target(name) != key
+    header.write_text(text)
+    assert _build._target(name) == key
+    (csrc / "new_helpers.cuh").write_text("#pragma once\n")
+    assert _build._target(name) != key
+    (csrc / "new_helpers.cuh").unlink()
+    src = csrc / f"{name}.cu"
+    src.write_text(src.read_text() + "\n")
+    assert _build._target(name) != key
+
+
+@pytest.mark.parametrize("shape", [
+    # B, KV, S_max, SMs, least CTAs in the grid (about 2 a SM)
+    (4, 8, 1024, 132, 256),         # bf16 serving path: 4 slots x 1024
+    (8, 8, 4096, 132, 256),         # int8 serving path: 8 slots x 4096
+    (1, 8, 4096, 132, 64),          # one long row: 8 clusters of 8
+    (2, 2, 300, 132, 20),           # a ragged S_max: 5 tiles, 5 splits
+    (64, 8, 32768, 132, 4 * 64 * 8),  # many long rows: spans at their cap
+])
+def test_split_plan_fills_the_card(shape):
+    b, kv, s_max, n_sm, least = shape
+    span, n_splits = split_plan(b, kv, s_max, n_sm)
+    tiles = -(-s_max // TILE)
+    assert span % TILE == 0 and TILE <= span <= MAX_SPAN
+    assert 1 <= n_splits <= min(MAX_SPLITS, tiles)
+    # split k takes tiles k, k + n_splits, ...: span covers the most
+    assert span == -(-tiles // n_splits) * TILE
+    assert b * kv * n_splits >= least
+
+
+def test_split_plan_refuses_what_one_cluster_cannot_cover():
+    split_plan(1, 8, MAX_SPLITS * MAX_SPAN, 132)
+    with pytest.raises(ValueError, match="S_max"):
+        split_plan(1, 8, MAX_SPLITS * MAX_SPAN + 1, 132)

@@ -6,6 +6,10 @@ the fixture, never at import). Run on the card with
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
+The decode kernels are also held at every head_dim and n_rep they take, at
+the kv_len edges (tiles, splits, 1, 0, -1, S_max, S_max + 1), for one long
+row, over 20 back-to-back calls and on two streams.
+
 Tolerance 2e-2 absolute on bf16 attention outputs of O(1) (one bf16 ulp is
 2**-7 there, and the kernels round P to bf16 before P@V).
 """
@@ -117,6 +121,117 @@ def test_int8_decode_kernel_matches_plain(dev, case):
     assert gqa_decode_attention_int8_cuda.launches == n0 + 1
     assert torch.isfinite(out.float()).all()
     assert (out.float() - ref.float()).abs().max().item() <= TOL
+
+
+def _decode_inputs(dev, seed, L, B, S, KV, D, n_rep, int8):
+    """Seeded stacked caches and a query: (q, caches, scale kwargs)."""
+    from gofr_tpu_torch.ops import quantize_kv
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = _rnd(g, dev, B, 1, KV * n_rep, D)
+    if not int8:
+        return q, (_rnd(g, dev, L, B, S, KV, D), _rnd(g, dev, L, B, S, KV, D)), {}
+    planes = []
+    for _ in range(2):
+        codes, scale = quantize_kv(torch.randn((L, B, S, KV, D), generator=g,
+                                               device=dev))
+        planes.append((codes.reshape(L, B, S, KV * D),
+                       scale.transpose(2, 3).contiguous()))
+    (kc, ks), (vc, vs) = planes
+    return q, (kc, vc), {"k_scale": ks, "v_scale": vs}
+
+
+def _decode_fns(int8):
+    from gofr_tpu_torch.ops import decode_attention as da
+
+    if int8:
+        return da.gqa_decode_attention_int8_cuda, da.gqa_decode_attention_int8_plain
+    return da.gqa_decode_attention_cuda, da.gqa_decode_attention_plain
+
+
+def _edge_lens(dev, B, KV, S):
+    """kv_len at the tile edges, the split edges, 1, 0, -1 (a uniform row),
+    S_max and S_max + 1 (a row at capacity), as many as fit."""
+    from gofr_tpu_torch.ops.decode_attention import TILE, split_plan
+
+    span, _ = split_plan(B, KV, S, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    lens = [1, 0, -1, S, S + 1]
+    for edge in (TILE, span, 2 * span):
+        lens += [n for n in (edge - 1, edge, edge + 1) if 0 < n < S]
+    return list(dict.fromkeys(lens))
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("n_rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("D", [16, 64, 128])
+def test_decode_kernels_at_every_head_dim_and_edge(dev, int8, n_rep, D):
+    """Both decode kernels against their plain versions at every head_dim
+    and n_rep they take, one batch row per kv_len edge case."""
+    kernel, plain = _decode_fns(int8)
+    L, KV, S, layer = 2, 2, 300, 1
+    lens = _edge_lens(dev, 16, KV, S)
+    q, (kc, vc), sc = _decode_inputs(dev, 3, L, len(lens), S, KV, D, n_rep,
+                                     int8)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    out = kernel(q, kc, vc, kv_len, layer=layer, **sc)
+    ref = plain(q, kc, vc, kv_len, layer=layer, **sc)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    assert (out.float() - ref.float()).abs().max().item() <= TOL
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("kvl", [4096, 3000, 65])
+def test_decode_kernels_one_long_row(dev, int8, kvl):
+    """B = 1 with a long row: the grid splits the one row over many CTAs
+    and the last of them merges."""
+    kernel, plain = _decode_fns(int8)
+    q, (kc, vc), sc = _decode_inputs(dev, 4, 2, 1, 4096, 8, 128, 4, int8)
+    kv_len = torch.tensor([kvl], dtype=torch.int32, device=dev)
+    out = kernel(q, kc, vc, kv_len, layer=1, **sc)
+    ref = plain(q, kc, vc, kv_len, layer=1, **sc)
+    torch.cuda.synchronize()
+    assert (out.float() - ref.float()).abs().max().item() <= TOL
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_decode_kernels_back_to_back_calls_reset_the_merge(dev, int8):
+    """20 calls in a row on alternating layers, without a sync between
+    them, each match: no state carries from one call to the next."""
+    kernel, plain = _decode_fns(int8)
+    q, (kc, vc), sc = _decode_inputs(dev, 5, 2, 4, 1024, 8, 128, 4, int8)
+    kv_len = torch.tensor([1000, 1024, 1025, 517], dtype=torch.int32,
+                          device=dev)
+    n0 = kernel.launches
+    outs = [kernel(q, kc, vc, kv_len, layer=i % 2, **sc) for i in range(20)]
+    assert kernel.launches == n0 + 20
+    refs = [plain(q, kc, vc, kv_len, layer=layer, **sc) for layer in (0, 1)]
+    torch.cuda.synchronize()
+    for i, out in enumerate(outs):
+        assert (out.float() - refs[i % 2].float()).abs().max().item() <= TOL
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_decode_kernels_on_two_streams(dev, int8):
+    """Calls on two CUDA streams at once both match: the kernels keep no
+    state between calls that two streams could share."""
+    kernel, plain = _decode_fns(int8)
+    q, (kc, vc), sc = _decode_inputs(dev, 6, 2, 8, 2048, 8, 128, 4, int8)
+    kv_len = torch.tensor([2000, 1, 2048, 700, 1500, 64, 65, 2049],
+                          dtype=torch.int32, device=dev)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    outs = []
+    for _ in range(5):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                outs.append((i, kernel(q, kc, vc, kv_len, layer=i, **sc)))
+    torch.cuda.synchronize()
+    refs = [plain(q, kc, vc, kv_len, layer=layer, **sc) for layer in (0, 1)]
+    torch.cuda.synchronize()
+    for layer, out in outs:
+        assert (out.float() - refs[layer].float()).abs().max().item() <= TOL
 
 
 def test_int8_wrapper_refuses_what_the_kernel_does_not_take(dev):
