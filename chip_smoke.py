@@ -8,28 +8,34 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    CUDA kernel of the serving path from ``gofr_tpu_torch/ops/csrc`` (one
    ``nvcc`` per source, all started together);
 2. kernels against their plain PyTorch versions on the card, at the shapes
-   the Llama-3-8B serving paths give them: flash prefill; GQA decode over
-   the bf16 cache and over the int8 cache, each at its phase-2 shape, at
-   the 8-slot decode step (len 2000 of 4096) and for one row of 4096. Each
-   kernel, its plain version and a PyTorch library call
-   (``scaled_dot_product_attention``, a yardstick the port never calls)
-   are timed by ``sweep_ms``: one launch per layer over all 32 layers, so
-   each finds its layer cold in the L2 as on the main path, captured in a
+   the Llama-3-8B serving paths give them: flash prefill for a wave of 2
+   prompts in the 512 bucket, one 2048-token prompt and a burst of 8
+   prompts into the 2048 bucket; GQA decode over the bf16 cache and over
+   the int8 cache, each at its phase-2 shape, at the 8-slot decode step
+   (len 2000 of 4096) and for one row of 4096. Each kernel, its plain
+   version and a PyTorch library call (``scaled_dot_product_attention``, a
+   yardstick the port never calls) are timed by ``sweep_ms``: one launch
+   per layer over enough layers (32, or 8 at the 2048 flash shapes) that
+   each finds its inputs cold in the L2 as on the main path, captured in a
    CUDA graph and replayed under CUDA events so the device, not the
    Python wrapper, sets the pace; printed beside the least time the card
    could take, the share of it reached and the TB/s;
 3. the bf16 main path: Llama-3-8B at full width (32 layers, random weights
    from seed 0, bf16) -> ``Generator`` -> ``LLMServer`` answering 8
    concurrent requests, with the kernels' launch counts read around that
-   run; then the greedy repeat check, the kernel-vs-plain check of the
-   model's prefill and decode logits, and the prefill / decode timings;
-   the decode step's profile must hold one decode kernel a layer;
+   run (and the model's flash calls tallied by shape); then the greedy
+   repeat check, the kernel-vs-plain check of the model's prefill and
+   decode logits, and the prefill / decode timings with flash's share of
+   the prefill's device time; the decode step's profile must hold one
+   decode kernel a layer;
 4. the int8 main path: the same model with ``kv_quant=True, w8=True``
    (weights quantized on the card from the seed-0 bf16 draw) behind
    ``LLMServer`` with 8 slots x 4096 positions answering 16 concurrent
    requests, launch counts read around that run (the int8 decode kernel
-   only, never the bf16 one); the kernel-vs-plain check of one decode
-   step's logits; prefill and decode timings, and as measurements only,
+   only, never the bf16 one; flash calls tallied by shape); the
+   kernel-vs-plain check of one decode step's logits; prefill (with
+   flash's share of its device time) and decode timings, and as
+   measurements only,
    the decode step at the same shape with bf16 weights over the int8
    cache and fully in bf16, and the cost of quantize-on-write.
 
@@ -40,6 +46,8 @@ Without a CUDA device the script exits non-zero and prints no verdict.
 from __future__ import annotations
 
 import asyncio
+import collections
+import contextlib
 import json
 import subprocess
 import sys
@@ -155,14 +163,38 @@ def device_profile(fn, n: int) -> dict:
                if e.device_type == DeviceType.CUDA
                and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in kernels)
+    flash_us = sum(e.self_device_time_total for e in kernels
+                   if "flash" in e.key)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
     return {"wall_ms": wall * 1e3 / n, "device_ms": busy_us / 1e3 / n,
             "busy_share": busy_us / 1e6 / wall,
+            # the flash kernel's device time and its share of the device's
+            "flash_device_ms": flash_us / 1e3 / n,
+            "flash_share": flash_us / busy_us if busy_us else 0.0,
             "top_device_ms": {e.key[:80]: e.self_device_time_total / 1e3 / n
                               for e in top},
             # launches per call of every attention kernel of the port
             "attention_launches": {e.key[:80]: e.count / n for e in kernels
                                    if "decode" in e.key or "flash" in e.key}}
+
+
+@contextlib.contextmanager
+def flash_shapes(llama):
+    """Tally the model's flash calls by shape inside the block, as
+    {"B x Tq x Tk": calls}. It wraps the dispatcher the model calls; the
+    kernel wrapper's own counter stays the proof that the kernel ran."""
+    seen = collections.Counter()
+    inner = llama.flash_attention
+
+    def tally(q, k, v, **kw):
+        seen[f"{q.shape[0]}x{q.shape[1]}x{k.shape[1]}"] += 1
+        return inner(q, k, v, **kw)
+
+    llama.flash_attention = tally
+    try:
+        yield seen
+    finally:
+        llama.flash_attention = inner
 
 
 def check_one_decode_launch_per_layer(prof: dict, n_layers: int) -> None:
@@ -366,60 +398,123 @@ def measure_decode(c, tol: float) -> dict:
             "tb_per_s": nbytes / (ms * 1e-3) / 1e12}
 
 
-def kernel_phase(dev) -> list[dict]:
-    """Each kernel against its plain version at the 8b serving shapes, and
-    timed by ``sweep_ms``: cold L2, paced by the device."""
+def flash_cases(dev):
+    """The flash kernel's inputs at the serving paths' prefill shapes, made
+    from seed 0: yields one dict a shape, with ``L`` layers' worth of
+    q, k, v (enough that a sweep over them reads >= 4 x the 50 MB L2, so
+    each launch finds its inputs cold)."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    H, KV, D = 32, 8, 128
+    for label, B, T, lens, L in (
+            # a wave of 2 prompts in the 512 bucket (the bf16 path)
+            ("512 wave of 2", 2, 512, [512, 301], 32),
+            # one long prompt: the int8 path's timed 2048-bucket prefill
+            ("2048 trickle", 1, 2048, [2000], 8),
+            # a burst of 8 admissions into the 2048 bucket (generate.py's
+            # waves of min(8, slots) rows)
+            ("2048 burst of 8", 8, 2048,
+             [2000, 1942, 1500, 1024, 777, 513, 129, 37], 8)):
+        yield {"label": label, "B": B, "T": T, "H": H, "KV": KV, "D": D,
+               "L": L, "kv_len": torch.tensor(lens, dtype=torch.int32,
+                                              device=dev),
+               "q": [rnd_bf16(g, dev, B, T, H, D) for _ in range(L)],
+               "k": [rnd_bf16(g, dev, B, T, KV, D) for _ in range(L)],
+               "v": [rnd_bf16(g, dev, B, T, KV, D) for _ in range(L)]}
+
+
+def flash_bound(c) -> tuple[float, str, float]:
+    """(bound ms, bound_by, bytes) of one causal flash call of case ``c``:
+    4 * D FLOPs per (query, key) pair the causal and kv_len masks keep
+    (padded query rows included: the kernel keeps their outputs); q and o
+    once, the live K/V prefix once, kv_len."""
+    lens = c["kv_len"].tolist()
+    B, T, H, KV, D = c["B"], c["T"], c["H"], c["KV"], c["D"]
+    pairs = sum(min(i + 1, n) for n in lens for i in range(T))
+    nbytes = 2 * (2 * B * T * H * D + 2 * sum(lens) * KV * D) + 4 * B
+    return (*bound(4 * D * H * pairs, nbytes), nbytes)
+
+
+def flash_launchers(c):
+    """(kernel(layer), plain(layer), library(layer)) for one flash case;
+    the library call is scaled_dot_product_attention with the same causal
+    and kv_len mask as a boolean mask, a yardstick the port never calls."""
     import torch.nn.functional as F
 
     from gofr_tpu_torch.ops.flash_attention import (flash_attention_cuda,
                                                     flash_attention_plain)
 
-    g = torch.Generator(device=dev).manual_seed(0)
+    qs, ks, vs, kv_len = c["q"], c["k"], c["v"], c["kv_len"]
+    kpos = torch.arange(c["T"], device=kv_len.device)
+    mask = ((kpos[None, :] <= kpos[:, None])[None]
+            & (kpos[None, None, :] < kv_len[:, None, None]))[:, None]
+
+    def kernel(i):
+        return flash_attention_cuda(qs[i], ks[i], vs[i], kv_len, causal=True)
+
+    def plain(i):
+        return flash_attention_plain(qs[i], ks[i], vs[i], kv_len, causal=True)
+
+    def library(i):
+        return F.scaled_dot_product_attention(
+            qs[i].transpose(1, 2), ks[i].transpose(1, 2),
+            vs[i].transpose(1, 2), attn_mask=mask, enable_gqa=True)
+    return kernel, plain, library
+
+
+def measure_flash(c, tol: float) -> dict:
+    """One flash case: the kernel against its plain version on layer 0,
+    then the kernel and the library call timed by ``sweep_ms`` over the
+    case's layers, the plain version eagerly over 4 layers (2 at the 2048
+    shapes, whose f32 logits are up to 4.3 GB a call)."""
+    kernel, plain, library = flash_launchers(c)
+    out, ref = kernel(0), plain(0)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out.float()).all()),
+          f"flash {c['label']}: output not finite")
+    err = (out.float() - ref.float()).abs().max().item()
+    del out, ref
+    check(err <= tol, f"flash {c['label']}: kernel vs plain max_abs_err "
+          f"{err} > {tol}")
+    b_ms, b_by, nbytes = flash_bound(c)
+    ms = sweep_ms(kernel, c["L"])
+    B, T, H, KV, D = c["B"], c["T"], c["H"], c["KV"], c["D"]
+    return {"case": c["label"],
+            "shape": f"q[{B},{T},{H},{D}] kv[{B},{T},{KV},{D}] causal "
+                     f"kv_len={c['kv_len'].tolist()}",
+            "max_abs_err": err, "ms": ms,
+            "library_ms": sweep_ms(library, c["L"]),
+            "plain_ms": sweep_ms(plain, 4 if T <= 512 else 2, graph=False),
+            "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms,
+            "tb_per_s": nbytes / (ms * 1e-3) / 1e12}
+
+
+def kernel_phase(dev) -> list[dict]:
+    """Each kernel against its plain version at the 8b serving shapes, and
+    timed by ``sweep_ms``: cold L2, paced by the device."""
+    from gofr_tpu_torch.ops.flash_attention import flash_attention_cuda
+
     rows = []
     # bf16 tolerance: outputs are O(1); one bf16 ulp there is 2**-7, and
     # the kernel rounds P to bf16 before P@V where the plain version
     # normalises first — 2e-2 absolute covers both
     tol = 2e-2
 
-    # flash prefill: wave of 2 prompts in the 512 bucket, ragged kv_len;
-    # 32 layers' worth of inputs, as a prefill gives the kernel
-    L, B, T, H, KV, D = 32, 2, 512, 32, 8, 128
-    qs = [rnd_bf16(g, dev, B, T, H, D) for _ in range(L)]
-    ks = [rnd_bf16(g, dev, B, T, KV, D) for _ in range(L)]
-    vs = [rnd_bf16(g, dev, B, T, KV, D) for _ in range(L)]
-    q, k, v = qs[0], ks[0], vs[0]
-    kv_len = torch.tensor([512, 301], dtype=torch.int32, device=dev)
-    n0 = flash_attention_cuda.launches
-    out = flash_attention_cuda(q, k, v, kv_len, causal=True)
-    check(flash_attention_cuda.launches == n0 + 1, "flash counter did not move")
-    ref = flash_attention_plain(q, k, v, kv_len, causal=True)
-    torch.cuda.synchronize()
-    err = (out.float() - ref.float()).abs().max().item()
-    check(bool(torch.isfinite(out.float()).all()), "flash output not finite")
-    check(err <= tol, f"flash kernel vs plain max_abs_err {err} > {tol}")
-    kpos = torch.arange(T, device=dev)
-    mask = ((kpos[None, :] <= kpos[:, None])[None]
-            & (kpos[None, None, :] < kv_len[:, None, None]))[:, None]
-    pairs = sum(min(i + 1, n) for n in kv_len.tolist() for i in range(T))
-    flops = 4 * D * H * pairs
-    nbytes = 2 * (2 * B * T * H * D + 2 * sum(kv_len.tolist()) * KV * D) + 4 * B
-    b_ms, b_by = bound(flops, nbytes)
-    ms = sweep_ms(lambda i: flash_attention_cuda(qs[i], ks[i], vs[i], kv_len), L)
-    rows.append({
-        "name": "flash_attention_cuda", "route": "cuda",
-        "source": "gofr_tpu_torch/ops/csrc/flash_attention.cu",
-        "replaces": "gofr_tpu/ops/flash_attention.py:89",
-        "shape": f"q[{B},{T},{H},{D}] kv[{B},{T},{KV},{D}] causal "
-                 f"kv_len={kv_len.tolist()}",
-        "max_abs_err": err, "tol": tol, "ms": ms,
-        "plain_ms": sweep_ms(lambda i: flash_attention_plain(
-            qs[i], ks[i], vs[i], kv_len), 4, graph=False),
-        "library_ms": sweep_ms(lambda i: F.scaled_dot_product_attention(
-            qs[i].transpose(1, 2), ks[i].transpose(1, 2),
-            vs[i].transpose(1, 2), attn_mask=mask, enable_gqa=True), L),
-        "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms,
-        "tb_per_s": nbytes / (ms * 1e-3) / 1e12})
-    del qs, ks, vs, q, k, v
+    # flash prefill at its three serving shapes; the row's headline is the
+    # 512-token wave, every shape is under "by_shape"
+    flash = {"name": "flash_attention_cuda", "route": "cuda",
+             "source": "gofr_tpu_torch/ops/csrc/flash_attention.cu",
+             "replaces": "gofr_tpu/ops/flash_attention.py:89", "tol": tol,
+             "by_shape": []}
+    for c in flash_cases(dev):
+        n0 = flash_attention_cuda.launches
+        res = measure_flash(c, tol)
+        check(flash_attention_cuda.launches > n0, "flash counter did not move")
+        if not flash["by_shape"]:
+            flash.update({k: v for k, v in res.items() if k != "case"})
+        flash["by_shape"].append(res)
+        flash["max_abs_err"] = max(flash["max_abs_err"], res["max_abs_err"])
+        del c
+    rows.append(flash)
 
     # GQA decode, both kernels, each at its shapes; the row's headline is
     # its first (phase-2) shape, every shape is under "by_shape"
@@ -530,8 +625,9 @@ def main_path(dev) -> tuple[dict, dict]:
     torch.cuda.reset_peak_memory_stats()
     steps0, waves0 = gen.steps, gen.prefill_waves
     reset_launches()
-    outs, wall, again = serve(gen, prompts, max_new, prompts[3])
-    torch.cuda.synchronize()
+    with flash_shapes(llama) as shapes:
+        outs, wall, again = serve(gen, prompts, max_new, prompts[3])
+        torch.cuda.synchronize()
     launches = read_launches()
     steps, waves = gen.steps - steps0, gen.prefill_waves - waves0
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
@@ -599,6 +695,7 @@ def main_path(dev) -> tuple[dict, dict]:
     served = sum(len(o) for o in outs)
     return {
         "launches": launches, "prefill_waves": waves, "decode_steps": steps,
+        "flash_calls_by_shape": dict(shapes),
         "init_s": init_s, "warmup_s": warm_s,
         "served_tokens": served, "served_wall_s": wall,
         "served_tok_per_s": served / wall,
@@ -648,8 +745,9 @@ def int8_path(dev, bf16_params) -> dict:
     torch.cuda.reset_peak_memory_stats()
     steps0, waves0 = gen.steps, gen.prefill_waves
     reset_launches()
-    outs, wall, again = serve(gen, prompts, max_new, prompts[0])
-    torch.cuda.synchronize()
+    with flash_shapes(llama) as shapes:
+        outs, wall, again = serve(gen, prompts, max_new, prompts[0])
+        torch.cuda.synchronize()
     launches = read_launches()
     steps, waves = gen.steps - steps0, gen.prefill_waves - waves0
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
@@ -694,6 +792,7 @@ def int8_path(dev, bf16_params) -> dict:
         llama.prefill_into(params, tokens, lens, cfg, gen.cache, 0)
 
     prefill_ms = timed_ms(one_prefill, iters=5, warm=1)
+    prefill_prof = device_profile(one_prefill, 3)
     step_tok = torch.zeros(slots, dtype=torch.int32, device=dev)
     cache16 = llama.init_cache(cfg16, slots, max_seq, device=dev)
     arms = {"w8_kv8": (params, cfg, gen.cache),
@@ -739,12 +838,14 @@ def int8_path(dev, bf16_params) -> dict:
     w8 = min(step_ms["w8_kv8"])
     return {
         "launches": launches, "prefill_waves": waves, "decode_steps": steps,
+        "flash_calls_by_shape": dict(shapes),
         "init_and_quantize_s": init_s, "warmup_s": warm_s,
         "weight_gb": _nbytes(params) / 1e9,
         "prompt_lens": [len(p) for p in prompts],
         "served_tokens": served, "served_wall_s": wall,
         "served_tok_per_s": served / wall,
         "prefill_ms_b1_s2048": prefill_ms,
+        "prefill_profile": prefill_prof,
         "decode_step_ms_b8_len2000": step_ms,
         "decode_tok_per_s_b8": slots / (w8 / 1e3),
         "peak_mem_gib": peak_gb,

@@ -1,5 +1,5 @@
-// 16-byte cp.async copies from global to shared memory, shared by the
-// port's kernels (sm_80 and later; built here for sm_90a).
+// 16-byte cp.async copies from global to shared memory, used by the
+// decode kernels (sm_80 and later; built here for sm_90a).
 #pragma once
 
 #include <stdint.h>

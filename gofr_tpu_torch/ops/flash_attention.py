@@ -1,10 +1,13 @@
 """Flash prefill attention: the CUDA kernel, its wrapper and its plain version.
 
 Replaces the Pallas TPU kernel ``gofr_tpu/ops/flash_attention.py``
-(``flash_attention_tpu``). The kernel (``csrc/flash_attention.cu``) is
-bounded by memory traffic at the serving prefill shapes and by tensor-core
-throughput for long prompts; its source note says how its design answers
-both. ``flash_attention_cuda.launches`` counts kernel launches.
+(``flash_attention_tpu``). The kernel (``csrc/flash_attention.cu``) is a
+Hopper kernel: TMA loads from a producer warpgroup into a ring of K/V
+tiles, ``wgmma`` for Q K^T and P V in two consumer warpgroups. It is
+bounded by memory traffic and latency at the 512-token wave and by
+tensor-core throughput at 2048-token prompts; its source note says how its
+design answers both. ``flash_attention_cuda.launches`` counts kernel
+launches.
 """
 
 from __future__ import annotations
@@ -46,8 +49,9 @@ def flash_attention_cuda(q, k, v, kv_len=None, *, causal: bool = True,
                          q_offset: int = 0):
     """Launch the CUDA flash kernel. q: [B, Tq, H, D]; k, v: [B, Tk, KV, D]
     with KV dividing H (grouped, not expanded); kv_len: optional int32 [B].
-    All on one CUDA device, bf16, contiguous. Returns [B, Tq, H, D] bf16.
-    Raises on anything the kernel does not take."""
+    All on one CUDA device, bf16, contiguous, q/k/v at 16-byte-aligned
+    addresses (the kernel's TMA loads need them). Returns [B, Tq, H, D]
+    bf16. Raises on anything the kernel does not take."""
     tensors = [("q", q), ("k", k), ("v", v)]
     if kv_len is not None:
         tensors.append(("kv_len", kv_len))
@@ -60,6 +64,9 @@ def flash_attention_cuda(q, k, v, kv_len=None, *, causal: bool = True,
     for name, t in tensors[:3]:
         if t.dtype != torch.bfloat16:
             raise ValueError(f"flash_attention_cuda: {name} must be bfloat16, got {t.dtype}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention_cuda: {name} must start at a "
+                             "16-byte-aligned address")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention_cuda: bad shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
@@ -82,7 +89,9 @@ def flash_attention_cuda(q, k, v, kv_len=None, *, causal: bool = True,
             kv_len.data_ptr() if kv_len is not None else None, out.data_ptr(),
             b, tq, tk, h, kv, d, int(causal), q_offset, stream)
     if err:
-        raise RuntimeError(f"flash_attention kernel launch failed: cudaError_t {err}")
+        raise RuntimeError(
+            f"flash_attention kernel launch failed: error {err} (a "
+            "cudaError_t, or 10000 + the CUresult of a tensor map)")
     flash_attention_cuda.launches += 1
     return out
 

@@ -61,3 +61,28 @@ def test_split_plan_refuses_what_one_cluster_cannot_cover():
     split_plan(1, 8, MAX_SPLITS * MAX_SPAN, 132)
     with pytest.raises(ValueError, match="S_max"):
         split_plan(1, 8, MAX_SPLITS * MAX_SPAN + 1, 132)
+
+
+@pytest.mark.parametrize("case", [
+    # label, B, T, kv_len, FLOPs, bytes, bound ms, bound_by
+    ("512 wave of 2", 2, 512, [512, 301], 3.937e9, 20.11e6, 0.0060, "bytes"),
+    ("2048 trickle", 1, 2048, [2000], 34.36e9, 41.75e6, 0.0347, "operations"),
+    ("2048 burst of 8", 8, 2048, [2000, 1942, 1500, 1024, 777, 513, 129, 37],
+     167.95e9, 300.9e6, 0.1698, "operations"),
+])
+def test_flash_bound_counts_the_work_the_masks_keep(case):
+    """chip_smoke's flash bound at the serving shapes: 4 * D FLOPs per
+    (query, key) pair that the causal and kv_len masks keep, every query
+    row included; q and o once, the live K/V prefix once."""
+    import torch
+
+    import chip_smoke
+
+    label, B, T, lens, flops, nbytes, ms, by = case
+    c = {"B": B, "T": T, "H": 32, "KV": 8, "D": 128,
+         "kv_len": torch.tensor(lens, dtype=torch.int32)}
+    b_ms, b_by, got_bytes = chip_smoke.flash_bound(c)
+    pairs = sum(min(i + 1, n) for n in lens for i in range(T))
+    assert 4 * 128 * 32 * pairs == pytest.approx(flops, rel=3e-3)
+    assert got_bytes == pytest.approx(nbytes, rel=3e-3)
+    assert b_by == by and b_ms == pytest.approx(ms, rel=3e-3)

@@ -6,7 +6,11 @@ the fixture, never at import). Run on the card with
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
-The decode kernels are also held at every head_dim and n_rep they take, at
+The flash kernel is also held at the serving paths' 2048-token shapes, at
+every head_dim and n_rep, at ragged Tq/Tk and q_offset, at kv_len 0 (the
+row is zeros) and under one tile, on structured inputs that expose a
+fragment-layout mix-up, in a CUDA-graph replay and on two streams. The
+decode kernels are also held at every head_dim and n_rep they take, at
 the kv_len edges (tiles, splits, 1, 0, -1, S_max, S_max + 1), for one long
 row, over 20 back-to-back calls and on two streams.
 
@@ -43,9 +47,22 @@ def _to(tree, dev):
 @pytest.mark.parametrize("case", [
     # B, Tq, Tk, H, KV, D, causal, kv_len, q_offset
     (2, 512, 512, 32, 8, 128, True, [512, 301], 0),
+    # the 2048-bucket shapes of the int8 path: one prompt, a burst of 8
+    (1, 2048, 2048, 32, 8, 128, True, [2000], 0),
+    (8, 2048, 2048, 32, 8, 128, True,
+     [2000, 1942, 1500, 1024, 777, 513, 129, 37], 0),
+    # Tq, Tk off the tiles (77, 130, 200), kv_len, q_offset with Tq < Tk
     (1, 130, 130, 4, 2, 128, True, None, 0),
+    (1, 200, 200, 8, 2, 128, True, [177], 0),
+    (2, 77, 130, 4, 1, 128, False, [130, 77], 0),
     (2, 77, 200, 4, 4, 64, False, [200, 33], 0),
     (1, 64, 192, 2, 1, 16, True, [150], 128),
+    (1, 100, 300, 8, 1, 128, True, [290], 70),
+    # the first warpgroup's 64 query rows end before the item's last K/V
+    # tile
+    (1, 128, 192, 4, 2, 128, True, None, 64),
+    # a single live query row; K/V many tiles long, full attention
+    (1, 40, 1000, 4, 2, 128, False, None, 0),
 ])
 def test_flash_kernel_matches_plain(dev, case):
     from gofr_tpu_torch.ops.flash_attention import (flash_attention_cuda,
@@ -65,6 +82,119 @@ def test_flash_kernel_matches_plain(dev, case):
     torch.cuda.synchronize()
     assert flash_attention_cuda.launches == n0 + 1
     assert (out.float() - ref.float()).abs().max().item() <= TOL
+
+
+def _flash_inputs(dev, B, Tq, Tk, H, KV, D, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (_rnd(g, dev, B, Tq, H, D), _rnd(g, dev, B, Tk, KV, D),
+            _rnd(g, dev, B, Tk, KV, D))
+
+
+@pytest.mark.parametrize("n_rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("D", [16, 64, 128])
+def test_flash_kernel_at_every_head_dim_and_group(dev, n_rep, D):
+    """Every head_dim the wrapper takes, with 1, 2, 4 and 8 query heads a
+    KV head, causal over ragged rows and full over a short one."""
+    from gofr_tpu_torch.ops.flash_attention import (flash_attention_cuda,
+                                                    flash_attention_plain)
+
+    q, k, v = _flash_inputs(dev, 3, 333, 333, 2 * n_rep, 2, D)
+    kv_len = torch.tensor([333, 5, 200], dtype=torch.int32, device=dev)
+    for causal in (True, False):
+        out = flash_attention_cuda(q, k, v, kv_len, causal=causal)
+        ref = flash_attention_plain(q, k, v, kv_len, causal=causal)
+        torch.cuda.synchronize()
+        assert (out.float() - ref.float()).abs().max().item() <= TOL
+
+
+@pytest.mark.parametrize("D", [16, 64, 128])
+def test_flash_kernel_kv_len_edges(dev, D):
+    """A row with kv_len 0 reads nothing and writes zeros (the TPU kernel's
+    empty loop); rows with kv_len 1, 37 and 64 (inside the first 128-key
+    tile) and of the whole row match the plain version."""
+    from gofr_tpu_torch.ops.flash_attention import (flash_attention_cuda,
+                                                    flash_attention_plain)
+
+    q, k, v = _flash_inputs(dev, 5, 300, 300, 8, 2, D, seed=1)
+    kv_len = torch.tensor([0, 1, 37, 64, 300], dtype=torch.int32, device=dev)
+    out = flash_attention_cuda(q, k, v, kv_len, causal=True)
+    ref = flash_attention_plain(q, k, v, kv_len, causal=True)
+    torch.cuda.synchronize()
+    assert out[0].abs().max().item() == 0.0
+    assert (out[1:].float() - ref[1:].float()).abs().max().item() <= TOL
+
+
+@pytest.mark.parametrize("D", [16, 64, 128])
+def test_flash_kernel_fragment_layout(dev, D):
+    """Structured inputs that expose a mix-up of rows or columns between
+    the product S = Q K^T, the softmax and P V. V is one-hot (key j carries
+    e_(j mod D)), so O reads back the attention weights by key residue.
+    With q_i = 8 sqrt(D) e_(i mod D) and k_j = e_(j mod D), query i's logit
+    is 8 at the keys of its own residue and 0 elsewhere, so its weight sits
+    in column i mod D; with random Q and K it is spread. Both against the
+    plain version."""
+    from gofr_tpu_torch.ops.flash_attention import (flash_attention_cuda,
+                                                    flash_attention_plain)
+
+    T, H = 256, 2
+    eye = torch.eye(D, device=dev)
+    one_hot = eye[torch.arange(T, device=dev) % D][None, :, None, :]
+    v = one_hot.to(torch.bfloat16)
+    sharp = ((8 * D ** 0.5 * one_hot).expand(1, T, H, D).contiguous()
+             .to(torch.bfloat16), v)
+    q, k, _ = _flash_inputs(dev, 1, T, T, H, 1, D, seed=6)
+    for qk in (sharp, (q, k)):
+        for causal in (True, False):
+            out = flash_attention_cuda(*qk, v, causal=causal)
+            ref = flash_attention_plain(*qk, v, causal=causal)
+            torch.cuda.synchronize()
+            assert (out.float() - ref.float()).abs().max().item() <= TOL
+
+
+def test_flash_kernel_graph_replay_matches_eager(dev):
+    """A CUDA graph captures the kernel with its tensor maps by value: a
+    replay on new inputs in the same buffers equals an eager call."""
+    from gofr_tpu_torch.ops.flash_attention import flash_attention_cuda
+
+    q, k, v = _flash_inputs(dev, 2, 300, 300, 8, 2, 128, seed=2)
+    kv_len = torch.tensor([300, 150], dtype=torch.int32, device=dev)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        flash_attention_cuda(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = flash_attention_cuda(q, k, v, kv_len)
+    q2, k2, v2 = _flash_inputs(dev, 2, 300, 300, 8, 2, 128, seed=3)
+    for dst, src in ((q, q2), (k, k2), (v, v2)):
+        dst.copy_(src)
+    kv_len.copy_(torch.tensor([211, 300], dtype=torch.int32, device=dev))
+    graph.replay()
+    want = flash_attention_cuda(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+
+
+def test_flash_kernel_on_two_streams(dev):
+    """Calls on two CUDA streams at once both match their plain version."""
+    from gofr_tpu_torch.ops.flash_attention import (flash_attention_cuda,
+                                                    flash_attention_plain)
+
+    inputs = [_flash_inputs(dev, 2, 700, 700, 32, 8, 128, seed=s)
+              for s in (4, 5)]
+    kv_len = torch.tensor([700, 333], dtype=torch.int32, device=dev)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    outs = []
+    for _ in range(5):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                outs.append((i, flash_attention_cuda(*inputs[i], kv_len)))
+    torch.cuda.synchronize()
+    refs = [flash_attention_plain(*x, kv_len) for x in inputs]
+    for i, out in outs:
+        assert (out.float() - refs[i].float()).abs().max().item() <= TOL
 
 
 @pytest.mark.parametrize("case", [
@@ -275,6 +405,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention_cuda(zeros(1, 8, 4, 8), zeros(1, 8, 2, 8),
                              zeros(1, 8, 2, 8))
+    # contiguous, but 2 bytes past a 16-byte boundary: TMA cannot load it
+    buf = zeros(1 + 8 * 4 * 16)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_cuda(buf[1:].view(1, 8, 4, 16), kv, kv)
     cache = zeros(2, 1, 8, 2, 16)
     with pytest.raises(ValueError, match="layer"):
         gqa_decode_attention_cuda(zeros(1, 1, 4, 16), cache, cache,
