@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (an H100 for sm_90a).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--out DIR]   # DIR/chip_smoke.json: every result
 
 Phases, each of which fails the run (non-zero exit) when it goes wrong:
 
@@ -9,8 +9,9 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    ``nvcc`` per source, all started together);
 2. kernels against their plain PyTorch versions on the card, at the shapes
    the Llama-3-8B serving paths give them: flash prefill for a wave of 2
-   prompts in the 512 bucket, one 2048-token prompt and a burst of 8
-   prompts into the 2048 bucket; GQA decode over the bf16 cache and over
+   prompts in the 512 bucket, one 2048-token prompt, a burst of 8
+   prompts into the 2048 bucket and the paged path's suffix (512 queries
+   at q_offset 1536 over 2048 keys); GQA decode over the bf16 cache and over
    the int8 cache, each at its phase-2 shape, at the 8-slot decode step
    (len 2000 of 4096) and for one row of 4096. Each kernel, its plain
    version and a PyTorch library call (``scaled_dot_product_attention``, a
@@ -37,7 +38,25 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    flash's share of its device time) and decode timings, and as
    measurements only,
    the decode step at the same shape with bf16 weights over the int8
-   cache and fully in bf16, and the cost of quantize-on-write.
+   cache and fully in bf16, and the cost of quantize-on-write;
+5. the paged path (``PAGED``: 8 slots x 2048 from a pool of 513 pages of
+   16, half the dense equivalent; buckets 128/512/2048, 512-token prefill
+   segments, chunk 4) behind ``LLMServer`` with its prefix cache: bf16
+   (16 requests on a 1536-token prefix pinned through the server, two
+   unshared 1900-token prompts prefilled in segments while they decode),
+   int8 pages on the w8 + kv8 weights and int4 pages on the bf16 weights
+   (8 requests each, the prefix promoted by the cache), launch counts read
+   around each arm. Checks: every request finished with its tokens,
+   prefix hits and tokens saved, segments run, flash launched with
+   ``q_offset`` > 0 for every such call, only the decode kernel the pages
+   need; prefix-hit and chunked logits against one whole-prompt prefill;
+   one paged decode step over real K/V (8 rows of 1500-2000 tokens,
+   pages in a random order) through the kernel against the pool read
+   apart by a plain reference, at each page precision; one decode kernel
+   a layer, of the right kind, in a paged step's profile. Measured: TTFT cold and on a prefix hit, the longest decode
+   gap while a 1900-token prompt prefills (in segments and whole), the
+   paged step at 8 x len 2000 beside the dense one with the gather's
+   device time, peak memory and pages in use at the end.
 
 The line before the last is the card; the last is the JSON verdict.
 Without a CUDA device the script exits non-zero and prints no verdict.
@@ -165,12 +184,18 @@ def device_profile(fn, n: int) -> dict:
     busy_us = sum(e.self_device_time_total for e in kernels)
     flash_us = sum(e.self_device_time_total for e in kernels
                    if "flash" in e.key)
+    # torch's gather kernels: in a paged step, the index_select of each
+    # row's pages into its virtual sequence (and the token embedding's
+    # few-row lookup, a few microseconds)
+    gather_us = sum(e.self_device_time_total for e in kernels
+                    if "gather_kernel" in e.key or "indexSelect" in e.key)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
     return {"wall_ms": wall * 1e3 / n, "device_ms": busy_us / 1e3 / n,
             "busy_share": busy_us / 1e6 / wall,
             # the flash kernel's device time and its share of the device's
             "flash_device_ms": flash_us / 1e3 / n,
             "flash_share": flash_us / busy_us if busy_us else 0.0,
+            "gather_device_ms": gather_us / 1e3 / n,
             "top_device_ms": {e.key[:80]: e.self_device_time_total / 1e3 / n
                               for e in top},
             # launches per call of every attention kernel of the port
@@ -181,13 +206,16 @@ def device_profile(fn, n: int) -> dict:
 @contextlib.contextmanager
 def flash_shapes(llama):
     """Tally the model's flash calls by shape inside the block, as
-    {"B x Tq x Tk": calls}. It wraps the dispatcher the model calls; the
-    kernel wrapper's own counter stays the proof that the kernel ran."""
+    {"B x Tq x Tk": calls}, with "+offset" on calls whose ``q_offset`` is
+    above 0 (a suffix or a later segment). It wraps the dispatcher the
+    model calls; the kernel wrapper's own counter stays the proof that the
+    kernel ran."""
     seen = collections.Counter()
     inner = llama.flash_attention
 
     def tally(q, k, v, **kw):
-        seen[f"{q.shape[0]}x{q.shape[1]}x{k.shape[1]}"] += 1
+        tag = "+offset" if kw.get("q_offset", 0) > 0 else ""
+        seen[f"{q.shape[0]}x{q.shape[1]}x{k.shape[1]}{tag}"] += 1
         return inner(q, k, v, **kw)
 
     llama.flash_attention = tally
@@ -405,32 +433,38 @@ def flash_cases(dev):
     each launch finds its inputs cold)."""
     g = torch.Generator(device=dev).manual_seed(0)
     H, KV, D = 32, 8, 128
-    for label, B, T, lens, L in (
+    for label, B, T, Tk, q_offset, lens, L in (
             # a wave of 2 prompts in the 512 bucket (the bf16 path)
-            ("512 wave of 2", 2, 512, [512, 301], 32),
+            ("512 wave of 2", 2, 512, 512, 0, [512, 301], 32),
             # one long prompt: the int8 path's timed 2048-bucket prefill
-            ("2048 trickle", 1, 2048, [2000], 8),
+            ("2048 trickle", 1, 2048, 2048, 0, [2000], 8),
             # a burst of 8 admissions into the 2048 bucket (generate.py's
             # waves of min(8, slots) rows)
-            ("2048 burst of 8", 8, 2048,
-             [2000, 1942, 1500, 1024, 777, 513, 129, 37], 8)):
-        yield {"label": label, "B": B, "T": T, "H": H, "KV": KV, "D": D,
-               "L": L, "kv_len": torch.tensor(lens, dtype=torch.int32,
-                                              device=dev),
+            ("2048 burst of 8", 8, 2048, 2048, 0,
+             [2000, 1942, 1500, 1024, 777, 513, 129, 37], 8),
+            # the paged path's suffix prefill: a 512-bucket suffix after a
+            # 1536-token shared prefix, over the 128 gathered pages
+            ("suffix 512 at 1536", 1, 512, 2048, 1536, None, 16)):
+        yield {"label": label, "B": B, "T": T, "Tk": Tk, "q_offset": q_offset,
+               "H": H, "KV": KV, "D": D, "L": L,
+               "kv_len": (None if lens is None else
+                          torch.tensor(lens, dtype=torch.int32, device=dev)),
                "q": [rnd_bf16(g, dev, B, T, H, D) for _ in range(L)],
-               "k": [rnd_bf16(g, dev, B, T, KV, D) for _ in range(L)],
-               "v": [rnd_bf16(g, dev, B, T, KV, D) for _ in range(L)]}
+               "k": [rnd_bf16(g, dev, B, Tk, KV, D) for _ in range(L)],
+               "v": [rnd_bf16(g, dev, B, Tk, KV, D) for _ in range(L)]}
 
 
 def flash_bound(c) -> tuple[float, str, float]:
     """(bound ms, bound_by, bytes) of one causal flash call of case ``c``:
-    4 * D FLOPs per (query, key) pair the causal and kv_len masks keep
-    (padded query rows included: the kernel keeps their outputs); q and o
-    once, the live K/V prefix once, kv_len."""
-    lens = c["kv_len"].tolist()
+    4 * D FLOPs per (query, key) pair the causal (from ``q_offset``) and
+    kv_len masks keep (padded query rows included: the kernel keeps their
+    outputs); q and o once, the live K/V prefix once, kv_len."""
     B, T, H, KV, D = c["B"], c["T"], c["H"], c["KV"], c["D"]
-    pairs = sum(min(i + 1, n) for n in lens for i in range(T))
-    nbytes = 2 * (2 * B * T * H * D + 2 * sum(lens) * KV * D) + 4 * B
+    Tk, off = c.get("Tk", T), c.get("q_offset", 0)
+    lens = c["kv_len"].tolist() if c["kv_len"] is not None else [Tk] * B
+    pairs = sum(min(off + i + 1, n) for n in lens for i in range(T))
+    nbytes = (2 * (2 * B * T * H * D + 2 * sum(lens) * KV * D)
+              + (4 * B if c["kv_len"] is not None else 0))
     return (*bound(4 * D * H * pairs, nbytes), nbytes)
 
 
@@ -443,16 +477,21 @@ def flash_launchers(c):
     from gofr_tpu_torch.ops.flash_attention import (flash_attention_cuda,
                                                     flash_attention_plain)
 
-    qs, ks, vs, kv_len = c["q"], c["k"], c["v"], c["kv_len"]
-    kpos = torch.arange(c["T"], device=kv_len.device)
-    mask = ((kpos[None, :] <= kpos[:, None])[None]
-            & (kpos[None, None, :] < kv_len[:, None, None]))[:, None]
+    qs, ks, vs, kv_len, off = c["q"], c["k"], c["v"], c["kv_len"], \
+        c["q_offset"]
+    qpos = torch.arange(c["T"], device=qs[0].device) + off
+    kpos = torch.arange(c["Tk"], device=qs[0].device)
+    mask = (kpos[None, :] <= qpos[:, None])[None, None]
+    if kv_len is not None:
+        mask = mask & (kpos[None, None, :] < kv_len[:, None, None])[:, None]
 
     def kernel(i):
-        return flash_attention_cuda(qs[i], ks[i], vs[i], kv_len, causal=True)
+        return flash_attention_cuda(qs[i], ks[i], vs[i], kv_len, causal=True,
+                                    q_offset=off)
 
     def plain(i):
-        return flash_attention_plain(qs[i], ks[i], vs[i], kv_len, causal=True)
+        return flash_attention_plain(qs[i], ks[i], vs[i], kv_len, causal=True,
+                                     q_offset=off)
 
     def library(i):
         return F.scaled_dot_product_attention(
@@ -477,10 +516,11 @@ def measure_flash(c, tol: float) -> dict:
           f"{err} > {tol}")
     b_ms, b_by, nbytes = flash_bound(c)
     ms = sweep_ms(kernel, c["L"])
-    B, T, H, KV, D = c["B"], c["T"], c["H"], c["KV"], c["D"]
+    B, T, Tk, H, KV, D = c["B"], c["T"], c["Tk"], c["H"], c["KV"], c["D"]
+    lens = c["kv_len"].tolist() if c["kv_len"] is not None else None
     return {"case": c["label"],
-            "shape": f"q[{B},{T},{H},{D}] kv[{B},{T},{KV},{D}] causal "
-                     f"kv_len={c['kv_len'].tolist()}",
+            "shape": f"q[{B},{T},{H},{D}] kv[{B},{Tk},{KV},{D}] causal "
+                     f"q_offset={c['q_offset']} kv_len={lens}",
             "max_abs_err": err, "ms": ms,
             "library_ms": sweep_ms(library, c["L"]),
             "plain_ms": sweep_ms(plain, 4 if T <= 512 else 2, graph=False),
@@ -713,10 +753,11 @@ def _nbytes(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
-def int8_path(dev, bf16_params) -> dict:
+def int8_path(dev, bf16_params) -> tuple[dict, dict]:
     """Llama-3-8B with the int8 cache and int8 weights at full width and
     depth behind LLMServer: 8 slots x 4096 positions, 16 concurrent
-    requests with prompts of 5-2000 tokens."""
+    requests with prompts of 5-2000 tokens. Returns (results, the w8
+    weights)."""
     import numpy as np
 
     from gofr_tpu_torch.ml.generate import Generator
@@ -855,10 +896,433 @@ def int8_path(dev, bf16_params) -> dict:
             int(logits.argmax()) == int(ref16.argmax()),
         "decode_step_profile": profiles,
         "quantize_on_write_profile_32_layers": write_prof,
-    }
+    }, params
 
 
-def main() -> int:
+# the paged configuration: half the dense-equivalent pool (1 + 8 x 128 pages)
+PAGED = dict(batch_slots=8, max_seq=2048, page_size=16, n_pages=513,
+             prefill_buckets=(128, 512, 2048), prefill_chunk=512, chunk=4)
+SHARED_LEN = 1536
+
+
+def paged_prompts(vocab: int, n_shared: int, n_long: int, seed: int):
+    """(shared prefix, [prefix + suffix of 16-200 tokens], [unshared
+    1900-token prompts]) from ``seed``."""
+    import numpy as np
+
+    r = np.random.default_rng(seed)
+    prefix = r.integers(0, vocab, SHARED_LEN).tolist()
+    shared = [prefix + r.integers(0, vocab, int(n)).tolist()
+              for n in r.integers(16, 201, n_shared)]
+    longs = [r.integers(0, vocab, 1900).tolist() for _ in range(n_long)]
+    return prefix, shared, longs
+
+
+def serve_paged(gen, prefix, shared, longs, max_new: int, pin: bool):
+    """Every shared-prefix prompt through ``LLMServer`` at once (half
+    ``generate``, half ``stream_chunks``), and the long prompts as soon as
+    the first stream has its first token, so they prefill in segments
+    while the others decode. ``pin`` registers the prefix through the
+    server first; without it the prefix cache promotes it on its second
+    sighting. Returns (outputs in order, wall seconds, the cache's
+    snapshot, finish reasons)."""
+    from gofr_tpu_torch.ml.llm import LLMServer
+
+    async def run():
+        server = LLMServer(gen, name="chat")
+        started = asyncio.Event()
+        reasons = []
+
+        async def one(ids, chunks):
+            info, out = {}, []
+            if chunks:
+                async for burst in server.stream_chunks(ids, max_new,
+                                                        info=info):
+                    started.set()
+                    out.extend(burst)
+            else:
+                out = await server.generate(ids, max_new, info=info)
+                started.set()
+            reasons.append(info.get("finish_reason"))
+            return out
+
+        async def late(ids):
+            await started.wait()
+            return await one(ids, True)
+
+        try:
+            if pin:
+                await asyncio.to_thread(server.register_prefix, prefix)
+            t = time.perf_counter()
+            outs = await asyncio.gather(
+                *(one(p, i % 2 == 0) for i, p in enumerate(shared)),
+                *(late(p) for p in longs))
+            wall = time.perf_counter() - t
+            return outs, wall, server.prefix_cache.snapshot(), reasons
+        finally:
+            server.close()
+
+    return asyncio.run(run())
+
+
+def decode_kinds(int8: bool) -> tuple[str, str]:
+    """(the decode kernel a page precision needs, the one it must not
+    launch): int8 pages take the int8 kernel; bf16 and int4 pages (the
+    latter dequantized) the bf16 one."""
+    names = ("gqa_decode_attention_cuda", "gqa_decode_attention_int8_cuda")
+    return names[::-1] if int8 else names
+
+
+def paged_attention_reference(cfg, q, cache, layer: int, virt, kv_len):
+    """``llama._paged_attention`` written apart from it, as the reference
+    of the paged step's check: each row's pages (``virt`` [B * n], row by
+    row in table order) indexed out of the pool, each page dequantized
+    with its own [KV, ps] planes, and attended by the plain grouped
+    attention. It shares no gather, transpose or kernel with the path."""
+    from gofr_tpu_torch.ops import (dequantize_kv, dequantize_kv4,
+                                    gqa_decode_attention)
+
+    b, kv = q.shape[0], cfg.n_kv_heads
+    idx = virt.view(b, -1).long()
+
+    def rows(name):
+        pages = cache[name][layer][idx]  # [B, n, ps, ...]
+        if cfg.kv_quant:
+            pages = pages.view(*pages.shape[:3], kv, -1)
+            planes = {pl: cache[f"{name}_{pl}"][layer][idx].permute(0, 1, 3, 2)
+                      for pl in ("scale", "zero") if f"{name}_{pl}" in cache}
+            pages = (dequantize_kv4(pages, planes["scale"], planes["zero"],
+                                    cfg.dtype) if cfg.kv_bits == 4 else
+                     dequantize_kv(pages, planes["scale"], cfg.dtype))
+        return pages.flatten(1, 2)  # [B, n * ps, KV, D]
+
+    return gqa_decode_attention(q, rows("k"), rows("v"), kv_len)
+
+
+def paged_step(llama, params, cfg, dev, what: str, fill: int = 2000) -> dict:
+    """The paged decode step at 8 rows over a dense-equivalent pool (1 + 8
+    x 128 pages of 16, each row 128 pages in a seeded random order, all 128
+    table columns gathered). Each row is filled with real K/V by
+    ``paged_prefill_into`` of a seeded prompt of 1500-2000 tokens; one step
+    of the kernel path (the decode kernel the pages need) is held against
+    the same step with the attention swapped for
+    ``paged_attention_reference``, at 5 % of the logits' range, as the
+    dense paths' decode check. Then, with every row at len ``fill``: the
+    step's host-wall and device time under the profiler, and the launches
+    of each decode kernel a step, one a layer and of the right kind."""
+    import numpy as np
+
+    from gofr_tpu_torch.ops.decode_attention import (
+        gqa_decode_attention_cuda, gqa_decode_attention_int8_cuda)
+
+    slots, ps, p_max = 8, 16, 128
+    r = np.random.default_rng(5)
+    table_np = r.permutation(np.arange(1, 1 + slots * p_max,
+                                       dtype=np.int32)).reshape(slots, p_max)
+    table = torch.as_tensor(table_np, device=dev)
+    pool = llama.init_paged_cache(cfg, slots, 1 + slots * p_max, ps,
+                                  device=dev)
+    lens = [fill] + r.integers(1500, fill, slots - 1).tolist()
+    for slot, n in enumerate(lens):
+        t = np.zeros((1, p_max * ps), np.int32)
+        t[0, :n] = r.integers(0, cfg.vocab_size, n)
+        llama.paged_prefill_into(params, t, [n], cfg, pool, table_np[slot],
+                                 slot, ps)
+    tok = torch.as_tensor(r.integers(0, cfg.vocab_size, slots),
+                          dtype=torch.int32, device=dev)
+    len0 = pool["len"].clone()
+
+    def checked_step():
+        pool["len"] = len0.clone()
+        return llama.paged_decode_step(params, tok, pool, table, cfg,
+                                       n_cols=p_max)[0]
+
+    got = checked_step()
+    kernel = llama._paged_attention
+    llama._paged_attention = paged_attention_reference
+    try:
+        want = checked_step()
+    finally:
+        llama._paged_attention = kernel
+    err = (got - want).abs().max().item() / want.abs().max().item()
+    check(err <= 5e-2, f"{what}: paged decode logits, kernel vs the pool "
+          f"read apart: rel err {err} > 5e-2")
+
+    def one_step():
+        pool["len"].fill_(fill)
+        llama.paged_decode_step(params, tok, pool, table, cfg, n_cols=p_max)
+
+    ms = timed_ms(one_step, iters=10, warm=2)
+    n0 = (gqa_decode_attention_cuda.launches,
+          gqa_decode_attention_int8_cuda.launches)
+    prof = device_profile(one_step, 5)
+    n_calls = 6  # device_profile's warm call and its 5
+    n = {"gqa_decode_attention_cuda":
+         (gqa_decode_attention_cuda.launches - n0[0]) / n_calls,
+         "gqa_decode_attention_int8_cuda":
+         (gqa_decode_attention_int8_cuda.launches - n0[1]) / n_calls}
+    check_one_decode_launch_per_layer(prof, cfg.n_layers)
+    want_k, other = decode_kinds(cfg.kv_bits == 8)
+    check(n[want_k] == cfg.n_layers and n[other] == 0,
+          f"{what}: a paged step launched {n}, expected {cfg.n_layers} of "
+          f"{want_k} and none of {other}")
+    prof["decode_launches_per_step"] = n
+    prof["step_ms_events"] = ms
+    prof["decode_logit_rel_err"] = err
+    prof["decode_argmax_equal"] = bool(
+        (got.argmax(-1) == want.argmax(-1)).all())
+    del pool
+    return prof
+
+
+def ttft_s(gen, admit) -> float:
+    """Host seconds from admission (``admit(callback)`` returns the slot)
+    to the first token on an idle generator; the slot is then released."""
+    got = []
+    t0 = time.perf_counter()
+    slot = admit(lambda i, toks: got.append(time.perf_counter()))
+    while not got:
+        gen.step()
+    while gen.slots[slot].live:
+        gen.step()
+    gen.drain()
+    gen.release(slot)
+    return got[0] - t0
+
+
+def longest_gap_ms(gen, cfg, long_prompt, n_live: int = 4) -> dict:
+    """``n_live`` streams decode; then a 1900-token prompt is admitted.
+    Returns the longest host gap between two token bursts of a live stream,
+    from its last burst before the admission to its first burst after the
+    long prompt's first token, and how long that first token took."""
+    import numpy as np
+
+    stamps, first = [], []  # the bursts of the first live stream
+    r = np.random.default_rng(7)
+    slots = [gen.add_request(r.integers(0, cfg.vocab_size, 32).tolist(),
+                             400, (lambda i, t: stamps.append(
+                                 time.perf_counter())) if k == 0 else None)
+             for k in range(n_live)]
+    for _ in range(4):
+        gen.step()
+    gen.drain()  # the burst admission would flush anyway: before the clock
+    t_admit = time.perf_counter()
+    seg0 = gen.prefill_segments_run
+    long_slot = gen.add_request(long_prompt, 1,
+                                lambda i, t: first.append(time.perf_counter()))
+    while not first:
+        gen.step()
+    t_first = first[0]
+    while not stamps or stamps[-1] < t_first:
+        gen.step()  # the live stream's first burst after that
+    for i in slots:
+        gen.slots[i].live = False
+    gen.drain()
+    for i in (*slots, long_slot):
+        if not gen.slots[i].live:
+            gen.release(i)
+    before = [t for t in stamps if t < t_admit]
+    after = [t for t in stamps if t >= t_first]
+    window = [t for t in stamps
+              if (before[-1] if before else t_admit) <= t <= after[0]]
+    gaps = np.diff(window) * 1e3 if len(window) > 1 else np.array([0.0])
+    return {"longest_gap_ms": float(gaps.max()),
+            "median_gap_ms": float(np.median(gaps)),
+            "bursts_during_prefill": len(window) - 1,
+            "ttft_long_ms": (t_first - t_admit) * 1e3,
+            "segments": gen.prefill_segments_run - seg0}
+
+
+def paged_arm(llama, params, cfg, dev, *, n_shared: int, n_long: int,
+              pin: bool, seed: int, int8: bool) -> tuple[dict, object]:
+    """Serve one paged arm (``PAGED``) behind LLMServer with the kernels'
+    launch counts read around it; check every request finished with its
+    tokens, the prefix cache hit, the segments ran, flash ran with
+    ``q_offset`` > 0 and only the decode kernel the pages need launched.
+    Returns (results, the generator)."""
+    from gofr_tpu_torch.ml.generate import Generator
+
+    max_new = 32
+    gen = Generator(params, cfg, device=dev, **PAGED)
+    t0 = time.perf_counter()
+    gen.warmup()
+    warm_s = time.perf_counter() - t0
+    prefix, shared, longs = paged_prompts(cfg.vocab_size, n_shared, n_long,
+                                          seed)
+    torch.cuda.reset_peak_memory_stats()
+    steps0, seg0 = gen.steps, gen.prefill_segments_run
+    reset_launches()
+    with flash_shapes(llama) as shapes:
+        outs, wall, snap, reasons = serve_paged(gen, prefix, shared, longs,
+                                                max_new, pin)
+        torch.cuda.synchronize()
+    launches = read_launches()
+    steps, segments = gen.steps - steps0, gen.prefill_segments_run - seg0
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    stats = gen.pool_stats()
+    what = f"paged {cfg.kv_bits}-bit arm"
+    check(len(outs) == n_shared + n_long
+          and all(len(o) == max_new and all(0 <= t < cfg.vocab_size
+                                            for t in o) for o in outs)
+          and all(r == "length" for r in reasons),
+          f"{what}: not every request finished with {max_new} tokens "
+          f"({[len(o) for o in outs]}, {reasons})")
+    check(snap["hits"] > 0 and snap["prefill_tokens_saved"] > 0,
+          f"{what}: no prefix hit ({snap})")
+    offset_calls = sum(n for k, n in shapes.items() if k.endswith("+offset"))
+    check(offset_calls > 0, f"{what}: no flash call with q_offset > 0")
+    check(launches["flash_attention_cuda"] == sum(shapes.values()),
+          f"{what}: {sum(shapes.values())} flash calls but "
+          f"{launches['flash_attention_cuda']} kernel launches")
+    want, other = decode_kinds(int8)
+    check(launches[want] >= cfg.n_layers * steps > 0 and launches[other] == 0,
+          f"{what}: decode launches {launches} for {steps} steps")
+    if n_long:
+        check(segments >= 6, f"{what}: {segments} prefill segments ran")
+    served = sum(len(o) for o in outs)
+    return {"launches": launches, "decode_steps": steps,
+            "prefill_segments_run": segments,
+            "flash_calls_by_shape": dict(shapes),
+            "flash_offset_calls": offset_calls, "warmup_s": warm_s,
+            "served_tokens": served, "served_wall_s": wall,
+            "served_tok_per_s": served / wall,
+            "prefix_cache": {k: snap[k] for k in ("hits", "misses",
+                                                 "evictions",
+                                                 "prefill_tokens_saved")},
+            "peak_mem_gib": peak_gb,
+            "pages_in_use_at_end": stats["n_pages"] - 1 - stats["free_pages"],
+            "pool": stats}, gen
+
+
+def paged_path(dev, bf16_params, w8_params) -> dict:
+    """Llama-3-8B at full width from a shared page pool (``PAGED``): the
+    bf16 arm (16 requests on a 1536-token prefix pinned through the
+    server, and two unshared 1900-token prompts that prefill in segments
+    while they decode), then the int8-page arm on the w8 + kv8 weights and
+    the int4-page arm on the bf16 weights (8 requests each, the prefix
+    promoted by the cache). Then the logit checks (prefix hit against the
+    whole prompt, segments against one prefill), TTFT cold and on a prefix
+    hit, the longest decode gap while a long prompt prefills (chunked and
+    not), and the paged decode step beside the dense one."""
+    import numpy as np
+
+    from gofr_tpu_torch.ml.generate import Generator
+    from gofr_tpu_torch.models import llama
+
+    cfg = llama.llama3_8b()
+    out = {}
+    out["bf16"], gen = paged_arm(llama, bf16_params, cfg, dev, n_shared=16,
+                                 n_long=2, pin=True, seed=1, int8=False)
+    prefix, _, longs = paged_prompts(cfg.vocab_size, 16, 2, 1)
+
+    # prefix-hit first-token logits against the whole prompt's prefill;
+    # TTFT cold (segments) and on the pinned prefix, turns C H H C
+    r = np.random.default_rng(3)
+    suffix = r.integers(0, cfg.vocab_size, 64).tolist()
+    pid = next(p for p, i in gen._prefixes.items() if i["pinned"])
+    pages = gen._prefixes[pid]["pages"]
+    check(len(pages) * 16 == SHARED_LEN, "the pinned prefix holds 96 pages")
+    row = np.zeros((gen._p_max,), np.int32)
+    row[:len(pages)] = pages
+    row[len(pages):len(pages) + 4] = gen._free_pages[-4:]
+    toks = np.zeros((1, 128), np.int32)
+    toks[0, :64] = suffix
+    with torch.no_grad():
+        hit, _ = llama.paged_suffix_prefill(bf16_params, toks, [64], cfg,
+                                            gen.cache, row, SHARED_LEN, 16)
+        full = np.zeros((1, 2048), np.int32)
+        full[0, :SHARED_LEN + 64] = prefix + suffix
+        whole, _ = llama.prefill(bf16_params, full, [SHARED_LEN + 64], cfg,
+                                 llama.init_cache(cfg, 1, 2048, device=dev))
+    hit_err = (hit - whole).abs().max().item() / whole.abs().max().item()
+    check(hit_err <= 5e-2, f"prefix-hit logits vs the whole prompt: rel err "
+          f"{hit_err} > 5e-2")
+    ttft = {"cold": [], "prefix_hit": []}
+    for kind in ("cold", "prefix_hit", "prefix_hit", "cold"):
+        if kind == "cold":
+            ttft[kind].append(ttft_s(gen, lambda cb: gen.add_request(
+                prefix + suffix, 1, cb)))
+        else:
+            ttft[kind].append(ttft_s(gen, lambda cb: gen.add_request(
+                suffix, 1, cb, prefix=pid)))
+
+    # chunked (512-token segments through the suffix prefill) against one
+    # prefill of the whole 1900-token prompt, last-token logits
+    pool = llama.init_paged_cache(cfg, 1, 1 + 2 * 128, 16, device=dev)
+    row_a = np.arange(1, 129, dtype=np.int32)
+    row_b = np.arange(129, 257, dtype=np.int32)
+    ids = longs[0]
+    with torch.no_grad():
+        for start in range(0, 1900, 512):
+            seg = ids[start:start + 512]
+            t = np.zeros((1, 512), np.int32)
+            t[0, :len(seg)] = seg
+            chunked, _ = llama.paged_suffix_prefill(
+                bf16_params, t, [len(seg)], cfg, pool, row_a, start, 16)
+        t = np.zeros((1, 2048), np.int32)
+        t[0, :1900] = ids
+        unchunked, _ = llama.paged_prefill_into(bf16_params, t, [1900], cfg,
+                                                pool, row_b, 0, 16)
+    del pool
+    seg_diff = (chunked - unchunked).abs().max().item()
+    seg_err = seg_diff / unchunked.abs().max().item()
+    check(seg_err <= 5e-2, f"chunked vs unchunked logits: rel err {seg_err}")
+    seg_argmax_equal = int(chunked.argmax()) == int(unchunked.argmax())
+
+    # the longest decode gap while a 1900-token prompt prefills, with
+    # 512-token segments and whole (prefill_chunk 0)
+    gaps = {"prefill_chunk_512": longest_gap_ms(gen, cfg, longs[1])}
+    gen0 = Generator(bf16_params, cfg, device=dev,
+                     **{**PAGED, "prefill_chunk": 0})
+    gen0.warmup()
+    gaps["prefill_chunk_0"] = longest_gap_ms(gen0, cfg, longs[1])
+    del gen0
+    out["bf16"].update(
+        prefix_hit_logit_rel_err=hit_err, chunked_logit_rel_err=seg_err,
+        chunked_logit_max_abs_diff=seg_diff,
+        chunked_argmax_equal=seg_argmax_equal,
+        prefix_hit_argmax_equal=int(hit.argmax()) == int(whole.argmax()),
+        ttft_ms={k: [x * 1e3 for x in v] for k, v in ttft.items()},
+        decode_gap_while_long_prefill=gaps)
+    del gen
+
+    # the paged decode step at 8 slots x len 2000 beside the dense one
+    paged_prof = paged_step(llama, bf16_params, cfg, dev, "paged bf16 step")
+    dense = llama.init_cache(cfg, 8, 2048, device=dev)
+    tok = torch.zeros(8, dtype=torch.int32, device=dev)
+
+    def dense_step():
+        dense["len"].fill_(2000)
+        llama.decode_step(bf16_params, tok, dense, cfg)
+
+    dense_ms = timed_ms(dense_step, iters=10, warm=2)
+    dense_prof = device_profile(dense_step, 5)
+    del dense
+    out["bf16"]["step_8x2000"] = {"paged": paged_prof, "dense": dense_prof,
+                                  "dense_step_ms_events": dense_ms}
+
+    # the int8-page arm (w8 + kv8 weights) and the int4-page arm (bf16)
+    cfg8 = llama.llama3_8b(kv_quant=True, w8=True)
+    out["int8"], gen = paged_arm(llama, w8_params, cfg8, dev, n_shared=8,
+                                 n_long=0, pin=False, seed=2, int8=True)
+    del gen
+    out["int8"]["step_8x2000"] = paged_step(llama, w8_params, cfg8, dev,
+                                            "paged int8 step")
+    cfg4 = llama.llama3_8b(kv_bits=4)
+    out["int4"], gen = paged_arm(llama, bf16_params, cfg4, dev, n_shared=8,
+                                 n_long=0, pin=False, seed=2, int8=False)
+    del gen
+    out["int4"]["step_8x2000"] = paged_step(llama, bf16_params, cfg4, dev,
+                                            "paged int4 step")
+    return out
+
+
+def main(argv: list[str]) -> int:
+    import pathlib
+
+    # --out DIR: also write every result to DIR/chip_smoke.json
+    out_dir = (pathlib.Path(argv[argv.index("--out") + 1])
+               if "--out" in argv else None)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -887,11 +1351,20 @@ def main() -> int:
                   f"{r['tb_per_s']:.3f} TB/s")
     path, bf16_params = main_path(dev)
     print("main path (bf16): " + json.dumps(path))
-    qpath = int8_path(dev, bf16_params)
+    qpath, w8_params = int8_path(dev, bf16_params)
     print("main path (int8 cache + int8 weights): " + json.dumps(qpath))
+    ppath = paged_path(dev, bf16_params, w8_params)
+    print("paged path: " + json.dumps(ppath))
+    if out_dir is not None:
+        out_dir.mkdir(parents=True, exist_ok=True)
+        (out_dir / "chip_smoke.json").write_text(json.dumps(
+            {"card": card, "kernels": rows, "bf16": path, "int8": qpath,
+             "paged": ppath}, indent=1))
     for row in rows:
         by_path = {"bf16": path["launches"][row["name"]],
-                   "int8": qpath["launches"][row["name"]]}
+                   "int8": qpath["launches"][row["name"]],
+                   **{f"paged_{arm}": ppath[arm]["launches"][row["name"]]
+                      for arm in ("bf16", "int8", "int4")}}
         own = "int8" if row["name"] == "gqa_decode_attention_int8_cuda" \
             else "bf16"
         row["launches"] = by_path[own]
@@ -906,4 +1379,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -14,12 +14,24 @@ completion with its finish reason.
 
 Kept from the JAX class: the burst-collection window, priority admission,
 deadlines (reaped while queued or mid-decode), ``check_admissible`` and the
-graceful ``close(drain_s)``. An exception on the serving thread fails every
-live and queued request with ``GeneratorCrashed``, is logged with its
-traceback and kept in ``LLMServer.error``, and leaves the server dead
-(``health() == "dead"``); restart under a watchdog, the flight recorder,
-journeys, capture, goodput, the prefix cache, fault injection and replicas
-wait for later slices.
+graceful ``close(drain_s)``. Over a paged generator (``page_size`` > 0):
+
+- the shared-prefix cache (``prefix_cache.py``) is on by default:
+  admission longest-matches each prompt against a radix trie of cached
+  prefixes, prefills only the suffix on a hit, and registers hot prefixes
+  with no caller opt-in (``prefix_cache=False`` turns it off, a
+  ``PrefixCacheConfig`` tunes it); ``register_prefix`` pins a prefix and
+  ``drop_prefix`` releases it, both run on the serving thread;
+- admission goes one request at a time, a dry page pool requeues the
+  request at the head of its class (transient back-pressure, not an
+  error), a prefix evicted in the race window falls back to the full
+  prompt, and a slot truncated by a dry pool finishes as ``"eviction"``.
+
+An exception on the serving thread fails every live and queued request
+with ``GeneratorCrashed``, is logged with its traceback and kept in
+``LLMServer.error``, and leaves the server dead (``health() == "dead"``);
+restart under a watchdog, the flight recorder, journeys, capture, goodput,
+fault injection and replicas wait for later slices.
 """
 
 from __future__ import annotations
@@ -34,6 +46,8 @@ from typing import AsyncIterator
 import numpy as np
 
 from .errors import DeadlineExceeded, GeneratorCrashed, ServerClosed
+from .generate import PagePoolExhausted, PrefixEvicted
+from .prefix_cache import PrefixCacheConfig, RadixPrefixCache
 from .scheduler import AgingPriorityQueue, normalize_priority
 
 __all__ = ["LLMServer"]
@@ -52,8 +66,9 @@ _AGING_S = 2.0
 
 
 class _Finish:
-    """Completion marker carrying the slot's finish reason: 'stop' (eos) or
-    'length' (max_new or capacity reached)."""
+    """Completion marker carrying the slot's finish reason: 'stop' (eos),
+    'length' (max_new or capacity reached) or 'eviction' (a dry page pool
+    truncated the answer)."""
 
     __slots__ = ("reason",)
 
@@ -63,11 +78,16 @@ class _Finish:
 
 class _Request:
     __slots__ = ("prompt", "max_new", "out_q", "loop", "priority",
-                 "enqueued_at", "deadline_at", "deadline_hit", "cancelled")
+                 "enqueued_at", "deadline_at", "deadline_hit", "cancelled",
+                 "prefix", "full_prompt", "cache_seen")
 
     def __init__(self, prompt, max_new, out_q, loop, priority: int,
-                 deadline_s: float) -> None:
+                 deadline_s: float, prefix: int | None = None) -> None:
         self.prompt = prompt
+        self.prefix = prefix      # registered shared-prefix id (paged)
+        self.full_prompt = None   # the original ids when the prefix cache
+        #                           split the prompt (prompt = the suffix)
+        self.cache_seen = False   # the prefix cache looked at it once
         self.max_new = max_new
         self.out_q = out_q
         self.loop = loop
@@ -89,11 +109,20 @@ class _Request:
 class LLMServer:
     """Owns a Generator on a serving thread; async API for callers."""
 
-    def __init__(self, generator, *, name: str = "llm") -> None:
+    def __init__(self, generator, *, name: str = "llm",
+                 prefix_cache=None) -> None:
         self.gen = generator
         self.name = name
+        # the shared-prefix cache: on by default over a paged generator;
+        # False turns it off, a PrefixCacheConfig tunes it
+        self.prefix_cache = None
+        if getattr(generator, "page_size", 0) and prefix_cache is not False:
+            cfg = (prefix_cache
+                   if isinstance(prefix_cache, PrefixCacheConfig) else None)
+            self.prefix_cache = RadixPrefixCache(generator, cfg, model=name)
         self._idle_backoff = _IDLE_WAIT_S
         self._requests: _queue.Queue[_Request | None] = _queue.Queue()
+        self._setup_q: _queue.Queue = _queue.Queue()  # run on serving thread
         self._waiting = AgingPriorityQueue(aging_s=_AGING_S)
         self._active: dict[int, _Request] = {}
         self._closed = False
@@ -121,6 +150,7 @@ class LLMServer:
 
     def _serve(self) -> None:
         while not self._closed:
+            self._run_setup_tasks()
             self._reap_cancelled()
             self._admit_waiting()
             if self._closed:
@@ -205,6 +235,11 @@ class LLMServer:
             self.gen.drain()
             self._finish_dead_slots()
             n_free = sum(not s.live for s in self.gen.slots)
+            if getattr(self.gen, "page_size", 0):
+                # one at a time: add_requests is all-or-nothing, and a
+                # batch that ran the pool dry on its last member would
+                # unwind the others and livelock on retry
+                n_free = min(n_free, 1)
             batch = []
             while len(self._waiting) and len(batch) < n_free:
                 req = self._waiting.pop()
@@ -214,18 +249,47 @@ class LLMServer:
                     continue
                 try:
                     # one bad request rejects alone, not the whole wave
-                    self.check_admissible(req.prompt, req.max_new)
+                    ids = self._split_prefix(req)
+                    self.check_admissible(
+                        req.full_prompt if req.full_prompt is not None
+                        else ids, req.max_new,
+                        prefix=None if req.full_prompt is not None
+                        else req.prefix)
                 except ValueError as exc:
                     self._reject(req, exc)
                     continue
-                batch.append((req, req.prompt))
+                batch.append((req, ids))
             if not batch:
                 continue
             try:
+                # a request on a prefix comes in a paged batch of one
                 slots = self.gen.add_requests([
                     (ids, req.max_new,
-                     (lambda i, toks, r=req: self._emit(r, toks)))
+                     (lambda i, toks, r=req: self._emit(r, toks)), req.prefix)
                     for req, ids in batch])
+            except PrefixEvicted as exc:
+                req = batch[0][0]
+                if req.full_prompt is not None:
+                    # the cache split this prompt and the generator evicted
+                    # the prefix before admission: requeue with the full
+                    # prompt — the caller never learns caching was tried
+                    self.prefix_cache.invalidate(req.prefix)
+                    self.prefix_cache.record_miss()
+                    req.prompt = req.full_prompt
+                    req.prefix = None
+                    req.full_prompt = None
+                    self._waiting.push_front(req)
+                    continue
+                # an explicitly passed prefix: re-registering is the
+                # caller's
+                self._reject(req, exc)
+                continue
+            except PagePoolExhausted:
+                # transient back-pressure: pages free as live slots finish,
+                # so requeue at the FRONT of each class and let decode run
+                for req, _ in reversed(batch):
+                    self._waiting.push_front(req)
+                break
             except ValueError as exc:
                 # a client mistake the generator's own checks caught
                 for req, _ in batch:
@@ -241,6 +305,102 @@ class LLMServer:
                 raise
             for (req, _), slot in zip(batch, slots, strict=True):
                 self._active[slot] = req
+                if req.full_prompt is not None:
+                    # the hit is real only now: the slot borrowed the
+                    # prefix pages and only the suffix prefilled
+                    self.prefix_cache.commit_hit(req.prefix)
+
+    def _split_prefix(self, req: _Request) -> np.ndarray:
+        """The ids to admit: the radix lookup splits the prompt into
+        (registered prefix, suffix) so prefill covers only the suffix; hot
+        prefixes promote inside ``observe``. Runs once a request
+        (``cache_seen``): a requeued request keeps its split, and the
+        PrefixEvicted fallback keeps its decision to go uncached."""
+        ids = np.asarray(req.prompt, np.int32).reshape(-1)
+        cache = self.prefix_cache
+        if cache is None or req.prefix is not None or req.cache_seen:
+            return ids
+        req.cache_seen = True
+        if len(ids) and (ids.min() < 0
+                         or ids.max() >= self.gen.cfg.vocab_size):
+            return ids  # check_admissible rejects it; keep it off the trie
+        pid, reg_len = cache.observe(ids)
+        if pid is None:
+            return ids
+        req.full_prompt = ids
+        req.prefix = pid
+        req.prompt = ids[reg_len:]
+        return req.prompt
+
+    def _run_setup_tasks(self) -> None:
+        """Run queued device-touching work (``register_prefix``,
+        ``drop_prefix``) on the serving thread, the one thread that
+        touches the generator."""
+        while True:
+            try:
+                work = self._setup_q.get_nowait()
+            except _queue.Empty:
+                return
+            work()
+
+    def _run_on_serving(self, work, timeout_s: float, what: str):
+        """Run ``work`` on the serving thread and relay its result or
+        exception here. It may wait one idle-poll interval (<= 50 ms) plus
+        whatever device work ``work`` itself does."""
+        done = threading.Event()
+        box: dict = {}
+
+        def wrapped() -> None:
+            try:
+                box["out"] = work()
+            except Exception as exc:  # relayed to the caller below
+                box["err"] = exc
+            finally:
+                done.set()
+
+        if self._closed:
+            raise self._closed_error()
+        self._setup_q.put(wrapped)
+        deadline = time.monotonic() + timeout_s
+        while not done.wait(0.1):
+            if self._closed:  # serving thread gone: fail fast
+                raise self._closed_error()
+            if time.monotonic() > deadline:
+                raise DeadlineExceeded(
+                    f"{what} timed out after {timeout_s:g}s")
+        if "err" in box:
+            raise box["err"]
+        return box.get("out")
+
+    def register_prefix(self, prefix_ids, timeout_s: float = 120.0) -> int:
+        """PIN a shared prefix (a system prompt): registered through the
+        prefix cache when one is on, so it is evicted under pool pressure
+        only as a last resort and never while borrowed. Returns the id to
+        pass as ``prefix=`` to ``stream_chunks``/``generate`` (with the
+        cache on, plain submissions longest-match it anyway). Thread-safe:
+        the prefill runs on the serving thread."""
+        def work() -> int:
+            if self.prefix_cache is not None:
+                return self.prefix_cache.pin(prefix_ids)
+            return self.gen.register_prefix(prefix_ids)
+
+        return self._run_on_serving(work, timeout_s, "register_prefix")
+
+    def drop_prefix(self, pid: int, timeout_s: float = 30.0) -> None:
+        """Release a registered prefix's pages (raises if slots still
+        borrow them). Runs on the serving thread like ``register_prefix``."""
+        def work() -> None:
+            if self.prefix_cache is not None:
+                self.prefix_cache.drop(pid)
+            else:
+                self.gen.drop_prefix(pid)
+
+        self._run_on_serving(work, timeout_s, "drop_prefix")
+
+    def has_prefix(self, pid: int) -> bool:
+        """False once the prefix was dropped or evicted under pool
+        pressure."""
+        return self.gen.has_prefix(pid)
 
     @staticmethod
     def _emit(req: _Request, tokens: list[int]) -> None:
@@ -285,29 +445,68 @@ class LLMServer:
                 self._expire(req, "mid-generation")
                 continue
             self.served += 1
-            req.send(_Finish("stop" if s.eos_hit else "length"))
+            req.send(_Finish("eviction" if s.evicted
+                             else "stop" if s.eos_hit else "length"))
 
     # -- caller side ------------------------------------------------------------
-    def check_admissible(self, prompt_ids, max_new_tokens: int = 1) -> None:
-        """Raise ValueError if this request can NEVER admit: prompt length
-        against ``max_seq``, token ids against the vocabulary. Busy slots
-        are not a reason — those requests queue."""
+    def check_admissible(self, prompt_ids, max_new_tokens: int = 1,
+                         prefix: int | None = None) -> None:
+        """Raise ValueError if this request can NEVER admit under the
+        generator's static shape rules: prompt (or prefix + suffix) length
+        against ``max_seq`` and the prefill buckets, token ids against the
+        vocabulary, and a page pool too small to ever cover it. A prompt
+        longer than every bucket is admissible when chunked prefill takes
+        it or a cached prefix covers all but a suffix that fits. Busy
+        slots and recoverable pool pressure are not reasons — those
+        requests queue."""
+        gen = self.gen
         ids = np.asarray(prompt_ids, np.int32).reshape(-1)
         n = len(ids)
-        if n == 0 or n >= self.gen.max_seq:
-            raise ValueError(
-                f"prompt length {n} out of range (1..{self.gen.max_seq - 1})")
         if max_new_tokens < 1:
             raise ValueError(f"max_new_tokens must be >= 1, got "
                              f"{max_new_tokens}")
-        vocab = self.gen.cfg.vocab_size
-        if ids.min() < 0 or ids.max() >= vocab:
+        vocab = gen.cfg.vocab_size
+        if n and (ids.min() < 0 or ids.max() >= vocab):
             raise ValueError(f"token ids must lie in [0, {vocab})")
+        buckets = gen.prefill_buckets
+        if prefix is not None:
+            info = getattr(gen, "_prefixes", {}).get(prefix)
+            if info is None:
+                return  # evicted: the PrefixEvicted path answers it
+            n_suf = len(info["tail"]) + n
+            if n_suf == 0 or info["len"] + n_suf >= gen.max_seq:
+                raise ValueError(
+                    f"prefix {info['len']} + suffix {n_suf} out of range "
+                    f"(1..{gen.max_seq - 1})")
+            if n_suf > buckets[-1]:
+                raise ValueError(
+                    f"suffix length {n_suf} exceeds the largest prefill "
+                    f"bucket {buckets[-1]}")
+            return
+        if n == 0 or n >= gen.max_seq:
+            raise ValueError(
+                f"prompt length {n} out of range (1..{gen.max_seq - 1})")
+        chunked = getattr(gen, "prefill_chunk", 0) and n > gen.prefill_chunk
+        if not chunked and n > buckets[-1]:
+            # a cached prefix can still admit it: only the suffix prefills
+            if (self.prefix_cache is None
+                    or self.prefix_cache.peek(ids)[0] is None):
+                raise ValueError(
+                    f"prompt length {n} exceeds the largest prefill bucket "
+                    f"{buckets[-1]}")
+        if getattr(gen, "page_size", 0):
+            upto = min(n + 2 * gen.chunk, n + max_new_tokens, gen.max_seq)
+            need = -(-upto // gen.page_size)
+            if need > gen._pages_ever_free():
+                raise ValueError(
+                    f"request needs {need} pages but the pool can only "
+                    f"ever free {gen._pages_ever_free()}")
 
     async def stream_chunks(self, prompt_ids, max_new_tokens: int = 64,
                             info: dict | None = None,
                             priority: int | str | None = None,
-                            deadline_s: float | None = None
+                            deadline_s: float | None = None,
+                            prefix: int | None = None
                             ) -> AsyncIterator[list[int]]:
         """Yield BURSTS of tokens — each list is the slot's share of one
         processed decode block (the first is ``[first_token]``).
@@ -315,8 +514,11 @@ class LLMServer:
         ``priority``: ``"high"`` / ``"normal"`` / ``"low"`` or the class
         index (unknown values raise ValueError before enqueue).
         ``deadline_s``: the request's TTL (0 or None = none); past it the
-        request fails with ``DeadlineExceeded`` wherever it sits. Pass ``info={}`` to receive
-        ``info["finish_reason"]`` (``"stop"`` or ``"length"``)."""
+        request fails with ``DeadlineExceeded`` wherever it sits.
+        ``prefix``: a ``register_prefix`` id (paged); ``prompt_ids`` is
+        then the suffix. Pass ``info={}`` to receive
+        ``info["finish_reason"]`` (``"stop"``, ``"length"`` or
+        ``"eviction"``)."""
         if self._closed or self._draining:
             raise self._closed_error()
         prio = normalize_priority(priority)
@@ -325,7 +527,8 @@ class LLMServer:
             raise ValueError(f"deadline_s must be >= 0, got {ttl}")
         out_q: asyncio.Queue = asyncio.Queue()
         req = _Request(np.asarray(prompt_ids).reshape(-1), max_new_tokens,
-                       out_q, asyncio.get_running_loop(), prio, ttl)
+                       out_q, asyncio.get_running_loop(), prio, ttl,
+                       prefix=prefix)
         self._requests.put(req)
         if self._closed:
             # close() may have flushed before our put landed: never park on
@@ -352,10 +555,12 @@ class LLMServer:
     async def stream(self, prompt_ids, max_new_tokens: int = 64,
                      info: dict | None = None,
                      priority: int | str | None = None,
-                     deadline_s: float | None = None) -> AsyncIterator[int]:
+                     deadline_s: float | None = None,
+                     prefix: int | None = None) -> AsyncIterator[int]:
         """Yield tokens one at a time (a view of ``stream_chunks``)."""
         agen = self.stream_chunks(prompt_ids, max_new_tokens, info=info,
-                                  priority=priority, deadline_s=deadline_s)
+                                  priority=priority, deadline_s=deadline_s,
+                                  prefix=prefix)
         try:
             async for burst in agen:
                 for tok in burst:
@@ -366,12 +571,14 @@ class LLMServer:
     async def generate(self, prompt_ids, max_new_tokens: int = 64,
                        info: dict | None = None,
                        priority: int | str | None = None,
-                       deadline_s: float | None = None) -> list[int]:
+                       deadline_s: float | None = None,
+                       prefix: int | None = None) -> list[int]:
         """Collect the full completion."""
         out: list[int] = []
         async for burst in self.stream_chunks(prompt_ids, max_new_tokens,
                                               info=info, priority=priority,
-                                              deadline_s=deadline_s):
+                                              deadline_s=deadline_s,
+                                              prefix=prefix):
             out.extend(burst)
         return out
 

@@ -1,14 +1,14 @@
 """Host-side admission and dispatch policy — counterpart of the parts of
-``gofr_tpu/ml/scheduler.py`` the dense serving path uses.
+``gofr_tpu/ml/scheduler.py`` the serving path uses.
 
 - ``normalize_priority`` and ``AgingPriorityQueue``: weighted priority
   classes (``high`` / ``normal`` / ``low``) with aging, the admission order
   of ``LLMServer``;
 - ``TokenBudgetScheduler``: the per-dispatch planner a ``Generator``
-  consults to pick a decode-ladder entry. The chunked-prefill half of its
-  plan (segments per dispatch, restore and sequence-parallel debts) waits
-  for chunked prefill (ROADMAP A.7); the speculative unit cost for
-  speculation (A.10); ``SLOController`` for the front (A.6).
+  consults to pick a decode-ladder entry and the prefill segments to run
+  before it. The restore and sequence-parallel debts wait for the host
+  tier and sequence parallelism (ROADMAP A.8, A.11); the speculative unit
+  cost for speculation (A.10); ``SLOController`` for the front (A.6).
 
 Pure Python with no device work; all mutation happens on the serving thread
 that owns the Generator.
@@ -52,30 +52,69 @@ def normalize_priority(priority) -> int:
 
 
 class TokenBudgetScheduler:
-    """Per-dispatch planner: ``plan(n_decodable)`` is the largest ladder
-    entry whose decode tokens (``size * n_decodable``) fit the budget,
-    never below the ladder's first entry. ``dispatches`` counts the ladder
-    entries planned; the Generator counts its TTFT mini-chunks, which are
-    admission-driven rather than planned, in ``mini_dispatches``."""
+    """Per-dispatch planner: one token budget split between decode and
+    segmented prefill.
 
-    def __init__(self, budget: int, ladder) -> None:
+    - without prefill pending, ``plan`` picks the largest ladder entry
+      whose decode tokens (``size * n_decodable``) fit the budget, never
+      below the ladder's first entry;
+    - with prefill pending, ``prefill_share`` of the budget is reserved
+      for prefill first (with a decode floor of half the largest chunk a
+      live row), and the decode chunk shrinks down the ladder instead of
+      delaying prefill a full chunk; a light batch (a quarter of the slots
+      or fewer decoding) takes as many segments as the rest of the budget
+      holds, a busy one the stall-free minimum of one.
+
+    ``plan`` returns ``(chunk_size, n_segments)``. ``note_dispatch`` counts
+    the ladder entries dispatched; the Generator counts its TTFT
+    mini-chunks, which are admission-driven rather than planned, in
+    ``mini_dispatches``; ``last_segments`` is the last plan's segment
+    count."""
+
+    # the share of the budget reserved for pending prefill; in JAX the SLO
+    # controller steers it (ROADMAP A.6), here it is fixed
+    prefill_share = 0.5
+
+    def __init__(self, budget: int, ladder, prefill_chunk: int = 0, *,
+                 slots: int | None = None) -> None:
         if budget <= 0:
             raise ValueError("token budget must be positive")
         self.budget = int(budget)
         self.ladder = tuple(sorted(int(c) for c in ladder))
         if not self.ladder:
             raise ValueError("chunk ladder is empty")
+        self.prefill_chunk = int(prefill_chunk)
+        self.slots = slots  # batch size hint for the decode-light test
         self.dispatches: collections.Counter = collections.Counter()
         self.mini_dispatches = 0
+        self.last_segments = 0
 
-    def plan(self, n_decodable: int) -> int:
+    def plan(self, n_decodable: int, prefill_pending: bool = False
+             ) -> tuple[int, int]:
+        budget = self.budget
+        pending = prefill_pending and self.prefill_chunk > 0
+        if pending:
+            floor = (self.ladder[-1] // 2) * max(1, n_decodable)
+            decode_budget = max(budget - int(budget * self.prefill_share),
+                                min(floor, budget))
+        else:
+            decode_budget = budget
         rows = max(1, n_decodable)
         size = self.ladder[0]
         for c in self.ladder:
-            if c * rows <= self.budget:
+            if c * rows <= decode_budget:
                 size = c
-        self.dispatches[size] += 1
-        return size
+        if not pending:
+            self.last_segments = 0
+            return size, 0
+        light = self.slots is None or n_decodable <= max(1, self.slots // 4)
+        spare = budget - size * n_decodable
+        segments = max(1, spare // self.prefill_chunk if light else 1)
+        self.last_segments = segments
+        return size, segments
+
+    def note_dispatch(self, chunk_size: int) -> None:
+        self.dispatches[chunk_size] += 1
 
 
 class AgingPriorityQueue:
@@ -97,6 +136,11 @@ class AgingPriorityQueue:
 
     def push(self, item) -> None:
         self._queues[item.priority].append(item)
+
+    def push_front(self, item) -> None:
+        """Requeue ``item`` at the head of its class (a retry after
+        transient back-pressure keeps its place)."""
+        self._queues[item.priority].appendleft(item)
 
     def pop(self, now: float | None = None):
         """Next request to admit, or None when empty."""

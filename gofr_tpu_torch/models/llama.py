@@ -29,10 +29,26 @@ What differs from JAX, and why:
 - ``quantize_weights`` quantizes one layer at a time, so no f32 copy of a
   whole stacked weight exists on the card.
 
-The dense serving path is ported at bf16/f32, with the int8 cache and int8
-weights. int4 caches (a paged-cache precision), sequence-parallel attention
-and checkpoint restore raise ``NotImplementedError`` naming the ROADMAP
-item that brings them.
+The paged cache is a pool of pages shared by every slot
+(``init_paged_cache``): bf16/f32 values [L, N, page, KV, D], or quantized
+values flat [L, N, page, KV*W] (int8, or two int4 codes a byte) with their
+bf16 planes [L, N, KV, page]; page 0 is scratch. ``paged_prefill_into``,
+``paged_suffix_prefill`` (a segment or suffix at a virtual offset) and
+``paged_decode_step`` read and write it through a page table, and gather a
+row's pages into a virtual sequence for the kernels. Where JAX attends that
+sequence with its plain ``attention``, the port hands it to the same two
+kernels as the dense path: flash with ``q_offset`` for a suffix or segment,
+the decode kernel for a step (the bf16 one over bf16 pages and over int4
+pages dequantized, the int8 one over int8 pages with their scales
+transposed to [B, KV, S]). A decode step gathers only the table columns the
+caller says the live rows need (``n_cols``); ``kv_len`` masks the rest, so
+the result is unchanged.
+
+The dense serving path is ported at bf16/f32 with the int8 cache and int8
+weights, chunked prefill (``prefill_segment_into``) and the paged cache at
+bf16/f32, int8 and int4. Sequence-parallel attention and checkpoint
+restore raise ``NotImplementedError`` naming the ROADMAP item that brings
+them.
 """
 
 from __future__ import annotations
@@ -42,13 +58,17 @@ import os
 import numpy as np
 import torch
 
-from ..ops import (apply_rope, cached_decode_attention, flash_attention,
-                   quantize_kv, quantize_weight, rms_norm, rope_table)
+from ..ops import (apply_rope, cached_decode_attention, dequantize_kv,
+                   dequantize_kv4, flash_attention, quantize_kv, quantize_kv4,
+                   quantize_weight, rms_norm, rope_table)
 
 __all__ = ["LlamaConfig", "llama3_8b", "tiny_llama", "kv_bits_from_env",
            "config_from_env", "init_params", "quantize_weights",
-           "params_from_config", "params_from_jax", "forward", "init_cache",
-           "prefill", "prefill_into", "prefill_into_many", "decode_step"]
+           "params_from_config", "params_from_jax", "forward",
+           "kv_plane_names", "kv_store_width", "kv_encode", "kv_decode",
+           "init_cache", "prefill", "prefill_into", "prefill_into_many",
+           "prefill_segment_into", "decode_step", "init_paged_cache",
+           "paged_prefill_into", "paged_suffix_prefill", "paged_decode_step"]
 
 _LAYER_KEYS = ("attn_norm", "mlp_norm", "wq", "wk", "wv", "wo", "w_gate",
                "w_up", "w_down")
@@ -79,7 +99,9 @@ class LlamaConfig:
                 f"attn_impl={attn_impl!r}: sequence-parallel attention is not "
                 "ported yet (ROADMAP A.11)")
         # kv_bits as in the JAX config: 8 (the int8 cache, the default with
-        # kv_quant) or 16 (the fp cache); setting 8 implies kv_quant
+        # kv_quant), 4 (packed int4 codes with a scale and a zero point a
+        # vector; paged caches only) or 16 (the fp cache); 4 and 8 imply
+        # kv_quant
         if kv_bits is None:
             kv_bits = 8 if kv_quant else 16
         kv_bits = int(kv_bits)
@@ -87,10 +109,6 @@ class LlamaConfig:
             raise ValueError(f"kv_bits must be 4, 8 or 16, got {kv_bits}")
         if kv_bits == 16 and kv_quant:
             raise ValueError("kv_quant=True contradicts kv_bits=16")
-        if kv_bits == 4:
-            raise NotImplementedError(
-                "kv_bits=4: int4 KV is a paged-cache precision, and the paged "
-                "cache is not ported yet (ROADMAP A.8)")
         if dtype not in (torch.bfloat16, torch.float32):
             raise ValueError(f"dtype must be bfloat16 or float32, got {dtype}")
         self.vocab_size = vocab_size
@@ -148,8 +166,8 @@ def kv_bits_from_env() -> int | None:
 
 def config_from_env(tiny_vocab_size: int | None = None) -> LlamaConfig:
     """``LLAMA_PRESET=tiny|1b|8b``, ``LLAMA_DTYPE=bf16|f32``,
-    ``LLAMA_KV_QUANT=1`` (the int8 cache), ``GOFR_ML_KV_BITS=8|16`` (the KV
-    precision, over ``LLAMA_KV_QUANT``; 4 raises through ``LlamaConfig``)
+    ``LLAMA_KV_QUANT=1`` (the int8 cache), ``GOFR_ML_KV_BITS=4|8|16`` (the KV
+    precision, over ``LLAMA_KV_QUANT``; 4 needs a paged generator)
     and ``LLAMA_W8=1`` (int8 weights: pair with ``params_from_config``), as
     in the JAX package."""
     preset = os.environ.get("LLAMA_PRESET", "tiny")
@@ -367,7 +385,13 @@ def _tokens(tokens, cfg: LlamaConfig, device) -> torch.Tensor:
 
 
 def _int32(x, device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(x), dtype=torch.int32).to(device)
+    """Host ints -> int32 on ``device``. To a card the copy goes through
+    pinned memory without blocking, so the host never waits for queued
+    work to upload an index."""
+    t = torch.as_tensor(np.asarray(x), dtype=torch.int32)
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 @torch.no_grad()
@@ -391,23 +415,74 @@ def forward(params: dict, tokens, cfg: LlamaConfig, *, seq_lens=None
 
 # -- KV-cache serving path ------------------------------------------------------
 
+def kv_plane_names(cfg: LlamaConfig) -> tuple[str, ...]:
+    """Per-vector side planes riding next to the quantized values:
+    ``scale`` for symmetric int8, ``scale`` + ``zero`` for asymmetric int4.
+    Cache keys are ``k_<plane>`` / ``v_<plane>``, always sequence-minor
+    ([..., KV, S] / [..., KV, page])."""
+    return ("scale", "zero") if cfg.kv_bits == 4 else ("scale",)
+
+
+def kv_store_width(cfg: LlamaConfig) -> int:
+    """Stored width of ONE kv vector: ``head_dim`` int8 codes, or
+    ``head_dim / 2`` bytes of packed int4 codes."""
+    return cfg.head_dim // 2 if cfg.kv_bits == 4 else cfg.head_dim
+
+
+def kv_encode(cfg: LlamaConfig, x: torch.Tensor):
+    """Quantize [..., KV, hd] at the config's precision. Returns
+    (values [..., KV, kv_store_width], {plane: [..., KV]})."""
+    if cfg.kv_bits == 4:
+        q, sc, zp = quantize_kv4(x)
+        return q, {"scale": sc, "zero": zp}
+    q, sc = quantize_kv(x)
+    return q, {"scale": sc}
+
+
+def kv_decode(cfg: LlamaConfig, q: torch.Tensor, planes: dict,
+              dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Dequantize values [..., KV, kv_store_width] with their planes back to
+    [..., KV, hd]: the inverse of ``kv_encode``."""
+    dtype = dtype or cfg.dtype
+    if cfg.kv_bits == 4:
+        return dequantize_kv4(q, planes["scale"], planes["zero"], dtype)
+    return dequantize_kv(q, planes["scale"], dtype)
+
+
+def _kv_value_dtype(cfg: LlamaConfig) -> torch.dtype:
+    return torch.uint8 if cfg.kv_bits == 4 else torch.int8
+
+
+def _quant_cache(cfg: LlamaConfig, lead: tuple, seq: int, device) -> dict:
+    """Zeroed quantized K/V with their planes: values flat
+    [*lead, seq, KV*W], planes bf16 [*lead, KV, seq] (seq minor)."""
+    KV = cfg.n_kv_heads
+    cache = {name: torch.zeros((*lead, seq, KV * kv_store_width(cfg)),
+                               dtype=_kv_value_dtype(cfg), device=device)
+             for name in ("k", "v")}
+    for pl in kv_plane_names(cfg):
+        for name in ("k", "v"):
+            cache[f"{name}_{pl}"] = torch.zeros((*lead, KV, seq),
+                                                dtype=torch.bfloat16,
+                                                device=device)
+    return cache
+
+
 def init_cache(cfg: LlamaConfig, batch: int, max_seq: int | None = None,
                device=None) -> dict:
     """Dense cache, all zeros, with the JAX package's keys, shapes and
     dtypes: k/v [L, B, S_max, KV, D] in ``cfg.dtype``, or with
-    ``kv_quant`` k/v int8 FLAT [L, B, S_max, KV*D] and ``k_scale``/
-    ``v_scale`` bf16 [L, B, KV, S_max] (seq minor); ``len`` [B] int32."""
+    ``kv_quant`` the values FLAT [L, B, S_max, KV*W] (int8, or uint8 holding
+    two int4 codes) and their bf16 planes (``k_scale``/``v_scale``, and
+    ``k_zero``/``v_zero`` at int4) [L, B, KV, S_max] (seq minor); ``len``
+    [B] int32."""
     from .. import resolve_device
 
     device = resolve_device(device)
     S = max_seq or cfg.max_seq_len
     L, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
     if cfg.kv_quant:
-        cache = {name: torch.zeros((L, batch, S, KV * hd), dtype=torch.int8,
-                                   device=device) for name in ("k", "v")}
-        for name in ("k_scale", "v_scale"):
-            cache[name] = torch.zeros((L, batch, KV, S), dtype=torch.bfloat16,
-                                      device=device)
+        cache = _quant_cache(cfg, (L, batch), S, device)
     else:
         cache = {name: torch.zeros((L, batch, S, KV, hd), dtype=cfg.dtype,
                                    device=device) for name in ("k", "v")}
@@ -416,19 +491,19 @@ def init_cache(cfg: LlamaConfig, batch: int, max_seq: int | None = None,
 
 
 def _kv_planes(cfg: LlamaConfig, k, v) -> dict:
-    """One layer's prefilled K/V [B, s, KV, D] as the cache stores them:
-    name -> (tensor [B, ...], seq axis within one row). fp: k/v as they are;
-    int8: the quantized values flat [B, s, KV*D] and the scales transposed
-    to seq-minor [B, KV, s]. Prefill attends the fp K/V: only what is
-    stored is quantized."""
+    """K/V [B, s, KV, D] as the cache stores them: name -> (tensor [B, ...],
+    seq axis within one row). fp: k/v as they are; quantized: the values
+    flat [B, s, KV*W] and each plane transposed to seq-minor [B, KV, s].
+    Prefill attends the fp K/V: only what is stored is quantized."""
     if not cfg.kv_quant:
         return {"k": (k, 0), "v": (v, 0)}
     b, s = k.shape[:2]
     planes = {}
     for name, x in (("k", k), ("v", v)):
-        codes, scale = quantize_kv(x)
+        codes, side = kv_encode(cfg, x)
         planes[name] = (codes.reshape(b, s, -1), 0)
-        planes[f"{name}_scale"] = (scale.transpose(1, 2), 1)
+        for pl, val in side.items():
+            planes[f"{name}_{pl}"] = (val.transpose(1, 2), 1)
     return planes
 
 
@@ -479,8 +554,8 @@ def prefill_into_many(params: dict, tokens, seq_lens, cfg: LlamaConfig,
     """Prefill a WAVE of B prompts [B, S_pad] into rows ``slots`` [B] of the
     shared cache, in place. ``valid`` [B] masks padding rows (B is a shape
     bucket): an invalid row writes nothing. A valid row's cache row is
-    replaced whole — the prompt's K/V (values and scales of an int8 cache),
-    then zeros to S_max — and its ``len`` set, as the JAX version's
+    replaced whole — the prompt's K/V (values and planes of a quantized
+    cache), then zeros to S_max — and its ``len`` set, as the JAX version's
     fresh-cache scatter does. Returns (last-token logits [B, V], cache)."""
     dev = params["embed"].device
     tokens, seq_lens = _tokens(tokens, cfg, dev), _int32(seq_lens, dev)
@@ -513,6 +588,88 @@ def prefill_into(params: dict, tokens, seq_lens, cfg: LlamaConfig,
                              [int(slot)], [True])
 
 
+def _qkv(cfg: LlamaConfig, x, lp, cos, sin):
+    """The attention inputs of one block: rope'd q [B, T, H, D], rope'd k
+    and v [B, T, KV, D]."""
+    b, t, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+    q = apply_rope(_mm(h, lp["wq"]).reshape(b, t, H, hd), cos, sin)
+    k = apply_rope(_mm(h, lp["wk"]).reshape(b, t, KV, hd), cos, sin)
+    v = _mm(h, lp["wv"]).reshape(b, t, KV, hd)
+    return q, k, v
+
+
+def _block_out(cfg: LlamaConfig, x, o, lp):
+    """Close one block: the output projection of attention ``o`` [B, T, H,
+    D], then the MLP, each with its residual."""
+    b, t = o.shape[:2]
+    x = x + _mm(o.reshape(b, t, -1), lp["wo"])
+    return x + _swiglu(rms_norm(x, lp["mlp_norm"], cfg.norm_eps), lp)
+
+
+def _logits_at(params, cfg: LlamaConfig, x, row: int) -> torch.Tensor:
+    """f32 logits [1, V] of position ``row`` of the one-row stream x."""
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _mm(x[:, row], params["lm_head"]).float()
+
+
+@torch.no_grad()
+def prefill_segment_into(params: dict, tokens, seg_len, cfg: LlamaConfig,
+                         cache: dict, slot, start, new_len
+                         ) -> tuple[torch.Tensor, dict]:
+    """CHUNKED prefill: one segment [1, C] of a longer prompt into row
+    ``slot`` of the dense cache at positions start..start+C-1 (in place),
+    attending the row's already-prefilled positions plus the segment,
+    causally from ``start``. ``seg_len`` [1] is the segment's valid length
+    (padding positions are written too, as in JAX, and overwritten later).
+    Returns (logits of the segment's last valid token [1, V], cache).
+
+    ``new_len`` lands in ``cache["len"][slot]``: the cache capacity for a
+    non-final segment, so interleaved decode steps drop this row's writes
+    (the masked write of ``decode_step``) instead of corrupting prefilled
+    positions; the prompt's length on the final segment. Attention is the
+    flash kernel over the slot's row of the layer with ``q_offset=start``
+    and ``kv_len = start + seg_len``; an int8 row is dequantized first with
+    the plain op, as JAX does. ``start`` and ``new_len`` are host ints. A
+    segment past the row's end raises (JAX would clamp its start)."""
+    if cfg.kv_bits == 4:
+        raise ValueError("int4 KV is a paged-cache precision — use "
+                         "page_size > 0 (paged_suffix_prefill)")
+    dev = params["embed"].device
+    tokens = _tokens(tokens, cfg, dev)
+    seg = int(np.asarray(seg_len).reshape(-1)[0])
+    start, slot = int(start), int(slot)
+    c = tokens.shape[1]
+    S_max = cache["k"].shape[2]
+    if start + c > S_max:
+        raise ValueError(f"segment {start}..{start + c} exceeds cache "
+                         f"length {S_max}")
+    KV, hd = cfg.n_kv_heads, cfg.head_dim
+    valid_to = _int32([start + seg], dev)
+    cos, sin = rope_table(torch.arange(start, start + c, device=dev)[None],
+                          hd, cfg.rope_theta, scaling=cfg.rope_scaling)
+    x = _embed(params, tokens, cfg)
+    for layer in range(cfg.n_layers):
+        lp = _layer_params(params, layer)
+        q, k, v = _qkv(cfg, x, lp, cos, sin)
+        for name, (new, axis) in _kv_planes(cfg, k, v).items():
+            cache[name][layer, slot].narrow(axis, start, c).copy_(new[0])
+        if cfg.kv_quant:
+            k_row, v_row = (
+                dequantize_kv(cache[name][layer, slot].view(S_max, KV, hd),
+                              cache[f"{name}_scale"][layer, slot].t(),
+                              cfg.dtype)
+                for name in ("k", "v"))
+        else:
+            k_row, v_row = cache["k"][layer, slot], cache["v"][layer, slot]
+        o = flash_attention(q.contiguous(), k_row[None], v_row[None],
+                            causal=True, q_offset=start, kv_len=valid_to)
+        x = _block_out(cfg, x, o, lp)
+    cache["len"][slot] = int(new_len)
+    return _logits_at(params, cfg, x, seg - 1), cache
+
+
 def _masked_set(arr, idx, new, fits) -> None:
     """arr[idx] = new, in place, for the rows where ``fits`` [B] holds."""
     keep = fits.view(-1, *([1] * (new.dim() - 1)))
@@ -531,11 +688,12 @@ def _write_token_kv(cfg: LlamaConfig, cache: dict, layer: int, k, v, rows,
         return
     heads = torch.arange(cfg.n_kv_heads, device=k.device)[None, :]
     for name, x in (("k", k), ("v", v)):
-        codes, scale = quantize_kv(x)
+        codes, planes = kv_encode(cfg, x)
         _masked_set(cache[name][layer], (rows, pos),
                     codes.reshape(x.shape[0], -1), fits)
-        _masked_set(cache[f"{name}_scale"][layer],
-                    (rows[:, None], heads, pos[:, None]), scale, fits)
+        for pl, val in planes.items():
+            _masked_set(cache[f"{name}_{pl}"][layer],
+                        (rows[:, None], heads, pos[:, None]), val, fits)
 
 
 @torch.no_grad()
@@ -550,11 +708,13 @@ def decode_step(params: dict, tokens, cache: dict, cfg: LlamaConfig
     kernels clamp kv_len to S_max). The cache is updated in place; ``len``
     comes back as a new tensor capped at S_max. With an int8 cache the new
     token's K/V are quantized on write and attention reads the int8 cache
-    with its scales."""
+    with its scales. int4 is a paged precision and raises, as in JAX."""
+    if cfg.kv_bits == 4:
+        raise ValueError("int4 KV is a paged-cache precision — use "
+                         "page_size > 0 (paged_decode_step)")
     dev = params["embed"].device
     tokens = torch.as_tensor(tokens).to(dev)
     b = tokens.shape[0]
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     S_max = cache["k"].shape[2]
     pos = cache["len"]
     kv_len = pos + 1
@@ -564,20 +724,237 @@ def decode_step(params: dict, tokens, cache: dict, cfg: LlamaConfig
     scales = ({"k_scale": cache["k_scale"], "v_scale": cache["v_scale"]}
               if cfg.kv_quant else {})
     x = _embed(params, tokens, cfg)[:, None, :]
-    cos, sin = rope_table(pos[:, None], hd, cfg.rope_theta,
+    cos, sin = rope_table(pos[:, None], cfg.head_dim, cfg.rope_theta,
                           scaling=cfg.rope_scaling)
     for layer in range(cfg.n_layers):
         lp = _layer_params(params, layer)
-        h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-        q = apply_rope(_mm(h, lp["wq"]).reshape(b, 1, H, hd), cos, sin)
-        k = apply_rope(_mm(h, lp["wk"]).reshape(b, 1, KV, hd), cos, sin)
-        v = _mm(h, lp["wv"]).reshape(b, 1, KV, hd)
+        q, k, v = _qkv(cfg, x, lp, cos, sin)
         _write_token_kv(cfg, cache, layer, k[:, 0], v[:, 0], rows, pos_w, fits)
         o = cached_decode_attention(q.contiguous(), cache["k"], cache["v"],
                                     kv_len, layer=layer, **scales)
-        x = x + _mm(o.reshape(b, 1, H * hd), lp["wo"])
-        x = x + _swiglu(rms_norm(x, lp["mlp_norm"], cfg.norm_eps), lp)
+        x = _block_out(cfg, x, o, lp)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = _mm(x[:, 0], params["lm_head"]).float()
     cache["len"] = torch.clamp(kv_len, max=S_max).to(torch.int32)
+    return logits, cache
+
+
+# -- the paged cache ------------------------------------------------------------
+
+def init_paged_cache(cfg: LlamaConfig, batch: int, n_pages: int, page_s: int,
+                     device=None) -> dict:
+    """Block-paged KV cache: a POOL of ``n_pages`` pages of ``page_s``
+    positions shared by every slot, all zeros. bf16/f32 values [L, N, ps,
+    KV, D]; quantized values flat [L, N, ps, KV*W] (uint8 at int4) with
+    their bf16 planes [L, N, KV, ps]; ``len`` [B] int32. Slots map virtual
+    positions onto pages through a host-owned page table; page 0 is
+    scratch: unallocated table entries point at it, over-capacity writes
+    land there, and ``kv_len`` keeps reads of it out of every live row."""
+    from .. import resolve_device
+
+    device = resolve_device(device)
+    L, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    if cfg.kv_quant:
+        cache = _quant_cache(cfg, (L, n_pages), page_s, device)
+    else:
+        cache = {name: torch.zeros((L, n_pages, page_s, KV, hd),
+                                   dtype=cfg.dtype, device=device)
+                 for name in ("k", "v")}
+    cache["len"] = torch.zeros((batch,), dtype=torch.int32, device=device)
+    return cache
+
+
+def _write_paged(cfg: LlamaConfig, cache: dict, layer: int, k, v, page, off
+                 ) -> None:
+    """Write K/V [N, KV, D] of N positions at pool coordinates (``page``
+    [N], ``off`` [N]) of ``layer``, in place, quantizing at the config's
+    precision. Index assignment, never an accumulating scatter: rows that
+    share a scratch position (page 0) overwrite one another."""
+    if not cfg.kv_quant:
+        for name, x in (("k", k), ("v", v)):
+            cache[name][layer][page, off] = x.to(cache[name].dtype)
+        return
+    heads = torch.arange(cfg.n_kv_heads, device=k.device)[None, :]
+    for name, x in (("k", k), ("v", v)):
+        codes, planes = kv_encode(cfg, x)
+        cache[name][layer][page, off] = codes.reshape(x.shape[0], -1)
+        for pl, val in planes.items():
+            cache[f"{name}_{pl}"][layer][page[:, None], heads,
+                                         off[:, None]] = val
+
+
+def _gather_pages(cfg: LlamaConfig, cache: dict, layer: int, idx,
+                  b: int) -> dict:
+    """The pages ``idx`` [b * n] (row-major: each row's pages in table
+    order) of ``layer``, copied out of the pool into one contiguous
+    virtual sequence per row: values [b, n*ps, KV, D] (quantized [b, n*ps,
+    KV*W]) and each plane [b, n, KV, ps]."""
+    out = {}
+    for name, arr in cache.items():
+        if name == "len":
+            continue
+        pages = arr[layer].index_select(0, idx)
+        if name in ("k", "v"):
+            out[name] = pages.view(b, -1, *pages.shape[2:])
+        else:
+            out[name] = pages.view(b, -1, *pages.shape[1:])
+    return out
+
+
+def _virtual_kv(cfg: LlamaConfig, pages: dict):
+    """Gathered pages (``_gather_pages``) -> K and V [b, S, KV, D] in
+    ``cfg.dtype``: as they are for an fp pool, dequantized with the planes
+    transposed to [b, S, KV] for a quantized one (JAX's ``virt``)."""
+    if not cfg.kv_quant:
+        return pages["k"], pages["v"]
+    KV = cfg.n_kv_heads
+    out = []
+    for name in ("k", "v"):
+        b = pages[name].shape[0]
+        values = pages[name].view(b, -1, KV, kv_store_width(cfg))
+        planes = {pl: pages[f"{name}_{pl}"].transpose(-1, -2).reshape(b, -1,
+                                                                      KV)
+                  for pl in kv_plane_names(cfg)}
+        out.append(kv_decode(cfg, values, planes, cfg.dtype))
+    return tuple(out)
+
+
+@torch.no_grad()
+def paged_prefill_into(params: dict, tokens, seq_lens, cfg: LlamaConfig,
+                       cache: dict, table_row, slot, page_s: int,
+                       set_len: bool = True) -> tuple[torch.Tensor, dict]:
+    """Prefill ONE prompt [1, S_pad] (the flash kernel through
+    ``_prefill_layers``) and write its K/V, page-sized slab by slab, into
+    the pages ``table_row`` [S_pad // page_s] (host ints) names, in place:
+    one index assignment a cache array a layer. Entries past the prompt
+    point at scratch page 0, so whole-page writes need no mask.
+    ``set_len=False`` fills pages without admitting a slot (a prefix
+    build). Returns (last-token logits [1, V], cache)."""
+    dev = params["embed"].device
+    tokens, seq_lens = _tokens(tokens, cfg, dev), _int32(seq_lens, dev)
+    n_pg = tokens.shape[1] // page_s
+    pages = _int32(np.asarray(table_row)[:n_pg], dev).long()
+    span = n_pg * page_s
+
+    def write(layer, k, v):
+        for name, (new, axis) in _kv_planes(cfg, k, v).items():
+            row = new[0].narrow(axis, 0, span)
+            if axis == 0:    # values [S, ...] -> [n_pg, ps, ...]
+                slabs = row.reshape(n_pg, page_s, *row.shape[1:])
+            else:            # planes [KV, S] -> [n_pg, KV, ps]
+                slabs = row.reshape(row.shape[0], n_pg, page_s).transpose(0, 1)
+            cache[name][layer][pages] = slabs
+
+    logits = _prefill_layers(params, tokens, seq_lens, cfg, write)
+    if set_len:
+        cache["len"][int(slot)] = seq_lens[0]
+    return logits, cache
+
+
+@torch.no_grad()
+def paged_suffix_prefill(params: dict, tokens, seq_lens, cfg: LlamaConfig,
+                         cache: dict, table_row, start, page_s: int
+                         ) -> tuple[torch.Tensor, dict]:
+    """Prefill ONE segment [1, S_pad] at virtual positions
+    ``start..start+S_pad-1`` of a paged slot (in place): a shared prefix's
+    suffix (``start`` = the shared length) or a chunked-prefill segment.
+    Each layer writes the segment's K/V through ``table_row`` [P_max]
+    (positions past virtual capacity go to scratch page 0), gathers the
+    slot's pages that the segment can see (through ``start + S_pad``) into
+    a virtual sequence, dequantizing int8 and int4 pages as JAX does, and
+    attends it through the flash kernel, causally from ``q_offset=start``.
+    Rows beyond ``seq_lens`` write positions decode overwrites before any
+    read reaches them. ``start`` is a host int. Returns (logits of the last
+    valid token [1, V], cache); ``len`` is the caller's to set."""
+    dev = params["embed"].device
+    tokens = _tokens(tokens, cfg, dev)
+    if tokens.shape[0] != 1:
+        raise ValueError("paged_suffix_prefill takes one row")
+    s = tokens.shape[1]
+    start = int(start)
+    row = np.asarray(table_row, np.int64).reshape(-1)
+    p_max = len(row)
+    vpos = start + np.arange(s)
+    page = np.where(vpos < p_max * page_s,
+                    row[np.minimum(vpos // page_s, p_max - 1)], 0)
+    n_virt = min(p_max, -(-(start + s) // page_s))
+    idx = _int32(np.concatenate([page, vpos % page_s, row[:n_virt]]),
+                 dev).long()
+    page_d, off_d, virt = idx[:s], idx[s:2 * s], idx[2 * s:]
+    cos, sin = rope_table(torch.arange(start, start + s, device=dev)[None],
+                          cfg.head_dim, cfg.rope_theta,
+                          scaling=cfg.rope_scaling)
+    x = _embed(params, tokens, cfg)
+    for layer in range(cfg.n_layers):
+        lp = _layer_params(params, layer)
+        q, k, v = _qkv(cfg, x, lp, cos, sin)
+        _write_paged(cfg, cache, layer, k[0], v[0], page_d, off_d)
+        k_virt, v_virt = _virtual_kv(cfg, _gather_pages(cfg, cache, layer,
+                                                        virt, 1))
+        o = flash_attention(q.contiguous(), k_virt, v_virt, causal=True,
+                            q_offset=start)
+        x = _block_out(cfg, x, o, lp)
+    last = int(np.asarray(seq_lens).reshape(-1)[0]) - 1
+    return _logits_at(params, cfg, x, last), cache
+
+
+def _paged_attention(cfg: LlamaConfig, q, cache: dict, layer: int, virt,
+                     kv_len):
+    """Decode attention of q [B, 1, H, D] over each row's gathered pages
+    (``virt`` [B * n]): an int8 pool goes to the int8 decode kernel with the
+    values flat [B, S, KV*D] and the scales transposed to [B, KV, S]; a
+    bf16 pool, and an int4 pool dequantized, to the bf16 one."""
+    b = q.shape[0]
+    pages = _gather_pages(cfg, cache, layer, virt, b)
+    if cfg.kv_bits == 8:
+        scales = {f"{name}_scale": pages[f"{name}_scale"].transpose(1, 2)
+                  .reshape(b, cfg.n_kv_heads, -1) for name in ("k", "v")}
+        return cached_decode_attention(q, pages["k"], pages["v"], kv_len,
+                                       **scales)
+    k_virt, v_virt = _virtual_kv(cfg, pages)
+    return cached_decode_attention(q, k_virt, v_virt, kv_len)
+
+
+@torch.no_grad()
+def paged_decode_step(params: dict, tokens, cache: dict, table,
+                      cfg: LlamaConfig, n_cols: int | None = None
+                      ) -> tuple[torch.Tensor, dict]:
+    """One token per row against the page pool: tokens [B] -> (f32 logits
+    [B, V], cache). ``table`` [B, P_max] int32 (a device tensor, or host
+    ints) maps each row's virtual pages in order. The new token's K/V go to
+    ``(table[b, pos // ps], pos % ps)``; a row at virtual capacity writes
+    into scratch page 0. Attention gathers the first ``n_cols`` table
+    columns of every row (all of them by default) into a virtual
+    [B, n_cols * ps] sequence for the decode kernel; ``kv_len = pos + 1``
+    masks the rest, so any ``n_cols`` that covers every live row gives the
+    same result. The pool is updated in place; ``len`` comes back capped at
+    P_max * ps."""
+    dev = params["embed"].device
+    tokens = torch.as_tensor(tokens).to(dev)
+    if not torch.is_tensor(table):
+        table = _int32(table, dev)
+    b = tokens.shape[0]
+    page_s = cache["k"].shape[2]
+    p_max = table.shape[1]
+    n = p_max if n_cols is None else max(1, min(int(n_cols), p_max))
+    pos = cache["len"]
+    s_virt = p_max * page_s
+    col = torch.clamp(pos // page_s, max=p_max - 1).long()
+    page = torch.where(pos < s_virt, table.gather(1, col[:, None])[:, 0],
+                       0).long()
+    off = (pos % page_s).long()
+    virt = table[:, :n].reshape(-1)
+    kv_len = pos + 1
+    x = _embed(params, tokens, cfg)[:, None, :]
+    cos, sin = rope_table(pos[:, None], cfg.head_dim, cfg.rope_theta,
+                          scaling=cfg.rope_scaling)
+    for layer in range(cfg.n_layers):
+        lp = _layer_params(params, layer)
+        q, k, v = _qkv(cfg, x, lp, cos, sin)
+        _write_paged(cfg, cache, layer, k[:, 0], v[:, 0], page, off)
+        o = _paged_attention(cfg, q.contiguous(), cache, layer, virt, kv_len)
+        x = _block_out(cfg, x, o, lp)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = _mm(x[:, 0], params["lm_head"]).float()
+    cache["len"] = torch.clamp(kv_len, max=s_virt).to(torch.int32)
     return logits, cache

@@ -33,6 +33,8 @@ __all__ = [
     "swiglu",
     "quantize_kv",
     "dequantize_kv",
+    "quantize_kv4",
+    "dequantize_kv4",
     "quantize_weight",
     "flash_attention",
     "cached_decode_attention",
@@ -181,6 +183,35 @@ def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
                   dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     return (q.float() * scale.float()[..., None]).to(dtype)
+
+
+def quantize_kv4(x: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Asymmetric per-vector int4 quantization over the last (head_dim)
+    axis, two codes packed per byte: (packed uint8 with the last axis
+    halved, bf16 scales, bf16 zero points, both with the last axis
+    dropped). Codes 0..15 are ``round((x - lo) / scale)`` in f32, rounded
+    half to even and clipped, as in the JAX code; the even code takes the
+    low nibble."""
+    xf = x.float()
+    lo = xf.amin(dim=-1)
+    hi = xf.amax(dim=-1)
+    scale = torch.clamp(hi - lo, min=1e-6) / 15.0
+    codes = torch.clamp(torch.round((xf - lo[..., None]) / scale[..., None]),
+                        0, 15).to(torch.uint8)
+    packed = codes[..., ::2] | (codes[..., 1::2] << 4)
+    return packed, scale.to(torch.bfloat16), lo.to(torch.bfloat16)
+
+
+def dequantize_kv4(packed: torch.Tensor, scale: torch.Tensor,
+                   zero: torch.Tensor,
+                   dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Inverse of ``quantize_kv4``: unpack the nibbles (the last axis
+    doubles back) and apply ``code * scale + zero`` in f32."""
+    codes = torch.stack([packed & 0xF, packed >> 4], dim=-1).reshape(
+        *packed.shape[:-1], packed.shape[-1] * 2)
+    return (codes.float() * scale.float()[..., None]
+            + zero.float()[..., None]).to(dtype)
 
 
 def quantize_weight(w: torch.Tensor, eps: float = 1e-8

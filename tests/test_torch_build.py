@@ -86,3 +86,20 @@ def test_flash_bound_counts_the_work_the_masks_keep(case):
     assert 4 * 128 * 32 * pairs == pytest.approx(flops, rel=3e-3)
     assert got_bytes == pytest.approx(nbytes, rel=3e-3)
     assert b_by == by and b_ms == pytest.approx(ms, rel=3e-3)
+
+
+def test_flash_bound_counts_the_paged_suffix():
+    """The bound at the paged path's suffix shape: 512 queries at
+    q_offset 1536 over 2048 keys, causal, no kv_len; each query row keeps
+    1537..2048 keys."""
+    import chip_smoke
+
+    c = {"B": 1, "T": 512, "Tk": 2048, "q_offset": 1536, "H": 32, "KV": 8,
+         "D": 128, "kv_len": None}
+    b_ms, b_by, got_bytes = chip_smoke.flash_bound(c)
+    pairs = sum(1537 + i for i in range(512))
+    assert pairs == 917_760
+    assert got_bytes == 2 * (2 * 512 * 32 * 128 + 2 * 2048 * 8 * 128)
+    assert b_by == "operations"
+    assert b_ms == pytest.approx(4 * 128 * 32 * pairs / 989e12 * 1e3,
+                                 rel=1e-9)

@@ -458,3 +458,159 @@ def test_tiny_int8_generator_on_the_card_matches_plain_path(dev):
     card = gen.generate(prompt, 4)
     assert gqa_decode_attention_cuda.launches == fp0
     assert card[:2] == cpu[:2]
+
+
+# -- the paged path and chunked prefill through the kernels ------------------------
+
+def _attention_probe(monkeypatch, llama, name, plain):
+    """Wrap the dispatcher ``name`` the model calls: each call runs the
+    kernel (the real dispatcher) and ``plain(...)`` on the same inputs;
+    returns the list of (kwargs, max abs error) it fills."""
+    kernel = getattr(llama, name)
+    seen = []
+
+    def probe(*args, **kw):
+        out = kernel(*args, **kw)
+        ref = plain(*args, **kw)
+        seen.append((kw, (out.float() - ref.float()).abs().max().item()))
+        return out
+
+    monkeypatch.setattr(llama, name, probe)
+    return seen
+
+
+def _tiny_on_card(dev, **kw):
+    from gofr_tpu_torch.models import llama
+
+    cfg = llama.tiny_llama(max_seq_len=512, **kw)
+    params = llama.params_from_config(cfg, seed=0, device="cpu")
+    return llama, cfg, _to(params, dev)
+
+
+@pytest.mark.parametrize("kv_bits", [16, 8, 4])
+def test_paged_decode_step_kernels_match_plain(dev, monkeypatch, kv_bits):
+    """paged_decode_step on the card: each layer's attention over the
+    gathered pages goes through ONE decode kernel (the int8 one for int8
+    pages with their scales transposed to [B, KV, S]; the bf16 one for
+    bf16 pages and for int4 pages dequantized) and agrees with the plain
+    version on the same gathered inputs; a row at virtual capacity writes
+    only scratch page 0."""
+    from gofr_tpu_torch.ops import decode_attention as da
+
+    llama, cfg, params = _tiny_on_card(
+        dev, **({} if kv_bits == 16 else {"kv_bits": kv_bits}))
+    ps, p_max = 16, 8
+    pool = llama.init_paged_cache(cfg, 3, 1 + 3 * p_max, ps, device=dev)
+    table = np.arange(1, 1 + 3 * p_max, dtype=np.int32).reshape(3, p_max)
+    r = np.random.default_rng(0)
+    for slot, n in enumerate((37, 100)):
+        toks = np.zeros((1, 128), np.int32)
+        toks[0, :n] = r.integers(0, cfg.vocab_size, n)
+        llama.paged_prefill_into(params, toks, [n], cfg, pool, table[slot],
+                                 slot, ps)
+    pool["len"][2] = p_max * ps  # row 2 sits at virtual capacity
+
+    def plain(q, k, v, kv_len, **scales):
+        if scales:
+            return da.gqa_decode_attention_int8_plain(q, k, v, kv_len,
+                                                      **scales)
+        return da.gqa_decode_attention_plain(q, k, v, kv_len)
+
+    seen = _attention_probe(monkeypatch, llama, "cached_decode_attention",
+                            plain)
+    row2 = {k: v[:, table[2]].clone() for k, v in pool.items() if k != "len"}
+    int8 = kv_bits == 8
+    kern, other = ((da.gqa_decode_attention_int8_cuda,
+                    da.gqa_decode_attention_cuda) if int8 else
+                   (da.gqa_decode_attention_cuda,
+                    da.gqa_decode_attention_int8_cuda))
+    n0, o0 = kern.launches, other.launches
+    tok = torch.tensor([1, 2, 3], dtype=torch.int32, device=dev)
+    tdev = torch.from_numpy(table).to(dev)
+    for n_cols in (8, 8, 8):
+        logits, pool = llama.paged_decode_step(params, tok, pool, tdev, cfg,
+                                               n_cols=n_cols)
+        tok = logits.argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    assert kern.launches - n0 == 3 * cfg.n_layers and other.launches == o0
+    assert len(seen) == 3 * cfg.n_layers
+    assert max(err for _, err in seen) <= TOL
+    assert bool(torch.isfinite(logits).all())
+    assert pool["len"].tolist() == [40, 103, p_max * ps]
+    for key, was in row2.items():
+        assert torch.equal(pool[key][:, table[2]], was), key
+
+
+@pytest.mark.parametrize("kv_bits", [16, 8, 4])
+def test_suffix_prefill_through_flash_with_offset_matches_plain(
+        dev, monkeypatch, kv_bits):
+    """A suffix after a registered prefix and a later chunked-prefill
+    segment (paged, bf16 / int8 / int4 pages) launch the flash kernel with
+    q_offset > 0 and Tq < Tk over the gathered, dequantized pages, and it
+    agrees with the plain version on the same inputs; the generator's
+    greedy tokens on the card match the CPU plain path's first tokens."""
+    from gofr_tpu_torch.ml.generate import Generator
+    from gofr_tpu_torch.ops.flash_attention import flash_attention_plain
+
+    llama, cfg, params = _tiny_on_card(
+        dev, **({} if kv_bits == 16 else {"kv_bits": kv_bits}))
+    seen = _attention_probe(
+        monkeypatch, llama, "flash_attention",
+        lambda q, k, v, *, causal=True, q_offset=0, kv_len=None:
+        flash_attention_plain(q, k, v, kv_len, causal=causal,
+                              q_offset=q_offset))
+    kw = dict(batch_slots=2, max_seq=256, prefill_buckets=(32, 128),
+              chunk=2, page_size=16, prefill_chunk=64)
+    gen = Generator(params, cfg, device=dev, **kw)
+    prefix = np.arange(1, 41).tolist()  # 32 shared + an 8-token tail
+    pid = gen.register_prefix(prefix)
+    got = {}
+    gen.add_request([5, 6, 7], 4, lambda i, t: got.setdefault(0, []).extend(t),
+                    prefix=pid)
+    long_prompt = (np.arange(150) % 300 + 3).tolist()
+    gen.add_request(long_prompt, 4,
+                    lambda i, t: got.setdefault(1, []).extend(t))
+    while gen.n_live:
+        gen.step()
+    gen.drain()
+    offsets = [kw_["q_offset"] for kw_, _ in seen
+               if kw_.get("q_offset", 0) > 0]
+    assert 32 in offsets and {64, 128} <= set(offsets)
+    assert max(err for _, err in seen) <= TOL
+    cpu_params = llama.params_from_config(cfg, seed=0, device="cpu")
+    ref = Generator(cpu_params, cfg, device="cpu", **kw)
+    ref_pid = ref.register_prefix(prefix)
+    assert ref.generate(long_prompt, 4)[:2] == got[1][:2]
+    slot = ref.add_request([5, 6, 7], 4, prefix=ref_pid)
+    while ref.slots[slot].live:
+        ref.step()
+    ref.drain()
+    assert ref.slots[slot].tokens[:2] == got[0][:2]
+
+
+@pytest.mark.parametrize("kv_quant", [False, True], ids=["bf16", "int8"])
+def test_dense_segment_prefill_through_flash_matches_plain(dev, monkeypatch,
+                                                           kv_quant):
+    """The dense prefill_segment_into on the card: the later segments
+    launch flash with q_offset > 0 over the slot's row (int8: dequantized
+    first), agree with the plain version on the same inputs, and the
+    chunked generator's first greedy tokens match the CPU plain path."""
+    from gofr_tpu_torch.ml.generate import Generator
+    from gofr_tpu_torch.ops.flash_attention import flash_attention_plain
+
+    llama, cfg, params = _tiny_on_card(dev, kv_quant=kv_quant)
+    seen = _attention_probe(
+        monkeypatch, llama, "flash_attention",
+        lambda q, k, v, *, causal=True, q_offset=0, kv_len=None:
+        flash_attention_plain(q, k, v, kv_len, causal=causal,
+                              q_offset=q_offset))
+    kw = dict(batch_slots=2, max_seq=256, prefill_buckets=(32, 128),
+              chunk=2, prefill_chunk=64)
+    prompt = (np.arange(150) % 300 + 3).tolist()
+    card = Generator(params, cfg, device=dev, **kw).generate(prompt, 4)
+    offsets = {kw_.get("q_offset", 0) for kw_, _ in seen}
+    assert {64, 128} <= offsets
+    assert max(err for _, err in seen) <= TOL
+    cpu_params = llama.params_from_config(cfg, seed=0, device="cpu")
+    cpu = Generator(cpu_params, cfg, device="cpu", **kw).generate(prompt, 4)
+    assert card[:2] == cpu[:2]

@@ -294,21 +294,40 @@ def test_entry_points_take_the_card_unless_told_cpu(pair):
             tllama.init_params(tcfg, torch.Generator(), device="cuda")
 
 
-def test_unported_generator_options_raise(pair):
+def test_unported_generator_options_raise(pair, monkeypatch):
+    """What stays unported raises, naming its ROADMAP item: the host KV
+    tier (asked for by ``host_kv`` or by a positive
+    ``GOFR_ML_KV_HOST_BUDGET_MB``), speculation, fused windows, the depth-2
+    pipeline and sequence parallelism. Paging and chunked prefill are
+    ported and construct."""
     _, _, tcfg, tparams = pair
-    for kw in ({"page_size": 8}, {"prefill_chunk": 16}, {"spec_k": 2},
-               {"decode_window": 4}, {"pipeline": 1}, {"sp": "ring"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for kw, item in (({"page_size": 8, "host_kv": object()}, "A.8"),
+                     ({"spec_k": 2}, "A.10"), ({"decode_window": 4}, "A.9"),
+                     ({"pipeline": 1}, "A.9"), ({"sp": "ring"}, "A.11")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             Generator(tparams, tcfg, device="cpu", **kw)
+    for budget in ("64", "0.5"):
+        monkeypatch.setenv("GOFR_ML_KV_HOST_BUDGET_MB", budget)
+        for kw in ({"page_size": 8}, {}):
+            with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
+                Generator(tparams, tcfg, device="cpu", **kw)
+    for budget in ("0", ""):
+        monkeypatch.setenv("GOFR_ML_KV_HOST_BUDGET_MB", budget)
+        Generator(tparams, tcfg, device="cpu", page_size=8)
+    gen = Generator(tparams, tcfg, device="cpu", page_size=8,
+                    prefill_chunk=16, host_kv=False, **GEN_KW)
+    assert gen.page_size == 8 and gen.prefill_chunk == 16
 
 
 def test_scheduler_pieces():
     assert _chunk_ladder(16) == (1, 2, 4, 8, 16)
     assert _chunk_ladder(3) == (1, 2, 3)
     sched = TokenBudgetScheduler(32, _chunk_ladder(8))
-    assert sched.plan(4) == 8
-    assert sched.plan(8) == 4  # budget 32 / 8 rows
-    assert sched.plan(64) == 1  # never below the ladder's first entry
+    assert sched.plan(4) == (8, 0)
+    assert sched.plan(8) == (4, 0)  # budget 32 / 8 rows
+    assert sched.plan(64) == (1, 0)  # never below the ladder's first entry
+    for size in (8, 4, 1):
+        sched.note_dispatch(size)
     assert dict(sched.dispatches) == {8: 1, 4: 1, 1: 1}
     assert normalize_priority(None) == 1
     assert normalize_priority("HIGH") == 0

@@ -211,15 +211,22 @@ def test_decode_steps_match_jax_with_a_row_at_capacity(pair):
 
 
 def test_unported_configurations_raise(monkeypatch):
-    """What this slice does not port raises, naming its ROADMAP item: int4
-    KV (a paged-cache precision), sequence-parallel attention, and restoring
-    a checkpoint in params_from_config."""
-    for kw, item in (({"kv_bits": 4}, "A.8"),
-                     ({"kv_quant": True, "kv_bits": 4}, "A.8"),
-                     ({"attn_impl": "ring"}, "A.11"),
+    """What stays unported raises, naming its ROADMAP item:
+    sequence-parallel attention and restoring a checkpoint in
+    params_from_config. int4 KV is ported as a paged-cache precision: the
+    config takes it, and the dense paths refuse it as JAX does."""
+    for kw, item in (({"attn_impl": "ring"}, "A.11"),
                      ({"attn_impl": "ulysses"}, "A.11")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             tllama.tiny_llama(**kw)
+    for kw in ({"kv_bits": 4}, {"kv_quant": True, "kv_bits": 4}):
+        cfg4 = tllama.tiny_llama(**kw)
+        assert (cfg4.kv_bits, cfg4.kv_quant) == (4, True)
+        with pytest.raises(ValueError, match="paged"):
+            tllama.decode_step(None, np.zeros(1, np.int32), {}, cfg4)
+        with pytest.raises(ValueError, match="paged"):
+            tllama.prefill_segment_into(None, np.zeros((1, 4), np.int32),
+                                        [4], cfg4, {}, 0, 0, 4)
     cfg = tllama.tiny_llama()
     with pytest.raises(NotImplementedError, match="ROADMAP A.12"):
         tllama.params_from_config(cfg, checkpoint_dir="/nonexistent",
@@ -255,6 +262,7 @@ def test_config_refuses_contradictions_like_jax():
     ({"LLAMA_W8": "1"}, (16, False, True)),
     ({"LLAMA_KV_QUANT": "1", "LLAMA_W8": "1"}, (8, True, True)),
     ({"GOFR_ML_KV_BITS": "8"}, (8, True, False)),
+    ({"GOFR_ML_KV_BITS": "4"}, (4, True, False)),
     ({"LLAMA_KV_QUANT": "1", "GOFR_ML_KV_BITS": "16"}, (16, False, False)),
 ])
 def test_config_from_env_matches_jax(monkeypatch, env, want):
@@ -276,9 +284,9 @@ def test_config_from_env_refuses_bad_kv_bits(monkeypatch):
             tllama.config_from_env()
         with pytest.raises(ValueError, match="GOFR_ML_KV_BITS"):
             jllama.config_from_env()
+    # 4 is a precision, not a malformed value: both packages take it
     monkeypatch.setenv("GOFR_ML_KV_BITS", "4")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-        tllama.config_from_env()
+    assert tllama.config_from_env().kv_bits == jllama.config_from_env().kv_bits == 4
 
 
 # -- int8 weights and the int8 cache ---------------------------------------------
