@@ -56,10 +56,31 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    a layer, of the right kind, in a paged step's profile. Measured: TTFT cold and on a prefix hit, the longest decode
    gap while a 1900-token prompt prefills (in segments and whole), the
    paged step at 8 x len 2000 beside the dense one with the gather's
-   device time, peak memory and pages in use at the end.
+   device time, peak memory and pages in use at the end;
+6. decode dispatches as CUDA graphs: a dense and a paged (bf16, int8 and
+   int4 pages) dispatch of 8 steps at 8 x len 2000 (random K/V from seed
+   0), from the same state once by graph replay and once eagerly through
+   the same kernels: identical tokens (checked) and the first step's
+   logits' largest difference; the graphed step's wall, device time and
+   busy share;
+7. fused windows and the pipeline: phase 5's paged bf16 serving arm with
+   windows off, ``GOFR_ML_DECODE_WINDOW=auto``, ``GOFR_ML_PIPELINE=1``
+   and both: served tok/s, the decode step in steady state (8 streams)
+   under the profiler, ``window_stats``/``pipeline_stats``, the graphs
+   (count, capture seconds, pool memory); with windows off and auto the
+   longest decode gap and TTFT while a 1900-token prompt prefills, in
+   segments and whole; the frozen tail of a window; the window arm's
+   first-step logits held against the window-off arm's at 5 % of range
+   (checked) and the share of identical streams;
+8. the host KV tier at bf16 and int8 pages: a pinned 1536-token prefix
+   spilled and restored, the same suffix served on it before and after
+   (identical tokens and pages conserved, checked), the spill and
+   restore ms and GB/s, TTFT of a restore hit against a resident hit and
+   a cold prompt.
 
 The line before the last is the card; the last is the JSON verdict.
-Without a CUDA device the script exits non-zero and prints no verdict.
+Without a CUDA device, or without the package beside it, the script exits
+non-zero and prints no verdict.
 """
 
 from __future__ import annotations
@@ -736,7 +757,7 @@ def main_path(dev) -> tuple[dict, dict]:
     return {
         "launches": launches, "prefill_waves": waves, "decode_steps": steps,
         "flash_calls_by_shape": dict(shapes),
-        "init_s": init_s, "warmup_s": warm_s,
+        "init_s": init_s, "warmup_s": warm_s, "graphs": gen.graph_stats(),
         "served_tokens": served, "served_wall_s": wall,
         "served_tok_per_s": served / wall,
         "prefill_ms_b1_s512": prefill_ms, "decode_step_ms_b4": step_ms,
@@ -881,6 +902,7 @@ def int8_path(dev, bf16_params) -> tuple[dict, dict]:
         "launches": launches, "prefill_waves": waves, "decode_steps": steps,
         "flash_calls_by_shape": dict(shapes),
         "init_and_quantize_s": init_s, "warmup_s": warm_s,
+        "graphs": gen.graph_stats(),
         "weight_gb": _nbytes(params) / 1e9,
         "prompt_lens": [len(p) for p in prompts],
         "served_tokens": served, "served_wall_s": wall,
@@ -1134,12 +1156,14 @@ def longest_gap_ms(gen, cfg, long_prompt, n_live: int = 4) -> dict:
 
 
 def paged_arm(llama, params, cfg, dev, *, n_shared: int, n_long: int,
-              pin: bool, seed: int, int8: bool) -> tuple[dict, object]:
+              pin: bool, seed: int, int8: bool,
+              keep_outputs: bool = False) -> tuple[dict, object]:
     """Serve one paged arm (``PAGED``) behind LLMServer with the kernels'
     launch counts read around it; check every request finished with its
     tokens, the prefix cache hit, the segments ran, flash ran with
     ``q_offset`` > 0 and only the decode kernel the pages need launched.
-    Returns (results, the generator)."""
+    Returns (results, with the served streams under ``outputs`` when
+    ``keep_outputs``; the generator)."""
     from gofr_tpu_torch.ml.generate import Generator
 
     max_new = 32
@@ -1180,7 +1204,9 @@ def paged_arm(llama, params, cfg, dev, *, n_shared: int, n_long: int,
     if n_long:
         check(segments >= 6, f"{what}: {segments} prefill segments ran")
     served = sum(len(o) for o in outs)
-    return {"launches": launches, "decode_steps": steps,
+    extra = {"outputs": outs} if keep_outputs else {}
+    return {**extra, "launches": launches, "decode_steps": steps,
+            "graphs": gen.graph_stats(),
             "prefill_segments_run": segments,
             "flash_calls_by_shape": dict(shapes),
             "flash_offset_calls": offset_calls, "warmup_s": warm_s,
@@ -1317,6 +1343,360 @@ def paged_path(dev, bf16_params, w8_params) -> dict:
     return out
 
 
+# -- decode dispatches as CUDA graphs, fused windows, the pipeline ----------------
+
+def _fill_pool(cache, g) -> None:
+    """Seeded random K/V in every cache array but ``len``: bf16 values
+    N(0, 1); int8 and packed int4 codes uniform; scales and zero points
+    small and positive, as quantized K/V of O(1) values have them."""
+    for name, t in cache.items():
+        if name == "len":
+            continue
+        if t.dtype == torch.int8:
+            t.random_(-127, 128, generator=g)
+        elif t.dtype == torch.uint8:
+            t.random_(0, 256, generator=g)
+        elif name.endswith("_scale"):
+            t.uniform_(0.005, 0.02, generator=g)
+        elif name.endswith("_zero"):
+            t.uniform_(-0.15, -0.05, generator=g)
+        else:
+            t.normal_(generator=g)
+
+
+def graph_vs_eager(dev, what: str, params, cfg, paged: bool,
+                   fill: int = 2000, steps: int = 8) -> dict:
+    """One decode dispatch of ``steps`` steps at 8 rows x len ``fill``
+    (random K/V from seed 0, the page table a seeded permutation), from
+    the same state once by the generator's CUDA graph and once eagerly
+    through the same kernels: the tokens must be identical; the first
+    step's logits' largest difference is printed (0 expected). Then the
+    graphed dispatch's host wall, device time and busy share under the
+    profiler and by CUDA events."""
+    import numpy as np
+
+    from gofr_tpu_torch.ml.generate import Generator
+
+    opts = dict(batch_slots=8, max_seq=2048, chunk=steps, token_budget=0,
+                prefill_buckets=(128,))
+    if paged:
+        opts["page_size"] = 16
+    gen = Generator(params, cfg, device=dev, **opts)
+    g = torch.Generator(device=dev).manual_seed(0)
+    _fill_pool(gen.cache, g)
+    n_cols = None
+    if paged:
+        r = np.random.default_rng(0)
+        pages = r.permutation(np.arange(1, gen.n_pages, dtype=np.int32))
+        need = -(-(fill + steps) // 16)
+        for slot in range(8):
+            gen._slot_pages[slot] = pages[slot * need:(slot + 1) * need
+                                          ].tolist()
+            gen._table[slot, :need] = gen._slot_pages[slot]
+        gen._table_dirty = True
+        n_cols = min(gen._p_max, 1 << (need - 1).bit_length())
+    gen.cache["len"].fill_(fill)
+    gen._tok_dev.copy_(torch.randint(0, cfg.vocab_size, (8,), generator=g,
+                                     device=dev, dtype=torch.int32))
+    state = {k: v.clone() for k, v in gen.cache.items()}
+    tok0 = gen._tok_dev.clone()
+    t0 = time.perf_counter()
+    block = gen._decode_chunk(steps, n_cols).clone()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0  # capture + one replay
+    logits = gen.dispatch_logits.clone()
+    for k, v in state.items():
+        gen.cache[k].copy_(v)
+    gen._tok_dev.copy_(tok0)
+    with torch.no_grad():
+        eager, eager_logits = gen._chunk_body(steps, n_cols)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(block, eager))
+    diff = (logits - eager_logits).abs().max().item()
+    check(same, f"{what}: graph replay and eager dispatch sampled different "
+          f"tokens")
+
+    def replay():
+        gen.cache["len"].fill_(fill)
+        gen._decode_chunk(steps, n_cols)
+
+    ev_ms = timed_ms(replay, iters=10, warm=2)
+    prof = device_profile(replay, 5)
+    del state, gen
+    torch.cuda.empty_cache()
+    return {"tokens_identical": same, "logits_max_abs_diff": diff,
+            "steps": steps, "n_cols": n_cols,
+            "capture_and_first_replay_s": first_s,
+            "dispatch_ms_events": ev_ms,
+            "step_ms_events": ev_ms / steps,
+            "step_wall_ms": prof["wall_ms"] / steps,
+            "step_device_ms": prof["device_ms"] / steps,
+            "busy_share": prof["busy_share"],
+            "top_device_ms": prof["top_device_ms"]}
+
+
+def graph_phase(dev, bf16_params, w8_params) -> dict:
+    """Graph against eager for the dense and the paged (bf16, int8 and
+    int4 pages) decode dispatch of 8 steps at 8 x 2000."""
+    from gofr_tpu_torch.models import llama
+
+    arms = {"dense_bf16": (bf16_params, llama.llama3_8b(), False),
+            "paged_bf16": (bf16_params, llama.llama3_8b(), True),
+            "paged_int8": (w8_params, llama.llama3_8b(kv_quant=True, w8=True),
+                           True),
+            "paged_int4": (bf16_params, llama.llama3_8b(kv_bits=4), True)}
+    return {name: graph_vs_eager(dev, f"graph vs eager, {name}", p, c, paged)
+            for name, (p, c, paged) in arms.items()}
+
+
+@contextlib.contextmanager
+def knobs(**env):
+    """The serving knobs (``GOFR_ML_*``) set inside the block only."""
+    import os
+
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def steady_decode(gen, cfg, n_rows: int = 8, prompt: int = 500,
+                  calls: int = 4) -> dict:
+    """``n_rows`` streams of ``prompt`` tokens decoding; after their first
+    tokens, ``calls`` calls of ``gen.step()`` under the profiler: host wall
+    and device time per decode step (a call dispatches a chunk or a whole
+    window), and the busy share."""
+    import numpy as np
+
+    r = np.random.default_rng(11)
+    slots = [gen.add_request(r.integers(0, cfg.vocab_size, prompt).tolist(),
+                             400) for _ in range(n_rows)]
+    while gen._pending_first:
+        gen.step()
+    gen.step()
+    steps0 = gen.steps
+    prof = device_profile(gen.step, calls)
+    n = (gen.steps - steps0) / (calls + 1)  # device_profile's warm call too
+    for i in slots:
+        gen.slots[i].live = False
+    gen.drain()
+    for i in slots:
+        gen.release(i)
+    return {"steps_per_call": n, "step_wall_ms": prof["wall_ms"] / n,
+            "step_device_ms": prof["device_ms"] / n,
+            "busy_share": prof["busy_share"],
+            "top_device_ms": prof["top_device_ms"]}
+
+
+def first_step_logits(gen, prompt) -> torch.Tensor:
+    """The first decode step's logits of ``prompt`` admitted alone on an
+    idle generator (the mini dispatch), as f32 [V]."""
+    slot = gen.add_request(prompt, 2)
+    gen.step()
+    row = gen.dispatch_logits[slot].clone()
+    while gen.slots[slot].live:
+        gen.step()
+    gen.drain()
+    gen.release(slot)
+    return row
+
+
+def frozen_tail(gen, n_win: int = 32, fill: int = 1000) -> dict:
+    """A K-step window replayed with every row active for K steps and with
+    every row frozen after one step (``step_cap`` 1): the graph has no
+    branch, so both cost K steps of device time."""
+    import numpy as np
+
+    active = np.ones((gen.batch_slots,), bool)
+    out = {}
+    for name, cap in (("all_active", n_win), ("frozen_after_1", 1)):
+        caps = np.full((gen.batch_slots,), cap, np.int32)
+
+        def replay():
+            gen.cache["len"].fill_(fill)
+            gen._decode_window(n_win, active, caps, n_cols=gen._p_max)
+
+        out[f"{name}_ms"] = timed_ms(replay, iters=3, warm=1)
+    out["window"] = n_win
+    out["tail_ms"] = out["frozen_after_1_ms"] - out["all_active_ms"] / n_win
+    return out
+
+
+def window_pipeline_phase(dev, bf16_params) -> dict:
+    """The paged bf16 serving arm four times: windows off,
+    ``GOFR_ML_DECODE_WINDOW=auto``, ``GOFR_ML_PIPELINE=1`` and both.
+    Each: served tok/s, the decode step in steady state (8 streams),
+    ``window_stats``/``pipeline_stats``, the graphs. With windows off and
+    auto: the longest decode gap and the TTFT of a 1900-token prompt
+    prefilled in segments and whole. The window arm's first-step logits
+    are held against the window-off arm's at 5 % of range; the share of
+    identical streams between arms is printed."""
+    import numpy as np
+
+    from gofr_tpu_torch.ml.generate import Generator
+    from gofr_tpu_torch.models import llama
+
+    cfg = llama.llama3_8b()
+    arms = {"off": {}, "window_auto": {"GOFR_ML_DECODE_WINDOW": "auto"},
+            "pipeline": {"GOFR_ML_PIPELINE": "1"},
+            "window_auto_pipeline": {"GOFR_ML_DECODE_WINDOW": "auto",
+                                     "GOFR_ML_PIPELINE": "1"}}
+    _, _, longs = paged_prompts(cfg.vocab_size, 16, 2, 1)
+    probe = np.random.default_rng(13).integers(0, cfg.vocab_size,
+                                               300).tolist()
+    out, streams, firsts = {}, {}, {}
+    for name, env in arms.items():
+        with knobs(**env):
+            res, gen = paged_arm(llama, bf16_params, cfg, dev, n_shared=16,
+                                 n_long=2, pin=True, seed=1, int8=False,
+                                 keep_outputs=True)
+            streams[name] = res.pop("outputs")
+            res["window_stats"] = gen.window_stats()
+            res["pipeline_stats"] = gen.pipeline_stats()
+            res["steady_decode"] = steady_decode(gen, cfg)
+            if name in ("off", "window_auto"):
+                firsts[name] = first_step_logits(gen, probe)
+                gaps = {"prefill_chunk_512": longest_gap_ms(gen, cfg,
+                                                            longs[1])}
+                whole = Generator(bf16_params, cfg, device=dev,
+                                  **{**PAGED, "prefill_chunk": 0})
+                whole.warmup()
+                gaps["prefill_chunk_0"] = longest_gap_ms(whole, cfg,
+                                                         longs[1])
+                del whole
+                res["decode_gap_while_long_prefill"] = gaps
+            if name == "window_auto":
+                res["frozen_tail"] = frozen_tail(gen)
+            out[name] = res
+            del gen
+            torch.cuda.empty_cache()
+    err = ((firsts["window_auto"] - firsts["off"]).abs().max().item()
+           / firsts["off"].abs().max().item())
+    check(err <= 5e-2, f"window arm's first-step logits vs window off: rel "
+          f"err {err} > 5e-2")
+    out["window_first_step_logit_rel_err"] = err
+    out["identical_stream_share_vs_off"] = {
+        name: sum(a == b for a, b in zip(streams[name], streams["off"],
+                                         strict=True)) / len(streams["off"])
+        for name in arms if name != "off"}
+    return out
+
+
+def host_tier_arm(dev, params, cfg, what: str) -> dict:
+    """A 1536-token prefix pinned on a paged generator with a host KV tier
+    (2 GiB): the same 64-token suffix served on it resident and after
+    three spill→restore cycles (tokens identical, pages conserved), each
+    spill and restore timed (host wall to a synchronised card; the first
+    spill also allocates the pinned host memory) with its GB/s; then TTFT
+    of a restore hit against a resident hit and a cold prompt (two turns
+    each)."""
+    import numpy as np
+
+    from gofr_tpu_torch.ml.generate import Generator
+    from gofr_tpu_torch.ml.kv_offload import HostKVStore, OffloadConfig
+
+    store = HostKVStore(OffloadConfig(budget_mb=2048))
+    gen = Generator(params, cfg, device=dev, host_kv=store, **PAGED)
+    gen.warmup()
+    prefix, _, _ = paged_prompts(cfg.vocab_size, 1, 0, 1)
+    suffix = np.random.default_rng(3).integers(0, cfg.vocab_size,
+                                               64).tolist()
+
+    def held():
+        return (gen.free_pages
+                + sum(len(i["pages"]) for i in gen._prefixes.values())
+                + sum(len(p) - s for p, s in zip(gen._slot_pages,
+                                                 gen._slot_shared)))
+
+    def serve_on(pid):
+        slot = gen.add_request(suffix, 16, prefix=pid)
+        while gen.slots[slot].live:
+            gen.step()
+        gen.drain()
+        toks = list(gen.slots[slot].tokens)
+        gen.release(slot)
+        return toks
+
+    def spill(pid):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        check(gen.drop_prefix(pid, spill=True), f"{what}: the spill was not "
+              f"stored")
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def restore():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pid = gen.restore_prefix(prefix)
+        torch.cuda.synchronize()
+        return pid, time.perf_counter() - t0
+
+    reset_launches()
+    pid = gen.register_prefix(prefix, pinned=True)
+    ref = serve_on(pid)
+    conserved = held()
+    spill_s, restore_s = [], []
+    for _ in range(3):  # the first spill allocates the pinned host memory
+        spill_s.append(spill(pid))
+        nbytes = store.bytes_used
+        check(gen.has_offloaded(prefix) and held() == conserved,
+              f"{what}: pages not conserved by the spill")
+        pid, dt = restore()
+        restore_s.append(dt)
+        check(held() == conserved,
+              f"{what}: pages not conserved by the restore")
+    got = serve_on(pid)
+    check(got == ref, f"{what}: tokens after spill and restore differ from "
+          f"the never-evicted run ({got} vs {ref})")
+    ttft = {"resident_hit": [], "restore_hit": [], "cold": []}
+    for kind in ("resident_hit", "restore_hit", "cold", "cold",
+                 "restore_hit", "resident_hit"):
+        if kind == "resident_hit":
+            ttft[kind].append(ttft_s(gen, lambda cb: gen.add_request(
+                suffix, 1, cb, prefix=pid)))
+        elif kind == "restore_hit":
+            spill(pid)
+            ttft[kind].append(ttft_s(gen, lambda cb: gen.add_request(
+                suffix, 1, cb, prefix=gen.restore_prefix(prefix))))
+            pid = max(gen._prefixes)
+        else:
+            ttft[kind].append(ttft_s(gen, lambda cb: gen.add_request(
+                prefix + suffix, 1, cb)))
+    launches = read_launches()
+    stats = gen.pool_stats()
+    check(held() == conserved, f"{what}: pages not conserved at the end")
+    del gen
+    torch.cuda.empty_cache()
+    return {"prefix_tokens": len(prefix), "entry_bytes": nbytes,
+            "spill_ms": [x * 1e3 for x in spill_s],
+            "restore_ms": [x * 1e3 for x in restore_s],
+            "spill_gb_per_s": [nbytes / x / 1e9 for x in spill_s],
+            "restore_gb_per_s": [nbytes / x / 1e9 for x in restore_s],
+            "tokens_identical": True,
+            "ttft_ms": {k: [x * 1e3 for x in v] for k, v in ttft.items()},
+            "kv_spills": stats["kv_spills"],
+            "kv_restores": stats["kv_restores"],
+            "tier": store.stats(), "launches": launches}
+
+
+def host_tier_phase(dev, bf16_params, w8_params) -> dict:
+    """The host KV tier at bf16 pages and at int8 pages (w8 + kv8)."""
+    from gofr_tpu_torch.models import llama
+
+    return {"bf16": host_tier_arm(dev, bf16_params, llama.llama3_8b(),
+                                  "host tier, bf16 pages"),
+            "int8": host_tier_arm(dev, w8_params,
+                                  llama.llama3_8b(kv_quant=True, w8=True),
+                                  "host tier, int8 pages")}
+
+
 def main(argv: list[str]) -> int:
     import pathlib
 
@@ -1326,7 +1706,14 @@ def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    import gofr_tpu_torch
+    try:
+        import gofr_tpu_torch
+    except ModuleNotFoundError:
+        # the script alone, without the package beside it: no result
+        print("chip_smoke: the gofr_tpu_torch package is not importable; "
+              "run the script from the root of a checkout",
+              file=sys.stderr)
+        return 1
     from gofr_tpu_torch.ops import _build
 
     dev = gofr_tpu_torch.resolve_device()
@@ -1349,22 +1736,42 @@ def main(argv: list[str]) -> int:
                   f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) = "
                   f"{100 * r['bound_share']:.1f} % of the bound, "
                   f"{r['tb_per_s']:.3f} TB/s")
+    t0 = time.perf_counter()
+
+    def done(what: str, result) -> None:
+        nonlocal t0
+        print(f"{what} ({time.perf_counter() - t0:.1f} s): "
+              + json.dumps(result))
+        t0 = time.perf_counter()
+
     path, bf16_params = main_path(dev)
-    print("main path (bf16): " + json.dumps(path))
+    done("main path (bf16)", path)
     qpath, w8_params = int8_path(dev, bf16_params)
-    print("main path (int8 cache + int8 weights): " + json.dumps(qpath))
+    done("main path (int8 cache + int8 weights)", qpath)
     ppath = paged_path(dev, bf16_params, w8_params)
-    print("paged path: " + json.dumps(ppath))
+    done("paged path", ppath)
+    graphs = graph_phase(dev, bf16_params, w8_params)
+    done("graph vs eager", graphs)
+    windows = window_pipeline_phase(dev, bf16_params)
+    done("windows and pipeline", windows)
+    tier = host_tier_phase(dev, bf16_params, w8_params)
+    done("host KV tier", tier)
     if out_dir is not None:
         out_dir.mkdir(parents=True, exist_ok=True)
         (out_dir / "chip_smoke.json").write_text(json.dumps(
             {"card": card, "kernels": rows, "bf16": path, "int8": qpath,
-             "paged": ppath}, indent=1))
+             "paged": ppath, "graphs": graphs, "windows": windows,
+             "host_tier": tier}, indent=1))
     for row in rows:
         by_path = {"bf16": path["launches"][row["name"]],
                    "int8": qpath["launches"][row["name"]],
                    **{f"paged_{arm}": ppath[arm]["launches"][row["name"]]
-                      for arm in ("bf16", "int8", "int4")}}
+                      for arm in ("bf16", "int8", "int4")},
+                   **{f"paged_bf16_{arm}": windows[arm]["launches"][
+                       row["name"]] for arm in ("window_auto", "pipeline",
+                                                "window_auto_pipeline")},
+                   **{f"host_tier_{arm}": tier[arm]["launches"][row["name"]]
+                      for arm in ("bf16", "int8")}}
         own = "int8" if row["name"] == "gqa_decode_attention_int8_cuda" \
             else "bf16"
         row["launches"] = by_path[own]

@@ -1,6 +1,5 @@
 """Continuous-batching token generation — counterpart of
-``gofr_tpu/ml/generate.py`` without speculation, fused windows, the depth-2
-pipeline, sequence parallelism and the host KV tier.
+``gofr_tpu/ml/generate.py`` without speculation and sequence parallelism.
 
 ``Generator`` holds a fixed batch of slots over one KV cache; every decode
 dispatch runs the whole batch (free slots decode garbage that is ignored).
@@ -17,10 +16,14 @@ host-owned page table (``llama.init_paged_cache``). As in the JAX package:
   whose row 0 is the INPUT token row — that is how the first tokens sampled
   at admission reach the host; while first tokens are pending the dispatch
   is the 1-step mini-chunk (TTFT);
+- fused decode windows (``decode_window`` / ``GOFR_ML_DECODE_WINDOW``,
+  paged only): a dispatch is a window of up to K steps whose per-row
+  early-exit masks (EOS, the row's remaining budget, its deadline) freeze
+  finished rows on the device; the ladder entries become window sizes;
 - host bookkeeping lags one dispatch behind the device (the lag-one
-  pipeline): a block is copied to a pinned host buffer with
-  ``non_blocking=True`` behind a CUDA event, and read only when the next
-  dispatch is on its way;
+  pipeline), or two with ``pipeline`` / ``GOFR_ML_PIPELINE``: a block is
+  copied to a pinned host buffer with ``non_blocking=True`` behind a CUDA
+  event, and read only when the next dispatch is on its way;
 - the page pool: page 0 is scratch, a slot's pages grow ahead of decode
   (``_grow_pages``), a dry pool truncates the growing slot (``evictions``)
   instead of corrupting another, and admission without pages raises
@@ -28,30 +31,37 @@ host-owned page table (``llama.init_paged_cache``). As in the JAX package:
 - shared prefixes: ``register_prefix`` computes a prefix's whole pages
   once; ``add_request(prefix=)`` borrows them and prefills only the
   partial-page tail plus the suffix; idle prefixes are a cache that pool
-  pressure evicts (unpinned first, least recently used);
+  pressure evicts (unpinned first, least recently used), into the host KV
+  tier when one is on (``host_kv`` / ``GOFR_ML_KV_HOST_BUDGET_MB``,
+  ``kv_offload.py``), from which ``restore_prefix`` brings them back;
 - chunked prefill: with ``prefill_chunk`` a longer prompt prefills in
   segments between decode dispatches, as many a dispatch as the
   scheduler's budget leaves, so live streams keep their cadence.
 
-What differs: PyTorch runs eagerly, so a dispatch is a Python loop of
-``decode_step`` / ``paged_decode_step`` calls and there is nothing to
-compile (``warmup`` builds the CUDA kernels and runs each shape once). The
-page table's device copy is rewritten only when a slot's pages change, and
-a paged step gathers only the table columns its live rows use (rounded up
-to a power of two of pages, so the shapes stay few). Sampling draws from
-one ``torch.Generator`` stream instead of ``fold_in(key, step)``: greedy
-output matches the JAX package token for token, sampled output by
-distribution.
+What differs: on a card every decode dispatch shape (a ladder entry, and
+with paging the gather width) is captured once as a CUDA graph
+(``graphs.py``; at ``warmup`` or at first use) and each dispatch is one
+replay: the counterpart of JAX's compiled chunk and window programs.
+Prefill stays eager (its shapes vary). A graph has no branch, so a window
+runs all its K steps and counts on the device the steps in which any row
+was active (``realized``), where JAX skips the sweep once every row is
+frozen; the tokens are the same. On the CPU the same bodies run eagerly.
+The page table's device copy is one persistent buffer, rewritten in place
+only when a slot's pages change, and a paged step gathers only the table
+columns its live rows use (rounded up to a power of two of pages, so the
+shapes stay few). Sampling draws from one ``torch.Generator`` stream
+instead of ``fold_in(key, step)``: greedy output matches the JAX package
+token for token, sampled output by distribution.
 
-Speculation, fused windows, the dispatch pipeline at depth 2, sequence
-parallelism and the host KV tier raise ``NotImplementedError`` naming the
-ROADMAP item that brings them.
+Speculation (``spec_k`` / ``GOFR_ML_SPEC_K``) and sequence parallelism
+raise ``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
 
 import collections
 import os
+import time
 from typing import Any
 
 import numpy as np
@@ -59,10 +69,13 @@ import torch
 
 from .. import resolve_device
 from ..models import llama
+from .graphs import DecodeGraphs
+from .kv_offload import HostKVStore
 from .scheduler import TokenBudgetScheduler
 
 __all__ = ["Sampler", "greedy", "Generator", "PagePoolExhausted",
-           "PrefixEvicted"]
+           "PrefixEvicted", "DecodeWindowUnsupported",
+           "decode_window_from_env", "pipeline_from_env", "spec_k_from_env"]
 
 NEG_INF = -1e30
 
@@ -90,14 +103,87 @@ def _chunk_ladder(chunk: int) -> tuple[int, ...]:
     return tuple(ladder)
 
 
-def _host_tier_requested() -> bool:
-    """Does ``GOFR_ML_KV_HOST_BUDGET_MB`` ask for the host KV tier (a
-    positive budget, read as the JAX package reads it)?"""
-    raw = os.environ.get("GOFR_ML_KV_HOST_BUDGET_MB", "0").strip()
+def _env_int(name: str, default: int, *, minimum: int = 0) -> int:
+    """Loudly-validated integer env knob: a malformed value or one below
+    ``minimum`` raises ValueError naming the knob."""
+    raw = os.environ.get(name, "").strip()
+    if not raw:
+        return default
     try:
-        return float(raw or 0) > 0
+        value = int(raw)
     except ValueError:
-        return False
+        raise ValueError(f"{name} must be an integer, got {raw!r}") from None
+    if value < minimum:
+        raise ValueError(f"{name} must be >= {minimum}, got {value}")
+    return value
+
+
+def spec_k_from_env(default: int = 0) -> int:
+    """``GOFR_ML_SPEC_K`` with loud validation (the JAX package's parse)."""
+    return _env_int("GOFR_ML_SPEC_K", default)
+
+
+# the K "auto" resolves to: big enough that a window amortizes the host's
+# round trip per launch, small enough that early-exit waste past a short
+# answer stays a fraction of the window
+_WINDOW_AUTO = 32
+
+
+def decode_window_from_env(default: int = 0) -> int:
+    """``GOFR_ML_DECODE_WINDOW`` — the fused-decode-window size K (one
+    dispatch runs up to K sampling steps). Accepts ``0``/``off`` (the
+    single-step dispatch, the default), ``auto`` (``_WINDOW_AUTO``), or a
+    power-of-two K; anything else raises ValueError naming the knob."""
+    raw = os.environ.get("GOFR_ML_DECODE_WINDOW", "").strip().lower()
+    if not raw:
+        return default
+    if raw in ("0", "off"):
+        return 0
+    if raw == "auto":
+        return _WINDOW_AUTO
+    try:
+        value = int(raw)
+    except ValueError:
+        raise ValueError(
+            f"GOFR_ML_DECODE_WINDOW must be an integer, 'auto', or "
+            f"'off', got {raw!r}") from None
+    if value < 1 or value & (value - 1):
+        raise ValueError(
+            f"GOFR_ML_DECODE_WINDOW must be a power of two >= 1 "
+            f"(or 0/off/auto), got {value}")
+    return value
+
+
+def pipeline_from_env(default: int = 0) -> int:
+    """``GOFR_ML_PIPELINE`` — double-buffered dispatch: ``1``/``on`` keeps
+    TWO decode dispatches in flight (dispatch N+1 is enqueued before the
+    host reads N), ``0``/``off``/unset the lag-one pipeline. Anything else
+    raises ValueError naming the knob."""
+    raw = os.environ.get("GOFR_ML_PIPELINE", "").strip().lower()
+    if not raw:
+        return default
+    if raw in ("0", "off"):
+        return 0
+    if raw in ("1", "on"):
+        return 1
+    raise ValueError(
+        f"GOFR_ML_PIPELINE must be 0/off or 1/on, got {raw!r}")
+
+
+class DecodeWindowUnsupported(ValueError):
+    """Fused decode windows require the paged KV cache: the early-exit
+    loop freezes a finished row by holding its ``len`` in place, which the
+    JAX package allows only for the page pool."""
+
+
+def _upload(dst: torch.Tensor, src: np.ndarray) -> None:
+    """Host array -> the persistent device tensor ``dst``, in place. To a
+    card the copy goes through fresh pinned memory without blocking (the
+    pinned block is not reused before the copy ran)."""
+    t = torch.from_numpy(np.ascontiguousarray(src))
+    if dst.device.type == "cuda":
+        t = t.pin_memory()
+    dst.copy_(t, non_blocking=True)
 
 
 class Sampler:
@@ -139,7 +225,7 @@ def _sample_impl(logits: torch.Tensor, generator: torch.Generator | None,
 
 class _Slot:
     __slots__ = ("live", "tokens", "max_new", "produced", "prompt_len",
-                 "eos_hit", "evicted", "callback")
+                 "eos_hit", "evicted", "callback", "deadline_at")
 
     def __init__(self) -> None:
         self.live = False
@@ -152,6 +238,9 @@ class _Slot:
         # it had, not at eos or max_new (the server answers "eviction")
         self.evicted = False
         self.callback = None
+        # the request's deadline (``time.perf_counter`` seconds, set by the
+        # server): fused windows bound a row's device steps by it
+        self.deadline_at: float | None = None
 
 
 class _HostBlock:
@@ -189,9 +278,14 @@ class Generator:
     ``page_size`` > 0 serves from a page pool of ``n_pages`` pages (default
     ``1 + batch_slots * max_seq / page_size``, the dense equivalent plus the
     scratch page); ``prefill_chunk`` > 0 prefills prompts longer than it in
-    segments. ``device`` defaults to the first CUDA card and raises when
-    there is none; pass ``device="cpu"`` to run the plain PyTorch path on
-    the host. ``params`` must already live on that device.
+    segments. ``decode_window``, ``pipeline``, ``spec_k`` and
+    ``token_budget`` left at None read ``GOFR_ML_DECODE_WINDOW``,
+    ``GOFR_ML_PIPELINE``, ``GOFR_ML_SPEC_K`` and ``GOFR_ML_TOKEN_BUDGET``,
+    and ``host_kv`` left at None reads ``GOFR_ML_KV_HOST_BUDGET_MB``, as
+    the JAX Generator does. ``device`` defaults to the first CUDA card and
+    raises when there is none; pass ``device="cpu"`` to run the plain
+    PyTorch path on the host. ``params`` must already live on that
+    device.
     """
 
     def __init__(self, params: Any, cfg, *, batch_slots: int = 8,
@@ -199,29 +293,64 @@ class Generator:
                  eos_id: int | None = None, prefill_buckets=(128, 512, 2048),
                  seed: int = 0, chunk: int = 1, token_budget: int | None = None,
                  page_size: int = 0, n_pages: int | None = None,
-                 prefill_chunk: int = 0, spec_k: int = 0,
-                 decode_window: int = 0, pipeline: int = 0, sp: Any = None,
-                 host_kv: Any = None, device=None) -> None:
+                 prefill_chunk: int = 0, spec_k: int | None = None,
+                 decode_window: int | None = None, pipeline: int | None = None,
+                 sp: Any = None, host_kv: Any = None, device=None) -> None:
+        if chunk < 1:
+            raise ValueError(f"chunk must be >= 1, got {chunk}")
+        self.chunk = chunk
+        # -- fused decode windows: None -> GOFR_ML_DECODE_WINDOW (0 = off).
+        # Window mode re-points ``chunk`` at K, so the ladder entries become
+        # window sizes and the scheduler and page growth follow unchanged.
+        if decode_window is None:
+            decode_window = decode_window_from_env(0)
+        self.decode_window = int(decode_window)
+        if self.decode_window < 0 or (
+                self.decode_window and
+                self.decode_window & (self.decode_window - 1)):
+            raise ValueError(
+                f"decode_window must be 0 or a power of two, got "
+                f"{self.decode_window}")
+        if self.decode_window:
+            if not page_size:
+                raise DecodeWindowUnsupported(
+                    "fused decode windows (GOFR_ML_DECODE_WINDOW="
+                    f"{self.decode_window}) require the paged KV cache — "
+                    "set page_size > 0")
+            self.chunk = self.decode_window
+            # window-mode-only state: none of it exists with the knob off
+            self.windows = 0                  # windows processed
+            self.window_steps_planned = 0     # sum of dispatched K
+            self.window_steps_realized = 0    # steps in which a row was active
+            self.window_overshoot = 0         # tokens computed past a row's
+            #                                   end (budget, EOS, death)
+            self._step_ema: float | None = None  # s per planned step
+            self._last_dispatch: tuple | None = None
+        # -- double-buffered dispatch: None -> GOFR_ML_PIPELINE (0 = off)
+        if pipeline is None:
+            pipeline = pipeline_from_env()
+        self.pipeline = 1 if pipeline else 0
+        if self.pipeline:
+            # pipeline-only state: none of it exists with the knob off
+            self.pipeline_windows = 0    # passes that ended double-buffered
+            self.pipeline_overshoot = 0  # tokens computed for slots already
+            #                              dead when their block settled
+        # -- speculation: None -> GOFR_ML_SPEC_K (0 = off)
+        if spec_k is None:
+            spec_k = spec_k_from_env(0)
+        self.spec_k = int(spec_k)
+        if self.spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0, got {self.spec_k}")
         for value, what, item in (
-                (spec_k, "speculative decoding (spec_k)", "A.10"),
-                (decode_window, "fused decode windows", "A.9"),
-                (pipeline, "the depth-2 dispatch pipeline", "A.9"),
-                (sp, "sequence-parallel serving (sp)", "A.11"),
-                (host_kv not in (None, False),
-                 "the host KV tier (host_kv)", "A.8's host tier")):
+                (self.spec_k, "speculative decoding (spec_k)", "A.10"),
+                (sp, "sequence-parallel serving (sp)", "A.11")):
             if value:
                 raise NotImplementedError(
                     f"{what} is not ported yet (ROADMAP {item})")
-        if host_kv is None and _host_tier_requested():
-            raise NotImplementedError(
-                "GOFR_ML_KV_HOST_BUDGET_MB asks for the host KV tier, which "
-                "is not ported yet (ROADMAP A.8's host tier)")
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(f"params live on {params['embed'].device}, "
                              f"the generator on {self.device}")
-        if chunk < 1:
-            raise ValueError(f"chunk must be >= 1, got {chunk}")
         if getattr(cfg, "kv_bits", 16) == 4 and not page_size:
             raise ValueError(
                 "kv_bits=4 (int4 KV) requires the paged cache — set "
@@ -239,7 +368,11 @@ class Generator:
             self._eos = frozenset((int(eos_id),))
         self._eos_arr = (np.fromiter(self._eos, np.int64, len(self._eos))
                          if self._eos else None)
-        self.chunk = chunk
+        # EOS membership on the device: the window's early exit and the
+        # host's truncation (``_apply_burst``) agree exactly
+        self._eos_dev = (torch.as_tensor(sorted(self._eos), dtype=torch.int32,
+                                         device=self.device)
+                         if self._eos else None)
         self.prefill_buckets = tuple(
             b for b in sorted(prefill_buckets) if b <= max_seq) or (max_seq,)
         # prefill_chunk > 0: prompts longer than this prefill in segments
@@ -254,6 +387,7 @@ class Generator:
         self.prefill_segments_run = 0  # chunked-prefill segments dispatched
         self.evictions = 0  # slots truncated because the page pool ran dry
         self.page_size = int(page_size)
+        self.host_kv = None
         if self.page_size:
             for b in (*self.prefill_buckets, max_seq):
                 # max_seq included: it is the prefill-bucket fallback, and
@@ -272,9 +406,12 @@ class Generator:
             self._slot_pages: list[list[int]] = [[] for _ in
                                                  range(batch_slots)]
             self._table = np.zeros((batch_slots, self._p_max), np.int32)
-            # the device copy of the host table, rewritten only when a
-            # slot's pages change (never uploaded per step)
-            self._table_dev: torch.Tensor | None = None
+            # the page table's device copy: ONE buffer for the generator's
+            # life (the decode graphs read it), rewritten in place only when
+            # a slot's pages change (never uploaded per step)
+            self._table_dev = torch.zeros((batch_slots, self._p_max),
+                                          dtype=torch.int32,
+                                          device=self.device)
             self._table_dirty = True
             # shared-prefix bookkeeping: per-slot count of BORROWED pages
             # (never freed back by this slot) and the owning prefix id
@@ -285,56 +422,179 @@ class Generator:
             self._prefix_clock = 0   # LRU stamp for prefix eviction
             self.prefix_evictions = 0
             self.prefix_prefills = 0  # prefix KV builds paid
+            # the host spill tier: None -> GOFR_ML_KV_HOST_BUDGET_MB (0 or
+            # unset: off, evicted prefixes are discarded); False turns it
+            # off; a HostKVStore is used as it is (an empty one is falsy)
+            if host_kv is None:
+                host_kv = HostKVStore.from_env()
+            self.host_kv = host_kv if host_kv is not False else None
+            self.kv_spills = 0             # prefixes copied card -> host
+            self.kv_restores = 0           # prefixes copied host -> card
+            self.kv_restore_fallbacks = 0  # restores lost to pool pressure
         else:
             self.cache = llama.init_cache(cfg, batch_slots, max_seq,
                                           device=self.device)
         self.slots = [_Slot() for _ in range(batch_slots)]
         self._rng = torch.Generator(device=self.device).manual_seed(seed)
+        # the token row: decode reads and writes it in place (a graph input)
         self._tok_dev = torch.zeros((batch_slots,), dtype=torch.int32,
                                     device=self.device)
-        self._inflight: collections.deque[_HostBlock] = collections.deque()
+        if self.decode_window:
+            # a window's per-row masks, written in place before each dispatch
+            self._win_active = torch.zeros((batch_slots,), dtype=torch.bool,
+                                           device=self.device)
+            self._win_cap = torch.zeros((batch_slots,), dtype=torch.int32,
+                                        device=self.device)
+        # logits of the first step of the last decode dispatch (f32 [B, V]):
+        # on a card the graph's own output, overwritten by its next replay
+        self.dispatch_logits: torch.Tensor | None = None
+        self._graphs = (DecodeGraphs(self.device, self._rng, cfg.dtype)
+                        if self.device.type == "cuda" else None)
+        self._inflight: collections.deque = collections.deque()
         self._pending_first: collections.deque[int] = collections.deque()
         self.steps = 0           # decode steps dispatched
         self.prefill_waves = 0   # batched prefill dispatches
         self._chunk_ladder = _chunk_ladder(self.chunk)
-        # auto budget, as in JAX: twice the full batch's chunk, or one
-        # chunk of it plus two segments when chunked prefill is on
+        # Token budget: None -> GOFR_ML_TOKEN_BUDGET ("auto"/unset: twice
+        # the full batch's chunk, or one chunk of it plus two segments when
+        # chunked prefill is on; "0" or negative: fixed-chunk dispatch)
         if token_budget is None:
-            token_budget = max(2 * self.chunk * batch_slots,
-                               self.chunk * batch_slots
-                               + 2 * self.prefill_chunk)
+            raw = os.environ.get("GOFR_ML_TOKEN_BUDGET", "auto")
+            token_budget = (max(2 * self.chunk * batch_slots,
+                                self.chunk * batch_slots
+                                + 2 * self.prefill_chunk)
+                            if raw.strip().lower() in ("", "auto")
+                            else int(raw))
         self.scheduler = (
             TokenBudgetScheduler(token_budget, self._chunk_ladder,
                                  self.prefill_chunk, slots=batch_slots)
             if token_budget > 0 else None)
+        if self.scheduler is not None and self.decode_window:
+            self.scheduler.window_mode = True  # entries are window sizes
         # admission-wave row buckets: 1 (the trickle) and the cap (bursts);
         # paged mode admits one request a wave
         self._admit_cap = 1 if self.page_size else min(8, batch_slots)
 
     # -- device programs -----------------------------------------------------
-    def _decode_chunk(self, n_steps: int, n_cols: int | None = None
-                      ) -> torch.Tensor:
-        """``n_steps`` fused decode+sample steps from the device token row.
-        Returns the [n_steps + 1, B] block, row 0 the input row. A paged
-        step gathers ``n_cols`` table columns (default: what the live rows
-        hold, ``_gather_cols``)."""
-        tok = self._tok_dev
-        rows = [tok]
+    def _run(self, key, body):
+        """Run one decode dispatch: on a card the CUDA graph of ``key``
+        (captured from ``body`` on first use) replayed once, on the CPU
+        ``body`` itself. Returns ``body``'s outputs."""
+        if self._graphs is None:
+            return body()
+        if key not in self._graphs:
+            self._graphs.capture(key, body)
+        return self._graphs.replay(key)
+
+    def _model_step(self, tok: torch.Tensor, n_cols: int | None):
+        """One decode step of the model over the whole batch; the cache is
+        updated in place. Returns the f32 logits [B, V]."""
         if self.page_size:
-            table = self._table_device()
-            n_cols = n_cols or self._gather_cols()
+            logits, _ = llama.paged_decode_step(
+                self.params, tok, self.cache, self._table_dev, self.cfg,
+                n_cols=n_cols)
+        else:
+            logits, _ = llama.decode_step(self.params, tok, self.cache,
+                                          self.cfg)
+        return logits
+
+    def _chunk_body(self, n_steps: int, n_cols: int | None):
+        """``n_steps`` fused decode+sample steps from the token row: the
+        [n_steps + 1, B] block (row 0 the input row) and the first step's
+        logits. The row ends holding the last samples."""
+        tok = self._tok_dev
+        rows, first = [tok], None
         for _ in range(n_steps):
-            if self.page_size:
-                logits, self.cache = llama.paged_decode_step(
-                    self.params, tok, self.cache, table, self.cfg,
-                    n_cols=n_cols)
-            else:
-                logits, self.cache = llama.decode_step(self.params, tok,
-                                                       self.cache, self.cfg)
+            logits = self._model_step(tok, n_cols)
+            first = logits if first is None else first
             tok = _sample_impl(logits, self._rng, self.sampler)
             rows.append(tok)
-        self._tok_dev = tok
-        return torch.stack(rows)
+        block = torch.stack(rows)  # copies row 0 before the row moves on
+        self._tok_dev.copy_(tok)
+        return block, first
+
+    def _is_eos(self, t: torch.Tensor) -> torch.Tensor:
+        if self._eos_dev is None:
+            return torch.zeros_like(t, dtype=torch.bool)
+        return (t[:, None] == self._eos_dev).any(-1)
+
+    def _window_body(self, n_win: int, n_cols: int):
+        """One FUSED window of ``n_win`` steps (``make_window_fn`` in the
+        JAX package). ``_win_active`` [B] names the rows that may decode,
+        ``_win_cap`` [B] the tokens each may still emit; a row freezes on
+        the device at EOS or its cap — its token and ``len`` stop moving —
+        and the step it then computes writes past its ``len``, where
+        nothing reads. Returns ([n_win + 3, B] int32: the block with row 0
+        the input row, then ``n_out`` [B], then ``realized`` — the steps in
+        which any row was active — in every column; the first step's
+        logits)."""
+        tok = self._tok_dev
+        length = self.cache["len"]
+        active = (self._win_active & ~self._is_eos(tok)
+                  & (self._win_cap > 0))
+        n_out = torch.zeros_like(tok)
+        realized = torch.zeros_like(tok[:1])
+        rows, first = [tok], None
+        for _ in range(n_win):
+            realized = realized + active.any().to(torch.int32)
+            len0 = length.clone()
+            logits = self._model_step(tok, n_cols)
+            first = logits if first is None else first
+            nxt = torch.where(active,
+                              _sample_impl(logits, self._rng, self.sampler),
+                              tok)
+            length.copy_(torch.where(active, length, len0))
+            n_out = n_out + active.to(torch.int32)
+            active = active & ~self._is_eos(nxt) & (n_out < self._win_cap)
+            tok = nxt
+            rows.append(nxt)
+        out = torch.cat([torch.stack(rows), n_out[None],
+                         realized.expand(tok.shape[0])[None]])
+        self._tok_dev.copy_(tok)
+        return out, first
+
+    def _decode_chunk(self, n_steps: int, n_cols: int | None = None
+                      ) -> torch.Tensor:
+        """Dispatch ``n_steps`` decode+sample steps; returns the
+        [n_steps + 1, B] block. A paged step gathers ``n_cols`` table
+        columns (default: what the live rows hold, ``_gather_cols``)."""
+        if self.page_size:
+            self._table_device()
+            n_cols = n_cols or self._gather_cols()
+        block, self.dispatch_logits = self._run(
+            ("chunk", n_steps, n_cols),
+            lambda: self._chunk_body(n_steps, n_cols))
+        return block
+
+    def _decode_window(self, n_win: int, active0: np.ndarray,
+                       step_cap: np.ndarray, n_cols: int | None = None
+                       ) -> torch.Tensor:
+        """Dispatch one fused window under the masks ``active0`` and
+        ``step_cap`` (``_plan_window``); returns ``_window_body``'s packed
+        [n_win + 3, B] block."""
+        self._table_device()
+        n_cols = n_cols or self._gather_cols()
+        _upload(self._win_active, active0)
+        _upload(self._win_cap, step_cap)
+        out, self.dispatch_logits = self._run(
+            ("window", n_win, n_cols),
+            lambda: self._window_body(n_win, n_cols))
+        return out
+
+    def _graph_keys(self) -> list:
+        """Every decode dispatch shape: each ladder entry, and with paging
+        at each gather width ``_gather_cols`` can pick."""
+        kind = "window" if self.decode_window else "chunk"
+        if not self.page_size:
+            return [(kind, n, None) for n in self._chunk_ladder]
+        widths = sorted({min(self._p_max, 1 << k)
+                         for k in range(self._p_max.bit_length() + 1)})
+        return [(kind, n, w) for n in self._chunk_ladder for w in widths]
+
+    def graph_stats(self) -> dict | None:
+        """Captured decode graphs (None on the CPU): how many, the wall
+        seconds capture took and the reserved memory it added."""
+        return None if self._graphs is None else self._graphs.stats()
 
     def _post_prefill(self, logits, slots, valid) -> None:
         """Sample the wave's first tokens and park them in the device token
@@ -364,17 +624,23 @@ class Generator:
 
     def warmup(self) -> None:
         """Build the CUDA kernels and run every dispatch shape once before
-        the first request: the decode chunk and the 1-step mini-chunk (a
-        paged step over every table column), each prefill bucket as a
-        single (paged: its page writes) and as a wave, and with paging the
-        suffix prefill per bucket, and the segment with chunked prefill.
-        All slots are dead and every page write lands in scratch page 0, so
-        nothing reaches bookkeeping; admission overwrites what this
-        writes."""
+        the first request: the decode chunk (or window) and the 1-step
+        mini-chunk eagerly (a paged step over every table column), each
+        prefill bucket as a single (paged: its page writes) and as a wave,
+        and with paging the suffix prefill per bucket, and the segment with
+        chunked prefill; then on a card capture the CUDA graph of every
+        decode dispatch shape (``_graph_keys``). All slots are dead and
+        every page write lands in scratch page 0, so nothing reaches
+        bookkeeping; admission overwrites what this writes."""
         if any(s.live for s in self.slots):
             raise RuntimeError("warmup needs an idle generator")
+        if self.page_size:
+            self._table_device()
         for n in sorted({self.chunk, 1}):
-            self._decode_chunk(n, self._p_max if self.page_size else None)
+            if self.decode_window:
+                self._window_body(n, self._p_max)
+            else:
+                self._chunk_body(n, self._p_max if self.page_size else None)
         ones = np.ones((1,), np.int32)
         for bucket in self.prefill_buckets:
             padded = np.zeros((1, bucket), np.int32)
@@ -400,7 +666,14 @@ class Generator:
             s_cap = (self._p_max * self.page_size if self.page_size
                      else self.cache["k"].shape[2])
             self._segment(seg, ones, 0, 0, s_cap)
-        if self.device.type == "cuda":
+        if self._graphs is not None:
+            for kind, n, n_cols in self._graph_keys():
+                if (kind, n, n_cols) in self._graphs:
+                    continue
+                body = (self._window_body if kind == "window"
+                        else self._chunk_body)
+                self._graphs.capture((kind, n, n_cols),
+                                     lambda: body(n, n_cols))
             torch.cuda.synchronize(self.device)
 
     # -- paged-pool bookkeeping (page_size > 0) ------------------------------
@@ -475,10 +748,11 @@ class Generator:
                 self.evictions += 1
 
     def _table_device(self) -> torch.Tensor:
-        """The device copy of the page table for the next dispatch, made
-        anew only when the host table changed since the last one."""
-        if self._table_dirty or self._table_dev is None:
-            self._table_dev = llama._int32(self._table, self.device)
+        """The device copy of the page table for the next dispatch,
+        rewritten in place only when the host table changed since the last
+        one."""
+        if self._table_dirty:
+            _upload(self._table_dev, self._table)
             self._table_dirty = False
         return self._table_dev
 
@@ -522,8 +796,12 @@ class Generator:
                     for k in ("k", "v")) // self.n_pages,
                 prefix_evictions=self.prefix_evictions,
                 registered_prefixes=len(self._prefixes),
-                pinned_prefixes=sum(1 for i in self._prefixes.values()
+                # list(): one atomic copy, safe from a reader thread
+                pinned_prefixes=sum(1 for i in list(self._prefixes.values())
                                     if i.get("pinned")),
+                kv_spills=self.kv_spills,
+                kv_restores=self.kv_restores,
+                kv_restore_fallbacks=self.kv_restore_fallbacks,
                 prefix_prefills=self.prefix_prefills,
             )
         return out
@@ -597,7 +875,9 @@ class Generator:
         """Evict idle (refs == 0) prefixes until at least ``n_need`` pages
         are free: UNPINNED ones first, least-recently-used; PINNED ones only
         as a last resort. Borrowed prefixes (refs > 0) are never
-        candidates. False when that cannot free enough."""
+        candidates, so a prefix a slot still reads is never mid-spill. An
+        evicted prefix spills to the host tier when one is on. False when
+        that cannot free enough."""
         while self._n_free_pages() < n_need:
             idle = [(info.get("pinned", False), info["last_use"], pid)
                     for pid, info in self._prefixes.items()
@@ -606,21 +886,119 @@ class Generator:
                 return False
             _, _, pid = min(idle)
             info = self._prefixes.pop(pid)
+            # the spill's gather is enqueued before anything can write the
+            # freed pages (one stream), so returning them at once is safe
+            self._spill_prefix(info)
             self._return_pages(info["pages"])
             self.prefix_evictions += 1
         return True
 
-    def drop_prefix(self, pid: int) -> bool:
-        """Return a prefix's pages to the pool (no live borrowers). Returns
-        False: the pages are discarded (the host tier that could keep them
-        is not ported)."""
+    def _page_index(self, pages) -> torch.Tensor:
+        return llama._int32(np.asarray(pages, np.int32), self.device).long()
+
+    def _spill_prefix(self, info: dict) -> bool:
+        """Copy an evicted idle prefix's whole pages into the host tier:
+        one gather per cache array into a fresh device buffer, then a
+        copy to pinned host memory that does not block, settled by the
+        store on first read. False when the tier is off, the entry exceeds
+        its budget, or the prefix shares no whole page — the pages are then
+        discarded, as without the tier."""
+        if self.host_kv is None or not info["pages"] or not info["len"]:
+            return False
+        idx = self._page_index(info["pages"])
+        cuda = self.device.type == "cuda"
+        arrays = {}
+        for name, arr in self.cache.items():
+            if name == "len":
+                continue
+            slab = arr.index_select(1, idx)
+            if cuda:
+                host = torch.empty(slab.shape, dtype=slab.dtype,
+                                   pin_memory=True)
+                host.copy_(slab, non_blocking=True)
+                slab = host
+            arrays[name] = slab
+        event = None
+        if cuda:
+            event = torch.cuda.Event()
+            event.record()
+        ok = self.host_kv.put(tuple(info["ids_full"]), arrays, {
+            "len": info["len"], "tail": list(info["tail"]),
+            "ids_full": list(info["ids_full"]),
+            "pinned": bool(info.get("pinned", False)),
+        }, event)
+        if ok:
+            self.kv_spills += 1
+        return ok
+
+    def has_offloaded(self, prefix_ids) -> bool:
+        """True when the host tier holds this exact prefix — the radix
+        cache marks a generator-evicted registration restorable by it."""
+        if self.host_kv is None:
+            return False
+        return tuple(int(t) for t in prefix_ids) in self.host_kv
+
+    def restore_prefix(self, prefix_ids) -> int:
+        """Bring an offloaded prefix back into pool pages: allocate, copy
+        the host slabs to the card without blocking, write them into the
+        pool pages in place (index assignment: the decode graphs keep the
+        pool's storage), and re-register under a fresh prefix id. The
+        restored tokens are charged to the token-budget scheduler.
+
+        Raises ``KeyError`` when the tier does not hold the prefix and
+        ``PagePoolExhausted`` when pool pressure wins (the entry stays in
+        the tier; the caller falls back to a full prefill). Restored pages
+        are bit-identical to the spilled ones, so decode after
+        spill→restore matches the never-evicted path exactly."""
+        if not self.page_size:
+            raise ValueError("kv offload requires page_size > 0")
+        if self.host_kv is None:
+            raise KeyError("host kv tier is disabled")
+        key = tuple(int(t) for t in prefix_ids)
+        popped = self.host_kv.pop(key)  # first: a reclaim below may spill
+        if popped is None:              # others and LRU-evict this entry
+            raise KeyError(f"prefix {key[:8]}... not in the host tier")
+        arrays, meta = popped
+        n_need = meta["len"] // self.page_size
+        if self._n_free_pages() < n_need:
+            self._reclaim_prefix_pages(n_need)
+        if self._n_free_pages() < n_need:
+            self.host_kv.put_back(key, arrays, meta)
+            self.kv_restore_fallbacks += 1
+            raise PagePoolExhausted(
+                f"restore needs {n_need} pages, {self.free_pages} free")
+        pages = [self._pop_free_page() for _ in range(n_need)]
+        if n_need:
+            idx = self._page_index(pages)
+            for name, slab in arrays.items():
+                self.cache[name][:, idx] = slab.to(self.device,
+                                                   non_blocking=True)
+        pid = self._next_prefix
+        self._next_prefix += 1
+        self._prefix_clock += 1
+        self._prefixes[pid] = {"pages": pages, "len": meta["len"],
+                               "tail": list(meta["tail"]),
+                               "ids_full": list(meta["ids_full"]),
+                               "refs": 0, "last_use": self._prefix_clock,
+                               "pinned": bool(meta.get("pinned", False))}
+        self.kv_restores += 1
+        if self.scheduler is not None:
+            self.scheduler.charge_restore(meta["len"])
+        return pid
+
+    def drop_prefix(self, pid: int, spill: bool = False) -> bool:
+        """Return a prefix's pages to the pool (no live borrowers).
+        ``spill=True`` (capacity evictions, e.g. the radix cache's cap on
+        registered prefixes) copies the pages to the host tier first;
+        returns whether they were stored. A plain drop discards."""
         info = self._prefixes[pid]
         if info["refs"] > 0:
             raise RuntimeError(f"prefix {pid} still used by {info['refs']} "
                                f"slots")
+        spilled = self._spill_prefix(info) if spill else False
         self._return_pages(info["pages"])
         del self._prefixes[pid]
-        return False
+        return spilled
 
     def _admit_prefixed(self, pid: int, ids: np.ndarray, max_new: int,
                         callback) -> int:
@@ -1023,9 +1401,46 @@ class Generator:
             s.live = False
 
     # -- decode ---------------------------------------------------------------
+    def _plan_window(self, n_steps: int) -> tuple[np.ndarray, np.ndarray]:
+        """Per-row masks for the next fused window: ``active0`` (decodable
+        rows) and ``step_cap`` (tokens each row may still emit on the
+        device). The cap folds the remaining ``max_new``, the remaining
+        sequence capacity and the deadline bound (time to the slot's
+        deadline over the observed seconds a step), MINUS the steps of
+        windows already in flight: host ``produced`` lags the pipeline, and
+        without the subtraction a row could be granted the same budget
+        twice. Under-granting is safe (the next window continues);
+        ``_apply_burst`` truncates on the host either way."""
+        active0 = np.array([s.live and i not in self._chunked
+                            for i, s in enumerate(self.slots)], bool)
+        pending = sum(meta[0] for kind, _block, meta in self._inflight
+                      if kind == "window")
+        step_cap = np.zeros((self.batch_slots,), np.int32)
+        now = time.perf_counter()  # slot.deadline_at's clock (llm.py)
+        for i, s in enumerate(self.slots):
+            if not active0[i]:
+                continue
+            cap = min(s.max_new - s.produced,
+                      self.max_seq - s.prompt_len - s.produced) - pending
+            if s.deadline_at is not None and self._step_ema:
+                cap = min(cap, int(max(s.deadline_at - now, 0.0)
+                                   / self._step_ema))
+            step_cap[i] = max(cap, 0)
+        # dispatch cadence EMA in seconds a planned step: the deadline
+        # bound's clock (advisory: the server's reaper stays authoritative)
+        t = time.perf_counter()
+        if self._last_dispatch is not None:
+            t_prev, n_prev = self._last_dispatch
+            per = (t - t_prev) / max(n_prev, 1)
+            self._step_ema = (per if self._step_ema is None
+                              else 0.8 * self._step_ema + 0.2 * per)
+        self._last_dispatch = (t, n_steps)
+        return active0, step_cap
+
     def step(self) -> None:
-        """Dispatch one chunk of decode steps, then process the PREVIOUS
-        chunk's tokens (host bookkeeping lags one dispatch). With the
+        """Dispatch one chunk (or fused window) of decode steps, then
+        process the blocks that fell behind the pipeline's depth (host
+        bookkeeping lags one dispatch, two with ``pipeline``). With the
         token-budget scheduler, segmented prefill takes its planned share
         first (several segments when decode is light), then decode
         dispatches the ladder entry that fills the rest. While first tokens
@@ -1050,16 +1465,34 @@ class Generator:
                 sched.mini_dispatches += 1
         elif sched is not None:
             sched.note_dispatch(n_steps)
+        if self.decode_window:
+            active0, step_cap = self._plan_window(n_steps)
+            if not mini and not bool((active0 & (step_cap > 0)).any()):
+                # no row can emit anything this window: settle the pipeline
+                # instead of dispatching an all-frozen window (the mini
+                # path always dispatches: pending firsts ride its input row)
+                self.drain()
+                return
         if self.page_size:
             self._grow_pages()
-        block = self._decode_chunk(n_steps)
+        if self.decode_window:
+            block = self._decode_window(n_steps, active0, step_cap)
+            kind, meta = "window", (n_steps, active0)
+        else:
+            block = self._decode_chunk(n_steps)
+            kind, meta = "chunk", None
         self.steps += n_steps
-        self._inflight.append(_HostBlock(block))
+        # the block's copy to the host is enqueued now, before any later
+        # replay can overwrite the graph's output
+        self._inflight.append((kind, _HostBlock(block), meta))
         if mini:
             self.drain()
         else:
-            while len(self._inflight) > 1:
+            depth = 2 if self.pipeline else 1
+            while len(self._inflight) > depth:
                 self._pop_process()
+            if self.pipeline and len(self._inflight) >= 2:
+                self.pipeline_windows += 1
 
     def drain(self) -> None:
         """Flush pending token blocks into host bookkeeping."""
@@ -1067,17 +1500,25 @@ class Generator:
             self._pop_process()
 
     def _pop_process(self) -> None:
-        self._process(self._inflight.popleft().numpy())
+        kind, block, meta = self._inflight.popleft()
+        toks = block.numpy()
+        if kind == "chunk":
+            self._process(toks)
+        else:
+            n_win = meta[0]
+            self._process_window(toks[:n_win + 1], toks[n_win + 1],
+                                 int(toks[n_win + 2, 0]), meta)
 
     def _apply_burst(self, i: int, s: _Slot, col: np.ndarray,
-                     bursts: dict) -> None:
+                     bursts: dict) -> int:
         """Fold one slot's token COLUMN (step order) into slot state: cap at
-        the slot's remaining budget, truncate at the first eos."""
+        the slot's remaining budget, truncate at the first eos. Returns the
+        tokens applied."""
         cap = min(len(col), s.max_new - s.produced,
                   self.max_seq - s.prompt_len - s.produced)
         if cap <= 0:
             self._maybe_finish(i)
-            return
+            return 0
         col = col[:cap]
         if self._eos_arr is not None:
             hits = np.nonzero(np.isin(col, self._eos_arr))[0]
@@ -1090,6 +1531,7 @@ class Generator:
         if s.callback is not None:
             bursts.setdefault(i, []).extend(burst)
         self._maybe_finish(i)
+        return len(burst)
 
     def _process(self, toks: np.ndarray) -> None:
         """Apply one [1 input + chunk sampled, B] block to slot state;
@@ -1101,10 +1543,81 @@ class Generator:
             if not s.live or i in self._chunked:
                 continue  # mid-prefill rows decode garbage; drop it
             self._apply_burst(i, s, body[:, i], bursts)
+        self._fire_bursts(bursts)
+
+    def _process_window(self, block: np.ndarray, n_out: np.ndarray,
+                        realized: int, meta) -> None:
+        """Apply one fused window — the block [K+1, B] with row 0 the input
+        row, the per-row emit counts ``n_out`` [B] and the ``realized``
+        step count — to slot state. Each active row applies only its own
+        ``n_out`` tokens. Tokens a row computed past its end (its budget,
+        EOS, a death since dispatch) count as ``window_overshoot``; with
+        the pipeline, those of rows already dead when the window settled
+        count as ``pipeline_overshoot`` (computed, never delivered; the
+        goodput ledger that charges them comes with ROADMAP A.6)."""
+        planned, active0 = meta
+        self.windows += 1
+        self.window_steps_planned += planned
+        self.window_steps_realized += realized
+        self._resolve_first(block[0])
+        body = block[1:]
+        bursts: dict[int, list[int]] = {}
+        overshoot = lagged = 0
+        for i, s in enumerate(self.slots):
+            if not active0[i] or i in self._chunked:
+                continue  # frozen at dispatch, or mid-prefill garbage
+            n = int(n_out[i])
+            was_live = s.live
+            applied = (self._apply_burst(i, s, body[:n, i], bursts)
+                       if was_live else 0)
+            if was_live or not self.pipeline:
+                overshoot += max(n - applied, 0)
+            else:
+                lagged += max(n - applied, 0)
+        self.window_overshoot += overshoot
+        if lagged:
+            self.pipeline_overshoot += lagged
+        self._fire_bursts(bursts)
+
+    def _fire_bursts(self, bursts: dict[int, list[int]]) -> None:
         for i, burst in bursts.items():
             cb = self.slots[i].callback
             if cb is not None:
                 cb(i, burst)
+
+    def window_stats(self) -> dict | None:
+        """Fused-window counters (None when window mode is off): K, the
+        windows processed, planned and realized steps, the overshoot and
+        the step EMA the deadline bound reads."""
+        if not self.decode_window:
+            return None
+        planned = self.window_steps_planned
+        return {
+            "window": self.decode_window,
+            "windows": self.windows,
+            "steps_planned": planned,
+            "steps_realized": self.window_steps_realized,
+            "realized_share": (round(self.window_steps_realized / planned, 4)
+                               if planned else None),
+            "overshoot_tokens": self.window_overshoot,
+            "step_ema_s": (round(self._step_ema, 6)
+                           if self._step_ema is not None else None),
+        }
+
+    def pipeline_stats(self) -> dict | None:
+        """Double-buffer counters (None when the pipeline is off): the
+        depth, the passes that ended with two dispatches in flight and the
+        tokens computed for rows already dead at settle. The JAX block's
+        ``device_idle_share`` comes from its flight recorder (ROADMAP A.6)
+        and is None here."""
+        if not self.pipeline:
+            return None
+        return {
+            "depth": 2,
+            "windows_overlapped": self.pipeline_windows,
+            "overshoot_tokens": self.pipeline_overshoot,
+            "device_idle_share": None,
+        }
 
     def release(self, i: int) -> None:
         """Return a finished slot (and its own pages) to the free pool."""

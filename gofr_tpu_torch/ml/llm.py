@@ -27,6 +27,10 @@ graceful ``close(drain_s)``. Over a paged generator (``page_size`` > 0):
   error), a prefix evicted in the race window falls back to the full
   prompt, and a slot truncated by a dry pool finishes as ``"eviction"``.
 
+``snapshot()`` reports the pool (host-tier counters included), the host
+tier, the scheduler, the fused-window and pipeline counters, the decode
+graphs and the prefix cache.
+
 An exception on the serving thread fails every live and queued request
 with ``GeneratorCrashed``, is logged with its traceback and kept in
 ``LLMServer.error``, and leaves the server dead (``health() == "dead"``);
@@ -305,6 +309,10 @@ class LLMServer:
                 raise
             for (req, _), slot in zip(batch, slots, strict=True):
                 self._active[slot] = req
+                # fused decode windows bound a row's device steps by it, so
+                # a window does not run K steps for a slot the reaper is
+                # about to cancel; the reaper stays authoritative
+                self.gen.slots[slot].deadline_at = req.deadline_at
                 if req.full_prompt is not None:
                     # the hit is real only now: the slot borrowed the
                     # prefix pages and only the suffix prefilled
@@ -581,6 +589,30 @@ class LLMServer:
                                               prefix=prefix):
             out.extend(burst)
         return out
+
+    def snapshot(self) -> dict:
+        """The serving state a status page shows: the generator's pool
+        counters (the host tier's spills, restores and fallbacks among
+        them), the host tier's occupancy, the scheduler's plan, the fused
+        window and pipeline counters (None when off), the decode graphs
+        (None on the CPU) and the prefix cache. Reads counters the serving
+        thread writes; safe from any thread."""
+        gen = self.gen
+        host = getattr(gen, "host_kv", None)
+        sched = gen.scheduler
+        return {
+            "health": self.health(),
+            "served": self.served,
+            "deadline_expired": self.deadline_expired,
+            "pool": gen.pool_stats(),
+            "kv_host_tier": None if host is None else host.stats(),
+            "scheduler": None if sched is None else sched.snapshot(),
+            "window": gen.window_stats(),
+            "pipeline": gen.pipeline_stats(),
+            "graphs": gen.graph_stats(),
+            "prefix_cache": (None if self.prefix_cache is None
+                             else self.prefix_cache.snapshot()),
+        }
 
     def health(self) -> str:
         """``serving``, or ``dead`` once closed or crashed."""

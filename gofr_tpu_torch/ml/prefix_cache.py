@@ -1,5 +1,5 @@
 """Shared-prefix KV cache policy — counterpart of
-``gofr_tpu/ml/prefix_cache.py`` without the host KV tier.
+``gofr_tpu/ml/prefix_cache.py``.
 
 The Generator has the device-side primitives (``register_prefix`` computes
 a prefix's KV pages once; prefixed admission prefills only the suffix while
@@ -18,7 +18,12 @@ attending the shared pages read-only). This module is the policy over them:
 - **pressure-aware eviction**: the Generator's own reclamation spends idle
   prefix pages before truncating a live stream or refusing a prefill
   (unpinned first, pinned last); the cache notices such evictions on the
-  next lookup and clears its stale registration.
+  next lookup and clears its stale registration;
+- **the host tier**: with the Generator's host KV tier on
+  (``kv_offload.py``), an evicted registration whose pages were spilled
+  moves to the OFFLOADED state (``offload_key``): a later prompt through
+  it restores the pages (``Generator.restore_prefix``) instead of
+  re-prefilling, and a capacity eviction spills before it drops.
 
 Registration is precision-agnostic: the pages may be fp, int8 or packed
 int4. All mutation happens on the LLMServer serving thread (the one thread
@@ -26,10 +31,10 @@ that touches the Generator); a small lock makes ``snapshot()`` and
 ``peek()`` safe from other threads, and device work (the prefix prefill
 inside ``register_prefix``) runs outside it.
 
-Left out with the host tier (ROADMAP A.8): the offloaded node state, its
-restore on a hit and its spill on a capacity eviction; and the fleet event
-log, whose counters (``hits``, ``misses``, ``evictions``,
-``tokens_saved``) are kept. ``metrics`` (an object with ``add_counter``)
+Left out: the fleet event log and the goodput charges of a lost restore
+(ROADMAP A.6); the counters (``hits``, ``misses``, ``evictions``,
+``tokens_saved``, ``offloads``, ``restores``) are kept. ``metrics`` (an
+object with ``add_counter``)
 receives ``app_ml_prefix_hits_total``, ``app_ml_prefix_misses_total``,
 ``app_ml_prefix_evictions_total`` and
 ``app_ml_prefill_tokens_saved_total``.
@@ -73,11 +78,13 @@ class PrefixCacheConfig:
 
 class _Node:
     """One radix-trie node: ``edge`` is the token run INTO the node,
-    ``depth`` the total tokens from the root through it; ``pid`` is set
-    while the node is registered on the Generator."""
+    ``depth`` the total tokens from the root through it. Registration
+    states: ``pid`` set (the pages are on the card), ``offload_key`` set
+    (the pages are in the host tier, restorable; ``reg_len`` survives so a
+    restore re-registers the same split), neither (a plain trie node)."""
 
     __slots__ = ("edge", "children", "parent", "depth", "pid", "reg_len",
-                 "hits", "last_hit")
+                 "offload_key", "hits", "last_hit")
 
     def __init__(self, edge: tuple, parent, depth: int) -> None:
         self.edge = tuple(edge)
@@ -86,6 +93,7 @@ class _Node:
         self.depth = depth
         self.pid: int | None = None   # generator prefix id when registered
         self.reg_len = 0              # tokens actually registered (≤ depth)
+        self.offload_key: tuple | None = None  # host-tier key when spilled
         self.hits = 0
         self.last_hit = 0.0
 
@@ -119,6 +127,8 @@ class RadixPrefixCache:
         self.misses = 0
         self.evictions = 0
         self.tokens_saved = 0
+        self.offloads = 0   # registrations that moved to the host tier
+        self.restores = 0   # offloaded registrations brought back
 
     # -- admission path -------------------------------------------------------
     def observe(self, prompt_ids) -> tuple[int | None, int]:
@@ -137,6 +147,34 @@ class RadixPrefixCache:
         with self._lock:
             path = self._insert(ids[:self._track_cap], now)
             best = self._best_registered(path, len(ids))
+            # a restore pays only when it REUSES more than the registered
+            # match: compare reg_len (the shared split), not trie depth
+            floor = best.reg_len if best is not None else 0
+            restore_node = self._best_offloaded(path, len(ids), floor)
+        if restore_node is not None:
+            # the host-to-card copy outside the lock; only the serving
+            # thread mutates the trie, so nothing races the release
+            pid = None
+            try:
+                pid = self.gen.restore_prefix(restore_node.offload_key)
+            except PagePoolExhausted:
+                pass  # the entry stays in the tier: this request falls
+                #       back to the shallower match or a full prefill
+            except KeyError:
+                with self._lock:  # the tier dropped it (LRU): gone
+                    if restore_node.pid is None:
+                        restore_node.offload_key = None
+                        restore_node.reg_len = 0
+            if pid is not None:
+                with self._lock:
+                    restore_node.pid = pid
+                    restore_node.offload_key = None
+                    self._by_pid[pid] = restore_node
+                    self.restores += 1
+                if self._usable_for(restore_node, len(ids)):
+                    best = restore_node
+                self._make_room(skip=restore_node)  # the cap holds too
+        with self._lock:
             node = self._promotion_candidate(path, best)
             reg_len = self._reg_len_for(node) if node is not None else 0
             if node is not None and (
@@ -226,27 +264,77 @@ class RadixPrefixCache:
     def _best_registered(self, path: list[_Node], n: int) -> _Node | None:
         """Deepest registered node on the matched path whose reuse is
         admissible for an ``n``-token prompt. Registrations the generator
-        evicted under pool pressure (``has_prefix`` false) are cleared
-        here."""
+        evicted under pool pressure (``has_prefix`` false) are noted here:
+        spilled ones move to the offloaded state, the rest are cleared."""
         best = None
         for node in path:
             if node.pid is None:
                 continue
             if not self.gen.has_prefix(node.pid):
-                self._evict(node.pid, node)  # evicted behind our back
+                self._note_stale(node)  # evicted behind our back
                 continue
             if self._usable_for(node, n):
                 best = node  # path is root→leaf ordered: keep the deepest
         return best
 
+    def _note_stale(self, node: _Node) -> None:
+        """A registration the generator evicted: if its pages landed in the
+        host tier, the node moves to the OFFLOADED state (its split
+        survives; a later hit restores); otherwise it is gone — clear it
+        and count the eviction."""
+        pid = node.pid
+        key = self._node_tokens(node)[:node.reg_len]
+        has_offloaded = getattr(self.gen, "has_offloaded", None)
+        if key and has_offloaded is not None and has_offloaded(key):
+            self._by_pid.pop(pid, None)
+            node.pid = None
+            node.offload_key = key
+            self.offloads += 1
+        else:
+            self._evict(pid, node)
+
+    def _best_offloaded(self, path: list[_Node], n: int,
+                        floor: int) -> _Node | None:
+        """Deepest offloaded node whose registration beats ``floor`` (the
+        registered best's ``reg_len``) and whose restored reuse is
+        admissible for an ``n``-token prompt: the restore candidate.
+        Entries the host tier dropped behind our back are cleared here."""
+        store = getattr(self.gen, "host_kv", None)
+        if store is None:
+            return None
+        best = None
+        for node in path:
+            if node.offload_key is None or node.pid is not None:
+                continue
+            meta = store.meta(node.offload_key)
+            if meta is None:          # the host tier dropped it: gone
+                node.offload_key = None
+                node.reg_len = 0
+                self._evict(None, node)
+                continue
+            if node.reg_len > floor and self._usable_meta(meta,
+                                                          node.reg_len, n):
+                best = node
+        return best
+
+    def _usable_meta(self, meta: dict, reg_len: int, n: int) -> bool:
+        """``_usable_for`` of an offloaded entry: can an ``n``-token prompt
+        admit on a restore of it?"""
+        n_suf = len(meta["tail"]) + (n - reg_len)
+        return (n_suf >= 1 and meta["len"] + n_suf < self.gen.max_seq
+                and n_suf <= self.gen.prefill_buckets[-1])
+
     def _promotion_candidate(self, path: list[_Node],
                              best: _Node | None) -> _Node | None:
         """Deepest hot unregistered node that would beat the current best
         match: ``promote_hits`` distinct prompts through it inside the
-        decay window make it worth a one-time prefix prefill."""
+        decay window make it worth a one-time prefix prefill. Offloaded
+        nodes are left out: their KV exists in the host tier, and the
+        restore path of ``observe`` owns them."""
         floor = best.depth if best is not None else 0
         for node in reversed(path):
-            if (node.pid is None and node.depth >= self._min_tokens
+            if (node.pid is None and node.offload_key is None
+                    and node.depth >= self._min_tokens
                     and node.depth > floor
                     and node.hits >= self.cfg.promote_hits):
                 return node
@@ -264,12 +352,14 @@ class RadixPrefixCache:
         """Hold the registered-prefix count under ``max_prefixes`` by
         dropping the least-recently-hit candidates. Borrowed (refs > 0) and
         pinned prefixes are SKIPPED in favor of the next-oldest — never
-        popped-and-stranded. False when nothing can go."""
+        popped-and-stranded. With the host tier on, a victim's pages spill
+        and its node moves to the offloaded state. The spill's device work
+        runs outside the lock. False when nothing can go."""
         while True:
+            victim_pid = victim_node = victim_info = None
             with self._lock:
                 if len(self._by_pid) < self.cfg.max_prefixes:
                     return True
-                victim_pid = victim_node = None
                 for pid, victim in sorted(self._by_pid.items(),
                                           key=lambda kv: kv[1].last_hit):
                     if victim is skip:
@@ -278,13 +368,31 @@ class RadixPrefixCache:
                     if info is not None and (info["refs"] > 0
                                              or info.get("pinned")):
                         continue  # borrowed or pinned: try the next-oldest
-                    victim_pid, victim_node = pid, victim
+                    victim_pid, victim_node, victim_info = pid, victim, info
                     break
                 if victim_node is None:
                     return False
-                if self.gen.has_prefix(victim_pid):
-                    self.gen.drop_prefix(victim_pid)
-                self._evict(victim_pid, victim_node)
+            spilled = False
+            if victim_info is not None:
+                spilled = bool(self.gen.drop_prefix(victim_pid, spill=True))
+            with self._lock:
+                if spilled:
+                    self._offload(victim_pid, victim_node)
+                elif victim_info is None:
+                    # the generator evicted it already, maybe into the
+                    # tier: keep it restorable as _best_registered would
+                    self._note_stale(victim_node)
+                else:
+                    self._evict(victim_pid, victim_node)
+
+    def _offload(self, pid: int, node: _Node) -> None:
+        """Move one registration to the offloaded state: its pages now live
+        in the host tier under the node's registered token run."""
+        self._by_pid.pop(pid, None)
+        if node.pid == pid:
+            node.pid = None
+            node.offload_key = self._node_tokens(node)[:node.reg_len]
+        self.offloads += 1
 
     def _evict(self, pid: int, node: _Node) -> None:
         """Clear one registration's bookkeeping BY KEY (the generator-side
@@ -339,7 +447,8 @@ class RadixPrefixCache:
             if node is not None:
                 node.pid = pid
                 node.reg_len = len(ids)
-                self._by_pid[pid] = node
+                node.offload_key = None  # the fresh copy supersedes any
+                self._by_pid[pid] = node  # host-tier remnant (LRU drops it)
         return pid
 
     def drop(self, pid: int) -> None:
@@ -353,19 +462,65 @@ class RadixPrefixCache:
                 node.pid = None
                 node.reg_len = 0  # an explicit drop is not an eviction
 
+    def adopt_offloaded(self, key_ids) -> bool:
+        """An entry for this prefix landed in the generator's HOST tier
+        from elsewhere (another replica's handoff): seed the trie with an
+        OFFLOADED node for it, so the next prompt through it restores the
+        pages instead of re-prefilling. False when the key is too long to
+        track or a registration on the card already supersedes it."""
+        ids = tuple(int(t) for t in key_ids)
+        if not ids or len(ids) > self._track_cap:
+            return False
+        now = time.monotonic()
+        with self._lock:
+            path = self._insert(ids, now)
+            node = path[-1] if path and path[-1].depth == len(ids) else None
+            if node is None:
+                return False
+            if node.pid is not None:
+                if self.gen.has_prefix(node.pid):
+                    return False  # the card's copy beats the host entry
+                self._by_pid.pop(node.pid, None)  # stale: supersede it
+                node.pid = None
+            node.offload_key = ids
+            node.reg_len = len(ids)
+        return True
+
+    def forget_offloaded(self, key_ids) -> None:
+        """The host-tier entry for this exact key LEFT (a handoff took it):
+        clear the node's offloaded state so admission never chases a
+        restore that can only miss."""
+        ids = tuple(int(t) for t in key_ids)
+        with self._lock:
+            node = self._root
+            pos = 0
+            while pos < len(ids):
+                child = node.children.get(ids[pos])
+                if (child is None
+                        or ids[pos:pos + len(child.edge)] != child.edge):
+                    return
+                pos += len(child.edge)
+                node = child
+            if node.offload_key == ids and node.pid is None:
+                node.offload_key = None
+                node.reg_len = 0
+
     def invalidate(self, pid: int) -> None:
         """The generator evicted this pid under pool pressure (a
         ``PrefixEvicted`` admission race): clear the stale registration so
-        the next lookup misses instead of looping."""
+        the next lookup misses instead of looping — or, when the eviction
+        spilled the pages, mark the node restorable."""
         with self._lock:
             node = self._by_pid.get(pid)
             if node is not None:
-                self._evict(pid, node)
+                self._note_stale(node)
 
     def hot_prefixes(self, limit: int | None = None) -> list[dict]:
-        """The registered, unborrowed, unpinned prefixes, hit-count
-        descending: ``{"ids": <registered token run>, "hits": n, "pid":
-        id}`` a row. Read-only under the lock, safe from any thread."""
+        """The cache's hot prefixes, hit-count descending: the registered,
+        unborrowed, unpinned ones and the offloaded ones, ``{"ids":
+        <registered token run>, "hits": n, "state": "registered" |
+        "offloaded", "pid": id | None}`` a row. Read-only under the lock,
+        safe from any thread."""
         rows: list[dict] = []
         with self._lock:
             for pid, node in self._by_pid.items():
@@ -374,7 +529,15 @@ class RadixPrefixCache:
                     continue
                 ids = self._node_tokens(node)[:node.reg_len]
                 if ids:
-                    rows.append({"ids": ids, "hits": node.hits, "pid": pid})
+                    rows.append({"ids": ids, "hits": node.hits,
+                                 "state": "registered", "pid": pid})
+            stack = [self._root]
+            while stack:
+                n = stack.pop()
+                stack.extend(n.children.values())
+                if n.offload_key is not None and n.pid is None:
+                    rows.append({"ids": n.offload_key, "hits": n.hits,
+                                 "state": "offloaded", "pid": None})
         rows.sort(key=lambda r: -r["hits"])
         return rows if limit is None else rows[:limit]
 
@@ -458,7 +621,8 @@ class RadixPrefixCache:
             while stack:
                 n = stack.pop()
                 stack.extend(n.children.values())
-                if n.children or n.pid is not None or n is self._root:
+                if (n.children or n.pid is not None
+                        or n.offload_key is not None or n is self._root):
                     continue
                 if coldest is None or n.last_hit < coldest.last_hit:
                     coldest = n
@@ -490,6 +654,8 @@ class RadixPrefixCache:
                 "misses": self.misses,
                 "evictions": self.evictions,
                 "prefill_tokens_saved": self.tokens_saved,
+                "offloads": self.offloads,
+                "restores": self.restores,
                 "trie_nodes": self._n_nodes,
                 "prefixes": prefixes,
             }

@@ -5,10 +5,12 @@
   classes (``high`` / ``normal`` / ``low``) with aging, the admission order
   of ``LLMServer``;
 - ``TokenBudgetScheduler``: the per-dispatch planner a ``Generator``
-  consults to pick a decode-ladder entry and the prefill segments to run
-  before it. The restore and sequence-parallel debts wait for the host
-  tier and sequence parallelism (ROADMAP A.8, A.11); the speculative unit
-  cost for speculation (A.10); ``SLOController`` for the front (A.6).
+  consults to pick a decode-ladder entry (a chunk size, or with fused
+  decode windows a window size) and the prefill segments to run before
+  it, paying down the debt host-tier restores charge to it. The
+  sequence-parallel debt waits for sequence parallelism (ROADMAP A.11);
+  the speculative unit cost for speculation (A.10); ``SLOController``
+  for the front (A.6).
 
 Pure Python with no device work; all mutation happens on the serving thread
 that owns the Generator.
@@ -65,11 +67,16 @@ class TokenBudgetScheduler:
       or fewer decoding) takes as many segments as the rest of the budget
       holds, a busy one the stall-free minimum of one.
 
+    - a restore from the host KV tier charges its tokens as debt
+      (``charge_restore``, capped at four budgets); each plan repays at
+      most half a budget of it before budgeting the rest.
+
     ``plan`` returns ``(chunk_size, n_segments)``. ``note_dispatch`` counts
     the ladder entries dispatched; the Generator counts its TTFT
     mini-chunks, which are admission-driven rather than planned, in
     ``mini_dispatches``; ``last_segments`` is the last plan's segment
-    count."""
+    count. A generator with fused decode windows sets ``window_mode``: its
+    ladder entries are window sizes, planned by the same arithmetic."""
 
     # the share of the budget reserved for pending prefill; in JAX the SLO
     # controller steers it (ROADMAP A.6), here it is fixed
@@ -87,11 +94,29 @@ class TokenBudgetScheduler:
         self.slots = slots  # batch size hint for the decode-light test
         self.dispatches: collections.Counter = collections.Counter()
         self.mini_dispatches = 0
+        self.last_chunk = self.ladder[-1]
         self.last_segments = 0
+        self.restore_debt = 0
+        self.restores_charged = 0
+        self.window_mode = False
+
+    def charge_restore(self, tokens: int) -> None:
+        """Debit ``tokens`` of restore copy work against upcoming
+        dispatch budgets, capped at four budgets so a burst of restores
+        throttles the next dispatches but never starves decode."""
+        self.restore_debt = min(self.restore_debt + max(0, int(tokens)),
+                                4 * self.budget)
+        self.restores_charged += 1
 
     def plan(self, n_decodable: int, prefill_pending: bool = False
              ) -> tuple[int, int]:
         budget = self.budget
+        if self.restore_debt:
+            # at most half a budget a dispatch: decode keeps the ladder
+            # floor's cadence while the debt drains
+            paid = min(self.restore_debt, budget // 2)
+            self.restore_debt -= paid
+            budget -= paid
         pending = prefill_pending and self.prefill_chunk > 0
         if pending:
             floor = (self.ladder[-1] // 2) * max(1, n_decodable)
@@ -114,7 +139,23 @@ class TokenBudgetScheduler:
         return size, segments
 
     def note_dispatch(self, chunk_size: int) -> None:
+        self.last_chunk = chunk_size
         self.dispatches[chunk_size] += 1
+
+    def snapshot(self) -> dict:
+        dispatches = dict(self.dispatches)  # atomic copy under the GIL
+        return {
+            "budget": self.budget,
+            "plans": "windows" if self.window_mode else "chunks",
+            "prefill_share": self.prefill_share,
+            "ladder": list(self.ladder),
+            "last_chunk": self.last_chunk,
+            "dispatches": {str(k): v for k, v in sorted(dispatches.items())},
+            "mini_dispatches": self.mini_dispatches,
+            "last_segments": self.last_segments,
+            "restore_debt": self.restore_debt,
+            "restores_charged": self.restores_charged,
+        }
 
 
 class AgingPriorityQueue:

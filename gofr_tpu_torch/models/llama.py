@@ -705,8 +705,8 @@ def decode_step(params: dict, tokens, cache: dict, cfg: LlamaConfig
     writes its K/V at its own ``len`` and attends to len+1 keys. A row at
     capacity (len == S_max) writes nothing — its write is masked here, where
     JAX drops it as out of bounds — and attends the whole row (the decode
-    kernels clamp kv_len to S_max). The cache is updated in place; ``len``
-    comes back as a new tensor capped at S_max. With an int8 cache the new
+    kernels clamp kv_len to S_max). The cache is updated in place, ``len``
+    too (capped at S_max): a CUDA graph of the step keeps its pointers. With an int8 cache the new
     token's K/V are quantized on write and attention reads the int8 cache
     with its scales. int4 is a paged precision and raises, as in JAX."""
     if cfg.kv_bits == 4:
@@ -735,7 +735,7 @@ def decode_step(params: dict, tokens, cache: dict, cfg: LlamaConfig
         x = _block_out(cfg, x, o, lp)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = _mm(x[:, 0], params["lm_head"]).float()
-    cache["len"] = torch.clamp(kv_len, max=S_max).to(torch.int32)
+    cache["len"].copy_(torch.clamp(kv_len, max=S_max))
     return logits, cache
 
 
@@ -927,11 +927,14 @@ def paged_decode_step(params: dict, tokens, cache: dict, table,
     columns of every row (all of them by default) into a virtual
     [B, n_cols * ps] sequence for the decode kernel; ``kv_len = pos + 1``
     masks the rest, so any ``n_cols`` that covers every live row gives the
-    same result. The pool is updated in place; ``len`` comes back capped at
-    P_max * ps."""
+    same result. The pool is updated in place, ``len`` too (capped at
+    P_max * ps): a CUDA graph of the step keeps its pointers."""
     dev = params["embed"].device
     tokens = torch.as_tensor(tokens).to(dev)
     if not torch.is_tensor(table):
+        if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("paged_decode_step under CUDA graph capture "
+                               "needs the page table as a device tensor")
         table = _int32(table, dev)
     b = tokens.shape[0]
     page_s = cache["k"].shape[2]
@@ -956,5 +959,5 @@ def paged_decode_step(params: dict, tokens, cache: dict, table,
         x = _block_out(cfg, x, o, lp)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = _mm(x[:, 0], params["lm_head"]).float()
-    cache["len"] = torch.clamp(kv_len, max=s_virt).to(torch.int32)
+    cache["len"].copy_(torch.clamp(kv_len, max=s_virt))
     return logits, cache

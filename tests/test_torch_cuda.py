@@ -614,3 +614,134 @@ def test_dense_segment_prefill_through_flash_matches_plain(dev, monkeypatch,
     cpu_params = llama.params_from_config(cfg, seed=0, device="cpu")
     cpu = Generator(cpu_params, cfg, device="cpu", **kw).generate(prompt, 4)
     assert card[:2] == cpu[:2]
+
+
+# -- decode dispatches as CUDA graphs ----------------------------------------------
+
+def _graph_gen(dev, kv_bits, **kw):
+    """A tiny generator on the card (bf16) with two live rows of 20 and 45
+    tokens, their first tokens folded in: ready for a decode dispatch."""
+    from gofr_tpu_torch.ml.generate import Generator
+
+    paged = kv_bits is not None
+    llama, cfg, params = _tiny_on_card(
+        dev, **({"kv_bits": kv_bits} if kv_bits in (8, 4) else {}))
+    opts = dict(batch_slots=2, max_seq=256, prefill_buckets=(64,), chunk=4,
+                token_budget=0)
+    if paged:
+        opts["page_size"] = 16
+    opts.update(kw)
+    gen = Generator(params, cfg, device=dev, **opts)
+    r = np.random.default_rng(0)
+    for n in (20, 45):
+        gen.add_request(r.integers(0, cfg.vocab_size, n).tolist(), 64)
+    gen.step()  # the mini-chunk: folds the first tokens in
+    return gen
+
+
+def _state(gen):
+    return ({k: v.clone() for k, v in gen.cache.items()},
+            gen._tok_dev.clone())
+
+
+def _set_state(gen, state):
+    cache, tok = state
+    for k, v in cache.items():
+        gen.cache[k].copy_(v)
+    gen._tok_dev.copy_(tok)
+
+
+@pytest.mark.parametrize("kv_bits", [None, 16, 8, 4],
+                         ids=["dense", "paged-bf16", "paged-int8",
+                              "paged-int4"])
+def test_decode_graph_replay_equals_eager(dev, kv_bits):
+    """One 4-step decode dispatch replayed from its CUDA graph and run
+    eagerly through the same kernels from the same state: the same tokens,
+    the same first-step logits, the same cache afterwards; the graph's
+    replays count their decode-kernel launches."""
+    from gofr_tpu_torch.ops import decode_attention as da
+
+    gen = _graph_gen(dev, kv_bits)
+    n_cols = gen._gather_cols() if gen.page_size else None
+    state = _state(gen)
+    kern = (da.gqa_decode_attention_int8_cuda if kv_bits == 8
+            else da.gqa_decode_attention_cuda)
+    n0 = kern.launches
+    block = gen._decode_chunk(4, n_cols).clone()
+    logits = gen.dispatch_logits.clone()
+    torch.cuda.synchronize()
+    assert kern.launches - n0 == 4 * gen.cfg.n_layers
+    assert ("chunk", 4, n_cols) in gen._graphs
+    after = _state(gen)
+    _set_state(gen, state)
+    eager, eager_logits = gen._chunk_body(4, n_cols)
+    torch.cuda.synchronize()
+    assert torch.equal(block, eager)
+    assert torch.equal(logits, eager_logits)
+    for k, v in after[0].items():
+        assert torch.equal(gen.cache[k], v), k
+
+
+def test_two_dispatches_in_flight_keep_their_blocks(dev):
+    """The pipeline's two blocks: one graph replayed twice before either
+    block is read (each block's copy to the host is enqueued right after
+    its replay) gives the two halves of an eager 8-step run; a pipelined
+    generator serves the tokens of a lag-one one."""
+    from gofr_tpu_torch.ml.generate import _HostBlock
+
+    gen = _graph_gen(dev, 16)
+    n_cols = gen._gather_cols()
+    state = _state(gen)
+    first = _HostBlock(gen._decode_chunk(4, n_cols))
+    second = _HostBlock(gen._decode_chunk(4, n_cols))
+    got = np.concatenate([first.numpy(), second.numpy()[1:]])
+    _set_state(gen, state)
+    want, _ = gen._chunk_body(8, n_cols)
+    np.testing.assert_array_equal(got, want.cpu().numpy())
+
+    outs = {}
+    for pipeline in (0, 1):
+        gen = _graph_gen(dev, 16, pipeline=pipeline)
+        while gen.n_live:
+            gen.step()
+        gen.drain()
+        outs[pipeline] = [s.tokens for s in gen.slots]
+        assert (pipeline == 0) == (gen.pipeline_stats() is None)
+    assert outs[0] == outs[1]
+
+
+def test_sampled_graph_draws_differ_between_replays(dev):
+    """Temperature sampling inside a graph: the generator's own
+    torch.Generator is registered with the graph, so two replays from the
+    same state draw different tokens (at T=1 over the tiny model's
+    near-flat logits, 2 rows x 4 steps all equal has probability ~0)."""
+    from gofr_tpu_torch.ml.generate import Sampler
+
+    gen = _graph_gen(dev, 16, sampler=Sampler(temperature=1.0))
+    n_cols = gen._gather_cols()
+    state = _state(gen)
+    a = gen._decode_chunk(4, n_cols).clone()
+    _set_state(gen, state)
+    b = gen._decode_chunk(4, n_cols).clone()
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and not torch.equal(a[1:], b[1:])
+
+
+def test_capture_failure_raises_without_eager_fallback(dev, monkeypatch):
+    """A dispatch whose body cannot be captured (a host sync inside it)
+    raises from step(); nothing falls back to the eager loop, and no graph
+    is kept for it."""
+    from gofr_tpu_torch.ml import generate
+
+    gen = _graph_gen(dev, 16)
+    real = generate._sample_impl
+
+    def syncing(logits, rng, sampler):
+        logits.sum().item()  # a host sync: illegal while capturing
+        return real(logits, rng, sampler)
+
+    monkeypatch.setattr(generate, "_sample_impl", syncing)
+    steps = gen.steps
+    with pytest.raises(RuntimeError, match="CUDA graph capture"):
+        gen.step()
+    assert gen.steps == steps and len(gen._graphs) == 1  # the mini-chunk's

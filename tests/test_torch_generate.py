@@ -295,28 +295,39 @@ def test_entry_points_take_the_card_unless_told_cpu(pair):
 
 
 def test_unported_generator_options_raise(pair, monkeypatch):
-    """What stays unported raises, naming its ROADMAP item: the host KV
-    tier (asked for by ``host_kv`` or by a positive
-    ``GOFR_ML_KV_HOST_BUDGET_MB``), speculation, fused windows, the depth-2
-    pipeline and sequence parallelism. Paging and chunked prefill are
-    ported and construct."""
+    """What stays unported raises, naming its ROADMAP item: speculation
+    (``spec_k``, or a positive ``GOFR_ML_SPEC_K``) and sequence
+    parallelism. Paging, chunked prefill, fused windows, the depth-2
+    pipeline and the host KV tier (asked for by ``host_kv`` or by a
+    positive ``GOFR_ML_KV_HOST_BUDGET_MB``) are ported and construct."""
+    from gofr_tpu_torch.ml.kv_offload import HostKVStore, OffloadConfig
+
     _, _, tcfg, tparams = pair
-    for kw, item in (({"page_size": 8, "host_kv": object()}, "A.8"),
-                     ({"spec_k": 2}, "A.10"), ({"decode_window": 4}, "A.9"),
-                     ({"pipeline": 1}, "A.9"), ({"sp": "ring"}, "A.11")):
+    for kw, item in (({"spec_k": 2}, "A.10"), ({"sp": "ring"}, "A.11")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             Generator(tparams, tcfg, device="cpu", **kw)
+    monkeypatch.setenv("GOFR_ML_SPEC_K", "2")
+    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
+        Generator(tparams, tcfg, device="cpu")
+    monkeypatch.delenv("GOFR_ML_SPEC_K")
+    store = HostKVStore(OffloadConfig(budget_mb=1))
+    gen = Generator(tparams, tcfg, device="cpu", page_size=8, host_kv=store,
+                    decode_window=4, pipeline=1, **GEN_KW)
+    assert (gen.host_kv is store and gen.decode_window == 4
+            and gen.pipeline == 1)
     for budget in ("64", "0.5"):
         monkeypatch.setenv("GOFR_ML_KV_HOST_BUDGET_MB", budget)
-        for kw in ({"page_size": 8}, {}):
-            with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-                Generator(tparams, tcfg, device="cpu", **kw)
+        gen = Generator(tparams, tcfg, device="cpu", page_size=8)
+        assert gen.host_kv.budget_bytes == int(float(budget) * 2**20)
+        assert Generator(tparams, tcfg, device="cpu").host_kv is None
     for budget in ("0", ""):
         monkeypatch.setenv("GOFR_ML_KV_HOST_BUDGET_MB", budget)
-        Generator(tparams, tcfg, device="cpu", page_size=8)
+        assert Generator(tparams, tcfg, device="cpu",
+                         page_size=8).host_kv is None
     gen = Generator(tparams, tcfg, device="cpu", page_size=8,
                     prefill_chunk=16, host_kv=False, **GEN_KW)
     assert gen.page_size == 8 and gen.prefill_chunk == 16
+    assert gen.host_kv is None
 
 
 def test_scheduler_pieces():

@@ -54,7 +54,7 @@ class StubGen:
     def has_prefix(self, pid):
         return pid in self._prefixes
 
-    def drop_prefix(self, pid):
+    def drop_prefix(self, pid, spill=False):
         info = self._prefixes[pid]
         if info["refs"] > 0:
             raise RuntimeError(f"prefix {pid} still borrowed")
