@@ -76,7 +76,31 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    spilled and restored, the same suffix served on it before and after
    (identical tokens and pages conserved, checked), the spill and
    restore ms and GB/s, TTFT of a restore hit against a resident hit and
-   a cold prompt.
+   a cold prompt;
+9. the front: the port's ``examples/llama_server`` app (``mount`` on
+   phase 3's weights) served through real sockets, HTTP, WS and gRPC
+   (``aiohttp`` and ``grpc.aio`` clients), in three arms with the
+   example's knobs, 8 slots and chunk 4: dense (``max_seq`` 1024; 24
+   gRPC streams, 4 ``POST /generate`` and 4 ``WS /stream`` at once,
+   prompts of 64-512 ids, 64 new tokens each), paged (``LLM_PAGE_SIZE``
+   16, ``LLM_PAGES`` 257, ``LLM_PREFILL_CHUNK`` 512; the same mix with
+   prompts of 64-900 ids, half of them sharing their first 512) and shed
+   (the dense arm with ``GOFR_ML_MAX_QUEUE=4``: a burst of 32 gRPC
+   streams and 4 posts in equal thirds of high, normal and low
+   priority). Checks: every admitted request returns 64 tokens; no 500,
+   no INTERNAL; three prompts sent alone give the same tokens over gRPC
+   (frames joined), ``/generate``, WS and ``LLMServer.generate`` in
+   process (dense); flash and the bf16 decode kernel launch in every arm
+   and the int8 one never, flash with ``q_offset`` > 0 and a prefix hit
+   in the paged arm; ``/metrics``: ``app_llm_tokens_total`` equals the
+   tokens every caller received, the TTFT count the admitted requests,
+   ``app_llm_shed_total`` the shed calls (> 0 in the shed arm), each of
+   which carries a retry-after; health 200 while serving and 503 once
+   the server is closed; shutdown with 4 streams in flight lets them
+   finish inside ``GOFR_ML_DRAIN_S``. Measured: served tok/s through the
+   front against the same prompts through ``LLMServer`` in process,
+   TTFT (first gRPC frame) and the gap between frames (p50, p99), the
+   decode graphs and peak memory.
 
 The line before the last is the card; the last is the JSON verdict.
 Without a CUDA device, or without the package beside it, the script exits
@@ -1697,6 +1721,405 @@ def host_tier_phase(dev, bf16_params, w8_params) -> dict:
                                   "host tier, int8 pages")}
 
 
+# -- phase 9: the serving front ---------------------------------------------------
+
+FRONT_MAX_NEW = 64
+FRONT_DRAIN_S = 20.0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def pct(values, q: float) -> float | None:
+    """The ``q`` quantile (nearest rank) of ``values``, None when empty."""
+    if not values:
+        return None
+    ordered = sorted(values)
+    return ordered[min(len(ordered) - 1, int(q * len(ordered)))]
+
+
+def scrape(text: str) -> dict:
+    """{"name{labels}": value} of the ``app_llm_*`` lines of /metrics."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith("app_llm_"):
+            key, _, value = line.rpartition(" ")
+            out[key] = float(value)
+    return out
+
+
+class FrontClients:
+    """The real clients of phase 9 against one booted app: ``aiohttp`` for
+    ``POST /generate`` and ``WS /stream``, ``grpc.aio`` with JSON
+    serializers for ``llm.Chat/Generate``. Every call returns a record:
+    the tokens, the HTTP status or gRPC code, and for gRPC the first-frame
+    time and the gaps between frames (host seconds)."""
+
+    def __init__(self, app) -> None:
+        self.app = app
+        self.base = f"http://127.0.0.1:{app.http_port}"
+
+    async def __aenter__(self):
+        import aiohttp
+        import grpc.aio
+
+        self.session = aiohttp.ClientSession()
+        self.channel = grpc.aio.insecure_channel(
+            f"127.0.0.1:{self.app.grpc_port}")
+        self.rpc = self.channel.unary_stream(
+            "/llm.Chat/Generate",
+            request_serializer=lambda o: json.dumps(o).encode(),
+            response_deserializer=json.loads)
+        return self
+
+    async def __aexit__(self, *exc) -> None:
+        await self.session.close()
+        await self.channel.close()
+
+    async def grpc(self, body: dict) -> dict:
+        import grpc
+
+        t0 = time.perf_counter()
+        rec = {"via": "grpc", "tokens": [], "frames": 0, "gaps": [],
+               "ttft_s": None, "status": "OK", "retry_after": None}
+        last = None
+        call = self.rpc(body, timeout=300)
+        try:
+            async for frame in call:
+                now = time.perf_counter()
+                if last is None:
+                    rec["ttft_s"] = now - t0
+                else:
+                    rec["gaps"].append(now - last)
+                last = now
+                rec["frames"] += 1
+                rec["tokens"].extend(frame["tokens"])
+        except grpc.aio.AioRpcError as exc:
+            rec["status"] = exc.code().name
+            rec["details"] = exc.details()
+            trailers = dict(tuple(kv) for kv in exc.trailing_metadata() or ())
+            rec["retry_after"] = trailers.get("retry-after")
+        return rec
+
+    async def http(self, body: dict) -> dict:
+        r = await self.session.post(self.base + "/generate", json=body)
+        payload = await r.json()
+        return {"via": "http", "status": r.status,
+                "tokens": payload.get("data", {}).get("tokens", []),
+                "retry_after": r.headers.get("Retry-After"),
+                "error": payload.get("error")}
+
+    async def ws(self, body: dict) -> dict:
+        ws = await self.session.ws_connect(self.base + "/stream")
+        await ws.send_json(body)
+        toks = []
+        while True:
+            # a handler error sends no frame: a timeout, not a hang
+            frame = await ws.receive_json(timeout=300)
+            if "done" in frame:
+                break
+            toks.append(frame["token"])
+        await ws.close()
+        return {"via": "ws", "status": 200, "tokens": toks}
+
+    async def get(self, url: str):
+        r = await self.session.get(url)
+        return r.status, await r.text()
+
+    async def metrics(self) -> dict:
+        _, text = await self.get(
+            f"http://127.0.0.1:{self.app.metrics_port}/metrics")
+        return scrape(text)
+
+    async def health(self) -> int:
+        return (await self.get(self.base + "/.well-known/health"))[0]
+
+
+def front_prompts(vocab: int, n: int, lo: int, hi: int, seed: int,
+                  shared: int = 0) -> list[list[int]]:
+    """``n`` prompts of ``lo``-``hi`` random ids from ``seed``; with
+    ``shared``, every other prompt is 576-900 ids whose first ``shared``
+    are the same."""
+    import numpy as np
+
+    r = np.random.default_rng(seed)
+    head = r.integers(0, vocab, shared).tolist() if shared else []
+    out = []
+    for i in range(n):
+        if shared and i % 2:
+            out.append(head + r.integers(
+                0, vocab, int(r.integers(576, 901)) - shared).tolist())
+        else:
+            out.append(r.integers(0, vocab, int(r.integers(lo, hi + 1)))
+                       .tolist())
+    return out
+
+
+async def front_mix(clients, prompts, priorities=None,
+                    n_http: int = 4, n_ws: int = 4) -> tuple[list, float]:
+    """Every prompt at once: the first ``n_http`` as ``POST /generate``,
+    the next ``n_ws`` over ``WS /stream``, the rest as gRPC streams.
+    Returns (records, wall seconds)."""
+    calls = []
+    for i, p in enumerate(prompts):
+        body = {"prompt_ids": p, "max_new_tokens": FRONT_MAX_NEW}
+        if priorities is not None:
+            body["priority"] = priorities[i]
+        via = (clients.http if i < n_http else
+               clients.ws if i < n_http + n_ws else clients.grpc)
+        calls.append(via(body))
+    t = time.perf_counter()
+    recs = await asyncio.gather(*calls)
+    return list(recs), time.perf_counter() - t
+
+
+def check_front_records(what: str, recs: list, vocab: int) -> int:
+    """No 500 and no INTERNAL; every admitted request got
+    ``FRONT_MAX_NEW`` ids inside the vocabulary, or fewer when a dry page
+    pool truncated it (returns how many did; the caller holds that count
+    to the generator's evictions); a shed call (429 /
+    RESOURCE_EXHAUSTED) carries its retry-after."""
+    short = 0
+    for r in recs:
+        shed = r["status"] in (429, "RESOURCE_EXHAUSTED")
+        check(r["status"] in (200, 201, "OK") or shed,
+              f"{what}: a {r['via']} call answered {r['status']} ({r})")
+        if shed:
+            check(r.get("retry_after") is not None and
+                  float(r["retry_after"]) >= 1,
+                  f"{what}: a shed {r['via']} call has no retry-after")
+            continue
+        check(len(r["tokens"]) <= FRONT_MAX_NEW
+              and all(0 <= t < vocab for t in r["tokens"]),
+              f"{what}: a {r['via']} call returned {len(r['tokens'])} ids")
+        short += len(r["tokens"]) < FRONT_MAX_NEW
+    return short
+
+
+def front_stats(recs: list, wall: float) -> dict:
+    grpc_ok = [r for r in recs if r["via"] == "grpc" and r["status"] == "OK"]
+    gaps = [g for r in grpc_ok for g in r["gaps"]]
+    ttft = [r["ttft_s"] for r in grpc_ok if r["ttft_s"] is not None]
+    tokens = sum(len(r["tokens"]) for r in recs)
+    return {"requests": len(recs), "tokens": tokens, "wall_s": wall,
+            "tok_per_s": tokens / wall,
+            "ttft_ms_p50": 1e3 * pct(ttft, 0.5) if ttft else None,
+            "ttft_ms_p99": 1e3 * pct(ttft, 0.99) if ttft else None,
+            "frame_gap_ms_p50": 1e3 * pct(gaps, 0.5) if gaps else None,
+            "frame_gap_ms_p99": 1e3 * pct(gaps, 0.99) if gaps else None,
+            "grpc_frames": sum(r["frames"] for r in grpc_ok)}
+
+
+async def in_process(llm, prompts) -> tuple[list, float]:
+    """The same prompts through ``LLMServer.generate`` at once, in
+    process: (outputs, wall seconds)."""
+    t = time.perf_counter()
+    outs = await asyncio.gather(*(llm.generate(p, FRONT_MAX_NEW)
+                                  for p in prompts))
+    return list(outs), time.perf_counter() - t
+
+
+async def drive_front(app, cfg, arm: str) -> dict:
+    """One arm's traffic against the booted app (see ``front_phase``)."""
+    llm = app.container.ml.llm("chat")
+    gen = llm.gen
+    vocab = cfg.vocab_size
+    out: dict = {}
+    admitted = 0  # requests that received a first token (TTFT samples)
+    delivered = 0  # tokens every caller received
+    evictions0 = gen.evictions
+    async with FrontClients(app) as c:
+        check(await c.health() == 200, f"front {arm}: health not 200")
+        if arm == "dense":
+            # three prompts sent alone: every transport and the server in
+            # process give the same tokens
+            alone = []
+            for p in front_prompts(vocab, 3, 64, 512, seed=7):
+                body = {"prompt_ids": p, "max_new_tokens": FRONT_MAX_NEW}
+                got = [(await c.grpc(body))["tokens"],
+                       (await c.http(body))["tokens"],
+                       (await c.ws(body))["tokens"],
+                       await llm.generate(p, FRONT_MAX_NEW)]
+                check(len(got[0]) == FRONT_MAX_NEW
+                      and all(g == got[0] for g in got),
+                      f"front dense: transports disagree on a prompt of "
+                      f"{len(p)} ids: {[g[:8] for g in got]}")
+                alone.append(len(p))
+                admitted += 4
+                delivered += 4 * FRONT_MAX_NEW
+            out["alone_prompt_lens"] = alone
+        if arm == "shed":
+            prompts = front_prompts(vocab, 36, 64, 512, seed=11)
+            prios = ["high", "normal", "low"] * 12
+            recs, wall = await front_mix(c, prompts, prios, n_http=4,
+                                         n_ws=0)
+        else:
+            prompts = front_prompts(vocab, 32, 64,
+                                    900 if arm == "paged" else 512,
+                                    seed=0, shared=512 if arm == "paged"
+                                    else 0)
+            recs, wall = await front_mix(c, prompts)
+        short = check_front_records(f"front {arm}", recs, vocab)
+        out["front"] = front_stats(recs, wall)
+        ok = [r for r in recs if r["status"] in (200, 201, "OK")]
+        shed = [r for r in recs if r["status"] in (429, "RESOURCE_EXHAUSTED")]
+        admitted += sum(1 for r in ok if r["tokens"])
+        delivered += sum(len(r["tokens"]) for r in ok)
+        out["shed_calls"] = len(shed)
+        if arm == "shed":
+            out["shed_by_priority"] = dict(collections.Counter(
+                prios[i] for i, r in enumerate(recs)
+                if r["status"] in (429, "RESOURCE_EXHAUSTED")))
+        if arm == "shed":
+            check(shed, "front shed: the burst shed nothing")
+        else:
+            # the paged arm's repeat uses fresh prompts of the same shape:
+            # a prompt seen twice is promoted whole into the prefix cache,
+            # and pages its live slots borrow count against what any
+            # request can ever get (a 400 at the front, as in JAX)
+            outs, wall_ip = await in_process(llm, prompts if arm == "dense"
+                                             else front_prompts(
+                                                 vocab, 32, 64, 900, seed=1,
+                                                 shared=512))
+            check(all(len(o) <= FRONT_MAX_NEW for o in outs),
+                  f"front {arm}: an in-process request overran max_new")
+            short += sum(len(o) < FRONT_MAX_NEW for o in outs)
+            tokens = sum(len(o) for o in outs)
+            admitted += sum(1 for o in outs if o)
+            delivered += tokens
+            out["in_process"] = {"tokens": tokens, "wall_s": wall_ip,
+                                 "tok_per_s": tokens / wall_ip}
+            out["front_over_in_process"] = (out["front"]["tok_per_s"]
+                                            / (tokens / wall_ip))
+        # a short answer is a stream a dry page pool truncated: each one
+        # is an eviction the generator counted, none is lost silently
+        out["truncated_by_dry_pool"] = short
+        check(short == gen.evictions - evictions0,
+              f"front {arm}: {short} short answers but "
+              f"{gen.evictions - evictions0} evictions")
+        check(arm == "paged" or short == 0,
+              f"front {arm}: {short} answers short of {FRONT_MAX_NEW}")
+        m = await c.metrics()
+        key = '{model="chat"}'
+        out["metrics"] = {k: v for k, v in m.items()
+                          if k.startswith(("app_llm_tokens_total",
+                                           "app_llm_ttft_seconds_count",
+                                           "app_llm_shed_total",
+                                           "app_llm_prefill_share",
+                                           "app_llm_token_budget"))}
+        check(m.get(f"app_llm_tokens_total{key}") == delivered,
+              f"front {arm}: app_llm_tokens_total "
+              f"{m.get(f'app_llm_tokens_total{key}')} != {delivered} "
+              f"tokens received")
+        check(m.get(f"app_llm_ttft_seconds_count{key}") == admitted,
+              f"front {arm}: {m.get(f'app_llm_ttft_seconds_count{key}')} "
+              f"TTFT samples for {admitted} admitted requests")
+        shed_total = sum(v for k, v in m.items()
+                         if k.startswith("app_llm_shed_total{"))
+        check(shed_total == len(shed),
+              f"front {arm}: app_llm_shed_total {shed_total} != "
+              f"{len(shed)} shed calls")
+        out["graphs"] = gen.graph_stats()
+        if getattr(llm, "prefix_cache", None) is not None:
+            snap = llm.prefix_cache.snapshot()
+            out["prefix_cache"] = {k: snap[k] for k in (
+                "hits", "misses", "prefill_tokens_saved")}
+        if arm == "dense":
+            # shutdown with 4 streams in flight: they finish inside the
+            # gRPC grace, and the drain ends well inside GOFR_ML_DRAIN_S
+            tail = [asyncio.create_task(c.grpc(
+                {"prompt_ids": p, "max_new_tokens": FRONT_MAX_NEW}))
+                for p in prompts[:4]]
+            t = time.perf_counter()
+            while gen.n_live < 4 and time.perf_counter() - t < 30:
+                await asyncio.sleep(0.005)
+            t = time.perf_counter()
+            await app.shutdown()
+            out["shutdown_s"] = time.perf_counter() - t
+            done = await asyncio.gather(*tail)
+            check(all(r["status"] == "OK"
+                      and len(r["tokens"]) == FRONT_MAX_NEW for r in done),
+                  f"front dense: streams in flight at shutdown were cut: "
+                  f"{[(r['status'], len(r['tokens'])) for r in done]}")
+            check(out["shutdown_s"] < FRONT_DRAIN_S,
+                  f"front dense: shutdown took {out['shutdown_s']} s")
+            check(llm.health() == "dead", "front dense: server not closed")
+        elif arm == "shed":
+            llm.close()
+            check(await c.health() == 503,
+                  "front shed: health not 503 after the server closed")
+            out["health_after_close"] = 503
+    return out
+
+
+def front_arm(dev, params, arm: str, **env) -> dict:
+    """Boot the port's example app (``mount`` on the phase-3 weights) with
+    the arm's knobs on free ports, drive it, shut it down."""
+    import gc
+
+    from gofr_tpu_torch.app import new_app
+    from gofr_tpu_torch.examples.llama_server import mount
+    from gofr_tpu_torch.models import llama
+
+    with knobs(LLAMA_PRESET="8b", LOG_LEVEL="ERROR", LLM_SLOTS="8",
+               LLM_CHUNK="4", HTTP_PORT=str(free_port()),
+               GRPC_PORT=str(free_port()), METRICS_PORT=str(free_port()),
+               GOFR_ML_DRAIN_S=str(FRONT_DRAIN_S), **env):
+        cfg = llama.config_from_env(tiny_vocab_size=257)
+        app = new_app()
+        t0 = time.perf_counter()
+        mount(app, params, cfg, device=dev)
+        warm_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+
+    async def run():
+        await app.start()
+        try:
+            return await drive_front(app, cfg, arm)
+        finally:
+            await app.shutdown()
+
+    with flash_shapes(llama) as shapes:
+        res = asyncio.run(run())
+        torch.cuda.synchronize()
+    launches = read_launches()
+    check(launches["flash_attention_cuda"] > 0
+          and launches["gqa_decode_attention_cuda"] > 0,
+          f"front {arm}: kernels did not launch ({launches})")
+    check(launches["gqa_decode_attention_int8_cuda"] == 0,
+          f"front {arm}: the bf16 path launched the int8 decode kernel")
+    offset_calls = sum(n for k, n in shapes.items() if k.endswith("+offset"))
+    if arm == "paged":
+        check(offset_calls > 0, "front paged: no flash call with q_offset > 0")
+        check(res["prefix_cache"]["hits"] > 0,
+              f"front paged: no prefix hit ({res['prefix_cache']})")
+    res.update(launches=launches, flash_calls_by_shape=dict(shapes),
+               flash_offset_calls=offset_calls, warmup_s=warm_s,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    del app
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def front_phase(dev, bf16_params) -> dict:
+    """Phase 9: the port's ``examples/llama_server`` on Llama-3-8B at full
+    width through real HTTP, WS and gRPC sockets, in three arms."""
+    return {
+        "dense": front_arm(dev, bf16_params, "dense"),
+        "paged": front_arm(dev, bf16_params, "paged", LLM_PAGE_SIZE="16",
+                           LLM_PAGES="257", LLM_PREFILL_CHUNK="512"),
+        "shed": front_arm(dev, bf16_params, "shed", GOFR_ML_MAX_QUEUE="4"),
+    }
+
+
 def main(argv: list[str]) -> int:
     import pathlib
 
@@ -1756,12 +2179,14 @@ def main(argv: list[str]) -> int:
     done("windows and pipeline", windows)
     tier = host_tier_phase(dev, bf16_params, w8_params)
     done("host KV tier", tier)
+    front = front_phase(dev, bf16_params)
+    done("the front", front)
     if out_dir is not None:
         out_dir.mkdir(parents=True, exist_ok=True)
         (out_dir / "chip_smoke.json").write_text(json.dumps(
             {"card": card, "kernels": rows, "bf16": path, "int8": qpath,
              "paged": ppath, "graphs": graphs, "windows": windows,
-             "host_tier": tier}, indent=1))
+             "host_tier": tier, "front": front}, indent=1))
     for row in rows:
         by_path = {"bf16": path["launches"][row["name"]],
                    "int8": qpath["launches"][row["name"]],
@@ -1771,7 +2196,9 @@ def main(argv: list[str]) -> int:
                        row["name"]] for arm in ("window_auto", "pipeline",
                                                 "window_auto_pipeline")},
                    **{f"host_tier_{arm}": tier[arm]["launches"][row["name"]]
-                      for arm in ("bf16", "int8")}}
+                      for arm in ("bf16", "int8")},
+                   **{f"front_{arm}": front[arm]["launches"][row["name"]]
+                      for arm in ("dense", "paged", "shed")}}
         own = "int8" if row["name"] == "gqa_decode_attention_int8_cuda" \
             else "bf16"
         row["launches"] = by_path[own]

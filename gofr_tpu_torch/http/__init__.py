@@ -1,0 +1,4 @@
+"""The HTTP layer of the port's serving front: typed errors
+(``errors.py``), the request adapter (``request.py``), the JSON envelope
+(``responder.py``) and the middleware chain (``middleware.py``) —
+counterparts of ``gofr_tpu/http``, cut to what the front runs."""

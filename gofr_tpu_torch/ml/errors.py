@@ -1,27 +1,24 @@
 """Typed serving-plane errors — counterpart of ``gofr_tpu/ml/errors.py``.
 
-The JAX package derives these from its framework's ``GofrError`` so its
-HTTP and gRPC fronts map ``status_code`` onto responses. The port has no
-front yet and keeps its own small base class with the same contract: each
-error carries the HTTP status a front should answer with.
+Subclasses of the front's ``GofrError`` (``http/errors.py``), so the HTTP
+responder maps ``status_code`` onto the JSON error envelope and the gRPC
+front maps the same codes onto gRPC statuses (429 -> RESOURCE_EXHAUSTED,
+503 -> UNAVAILABLE, 504 -> DEADLINE_EXCEEDED) instead of collapsing every
+serving failure into a 500 / INTERNAL.
 """
 
 from __future__ import annotations
 
 from http import HTTPStatus
 
-__all__ = ["ServingError", "ServerClosed", "GeneratorCrashed",
-           "DeadlineExceeded", "Overloaded"]
+from ..http.errors import GofrError
+
+__all__ = ["ServerClosed", "GeneratorCrashed", "DeadlineExceeded",
+           "Overloaded"]
 
 
-class ServingError(Exception):
-    """Base of the errors a client of ``LLMServer`` can receive."""
-
-    status_code = HTTPStatus.INTERNAL_SERVER_ERROR
-
-
-class ServerClosed(ServingError):
-    """The server is shut down (or shutting down). 503."""
+class ServerClosed(GofrError):
+    """The server is shut down (or shutting down). 503 / UNAVAILABLE."""
 
     status_code = HTTPStatus.SERVICE_UNAVAILABLE
 
@@ -29,9 +26,10 @@ class ServerClosed(ServingError):
         super().__init__(message)
 
 
-class GeneratorCrashed(ServingError):
+class GeneratorCrashed(GofrError):
     """A device dispatch failed underneath this request; the server is
-    dead. 503: the prompt was not partially committed anywhere."""
+    dead (restart under a watchdog is ROADMAP A.6b). 503 / UNAVAILABLE:
+    the prompt was not partially committed anywhere."""
 
     status_code = HTTPStatus.SERVICE_UNAVAILABLE
 
@@ -39,9 +37,10 @@ class GeneratorCrashed(ServingError):
         super().__init__(message)
 
 
-class DeadlineExceeded(ServingError):
-    """The request's deadline passed before completion, while queued or
-    mid-decode. 504."""
+class DeadlineExceeded(GofrError):
+    """The request's deadline (``deadline_s=`` /
+    ``GOFR_ML_DEFAULT_DEADLINE_S``) passed before completion, while queued
+    or mid-decode. 504 / DEADLINE_EXCEEDED."""
 
     status_code = HTTPStatus.GATEWAY_TIMEOUT
 
@@ -49,10 +48,12 @@ class DeadlineExceeded(ServingError):
         super().__init__(message)
 
 
-class Overloaded(ServingError):
-    """Admission was shed under overload. 429, with ``retry_after``
-    seconds for a ``Retry-After`` header. Raised by the bounded-admission
-    layer, which is still to be ported (ROADMAP A.6, with the front)."""
+class Overloaded(GofrError):
+    """Admission was shed under overload (``GOFR_ML_MAX_QUEUE`` /
+    ``GOFR_ML_MAX_QUEUED_TOKENS``). 429, with ``retry_after`` seconds from
+    the observed queue drain rate: the HTTP responder sends it as a
+    ``Retry-After`` header, the gRPC front as ``retry-after`` trailing
+    metadata."""
 
     status_code = HTTPStatus.TOO_MANY_REQUESTS
 
@@ -60,3 +61,5 @@ class Overloaded(ServingError):
                  retry_after: float = 1.0) -> None:
         self.retry_after = max(0.0, float(retry_after))
         super().__init__(message or "server overloaded; request shed")
+        self.headers = {"Retry-After": str(max(1, round(self.retry_after)))}
+        self.response = {"retry_after_s": round(self.retry_after, 3)}

@@ -706,8 +706,10 @@ class Generator:
         """Pool pages that could EVER be free: everything except the
         scratch page and pages held by borrowed prefixes. A request needing
         more than this can never admit — reject it instead of requeueing
-        forever."""
-        held = sum(len(i["pages"]) for i in self._prefixes.values()
+        forever. The front's handlers call it from the event loop while
+        the serving thread registers prefixes: the values are copied in
+        one step first."""
+        held = sum(len(i["pages"]) for i in list(self._prefixes.values())
                    if i["refs"] > 0)  # idle prefixes are reclaimable cache
         return (self.n_pages - 1) - held
 
@@ -1554,7 +1556,7 @@ class Generator:
         EOS, a death since dispatch) count as ``window_overshoot``; with
         the pipeline, those of rows already dead when the window settled
         count as ``pipeline_overshoot`` (computed, never delivered; the
-        goodput ledger that charges them comes with ROADMAP A.6)."""
+        goodput ledger that charges them comes with ROADMAP A.6b)."""
         planned, active0 = meta
         self.windows += 1
         self.window_steps_planned += planned
@@ -1608,7 +1610,7 @@ class Generator:
         """Double-buffer counters (None when the pipeline is off): the
         depth, the passes that ended with two dispatches in flight and the
         tokens computed for rows already dead at settle. The JAX block's
-        ``device_idle_share`` comes from its flight recorder (ROADMAP A.6)
+        ``device_idle_share`` comes from its flight recorder (ROADMAP A.6b)
         and is None here."""
         if not self.pipeline:
             return None

@@ -32,8 +32,7 @@ untouched, so spill→restore is bit-identical at every precision.
 All mutation happens on the serving thread that owns the Generator; a
 small lock makes ``stats()`` and ``meta()`` safe from other threads, and
 settling (which may wait on a copy) runs outside it. The JAX module's
-fleet event log and goodput hooks come with the serving front (ROADMAP
-A.6).
+fleet event log and goodput hooks come with ROADMAP A.6b.
 """
 
 from __future__ import annotations

@@ -12,9 +12,18 @@ it by priority class with aging, and admits what fits as one prefill wave
 asyncio queue via ``call_soon_threadsafe`` → the slot is released on
 completion with its finish reason.
 
-Kept from the JAX class: the burst-collection window, priority admission,
-deadlines (reaped while queued or mid-decode), ``check_admissible`` and the
-graceful ``close(drain_s)``. Over a paged generator (``page_size`` > 0):
+Kept from the JAX class: the burst-collection window, priority admission
+with aging (``GOFR_ML_PRIORITY_AGING_S``), deadlines (``deadline_s=``,
+default ``GOFR_ML_DEFAULT_DEADLINE_S``; reaped while queued or mid-decode),
+bounded admission with lowest-priority-first shedding
+(``GOFR_ML_MAX_QUEUE`` / ``GOFR_ML_MAX_QUEUED_TOKENS``: a typed
+``Overloaded`` with a Retry-After from the observed admission rate), the
+SLO controller steering the token-budget scheduler's prefill share
+(``GOFR_ML_TTFT_TARGET_MS`` / ``GOFR_ML_TPOT_TARGET_MS``), the serving
+metrics (``app_llm_*``, ``app_ml_kv_offload_*``) and the ``ml.queue`` /
+``ml.decode`` spans, ``check_admissible`` and the graceful
+``close(drain_s)`` (default ``GOFR_ML_DRAIN_S``). Over a paged generator
+(``page_size`` > 0):
 
 - the shared-prefix cache (``prefix_cache.py``) is on by default:
   admission longest-matches each prompt against a radix trie of cached
@@ -33,28 +42,35 @@ graphs and the prefix cache.
 
 An exception on the serving thread fails every live and queued request
 with ``GeneratorCrashed``, is logged with its traceback and kept in
-``LLMServer.error``, and leaves the server dead (``health() == "dead"``);
-restart under a watchdog, the flight recorder, journeys, capture, goodput,
-fault injection and replicas wait for later slices.
+``LLMServer.error``, and leaves the server dead (``health() == "dead"``).
+Restart under a watchdog (``max_restarts`` / ``GOFR_ML_MAX_RESTARTS``),
+fault injection (``fault`` / ``GOFR_ML_FAULT``), the flight recorder,
+journeys, capture and goodput are ROADMAP A.6b: the knobs are accepted
+only at values that ask for no restart and no fault, and raise
+``NotImplementedError`` otherwise.
 """
 
 from __future__ import annotations
 
 import asyncio
+import collections
 import logging
+import os
 import queue as _queue
 import threading
 import time
-from typing import AsyncIterator
+from typing import Any, AsyncIterator
 
 import numpy as np
 
-from .errors import DeadlineExceeded, GeneratorCrashed, ServerClosed
+from ..tracing import current_context
+from .errors import DeadlineExceeded, GeneratorCrashed, Overloaded, ServerClosed
 from .generate import PagePoolExhausted, PrefixEvicted
 from .prefix_cache import PrefixCacheConfig, RadixPrefixCache
-from .scheduler import AgingPriorityQueue, normalize_priority
+from .scheduler import (PRIORITIES, AgingPriorityQueue, SLOController,
+                        normalize_priority, retry_after_s)
 
-__all__ = ["LLMServer"]
+__all__ = ["LLMServer", "drain_s_from_env"]
 
 _log = logging.getLogger("gofr_tpu_torch.ml.llm")
 _DONE = object()
@@ -65,8 +81,61 @@ _ADMIT_WINDOW_S = 0.004
 # idle wait for the next request, backing off to 50 ms so an idle server
 # does not spin
 _IDLE_WAIT_S = 0.002
-# seconds of waiting that promote a queued request one priority class
-_AGING_S = 2.0
+_RESILIENCE = "ROADMAP A.6b"
+
+
+def _abort_reason(exc: Exception) -> str | None:
+    """``ml.finish_reason`` of a request ended by a typed error."""
+    if isinstance(exc, DeadlineExceeded):
+        return "deadline"
+    if isinstance(exc, Overloaded):
+        return "shed"
+    if isinstance(exc, GeneratorCrashed):
+        return "crashed"
+    return None
+
+
+def drain_s_from_env() -> float:
+    """``GOFR_ML_DRAIN_S`` as a drain budget in seconds (0 = immediate
+    close). A malformed, negative, NaN or infinite value raises, as in the
+    JAX package, instead of quietly dropping in-flight requests."""
+    raw = os.environ.get("GOFR_ML_DRAIN_S", "").strip()
+    if not raw:
+        return 0.0
+    try:
+        drain_s = float(raw)
+    except ValueError:
+        raise ValueError(
+            f"GOFR_ML_DRAIN_S must be seconds, got {raw!r}") from None
+    if not 0.0 <= drain_s < float("inf"):
+        raise ValueError(
+            f"GOFR_ML_DRAIN_S must be finite and >= 0, got {raw!r}")
+    return drain_s
+
+
+def _no_restarts(max_restarts: int | None) -> int:
+    """The restart budget: 0, the only one the port serves (a crash leaves
+    the server dead). A positive ``max_restarts`` or
+    ``GOFR_ML_MAX_RESTARTS`` raises; unset reads as 0."""
+    raw = os.environ.get("GOFR_ML_MAX_RESTARTS")
+    n = (0 if raw is None else int(raw)) if max_restarts is None \
+        else int(max_restarts)
+    if n > 0:
+        raise NotImplementedError(
+            f"generator restart under the watchdog (max_restarts={n}) is "
+            f"not ported yet ({_RESILIENCE}); the port's server dies on a "
+            f"crash: set GOFR_ML_MAX_RESTARTS=0")
+    return 0
+
+
+def _no_fault(fault: Any) -> None:
+    """Fault injection is not ported: an injector or ``GOFR_ML_FAULT``
+    raises."""
+    spec = os.environ.get("GOFR_ML_FAULT", "").strip()
+    if fault or (fault is None and spec):
+        raise NotImplementedError(
+            f"fault injection ({'fault=' if fault else 'GOFR_ML_FAULT='}"
+            f"{fault or spec!r}) is not ported yet ({_RESILIENCE})")
 
 
 class _Finish:
@@ -83,10 +152,13 @@ class _Finish:
 class _Request:
     __slots__ = ("prompt", "max_new", "out_q", "loop", "priority",
                  "enqueued_at", "deadline_at", "deadline_hit", "cancelled",
-                 "prefix", "full_prompt", "cache_seen")
+                 "prefix", "full_prompt", "cache_seen", "n_tokens",
+                 "first_token_at", "last_burst_at", "trace_ctx",
+                 "queue_span", "decode_span")
 
     def __init__(self, prompt, max_new, out_q, loop, priority: int,
-                 deadline_s: float, prefix: int | None = None) -> None:
+                 deadline_s: float, prefix: int | None = None,
+                 trace_ctx=None, queue_span=None) -> None:
         self.prompt = prompt
         self.prefix = prefix      # registered shared-prefix id (paged)
         self.full_prompt = None   # the original ids when the prefix cache
@@ -101,6 +173,20 @@ class _Request:
                             if deadline_s > 0 else None)
         self.deadline_hit = False
         self.cancelled = False  # consumer went away: stop decoding the slot
+        self.n_tokens = len(prompt)  # the queued-tokens shedding bound
+        self.first_token_at = None
+        self.last_burst_at = None  # the SLO controller's cadence anchor
+        self.trace_ctx = trace_ctx    # the caller's span at enqueue time
+        self.queue_span = queue_span  # ml.queue: enqueue -> admission
+        self.decode_span = None       # ml.decode: admission -> finish
+
+    def finish_spans(self, status: str = "OK", message: str = "") -> None:
+        """End the phase spans still open."""
+        for span in (self.queue_span, self.decode_span):
+            if span is not None and span.end_time is None:
+                if status != "OK":
+                    span.set_status(status, message)
+                span.end()
 
     def send(self, item) -> None:
         """Hand ``item`` to the consumer's loop (thread-safe)."""
@@ -111,27 +197,79 @@ class _Request:
 
 
 class LLMServer:
-    """Owns a Generator on a serving thread; async API for callers."""
+    """Owns a Generator on a serving thread; async API for callers.
 
-    def __init__(self, generator, *, name: str = "llm",
-                 prefix_cache=None) -> None:
+    Register through ``MLDatasource.register_llm`` (``app.register_llm``)
+    so health and metrics flow to the front, or build one standalone.
+    ``logger``, ``metrics`` (a ``metrics.Manager``) and ``tracer`` are
+    optional; ``max_queue``, ``max_queued_tokens`` and
+    ``default_deadline_s`` left at None read ``GOFR_ML_MAX_QUEUE``,
+    ``GOFR_ML_MAX_QUEUED_TOKENS`` and ``GOFR_ML_DEFAULT_DEADLINE_S`` (0 =
+    off), as the JAX server does."""
+
+    def __init__(self, generator, *, name: str = "llm", logger=None,
+                 metrics=None, tracer=None, prefix_cache=None,
+                 max_restarts: int | None = None,
+                 restart_window_s: float | None = None,
+                 default_deadline_s: float | None = None,
+                 max_queue: int | None = None,
+                 max_queued_tokens: int | None = None,
+                 fault: Any = None) -> None:
+        # the resilience knobs first: a request for what is not ported
+        # fails the boot before a serving thread exists
+        self._max_restarts = _no_restarts(max_restarts)
+        self._restart_window = (
+            float(os.environ.get("GOFR_ML_RESTART_WINDOW_S", "60"))
+            if restart_window_s is None else float(restart_window_s))
+        _no_fault(fault)
         self.gen = generator
         self.name = name
+        self._logger = logger
+        self._metrics = metrics
+        self._tracer = tracer
         # the shared-prefix cache: on by default over a paged generator;
         # False turns it off, a PrefixCacheConfig tunes it
         self.prefix_cache = None
         if getattr(generator, "page_size", 0) and prefix_cache is not False:
             cfg = (prefix_cache
                    if isinstance(prefix_cache, PrefixCacheConfig) else None)
-            self.prefix_cache = RadixPrefixCache(generator, cfg, model=name)
+            self.prefix_cache = RadixPrefixCache(generator, cfg,
+                                                 metrics=metrics, model=name)
         self._idle_backoff = _IDLE_WAIT_S
         self._requests: _queue.Queue[_Request | None] = _queue.Queue()
         self._setup_q: _queue.Queue = _queue.Queue()  # run on serving thread
-        self._waiting = AgingPriorityQueue(aging_s=_AGING_S)
+        self._waiting = AgingPriorityQueue(
+            aging_s=float(os.environ.get("GOFR_ML_PRIORITY_AGING_S", "2.0")))
+        # SLO steering of the token-budget scheduler's prefill share
+        self._controller = (SLOController.from_env(generator.scheduler)
+                            if generator.scheduler is not None else None)
+        self._steered_dispatches = -1  # ladder dispatches recorded so far
+        # the generator counts spills and restores; the gauge pass
+        # publishes the deltas as counters
+        self._kv_spills_seen = 0
+        self._kv_restores_seen = 0
+        self._default_deadline = (
+            float(os.environ.get("GOFR_ML_DEFAULT_DEADLINE_S", "0"))
+            if default_deadline_s is None else float(default_deadline_s))
+        # admission bounds (0 = unbounded): queued requests and queued
+        # prompt tokens; past either, lowest-priority-first shedding
+        self._max_queue = (int(os.environ.get("GOFR_ML_MAX_QUEUE", "0"))
+                           if max_queue is None else int(max_queue))
+        self._max_queued_tokens = (
+            int(os.environ.get("GOFR_ML_MAX_QUEUED_TOKENS", "0"))
+            if max_queued_tokens is None else int(max_queued_tokens))
+        self._shed_counts = dict.fromkeys(PRIORITIES, 0)
+        # admission times feed the Retry-After estimate
+        self._admit_times: collections.deque[float] = collections.deque(
+            maxlen=64)
+        # parsed now: a malformed GOFR_ML_DRAIN_S fails the boot, not the
+        # SIGTERM
+        self._drain_default = drain_s_from_env()
         self._active: dict[int, _Request] = {}
         self._closed = False
         self._draining = False
         self._dead = False
+        self.closed_cleanly = True
         self.error: BaseException | None = None
         self.served = 0
         self.deadline_expired = 0
@@ -149,6 +287,10 @@ class LLMServer:
             self.error = exc
             self._dead = True
             _log.exception("llm %s: serving thread crashed", self.name)
+            if self._logger is not None:
+                self._logger.error("llm serving thread crashed",
+                                   model=self.name,
+                                   error=f"{type(exc).__name__}: {exc}")
         finally:
             self._flush_on_close()
 
@@ -162,6 +304,7 @@ class LLMServer:
             if self.gen.n_live:
                 self.gen.step()
                 self._finish_dead_slots()
+                self._steer()
                 continue
             self.gen.drain()
             self._finish_dead_slots()
@@ -173,7 +316,7 @@ class LLMServer:
             self._idle_backoff = _IDLE_WAIT_S
             if req is None:
                 return
-            self._waiting.push(req)
+            self._enqueue_waiting(req)
             # collect the rest of the burst before admitting: one wave (one
             # batched prefill + one mini-chunk) gives every stream of the
             # burst the first wave's TTFT
@@ -186,7 +329,22 @@ class LLMServer:
                 if more is None:
                     self._closed = True
                     return
-                self._waiting.push(more)
+                self._enqueue_waiting(more)
+
+    def _steer(self) -> None:
+        """After a dispatch: record the ladder entry it ran
+        (``app_llm_chunk_tokens``) and let the SLO controller re-steer the
+        prefill share (at most every controller interval)."""
+        sched = self.gen.scheduler
+        if sched is None:
+            return
+        dispatched = sum(sched.dispatches.values())
+        if self._metrics is not None and dispatched != self._steered_dispatches:
+            self._steered_dispatches = dispatched
+            self._metric("record_histogram", "app_llm_chunk_tokens",
+                         float(sched.last_chunk))
+        if self._controller is not None:
+            self._controller.maybe_update()
 
     def _flush_on_close(self) -> None:
         """Wake every parked, queued or live consumer with the typed error:
@@ -216,8 +374,56 @@ class LLMServer:
 
     @staticmethod
     def _reject(req: _Request, exc: Exception) -> None:
+        """End a request that will never (or no longer) decode: its spans
+        carry the typed outcome, its consumer gets the error."""
+        reason = _abort_reason(exc)
+        if reason is not None:
+            for span in (req.queue_span, req.decode_span):
+                if span is not None and span.end_time is None:
+                    span.set_attribute("ml.finish_reason", reason)
+        req.finish_spans("ERROR", str(exc))
         req.send(exc)
         req.send(_DONE)
+
+    # -- admission bounds and shedding --------------------------------------
+    def _enqueue_waiting(self, req: _Request) -> None:
+        """Within the bounds the request joins its priority class. Past
+        ``GOFR_ML_MAX_QUEUE`` / ``GOFR_ML_MAX_QUEUED_TOKENS`` the NEWEST
+        request of the lowest class worse than the arrival is shed in its
+        place; with none worse, the arrival is shed. The request bound
+        measures backlog, not staging: requests that free slots will
+        admit on the next pass count against it less those slots, so an
+        idle server never sheds a burst it is about to serve."""
+        w = self._waiting
+        n_free = sum(1 for s in self.gen.slots if not s.live)
+        over = ((self._max_queue > 0
+                 and len(w) - n_free >= self._max_queue)
+                or (self._max_queued_tokens > 0 and len(w) > n_free
+                    and w.tokens + req.n_tokens > self._max_queued_tokens))
+        if not over:
+            w.push(req)
+            return
+        victim = w.shed_lowest(worse_than=req.priority)
+        if victim is None:
+            victim = req  # nothing queued is worse: shed the arrival
+        else:
+            w.push(req)
+        self._shed(victim)
+
+    def _shed(self, req: _Request) -> None:
+        retry_after = self._retry_after_s()
+        prio = PRIORITIES[req.priority]
+        self._shed_counts[prio] += 1
+        self._metric("add_counter", "app_llm_shed_total", 1, priority=prio)
+        self._reject(req, Overloaded(
+            f"server overloaded ({len(self._waiting)} queued, "
+            f"{self._waiting.tokens} queued tokens); "
+            f"retry in ~{retry_after:.1f}s", retry_after=retry_after))
+
+    def _retry_after_s(self) -> float:
+        """Retry-After from this server's observed admission rate, scaled
+        by the backlog ahead of a retry."""
+        return retry_after_s(self._admit_times, len(self._waiting))
 
     def _admit_waiting(self) -> None:
         while True:  # pull everything queued
@@ -228,7 +434,7 @@ class LLMServer:
             if req is None:
                 self._closed = True
                 return
-            self._waiting.push(req)
+            self._enqueue_waiting(req)
         while len(self._waiting) and not self._draining:
             if self.gen.free_slot() is None:
                 # no admission possible: keep the decode pipeline one
@@ -307,16 +513,47 @@ class LLMServer:
                 for req, _ in batch:
                     self._reject(req, crash)
                 raise
+            now = time.perf_counter()
             for (req, _), slot in zip(batch, slots, strict=True):
                 self._active[slot] = req
                 # fused decode windows bound a row's device steps by it, so
                 # a window does not run K steps for a slot the reaper is
                 # about to cancel; the reaper stays authoritative
                 self.gen.slots[slot].deadline_at = req.deadline_at
+                self._admit_times.append(now)
                 if req.full_prompt is not None:
                     # the hit is real only now: the slot borrowed the
                     # prefix pages and only the suffix prefilled
                     self.prefix_cache.commit_hit(req.prefix)
+                self._note_admitted(req, slot, now)
+
+    def _note_admitted(self, req: _Request, slot: int, now: float) -> None:
+        """Close the request's ``ml.queue`` span, open its ``ml.decode``
+        span and record its queue wait (overall and per class)."""
+        if req.queue_span is not None:
+            req.queue_span.set_attribute("ml.slot", slot)
+            req.queue_span.end()
+        if self._tracer is not None:
+            req.decode_span = self._tracer.start_span(
+                "ml.decode", parent=req.trace_ctx, activate=False,
+                attributes={"ml.model": self.name, "ml.slot": slot})
+        wait = now - req.enqueued_at
+        self._metric("record_histogram", "app_llm_queue_seconds", wait)
+        self._metric("record_histogram", "app_llm_priority_queue_seconds",
+                     wait, priority=PRIORITIES[req.priority])
+
+    def _metric(self, method: str, name: str, value: float,
+                **labels: str) -> None:
+        """Record one value labelled with this model. A manager without
+        the metric (a bare one in a test) never takes the serving thread
+        down."""
+        if self._metrics is None:
+            return
+        try:
+            getattr(self._metrics, method)(name, value, model=self.name,
+                                           **labels)
+        except Exception:
+            pass
 
     def _split_prefix(self, req: _Request) -> np.ndarray:
         """The ids to admit: the radix lookup splits the prompt into
@@ -410,14 +647,32 @@ class LLMServer:
         pressure."""
         return self.gen.has_prefix(pid)
 
-    @staticmethod
-    def _emit(req: _Request, tokens: list[int]) -> None:
+    def _emit(self, req: _Request, tokens: list[int]) -> None:
         """Push one BURST of tokens to the consumer — one loop wakeup per
-        burst, not per token."""
+        burst, not per token — and feed TTFT / cadence to the metrics and
+        the SLO controller."""
+        now = time.perf_counter()
+        if (self._controller is not None and tokens
+                and req.last_burst_at is not None):
+            # live cadence per burst: waiting for the stream's end would
+            # leave the controller blind for a long stream's lifetime
+            self._controller.observe_tpot(
+                (now - req.last_burst_at) / len(tokens))
+        req.last_burst_at = now
+        if req.first_token_at is None:
+            req.first_token_at = now
+            ttft = now - req.enqueued_at
+            if self._controller is not None:
+                self._controller.observe_ttft(ttft)
+            if req.decode_span is not None:
+                req.decode_span.add_event("first_token", {"ttft_s": ttft})
+            self._metric("record_histogram", "app_llm_ttft_seconds", ttft)
+        self._metric("add_counter", "app_llm_tokens_total", len(tokens))
         req.send(list(tokens))
 
     def _expire(self, req: _Request, where: str) -> None:
         self.deadline_expired += 1
+        self._metric("add_counter", "app_llm_deadline_exceeded_total", 1)
         self._reject(req, DeadlineExceeded(
             f"request deadline exceeded {where}"))
 
@@ -430,7 +685,9 @@ class LLMServer:
         for r in self._waiting.prune(
                 lambda r: r.cancelled or (r.deadline_at is not None
                                           and now >= r.deadline_at)):
-            if not r.cancelled:
+            if r.cancelled:
+                r.finish_spans("ERROR", "cancelled before admission")
+            else:
                 self._expire(r, "while queued")
         for slot, req in self._active.items():
             s = self.gen.slots[slot]
@@ -442,7 +699,47 @@ class LLMServer:
                 req.deadline_hit = True
                 s.live = False
 
+    def _export_pool_gauges(self) -> None:
+        """Slot and pool pressure, the host tier's traffic and the
+        scheduler's budget split, for ``/metrics``."""
+        if self._metrics is None:
+            return
+        gen = self.gen
+        self._metric("set_gauge", "app_llm_active_slots", float(gen.n_live))
+        self._metric("set_gauge", "app_llm_evictions", float(gen.evictions))
+        if getattr(gen, "page_size", 0):
+            self._metric("set_gauge", "app_llm_prefix_evictions",
+                         float(gen.prefix_evictions))
+            self._metric("set_gauge", "app_llm_free_pages",
+                         float(gen.free_pages))
+            self._export_offload_metrics()
+        sched = gen.scheduler
+        if sched is not None:
+            self._metric("set_gauge", "app_llm_token_budget",
+                         float(sched.budget))
+            self._metric("set_gauge", "app_llm_prefill_share",
+                         float(sched.prefill_share))
+
+    def _export_offload_metrics(self) -> None:
+        """The host tier's bytes held, and its spill / restore counts as
+        counter deltas."""
+        host = getattr(self.gen, "host_kv", None)
+        if host is None:
+            return
+        self._metric("set_gauge", "app_ml_kv_offload_bytes",
+                     float(host.bytes_used))
+        spills, restores = int(self.gen.kv_spills), int(self.gen.kv_restores)
+        if spills > self._kv_spills_seen:
+            self._metric("add_counter", "app_ml_kv_offload_spills_total",
+                         spills - self._kv_spills_seen)
+            self._kv_spills_seen = spills
+        if restores > self._kv_restores_seen:
+            self._metric("add_counter", "app_ml_kv_offload_restores_total",
+                         restores - self._kv_restores_seen)
+            self._kv_restores_seen = restores
+
     def _finish_dead_slots(self) -> None:
+        self._export_pool_gauges()
         for slot, req in list(self._active.items()):
             s = self.gen.slots[slot]
             if s.live:
@@ -452,9 +749,21 @@ class LLMServer:
             if req.deadline_hit:
                 self._expire(req, "mid-generation")
                 continue
+            reason = ("eviction" if s.evicted
+                      else "stop" if s.eos_hit else "length")
+            produced = s.produced
+            if produced > 1 and req.first_token_at is not None:
+                # the stream's cadence after its first token: the SLO pair
+                # of TTFT
+                self._metric("record_histogram", "app_llm_tpot_seconds",
+                             (time.perf_counter() - req.first_token_at)
+                             / (produced - 1))
+            if req.decode_span is not None:
+                req.decode_span.set_attributes({"ml.tokens": produced,
+                                                "ml.finish_reason": reason})
+            req.finish_spans()
             self.served += 1
-            req.send(_Finish("eviction" if s.evicted
-                             else "stop" if s.eos_hit else "length"))
+            req.send(_Finish(reason))
 
     # -- caller side ------------------------------------------------------------
     def check_admissible(self, prompt_ids, max_new_tokens: int = 1,
@@ -521,8 +830,11 @@ class LLMServer:
 
         ``priority``: ``"high"`` / ``"normal"`` / ``"low"`` or the class
         index (unknown values raise ValueError before enqueue).
-        ``deadline_s``: the request's TTL (0 or None = none); past it the
-        request fails with ``DeadlineExceeded`` wherever it sits.
+        ``deadline_s``: the request's TTL (None reads
+        ``GOFR_ML_DEFAULT_DEADLINE_S``; 0 = none); past it the request
+        fails with ``DeadlineExceeded`` wherever it sits. Past the queue
+        bounds the request (or a lower-priority one queued before it)
+        fails with ``Overloaded``.
         ``prefix``: a ``register_prefix`` id (paged); ``prompt_ids`` is
         then the suffix. Pass ``info={}`` to receive
         ``info["finish_reason"]`` (``"stop"``, ``"length"`` or
@@ -530,13 +842,21 @@ class LLMServer:
         if self._closed or self._draining:
             raise self._closed_error()
         prio = normalize_priority(priority)
-        ttl = 0.0 if deadline_s is None else deadline_s
+        ttl = self._default_deadline if deadline_s is None else deadline_s
         if not ttl >= 0:  # rejects NaN too
             raise ValueError(f"deadline_s must be >= 0, got {ttl}")
         out_q: asyncio.Queue = asyncio.Queue()
+        # the caller's span, captured here: the serving thread parents
+        # ml.queue / ml.decode on it explicitly
+        ctx = current_context()
+        queue_span = None
+        if self._tracer is not None:
+            queue_span = self._tracer.start_span(
+                "ml.queue", parent=ctx, activate=False,
+                attributes={"ml.model": self.name})
         req = _Request(np.asarray(prompt_ids).reshape(-1), max_new_tokens,
                        out_q, asyncio.get_running_loop(), prio, ttl,
-                       prefix=prefix)
+                       prefix=prefix, trace_ctx=ctx, queue_span=queue_span)
         self._requests.put(req)
         if self._closed:
             # close() may have flushed before our put landed: never park on
@@ -590,6 +910,46 @@ class LLMServer:
             out.extend(burst)
         return out
 
+    def queue_depth(self) -> int:
+        """Requests waiting for a decode slot (sampled as
+        ``app_ml_queue_depth{component="llm"}``)."""
+        return len(self._waiting) + self._requests.qsize()
+
+    def scheduler_snapshot(self) -> dict:
+        """The token budget and realized ladder mix, the SLO controller's
+        last percentiles against its targets, and each priority class's
+        depth and oldest wait. Safe from any thread."""
+        out: dict = {"waiting": self._waiting.snapshot()}
+        sched = self.gen.scheduler
+        if sched is not None:
+            out.update(sched.snapshot())
+        else:
+            out["budget"] = None  # fixed-chunk dispatch
+        out["prefill_segments"] = self.gen.prefill_segments_run
+        if self._controller is not None:
+            out["slo"] = self._controller.snapshot()
+        return out
+
+    def resilience_snapshot(self) -> dict:
+        """State, shed and deadline counters and the queue bounds (the
+        restart history and fault state of the JAX server are A.6b)."""
+        return {
+            "state": self.health(),
+            "draining": self._draining,
+            "closed_cleanly": self.closed_cleanly,
+            "restarts": {"total": 0, "budget": self._max_restarts,
+                         "window_s": self._restart_window},
+            "shed": dict(self._shed_counts),
+            "deadline_expired": self.deadline_expired,
+            "queue_bounds": {
+                "max_requests": self._max_queue or None,
+                "max_tokens": self._max_queued_tokens or None,
+                "queued": len(self._waiting),
+                "queued_tokens": self._waiting.tokens,
+            },
+            "default_deadline_s": self._default_deadline or None,
+        }
+
     def snapshot(self) -> dict:
         """The serving state a status page shows: the generator's pool
         counters (the host tier's spills, restores and fallbacks among
@@ -604,6 +964,7 @@ class LLMServer:
             "health": self.health(),
             "served": self.served,
             "deadline_expired": self.deadline_expired,
+            "resilience": self.resilience_snapshot(),
             "pool": gen.pool_stats(),
             "kv_host_tier": None if host is None else host.stats(),
             "scheduler": None if sched is None else sched.snapshot(),
@@ -620,12 +981,32 @@ class LLMServer:
             return "dead"
         return "serving"
 
-    def close(self, drain_s: float = 0.0) -> None:
-        """Shut the server down. With ``drain_s`` > 0 admission stops first
-        (new calls fail with ``ServerClosed``, queued requests stay parked),
+    def health_check(self) -> dict:
+        """The datasource contract: UP while serving, DOWN when dead."""
+        state = self.health()
+        return {
+            "status": "UP" if state == "serving" else "DOWN",
+            "details": {
+                "model": self.name,
+                "state": state,
+                "slots": self.gen.batch_slots,
+                "live": self.gen.n_live,
+                "queued": self.queue_depth(),
+                "served": self.served,
+                "decode_steps": self.gen.steps,
+                "restarts": 0,
+            },
+        }
+
+    def close(self, drain_s: float | None = None) -> None:
+        """Shut the server down. With ``drain_s`` > 0 (None reads
+        ``GOFR_ML_DRAIN_S``; 0 = immediate) admission stops first (new
+        calls fail with ``ServerClosed``, queued requests stay parked),
         in-flight decode runs to completion up to the deadline, then the
         serving thread stops and every remaining consumer gets
         ``ServerClosed``."""
+        if drain_s is None:
+            drain_s = self._drain_default
         if drain_s > 0 and not self._closed and self._thread.is_alive():
             self._draining = True
             deadline = time.monotonic() + drain_s
@@ -633,9 +1014,14 @@ class LLMServer:
                 if not self._active and self.gen.n_live == 0:
                     break
                 time.sleep(0.005)
+            if self._logger is not None and self._active:
+                self._logger.warnf(
+                    "llm %s drain deadline (%.1fs) hit with %d request(s) "
+                    "still in flight", self.name, drain_s, len(self._active))
         if not self._closed:
             self._closed = True
             self._requests.put(None)
         self._thread.join(timeout=30)
         if self._thread.is_alive():
+            self.closed_cleanly = False
             raise RuntimeError(f"llm {self.name}: serving thread did not stop")

@@ -32,7 +32,7 @@ that touches the Generator); a small lock makes ``snapshot()`` and
 inside ``register_prefix``) runs outside it.
 
 Left out: the fleet event log and the goodput charges of a lost restore
-(ROADMAP A.6); the counters (``hits``, ``misses``, ``evictions``,
+(ROADMAP A.6b); the counters (``hits``, ``misses``, ``evictions``,
 ``tokens_saved``, ``offloads``, ``restores``) are kept. ``metrics`` (an
 object with ``add_counter``)
 receives ``app_ml_prefix_hits_total``, ``app_ml_prefix_misses_total``,

@@ -382,7 +382,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
 
 
 def test_importing_the_port_loads_no_jax():
-    code = ("import sys, gofr_tpu_torch.ml.llm, gofr_tpu_torch.ml.generate; "
+    code = ("import sys, gofr_tpu_torch.ml.llm, gofr_tpu_torch.ml.generate, "
+            "gofr_tpu_torch.app, gofr_tpu_torch.examples.llama_server; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'gofr_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")
