@@ -100,8 +100,41 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    finish inside ``GOFR_ML_DRAIN_S``. Measured: served tok/s through the
    front against the same prompts through ``LLMServer`` in process,
    TTFT (first gRPC frame) and the gap between frames (p50, p99), the
-   decode graphs and peak memory.
+   decode graphs and peak memory;
+10. resilience and observability, through the same example app on phase
+   3's weights (8 slots, chunk 4, the recorders on by default):
+   (1) a scripted crash: 8 gRPC streams in flight and 8 queued, a
+   ``step`` hook raises once; exactly the 8 in flight get UNAVAILABLE,
+   the 8 queued finish with the tokens their prompts gave alone, health
+   reads ``degraded``, ``/debug/crash/<id>`` holds the victims' rids and
+   journeys, the graph count is unchanged; measured: the time from the
+   raise to the end of ``Generator.recover`` (its synchronised 1-step
+   replay of the mini graph); (5) under load: the ``stalls`` phases of
+   ``/debug/serving`` sum to the wall within 1 %, the recorder's idle
+   share beside a ``/debug/profile?seconds=2`` capture's busy share (its
+   trace names the flash and decode kernels), a ``step`` sleep hook
+   triggers exactly one auto-capture in the cooldown, ``/debug/programs``
+   lists as many decode graphs as ``graph_stats()``; (6) the recorders'
+   cost: served tok/s with the defaults against an app with
+   ``GOFR_ML_FLIGHT_RECORDER=0 GOFR_ML_JOURNEY=0 GOFR_ML_GOODPUT=0
+   GOFR_ML_AUTOPROF=0``, 16 requests × 64 tokens, alternating, 3 each;
+   (2) chaos: ``GOFR_ML_FAULT=step:0.02,prefill:0.05,emit:0.01``, seed
+   1234, 64 requests over gRPC, HTTP and WS: every call ends with 64
+   tokens or a typed error, ``restarts`` equals the faults injected, the
+   goodput ledger balances against the generator's computed tokens and
+   ``app_llm_tokens_wasted_total{reason="crashed"}`` equals it; (3) int8
+   pages with windows (K = 4), the pipeline and a host tier: a crash with
+   two windows in flight, a spilled prefix restored after it with the
+   resident hit's tokens, a ``restore`` fault charged
+   ``restore_fallback`` and served by a cold prefix prefill with the same
+   tokens, pages conserved, the int8 decode kernel only; (4) a sticky
+   device error in a child process (the tiny model; an out-of-range write
+   on the card inside a dispatch): the child's server goes ``dead`` with
+   at most one restart attempt, health 503, every caller a typed error,
+   the child done within ``STICKY_LIMIT_S``.
 
+Measurements under ``torch.profiler`` hold the flight recorder's
+``PROFILE_LOCK``, so an auto-profiler capture never overlaps one.
 The line before the last is the card; the last is the JSON verdict.
 Without a CUDA device, or without the package beside it, the script exits
 non-zero and prints no verdict.
@@ -196,7 +229,8 @@ def profiled_ms(launch, n_layers: int, reps: int) -> float:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    # one profiler a process: wait for an auto-profiler capture to end
+    with profile_lock(), profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             for layer in range(n_layers):
                 launch(layer)
@@ -204,6 +238,17 @@ def profiled_ms(launch, n_layers: int, reps: int) -> float:
     us = sum(e.self_device_time_total for e in prof.key_averages()
              if e.device_type == DeviceType.CUDA)
     return us / 1e3 / (reps * n_layers)
+
+
+@contextlib.contextmanager
+def profile_lock():
+    """The process-wide profiler lock of the port's flight recorder, held
+    for a measurement so an auto-profiler capture never overlaps it (the
+    auto-profiler skips and counts a trigger while it is held)."""
+    from gofr_tpu_torch.flight_recorder import PROFILE_LOCK
+
+    with PROFILE_LOCK:
+        yield
 
 
 def device_profile(fn, n: int) -> dict:
@@ -216,8 +261,8 @@ def device_profile(fn, n: int) -> dict:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile_lock(), profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
             fn()
@@ -2120,6 +2165,666 @@ def front_phase(dev, bf16_params) -> dict:
     }
 
 
+# -- phase 10: resilience and observability ---------------------------------------
+
+RES_MAX_NEW = 32
+STICKY_LIMIT_S = 150.0
+
+
+def res_app(dev, params, mount_kw=None, **env):
+    """The port's example app mounted on ``params`` with 8 slots, chunk 4
+    and the arm's knobs (read at boot) on free ports: (app, LLMServer,
+    cfg). ``mount_kw`` go to ``register_llm``."""
+    from gofr_tpu_torch.app import new_app
+    from gofr_tpu_torch.examples.llama_server import mount
+    from gofr_tpu_torch.models import llama
+
+    with knobs(LLAMA_PRESET="8b", LOG_LEVEL="ERROR", LLM_SLOTS="8",
+               LLM_CHUNK="4", HTTP_PORT=str(free_port()),
+               GRPC_PORT=str(free_port()), METRICS_PORT=str(free_port()),
+               **env):
+        cfg = llama.config_from_env(tiny_vocab_size=257)
+        app = mount(new_app(), params, cfg, device=dev, **(mount_kw or {}))
+    return app, app.container.ml.llm("chat"), cfg
+
+
+async def ws_or_error(clients, body: dict) -> dict:
+    """``WS /stream`` that also ends on the port's error frame."""
+    ws = await clients.session.ws_connect(clients.base + "/stream")
+    await ws.send_json(body)
+    rec = {"via": "ws", "status": 200, "tokens": []}
+    while True:
+        frame = await ws.receive_json(timeout=120)
+        if "done" in frame:
+            break
+        if "error" in frame:
+            rec["status"] = frame["error"]["status"]
+            rec["details"] = frame["error"]["message"]
+            break
+        rec["tokens"].append(frame["token"])
+    await ws.close()
+    return rec
+
+
+def ledger_row() -> dict:
+    from gofr_tpu_torch.ml.goodput import goodput_ledger
+
+    return goodput_ledger().snapshot_model("chat")
+
+
+def ledger_delta(before: dict, after: dict) -> dict:
+    wasted = {k: v - before["wasted"].get(k, 0)
+              for k, v in after["wasted"].items()
+              if v - before["wasted"].get(k, 0)}
+    delivered = after["delivered"] - before["delivered"]
+    computed = delivered + sum(wasted.values())
+    return {"delivered": delivered, "wasted": wasted, "computed": computed,
+            "goodput": delivered / computed if computed else None}
+
+
+async def scripted_crash(app, llm, cfg) -> dict:
+    """10.1: 8 gRPC streams in flight and 8 queued, a ``step`` that raises
+    once: exactly the 8 in flight get UNAVAILABLE, the 8 queued finish
+    with the tokens their prompts gave alone; the time from the raise to
+    the end of ``recover`` (its synchronised mini-graph replay); health
+    degraded; the crash bundle names the victims' rids and journeys; the
+    graph count unchanged. The app is paged with the prefix cache off and
+    the queued prompts are of one length, so a prompt alone and the 8
+    admitted together run the same bf16 computation: paged admission
+    prefills one request a wave (dense admission batches a wave of 8 into
+    one prefill of another shape, whose bf16 rounding can flip a near-tie
+    argmax), and equal lengths give every row the same gather width, so
+    the decode kernel keeps its split plan; a repeated prompt would hit
+    the radix cache, another computation again."""
+    gen = llm.gen
+    inflight = front_prompts(cfg.vocab_size, 8, 64, 512, seed=101)
+    queued = front_prompts(cfg.vocab_size, 8, 300, 300, seed=102)
+    out: dict = {}
+    async with FrontClients(app) as c:
+        alone = []
+        for p in queued:
+            r = await c.grpc({"prompt_ids": p, "max_new_tokens": RES_MAX_NEW})
+            check(r["status"] == "OK" and len(r["tokens"]) == RES_MAX_NEW,
+                  f"resilience: a prompt sent alone answered {r['status']}")
+            alone.append(r["tokens"])
+        graphs0 = gen.graph_stats()["graphs"]
+        box: dict = {}
+
+        def hook(point):
+            if (point == "step" and "t_raise" not in box
+                    and gen.n_live == 8 and llm.queue_depth() >= 8):
+                box["t_raise"] = time.perf_counter()
+                raise RuntimeError("scripted step fault")
+
+        recover = gen.recover
+
+        def timed_recover():
+            res = recover()
+            box["t_recovered"] = time.perf_counter()
+            return res
+
+        gen.recover = timed_recover
+        gen.fault = hook
+        reset_launches()
+        first = [asyncio.ensure_future(c.grpc(
+            {"prompt_ids": p, "max_new_tokens": 256})) for p in inflight]
+        for _ in range(4000):
+            if gen.n_live == 8:
+                break
+            await asyncio.sleep(0.005)
+        check(gen.n_live == 8, "resilience: the first 8 never all admitted")
+        second = [asyncio.ensure_future(c.grpc(
+            {"prompt_ids": p, "max_new_tokens": RES_MAX_NEW}))
+            for p in queued]
+        victims = await asyncio.gather(*first)
+        survivors = await asyncio.gather(*second)
+        out["launches"] = read_launches()
+        gen.fault = None
+        del gen.recover
+        check("t_recovered" in box, "resilience: the step fault never fired")
+        check([r["status"] for r in victims] == ["UNAVAILABLE"] * 8,
+              f"resilience: in-flight statuses "
+              f"{[r['status'] for r in victims]}")
+        check(all(r["status"] == "OK" for r in survivors),
+              f"resilience: queued statuses "
+              f"{[r['status'] for r in survivors]}")
+        same = [r["tokens"] == a for r, a in zip(survivors, alone,
+                                                 strict=True)]
+        check(all(same), f"resilience: queued tokens differ from their "
+              f"alone run for {same.count(False)} of 8")
+        check(gen.graph_stats()["graphs"] == graphs0,
+              f"resilience: graphs {graphs0} -> "
+              f"{gen.graph_stats()['graphs']} across the recovery")
+        status, body = await c.get(c.base + "/.well-known/health")
+        state = json.loads(body)["data"]["ml"]["details"]["llms"]["chat"][
+            "state"]
+        check(status == 200 and state == "degraded",
+              f"resilience: health {status} {state} after one recovery")
+        _, body = await c.get(c.base + "/debug/crash")
+        crashes = [x for x in json.loads(body)["data"]["crashes"]
+                   if x["model"] == "chat"]
+        check(bool(crashes), "resilience: no crash bundle")
+        _, body = await c.get(c.base + f"/debug/crash/{crashes[-1]['id']}")
+        bundle = json.loads(body)["data"]
+        rids = sorted(s["rid"] for s in bundle["state"]["slots"])
+        jrids = sorted(j["rid"] for j in bundle["state"].get("journeys", []))
+        check(len(rids) == 8 and rids == jrids,
+              f"resilience: bundle rids {rids} journeys {jrids}")
+        snap = llm.resilience_snapshot()
+    out.update(
+        time_to_recover_ms=(box["t_recovered"] - box["t_raise"]) * 1e3,
+        recover_call_ms=snap["restarts"]["recent"][-1]["recovery_ms"],
+        victims=8, survivors_identical=8, graphs=graphs0, health=state,
+        crash_id=crashes[-1]["id"], bundle_rids=rids)
+    return out
+
+
+async def chaos(app, llm, cfg) -> dict:
+    """10.2: ``GOFR_ML_FAULT=step:0.02,prefill:0.05,emit:0.01`` (seed 1234)
+    and a restart budget that keeps the server alive; 64 requests of 64
+    tokens over gRPC (48), HTTP (8) and WS (8) at once. Every call ends
+    with 64 tokens or a typed error (503 / UNAVAILABLE); ``restarts``
+    equals the faults injected (every point's fault crashes a pass); the
+    ledger balances against the generator's count of computed tokens;
+    ``app_llm_tokens_wasted_total{reason="crashed"}`` equals the ledger."""
+    gen = llm.gen
+    prompts = front_prompts(cfg.vocab_size, 64, 64, 512, seed=103)
+    before = ledger_row()
+    reset_launches()
+    async with FrontClients(app) as c:
+        calls = []
+        for i, p in enumerate(prompts):
+            body = {"prompt_ids": p, "max_new_tokens": FRONT_MAX_NEW}
+            calls.append(c.http(body) if i < 8 else ws_or_error(c, body)
+                         if i < 16 else c.grpc(body))
+        t0 = time.perf_counter()
+        recs = await asyncio.wait_for(asyncio.gather(*calls), 300)
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        ok = [r for r in recs if r["status"] in (200, 201, "OK")]
+        typed = [r for r in recs if r["status"] in (503, "UNAVAILABLE")]
+        check(len(ok) + len(typed) == len(recs),
+              f"chaos: untyped outcomes "
+              f"{[r['status'] for r in recs if r not in ok + typed]}")
+        check(all(len(r["tokens"]) == FRONT_MAX_NEW for r in ok),
+              "chaos: a completed call without 64 tokens")
+        for _ in range(2000):  # a victim wakes before its recovery ends
+            if llm.health() != "recovering":
+                break
+            await asyncio.sleep(0.005)
+        snap = llm.resilience_snapshot()
+        injected = snap["fault"]["injected"]
+        check(snap["restarts"]["total"] == sum(injected.values()),
+              f"chaos: restarts {snap['restarts']['total']} != injected "
+              f"{injected}")
+        check(llm.health() in ("serving", "degraded"),
+              f"chaos: the server is {llm.health()}")
+        delta = ledger_delta(before, ledger_row())
+        check(delta["computed"] == gen.tokens_computed,
+              f"chaos: ledger {delta} against the generator's "
+              f"{gen.tokens_computed} computed tokens")
+        metrics = await c.metrics()
+        crashed_metric = metrics.get(
+            'app_llm_tokens_wasted_total{model="chat",reason="crashed"}')
+        crashed_ledger = ledger_row()["wasted"].get("crashed", 0)
+        check(crashed_metric == crashed_ledger,
+              f"chaos: wasted crashed metric {crashed_metric} != ledger "
+              f"{crashed_ledger}")
+    return {"requests": len(recs), "completed": len(ok),
+            "typed_errors": len(typed),
+            "by_transport": {v: [sum(1 for r in recs if r["via"] == v
+                                     and r in ok),
+                                 sum(1 for r in recs if r["via"] == v
+                                     and r in typed)]
+                             for v in ("grpc", "http", "ws")},
+            "restarts": snap["restarts"]["total"], "injected": injected,
+            "attempts": snap["fault"]["attempts"], "ledger": delta,
+            "tokens_computed": gen.tokens_computed,
+            "goodput_fraction": delta["goodput"], "wall_s": wall,
+            "delivered_tok_per_s": delta["delivered"] / wall,
+            "launches": launches}
+
+
+async def paged_resilience(app, llm, cfg) -> dict:
+    """10.3, int8 pages with windows (K = 4) and the pipeline, the host
+    tier on: a 512-token prefix promoted by the radix cache and spilled;
+    a crash with two windows in flight fails only the streams in flight
+    and leaves none in flight; after it the spilled prefix restores with
+    the tokens of the resident hit; a ``restore`` fault (``KeyError``:
+    the tier's lost-entry path) is charged ``restore_fallback`` and the
+    prefix prefills cold with the same tokens; pages conserved."""
+    import numpy as np
+
+    gen = llm.gen
+    r = np.random.default_rng(104)
+    prefix = r.integers(0, cfg.vocab_size, 512).tolist()
+    suffix = r.integers(0, cfg.vocab_size, 40).tolist()
+    others = front_prompts(cfg.vocab_size, 8, 64, 400, seed=105)
+
+    def held():
+        return (gen.free_pages
+                + sum(len(i["pages"]) for i in list(gen._prefixes.values()))
+                + sum(len(p) - s for p, s in zip(gen._slot_pages,
+                                                 gen._slot_shared)))
+
+    def spill_all():
+        def work():
+            n = 0
+            for pid, info in list(gen._prefixes.items()):
+                if info["refs"] == 0:
+                    n += gen.drop_prefix(pid, spill=True)
+            return n
+        return llm._run_on_serving(work, 60, "spill")
+
+    reset_launches()
+    out: dict = {}
+    async with FrontClients(app) as c:
+        body = {"prompt_ids": prefix + suffix, "max_new_tokens": RES_MAX_NEW}
+
+        async def one():
+            rec = await c.grpc(body)
+            check(rec["status"] == "OK", f"paged resilience: {rec}")
+            return rec["tokens"]
+
+        cold = await one()      # the first sight: a whole prefill
+        hit = await one()       # promoted: the prefix registers, suffix runs
+        check(gen.prefix_prefills >= 1, "paged resilience: no promotion")
+        check(await asyncio.to_thread(spill_all) >= 1,
+              "paged resilience: nothing spilled")
+        box = {"fired": 0}
+
+        def hook(point):
+            if (point == "step" and not box["fired"]
+                    and len(gen._inflight) >= 2):
+                box["fired"] = 1
+                box["inflight"] = len(gen._inflight)
+                raise RuntimeError("crash with two windows in flight")
+
+        gen.fault = hook
+        recs = await asyncio.gather(*(c.grpc(
+            {"prompt_ids": p, "max_new_tokens": 64}) for p in others))
+        gen.fault = None
+        check(box["fired"] == 1 and box["inflight"] == 2,
+              f"paged resilience: the fault fired {box}")
+        failed = sum(x["status"] == "UNAVAILABLE" for x in recs)
+        check(failed >= 1 and all(x["status"] in ("OK", "UNAVAILABLE")
+                                  for x in recs),
+              f"paged resilience: statuses {[x['status'] for x in recs]}")
+        for _ in range(1000):  # the idle pass drains the pipeline's tail
+            if gen.n_live == 0 and not gen._inflight:
+                break
+            await asyncio.sleep(0.005)
+        check(len(gen._inflight) == 0, "paged resilience: blocks in flight "
+              "after the recovery")
+        restores0 = gen.kv_restores
+        restored = await one()
+        check(gen.kv_restores == restores0 + 1,
+              "paged resilience: the spilled prefix did not restore")
+        check(restored == hit, "paged resilience: tokens after the restore "
+              "differ from the resident hit")
+        check(await asyncio.to_thread(spill_all) >= 1,
+              "paged resilience: nothing spilled the second time")
+        fb0 = ledger_row()["wasted"].get("restore_fallback", 0)
+        prefills0 = gen.prefix_prefills
+        fired = {"n": 0}
+
+        def restore_fault(point):
+            if point == "restore" and not fired["n"]:
+                fired["n"] = 1
+                raise KeyError("injected restore fault")
+
+        gen.fault = restore_fault
+        fallback = await one()
+        gen.fault = None
+        charged = ledger_row()["wasted"].get("restore_fallback", 0) - fb0
+        check(fired["n"] == 1 and charged > 0,
+              f"paged resilience: restore fault charged {charged}")
+        check(gen.prefix_prefills == prefills0 + 1,
+              "paged resilience: the fallback did not prefill the prefix")
+        check(fallback == hit, "paged resilience: the cold fallback's "
+              "tokens differ from the resident hit")
+        check(held() == gen.n_pages - 1, f"paged resilience: pages "
+              f"{held()} of {gen.n_pages - 1} accounted")
+        out.update(cold_equals_hit=cold == hit, crash_inflight=2,
+                   streams_failed=failed, restored_identical=True,
+                   restore_fallback_tokens=charged,
+                   fallback_identical=True, pages_conserved=True,
+                   kv_spills=gen.kv_spills, kv_restores=gen.kv_restores,
+                   restarts=llm.resilience_snapshot()["restarts"]["total"])
+    launches = read_launches()
+    check(launches["gqa_decode_attention_int8_cuda"] > 0
+          and launches["flash_attention_cuda"] > 0
+          and launches["gqa_decode_attention_cuda"] == 0,
+          f"paged resilience: launches {launches}")
+    out["launches"] = launches
+    return out
+
+
+def sticky_child() -> int:
+    """10.4, run in a child process (``--sticky-child``): the example app
+    with the tiny model on the card; a ``step`` hook writes out of range on
+    the card (a device-side assert: a sticky error of the context). The
+    server goes dead with at most one restart attempt, health answers 503,
+    every caller gets a typed error. Prints one ``sticky:`` line and exits
+    at once (the context is poisoned)."""
+    import os
+
+    import gofr_tpu_torch
+    from gofr_tpu_torch.examples.llama_server import main as example
+    from gofr_tpu_torch.ops import _build
+
+    dev = gofr_tpu_torch.resolve_device()
+    _build.build()
+    with knobs(LLAMA_PRESET="tiny", LOG_LEVEL="ERROR", LLM_SLOTS="4",
+               LLM_CHUNK="4", HTTP_PORT=str(free_port()),
+               GRPC_PORT=str(free_port()), METRICS_PORT=str(free_port())):
+        app = example(device=dev)
+    llm = app.container.ml.llm("chat")
+    armed = {"on": False}
+
+    def hook(point):
+        if point == "step" and armed["on"]:
+            armed["on"] = False
+            x = torch.zeros(4, device=dev)
+            x[torch.tensor([1 << 30], device=dev)] = 1.0  # out of range
+
+    llm.gen.fault = hook
+
+    async def run():
+        await app.start()
+        async with FrontClients(app) as c:
+            warm = await c.grpc({"prompt_ids": [1, 2, 3],
+                                 "max_new_tokens": 8})
+            armed["on"] = True
+            recs = await asyncio.wait_for(asyncio.gather(
+                *(c.grpc({"prompt_ids": [4, 5, i], "max_new_tokens": 64})
+                  for i in range(4)),
+                c.http({"prompt_ids": [7, 8], "max_new_tokens": 64})), 60)
+            after = await c.grpc({"prompt_ids": [1, 2], "max_new_tokens": 4})
+            health = await c.health()
+        return warm, recs, after, health
+
+    t0 = time.perf_counter()
+    warm, recs, after, health = asyncio.run(run())
+    snap = llm.resilience_snapshot()
+    print("sticky: " + json.dumps({
+        "warm": warm["status"], "statuses": [r["status"] for r in recs],
+        "after": after["status"], "health": health, "state": llm.health(),
+        "restarts": snap["restarts"]["total"],
+        "attempts": len(snap["restarts"]["recent"]),
+        "error": (snap["restarts"]["recent"] or [{}])[-1].get("error"),
+        "seconds": time.perf_counter() - t0}), flush=True)
+    sys.stdout.flush()
+    os._exit(0)
+
+
+def sticky_error() -> dict:
+    """Run ``sticky_child`` in a child process within ``STICKY_LIMIT_S``."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, __file__, "--sticky-child"],
+                          capture_output=True, text=True,
+                          timeout=STICKY_LIMIT_S)
+    wall = time.perf_counter() - t0
+    line = next((ln for ln in proc.stdout.splitlines()
+                 if ln.startswith("sticky: ")), None)
+    check(proc.returncode == 0 and line is not None,
+          f"sticky error: the child exited {proc.returncode} "
+          f"({proc.stderr[-2000:]})")
+    res = json.loads(line[len("sticky: "):])
+    check(res["warm"] == "OK", f"sticky error: the warm call {res}")
+    check(res["state"] == "dead" and res["restarts"] == 0
+          and res["attempts"] <= 1,
+          f"sticky error: the server is {res['state']} after "
+          f"{res['attempts']} attempts")
+    check(res["health"] == 503, f"sticky error: health {res['health']}")
+    check(all(s in (503, "UNAVAILABLE") for s in res["statuses"])
+          and res["after"] == "UNAVAILABLE",
+          f"sticky error: callers got {res['statuses']}, {res['after']}")
+    res.update(child_wall_s=wall, limit_s=STICKY_LIMIT_S)
+    return res
+
+
+async def observability(app, llm, cfg) -> dict:
+    """10.5 under load (8 gRPC streams kept busy): the ``stalls`` phases of
+    ``/debug/serving`` sum to its wall within 1 %; the recorder's idle share
+    beside the busy share of a ``/debug/profile?seconds=2`` capture of the
+    same steady state, whose trace names the flash and decode kernels; a
+    ``step`` sleep hook under a fresh auto-profiler (the JAX defaults)
+    triggers exactly one capture in its cooldown; ``/debug/programs`` lists
+    as many decode graphs as ``graph_stats()`` counts."""
+    import io
+    import zipfile
+
+    from gofr_tpu_torch.flight_recorder import (AutoProfiler, event_log,
+                                                profile_vault)
+
+    gen = llm.gen
+    prompts = front_prompts(cfg.vocab_size, 64, 64, 512, seed=106)
+    stop = {"on": False}
+    out: dict = {}
+    reset_launches()
+    async with FrontClients(app) as c:
+        async def worker(k):
+            i = k
+            while not stop["on"]:
+                await c.grpc({"prompt_ids": prompts[i % len(prompts)],
+                              "max_new_tokens": 96})
+                i += 8
+
+        workers = [asyncio.ensure_future(worker(k)) for k in range(8)]
+        await asyncio.sleep(4.0)
+        # the recorder's estimate over the steady state just before the
+        # capture (the capture's processing stalls the serving thread)
+        _, body = await c.get(c.base + "/debug/serving")
+        steady = json.loads(body)["data"]["llms"]["chat"]["stalls"]
+        out.update(recorder_device_idle_share=steady["device_idle_share"],
+                   recorder_window_s=steady["window"]["wall_s"],
+                   recorder_records=steady["window"]["records"],
+                   steady_phase_shares={k: v["share"] for k, v in
+                                        steady["window"]["phases"].items()})
+        t0 = time.perf_counter()
+        for _ in range(40):  # 409 while an auto-capture holds the profiler
+            r = await c.session.get(c.base + "/debug/profile",
+                                    params={"seconds": "2"})
+            data = await r.read()
+            if r.status != 409:
+                break
+            await asyncio.sleep(0.25)
+        prof_wall = time.perf_counter() - t0
+        check(r.status == 200 and r.content_type == "application/zip",
+              f"observability: /debug/profile answered {r.status}")
+        with zipfile.ZipFile(io.BytesIO(data)) as zf:
+            trace = json.loads(zf.read(zf.namelist()[0]))
+        kernels = [e for e in trace.get("traceEvents", [])
+                   if e.get("cat") == "kernel" and "dur" in e]
+        names = {e["name"] for e in kernels}
+        check(any("flash" in n for n in names)
+              and any("decode" in n for n in names),
+              f"observability: the trace names no flash or decode kernel "
+              f"({sorted(names)[:8]})")
+        if kernels:
+            t_lo = min(e["ts"] for e in kernels)
+            t_hi = max(e["ts"] + e["dur"] for e in kernels)
+            busy = sum(e["dur"] for e in kernels) / max(t_hi - t_lo, 1e-9)
+        else:
+            busy = None
+        _, body = await c.get(c.base + "/debug/serving")
+        entry = json.loads(body)["data"]["llms"]["chat"]
+        stalls = entry["stalls"]
+        wall = stalls["window"]["wall_s"]
+        phase_sum = sum(p["s"] for p in stalls["window"]["phases"].values())
+        check(wall > 0 and abs(phase_sum - wall) <= 0.01 * wall,
+              f"observability: stalls phases {phase_sum} against wall {wall}")
+        out.update(profile_zip_bytes=len(data), profile_wall_s=prof_wall,
+                   profiler_busy_share=busy,
+                   recorder_idle_share_after=stalls["device_idle_share"],
+                   stalls_wall_s=wall, stalls_phase_sum_s=phase_sum,
+                   top_stall=stalls["top_stall"],
+                   attributed_share=stalls["attributed_share"],
+                   kernels_in_trace=len(kernels))
+        # the auto-profiler: a fresh one with the JAX defaults
+        prof = AutoProfiler(model="chat")
+        llm.autoprof = prof
+        llm.recorder.observer = prof.observe
+        cursor = event_log().cursor
+        vault0 = len(profile_vault().list())
+        for _ in range(3000):
+            if prof.dispatches >= 96:
+                break
+            await asyncio.sleep(0.01)
+        gen.fault = lambda p: time.sleep(0.1) if p == "step" else None
+        for _ in range(3000):
+            if prof.captures + prof.failures + prof.skipped_busy:
+                break
+            await asyncio.sleep(0.01)
+        n0 = prof.dispatches
+        for _ in range(3000):  # two more windows of regressed dispatches
+            if prof.dispatches >= n0 + 32:
+                break
+            await asyncio.sleep(0.01)
+        gen.fault = None
+        for _ in range(1000):  # the capture thread lands the zip
+            if len(profile_vault().list()) > vault0 or prof.failures:
+                break
+            await asyncio.sleep(0.01)
+        events = event_log().query(since=cursor, model="chat",
+                                   kind="profile")["events"]
+        check(prof.captures == 1 and prof.failures == 0
+              and len(events) == 1,
+              f"observability: auto-profiler {prof.snapshot()}, "
+              f"{len(events)} profile events")
+        _, body = await c.get(c.base + "/debug/profile/auto")
+        caps = json.loads(body)["data"]["captures"]
+        check(len(caps) == vault0 + 1 and caps[-1]["bytes"] > 0,
+              f"observability: /debug/profile/auto lists {caps}")
+        out["autoprof"] = prof.snapshot()
+        stop["on"] = True
+        await asyncio.gather(*workers)
+        out["launches"] = read_launches()
+        _, body = await c.get(c.base + "/debug/programs")
+        rows = json.loads(body)["data"]["models"]["chat"]["entries"]
+        graph_rows = sum(1 for row in rows if row["kind"] == "graph")
+        check(graph_rows == gen.graph_stats()["graphs"],
+              f"observability: {graph_rows} graph rows against "
+              f"{gen.graph_stats()['graphs']} graphs")
+        out.update(program_rows=len(rows), graph_rows=graph_rows)
+    return out
+
+
+async def served_tok_s(app, prompts) -> float:
+    """All ``prompts`` at once over gRPC, 64 tokens each: tokens a second
+    through the front."""
+    async with FrontClients(app) as c:
+        t0 = time.perf_counter()
+        recs = await asyncio.gather(*(c.grpc(
+            {"prompt_ids": p, "max_new_tokens": FRONT_MAX_NEW})
+            for p in prompts))
+        wall = time.perf_counter() - t0
+    check(all(r["status"] == "OK" for r in recs), "overhead: a call failed")
+    return sum(len(r["tokens"]) for r in recs) / wall
+
+
+def resilience_phase(dev, bf16_params) -> dict:
+    """Phase 10: resilience and observability through the port's example
+    app on the phase-3 weights (10.1-10.6, see the module docstring)."""
+    import gc
+    import statistics
+
+    res: dict = {}
+    off = dict(GOFR_ML_FLIGHT_RECORDER="0", GOFR_ML_JOURNEY="0",
+               GOFR_ML_GOODPUT="0", GOFR_ML_AUTOPROF="0")
+    t = time.perf_counter()
+    app_p, llm_p, cfg = res_app(dev, bf16_params,
+                                mount_kw={"prefix_cache": False},
+                                LLM_PAGE_SIZE="16")
+
+    async def on_p():
+        await app_p.start()
+        try:
+            return await scripted_crash(app_p, llm_p, cfg)
+        finally:
+            await app_p.shutdown()
+
+    res["crash"] = asyncio.run(on_p())
+    res["crash"]["seconds"] = time.perf_counter() - t
+    print("10.1 scripted crash: " + json.dumps(res["crash"]), flush=True)
+    del app_p, llm_p
+    gc.collect()
+    app_a, llm_a, cfg = res_app(dev, bf16_params)
+    app_b, _, _ = res_app(dev, bf16_params, **off)
+    torch.cuda.synchronize()
+
+    async def on_a_and_b():
+        await app_a.start()
+        await app_b.start()
+        try:
+            t = time.perf_counter()
+            res["observe"] = await observability(app_a, llm_a, cfg)
+            res["observe"]["seconds"] = time.perf_counter() - t
+            print("10.5 observability: " + json.dumps(res["observe"]),
+                  flush=True)
+            prompts = front_prompts(cfg.vocab_size, 16, 64, 512, seed=107)
+            await served_tok_s(app_b, prompts[:8])  # B's first traffic
+            runs = {"on": [], "off": []}
+            for arm in ("on", "off") * 3:
+                runs[arm].append(await served_tok_s(
+                    app_a if arm == "on" else app_b, prompts))
+            res["overhead"] = {
+                "tok_per_s": runs,
+                "median_on": statistics.median(runs["on"]),
+                "median_off": statistics.median(runs["off"]),
+                "on_over_off": (statistics.median(runs["on"])
+                                / statistics.median(runs["off"]))}
+            print("10.6 overhead: " + json.dumps(res["overhead"]),
+                  flush=True)
+        finally:
+            await app_a.shutdown()
+            await app_b.shutdown()
+
+    asyncio.run(on_a_and_b())
+    del app_a, app_b, llm_a
+    gc.collect()
+    t = time.perf_counter()
+    app_c, llm_c, cfg = res_app(
+        dev, bf16_params, GOFR_ML_FAULT="step:0.02,prefill:0.05,emit:0.01",
+        GOFR_ML_FAULT_SEED="1234", GOFR_ML_MAX_RESTARTS="1000")
+
+    async def on_c():
+        await app_c.start()
+        try:
+            return await chaos(app_c, llm_c, cfg)
+        finally:
+            await app_c.shutdown()
+
+    res["chaos"] = asyncio.run(on_c())
+    res["chaos"]["seconds"] = time.perf_counter() - t
+    print("10.2 chaos: " + json.dumps(res["chaos"]), flush=True)
+    del app_c, llm_c
+    gc.collect()
+    t = time.perf_counter()
+    app_d, llm_d, cfg = res_app(
+        dev, bf16_params, LLAMA_KV_QUANT="1", LLM_PAGE_SIZE="16",
+        LLM_PAGES="513", LLM_PREFILL_CHUNK="512", GOFR_ML_PIPELINE="1",
+        GOFR_ML_DECODE_WINDOW="4", GOFR_ML_KV_HOST_BUDGET_MB="2048")
+
+    async def on_d():
+        await app_d.start()
+        try:
+            return await paged_resilience(app_d, llm_d, cfg)
+        finally:
+            await app_d.shutdown()
+
+    res["paged_int8"] = asyncio.run(on_d())
+    res["paged_int8"]["seconds"] = time.perf_counter() - t
+    print("10.3 paged int8: " + json.dumps(res["paged_int8"]), flush=True)
+    del app_d, llm_d
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["sticky"] = sticky_error()
+    print("10.4 sticky error: " + json.dumps(res["sticky"]), flush=True)
+    return res
+
+
 def main(argv: list[str]) -> int:
     import pathlib
 
@@ -2137,8 +2842,15 @@ def main(argv: list[str]) -> int:
               "run the script from the root of a checkout",
               file=sys.stderr)
         return 1
+    if "--sticky-child" in argv:
+        return sticky_child()
+    import faulthandler
+
     from gofr_tpu_torch.ops import _build
 
+    # a hung phase dumps every thread's stack and ends the run inside the
+    # time limit instead of holding the card to it
+    faulthandler.dump_traceback_later(1140, exit=True)
     dev = gofr_tpu_torch.resolve_device()
     card = card_line()
     # f32 checks run in full f32 (the kernels under test are bf16)
@@ -2181,12 +2893,15 @@ def main(argv: list[str]) -> int:
     done("host KV tier", tier)
     front = front_phase(dev, bf16_params)
     done("the front", front)
+    res = resilience_phase(dev, bf16_params)
+    done("resilience and observability", res)
     if out_dir is not None:
         out_dir.mkdir(parents=True, exist_ok=True)
         (out_dir / "chip_smoke.json").write_text(json.dumps(
             {"card": card, "kernels": rows, "bf16": path, "int8": qpath,
              "paged": ppath, "graphs": graphs, "windows": windows,
-             "host_tier": tier, "front": front}, indent=1))
+             "host_tier": tier, "front": front, "resilience": res},
+            indent=1))
     for row in rows:
         by_path = {"bf16": path["launches"][row["name"]],
                    "int8": qpath["launches"][row["name"]],
@@ -2198,7 +2913,10 @@ def main(argv: list[str]) -> int:
                    **{f"host_tier_{arm}": tier[arm]["launches"][row["name"]]
                       for arm in ("bf16", "int8")},
                    **{f"front_{arm}": front[arm]["launches"][row["name"]]
-                      for arm in ("dense", "paged", "shed")}}
+                      for arm in ("dense", "paged", "shed")},
+                   **{f"resilience_{arm}": res[arm]["launches"][row["name"]]
+                      for arm in ("crash", "observe", "chaos",
+                                  "paged_int8")}}
         own = "int8" if row["name"] == "gqa_decode_attention_int8_cuda" \
             else "bf16"
         row["launches"] = by_path[own]

@@ -7,7 +7,8 @@ routes (``websocket``), gRPC services (``register_service``) and LLMs
 (``register_llm``, mounted in ``ctx.ml``) are registered before
 ``start()``, which serves HTTP on ``HTTP_PORT`` behind the middleware
 chain (tracing, request log with panic recovery, ``app_http_response``),
-the Prometheus text on ``METRICS_PORT`` at ``/metrics``, and gRPC on
+the ``/debug/*`` routes (``debug.py``), the Prometheus text on
+``METRICS_PORT`` at ``/metrics``, and gRPC on
 ``GRPC_PORT`` when a service is registered. ``shutdown()`` is the bounded
 drain, in the JAX package's order: the gauge sampler, the gRPC server
 (5 s grace), the HTTP and metrics servers, then the
@@ -114,6 +115,13 @@ class App:
             health_handler(self.container), self.container))
         app.router.add_get("/.well-known/alive",
                            wrap_handler(alive_handler, self.container))
+        # the serving debug endpoints, always on like /metrics; the
+        # profiler session's start/stop routes only under APP_ENV=DEBUG
+        from .debug import register_debug_routes, register_profiler_routes
+
+        register_debug_routes(self, app)
+        if (self.config.get("APP_ENV") or "").upper() == "DEBUG":
+            register_profiler_routes(self, app)
         for method, pattern, handler in self._routes:
             app.router.add_route(method, pattern, wrap_handler(
                 handler, self.container, self.request_timeout))

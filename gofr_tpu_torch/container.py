@@ -102,6 +102,48 @@ class Container:
         m.new_gauge("app_llm_prefix_evictions",
                     "idle shared prefixes LRU-dropped under pool pressure")
         m.new_gauge("app_llm_free_pages", "free KV pages in the paged pool")
+        # the serving recorders: watchdog, flight recorder, journeys,
+        # goodput ledger and the program inventory
+        m.new_counter("app_ml_generator_restarts_total",
+                      "LLM generator crashes recovered by the serving "
+                      "watchdog (decode state reset, queue resumed)")
+        m.new_counter("app_ml_events_dropped_total",
+                      "event-log ring overwrites: events consumers polling "
+                      "/debug/events can no longer read (their cursor "
+                      "gapped)")
+        m.new_counter("app_ml_journeys_total",
+                      "request journeys sealed, by finish reason (stop / "
+                      "length / eviction / deadline / shed / crashed / "
+                      "cancelled / error)")
+        m.new_gauge("app_ml_host_rss_bytes",
+                    "current process resident set size (the offload "
+                    "tier's footprint lives here)")
+        m.new_histogram(
+            "app_llm_dispatch_phase_seconds",
+            "serving dispatch wall time per phase (flight recorder: "
+            "queue_pop / decide / assemble / launch / d2h_issue / "
+            "device_wait / emit / other)",
+            # phases run from microseconds (a scheduler plan) to a whole
+            # device step: the default buckets' 1 ms floor would flatten
+            # every host-side phase into one bucket
+            buckets=(5e-5, 2e-4, 5e-4, 1e-3, 3e-3, 5e-3, 0.01, 0.02,
+                     0.03, 0.05, 0.1, 0.2, 0.5, 1.0))
+        m.new_counter("app_llm_tokens_wasted_total",
+                      "device-computed tokens that never delivered, by "
+                      "reason (deadline_cancelled / crashed / disconnected "
+                      "/ restore_fallback / window_overshoot / "
+                      "pipeline_overshoot) — the goodput ledger's waste "
+                      "side")
+        m.new_gauge("app_llm_goodput_fraction",
+                    "delivered / device-computed tokens per model (the "
+                    "goodput ledger's headline ratio)")
+        m.new_counter("app_ml_compile_seconds_total",
+                      "wall seconds spent capturing decode graphs and on "
+                      "the first runs of the prefill buckets")
+        m.new_gauge("app_ml_programs",
+                    "device programs in a model's inventory (decode "
+                    "graphs and prefill buckets; the /debug/programs row "
+                    "count)")
 
     def refresh_process_metrics(self) -> None:
         m = self.metrics_manager

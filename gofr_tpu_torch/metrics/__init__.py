@@ -126,6 +126,22 @@ class _Histogram(_Metric):
             series[1] += value
             series[2] += 1
 
+    def percentile(self, q: float,
+                   labels: Mapping[str, str] | None = None) -> float:
+        """Approximate percentile from the bucket edges (for in-process
+        checks and ``/debug/serving``; Prometheus does the real math)."""
+        key = _label_key(labels or {})
+        with self._lock:
+            series = self._series.get(key)
+            if series is None or series[2] == 0:
+                return float("nan")
+            counts, _, total = series
+            rank = q * total
+            for i, b in enumerate(self.buckets):
+                if counts[i] >= rank:
+                    return b
+            return self.buckets[-1]
+
     def expose(self, out: list[str]) -> None:
         self._header(out)
         with self._lock:
@@ -188,6 +204,12 @@ class Manager:
 
     def record_histogram(self, name: str, value: float, **labels: str) -> None:
         self._get(name, _Histogram).record(value, labels)
+
+    def percentile(self, name: str, q: float, **labels: str) -> float:
+        return self._get(name, _Histogram).percentile(q, labels)
+
+    def has(self, name: str) -> bool:
+        return name in self._metrics
 
     def register_sampler(self, fn) -> None:
         """Add a zero-arg callable that refreshes gauges from live state;

@@ -4,7 +4,12 @@ shared-prefix cache policy (prefix_cache.py), the ``LLMServer`` that owns
 the generator on a serving thread (llm.py), the typed errors clients see
 (errors.py), and ``MLDatasource``, the ``ctx.ml`` datasource the front
 mounts LLMs in — counterpart of ``gofr_tpu/ml/__init__.py``, cut to one
-server per model.
+server per model. ``serving_snapshot`` and ``programs_snapshot`` are the
+bodies of ``/debug/serving`` and ``/debug/programs``; the sampler exports
+queue depths, live slots, process RSS, event-log drops, the goodput
+ledger (``app_llm_tokens_wasted_total``, ``app_llm_goodput_fraction``) and
+the program inventory (``app_ml_programs``,
+``app_ml_compile_seconds_total``).
 
 Not ported, and raising ``NotImplementedError`` naming their ROADMAP
 item when asked for: replica pools and the fleet (``replicas`` > 1,
@@ -20,6 +25,20 @@ import os
 from typing import Any
 
 __all__ = ["MLDatasource"]
+
+
+def _host_rss_bytes() -> float | None:
+    """The process's resident set size now (``/proc``), else its peak."""
+    try:
+        with open("/proc/self/statm", "rb") as f:
+            return float(int(f.read().split()[1])) * os.sysconf("SC_PAGE_SIZE")
+    except Exception:
+        try:
+            import resource
+
+            return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024.0
+        except Exception:
+            return None
 
 # server-level policy, not Generator knobs (the JAX split)
 _SERVER_KWARGS = ("prefix_cache", "max_restarts", "restart_window_s",
@@ -67,6 +86,10 @@ class MLDatasource:
         self._metrics = metrics
         self._tracer = tracer
         self._llms: dict[str, Any] = {}
+        # watermarks: lifetime totals publish as counter deltas
+        self._events_dropped_seen = 0
+        self._goodput_seen: dict[tuple[str, str], int] = {}
+        self._compile_seen: dict[str, float] = {}
         if metrics is not None:
             metrics.register_sampler(self.sample_runtime_gauges)
 
@@ -139,17 +162,133 @@ class MLDatasource:
         return self._llms[name]
 
     def sample_runtime_gauges(self) -> None:
-        """One sampler pass: each LLM's queue depth and live slots."""
+        """One sampler pass: each LLM's queue depth and live slots, the
+        process RSS, event-log drops, the goodput ledger and the program
+        inventory."""
+        from ..flight_recorder import event_log
+
         m = self._metrics
+        rss = _host_rss_bytes()
+        if rss is not None:
+            m.set_gauge("app_ml_host_rss_bytes", rss)
+        dropped = event_log().dropped
+        if dropped > self._events_dropped_seen:
+            m.add_counter("app_ml_events_dropped_total",
+                          dropped - self._events_dropped_seen)
+            self._events_dropped_seen = dropped
         for name, server in self._llms.items():
             m.set_gauge("app_ml_queue_depth", server.queue_depth(),
                         component="llm", model=name)
             m.set_gauge("app_llm_active_slots", float(server.gen.n_live),
                         model=name)
+        self._export_goodput(m)
+        self._export_program_telemetry(m)
+
+    def _export_goodput(self, m) -> None:
+        """Wasted-token counter deltas per (model, reason) and the live
+        goodput fraction."""
+        from .goodput import goodput_ledger
+
+        ledger = goodput_ledger()
+        if ledger is None:
+            return
+        for (model, reason), total in ledger.wasted_totals().items():
+            seen = self._goodput_seen.get((model, reason), 0)
+            if total > seen:
+                m.add_counter("app_llm_tokens_wasted_total", total - seen,
+                              model=model, reason=reason)
+                self._goodput_seen[(model, reason)] = total
+        for model in ledger.models():
+            frac = ledger.snapshot_model(model)["goodput"]
+            if frac is not None:
+                m.set_gauge("app_llm_goodput_fraction", frac, model=model)
+
+    def _export_program_telemetry(self, m) -> None:
+        """The program-inventory gauge and the capture-seconds counter
+        delta."""
+        for name, server in self._llms.items():
+            totals = server.gen.programs.totals()
+            m.set_gauge("app_ml_programs", float(totals["programs"]),
+                        model=name)
+            seen = self._compile_seen.get(name, 0.0)
+            if totals["compile_s"] > seen:
+                m.add_counter("app_ml_compile_seconds_total",
+                              totals["compile_s"] - seen, model=name)
+                self._compile_seen[name] = totals["compile_s"]
+
+    def hbm_snapshot(self) -> dict:
+        """Device memory for ``/debug/serving`` and ``/debug/programs``:
+        one row per card (bytes allocated and the card's total), and on
+        the CPU ``"unsupported"`` with the process RSS as the fallback, as
+        JAX answers for a backend without memory stats."""
+        import torch
+
+        devices: dict[str, Any] = {}
+        if torch.cuda.is_available():
+            for i in range(torch.cuda.device_count()):
+                devices[f"cuda:{i}"] = {
+                    "bytes_in_use": int(torch.cuda.memory_allocated(i)),
+                    "bytes_limit": int(
+                        torch.cuda.get_device_properties(i).total_memory)}
+            return {"devices": devices}
+        return {"devices": {"cpu:0": "unsupported"}, "fallback": "host_rss",
+                "host_rss_bytes": _host_rss_bytes()}
+
+    def programs_snapshot(self, cost: bool = True) -> dict:
+        """The ``/debug/programs`` body: each model's programs (decode
+        graphs and prefill buckets) with their totals, and the device
+        memory."""
+        out: dict[str, Any] = {"models": {}, "hbm": self.hbm_snapshot()}
+        for name, server in self._llms.items():
+            log = server.gen.programs
+            out["models"][name] = {"totals": log.totals(),
+                                   "entries": log.snapshot(cost=cost)}
+        return out
+
+    def serving_snapshot(self) -> dict:
+        """The live serving state of ``/debug/serving``: per LLM the
+        health details, pool, host tier, prefix cache, fused-window and
+        pipeline blocks, scheduler, resilience, the flight recorder's
+        stalls, the auto-profiler and the goodput ledger — the blocks of
+        the JAX datasource's snapshot that a single server has."""
+        from .goodput import goodput_ledger
+
+        ledger = goodput_ledger()
+        snap: dict[str, Any] = {"models": {}, "llms": {},
+                                "hbm": self.hbm_snapshot()}
+        for name, server in self._llms.items():
+            gen = server.gen
+            entry = dict(server.health_check()["details"])
+            entry["pool"] = gen.pool_stats()
+            host = getattr(gen, "host_kv", None)
+            if host is not None:
+                tier = host.stats()
+                tier.update(spills=gen.kv_spills, restores=gen.kv_restores,
+                            restore_fallbacks=gen.kv_restore_fallbacks)
+                entry["kv_host_tier"] = tier
+            if server.prefix_cache is not None:
+                entry["prefix_cache"] = server.prefix_cache.snapshot()
+            win = gen.window_stats()
+            if win is not None:
+                entry["decode_window"] = win
+            pipe = gen.pipeline_stats()
+            if pipe is not None:
+                entry["pipeline"] = pipe
+            entry["scheduler"] = server.scheduler_snapshot()
+            entry["resilience"] = server.resilience_snapshot()
+            if server.recorder is not None:
+                entry["stalls"] = server.recorder.snapshot()
+            if server.autoprof is not None:
+                entry["autoprof"] = server.autoprof.snapshot()
+            if ledger is not None:
+                entry["goodput"] = ledger.snapshot_model(name)
+            snap["llms"][name] = entry
+        return snap
 
     def health_check(self) -> dict:
-        """UP while every LLM serves; DOWN when one is dead or closed (the
-        health route then answers 503)."""
+        """UP while every LLM serves; DEGRADED while one recovers or has a
+        restart in its window; DOWN when one is dead or closed (the health
+        route then answers 503)."""
         import torch
 
         devices = ([str(torch.device("cuda", i))
@@ -164,6 +303,8 @@ class MLDatasource:
                 details["llms"][name] = h["details"]
                 if h["status"] == "DOWN":
                     status = "DOWN"
+                elif h["status"] != "UP" and status == "UP":
+                    status = "DEGRADED"
         return {"status": status, "details": details}
 
     def close(self):

@@ -27,9 +27,10 @@ class ServerClosed(GofrError):
 
 
 class GeneratorCrashed(GofrError):
-    """A device dispatch failed underneath this request; the server is
-    dead (restart under a watchdog is ROADMAP A.6b). 503 / UNAVAILABLE:
-    the prompt was not partially committed anywhere."""
+    """A device dispatch failed underneath this request (the watchdog
+    recovers the server for the requests still queued, or declares it
+    dead). 503 / UNAVAILABLE: the prompt was not partially committed
+    anywhere."""
 
     status_code = HTTPStatus.SERVICE_UNAVAILABLE
 

@@ -53,6 +53,13 @@ shapes stay few). Sampling draws from one ``torch.Generator`` stream
 instead of ``fold_in(key, step)``: greedy output matches the JAX package
 token for token, sampled output by distribution.
 
+The serving watchdog's half lives here as in JAX: ``recover`` resets
+decode state after a crash (in place: the graphs keep their pointers),
+the ``fault`` hook fires at the ``step``, ``prefill``, ``spill`` and
+``restore`` points, and the ``recorder`` (flight recorder), ``goodput``
+(ledger handle) and ``programs`` (inventory) record what the dispatches
+do; the server installs all but the last.
+
 Speculation (``spec_k`` / ``GOFR_ML_SPEC_K``) and sequence parallelism
 raise ``NotImplementedError`` naming the ROADMAP item that brings them.
 """
@@ -71,6 +78,7 @@ from .. import resolve_device
 from ..models import llama
 from .graphs import DecodeGraphs
 from .kv_offload import HostKVStore
+from .programs import ProgramLog, model_cost
 from .scheduler import TokenBudgetScheduler
 
 __all__ = ["Sampler", "greedy", "Generator", "PagePoolExhausted",
@@ -474,6 +482,22 @@ class Generator:
         # admission-wave row buckets: 1 (the trickle) and the cap (bursts);
         # paged mode admits one request a wave
         self._admit_cap = 1 if self.page_size else min(8, batch_slots)
+        # -- serving instrumentation, installed by the LLMServer (None =
+        # off, one attribute test a site): the fault hook (GOFR_ML_FAULT,
+        # testutil/faults.py), the flight recorder's DispatchRecorder and
+        # the goodput ledger's handle for this model
+        self.fault = None
+        self.recorder = None
+        self.goodput = None
+        self.restarts = 0  # successful crash recoveries (``recover``)
+        # tokens the dispatches computed for admitted requests: each first
+        # token, each token a live row applied, and every token a window's
+        # active row emitted on the card — what the goodput ledger's
+        # classes sum to once every slot is released
+        self.tokens_computed = 0
+        # the program inventory (programs.py): decode graphs and prefill
+        # buckets with their capture or first-use seconds
+        self.programs = ProgramLog()
 
     # -- device programs -----------------------------------------------------
     def _run(self, key, body):
@@ -481,10 +505,39 @@ class Generator:
         (captured from ``body`` on first use) replayed once, on the CPU
         ``body`` itself. Returns ``body``'s outputs."""
         if self._graphs is None:
-            return body()
+            name = self._program_name(key)
+            if name in self.programs:
+                return body()
+            t0 = time.perf_counter()
+            out = body()
+            self._record_program(key, time.perf_counter() - t0, "eager")
+            return out
         if key not in self._graphs:
-            self._graphs.capture(key, body)
+            self._capture(key, body)
         return self._graphs.replay(key)
+
+    @staticmethod
+    def _program_name(key) -> str:
+        kind, n, n_cols = key
+        return f"decode/{kind}{n}" + (f"/cols{n_cols}" if n_cols else "")
+
+    def _capture(self, key, body) -> None:
+        """Capture the graph of ``key`` and record its program row."""
+        t0 = time.perf_counter()
+        reserved0 = self._graphs.pool_reserved_bytes
+        self._graphs.capture(key, body)
+        self._record_program(key, time.perf_counter() - t0, "graph",
+                             pool_bytes=self._graphs.pool_reserved_bytes
+                             - reserved0)
+
+    def _record_program(self, key, wall_s: float, kind: str, **extra) -> None:
+        what, n, n_cols = key
+        keys = (n_cols * self.page_size if n_cols else self.max_seq)
+        self.programs.record(
+            self._program_name(key), wall_s=wall_s, kind=kind,
+            shapes={"rows": self.batch_slots, "steps": n,
+                    "cols": n_cols, "dispatch": what},
+            cost=model_cost(self.cfg, self.batch_slots, n, keys), **extra)
 
     def _model_step(self, tok: torch.Tensor, n_cols: int | None):
         """One decode step of the model over the whole batch; the cache is
@@ -644,6 +697,7 @@ class Generator:
         ones = np.ones((1,), np.int32)
         for bucket in self.prefill_buckets:
             padded = np.zeros((1, bucket), np.int32)
+            t_bucket = time.perf_counter()
             if self.page_size:
                 scratch = np.zeros((self._p_max,), np.int32)
                 logits, self.cache = llama.paged_prefill_into(
@@ -654,6 +708,7 @@ class Generator:
                     self.params, padded, ones, self.cfg, self.cache, scratch,
                     0, self.page_size)
                 self._post_prefill(logits, [0], [False])
+                self._record_prefill(bucket, time.perf_counter() - t_bucket)
                 continue
             for b in sorted({1, self._admit_cap}):
                 logits, self.cache = llama.prefill_into_many(
@@ -661,20 +716,37 @@ class Generator:
                     np.ones((b,), np.int32), self.cfg, self.cache,
                     np.zeros((b,), np.int32), np.zeros((b,), bool))
                 self._post_prefill(logits, [0] * b, [False] * b)
+            self._record_prefill(bucket, time.perf_counter() - t_bucket)
         if self.prefill_chunk:
             seg = np.zeros((1, self.prefill_chunk), np.int32)
             s_cap = (self._p_max * self.page_size if self.page_size
                      else self.cache["k"].shape[2])
+            t0 = time.perf_counter()
             self._segment(seg, ones, 0, 0, s_cap)
+            self.programs.record(
+                f"prefill/segment{self.prefill_chunk}",
+                wall_s=time.perf_counter() - t0, kind="prefill",
+                shapes={"rows": 1, "segment": self.prefill_chunk},
+                cost=model_cost(self.cfg, 1, self.prefill_chunk, s_cap,
+                                prefill=True))
         if self._graphs is not None:
             for kind, n, n_cols in self._graph_keys():
                 if (kind, n, n_cols) in self._graphs:
                     continue
                 body = (self._window_body if kind == "window"
                         else self._chunk_body)
-                self._graphs.capture((kind, n, n_cols),
-                                     lambda: body(n, n_cols))
+                self._capture((kind, n, n_cols), lambda: body(n, n_cols))
             torch.cuda.synchronize(self.device)
+
+    def _record_prefill(self, bucket: int, wall_s: float) -> None:
+        """A prefill bucket's program row: the seconds of its first runs
+        at ``warmup`` (eager on the card too, the kernels' first launches
+        included)."""
+        self.programs.record(
+            f"prefill/b{bucket}", wall_s=wall_s, kind="prefill",
+            shapes={"rows": self._admit_cap, "bucket": bucket},
+            cost=model_cost(self.cfg, self._admit_cap, bucket, bucket,
+                            prefill=True))
 
     # -- paged-pool bookkeeping (page_size > 0) ------------------------------
     def _pop_free_page(self) -> int | None:
@@ -782,6 +854,7 @@ class Generator:
             "evictions": self.evictions,
             "chunked_prefills": len(self._chunked),
             "prefill_segments": self.prefill_segments_run,
+            "restarts": self.restarts,
         }
         if self.page_size:
             arrays = [a for k, a in self.cache.items() if k != "len"]
@@ -907,6 +980,9 @@ class Generator:
         discarded, as without the tier."""
         if self.host_kv is None or not info["pages"] or not info["len"]:
             return False
+        if self.fault is not None:
+            self.fault("spill")
+        t0 = time.perf_counter()
         idx = self._page_index(info["pages"])
         cuda = self.device.type == "cuda"
         arrays = {}
@@ -924,6 +1000,12 @@ class Generator:
         if cuda:
             event = torch.cuda.Event()
             event.record()
+        if "paged/gather" not in self.programs:
+            # the first spill's gather is a program row (eager index ops)
+            self.programs.record("paged/gather",
+                                 wall_s=time.perf_counter() - t0,
+                                 kind="eager",
+                                 shapes={"pages": len(info["pages"])})
         ok = self.host_kv.put(tuple(info["ids_full"]), arrays, {
             "len": info["len"], "tail": list(info["tail"]),
             "ids_full": list(info["ids_full"]),
@@ -956,6 +1038,8 @@ class Generator:
             raise ValueError("kv offload requires page_size > 0")
         if self.host_kv is None:
             raise KeyError("host kv tier is disabled")
+        if self.fault is not None:
+            self.fault("restore")
         key = tuple(int(t) for t in prefix_ids)
         popped = self.host_kv.pop(key)  # first: a reclaim below may spill
         if popped is None:              # others and LRU-evict this entry
@@ -967,14 +1051,21 @@ class Generator:
         if self._n_free_pages() < n_need:
             self.host_kv.put_back(key, arrays, meta)
             self.kv_restore_fallbacks += 1
+            # goodput: the caller charges the restore_fallback, knowing how
+            # much of the lost reuse a shallower registered match covers
             raise PagePoolExhausted(
                 f"restore needs {n_need} pages, {self.free_pages} free")
         pages = [self._pop_free_page() for _ in range(n_need)]
         if n_need:
+            t0 = time.perf_counter()
             idx = self._page_index(pages)
             for name, slab in arrays.items():
                 self.cache[name][:, idx] = slab.to(self.device,
                                                    non_blocking=True)
+            if "paged/scatter" not in self.programs:
+                self.programs.record("paged/scatter",
+                                     wall_s=time.perf_counter() - t0,
+                                     kind="eager", shapes={"pages": n_need})
         pid = self._next_prefix
         self._next_prefix += 1
         self._prefix_clock += 1
@@ -1009,6 +1100,8 @@ class Generator:
         length."""
         if pid not in self._prefixes:
             raise PrefixEvicted(f"prefix {pid} was evicted; re-register")
+        if self.fault is not None:
+            self.fault("prefill")
         info = self._prefixes[pid]
         self._prefix_clock += 1
         info["last_use"] = self._prefix_clock
@@ -1071,6 +1164,7 @@ class Generator:
             self._free_slot_pages(slot)
             raise
         self._pending_first.append(slot)
+        self.tokens_computed += 1
         s = _Slot()
         s.live = True
         s.max_new = max_new
@@ -1148,6 +1242,8 @@ class Generator:
             # admitted, or it would decode for a consumer told "error"
             self._rollback_chunked(slots_c)
             dead = set(out)
+            # their first tokens never reach a consumer or a ledger class
+            self.tokens_computed -= len(dead)
             for j in dead:
                 self.slots[j].live = False
                 if self.page_size:
@@ -1252,6 +1348,8 @@ class Generator:
                 self._chunked.pop(slot, None)
                 self._chunked_order.popleft()
                 continue
+            if self.fault is not None:
+                self.fault("prefill")
             C = self.prefill_chunk
             start = st["done"]
             seg = st["ids"][start:start + C]
@@ -1290,6 +1388,7 @@ class Generator:
                 self._chunked.pop(slot)
                 self._chunked_order.popleft()
                 self._pending_first.append(slot)
+                self.tokens_computed += 1
                 self.slots[slot].produced = 1  # the pending first token
                 self._post_prefill(logits, [slot], [True])
             else:
@@ -1300,6 +1399,8 @@ class Generator:
                 return
 
     def _admit_waves(self, prepped, out: list[int]) -> list[int]:
+        if self.fault is not None and prepped:
+            self.fault("prefill")
         for start in range(0, len(prepped), self._admit_cap):
             wave = prepped[start:start + self._admit_cap]
             slots = []
@@ -1339,6 +1440,7 @@ class Generator:
             for slot, (_ids, n, max_new, callback) in zip(slots, wave,
                                                            strict=True):
                 self._pending_first.append(slot)
+                self.tokens_computed += 1
                 s = _Slot()
                 s.live = True
                 s.max_new = max_new
@@ -1415,7 +1517,7 @@ class Generator:
         ``_apply_burst`` truncates on the host either way."""
         active0 = np.array([s.live and i not in self._chunked
                             for i, s in enumerate(self.slots)], bool)
-        pending = sum(meta[0] for kind, _block, meta in self._inflight
+        pending = sum(meta[0] for kind, _block, meta, _ in self._inflight
                       if kind == "window")
         step_cap = np.zeros((self.batch_slots,), np.int32)
         now = time.perf_counter()  # slot.deadline_at's clock (llm.py)
@@ -1451,13 +1553,24 @@ class Generator:
         if self.n_live == 0:
             self.drain()
             return
+        if self.fault is not None:
+            self.fault("step")
+        rec = self.recorder
         sched = self.scheduler
         n_steps, n_segments = self.chunk, 1
         if sched is not None:
+            t0 = time.perf_counter() if rec is not None else 0.0
             n_steps, n_segments = sched.plan(self._n_decodable(),
                                              bool(self._chunked))
+            if rec is not None:
+                rec.note("decide", time.perf_counter() - t0)
         if self._chunked:
+            # segments ride the same stream as the decode dispatch: their
+            # launches are launch time of this pass
+            t0 = time.perf_counter() if rec is not None else 0.0
             self._advance_chunked(max(n_segments, 1))
+            if rec is not None:
+                rec.note("launch", time.perf_counter() - t0)
             if not self._decodable():
                 return  # everything live is still mid-prefill
         mini = bool(self._pending_first)
@@ -1476,7 +1589,14 @@ class Generator:
                 self.drain()
                 return
         if self.page_size:
+            # page growth and the page table's upload are batch assembly,
+            # not launch
+            t0 = time.perf_counter() if rec is not None else 0.0
             self._grow_pages()
+            self._table_device()
+            if rec is not None:
+                rec.note("assemble", time.perf_counter() - t0)
+        t_launch = time.perf_counter() if rec is not None else 0.0
         if self.decode_window:
             block = self._decode_window(n_steps, active0, step_cap)
             kind, meta = "window", (n_steps, active0)
@@ -1484,9 +1604,19 @@ class Generator:
             block = self._decode_chunk(n_steps)
             kind, meta = "chunk", None
         self.steps += n_steps
+        t_d2h = time.perf_counter() if rec is not None else 0.0
+        if rec is not None:
+            rec.note("launch", t_d2h - t_launch)
         # the block's copy to the host is enqueued now, before any later
-        # replay can overwrite the graph's output
-        self._inflight.append((kind, _HostBlock(block), meta))
+        # replay can overwrite the graph's output. The launch stamp (when,
+        # on top of how many dispatches in flight, how many steps) feeds
+        # the recorder's device-idle estimate when the block settles.
+        stamp = ((t_d2h, len(self._inflight), n_steps)
+                 if rec is not None else None)
+        self._inflight.append((kind, _HostBlock(block), meta, stamp))
+        if rec is not None:
+            rec.note("d2h_issue", time.perf_counter() - t_d2h)
+            rec.note_overlap(len(self._inflight) - 1)
         if mini:
             self.drain()
         else:
@@ -1502,8 +1632,18 @@ class Generator:
             self._pop_process()
 
     def _pop_process(self) -> None:
-        kind, block, meta = self._inflight.popleft()
+        kind, block, meta, stamp = self._inflight.popleft()
+        rec = self.recorder
+        t0 = time.perf_counter() if rec is not None else 0.0
         toks = block.numpy()
+        if rec is not None:
+            # the blocking read is device_wait; the launch stamp gives the
+            # launch-to-settle span the device-idle estimate credits
+            now = time.perf_counter()
+            rec.note("device_wait", now - t0)
+            if stamp is not None:
+                t_launch, depth0, steps = stamp
+                rec.note_settle(now - t_launch, depth0, steps, now - t0)
         if kind == "chunk":
             self._process(toks)
         else:
@@ -1530,6 +1670,7 @@ class Generator:
         burst = col.tolist()
         s.tokens.extend(burst)
         s.produced += len(burst)
+        self.tokens_computed += len(burst)
         if s.callback is not None:
             bursts.setdefault(i, []).extend(burst)
         self._maybe_finish(i)
@@ -1555,12 +1696,16 @@ class Generator:
         ``n_out`` tokens. Tokens a row computed past its end (its budget,
         EOS, a death since dispatch) count as ``window_overshoot``; with
         the pipeline, those of rows already dead when the window settled
-        count as ``pipeline_overshoot`` (computed, never delivered; the
-        goodput ledger that charges them comes with ROADMAP A.6b)."""
+        count as ``pipeline_overshoot``: computed, never delivered, and
+        charged to the goodput ledger as such."""
         planned, active0 = meta
         self.windows += 1
         self.window_steps_planned += planned
         self.window_steps_realized += realized
+        if self.recorder is not None:
+            # stamped from the processing pass: the committed record
+            # describes the window whose tokens this pass drained
+            self.recorder.note_window(planned, realized)
         self._resolve_first(block[0])
         body = block[1:]
         bursts: dict[int, list[int]] = {}
@@ -1576,16 +1721,29 @@ class Generator:
                 overshoot += max(n - applied, 0)
             else:
                 lagged += max(n - applied, 0)
-        self.window_overshoot += overshoot
+        # the applied tokens counted themselves in _apply_burst
+        self.tokens_computed += overshoot + lagged
+        if overshoot:
+            self.window_overshoot += overshoot
+            if self.goodput is not None:
+                self.goodput.note("window_overshoot", overshoot)
         if lagged:
             self.pipeline_overshoot += lagged
+            if self.goodput is not None:
+                self.goodput.note("pipeline_overshoot", lagged)
         self._fire_bursts(bursts)
 
     def _fire_bursts(self, bursts: dict[int, list[int]]) -> None:
+        """Deliver each slot's burst to its callback: the ``emit`` phase of
+        the dispatch record."""
+        rec = self.recorder
+        t0 = time.perf_counter() if rec is not None and bursts else 0.0
         for i, burst in bursts.items():
             cb = self.slots[i].callback
             if cb is not None:
                 cb(i, burst)
+        if rec is not None and bursts:
+            rec.note("emit", time.perf_counter() - t0)
 
     def window_stats(self) -> dict | None:
         """Fused-window counters (None when window mode is off): K, the
@@ -1608,18 +1766,92 @@ class Generator:
 
     def pipeline_stats(self) -> dict | None:
         """Double-buffer counters (None when the pipeline is off): the
-        depth, the passes that ended with two dispatches in flight and the
-        tokens computed for rows already dead at settle. The JAX block's
-        ``device_idle_share`` comes from its flight recorder (ROADMAP A.6b)
-        and is None here."""
+        depth, the passes that ended with two dispatches in flight, the
+        tokens computed for rows already dead at settle, and the flight
+        recorder's device-idle estimate (None with the recorder off)."""
         if not self.pipeline:
             return None
+        rec = self.recorder
         return {
             "depth": 2,
             "windows_overlapped": self.pipeline_windows,
             "overshoot_tokens": self.pipeline_overshoot,
-            "device_idle_share": None,
+            "device_idle_share": (None if rec is None else
+                                  rec.snapshot().get("device_idle_share")),
         }
+
+    def quarantine_borrowed(self) -> list[int]:
+        """Invalidate the prefix registrations BORROWED by live slots and
+        return their ids: the host-only slice of ``recover`` the watchdog
+        runs before it fails the crashed slots' consumers, so a woken
+        consumer never sees a suspect registration as live. ``recover``
+        re-discovers nothing afterwards."""
+        if not self.page_size:
+            return []
+        invalidated: list[int] = []
+        for pid in [p for p, info in self._prefixes.items()
+                    if info["refs"] > 0]:
+            info = self._prefixes.pop(pid)
+            self._return_pages(info["pages"])
+            invalidated.append(pid)
+        return invalidated
+
+    def recover(self) -> list[int]:
+        """Crash recovery for the serving watchdog (``llm.py``): drop what
+        the crashed dispatch may have left behind and reset decode state
+        so the waiting queue can admit again. Returns the invalidated
+        prefix ids, for the radix cache.
+
+        First the stream is synchronised, so no copy still queued (a token
+        block's, a spill's or a restore's) lands in pages or buffers a new
+        request will own; a sticky device error raises right here. Then
+        every slot's state, the blocks in flight, pending first tokens and
+        chunked-prefill progress are dropped; borrowed prefix registrations
+        are invalidated (a crashed slot attended their pages) and the
+        others stay registered; the host KV tier is left untouched, so
+        offloaded entries stay restorable. The decode graphs replay fixed
+        pointers, so the state they read is reset IN PLACE (the cache's
+        ``len``, the token row, the window masks; the page table through
+        its persistent buffer): nothing is rebound and nothing recaptured.
+        Last, one 1-step dispatch of the mini graph is read back and the
+        card synchronised: recovery proves the decode path runs or raises
+        (the watchdog then declares the server dead)."""
+        cuda = self.device.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize(self.device)
+        self._inflight.clear()
+        self._pending_first.clear()
+        self._chunked.clear()
+        self._chunked_order.clear()
+        invalidated: list[int] = []
+        if self.page_size:
+            borrowed = [pid for pid, info in self._prefixes.items()
+                        if info["refs"] > 0]
+            for i in range(self.batch_slots):
+                self.slots[i].live = False
+                self._free_slot_pages(i)
+            for pid in borrowed:
+                info = self._prefixes.pop(pid, None)
+                if info is not None:
+                    self._return_pages(info["pages"])
+                    invalidated.append(pid)
+        for i in range(self.batch_slots):
+            self.slots[i] = _Slot()
+        self.cache["len"].zero_()
+        self._tok_dev.zero_()
+        if self.decode_window:
+            self._win_active.zero_()
+            self._win_cap.zero_()
+        self.restarts += 1
+        if self.decode_window:
+            dead = np.zeros((self.batch_slots,), np.int32)
+            block = self._decode_window(1, dead.astype(bool), dead)
+        else:
+            block = self._decode_chunk(1)
+        _HostBlock(block).numpy()
+        if cuda:
+            torch.cuda.synchronize(self.device)
+        return invalidated
 
     def release(self, i: int) -> None:
         """Return a finished slot (and its own pages) to the free pool."""

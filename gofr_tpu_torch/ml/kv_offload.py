@@ -31,8 +31,12 @@ untouched, so spill→restore is bit-identical at every precision.
 
 All mutation happens on the serving thread that owns the Generator; a
 small lock makes ``stats()`` and ``meta()`` safe from other threads, and
-settling (which may wait on a copy) runs outside it. The JAX module's
-fleet event log and goodput hooks come with ROADMAP A.6b.
+settling (which may wait on a copy) runs outside it. A spill and a
+restore each emit an event into the flight recorder's event log, labelled
+with ``model`` (the owning LLMServer's name); an entry larger than the
+whole budget charges its prefix tokens to the goodput ledger as
+``restore_fallback`` (``goodput``, installed by the server): every later
+hit on it prefills again.
 """
 
 from __future__ import annotations
@@ -40,6 +44,8 @@ from __future__ import annotations
 import collections
 import os
 import threading
+
+from ..flight_recorder import event_log
 
 __all__ = ["OffloadConfig", "HostKVStore"]
 
@@ -104,6 +110,9 @@ class HostKVStore:
         self._entries: collections.OrderedDict[tuple, _Entry] = \
             collections.OrderedDict()
         self._lock = threading.Lock()
+        self.model = "llm"  # the owning server's name, for the events
+        self._events = event_log()
+        self.goodput = None  # the owning server's goodput handle
         self.bytes_used = 0
         # lifetime totals
         self.puts = 0
@@ -141,6 +150,9 @@ class HostKVStore:
         with self._lock:
             if nbytes > self.budget_bytes:
                 self.rejects += 1
+                lost = int(meta.get("len", 0))
+                if self.goodput is not None and lost:
+                    self.goodput.note("restore_fallback", lost)
                 return False
             self._insert(key, _Entry(arrays, dict(meta), nbytes, event))
             self.puts += 1
@@ -148,6 +160,8 @@ class HostKVStore:
             # put-to-put interval for its copy to land — settle them
             settle_now = [e for k, e in self._entries.items()
                           if not e.settled and k != key]
+        self._events.emit("spill", model=self.model, tokens=len(key),
+                          bytes=nbytes, tier_bytes=self.bytes_used)
         for e in settle_now:
             self._settle(e)
         return True
@@ -199,6 +213,8 @@ class HostKVStore:
                 return None
             self.bytes_used -= entry.nbytes
             self.hits += 1
+        self._events.emit("restore", model=self.model, tokens=len(key),
+                          bytes=entry.nbytes, tier_bytes=self.bytes_used)
         self._settle(entry)
         return entry.arrays, entry.meta
 

@@ -40,14 +40,23 @@ metrics (``app_llm_*``, ``app_ml_kv_offload_*``) and the ``ml.queue`` /
 tier, the scheduler, the fused-window and pipeline counters, the decode
 graphs and the prefix cache.
 
-An exception on the serving thread fails every live and queued request
-with ``GeneratorCrashed``, is logged with its traceback and kept in
-``LLMServer.error``, and leaves the server dead (``health() == "dead"``).
-Restart under a watchdog (``max_restarts`` / ``GOFR_ML_MAX_RESTARTS``),
-fault injection (``fault`` / ``GOFR_ML_FAULT``), the flight recorder,
-journeys, capture and goodput are ROADMAP A.6b: the knobs are accepted
-only at values that ask for no restart and no fault, and raise
-``NotImplementedError`` otherwise.
+Resilience, as in the JAX server: every dispatch of a serving pass runs
+under the WATCHDOG. An exception fails only the requests in flight (typed
+``GeneratorCrashed``), resets the generator's decode state
+(``Generator.recover``) and resumes the waiting queue, which survives the
+crash untouched; past the restart budget (``max_restarts`` /
+``GOFR_ML_MAX_RESTARTS``, default 3, per ``restart_window_s`` /
+``GOFR_ML_RESTART_WINDOW_S``, default 60) or when recovery itself fails
+(a sticky device error) the server is ``dead``. States: ``serving``,
+``recovering``, ``degraded`` (a restart inside the window) and ``dead``.
+``fault`` / ``GOFR_ML_FAULT`` arms the chaos hook
+(``testutil/faults.py``). The serving recorders are on by default as in
+JAX: the flight recorder (a ``DispatchRecorder`` record per dispatch, the
+event log, crash bundles; ``GOFR_ML_FLIGHT_RECORDER``), the auto-profiler
+(``GOFR_ML_AUTOPROF``), request journeys (``GOFR_ML_JOURNEY``) and the
+goodput ledger (``GOFR_ML_GOODPUT``). Traffic capture
+(``GOFR_ML_CAPTURE``) is ROADMAP A.16: a positive value raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -59,18 +68,26 @@ import os
 import queue as _queue
 import threading
 import time
+import traceback
 from typing import Any, AsyncIterator
 
 import numpy as np
 
+from ..flight_recorder import (LAUNCH_GATE, AutoProfiler, DispatchRecorder,
+                               autoprof_enabled, crash_vault, event_log,
+                               recorder_enabled)
+from ..testutil.faults import FaultInjector, fault_snapshot
 from ..tracing import current_context
 from .errors import DeadlineExceeded, GeneratorCrashed, Overloaded, ServerClosed
 from .generate import PagePoolExhausted, PrefixEvicted
+from .goodput import goodput_ledger
+from .journey import Journey, journey_log, next_rid
+from .journey import seal as seal_journey
 from .prefix_cache import PrefixCacheConfig, RadixPrefixCache
 from .scheduler import (PRIORITIES, AgingPriorityQueue, SLOController,
                         normalize_priority, retry_after_s)
 
-__all__ = ["LLMServer", "drain_s_from_env"]
+__all__ = ["LLMServer", "drain_s_from_env", "capture_from_env"]
 
 _log = logging.getLogger("gofr_tpu_torch.ml.llm")
 _DONE = object()
@@ -81,7 +98,6 @@ _ADMIT_WINDOW_S = 0.004
 # idle wait for the next request, backing off to 50 ms so an idle server
 # does not spin
 _IDLE_WAIT_S = 0.002
-_RESILIENCE = "ROADMAP A.6b"
 
 
 def _abort_reason(exc: Exception) -> str | None:
@@ -113,29 +129,27 @@ def drain_s_from_env() -> float:
     return drain_s
 
 
-def _no_restarts(max_restarts: int | None) -> int:
-    """The restart budget: 0, the only one the port serves (a crash leaves
-    the server dead). A positive ``max_restarts`` or
-    ``GOFR_ML_MAX_RESTARTS`` raises; unset reads as 0."""
-    raw = os.environ.get("GOFR_ML_MAX_RESTARTS")
-    n = (0 if raw is None else int(raw)) if max_restarts is None \
-        else int(max_restarts)
+def capture_from_env() -> None:
+    """``GOFR_ML_CAPTURE``, parsed as the JAX package parses it: unset,
+    empty or ``0`` is capture off; a malformed or negative value raises the
+    JAX message; a positive ring size raises ``NotImplementedError``:
+    traffic capture and replay are ROADMAP A.16."""
+    raw = os.environ.get("GOFR_ML_CAPTURE", "").strip()
+    if not raw:
+        return
+    try:
+        n = int(raw)
+    except ValueError:
+        raise ValueError(
+            f"GOFR_ML_CAPTURE must be a ring size (requests), "
+            f"got {raw!r}") from None
+    if n < 0:
+        raise ValueError(
+            f"GOFR_ML_CAPTURE must be >= 0 (0 disables), got {raw!r}")
     if n > 0:
         raise NotImplementedError(
-            f"generator restart under the watchdog (max_restarts={n}) is "
-            f"not ported yet ({_RESILIENCE}); the port's server dies on a "
-            f"crash: set GOFR_ML_MAX_RESTARTS=0")
-    return 0
-
-
-def _no_fault(fault: Any) -> None:
-    """Fault injection is not ported: an injector or ``GOFR_ML_FAULT``
-    raises."""
-    spec = os.environ.get("GOFR_ML_FAULT", "").strip()
-    if fault or (fault is None and spec):
-        raise NotImplementedError(
-            f"fault injection ({'fault=' if fault else 'GOFR_ML_FAULT='}"
-            f"{fault or spec!r}) is not ported yet ({_RESILIENCE})")
+            f"traffic capture (GOFR_ML_CAPTURE={raw}) is not ported yet "
+            f"(ROADMAP A.16)")
 
 
 class _Finish:
@@ -154,11 +168,12 @@ class _Request:
                  "enqueued_at", "deadline_at", "deadline_hit", "cancelled",
                  "prefix", "full_prompt", "cache_seen", "n_tokens",
                  "first_token_at", "last_burst_at", "trace_ctx",
-                 "queue_span", "decode_span")
+                 "queue_span", "decode_span", "slot", "rid", "journey")
 
     def __init__(self, prompt, max_new, out_q, loop, priority: int,
                  deadline_s: float, prefix: int | None = None,
-                 trace_ctx=None, queue_span=None) -> None:
+                 trace_ctx=None, queue_span=None, rid: str | None = None,
+                 journey=None) -> None:
         self.prompt = prompt
         self.prefix = prefix      # registered shared-prefix id (paged)
         self.full_prompt = None   # the original ids when the prefix cache
@@ -179,6 +194,9 @@ class _Request:
         self.trace_ctx = trace_ctx    # the caller's span at enqueue time
         self.queue_span = queue_span  # ml.queue: enqueue -> admission
         self.decode_span = None       # ml.decode: admission -> finish
+        self.slot = None
+        self.rid = rid                # process-unique id (the journey key)
+        self.journey = journey        # its timeline (None: journeys off)
 
     def finish_spans(self, status: str = "OK", message: str = "") -> None:
         """End the phase spans still open."""
@@ -215,13 +233,9 @@ class LLMServer:
                  max_queue: int | None = None,
                  max_queued_tokens: int | None = None,
                  fault: Any = None) -> None:
-        # the resilience knobs first: a request for what is not ported
-        # fails the boot before a serving thread exists
-        self._max_restarts = _no_restarts(max_restarts)
-        self._restart_window = (
-            float(os.environ.get("GOFR_ML_RESTART_WINDOW_S", "60"))
-            if restart_window_s is None else float(restart_window_s))
-        _no_fault(fault)
+        # capture first: asking for it fails the boot before a serving
+        # thread exists
+        capture_from_env()
         self.gen = generator
         self.name = name
         self._logger = logger
@@ -268,11 +282,61 @@ class LLMServer:
         self._active: dict[int, _Request] = {}
         self._closed = False
         self._draining = False
-        self._dead = False
         self.closed_cleanly = True
-        self.error: BaseException | None = None
         self.served = 0
         self.deadline_expired = 0
+        # -- the watchdog: at most GOFR_ML_MAX_RESTARTS recoveries per
+        # GOFR_ML_RESTART_WINDOW_S sliding window; past it the server is
+        # dead instead of crash-looping
+        self._max_restarts = (int(os.environ.get("GOFR_ML_MAX_RESTARTS", "3"))
+                              if max_restarts is None else int(max_restarts))
+        self._restart_window = (
+            float(os.environ.get("GOFR_ML_RESTART_WINDOW_S", "60"))
+            if restart_window_s is None else float(restart_window_s))
+        self._state = "serving"  # serving | recovering | degraded | dead
+        # written by the serving thread mid-crash, read by health and
+        # debug scrapes from the event loop: the lock keeps an append from
+        # turning a scrape into a RuntimeError
+        self._restart_lock = threading.Lock()
+        self._restart_times: collections.deque[float] = collections.deque()
+        self._restart_history: collections.deque[dict] = collections.deque(
+            maxlen=16)
+        self._restarts_total = 0
+        self._fatal: BaseException | None = None  # a failed recovery's error
+        # the flight recorder: the generator stamps decide / launch /
+        # d2h_issue / device_wait / emit through the shared recorder, this
+        # thread stamps queue_pop / assemble and commits once a dispatch
+        self.recorder = (DispatchRecorder(model=name, metrics=metrics)
+                         if recorder_enabled() else None)
+        generator.recorder = self.recorder
+        self.autoprof = None
+        if self.recorder is not None and autoprof_enabled():
+            self.autoprof = AutoProfiler(model=name)
+            self.recorder.observer = self.autoprof.observe
+        # the goodput ledger: model-bound handles for the generator, the
+        # prefix cache and the host tier, whose charge sites stay one-liners
+        self._goodput = goodput_ledger()
+        handle = (self._goodput.handle(name)
+                  if self._goodput is not None else None)
+        generator.goodput = handle
+        if self.prefix_cache is not None:
+            self.prefix_cache.goodput = handle
+        host = getattr(generator, "host_kv", None)
+        if host is not None:
+            host.goodput = handle
+            host.model = name  # labels the tier's spill/restore events
+        self._journeys = journey_log()
+        self._events = event_log()
+        self._crashes = crash_vault()
+        # the chaos hook on the generator's dispatch points and the emit
+        # path; None costs one attribute test a site
+        self._fault = (FaultInjector.from_env() if fault is None
+                       else (fault or None))
+        if self._fault is not None:
+            generator.fault = self._fault
+            if logger is not None:
+                logger.warnf("llm %s: fault injection ARMED (%s)", name,
+                             os.environ.get("GOFR_ML_FAULT", ""))
         self._thread = threading.Thread(target=self._serve_loop, daemon=True,
                                         name=f"gofr-torch-llm-{name}")
         self._thread.start()
@@ -281,37 +345,68 @@ class LLMServer:
     def _serve_loop(self) -> None:
         try:
             self._serve()
-        except Exception as exc:
-            # not swallowed: logged, kept, and every consumer is failed
-            # typed below — the server is dead from here on
-            self.error = exc
-            self._dead = True
-            _log.exception("llm %s: serving thread crashed", self.name)
-            if self._logger is not None:
-                self._logger.error("llm serving thread crashed",
-                                   model=self.name,
-                                   error=f"{type(exc).__name__}: {exc}")
         finally:
             self._flush_on_close()
 
     def _serve(self) -> None:
         while not self._closed:
-            self._run_setup_tasks()
-            self._reap_cancelled()
-            self._admit_waiting()
-            if self._closed:
-                return
-            if self.gen.n_live:
-                self.gen.step()
-                self._finish_dead_slots()
-                self._steer()
+            # WATCHDOG: every dispatch this pass makes (step, drain, the
+            # prefills, spill and restore) and the emit callbacks run
+            # supervised; see ``_recover_or_die``
+            rec = self.recorder
+            try:
+                # one pass of device work: a profiler start or stop waits
+                # for its end (flight_recorder.LAUNCH_GATE)
+                with LAUNCH_GATE.serving():
+                    self._run_setup_tasks()
+                    self._reap_cancelled()
+                    if rec is not None:
+                        # assemble: the admission wave (validation,
+                        # radix split, the prefills) less what its inner
+                        # drain noted itself, so a record's phases never
+                        # sum past its wall
+                        t0 = time.perf_counter()
+                        nested0 = rec.pending_total
+                        self._admit_waiting()
+                        nested = rec.pending_total - nested0
+                        rec.note("assemble", max(
+                            0.0, time.perf_counter() - t0 - nested))
+                    else:
+                        self._admit_waiting()
+                    if self._closed:
+                        return
+                    if self.gen.n_live:
+                        self.gen.step()
+                        self._finish_dead_slots()
+                        self._steer()
+                        if rec is not None:
+                            rec.commit()  # one record a dispatch
+                        continue
+                    self.gen.drain()
+                    self._finish_dead_slots()
+                    if rec is not None and rec.pending_device_work:
+                        rec.commit()  # the tail flush of the last block
+            except Exception as exc:
+                # a crash racing close() skips recovery: the final flush
+                # wakes every consumer with the typed error anyway
+                if self._closed:
+                    return
+                with LAUNCH_GATE.serving():  # recovery replays a graph
+                    recovered = self._recover_or_die(exc)
+                if not recovered:
+                    return
+                if rec is not None:
+                    # the crashed pass and the recovery must not be billed
+                    # to the next dispatch's record
+                    rec.reset()
                 continue
-            self.gen.drain()
-            self._finish_dead_slots()
+            t_pop = time.perf_counter()
             try:  # idle: block briefly, backing off toward 50 ms
                 req = self._requests.get(timeout=self._idle_backoff)
             except _queue.Empty:
                 self._idle_backoff = min(self._idle_backoff * 2, 0.05)
+                if rec is not None:
+                    rec.reset()  # pure idle: no dispatch to charge
                 continue
             self._idle_backoff = _IDLE_WAIT_S
             if req is None:
@@ -330,6 +425,10 @@ class LLMServer:
                     self._closed = True
                     return
                 self._enqueue_waiting(more)
+            if rec is not None:
+                # the wait for the arrival that woke us plus the burst
+                # window before the admission wave
+                rec.note("queue_pop", time.perf_counter() - t_pop)
 
     def _steer(self) -> None:
         """After a dispatch: record the ladder entry it ran
@@ -359,31 +458,215 @@ class LLMServer:
                 break
             if req is not None:
                 leftovers.append(req)
-        leftovers.extend(self._active.values())
-        self._active.clear()
+        for slot, req in list(self._active.items()):
+            # tokens of an in-flight slot a force-close dropped never ship
+            # as a completed answer (a graceful drain finished them first)
+            self._note_goodput("disconnected", self._slot_produced(slot))
+            leftovers.append(req)
+            del self._active[slot]
         exc = self._closed_error()
         for req in leftovers:
             self._reject(req, exc)
 
     def _closed_error(self) -> Exception:
-        if self._dead:
+        """The typed error the consumers of a server no longer serving
+        get: ``GeneratorCrashed`` once dead, ``ServerClosed`` on a close."""
+        if self._state == "dead":
             return GeneratorCrashed(
-                f"llm server is dead: {type(self.error).__name__}: "
-                f"{self.error}")
+                "llm server is dead: generator restart budget exhausted "
+                f"({self._max_restarts} restarts/"
+                f"{self._restart_window:g}s)")
         return ServerClosed()
 
-    @staticmethod
-    def _reject(req: _Request, exc: Exception) -> None:
+    def _note_goodput(self, reason: str, tokens: int) -> None:
+        """Classify device-computed tokens in the goodput ledger: one call
+        a fate decision, never one a token."""
+        if self._goodput is not None and tokens > 0:
+            self._goodput.note(self.name, reason, int(tokens))
+
+    def _slot_produced(self, slot: int | None) -> int:
+        """Tokens the device computed for a slot, read defensively (the
+        crash paths run while the wreck is mid-teardown)."""
+        try:
+            return 0 if slot is None else int(self.gen.slots[slot].produced)
+        except Exception:
+            return 0
+
+    def _finish_journey(self, req: _Request, reason: str,
+                        error: str | None = None) -> None:
+        seal_journey(req.journey, reason, error, log=self._journeys,
+                     metrics=self._metrics)
+
+    def _reject(self, req: _Request, exc: Exception) -> None:
         """End a request that will never (or no longer) decode: its spans
-        carry the typed outcome, its consumer gets the error."""
+        carry the typed outcome (``ml.finish_reason``), its journey is
+        sealed with it, its consumer gets the error."""
         reason = _abort_reason(exc)
         if reason is not None:
             for span in (req.queue_span, req.decode_span):
                 if span is not None and span.end_time is None:
                     span.set_attribute("ml.finish_reason", reason)
         req.finish_spans("ERROR", str(exc))
+        if req.journey is not None:
+            self._finish_journey(req, reason or "error", str(exc))
         req.send(exc)
         req.send(_DONE)
+
+    # -- watchdog / crash recovery --------------------------------------------
+    def _recover_or_die(self, exc: BaseException) -> bool:
+        """A supervised dispatch raised. In the JAX server's order:
+        forensics first (the crash bundle, while the wreck is intact), then
+        the state flip, then the rejects — ONLY the requests bound to live
+        slots fail, with ``GeneratorCrashed``; then ``Generator.recover``
+        resets decode state and True resumes the waiting queue, untouched.
+        Past the restart budget, or when recovery itself raises (a sticky
+        device error fails its synchronisation), False: the server is
+        ``dead`` and every consumer is flushed with the typed error."""
+        _log.error("llm %s: generator crashed (%s: %s)", self.name,
+                   type(exc).__name__, exc)
+        if self._logger is not None:
+            self._logger.error("llm generator crashed", model=self.name,
+                               error=str(exc), type=type(exc).__name__,
+                               stack=traceback.format_exc())
+        crash_id = self._capture_crash(exc)
+        crash = GeneratorCrashed(
+            f"generator dispatch failed ({type(exc).__name__}: {exc})")
+        now = time.monotonic()
+        with self._restart_lock:
+            while (self._restart_times
+                   and now - self._restart_times[0] > self._restart_window):
+                self._restart_times.popleft()
+            in_window = len(self._restart_times)
+        if in_window >= self._max_restarts:
+            self._state = "dead"
+            self._record_restart(exc, recovered=False, crash_id=crash_id)
+            self._events.emit("dead", model=self.name, crash_id=crash_id,
+                              restarts=self._restarts_total,
+                              budget=self._max_restarts)
+            self._fail_in_flight(crash)
+            if self._logger is not None:
+                self._logger.error(
+                    "llm restart budget exhausted; server is dead",
+                    model=self.name, restarts=self._restarts_total,
+                    budget=self._max_restarts,
+                    window_s=self._restart_window)
+            return False
+        with self._restart_lock:
+            self._restart_times.append(now)
+        self._state = "recovering"
+        # quarantine the borrowed prefixes BEFORE waking the crashed
+        # slots' consumers: a woken consumer must never see a suspect
+        # registration as live (host bookkeeping only)
+        try:
+            quarantined = self.gen.quarantine_borrowed()
+        except Exception:
+            quarantined = []
+        self._fail_in_flight(crash)
+        t0 = time.perf_counter()
+        try:
+            invalidated = self.gen.recover()
+        except Exception as rexc:
+            self._state = "dead"
+            # kept, with its traceback and so the failed pass's frames:
+            # after a sticky device error, freeing the tensors they hold
+            # (a pinned block records a CUDA event when freed) aborts the
+            # process, and a dead server has no use for the memory
+            self._fatal = rexc
+            self._record_restart(exc, recovered=False, crash_id=crash_id)
+            self._events.emit("dead", model=self.name, crash_id=crash_id,
+                              error=f"recovery failed: {rexc}")
+            _log.error("llm %s: recovery failed, the server is dead "
+                       "(%s: %s)", self.name, type(rexc).__name__, rexc)
+            if self._logger is not None:
+                self._logger.error(
+                    "llm generator recovery failed; server is dead",
+                    model=self.name, error=str(rexc),
+                    stack=traceback.format_exc())
+            return False
+        if self.prefix_cache is not None:
+            for pid in (*quarantined, *invalidated):
+                self.prefix_cache.invalidate(pid)
+        self._restarts_total += 1
+        self._state = "degraded"  # until the restart window drains
+        recovery_ms = round((time.perf_counter() - t0) * 1e3, 1)
+        self._record_restart(exc, recovered=True, recovery_ms=recovery_ms,
+                             crash_id=crash_id)
+        self._events.emit("recover", model=self.name, crash_id=crash_id,
+                          recovery_ms=recovery_ms,
+                          queued=len(self._waiting))
+        self._steered_dispatches = -1
+        self._metric("add_counter", "app_ml_generator_restarts_total", 1)
+        if self._logger is not None:
+            self._logger.warnf(
+                "llm %s generator recovered (restart %d/%d in window); "
+                "resuming the waiting queue (%d queued)", self.name,
+                len(self._restart_times), self._max_restarts,
+                len(self._waiting))
+        return True
+
+    def _fail_in_flight(self, crash: Exception) -> None:
+        """Fail the requests bound to slots, their tokens charged as
+        ``crashed``."""
+        for slot, req in list(self._active.items()):
+            self._note_goodput("crashed", self._slot_produced(slot))
+            self._reject(req, crash)
+            del self._active[slot]
+
+    def _record_restart(self, exc: BaseException, recovered: bool,
+                        recovery_ms: float | None = None,
+                        crash_id: str | None = None) -> None:
+        with self._restart_lock:
+            self._restart_history.append({
+                "at": time.time(),
+                "error": f"{type(exc).__name__}: {exc}",
+                "recovered": recovered,
+                "recovery_ms": recovery_ms,
+                "crash_id": crash_id,  # the /debug/crash/<id> bundle
+            })
+
+    def _capture_crash(self, exc: BaseException) -> str | None:
+        """Snapshot the crash into a forensics bundle (the trigger event,
+        the last events, the scheduler and pool state, the in-flight slot
+        table, the victims' journeys and the newest dispatch records) and
+        return its ``/debug/crash/<id>`` id. Runs before the slots are
+        failed; a failure here never blocks recovery."""
+        try:
+            now = time.perf_counter()
+            active = sorted(self._active.items())
+            slot_table = [{
+                "slot": slot,
+                "rid": req.rid,
+                "prompt_tokens": req.n_tokens,
+                "produced": self._slot_produced(slot),
+                "priority": PRIORITIES[req.priority],
+                "age_s": round(now - req.enqueued_at, 4),
+                "streamed": req.first_token_at is not None,
+            } for slot, req in active]
+            trigger = self._events.emit(
+                "crash", model=self.name,
+                error=f"{type(exc).__name__}: {exc}",
+                in_flight=len(slot_table), queued=len(self._waiting))
+            state: dict = {
+                "server_state": self._state,
+                "restarts_total": self._restarts_total,
+                "slots": slot_table,
+                "scheduler": self.scheduler_snapshot(),
+            }
+            journeys = [req.journey.snapshot() for _, req in active
+                        if req.journey is not None]
+            if journeys:
+                state["journeys"] = journeys
+            if self.recorder is not None:
+                state["dispatches"] = self.recorder.tail(16)
+            try:  # the pool counters may be mid-wreck; best effort
+                state["pool"] = self.gen.pool_stats()
+            except Exception:
+                pass
+            return self._crashes.capture(
+                model=self.name, trigger=trigger, state=state,
+                events=self._events.tail(128))
+        except Exception:
+            return None
 
     # -- admission bounds and shedding --------------------------------------
     def _enqueue_waiting(self, req: _Request) -> None:
@@ -414,6 +697,10 @@ class LLMServer:
         retry_after = self._retry_after_s()
         prio = PRIORITIES[req.priority]
         self._shed_counts[prio] += 1
+        self._events.emit("shed", model=self.name, priority=prio,
+                          rid=req.rid, queued=len(self._waiting),
+                          queued_tokens=self._waiting.tokens,
+                          retry_after_s=round(retry_after, 3))
         self._metric("add_counter", "app_llm_shed_total", 1, priority=prio)
         self._reject(req, Overloaded(
             f"server overloaded ({len(self._waiting)} queued, "
@@ -451,24 +738,41 @@ class LLMServer:
                 # unwind the others and livelock on retry
                 n_free = min(n_free, 1)
             batch = []
-            while len(self._waiting) and len(batch) < n_free:
-                req = self._waiting.pop()
-                if (req.deadline_at is not None
-                        and time.perf_counter() >= req.deadline_at):
-                    self._expire(req, "while queued")
-                    continue
-                try:
-                    # one bad request rejects alone, not the whole wave
-                    ids = self._split_prefix(req)
-                    self.check_admissible(
-                        req.full_prompt if req.full_prompt is not None
-                        else ids, req.max_new,
-                        prefix=None if req.full_prompt is not None
-                        else req.prefix)
-                except ValueError as exc:
-                    self._reject(req, exc)
-                    continue
-                batch.append((req, ids))
+            req = None
+            try:
+                while len(self._waiting) and len(batch) < n_free:
+                    req = self._waiting.pop()
+                    if (req.deadline_at is not None
+                            and time.perf_counter() >= req.deadline_at):
+                        self._expire(req, "while queued")
+                        req = None
+                        continue
+                    try:
+                        # one bad request rejects alone, not the whole wave
+                        ids = self._split_prefix(req)
+                        self.check_admissible(
+                            req.full_prompt if req.full_prompt is not None
+                            else ids, req.max_new,
+                            prefix=None if req.full_prompt is not None
+                            else req.prefix)
+                    except ValueError as exc:
+                        self._reject(req, exc)
+                        req = None
+                        continue
+                    batch.append((req, ids))
+                    req = None
+            except Exception as exc:
+                # the radix lookup dispatches device work (a restore, a
+                # spill, a prefix prefill): a crash there leaves the popped
+                # request and the batch in neither _waiting nor _active,
+                # where the watchdog cannot see them — fail them here
+                crash = GeneratorCrashed(
+                    f"admission dispatch failed "
+                    f"({type(exc).__name__}: {exc})")
+                for r in ([req] if req is not None else []) + \
+                        [r for r, _ in batch]:
+                    self._reject(r, crash)
+                raise
             if not batch:
                 continue
             try:
@@ -482,9 +786,11 @@ class LLMServer:
                 if req.full_prompt is not None:
                     # the cache split this prompt and the generator evicted
                     # the prefix before admission: requeue with the full
-                    # prompt — the caller never learns caching was tried
+                    # prompt — the caller never learns caching was tried;
+                    # the prefix tokens prefill again (restore_fallback)
                     self.prefix_cache.invalidate(req.prefix)
-                    self.prefix_cache.record_miss()
+                    self.prefix_cache.record_miss(
+                        lost_tokens=len(req.full_prompt) - len(req.prompt))
                     req.prompt = req.full_prompt
                     req.prefix = None
                     req.full_prompt = None
@@ -515,12 +821,32 @@ class LLMServer:
                 raise
             now = time.perf_counter()
             for (req, _), slot in zip(batch, slots, strict=True):
+                req.slot = slot
                 self._active[slot] = req
                 # fused decode windows bound a row's device steps by it, so
                 # a window does not run K steps for a slot the reaper is
                 # about to cancel; the reaper stays authoritative
                 self.gen.slots[slot].deadline_at = req.deadline_at
                 self._admit_times.append(now)
+                trace = (req.trace_ctx.trace_id
+                         if req.trace_ctx is not None else None)
+                self._events.emit(
+                    "admit", model=self.name, slot=slot, rid=req.rid,
+                    priority=PRIORITIES[req.priority],
+                    prompt_tokens=req.n_tokens,
+                    queued_ms=round((now - req.enqueued_at) * 1e3, 2),
+                    **({"trace": trace} if trace is not None else {}))
+                if req.journey is not None:
+                    # the admit mark closes the queue-wait segment
+                    extra: dict = {"slot": slot,
+                                   "priority": PRIORITIES[req.priority]}
+                    if req.full_prompt is not None:
+                        extra["prefix_tokens"] = (len(req.full_prompt)
+                                                  - len(req.prompt))
+                    sched = self.gen.scheduler
+                    if sched is not None and sched.restore_debt:
+                        extra["restore_debt"] = sched.restore_debt
+                    req.journey.mark("admit", **extra)
                 if req.full_prompt is not None:
                     # the hit is real only now: the slot borrowed the
                     # prefix pages and only the suffix prefilled
@@ -651,6 +977,21 @@ class LLMServer:
         """Push one BURST of tokens to the consumer — one loop wakeup per
         burst, not per token — and feed TTFT / cadence to the metrics and
         the SLO controller."""
+        if self._fault is not None:
+            self._fault("emit")  # chaos point: a poisoned token callback
+        if req.journey is not None:
+            # one mark a burst: the first closes the prefill segment (the
+            # TTFT boundary), later ones are decode; each carries the
+            # in-flight depth and the dispatch seq this pass commits as
+            name = "prefill" if req.first_token_at is None else "decode"
+            depth = len(self.gen._inflight)
+            rec = self.recorder
+            if rec is not None:
+                rec.note_rid(req.rid)
+                req.journey.mark(name, tokens=len(tokens), inflight=depth,
+                                 dispatch=rec.dispatches + 1)
+            else:
+                req.journey.mark(name, tokens=len(tokens), inflight=depth)
         now = time.perf_counter()
         if (self._controller is not None and tokens
                 and req.last_burst_at is not None):
@@ -672,6 +1013,8 @@ class LLMServer:
 
     def _expire(self, req: _Request, where: str) -> None:
         self.deadline_expired += 1
+        self._events.emit("deadline", model=self.name, where=where,
+                          rid=req.rid, priority=PRIORITIES[req.priority])
         self._metric("add_counter", "app_llm_deadline_exceeded_total", 1)
         self._reject(req, DeadlineExceeded(
             f"request deadline exceeded {where}"))
@@ -744,14 +1087,16 @@ class LLMServer:
             s = self.gen.slots[slot]
             if s.live:
                 continue
+            produced = s.produced
             self.gen.release(slot)
             del self._active[slot]
             if req.deadline_hit:
+                # its tokens never ship as a whole answer
+                self._note_goodput("deadline_cancelled", produced)
                 self._expire(req, "mid-generation")
                 continue
             reason = ("eviction" if s.evicted
                       else "stop" if s.eos_hit else "length")
-            produced = s.produced
             if produced > 1 and req.first_token_at is not None:
                 # the stream's cadence after its first token: the SLO pair
                 # of TTFT
@@ -761,7 +1106,14 @@ class LLMServer:
             if req.decode_span is not None:
                 req.decode_span.set_attributes({"ml.tokens": produced,
                                                 "ml.finish_reason": reason})
+            if req.journey is not None:
+                req.journey.note(tokens=produced)
+                self._finish_journey(req, reason)
             req.finish_spans()
+            # a natural finish delivered every token; a consumer that went
+            # away mid-stream received nothing it will use
+            self._note_goodput(
+                "disconnected" if req.cancelled else "delivered", produced)
             self.served += 1
             req.send(_Finish(reason))
 
@@ -854,14 +1206,23 @@ class LLMServer:
             queue_span = self._tracer.start_span(
                 "ml.queue", parent=ctx, activate=False,
                 attributes={"ml.model": self.name})
+        rid = next_rid()
+        journey = None
+        if self._journeys is not None:
+            journey = self._journeys.start(Journey(
+                rid, model=self.name,
+                trace_id=ctx.trace_id if ctx is not None else None))
         req = _Request(np.asarray(prompt_ids).reshape(-1), max_new_tokens,
                        out_q, asyncio.get_running_loop(), prio, ttl,
-                       prefix=prefix, trace_ctx=ctx, queue_span=queue_span)
+                       prefix=prefix, trace_ctx=ctx, queue_span=queue_span,
+                       rid=rid, journey=journey)
         self._requests.put(req)
         if self._closed:
             # close() may have flushed before our put landed: never park on
             # a queue nobody reads
             req.cancelled = True
+            if journey is not None:
+                self._finish_journey(req, "error", "server closed")
             raise self._closed_error()
         try:
             while True:
@@ -879,6 +1240,10 @@ class LLMServer:
             # consumer closed the stream (disconnect, break, cancellation):
             # the serving thread frees the slot instead of decoding on
             req.cancelled = True
+            if journey is not None and not journey.done:
+                # abandonment, not a serving failure (errors and natural
+                # finishes sealed the journey before this)
+                self._finish_journey(req, "cancelled")
 
     async def stream(self, prompt_ids, max_new_tokens: int = 64,
                      info: dict | None = None,
@@ -931,14 +1296,23 @@ class LLMServer:
         return out
 
     def resilience_snapshot(self) -> dict:
-        """State, shed and deadline counters and the queue bounds (the
-        restart history and fault state of the JAX server are A.6b)."""
+        """The ``resilience`` block of ``/debug/serving``: state, the
+        restart budget and history, shed and deadline counters, the queue
+        bounds and the armed fault config. Safe from any thread."""
+        with self._restart_lock:
+            in_window = len(self._restart_times)
+            recent = list(self._restart_history)
         return {
             "state": self.health(),
             "draining": self._draining,
             "closed_cleanly": self.closed_cleanly,
-            "restarts": {"total": 0, "budget": self._max_restarts,
-                         "window_s": self._restart_window},
+            "restarts": {
+                "total": self._restarts_total,
+                "in_window": in_window,
+                "budget": self._max_restarts,
+                "window_s": self._restart_window,
+                "recent": recent,
+            },
             "shed": dict(self._shed_counts),
             "deadline_expired": self.deadline_expired,
             "queue_bounds": {
@@ -948,6 +1322,7 @@ class LLMServer:
                 "queued_tokens": self._waiting.tokens,
             },
             "default_deadline_s": self._default_deadline or None,
+            "fault": fault_snapshot(self._fault),
         }
 
     def snapshot(self) -> dict:
@@ -976,16 +1351,28 @@ class LLMServer:
         }
 
     def health(self) -> str:
-        """``serving``, or ``dead`` once closed or crashed."""
-        if self._dead or self._closed or not self._thread.is_alive():
+        """``serving``; ``recovering`` while a crash recovery runs;
+        ``degraded`` with a restart inside the restart window (still
+        serving); ``dead`` once the budget is spent, recovery failed, or
+        the server closed."""
+        if (self._state == "dead" or self._closed
+                or not self._thread.is_alive()):
             return "dead"
-        return "serving"
+        if self._state == "recovering":
+            return "recovering"
+        now = time.monotonic()
+        with self._restart_lock:
+            degraded = any(now - t <= self._restart_window
+                           for t in self._restart_times)
+        return "degraded" if degraded else "serving"
 
     def health_check(self) -> dict:
-        """The datasource contract: UP while serving, DOWN when dead."""
+        """The datasource contract: UP while serving, DEGRADED while
+        recovering or degraded, DOWN when dead."""
         state = self.health()
         return {
-            "status": "UP" if state == "serving" else "DOWN",
+            "status": {"serving": "UP", "degraded": "DEGRADED",
+                       "recovering": "DEGRADED", "dead": "DOWN"}[state],
             "details": {
                 "model": self.name,
                 "state": state,
@@ -994,7 +1381,7 @@ class LLMServer:
                 "queued": self.queue_depth(),
                 "served": self.served,
                 "decode_steps": self.gen.steps,
-                "restarts": 0,
+                "restarts": self._restarts_total,
             },
         }
 
@@ -1009,6 +1396,9 @@ class LLMServer:
             drain_s = self._drain_default
         if drain_s > 0 and not self._closed and self._thread.is_alive():
             self._draining = True
+            self._events.emit("drain", model=self.name, drain_s=drain_s,
+                              in_flight=len(self._active),
+                              queued=len(self._waiting))
             deadline = time.monotonic() + drain_s
             while time.monotonic() < deadline:
                 if not self._active and self.gen.n_live == 0:

@@ -31,10 +31,13 @@ that touches the Generator); a small lock makes ``snapshot()`` and
 ``peek()`` safe from other threads, and device work (the prefix prefill
 inside ``register_prefix``) runs outside it.
 
-Left out: the fleet event log and the goodput charges of a lost restore
-(ROADMAP A.6b); the counters (``hits``, ``misses``, ``evictions``,
-``tokens_saved``, ``offloads``, ``restores``) are kept. ``metrics`` (an
-object with ``add_counter``)
+An eviction emits an ``evict`` event into the flight recorder's event log;
+a restore that falls through (pool pressure, the tier dropped the entry, a
+prefix evicted in the admission race) charges the prefix tokens that
+prefill again to the goodput ledger as ``restore_fallback`` (``goodput``,
+a model handle the owning LLMServer installs). The counters (``hits``,
+``misses``, ``evictions``, ``tokens_saved``, ``offloads``, ``restores``)
+are kept as in JAX. ``metrics`` (an object with ``add_counter``)
 receives ``app_ml_prefix_hits_total``, ``app_ml_prefix_misses_total``,
 ``app_ml_prefix_evictions_total`` and
 ``app_ml_prefill_tokens_saved_total``.
@@ -46,6 +49,7 @@ import threading
 import time
 from typing import Any
 
+from ..flight_recorder import event_log
 from .generate import PagePoolExhausted
 
 __all__ = ["PrefixCacheConfig", "RadixPrefixCache"]
@@ -123,6 +127,10 @@ class RadixPrefixCache:
         self._by_pid: dict[int, _Node] = {}
         self._n_nodes = 0
         self._lock = threading.Lock()
+        self._events = event_log()
+        # the goodput ledger's handle for this model (None = off),
+        # installed by the owning LLMServer
+        self.goodput = None
         self.hits = 0
         self.misses = 0
         self.evictions = 0
@@ -158,13 +166,21 @@ class RadixPrefixCache:
             try:
                 pid = self.gen.restore_prefix(restore_node.offload_key)
             except PagePoolExhausted:
-                pass  # the entry stays in the tier: this request falls
-                #       back to the shallower match or a full prefill
+                # the entry stays in the tier: this request falls back to
+                # the shallower match or a full prefill, and the reuse it
+                # lost past that floor prefills again
+                lost = max(0, restore_node.reg_len - floor)
+                if self.goodput is not None and lost:
+                    self.goodput.note("restore_fallback", lost)
             except KeyError:
+                lost = 0
                 with self._lock:  # the tier dropped it (LRU): gone
                     if restore_node.pid is None:
+                        lost = restore_node.reg_len
                         restore_node.offload_key = None
                         restore_node.reg_len = 0
+                if self.goodput is not None and lost:
+                    self.goodput.note("restore_fallback", lost)
             if pid is not None:
                 with self._lock:
                     restore_node.pid = pid
@@ -223,12 +239,15 @@ class RadixPrefixCache:
             self._count("app_ml_prefix_hits_total", 1)
             self._count("app_ml_prefill_tokens_saved_total", shared)
 
-    def record_miss(self) -> None:
+    def record_miss(self, lost_tokens: int = 0) -> None:
         """A cache-split admission fell back to the full prompt (the
-        prefix evicted in the race window): nothing was saved."""
+        prefix evicted in the race window): nothing was saved, and the
+        ``lost_tokens`` of the prefix prefill again (``restore_fallback``)."""
         with self._lock:
             self.misses += 1
             self._count("app_ml_prefix_misses_total", 1)
+        if self.goodput is not None and lost_tokens > 0:
+            self.goodput.note("restore_fallback", int(lost_tokens))
 
     def peek(self, prompt_ids) -> tuple[int | None, int]:
         """READ-ONLY longest usable registered match — no insert, no hit
@@ -404,6 +423,8 @@ class RadixPrefixCache:
             node.reg_len = 0
         self.evictions += 1
         self._count("app_ml_prefix_evictions_total", 1)
+        self._events.emit("evict", model=self._model,
+                          prefix_tokens=node.depth)
 
     # -- pinning API (explicit register_prefix) -------------------------------
     def pin(self, prefix_ids) -> int:

@@ -4,8 +4,11 @@
 the handler once per inbound message: ``ctx.bind()`` yields the frame
 (parsed as JSON when it is JSON), the handler may write frames with
 ``ctx.write_message_to_socket``, and its return value is sent back as one
-more frame. A handler that raises is logged and sends nothing for that
-message; the connection stays open.
+more frame. A handler that raises is logged and answers that message with
+one error frame, ``{"error": {"message": ..., "status": ...}}`` (the
+typed error's HTTP status, 500 for any other exception), so a streaming
+caller whose request failed mid-stream is told so instead of waiting; the
+connection stays open. (The JAX route sends nothing on an error.)
 """
 
 from __future__ import annotations
@@ -74,6 +77,11 @@ def websocket_route_handler(handler: HandlerFunc, container):
                 result = await invoke(handler, ctx)
             except Exception as exc:
                 container.logger.errorf("websocket handler error: %s", exc)
+                status = getattr(exc, "status_code", None)
+                await conn.send_response({"error": {
+                    "message": str(exc) if status is not None
+                    else "internal error",
+                    "status": int(status) if status is not None else 500}})
                 continue
             if result is not None:
                 await conn.send_response(result)

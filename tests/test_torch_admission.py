@@ -406,15 +406,15 @@ def jax_model():
     return cfg, jllama.init_params(cfg, jax.random.PRNGKey(0))
 
 
-def _servers(model, jax_model):
+def _servers(model, jax_model, **server_kw):
     """A JAX and a port LLMServer built under the current environment."""
     from gofr_tpu.ml.generate import Generator as JGenerator
     from gofr_tpu.ml.llm import LLMServer as JLLMServer
 
     jcfg, jparams = jax_model
     kw = dict(batch_slots=2, max_seq=64, prefill_buckets=(8, 16))
-    return (JLLMServer(JGenerator(jparams, jcfg, **kw)),
-            LLMServer(_gen(model, **kw)))
+    return (JLLMServer(JGenerator(jparams, jcfg, **kw), **server_kw),
+            LLMServer(_gen(model, **kw), **server_kw))
 
 
 def _state(server) -> dict:
@@ -424,6 +424,7 @@ def _state(server) -> dict:
             "default_deadline": server._default_deadline,
             "aging_s": server._waiting.aging_s,
             "drain_s": server._drain_default,
+            "max_restarts": server._max_restarts,
             "restart_window_s": server._restart_window,
             "ttft_target_s": ctl.ttft_target_s,
             "tpot_target_s": ctl.tpot_target_s,
@@ -436,6 +437,7 @@ KNOBS = {
     "GOFR_ML_DEFAULT_DEADLINE_S": "2.5",
     "GOFR_ML_PRIORITY_AGING_S": "0.25",
     "GOFR_ML_DRAIN_S": "7",
+    "GOFR_ML_MAX_RESTARTS": "5",
     "GOFR_ML_RESTART_WINDOW_S": "30",
     "GOFR_ML_TTFT_TARGET_MS": "120",
     "GOFR_ML_TPOT_TARGET_MS": "35",
@@ -446,7 +448,10 @@ MALFORMED = {
     "GOFR_ML_DEFAULT_DEADLINE_S": "soon",
     "GOFR_ML_PRIORITY_AGING_S": "x",
     "GOFR_ML_DRAIN_S": "-1",
+    "GOFR_ML_MAX_RESTARTS": "three",
     "GOFR_ML_RESTART_WINDOW_S": "a minute",
+    "GOFR_ML_FAULT": "step:2",
+    "GOFR_ML_CAPTURE": "lots",
     "GOFR_ML_TTFT_TARGET_MS": "fast",
     "GOFR_ML_TPOT_TARGET_MS": "",
 }
@@ -481,27 +486,95 @@ def test_malformed_knob_raises_the_jax_message(model, jax_model, knob,
 
 
 @pytest.mark.parametrize("env,kw", [
-    ({"GOFR_ML_MAX_RESTARTS": "3"}, {}),
+    ({"GOFR_ML_MAX_RESTARTS": "5"}, {}),
     ({}, {"max_restarts": 1}),
+    ({"GOFR_ML_RESTART_WINDOW_S": "12"}, {"max_restarts": 0}),
+    ({"GOFR_ML_MAX_RESTARTS": "0"}, {}),
     ({"GOFR_ML_FAULT": "step:0.5"}, {}),
-    ({}, {"fault": object()}),
+    ({"GOFR_ML_FAULT": "step:0.02,prefill:0.05,emit:0.01",
+      "GOFR_ML_FAULT_SEED": "1234"}, {}),
+    ({"GOFR_ML_FAULT": ""}, {}),
+    ({}, {"fault": None}),
 ])
-def test_restart_and_fault_knobs_raise_naming_a6b(model, env, kw,
-                                                  monkeypatch):
+def test_resilience_knobs_build_the_jax_snapshot(model, jax_model, env, kw,
+                                                 monkeypatch):
+    """The watchdog's and the chaos hook's knobs give the JAX server's
+    ``resilience_snapshot()``: state, restart budget and window, history,
+    counters, bounds and the armed fault config."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6b"):
-        LLMServer(_gen(model), **kw)
+    jserver, tserver = _servers(model, jax_model, **kw)
+    try:
+        assert tserver.resilience_snapshot() == jserver.resilience_snapshot()
+        assert tserver.health() == jserver.health() == "serving"
+    finally:
+        jserver.close()
+        tserver.close()
 
 
-@pytest.mark.parametrize("env,kw", [
-    ({"GOFR_ML_MAX_RESTARTS": "0"}, {}), ({}, {"max_restarts": 0}),
-    ({"GOFR_ML_FAULT": ""}, {}), ({}, {"fault": None}),
-])
-def test_no_restart_and_no_fault_are_accepted(model, env, kw, monkeypatch):
-    for k, v in env.items():
-        monkeypatch.setenv(k, v)
-    LLMServer(_gen(model), **kw).close()
+def test_unset_max_restarts_reads_three(model, jax_model, monkeypatch):
+    monkeypatch.delenv("GOFR_ML_MAX_RESTARTS", raising=False)
+    jserver, tserver = _servers(model, jax_model)
+    try:
+        assert tserver._max_restarts == jserver._max_restarts == 3
+        assert tserver._restart_window == jserver._restart_window == 60.0
+    finally:
+        jserver.close()
+        tserver.close()
+
+
+@pytest.mark.parametrize("how", ["env", "injector", "unset"])
+def test_fault_knob_arms_the_injector(model, how, monkeypatch):
+    """``GOFR_ML_FAULT`` (or ``fault=``) arms the chaos hook on the
+    generator's dispatch points and the server's emit path; unset arms
+    nothing."""
+    from gofr_tpu_torch.testutil.faults import FaultInjector
+
+    kw = {}
+    if how == "env":
+        monkeypatch.setenv("GOFR_ML_FAULT", "step:0.25,emit:1:OSError")
+        monkeypatch.setenv("GOFR_ML_FAULT_SEED", "5")
+    elif how == "injector":
+        kw["fault"] = FaultInjector.parse("prefill:1")
+    server = LLMServer(_gen(model), **kw)
+    try:
+        if how == "unset":
+            assert server.gen.fault is None and server._fault is None
+            assert server.resilience_snapshot()["fault"] is None
+            return
+        assert isinstance(server.gen.fault, FaultInjector)
+        assert server.gen.fault is server._fault
+        if how == "env":
+            assert server._fault.seed == 5
+            assert server._fault.points["emit"] == (1.0, OSError)
+        else:
+            assert server._fault is kw["fault"]
+    finally:
+        server.close()
+
+
+@pytest.mark.parametrize("raw", ["128", "1", "lots", "-1", "", "0"])
+def test_capture_knob_raises_naming_a16(model, raw, monkeypatch):
+    """Traffic capture is ROADMAP A.16: a positive ``GOFR_ML_CAPTURE``
+    raises naming it, a malformed one raises the JAX package's message,
+    unset, empty or 0 is accepted."""
+    from gofr_tpu.ml.capture import _ring_size
+
+    monkeypatch.setenv("GOFR_ML_CAPTURE", raw)
+    try:
+        n = _ring_size()
+        want = None
+    except ValueError as exc:
+        want = str(exc)
+    if want is not None:
+        with pytest.raises(ValueError) as got:
+            LLMServer(_gen(model))
+        assert str(got.value) == want
+    elif n > 0:
+        with pytest.raises(NotImplementedError, match="ROADMAP A.16"):
+            LLMServer(_gen(model))
+    else:
+        LLMServer(_gen(model)).close()
 
 
 @pytest.mark.parametrize("env,kw,item", [

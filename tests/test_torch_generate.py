@@ -259,7 +259,8 @@ def test_server_deadline_and_close(pair, run):
 
 def test_serving_thread_crash_fails_callers_typed(pair, run):
     """An exception on the serving thread is not swallowed: the caller gets
-    GeneratorCrashed, the server reports dead and keeps the error."""
+    GeneratorCrashed; with no restart budget the server reports dead and
+    its restart history keeps the error."""
     _, _, tcfg, tparams = pair
     gen = Generator(tparams, tcfg, device="cpu", **GEN_KW)
 
@@ -269,7 +270,7 @@ def test_serving_thread_crash_fails_callers_typed(pair, run):
     gen.step = boom
 
     async def scenario():
-        server = LLMServer(gen)
+        server = LLMServer(gen, max_restarts=0)
         with pytest.raises(GeneratorCrashed, match="device fault"):
             await server.generate([1, 2, 3], 5)
         return server
@@ -277,7 +278,9 @@ def test_serving_thread_crash_fails_callers_typed(pair, run):
     server = run(scenario())
     server._thread.join(timeout=10)
     assert server.health() == "dead"
-    assert isinstance(server.error, RuntimeError)
+    recent = server.resilience_snapshot()["restarts"]["recent"]
+    assert recent[-1]["error"] == "RuntimeError: device fault"
+    assert recent[-1]["recovered"] is False
 
 
 def test_entry_points_take_the_card_unless_told_cpu(pair):
@@ -383,7 +386,10 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, gofr_tpu_torch.ml.llm, gofr_tpu_torch.ml.generate, "
-            "gofr_tpu_torch.app, gofr_tpu_torch.examples.llama_server; "
+            "gofr_tpu_torch.app, gofr_tpu_torch.examples.llama_server, "
+            "gofr_tpu_torch.debug, gofr_tpu_torch.flight_recorder, "
+            "gofr_tpu_torch.ml.goodput, gofr_tpu_torch.ml.journey, "
+            "gofr_tpu_torch.ml.programs, gofr_tpu_torch.testutil.faults; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'gofr_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")

@@ -5,9 +5,9 @@ conservation at f32, int8 and int4 pages (the tokens held against the JAX
 Generator's as well as the port's own never-evicted run), a borrowed
 prefix never spilled, budget-zero parity, the restore's pool-pressure
 fallback, the scheduler's restore charge, and the server's rotation of
-prefixes through the radix cache's offloaded state. The JAX twins that
-need the metrics gauges, the goodput ledger or ``/debug/serving`` wait for
-ROADMAP A.6; the port's ``LLMServer.snapshot()`` stands in for the last.
+prefixes through the radix cache's offloaded state; and the twins of
+the serving plane's host-tier tests: the RSS gauge and the
+``kv_host_tier`` block of ``/debug/serving``.
 """
 
 import asyncio
@@ -358,3 +358,52 @@ def test_server_snapshot_without_tier(pairs, run):
     assert snap["window"] is None and snap["pipeline"] is None
     assert snap["scheduler"]["plans"] == "chunks"
     assert asyncio.iscoroutinefunction(LLMServer.generate)
+
+
+# -- the host tier on the serving plane (the JAX twins) ---------------------------
+
+def test_host_rss_gauge_sampled():
+    """Twin of test_kv_offload.py::test_host_rss_gauge_sampled: the sampler
+    pass publishes app_ml_host_rss_bytes."""
+    from gofr_tpu_torch.config import MapConfig
+    from gofr_tpu_torch.container import Container
+    from gofr_tpu_torch.ml import MLDatasource
+
+    c = Container(MapConfig({}))
+    c.register_framework_metrics()
+    ml = MLDatasource(metrics=c.metrics_manager)
+    ml.sample_runtime_gauges()
+    text = c.metrics_manager.expose_text()
+    line = next(ln for ln in text.splitlines()
+                if ln.startswith("app_ml_host_rss_bytes"))
+    assert float(line.rsplit(" ", 1)[1]) > 0
+
+
+def test_serving_snapshot_exposes_host_tier(pairs, run):
+    """Twin of test_kv_offload.py::test_serving_snapshot_exposes_host_tier:
+    the per-LLM block of /debug/serving has ``kv_host_tier`` with the
+    JAX block's keys."""
+    from gofr_tpu_torch.ml import MLDatasource
+
+    _, _, tcfg, tparams = pairs[16]
+
+    async def scenario():
+        ml = MLDatasource()
+        gen = Generator(tparams, tcfg, device="cpu", batch_slots=1,
+                        max_seq=64, prefill_buckets=(8, 16), chunk=2,
+                        page_size=4, n_pages=8, host_kv=_store())
+        server = ml.register_llm("chat", None, None, generator=gen,
+                                 prefix_cache=PrefixCacheConfig(
+                                     promote_hits=1))
+        try:
+            pid = await asyncio.to_thread(server.register_prefix, PFX)
+            assert server.has_prefix(pid)
+            return ml.serving_snapshot()["llms"]["chat"]
+        finally:
+            server.close()
+
+    entry = run(scenario())
+    tier = entry["kv_host_tier"]
+    assert tier["budget_bytes"] == 64 * 1024 * 1024
+    assert {"entries", "bytes", "spills", "restores",
+            "restore_fallbacks"} <= set(tier)

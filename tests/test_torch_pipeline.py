@@ -9,8 +9,13 @@ in flight the greedy tokens equal the JAX pipelined Generator's and the
 lag-one loop's — plain chunks, fused windows, the token-budget scheduler
 and int4 pages — and the overlap and overshoot counters equal JAX's;
 behind ``LLMServer`` the tokens are a plain server's and a deadline reaped
-mid-overlap fails only its own request. The JAX twins that need goodput,
-the flight recorder, journeys or ``recover`` wait for ROADMAP A.6.
+mid-overlap fails only its own request. The twins of the resilience and
+observability tests: overshoot of rows dead at settle is charged to the
+goodput ledger as JAX charges it; a crash with two windows in flight
+fails only the slots in flight and leaves nothing in flight; ``recover``
+drops both windows; journey marks carry the in-flight depth; dispatch
+records carry the overlap dim and the device-idle estimate; the serving
+snapshot has the pipeline block only when armed.
 """
 
 import jax
@@ -249,3 +254,201 @@ def test_deadline_reap_mid_overlap(pair, run, monkeypatch):
     assert len(got) < 50 and len(after) == 5
     assert server.deadline_expired == 1
     assert gen.windows >= 2 and server.health() == "dead"  # closed
+
+
+# -- resilience and observability (the JAX twins) ---------------------------------
+
+def test_pipeline_overshoot_charged_to_goodput(pair):
+    """Twin of test_pipeline.py::test_pipeline_overshoot_charged_to_goodput:
+    a slot reaped with TWO windows in flight has everything they computed
+    for it charged as pipeline_overshoot, equal to JAX's charge."""
+    from gofr_tpu.ml.goodput import GoodputLedger as JLedger
+    from gofr_tpu_torch.ml.goodput import WASTE_REASONS, GoodputLedger
+
+    assert "pipeline_overshoot" in WASTE_REASONS
+
+    def scenario(gen, ledger):
+        gen.goodput = ledger.handle("pp-over")
+        slot = gen.add_request([3, 1, 4, 1], 16, callback=lambda s, t: None)
+        gen.step()  # mini dispatch (first token), drains synchronously
+        gen.step()  # window A in flight
+        gen.step()  # window B from A's planned state: depth 2
+        assert len(gen._inflight) == 2
+        gen.slots[slot].live = False  # the serving reaper's cancel
+        gen.drain()
+        return (ledger.snapshot_model("pp-over"), gen.pipeline_overshoot,
+                gen.window_overshoot)
+
+    want, _, _ = _both(pair, lambda g: scenario(g, JLedger()),
+                       decode_window=4, pipeline=1)
+    got, over, win_over = scenario(_tgen(pair, decode_window=4, pipeline=1),
+                                   GoodputLedger())
+    assert over > 0 and win_over == 0
+    assert got["wasted"] == want[0]["wasted"] == {"pipeline_overshoot": over}
+    assert got["delivered"] == 0
+    assert got["device_tokens"] == got["delivered"] + got["wasted_total"]
+
+
+def _chaos_with_two_in_flight(server, run):
+    box = {"fired": 0}
+
+    def hook(point):
+        if (point == "step" and box["fired"] == 0
+                and len(server.gen._inflight) >= 2):
+            box["fired"] += 1
+            raise RuntimeError("chaos with two windows in flight")
+
+    server.gen.fault = hook
+
+    async def scenario():
+        async def one(p):
+            try:
+                return await server.generate(p, 8, deadline_s=30.0)
+            except Exception as exc:
+                return type(exc).__name__
+        return await asyncio.gather(*(one(p) for p in (
+            [3, 1, 4], [2, 7, 1, 8], [5, 9, 2], [6, 2, 6])))
+
+    import asyncio
+
+    try:
+        outs = run(scenario())
+    finally:
+        server.close()
+    return box["fired"], outs
+
+
+def test_crash_with_two_windows_in_flight(pair, run):
+    """Twin of test_pipeline.py::test_crash_with_two_windows_in_flight:
+    the watchdog fails only the slots in flight, the queued requests
+    survive with JAX's tokens, nothing stays in flight, the ledger
+    balances; the victims and outputs equal the JAX server's."""
+    from gofr_tpu.ml.llm import LLMServer as JServer
+    from gofr_tpu_torch.ml.goodput import goodput_ledger
+    from gofr_tpu_torch.ml.llm import LLMServer
+
+    jcfg, jparams, _, _ = pair
+    jserver = JServer(JGenerator(jparams, jcfg, **KW, decode_window=4,
+                                 pipeline=1), name="pp-chaos-j",
+                      max_restarts=3)
+    jfired, want = _chaos_with_two_in_flight(jserver, run)
+    server = LLMServer(_tgen(pair, decode_window=4, pipeline=1),
+                       name="pp-chaos", max_restarts=3)
+    fired, got = _chaos_with_two_in_flight(server, run)
+    assert fired == jfired == 1
+    assert got == want
+    assert sum(isinstance(o, list) for o in got) >= 2
+    assert "GeneratorCrashed" in got
+    assert len(server.gen._inflight) == 0
+    snap = goodput_ledger().snapshot_model("pp-chaos")
+    assert snap["wasted"].get("crashed", 0) >= 1
+    assert (snap["delivered"] + sum(snap["wasted"].values())
+            == snap["device_tokens"] == server.gen.tokens_computed)
+
+
+def test_recover_drops_both_inflight_windows(pair):
+    """Twin of test_pipeline.py::test_recover_drops_both_inflight_windows,
+    plus the in-place contract: recovery rebinds no tensor a graph reads."""
+    gen = _tgen(pair, decode_window=4, pipeline=1)
+    gen.add_request([3, 1, 4, 1], 16, callback=lambda s, t: None)
+    gen.step()
+    gen.step()
+    gen.step()
+    assert len(gen._inflight) == 2
+    ptrs = {k: v.data_ptr() for k, v in gen.cache.items()}
+    ptrs.update(tok=gen._tok_dev.data_ptr(), table=gen._table_dev.data_ptr(),
+                active=gen._win_active.data_ptr(),
+                cap=gen._win_cap.data_ptr())
+    free0 = gen.free_pages
+    gen.recover()
+    assert len(gen._inflight) == 0 and gen.restarts == 1
+    assert gen.free_pages > free0  # the slot's pages went back
+    after = {k: v.data_ptr() for k, v in gen.cache.items()}
+    after.update(tok=gen._tok_dev.data_ptr(), table=gen._table_dev.data_ptr(),
+                 active=gen._win_active.data_ptr(),
+                 cap=gen._win_cap.data_ptr())
+    assert after == ptrs
+    outs = _serve(gen, prompts=([2, 7, 1, 8],), max_new=(6,))
+    fresh = _serve(_tgen(pair, decode_window=4, pipeline=1),
+                   prompts=([2, 7, 1, 8],), max_new=(6,))
+    assert outs == fresh and len(outs[0]) == 6
+
+
+def test_journey_decode_marks_carry_inflight_depth(pair, run):
+    """Twin of test_pipeline.py::test_journey_decode_marks_carry_inflight_depth."""
+    from gofr_tpu_torch.ml.journey import journey_log
+    from gofr_tpu_torch.ml.llm import LLMServer
+
+    server = LLMServer(_tgen(pair, decode_window=4, pipeline=1),
+                       name="pp-journey")
+
+    async def scenario():
+        return await server.generate([3, 1, 4, 1], 12)
+
+    try:
+        out = run(scenario())
+    finally:
+        server.close()
+    assert len(out) == 12
+    rid = journey_log().snapshot()["recent_rids"][-1]
+    waterfall = journey_log().get(rid).snapshot()
+    depths = [m["inflight"] for m in waterfall["marks"]
+              if m["mark"] in ("prefill", "decode")]
+    assert depths and all(0 <= d <= 2 for d in depths)
+    assert any(d == 2 for d in depths)
+
+
+def test_recorder_overlap_dim_and_idle_share(pair):
+    """Twin of test_pipeline.py::test_recorder_overlap_dim_and_idle_share:
+    double-buffered passes stamp the overlap dim and busy seconds, and
+    ``pipeline_stats`` surfaces the recorder's idle estimate (no longer
+    None)."""
+    from gofr_tpu_torch.flight_recorder import DispatchRecorder
+
+    gen = _tgen(pair, decode_window=4, pipeline=1)
+    rec = DispatchRecorder(model="pp-rec", ring=64)
+    gen.recorder = rec
+    gen.add_request([3, 1, 4, 1], 12, callback=lambda s, t: None)
+    for _ in range(50):
+        if gen.n_live == 0:
+            break
+        gen.step()
+        rec.commit()
+    gen.drain()
+    rec.commit()
+    tail = rec.tail(64)
+    assert any(r.get("overlap", 0) >= 2 for r in tail)
+    assert any(r.get("busy_s", 0.0) > 0.0 for r in tail)
+    snap = rec.snapshot()
+    assert snap["overlapped_dispatches"] >= 1
+    idle = snap["device_idle_share"]
+    assert idle is not None and 0.0 <= idle <= 1.0
+    stats = gen.pipeline_stats()
+    assert set(stats) == {"depth", "windows_overlapped",
+                          "overshoot_tokens", "device_idle_share"}
+    assert stats["device_idle_share"] == idle
+
+
+def test_serving_snapshot_pipeline_block(pair, run):
+    """Twin of test_pipeline.py::test_serving_snapshot_pipeline_block."""
+    from gofr_tpu_torch.ml import MLDatasource
+
+    async def scenario():
+        ml = MLDatasource()
+        server = ml.register_llm("pp-chat", None, None,
+                                 generator=_tgen(pair, decode_window=4,
+                                                 pipeline=1))
+        plain = ml.register_llm("pp-plain", None, None,
+                                generator=_tgen(pair))
+        try:
+            await server.generate([3, 1, 4, 1], 14)
+            llms = ml.serving_snapshot()["llms"]
+            return llms["pp-chat"], llms["pp-plain"]
+        finally:
+            server.close()
+            plain.close()
+
+    armed, plain = run(scenario())
+    assert armed["pipeline"]["depth"] == 2
+    assert armed["pipeline"]["windows_overlapped"] >= 1
+    assert "pipeline" not in plain

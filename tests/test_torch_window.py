@@ -9,9 +9,9 @@ the window machinery is built and output is byte-identical; the greedy
 tokens of a windowed port generator equal the JAX windowed Generator's
 and the port's own window-off tokens, with and without the token-budget
 scheduler, at int8 and int4 pages and with EOS; and the ``window_stats``
-counters (windows, planned and realized steps, overshoot) equal JAX's.
-The JAX twins that need goodput or the flight recorder wait for ROADMAP
-A.6. f32, because the claims compare 1-step and K-step dispatches and
+counters (windows, planned and realized steps, overshoot) equal JAX's;
+the overshoot of a reaped row is charged to the goodput ledger as JAX
+charges it, and dispatch records carry the window dim. f32, because the claims compare 1-step and K-step dispatches and
 bf16 rounding can flip a near-tie argmax between them.
 """
 
@@ -224,3 +224,78 @@ def test_deadline_bounds_window_steps(pair):
     active0, step_cap = gen._plan_window(4)
     assert active0[slot] and gen._step_ema is not None
     assert step_cap[slot] == 0
+
+
+# -- goodput and the flight recorder ----------------------------------------------
+
+def _overshoot_ledger(gen, ledger, handle):
+    """A slot reaped host-side while a window is in flight (the serving
+    reaper's cancel): returns the ledger row and the overshoot counter."""
+    gen.goodput = ledger.handle(handle)
+    outs: dict[int, list[int]] = {}
+    slot = gen.add_request([3, 1, 4, 1], 16,
+                           callback=lambda s, t: outs.setdefault(
+                               s, []).extend(int(x) for x in t))
+    gen.step()  # mini dispatch (first token), drains synchronously
+    gen.step()  # full window dispatched, now in flight
+    gen.slots[slot].live = False
+    gen.drain()
+    ledger.note(handle, "delivered", gen.slots[slot].produced)  # its release
+    return ledger.snapshot_model(handle), gen.window_overshoot
+
+
+def test_window_overshoot_charged_to_goodput(pair):
+    """Twin of test_decode_window.py::test_window_overshoot_charged_to_goodput:
+    the reaped row's device tokens are charged as window_overshoot, equal to
+    JAX's charge, and the ledger balances."""
+    from gofr_tpu.ml.goodput import GoodputLedger as JLedger
+    from gofr_tpu_torch.ml.goodput import WASTE_REASONS, GoodputLedger
+
+    assert "window_overshoot" in WASTE_REASONS
+    want, jover = _overshoot_ledger(_jgen(pair, decode_window=4), JLedger(),
+                                    "win-test")
+    gen = _tgen(pair, decode_window=4)
+    got, tover = _overshoot_ledger(gen, GoodputLedger(), "win-test")
+    assert tover == jover > 0
+    assert got["wasted"] == want["wasted"] == {"window_overshoot": tover}
+    assert got["delivered"] == want["delivered"] == 2  # first + mini token
+    assert got["device_tokens"] == got["delivered"] + got["wasted_total"]
+    # the generator's own count of the tokens it computed balances it
+    assert gen.tokens_computed == got["device_tokens"]
+
+
+def test_dispatch_records_carry_window_dim(pair):
+    """Twin of test_decode_window.py::test_dispatch_records_carry_window_dim:
+    window dispatches stamp the window dim, realized <= K, the same windows
+    as JAX's records."""
+    from gofr_tpu.flight_recorder import DispatchRecorder as JRecorder
+    from gofr_tpu_torch.flight_recorder import DispatchRecorder
+
+    def scenario(gen, rec):
+        gen.recorder = rec
+        gen.add_request([3, 1, 4, 1], 8, callback=lambda s, t: None)
+        for _ in range(50):
+            if gen.n_live == 0:
+                break
+            gen.step()
+            rec.commit()
+        gen.drain()
+        rec.commit()
+        return [r["window"] for r in rec.tail(64) if "window" in r]
+
+    want = scenario(_jgen(pair, decode_window=4), JRecorder(model="w", ring=64))
+    rec = DispatchRecorder(model="win-rec", ring=64)
+    windows = scenario(_tgen(pair, decode_window=4), rec)
+    assert windows, "window dispatches must stamp the window dim"
+    assert all(0 <= w["realized"] <= w["k"] for w in windows)
+    # a graph runs its K steps: realized counts the steps any row was live,
+    # which equals JAX's early-exit count
+    assert [w["k"] for w in windows] == [w["k"] for w in want]
+    assert [w["realized"] for w in windows] == [w["realized"] for w in want]
+    dw = rec.snapshot()["decode_window"]
+    assert dw is not None and dw["windows"] == len(windows)
+    assert dw["realized_share"] is None or 0.0 <= dw["realized_share"] <= 1.0
+    rec2 = DispatchRecorder(model="plain-rec")
+    rec2.note("launch", 0.001)
+    rec2.commit()
+    assert rec2.snapshot()["decode_window"] is None
