@@ -131,7 +131,23 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    device error in a child process (the tiny model; an out-of-range write
    on the card inside a dispatch): the child's server goes ``dead`` with
    at most one restart attempt, health 503, every caller a typed error,
-   the child done within ``STICKY_LIMIT_S``.
+   the child done within ``STICKY_LIMIT_S``;
+11. speculative decoding (K = 4) on phase 3's weights: (a) the verify
+   window through the decode kernel, q [8, 5, 32, 128] over a 32-layer
+   cache of 8 x 2048 at kv_len 2000, bf16 and int8, against its plain
+   version within 2e-2, W = 1 bit for bit the decode kernel's own launch,
+   timed by ``sweep_ms`` beside the plain version and masked
+   ``scaled_dot_product_attention``; (b) 8 repetition-heavy prompts (a
+   24-token phrase x 8) x 64 new tokens through ``LLMServer`` on the
+   dense bf16 generator (8 slots x 1024, chunk 4), speculation off and
+   prompt lookup on: served tok/s, accepted drafts a window,
+   ``spec_rejected`` and the streams equal to spec off (recorded: bf16
+   near-ties flip); (c) the same prompts on int8 pages with fused
+   windows (auto) and the pipeline, by graph replay and eagerly from the
+   same start: identical tokens (checked), the int8 window kernel only;
+   (d) ``LLM_SPEC_K=4 LLM_DRAFT_PRESET=self`` through the example app over
+   gRPC, 8 streams: accept >= 0.8 and the draft's decode launches
+   (checked). Each number on its own ``spec:`` line.
 
 Measurements under ``torch.profiler`` hold the flight recorder's
 ``PROFILE_LOCK``, so an auto-profiler capture never overlaps one.
@@ -341,12 +357,15 @@ def check(ok: bool, what: str) -> None:
 def counters() -> dict:
     """The launch counter of every kernel wrapper."""
     from gofr_tpu_torch.ops.decode_attention import (
-        gqa_decode_attention_cuda, gqa_decode_attention_int8_cuda)
+        gqa_decode_attention_cuda, gqa_decode_attention_int8_cuda,
+        gqa_decode_window_cuda, gqa_decode_window_int8_cuda)
     from gofr_tpu_torch.ops.flash_attention import flash_attention_cuda
 
     return {"flash_attention_cuda": flash_attention_cuda,
             "gqa_decode_attention_cuda": gqa_decode_attention_cuda,
-            "gqa_decode_attention_int8_cuda": gqa_decode_attention_int8_cuda}
+            "gqa_decode_attention_int8_cuda": gqa_decode_attention_int8_cuda,
+            "gqa_decode_window_cuda": gqa_decode_window_cuda,
+            "gqa_decode_window_int8_cuda": gqa_decode_window_int8_cuda}
 
 
 def reset_launches() -> None:
@@ -2825,6 +2844,372 @@ def resilience_phase(dev, bf16_params) -> dict:
     return res
 
 
+# -- phase 11: speculative decoding ----------------------------------------------
+
+SPEC_K = 4
+SPEC_MAX_NEW = 64
+
+
+def spec_prompts(vocab: int, n: int = 8, phrase: int = 24, reps: int = 8,
+                 seed: int = 11) -> list[list[int]]:
+    """``n`` repetition-heavy prompts: a random ``phrase``-token phrase
+    repeated ``reps`` times each (bench/config8_speculative.py's shape)."""
+    import numpy as np
+
+    r = np.random.default_rng(seed)
+    return [np.tile(r.integers(0, vocab, phrase), reps).tolist()
+            for _ in range(n)]
+
+
+def window_bound(kv_len, W: int, S: int, KV: int, D: int, H: int,
+                 int8: bool):
+    """(bound ms, bound_by, bytes) of one verify-window launch: each row's
+    live prefix (its last position's ``kv_len + W - 1`` keys) read once,
+    int8 with one bf16 scale a position and KV head; q and o once; 4*D
+    FLOPs per (query head, key) pair the causal window keeps."""
+    live = sum(min(n + W - 1, S) if n > 0 else S for n in kv_len)
+    pairs = sum(min(max(n + t, 0), S) for n in kv_len for t in range(W))
+    row = KV * (D + 2) if int8 else KV * D * 2
+    nbytes = 2 * live * row + 2 * (2 * len(kv_len) * W * H * D) \
+        + 4 * len(kv_len)
+    return (*bound(4 * D * H * pairs, nbytes), nbytes)
+
+
+def window_kernel_rows(dev, tol: float) -> list[dict]:
+    """11(a): the verify window through the decode kernel (bf16 and int8
+    caches) at Llama-3-8B's K = 4 window, q [8, 5, 32, 128] over a 32-layer
+    cache of 8 x 2048 at kv_len 2000: against its plain version (JAX's
+    ``attention`` with ``q_offset = kv_len - 1``) within ``tol``, W = 1 of
+    the window entry bit for bit the decode kernel's own launch, and timed
+    by ``sweep_ms`` beside the plain version and the library call (masked
+    ``scaled_dot_product_attention``; over dequantized bf16 layers for the
+    int8 cache, a yardstick)."""
+    import torch.nn.functional as F
+
+    from gofr_tpu_torch.ops import dequantize_kv
+    from gofr_tpu_torch.ops import decode_attention as da
+
+    L, B, S, KV, D, H, W = 32, 8, 2048, 8, 128, 32, SPEC_K + 1
+    g = torch.Generator(device=dev).manual_seed(0)
+    lens = [2000] * B
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    q = rnd_bf16(g, dev, B, W, H, D)
+    qt = q.transpose(1, 2)
+    ar = torch.arange(S, device=dev)
+    mask = (ar[None, None, :] <= (kv_len - 1)[:, None, None]
+            + torch.arange(W, device=dev)[None, :, None])[:, None]
+    rows = []
+    for int8 in (False, True):
+        if int8:
+            kc, vc, ks, vs = int8_cache(g, dev, L, B, S, KV, D)
+            sc = {"k_scale": ks, "v_scale": vs}
+            kernel, plain = (da.gqa_decode_window_int8_cuda,
+                             da.gqa_decode_window_int8_plain)
+            decode = da.gqa_decode_attention_int8_cuda
+        else:
+            kc, vc = (rnd_bf16(g, dev, L, B, S, KV, D) for _ in range(2))
+            sc = {}
+            kernel, plain = da.gqa_decode_window_cuda, da.gqa_decode_window_plain
+            decode = da.gqa_decode_attention_cuda
+        what = "int8" if int8 else "bf16"
+        n0 = kernel.launches
+        out = kernel(q, kc, vc, kv_len, layer=7, **sc)
+        ref = plain(q, kc, vc, kv_len, layer=7, **sc)
+        torch.cuda.synchronize()
+        check(kernel.launches == n0 + 1, f"window {what}: one launch a call")
+        check(bool(torch.isfinite(out.float()).all()),
+              f"window {what}: output not finite")
+        err = (out.float() - ref.float()).abs().max().item()
+        check(err <= tol, f"window {what}: kernel vs plain max_abs_err "
+              f"{err} > {tol}")
+        q1 = q[:, :1].contiguous()
+        one = kernel(q1, kc, vc, kv_len, layer=7, **sc)
+        dec = decode(q1, kc, vc, kv_len, layer=7, **sc)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(one, dec))
+        check(same, f"window {what}: W = 1 differs from the decode launch")
+
+        def launch(layer, kc=kc, vc=vc, sc=sc, kernel=kernel):
+            return kernel(q, kc, vc, kv_len, layer=layer, **sc)
+
+        def plain_launch(layer, kc=kc, vc=vc, sc=sc, plain=plain):
+            return plain(q, kc, vc, kv_len, layer=layer, **sc)
+
+        ms = sweep_ms(launch, L)
+        plain_ms = sweep_ms(plain_launch, 4, graph=False)
+        if int8:
+            per_layer = 2 * B * S * KV * D * 2
+            n_deq = min(L, -(-4 * 50 * 2**20 // per_layer))
+            deq = [tuple(dequantize_kv(values[i].view(B, S, KV, D),
+                                       scales[i].transpose(1, 2))
+                         .transpose(1, 2)
+                         for values, scales in ((kc, ks), (vc, vs)))
+                   for i in range(n_deq)]
+
+            def lib(layer, deq=deq):
+                kt, vt = deq[layer]
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, enable_gqa=True)
+            lib_ms = sweep_ms(lib, n_deq)
+        else:
+            def lib(layer, kc=kc, vc=vc):
+                return F.scaled_dot_product_attention(
+                    qt, kc[layer].transpose(1, 2), vc[layer].transpose(1, 2),
+                    attn_mask=mask, enable_gqa=True)
+            lib_ms = sweep_ms(lib, L)
+        b_ms, b_by, nbytes = window_bound(lens, W, S, KV, D, H, int8)
+        name = ("gqa_decode_window_int8_cuda" if int8
+                else "gqa_decode_window_cuda")
+        row = {"name": name, "route": "cuda",
+               "source": "gofr_tpu_torch/ops/csrc/decode_attention.cu",
+               # JAX's verify attention is plain XLA, no Pallas kernel
+               "replaces": ("gofr_tpu/models/llama.py:1504" if not int8
+                            else "gofr_tpu/models/llama.py:1504 (int8 cache)"),
+               "replaces_note": "plain attention with q_offset in "
+                                "decode_window (:1504) and "
+                                "paged_decode_window (:1404); no TPU kernel",
+               "tol": tol, "max_abs_err": err, "w1_equals_decode": same,
+               "shape": f"q[{B},{W},{H},{D}] cache L={L} B={B} S={S} "
+                        f"KV={KV} {what} kv_len={lens}",
+               "ms": ms, "plain_ms": plain_ms,
+               "library_ms": None if int8 else lib_ms,
+               **({"yardstick": "scaled_dot_product_attention over "
+                                "dequantized bf16 layers",
+                   "yardstick_ms": lib_ms} if int8 else {}),
+               "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms,
+               "tb_per_s": nbytes / (ms * 1e-3) / 1e12}
+        rows.append(row)
+        del kc, vc, sc
+        torch.cuda.empty_cache()
+    return rows
+
+
+def spec_served(gen, name: str, prompts, max_new: int) -> tuple:
+    """Every prompt through ``LLMServer.generate`` at once: (outputs,
+    wall seconds)."""
+    from gofr_tpu_torch.ml.llm import LLMServer
+
+    async def run():
+        server = LLMServer(gen, name=name)
+        try:
+            t = time.perf_counter()
+            outs = await asyncio.gather(*(server.generate(p, max_new)
+                                          for p in prompts))
+            return outs, time.perf_counter() - t
+        finally:
+            server.close()
+
+    return asyncio.run(run())
+
+
+def spec_lookup_arm(dev, params, prompts) -> dict:
+    """11(b): the bf16 main path (8 slots x 1024, chunk 4, the decode
+    graphs) with speculation off and with prompt-lookup K = 4: served tok/s
+    of 8 repetition-heavy prompts x 64 new tokens through ``LLMServer``,
+    the accepted drafts a window, ``spec_rejected`` and how many streams
+    equal the spec-off ones (recorded, not gated: bf16 near-ties flip)."""
+    import gc
+
+    from gofr_tpu_torch.ml.generate import Generator
+    from gofr_tpu_torch.ml.goodput import goodput_ledger
+    from gofr_tpu_torch.models import llama
+
+    cfg = llama.llama3_8b()
+    res: dict = {}
+    outs = {}
+    for arm, k in (("off", 0), ("on", SPEC_K)):
+        gen = Generator(params, cfg, batch_slots=8, max_seq=1024, chunk=4,
+                        prefill_buckets=(128, 512), spec_k=k, device=dev)
+        t0 = time.perf_counter()
+        gen.warmup()
+        warm_s = time.perf_counter() - t0
+        reset_launches()
+        steps0 = gen.steps
+        outs[arm], wall = spec_served(gen, f"spec-{arm}", prompts,
+                                      SPEC_MAX_NEW)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        steps = gen.steps - steps0  # verify windows (or steps) dispatched
+        check(all(len(o) == SPEC_MAX_NEW
+                  and all(0 <= t < cfg.vocab_size for t in o)
+                  for o in outs[arm]),
+              f"spec {arm}: every request returns {SPEC_MAX_NEW} ids")
+        row = {"served_tok_per_s": len(prompts) * SPEC_MAX_NEW / wall,
+               "wall_s": wall, "warmup_s": warm_s, "launches": launches,
+               "dispatched": steps, "graphs": gen.graph_stats()}
+        if k:
+            stats = gen.spec_stats()
+            check(stats["windows"] > 0, "spec on: no verify window ran")
+            check(launches["gqa_decode_window_cuda"]
+                  >= cfg.n_layers * steps > 0,
+                  f"spec on: window kernel launched "
+                  f"{launches['gqa_decode_window_cuda']} times for "
+                  f"{steps} dispatched windows")
+            check(launches["gqa_decode_window_int8_cuda"] == 0,
+                  "spec on: the bf16 path launched the int8 window kernel")
+            row.update(
+                spec=stats,
+                accepted_per_window=(stats["emitted"] - stats["windows"])
+                / stats["windows"],
+                spec_rejected=goodput_ledger().snapshot_model(
+                    "spec-on")["wasted"].get("spec_rejected", 0))
+        else:
+            check(launches["gqa_decode_attention_cuda"] > 0,
+                  "spec off: the decode kernel did not launch")
+        res[arm] = row
+        del gen
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["streams_identical_to_off"] = sum(
+        a == b for a, b in zip(outs["off"], outs["on"], strict=True))
+    res["tok_per_s_on_over_off"] = (res["on"]["served_tok_per_s"]
+                                    / res["off"]["served_tok_per_s"])
+    res["_outputs_off"] = outs["off"]
+    return res
+
+
+def spec_paged_arm(dev, params, prompts) -> dict:
+    """11(c): int8 pages (pool of 513 pages of 16), K = 4 verify windows in
+    fused windows (``decode_window`` auto) with the depth-2 pipeline, the
+    same prompts driven through the Generator twice from the same start:
+    once by CUDA-graph replays, once eagerly through the same kernels. The
+    tokens must be identical."""
+    import gc
+
+    from gofr_tpu_torch.ml.generate import Generator
+    from gofr_tpu_torch.models import llama
+
+    cfg = llama.llama3_8b(kv_bits=8)
+    res: dict = {}
+    outs = {}
+    for arm in ("graph", "eager"):
+        with knobs(GOFR_ML_DECODE_WINDOW="auto", GOFR_ML_PIPELINE="1"):
+            gen = Generator(params, cfg, batch_slots=8, max_seq=1024,
+                            chunk=4, prefill_buckets=(128, 512),
+                            page_size=16, n_pages=513, spec_k=SPEC_K,
+                            device=dev)
+        if arm == "eager":
+            gen._graphs = None  # every dispatch runs its body eagerly
+        got: dict[int, list[int]] = {}
+        reset_launches()
+        t0 = time.perf_counter()
+        for i, p in enumerate(prompts):
+            gen.add_request(p, SPEC_MAX_NEW, callback=lambda _s, t, i=i:
+                            got.setdefault(i, []).extend(int(x) for x in t))
+        while gen.n_live:
+            gen.step()
+        gen.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        outs[arm] = [got[i] for i in range(len(prompts))]
+        check(all(len(o) == SPEC_MAX_NEW for o in outs[arm]),
+              f"spec paged {arm}: every stream returns {SPEC_MAX_NEW} ids")
+        check(launches["gqa_decode_window_int8_cuda"] > 0
+              and launches["gqa_decode_window_cuda"] == 0,
+              f"spec paged {arm}: the int8 window kernel only ({launches})")
+        res[arm] = {"wall_s": wall, "launches": launches,
+                    "spec": gen.spec_stats(), "window": gen.window_stats(),
+                    "pipeline": gen.pipeline_stats(),
+                    "graphs": gen.graph_stats()}
+        del gen
+        gc.collect()
+        torch.cuda.empty_cache()
+    same = outs["graph"] == outs["eager"]
+    check(same, "spec paged int8: graph replay and eager dispatch gave "
+          "different tokens")
+    res["tokens_identical"] = same
+    return res
+
+
+def spec_draft_arm(dev, params, prompts, outs_off) -> dict:
+    """11(d): ``LLM_SPEC_K=4 LLM_DRAFT_PRESET=self`` through the port's
+    ``examples/llama_server`` (8 slots, chunk 4) over gRPC, 8 streams. The
+    target is its own draft, so only bf16 near-ties between the draft's
+    decode step and the verify window can reject: accept >= 0.8 (checked);
+    the draft's decode steps launch the bf16 decode kernel (checked)."""
+    import gc
+
+    app, server, cfg = res_app(dev, params, LLM_SPEC_K=str(SPEC_K),
+                               LLM_DRAFT_PRESET="self")
+    gen = server.gen
+    check(gen.draft_params is not None and gen.spec_k == SPEC_K,
+          "the example did not build a draft-model generator")
+    reset_launches()
+
+    async def run():
+        await app.start()
+        try:
+            async with FrontClients(app) as clients:
+                t = time.perf_counter()
+                recs = await asyncio.gather(*(clients.grpc(
+                    {"prompt_ids": p, "max_new_tokens": SPEC_MAX_NEW})
+                    for p in prompts))
+                return recs, time.perf_counter() - t
+        finally:
+            await app.shutdown()
+
+    recs, wall = asyncio.run(run())
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check(all(r["status"] == "OK" and len(r["tokens"]) == SPEC_MAX_NEW
+              for r in recs), "spec draft: a gRPC stream failed or was short")
+    stats = gen.spec_stats()
+    check(stats["mode"] == "draft" and stats["windows"] > 0,
+          f"spec draft: no draft-model windows ({stats})")
+    check(stats["accept_rate"] >= 0.8,
+          f"spec draft: the self draft accepted {stats['accept_rate']} < 0.8")
+    check(launches["gqa_decode_attention_cuda"] > 0
+          and launches["gqa_decode_window_cuda"] > 0,
+          f"spec draft: the draft's decode kernel and the window kernel "
+          f"must both launch ({launches})")
+    res = {"served_tok_per_s": len(prompts) * SPEC_MAX_NEW / wall,
+           "wall_s": wall, "launches": launches, "spec": stats,
+           "accept_rate": stats["accept_rate"],
+           "streams_identical_to_off": sum(
+               r["tokens"] == o for r, o in zip(recs, outs_off, strict=True)),
+           "graphs": gen.graph_stats()}
+    del app, server, gen
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def speculation_phase(dev, bf16_params, tol: float = 2e-2) -> dict:
+    """Phase 11: the window kernel, then speculation served on the phase-3
+    weights: prompt lookup dense, int8 pages with windows and the
+    pipeline (graph against eager), a self draft over gRPC. Each number
+    is printed on its own line."""
+    kernels = window_kernel_rows(dev, tol)
+    prompts = spec_prompts(bf16_params["embed"].shape[0])
+    lookup = spec_lookup_arm(dev, bf16_params, prompts)
+    outs_off = lookup.pop("_outputs_off")
+    paged = spec_paged_arm(dev, bf16_params, prompts)
+    draft = spec_draft_arm(dev, bf16_params, prompts, outs_off)
+    for row in kernels:
+        for key in ("max_abs_err", "w1_equals_decode", "ms", "plain_ms",
+                    "library_ms", "bound_ms", "bound_share"):
+            print(f"spec: {row['name']} {key} {row[key]}")
+    for arm in ("off", "on"):
+        print(f"spec: lookup {arm} served_tok_per_s "
+              f"{lookup[arm]['served_tok_per_s']}")
+    for key in ("accepted_per_window", "spec_rejected"):
+        print(f"spec: lookup {key} {lookup['on'][key]}")
+    print(f"spec: lookup accept_rate {lookup['on']['spec']['accept_rate']}")
+    print(f"spec: lookup streams_identical_to_off "
+          f"{lookup['streams_identical_to_off']} of {len(prompts)}")
+    print(f"spec: paged int8 graph/eager tokens_identical "
+          f"{paged['tokens_identical']}")
+    print(f"spec: paged int8 accept_rate "
+          f"{paged['graph']['spec']['accept_rate']}")
+    print(f"spec: draft self accept_rate {draft['accept_rate']}")
+    print(f"spec: draft self served_tok_per_s {draft['served_tok_per_s']}")
+    print(f"spec: draft self streams_identical_to_off "
+          f"{draft['streams_identical_to_off']} of {len(prompts)}")
+    return {"kernels": kernels, "lookup": lookup, "paged_int8": paged,
+            "draft_self": draft}
+
+
 def main(argv: list[str]) -> int:
     import pathlib
 
@@ -2895,13 +3280,9 @@ def main(argv: list[str]) -> int:
     done("the front", front)
     res = resilience_phase(dev, bf16_params)
     done("resilience and observability", res)
-    if out_dir is not None:
-        out_dir.mkdir(parents=True, exist_ok=True)
-        (out_dir / "chip_smoke.json").write_text(json.dumps(
-            {"card": card, "kernels": rows, "bf16": path, "int8": qpath,
-             "paged": ppath, "graphs": graphs, "windows": windows,
-             "host_tier": tier, "front": front, "resilience": res},
-            indent=1))
+    spec = speculation_phase(dev, bf16_params)
+    done("speculation", spec)
+    rows += spec["kernels"]
     for row in rows:
         by_path = {"bf16": path["launches"][row["name"]],
                    "int8": qpath["launches"][row["name"]],
@@ -2916,12 +3297,29 @@ def main(argv: list[str]) -> int:
                       for arm in ("dense", "paged", "shed")},
                    **{f"resilience_{arm}": res[arm]["launches"][row["name"]]
                       for arm in ("crash", "observe", "chaos",
-                                  "paged_int8")}}
-        own = "int8" if row["name"] == "gqa_decode_attention_int8_cuda" \
-            else "bf16"
+                                  "paged_int8")},
+                   "spec_lookup_off": spec["lookup"]["off"]["launches"][
+                       row["name"]],
+                   "spec_lookup": spec["lookup"]["on"]["launches"][
+                       row["name"]],
+                   "spec_paged_int8": spec["paged_int8"]["graph"][
+                       "launches"][row["name"]],
+                   "spec_draft_self": spec["draft_self"]["launches"][
+                       row["name"]]}
+        own = {"gqa_decode_attention_int8_cuda": "int8",
+               "gqa_decode_window_cuda": "spec_lookup",
+               "gqa_decode_window_int8_cuda": "spec_paged_int8"}.get(
+                   row["name"], "bf16")
         row["launches"] = by_path[own]
         row["launches_by_path"] = by_path
         row["kernel_ms"] = row["ms"]
+    if out_dir is not None:
+        out_dir.mkdir(parents=True, exist_ok=True)
+        (out_dir / "chip_smoke.json").write_text(json.dumps(
+            {"card": card, "kernels": rows, "bf16": path, "int8": qpath,
+             "paged": ppath, "graphs": graphs, "windows": windows,
+             "host_tier": tier, "front": front, "resilience": res,
+             "speculation": spec}, indent=1))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -64,6 +64,10 @@ class Container:
             "app_ml_queue_depth",
             "pending work per serving component (engine dispatch queue, "
             "batcher backlog, llm waiting requests)")
+        m.new_histogram(
+            "app_llm_spec_accept",
+            "per-stream speculative draft acceptance rate [0, 1]",
+            buckets=(0.1, 0.25, 0.5, 0.75, 0.9, 1.0))
         m.new_counter("app_ml_prefix_hits_total",
                       "admissions served from a cached shared KV prefix")
         m.new_counter("app_ml_prefix_misses_total",

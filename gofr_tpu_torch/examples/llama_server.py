@@ -14,12 +14,13 @@ registers the model and the routes on an app, so a caller can mount
 weights it already holds. Knobs: ``LLAMA_PRESET`` / ``LLAMA_DTYPE`` /
 ``LLAMA_KV_QUANT`` / ``LLAMA_W8`` / ``GOFR_ML_KV_BITS`` (the model),
 ``LLM_SLOTS``, ``LLM_CHUNK``, ``LLM_TEMPERATURE``, ``LLM_PAGE_SIZE``,
-``LLM_PAGES``, ``LLM_PREFILL_CHUNK`` (the generator), the server's
-``GOFR_ML_*`` knobs, and ``HTTP_PORT`` / ``GRPC_PORT`` /
+``LLM_PAGES``, ``LLM_PREFILL_CHUNK``, ``LLM_SPEC_K`` (speculative
+decoding, falling back to ``GOFR_ML_SPEC_K``; drafts from
+``LLM_DRAFT_PRESET=self|tiny|1b``, else prompt lookup) (the generator),
+the server's ``GOFR_ML_*`` knobs, and ``HTTP_PORT`` / ``GRPC_PORT`` /
 ``METRICS_PORT``. A checkpoint or tokenizer file (``LLAMA_CKPT``,
-``TOKENIZER_JSON``) is not ported yet (ROADMAP A.12), nor speculation
-(a positive ``LLM_SPEC_K``, A.10) nor disaggregation (``LLM_DISAGG=1``,
-A.14): each raises.
+``TOKENIZER_JSON``, ``LLM_DRAFT_CKPT``) is not ported yet (ROADMAP
+A.12), nor disaggregation (``LLM_DISAGG=1``, A.14): each raises.
 """
 
 from __future__ import annotations
@@ -125,8 +126,12 @@ def mount(app: App, params, cfg, **kwargs) -> App:
     """Register the ``chat`` LLM on ``params`` / ``cfg`` with the
     example's generator knobs (``kwargs``, e.g. ``device``, go to
     ``register_llm`` over them) and the three transports' routes."""
+    # LLM_SPEC_K, falling back to GOFR_ML_SPEC_K through its validated
+    # parse; the draft model from LLM_DRAFT_PRESET when set
     raw_spec = os.environ.get("LLM_SPEC_K", "").strip()
     spec_k = int(raw_spec) if raw_spec else spec_k_from_env()
+    draft_params, draft_cfg = (llama.draft_from_env(cfg, params)
+                               if spec_k else (None, None))
     raw_disagg = os.environ.get("LLM_DISAGG", "").strip()
     if raw_disagg and raw_disagg not in ("0", "1"):
         raise ValueError(f"LLM_DISAGG must be 0 or 1, got {raw_disagg!r}")
@@ -137,8 +142,9 @@ def mount(app: App, params, cfg, **kwargs) -> App:
         sampler=Sampler(temperature=float(
             os.environ.get("LLM_TEMPERATURE", "0"))),
         # random weights keep decoding to max_new (any id is as likely
-        # as eos); a positive spec_k raises in the Generator (A.10)
-        eos_id=None, spec_k=spec_k,
+        # as eos)
+        eos_id=None, spec_k=spec_k, draft_params=draft_params,
+        draft_cfg=draft_cfg,
         prefill_chunk=int(os.environ.get("LLM_PREFILL_CHUNK", "0")),
         page_size=int(os.environ.get("LLM_PAGE_SIZE", "0")),
         n_pages=int(os.environ.get("LLM_PAGES", "0")) or None,

@@ -268,6 +268,11 @@ class MLDatasource:
                 entry["kv_host_tier"] = tier
             if server.prefix_cache is not None:
                 entry["prefix_cache"] = server.prefix_cache.snapshot()
+            spec = gen.spec_stats()
+            if spec is not None:
+                # speculative serving: K, the draft mode, lifetime windows
+                # and acceptance, the adaptive disable and re-probe state
+                entry["speculation"] = spec
             win = gen.window_stats()
             if win is not None:
                 entry["decode_window"] = win

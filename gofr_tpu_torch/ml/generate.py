@@ -1,5 +1,5 @@
 """Continuous-batching token generation — counterpart of
-``gofr_tpu/ml/generate.py`` without speculation and sequence parallelism.
+``gofr_tpu/ml/generate.py`` without sequence parallelism.
 
 ``Generator`` holds a fixed batch of slots over one KV cache; every decode
 dispatch runs the whole batch (free slots decode garbage that is ignored).
@@ -60,8 +60,24 @@ the ``fault`` hook fires at the ``step``, ``prefill``, ``spill`` and
 (ledger handle) and ``programs`` (inventory) record what the dispatches
 do; the server installs all but the last.
 
-Speculation (``spec_k`` / ``GOFR_ML_SPEC_K``) and sequence parallelism
-raise ``NotImplementedError`` naming the ROADMAP item that brings them.
+Speculative decoding (``spec_k`` / ``GOFR_ML_SPEC_K``, greedy only) runs
+inside the dispatch, as in JAX: each of a dispatch's windows drafts K
+tokens a row (prompt lookup over the row's device-resident history
+[B, max_seq + K + 2] with masked compares, or a draft model's K greedy
+steps over its own dense cache), verifies them in one K+1-position pass
+(``llama.decode_window`` / ``paged_decode_window``, the decode kernels'
+window launch), accepts the longest matching prefix, emits it and the
+verifier's next token, advances ``len`` by 1 + accepted and appends the
+tokens to the history row, all on the device: one CUDA graph a (ladder
+entry, gather width), the ladder entries counting verify windows. Per
+slot, a rolling accept rate under ``spec_min_accept`` /
+``GOFR_ML_SPEC_MIN_ACCEPT`` disables speculation for ``spec_cooldown`` /
+``GOFR_ML_SPEC_COOLDOWN`` windows (lossless: a disabled row emits its
+verified token); with every decodable slot disabled in lookup mode the
+whole dispatch takes the plain ladder, and the history rows are reseeded
+from a host mirror before speculation re-probes. Fused windows and the
+pipeline compose with it. Sequence parallelism raises
+``NotImplementedError`` naming ROADMAP A.11.
 """
 
 from __future__ import annotations
@@ -123,6 +139,22 @@ def _env_int(name: str, default: int, *, minimum: int = 0) -> int:
         raise ValueError(f"{name} must be an integer, got {raw!r}") from None
     if value < minimum:
         raise ValueError(f"{name} must be >= {minimum}, got {value}")
+    return value
+
+
+def _env_fraction(name: str, default: float) -> float:
+    """Loudly-validated [0, 1] float env knob: a malformed value, a
+    negative one, one over 1 or NaN raises ValueError naming the knob."""
+    raw = os.environ.get(name, "").strip()
+    if not raw:
+        return default
+    try:
+        value = float(raw)
+    except ValueError:
+        raise ValueError(
+            f"{name} must be a number in [0, 1], got {raw!r}") from None
+    if not 0.0 <= value <= 1.0:  # NaN fails both compares
+        raise ValueError(f"{name} must be in [0, 1], got {raw!r}")
     return value
 
 
@@ -233,7 +265,10 @@ def _sample_impl(logits: torch.Tensor, generator: torch.Generator | None,
 
 class _Slot:
     __slots__ = ("live", "tokens", "max_new", "produced", "prompt_len",
-                 "eos_hit", "evicted", "callback", "deadline_at")
+                 "eos_hit", "evicted", "callback", "deadline_at",
+                 "spec_windows", "spec_emitted", "spec_disabled",
+                 "spec_cooldown_left", "spec_recent_w", "spec_recent_e",
+                 "hist")
 
     def __init__(self) -> None:
         self.live = False
@@ -249,6 +284,19 @@ class _Slot:
         # the request's deadline (``time.perf_counter`` seconds, set by the
         # server): fused windows bound a row's device steps by it
         self.deadline_at: float | None = None
+        # speculation: verify windows seen and tokens they emitted (the
+        # server exports the stream's accept rate), and the adaptive
+        # disable: the flag, the cooldown left and the judging window
+        self.spec_windows = 0
+        self.spec_emitted = 0
+        self.spec_disabled = False
+        self.spec_cooldown_left = 0
+        self.spec_recent_w = 0
+        self.spec_recent_e = 0
+        # the host mirror of the full history (prompt + emitted), kept only
+        # when the plain-ladder fallback is armed: it reseeds the device
+        # history rows when speculation re-probes
+        self.hist: list[int] = []
 
 
 class _HostBlock:
@@ -302,8 +350,11 @@ class Generator:
                  seed: int = 0, chunk: int = 1, token_budget: int | None = None,
                  page_size: int = 0, n_pages: int | None = None,
                  prefill_chunk: int = 0, spec_k: int | None = None,
-                 decode_window: int | None = None, pipeline: int | None = None,
-                 sp: Any = None, host_kv: Any = None, device=None) -> None:
+                 spec_ngram: int = 3, spec_min_accept: float | None = None,
+                 spec_cooldown: int | None = None, draft_params: Any = None,
+                 draft_cfg: Any = None, decode_window: int | None = None,
+                 pipeline: int | None = None, sp: Any = None,
+                 host_kv: Any = None, device=None) -> None:
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
         self.chunk = chunk
@@ -349,12 +400,31 @@ class Generator:
         self.spec_k = int(spec_k)
         if self.spec_k < 0:
             raise ValueError(f"spec_k must be >= 0, got {self.spec_k}")
-        for value, what, item in (
-                (self.spec_k, "speculative decoding (spec_k)", "A.10"),
-                (sp, "sequence-parallel serving (sp)", "A.11")):
-            if value:
-                raise NotImplementedError(
-                    f"{what} is not ported yet (ROADMAP {item})")
+        # below this rolling accept rate a slot stops speculating (0: never)
+        # and re-probes after spec_cooldown windows
+        self.spec_min_accept = (
+            _env_fraction("GOFR_ML_SPEC_MIN_ACCEPT", 0.0)
+            if spec_min_accept is None else float(spec_min_accept))
+        if not 0.0 <= self.spec_min_accept <= 1.0:
+            raise ValueError(
+                f"spec_min_accept must be in [0, 1], got "
+                f"{self.spec_min_accept}")
+        self.spec_cooldown = (_env_int("GOFR_ML_SPEC_COOLDOWN", 32,
+                                       minimum=1)
+                              if spec_cooldown is None
+                              else int(spec_cooldown))
+        if self.spec_cooldown < 1:
+            raise ValueError(
+                f"spec_cooldown must be >= 1, got {self.spec_cooldown}")
+        self._spec_probe_min = 8  # windows judged before a disable verdict
+        self.spec_disables = 0    # slots auto-disabled (lifetime)
+        self.spec_reprobes = 0    # cooldown expiries re-arming a slot
+        self._plain_armed = False  # set in _init_spec (lookup mode only)
+        self._spec_rows_stale = False  # device history lags the mirror
+        if sp:
+            raise NotImplementedError(
+                "sequence-parallel serving (sp) is not ported yet "
+                "(ROADMAP A.11)")
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(f"params live on {params['embed'].device}, "
@@ -465,11 +535,14 @@ class Generator:
         self._chunk_ladder = _chunk_ladder(self.chunk)
         # Token budget: None -> GOFR_ML_TOKEN_BUDGET ("auto"/unset: twice
         # the full batch's chunk, or one chunk of it plus two segments when
-        # chunked prefill is on; "0" or negative: fixed-chunk dispatch)
+        # chunked prefill is on; "0" or negative: fixed-chunk dispatch).
+        # A verify window costs K+1 positions a row (plan's unit_tokens),
+        # so the auto budget scales by K+1 under speculation
+        per_step = (self.spec_k + 1) if self.spec_k else 1
         if token_budget is None:
             raw = os.environ.get("GOFR_ML_TOKEN_BUDGET", "auto")
-            token_budget = (max(2 * self.chunk * batch_slots,
-                                self.chunk * batch_slots
+            token_budget = (max(2 * self.chunk * batch_slots * per_step,
+                                self.chunk * batch_slots * per_step
                                 + 2 * self.prefill_chunk)
                             if raw.strip().lower() in ("", "auto")
                             else int(raw))
@@ -498,6 +571,52 @@ class Generator:
         # the program inventory (programs.py): decode graphs and prefill
         # buckets with their capture or first-use seconds
         self.programs = ProgramLog()
+        # -- speculative decoding (spec_k parsed above)
+        self.spec_ngram = int(spec_ngram)
+        if (draft_params is None) != (draft_cfg is None):
+            raise ValueError("draft_params and draft_cfg come together")
+        if draft_params is not None and not self.spec_k:
+            raise ValueError("a draft model requires spec_k > 0")
+        if draft_cfg is not None and draft_cfg.vocab_size != cfg.vocab_size:
+            raise ValueError("draft and target must share the vocabulary")
+        if draft_cfg is not None and getattr(draft_cfg, "kv_quant", False):
+            raise ValueError("the draft model uses the fp cache")
+        if (draft_params is not None
+                and draft_params["embed"].device != self.device):
+            raise ValueError(f"draft params live on "
+                             f"{draft_params['embed'].device}, the generator "
+                             f"on {self.device}")
+        self.draft_params = draft_params
+        self.draft_cfg = draft_cfg
+        # lifetime windows and emitted tokens (emitted / windows - 1 is the
+        # mean of accepted drafts a window)
+        self.spec_windows = 0
+        self.spec_emitted = 0
+        if self.spec_k > 0:
+            self._init_spec()
+
+    def _init_spec(self) -> None:
+        """The device state of speculation: the history rows [B, hist_cap
+        + 1] (the last column takes the writes JAX drops), the per-row
+        enable mask and, with a draft model, its dense fp cache sized past
+        ``max_seq`` so the K+1 draft steps of the last window never clip.
+        All are written in place: the spec graphs keep their pointers."""
+        if self.sampler.temperature > 0:
+            raise ValueError("speculative decode is greedy-only")
+        K = self.spec_k
+        self._hist_cap = self.max_seq + K + 2
+        B = self.batch_slots
+        self._tokens_dev = torch.zeros((B, self._hist_cap + 1),
+                                       dtype=torch.int32, device=self.device)
+        self._spec_on = torch.zeros((B,), dtype=torch.bool, device=self.device)
+        if self.draft_params is not None:
+            self._draft_cache = llama.init_cache(
+                self.draft_cfg, B, self.max_seq + K + 2, device=self.device)
+        # the plain fallback needs drafting state that survives plain
+        # dispatches (the history mirror does, a draft cache does not) and
+        # an auto-disable floor actually set
+        self._plain_armed = (self.spec_min_accept > 0
+                             and self.draft_params is None)
 
     # -- device programs -----------------------------------------------------
     def _run(self, key, body):
@@ -518,8 +637,12 @@ class Generator:
 
     @staticmethod
     def _program_name(key) -> str:
+        """A dispatch's inventory name: ``decode/chunk<n>`` or
+        ``decode/window<n>``, and ``spec/window<n>`` for a ladder entry of
+        ``n`` verify windows (JAX's names), with the gather width."""
         kind, n, n_cols = key
-        return f"decode/{kind}{n}" + (f"/cols{n_cols}" if n_cols else "")
+        fam = "spec/window" if kind in ("spec", "specwin") else f"decode/{kind}"
+        return f"{fam}{n}" + (f"/cols{n_cols}" if n_cols else "")
 
     def _capture(self, key, body) -> None:
         """Capture the graph of ``key`` and record its program row."""
@@ -533,11 +656,14 @@ class Generator:
     def _record_program(self, key, wall_s: float, kind: str, **extra) -> None:
         what, n, n_cols = key
         keys = (n_cols * self.page_size if n_cols else self.max_seq)
+        # a verify window sweeps K+1 positions a row
+        positions = n * (self.spec_k + 1) if what in ("spec", "specwin") else n
         self.programs.record(
             self._program_name(key), wall_s=wall_s, kind=kind,
             shapes={"rows": self.batch_slots, "steps": n,
                     "cols": n_cols, "dispatch": what},
-            cost=model_cost(self.cfg, self.batch_slots, n, keys), **extra)
+            cost=model_cost(self.cfg, self.batch_slots, positions, keys),
+            **extra)
 
     def _model_step(self, tok: torch.Tensor, n_cols: int | None):
         """One decode step of the model over the whole batch; the cache is
@@ -634,20 +760,265 @@ class Generator:
             lambda: self._window_body(n_win, n_cols))
         return out
 
+    # -- speculation on the device ------------------------------------------
+    def _draft_lookup(self, h: torch.Tensor) -> torch.Tensor:
+        """Prompt-lookup drafts [B, K] from the history rows (JAX's
+        ``draft_row`` over every row at once): for n from ``spec_ngram``
+        down to 1, the most recent earlier occurrence of each row's
+        trailing n-gram (history length ``h`` [B]) by masked compares over
+        [B, hist_cap]; the longest n with a match wins and its K following
+        tokens are the draft; no match drafts from the last token. No host
+        sync, so it captures into the graph."""
+        hc, K = self._hist_cap, self.spec_k
+        hist = self._tokens_dev[:, :hc]
+        b = hist.shape[0]
+        dev = hist.device
+        h = h.long()
+        idx = torch.arange(hc, device=dev)[None, :]
+        start = torch.full((b,), -1, dtype=torch.long, device=dev)
+        npick = torch.zeros((b,), dtype=torch.long, device=dev)
+        for n in range(max(1, self.spec_ngram), 0, -1):
+            at = (torch.clamp(h - n, min=0)[:, None]
+                  + torch.arange(n, device=dev)[None, :])
+            pat = hist.gather(1, at)
+            # the follow token must exist INSIDE the history, which also
+            # keeps the trailing pattern from matching itself
+            m = (idx + n) <= (h[:, None] - 1)
+            for i in range(n):
+                shifted = torch.cat([hist[:, i:], hist[:, -1:].expand(b, i)],
+                                    dim=1)  # hist[min(idx + i, hc - 1)]
+                m = m & (shifted == pat[:, i:i + 1])
+            j = torch.where(m, idx, -1).amax(dim=1)
+            take = (start < 0) & (j >= 0)
+            start = torch.where(take, j, start)
+            npick = torch.where(take, n, npick)
+        src = torch.where(start >= 0, start + npick, h - 1)
+        src = torch.clamp(src, 0, hc - K)
+        return hist.gather(1, src[:, None]
+                           + torch.arange(K, device=dev)[None, :])
+
+    def _run_draft_model(self, tok: torch.Tensor) -> torch.Tensor:
+        """K greedy draft steps from the window's input token, plus one
+        step that writes the last draft's K/V row (a fully accepted window
+        needs it in place): the drafts [B, K]. The draft cache is updated
+        in place."""
+        drafts = []
+        t = tok
+        for _ in range(self.spec_k):
+            dlogits, _ = llama.decode_step(self.draft_params, t,
+                                           self._draft_cache, self.draft_cfg)
+            t = torch.argmax(dlogits, dim=-1).to(torch.int32)
+            drafts.append(t)
+        llama.decode_step(self.draft_params, t, self._draft_cache,
+                          self.draft_cfg)
+        return torch.stack(drafts, dim=1)
+
+    def _spec_body(self, n_win: int, n_cols: int | None, windowed: bool):
+        """``n_win`` draft -> verify -> accept rounds (JAX's
+        ``spec_chunk_fn``, or with ``windowed`` its ``spec_window_fn``).
+        Each round drafts K tokens a row, verifies [token, drafts] in one
+        window, accepts the longest prefix of drafts equal to the
+        verifier's argmax (none for a row off in ``_spec_on``), emits it
+        and the verifier's next token, advances ``len`` by the emitted
+        count and appends the tokens to the history row. Windowed, the
+        rows of ``_win_active`` freeze on the device at EOS or their
+        ``_win_cap``, a frozen row emitting nothing. Returns ([rows, B]
+        int32: the input row, the counts [W, B], the emitted tokens [W *
+        (K+1), B] (window-major, then position), and windowed the rounds in
+        which any row was active; the first round's position-0 logits)."""
+        K, hc = self.spec_k, self._hist_cap
+        tok = self._tok_dev
+        tok_in = tok.clone()
+        length = self.cache["len"]
+        td = self._tokens_dev
+        b = tok.shape[0]
+        dev = tok.device
+        ar = torch.arange(K + 1, device=dev)[None, :]
+        s_max = (self._p_max * self.page_size if self.page_size
+                 else self.cache["k"].shape[2])
+        spec_on = self._spec_on
+        if windowed:
+            active = (self._win_active & ~self._is_eos(tok)
+                      & (self._win_cap > 0))
+            n_out = torch.zeros_like(tok)
+            realized = torch.zeros_like(tok[:1])
+        emits, counts, first = [], [], None
+        for _ in range(n_win):
+            h = length + 1  # history length
+            draft = (self._run_draft_model(tok) if self.draft_params is not None
+                     else self._draft_lookup(h))
+            window = torch.cat([tok[:, None], draft], dim=1)
+            if self.page_size:
+                logits, _ = llama.paged_decode_window(
+                    self.params, window, self.cache, self._table_dev,
+                    self.cfg, n_cols=n_cols)
+            else:
+                logits, _ = llama.decode_window(self.params, window,
+                                                self.cache, self.cfg)
+            first = logits[:, 0] if first is None else first
+            greedy_t = torch.argmax(logits, dim=-1).to(torch.int32)
+            match = (draft == greedy_t[:, :K]).to(torch.int32)
+            n_acc = torch.cumprod(match, dim=1).sum(dim=1).to(torch.int32)
+            on = (spec_on & active) if windowed else spec_on
+            n_acc = torch.where(on, n_acc, 0)
+            g_last = greedy_t.gather(1, n_acc[:, None].long())
+            draft_pad = torch.cat([draft, torch.zeros_like(draft[:, :1])],
+                                  dim=1)
+            emit = torch.where(ar < n_acc[:, None], draft_pad,
+                               torch.where(ar == n_acc[:, None], g_last, 0))
+            if windowed:
+                # frozen rows emit nothing; active ones at most their
+                # remaining budget (>= 1: the verified token always lands)
+                n_emit = torch.where(
+                    active, torch.minimum(
+                        n_acc + 1, torch.clamp(self._win_cap - n_out, min=0)),
+                    0)
+                emit = torch.where(ar < n_emit[:, None], emit, 0)
+            else:
+                n_emit = n_acc + 1
+            new_len = torch.clamp(length + n_emit, max=s_max)
+            length.copy_(new_len)
+            if self.draft_params is not None:
+                # the draft fed tok, d1..dK itself: its rows for every
+                # accepted token exist, so its len follows the target's
+                d_len = self._draft_cache["len"]
+                d_len.copy_(torch.clamp(new_len,
+                                        max=self._draft_cache["k"].shape[2]))
+            # append the emitted tokens to the history; the rest go to the
+            # dump column
+            widx = torch.where(ar < n_emit[:, None], h[:, None] + ar, hc)
+            td.scatter_(1, widx.long(), emit)
+            if windowed:
+                # the carry token is the LAST token this row emitted; a
+                # frozen row keeps its own
+                last = emit.gather(
+                    1, torch.clamp(n_emit - 1, min=0)[:, None].long())[:, 0]
+                realized = realized + active.any().to(torch.int32)
+                tok = torch.where(n_emit > 0, last, tok)
+                n_out = n_out + n_emit
+                hit = ((ar < n_emit[:, None]) & self._is_eos(emit)).any(dim=1)
+                active = active & ~hit & (n_out < self._win_cap)
+            else:
+                tok = g_last[:, 0]
+            emits.append(emit)
+            counts.append(n_emit)
+        rows = [tok_in[None], torch.stack(counts),
+                torch.stack(emits).permute(0, 2, 1).reshape(-1, b)]
+        if windowed:
+            rows.append(realized.expand(b)[None])
+        out = torch.cat(rows)
+        self._tok_dev.copy_(tok)
+        return out, first
+
+    def _decode_spec(self, n_win: int, spec_mask: np.ndarray,
+                     active0: np.ndarray | None = None,
+                     step_cap: np.ndarray | None = None,
+                     n_cols: int | None = None) -> torch.Tensor:
+        """Dispatch ``n_win`` verify windows (fused-window masks with
+        ``decode_window``); returns ``_spec_body``'s packed block."""
+        windowed = bool(self.decode_window)
+        if self.page_size:
+            self._table_device()
+            n_cols = n_cols or self._gather_cols()
+        _upload(self._spec_on, spec_mask)
+        if windowed:
+            _upload(self._win_active, active0)
+            _upload(self._win_cap, step_cap)
+        kind = "specwin" if windowed else "spec"
+        out, self.dispatch_logits = self._run(
+            (kind, n_win, n_cols),
+            lambda: self._spec_body(n_win, n_cols, windowed))
+        return out
+
+    def _unpack_spec(self, toks: np.ndarray, n_win: int):
+        """``_spec_body``'s block -> (input row [B], emitted [W, B, K+1],
+        counts [W, B], realized windows or None)."""
+        K1 = self.spec_k + 1
+        b = toks.shape[1]
+        counts = toks[1:1 + n_win]
+        emits = toks[1 + n_win:1 + n_win + n_win * K1].reshape(
+            n_win, K1, b).transpose(0, 2, 1)
+        realized = (int(toks[1 + n_win + n_win * K1, 0])
+                    if len(toks) > 1 + n_win + n_win * K1 else None)
+        return toks[0], emits, counts, realized
+
     def _graph_keys(self) -> list:
         """Every decode dispatch shape: each ladder entry, and with paging
-        at each gather width ``_gather_cols`` can pick."""
-        kind = "window" if self.decode_window else "chunk"
-        if not self.page_size:
-            return [(kind, n, None) for n in self._chunk_ladder]
-        widths = sorted({min(self._p_max, 1 << k)
-                         for k in range(self._p_max.bit_length() + 1)})
-        return [(kind, n, w) for n in self._chunk_ladder for w in widths]
+        at each gather width ``_gather_cols`` can pick. Under speculation
+        the ladder dispatches verify windows, and the plain ladder too when
+        its fallback is armed."""
+        plain = "window" if self.decode_window else "chunk"
+        kinds = [plain]
+        if self.spec_k:
+            kinds = ["specwin" if self.decode_window else "spec"]
+            if self._plain_armed:
+                kinds.append(plain)
+        widths = ([None] if not self.page_size else
+                  sorted({min(self._p_max, 1 << k)
+                          for k in range(self._p_max.bit_length() + 1)}))
+        return [(kind, n, w) for kind in kinds for n in self._chunk_ladder
+                for w in widths]
 
     def graph_stats(self) -> dict | None:
         """Captured decode graphs (None on the CPU): how many, the wall
         seconds capture took and the reserved memory it added."""
         return None if self._graphs is None else self._graphs.stats()
+
+    def _after_prefill(self, logits, tokens, lens, slots, valid) -> None:
+        """Route a prefill's logits into first-token state: the sampled
+        first tokens (``_post_prefill``), or under speculation the greedy
+        ones plus the prompts and firsts in the history rows, and the
+        draft model's own prefill of the same prompts."""
+        if not self.spec_k:
+            self._post_prefill(logits, slots, valid)
+            return
+        self._spec_post_prefill(logits, tokens, lens, slots, valid)
+        if self.draft_params is not None and any(valid):
+            _, self._draft_cache = llama.prefill_into_many(
+                self.draft_params, tokens, lens, self.draft_cfg,
+                self._draft_cache, slots, valid)
+
+    def _spec_post_prefill(self, logits, tokens, lens, slots, valid) -> None:
+        """JAX's ``spec_post_prefill(_many)``: each valid row's greedy first
+        token into the token row, and its prompt (the first ``lens``
+        positions of the bucket; the rest of the row keeps what it held)
+        and first token at position ``lens`` into its history row."""
+        firsts = torch.argmax(logits, dim=-1).to(torch.int32)
+        toks = llama._int32(np.asarray(tokens), self.device)
+        for i, ok in enumerate(valid):
+            if not ok:
+                continue
+            slot, n = int(slots[i]), int(np.asarray(lens).reshape(-1)[i])
+            self._tok_dev[slot] = firsts[i]
+            self._tokens_dev[slot, :n] = toks[i, :n]
+            self._tokens_dev[slot, n] = firsts[i]
+
+    def _seed_spec_history(self, slot: int, hist: list, logits) -> None:
+        """Write a slot's FULL history (prefix + suffix, or every segment of
+        a chunked prompt) into its history row, zeros after it, plus the
+        greedy first token at its end, and prefill the draft model's cache
+        with the whole history (JAX's ``spec_prefix_post`` and its draft
+        ingest)."""
+        if self.draft_params is not None:
+            bucket = next((b for b in self.prefill_buckets
+                           if len(hist) <= b), None)
+            if bucket is None:
+                raise ValueError(
+                    f"history length {len(hist)} exceeds the largest "
+                    f"prefill bucket {self.prefill_buckets[-1]} (the "
+                    f"draft model must ingest the full history)")
+            toks = np.zeros((1, bucket), np.int32)
+            toks[0, :len(hist)] = hist
+            _, self._draft_cache = llama.prefill_into(
+                self.draft_params, toks, np.array([len(hist)], np.int32),
+                self.draft_cfg, self._draft_cache, slot)
+        row = np.zeros((self._hist_cap,), np.int32)
+        row[:len(hist)] = hist
+        first = torch.argmax(logits[0]).to(torch.int32)
+        self._tok_dev[slot] = first
+        self._tokens_dev[slot, :self._hist_cap] = llama._int32(row,
+                                                               self.device)
+        self._tokens_dev[slot, len(hist)] = first
 
     def _post_prefill(self, logits, slots, valid) -> None:
         """Sample the wave's first tokens and park them in the device token
@@ -689,34 +1060,16 @@ class Generator:
             raise RuntimeError("warmup needs an idle generator")
         if self.page_size:
             self._table_device()
-        for n in sorted({self.chunk, 1}):
-            if self.decode_window:
-                self._window_body(n, self._p_max)
-            else:
-                self._chunk_body(n, self._p_max if self.page_size else None)
+        if self.spec_k:
+            self._warm_spec()
+        else:
+            for n in sorted({self.chunk, 1}):
+                if self.decode_window:
+                    self._window_body(n, self._p_max)
+                else:
+                    self._chunk_body(n, self._p_max if self.page_size
+                                     else None)
         ones = np.ones((1,), np.int32)
-        for bucket in self.prefill_buckets:
-            padded = np.zeros((1, bucket), np.int32)
-            t_bucket = time.perf_counter()
-            if self.page_size:
-                scratch = np.zeros((self._p_max,), np.int32)
-                logits, self.cache = llama.paged_prefill_into(
-                    self.params, padded, ones, self.cfg, self.cache,
-                    scratch[:bucket // self.page_size], 0, self.page_size)
-                self._post_prefill(logits, [0], [False])
-                logits, self.cache = llama.paged_suffix_prefill(
-                    self.params, padded, ones, self.cfg, self.cache, scratch,
-                    0, self.page_size)
-                self._post_prefill(logits, [0], [False])
-                self._record_prefill(bucket, time.perf_counter() - t_bucket)
-                continue
-            for b in sorted({1, self._admit_cap}):
-                logits, self.cache = llama.prefill_into_many(
-                    self.params, np.zeros((b, bucket), np.int32),
-                    np.ones((b,), np.int32), self.cfg, self.cache,
-                    np.zeros((b,), np.int32), np.zeros((b,), bool))
-                self._post_prefill(logits, [0] * b, [False] * b)
-            self._record_prefill(bucket, time.perf_counter() - t_bucket)
         if self.prefill_chunk:
             seg = np.zeros((1, self.prefill_chunk), np.int32)
             s_cap = (self._p_max * self.page_size if self.page_size
@@ -729,14 +1082,81 @@ class Generator:
                 shapes={"rows": 1, "segment": self.prefill_chunk},
                 cost=model_cost(self.cfg, 1, self.prefill_chunk, s_cap,
                                 prefill=True))
+        # speculation seeds slot 0's history row from the warm prefill, as
+        # the JAX warmup does (a dead row's history is the drafts' context
+        # past a later occupant's own tokens)
+        spec = bool(self.spec_k)
+        for bucket in self.prefill_buckets:
+            padded = np.zeros((1, bucket), np.int32)
+            t_bucket = time.perf_counter()
+            if self.page_size:
+                scratch = np.zeros((self._p_max,), np.int32)
+                logits, self.cache = llama.paged_prefill_into(
+                    self.params, padded, ones, self.cfg, self.cache,
+                    scratch[:bucket // self.page_size], 0, self.page_size)
+                self._after_prefill(logits, padded, ones, [0], [spec])
+                logits, self.cache = llama.paged_suffix_prefill(
+                    self.params, padded, ones, self.cfg, self.cache, scratch,
+                    0, self.page_size)
+                self._post_prefill(logits, [0], [False])
+                self._record_prefill(bucket, time.perf_counter() - t_bucket)
+                continue
+            for b in sorted({1, self._admit_cap}):
+                valid = np.zeros((b,), bool)
+                valid[0] = spec and b == 1
+                toks = np.zeros((b, bucket), np.int32)
+                lens = np.ones((b,), np.int32)
+                logits, self.cache = llama.prefill_into_many(
+                    self.params, toks, lens, self.cfg, self.cache,
+                    np.zeros((b,), np.int32), valid)
+                self._after_prefill(logits, toks, lens, [0] * b, valid)
+            self._record_prefill(bucket, time.perf_counter() - t_bucket)
         if self._graphs is not None:
             for kind, n, n_cols in self._graph_keys():
                 if (kind, n, n_cols) in self._graphs:
                     continue
-                body = (self._window_body if kind == "window"
-                        else self._chunk_body)
-                self._capture((kind, n, n_cols), lambda: body(n, n_cols))
+                self._capture((kind, n, n_cols),
+                              self._dispatch_body(kind, n, n_cols))
             torch.cuda.synchronize(self.device)
+
+    def _dispatch_body(self, kind: str, n: int, n_cols: int | None):
+        """The body of decode dispatch ``kind`` (``_graph_keys``)."""
+        if kind in ("spec", "specwin"):
+            return lambda: self._spec_body(n, n_cols, kind == "specwin")
+        if kind == "window":
+            return lambda: self._window_body(n, n_cols)
+        return lambda: self._chunk_body(n, n_cols)
+
+    def _warm_spec(self) -> None:
+        """The warm dispatches of a speculative generator, as the JAX
+        warmup runs them: the verify-window ladder (every entry, largest
+        first, when the scheduler can pick any; else the full chunk and
+        the 1-window mini), then the plain ladder when its fallback is
+        armed, over a dead batch with every row's speculation off (fused
+        windows: every row frozen). On the CPU each is recorded as a
+        program row."""
+        per_step = self.spec_k + 1
+        full = self.scheduler is not None and (
+            self.prefill_chunk or self.scheduler.budget
+            < self.chunk * self.batch_slots * per_step)
+        sizes = (list(reversed(self._chunk_ladder)) if full
+                 else list(dict.fromkeys((self.chunk, 1))))
+        n_cols = self._p_max if self.page_size else None
+        spec_kind = "specwin" if self.decode_window else "spec"
+        plain = "window" if self.decode_window else "chunk"
+        self._spec_on.zero_()
+        if self.decode_window:
+            self._win_active.zero_()
+            self._win_cap.zero_()
+        runs = [(spec_kind, n) for n in sizes]
+        if self._plain_armed:
+            runs += [(plain, n) for n in sizes]
+        for kind, n in runs:
+            body = self._dispatch_body(kind, n, n_cols)
+            if self._graphs is None:
+                self._run((kind, n, n_cols), body)
+            else:
+                body()
 
     def _record_prefill(self, bucket: int, wall_s: float) -> None:
         """A prefill bucket's program row: the seconds of its first runs
@@ -803,7 +1223,8 @@ class Generator:
         lags one chunk, so cover produced + a pipeline margin. A dry pool
         TRUNCATES the growing slot — it finishes early with the tokens it
         has (counted in ``evictions``) rather than corrupting neighbors."""
-        margin = self.chunk * (len(self._inflight) + 2)
+        per_dispatch = (self.spec_k + 1) if self.spec_k else 1
+        margin = self.chunk * (len(self._inflight) + 2) * per_dispatch
         for i, s in enumerate(self.slots):
             if not s.live:
                 continue
@@ -1157,7 +1578,13 @@ class Generator:
                 self.params, toks, np.array([n_suf], np.int32), self.cfg,
                 self.cache, self._table[slot].copy(), start, self.page_size)
             self.cache["len"][slot] = start + n_suf
-            self._post_prefill(logits, [slot], [True])
+            if self.spec_k:
+                # the history row holds the whole prefix + suffix (the
+                # suffix carries the partial page's tail)
+                self._seed_spec_history(
+                    slot, info["ids_full"][:info["len"]] + suffix, logits)
+            else:
+                self._post_prefill(logits, [slot], [True])
             self.prefill_waves += 1
         except Exception:
             self.slots[slot].live = False
@@ -1171,6 +1598,8 @@ class Generator:
         s.produced = 1  # the pending first token counts as sampled
         s.prompt_len = start + n_suf
         s.callback = callback
+        if self._plain_armed:
+            s.hist = [int(t) for t in info["ids_full"][:info["len"]]] + suffix
         self.slots[slot] = s
         return slot
 
@@ -1288,6 +1717,13 @@ class Generator:
         slot = self.free_slot()
         if slot is None:
             raise RuntimeError("no free generation slot")
+        if (self.spec_k and self.draft_params is not None
+                and n > self.prefill_buckets[-1]):
+            # refused at admission: the final segment could not seed it
+            raise ValueError(
+                f"prompt length {n} exceeds the largest prefill bucket "
+                f"{self.prefill_buckets[-1]} (the draft model must ingest "
+                f"the full history)")
         if self.page_size:
             upto_total = min(n + 2 * self.chunk, n + max_new, self.max_seq)
             need = -(-upto_total // self.page_size)
@@ -1390,7 +1826,14 @@ class Generator:
                 self._pending_first.append(slot)
                 self.tokens_computed += 1
                 self.slots[slot].produced = 1  # the pending first token
-                self._post_prefill(logits, [slot], [True])
+                if self._plain_armed:
+                    self.slots[slot].hist = [int(t) for t in st["ids"]]
+                if self.spec_k:
+                    # the whole prompt, not this segment's tokens
+                    self._seed_spec_history(
+                        slot, [int(t) for t in st["ids"]], logits)
+                else:
+                    self._post_prefill(logits, [slot], [True])
             else:
                 self._chunked_order.append(self._chunked_order.popleft())
             done += 1
@@ -1429,7 +1872,7 @@ class Generator:
                     logits, self.cache = llama.prefill_into_many(
                         self.params, tokens, lens, self.cfg, self.cache,
                         slot_arr, valid)
-                    self._post_prefill(logits, slot_arr, valid)
+                    self._after_prefill(logits, tokens, lens, slot_arr, valid)
                 self.prefill_waves += 1
             except Exception:
                 for j in slots:  # unwind this wave's reservations
@@ -1447,6 +1890,8 @@ class Generator:
                 s.produced = 1  # the pending first token counts as sampled
                 s.prompt_len = n
                 s.callback = callback
+                if self._plain_armed:
+                    s.hist = [int(t) for t in _ids]
                 self.slots[slot] = s
             out.extend(slots)
         return out
@@ -1480,7 +1925,7 @@ class Generator:
         logits, self.cache = llama.paged_prefill_into(
             self.params, tokens, lens, self.cfg, self.cache, row, slot,
             self.page_size)
-        self._post_prefill(logits, [slot], [True])
+        self._after_prefill(logits, tokens, lens, [slot], [True])
 
     def _resolve_first(self, tok_in_row: np.ndarray) -> None:
         """Fold newly-admitted slots' first tokens (row 0 of an arriving
@@ -1492,6 +1937,8 @@ class Generator:
             if not s.live:
                 continue
             s.tokens.append(t)
+            if self._plain_armed:
+                s.hist.append(t)
             if t in self._eos:
                 s.eos_hit = True
             if s.callback is not None:
@@ -1505,7 +1952,8 @@ class Generator:
             s.live = False
 
     # -- decode ---------------------------------------------------------------
-    def _plan_window(self, n_steps: int) -> tuple[np.ndarray, np.ndarray]:
+    def _plan_window(self, n_steps: int, use_spec: bool = False
+                     ) -> tuple[np.ndarray, np.ndarray]:
         """Per-row masks for the next fused window: ``active0`` (decodable
         rows) and ``step_cap`` (tokens each row may still emit on the
         device). The cap folds the remaining ``max_new``, the remaining
@@ -1513,12 +1961,17 @@ class Generator:
         deadline over the observed seconds a step), MINUS the steps of
         windows already in flight: host ``produced`` lags the pipeline, and
         without the subtraction a row could be granted the same budget
-        twice. Under-granting is safe (the next window continues);
+        twice (a speculative window in flight may emit K+1 tokens a verify
+        window). Under-granting is safe (the next window continues);
         ``_apply_burst`` truncates on the host either way."""
         active0 = np.array([s.live and i not in self._chunked
                             for i, s in enumerate(self.slots)], bool)
-        pending = sum(meta[0] for kind, _block, meta, _ in self._inflight
-                      if kind == "window")
+        pending = 0
+        for kind, _block, meta, _ in self._inflight:
+            if kind == "window":
+                pending += meta[0]
+            elif kind == "specwin":
+                pending += meta[0] * (self.spec_k + 1)
         step_cap = np.zeros((self.batch_slots,), np.int32)
         now = time.perf_counter()  # slot.deadline_at's clock (llm.py)
         for i, s in enumerate(self.slots):
@@ -1538,7 +1991,8 @@ class Generator:
             per = (t - t_prev) / max(n_prev, 1)
             self._step_ema = (per if self._step_ema is None
                               else 0.8 * self._step_ema + 0.2 * per)
-        self._last_dispatch = (t, n_steps)
+        unit = (self.spec_k + 1) if use_spec else 1
+        self._last_dispatch = (t, n_steps * unit)
         return active0, step_cap
 
     def step(self) -> None:
@@ -1549,7 +2003,9 @@ class Generator:
         first (several segments when decode is light), then decode
         dispatches the ladder entry that fills the rest. While first tokens
         are pending the dispatch is the 1-step mini-chunk, read back at
-        once (TTFT)."""
+        once (TTFT). Under speculation a ladder entry counts verify
+        windows; with every decodable slot's speculation off (lookup mode,
+        the fallback armed) the dispatch takes the plain ladder."""
         if self.n_live == 0:
             self.drain()
             return
@@ -1557,11 +2013,22 @@ class Generator:
             self.fault("step")
         rec = self.recorder
         sched = self.scheduler
+        # adaptive speculation: the slots that still speculate, snapshotted
+        # here; it travels with the dispatch so its accounting matches what
+        # the device ran
+        spec_mask = None
+        use_spec = False
+        if self.spec_k:
+            spec_mask = np.array(
+                [s.live and i not in self._chunked and not s.spec_disabled
+                 for i, s in enumerate(self.slots)], bool)
+            use_spec = bool(spec_mask.any()) or not self._plain_armed
+        unit = (self.spec_k + 1) if use_spec else 1
         n_steps, n_segments = self.chunk, 1
         if sched is not None:
             t0 = time.perf_counter() if rec is not None else 0.0
             n_steps, n_segments = sched.plan(self._n_decodable(),
-                                             bool(self._chunked))
+                                             bool(self._chunked), unit)
             if rec is not None:
                 rec.note("decide", time.perf_counter() - t0)
         if self._chunked:
@@ -1580,8 +2047,13 @@ class Generator:
                 sched.mini_dispatches += 1
         elif sched is not None:
             sched.note_dispatch(n_steps)
+        if self.spec_k and use_spec and self._spec_rows_stale:
+            # back from plain dispatches: settle the host mirror, then
+            # rewrite the device history rows from it
+            self.drain()
+            self._reseed_spec_rows()
         if self.decode_window:
-            active0, step_cap = self._plan_window(n_steps)
+            active0, step_cap = self._plan_window(n_steps, use_spec)
             if not mini and not bool((active0 & (step_cap > 0)).any()):
                 # no row can emit anything this window: settle the pipeline
                 # instead of dispatching an all-frozen window (the mini
@@ -1597,13 +2069,24 @@ class Generator:
             if rec is not None:
                 rec.note("assemble", time.perf_counter() - t0)
         t_launch = time.perf_counter() if rec is not None else 0.0
-        if self.decode_window:
+        if use_spec:
+            if self.decode_window:
+                block = self._decode_spec(n_steps, spec_mask, active0,
+                                          step_cap)
+                kind, meta = "specwin", (n_steps, active0, spec_mask)
+            else:
+                block = self._decode_spec(n_steps, spec_mask)
+                kind, meta = "spec", (n_steps, spec_mask)
+        elif self.decode_window:
             block = self._decode_window(n_steps, active0, step_cap)
             kind, meta = "window", (n_steps, active0)
         else:
             block = self._decode_chunk(n_steps)
             kind, meta = "chunk", None
         self.steps += n_steps
+        if self.spec_k and not use_spec:
+            # a plain dispatch leaves the history rows behind the mirror
+            self._spec_rows_stale = True
         t_d2h = time.perf_counter() if rec is not None else 0.0
         if rec is not None:
             rec.note("launch", t_d2h - t_launch)
@@ -1611,7 +2094,7 @@ class Generator:
         # replay can overwrite the graph's output. The launch stamp (when,
         # on top of how many dispatches in flight, how many steps) feeds
         # the recorder's device-idle estimate when the block settles.
-        stamp = ((t_d2h, len(self._inflight), n_steps)
+        stamp = ((t_d2h, len(self._inflight), n_steps * unit)
                  if rec is not None else None)
         self._inflight.append((kind, _HostBlock(block), meta, stamp))
         if rec is not None:
@@ -1646,10 +2129,18 @@ class Generator:
                 rec.note_settle(now - t_launch, depth0, steps, now - t0)
         if kind == "chunk":
             self._process(toks)
-        else:
+        elif kind == "window":
             n_win = meta[0]
             self._process_window(toks[:n_win + 1], toks[n_win + 1],
                                  int(toks[n_win + 2, 0]), meta)
+        elif kind == "spec":
+            row0, emits, counts, _ = self._unpack_spec(toks, meta[0])
+            self._process_spec(row0, emits, counts, meta[1])
+        else:  # "specwin"
+            planned, active0, mask = meta
+            row0, emits, counts, realized = self._unpack_spec(toks, planned)
+            self._process_spec(row0, emits, counts, mask, planned=planned,
+                               active0=active0, realized_w=realized)
 
     def _apply_burst(self, i: int, s: _Slot, col: np.ndarray,
                      bursts: dict) -> int:
@@ -1671,6 +2162,8 @@ class Generator:
         s.tokens.extend(burst)
         s.produced += len(burst)
         self.tokens_computed += len(burst)
+        if self._plain_armed:
+            s.hist.extend(burst)
         if s.callback is not None:
             bursts.setdefault(i, []).extend(burst)
         self._maybe_finish(i)
@@ -1686,6 +2179,11 @@ class Generator:
             if not s.live or i in self._chunked:
                 continue  # mid-prefill rows decode garbage; drop it
             self._apply_burst(i, s, body[:, i], bursts)
+            if self.spec_k and s.spec_disabled:
+                # plain dispatches run the cooldown clock too (a step is a
+                # window of cadence), or an all-disabled batch could never
+                # re-probe
+                self._eval_spec_slot(s, False, len(body))
         self._fire_bursts(bursts)
 
     def _process_window(self, block: np.ndarray, n_out: np.ndarray,
@@ -1732,6 +2230,157 @@ class Generator:
             if self.goodput is not None:
                 self.goodput.note("pipeline_overshoot", lagged)
         self._fire_bursts(bursts)
+
+    def _process_spec(self, row0: np.ndarray, emits: np.ndarray,
+                      counts: np.ndarray, mask, planned: int | None = None,
+                      active0=None, realized_w: int | None = None) -> None:
+        """Apply one speculative dispatch: the input row [B] (resolves
+        pending firsts), the emitted tokens [W, B, K+1], the counts [W, B]
+        and the per-slot enable mask it ran with. Each window gives a live
+        slot 1..K+1 tokens (a disabled slot's exactly 1). The device
+        computed K+1 positions for each enabled row's window: those that
+        did not survive verification are charged ``spec_rejected``. With
+        fused windows (``realized_w`` not None) only ``realized_w`` of the
+        ``planned`` windows ran, a frozen row's share of a running window
+        and tokens past a row's end are ``window_overshoot`` (or
+        ``pipeline_overshoot`` for a row that died before the dispatch
+        settled), as in JAX."""
+        self._resolve_first(row0)
+        windowed = realized_w is not None
+        if windowed:
+            self.windows += 1
+            self.window_steps_planned += planned
+            self.window_steps_realized += realized_w
+            if self.recorder is not None:
+                self.recorder.note_window(planned, realized_w)
+        bursts: dict[int, list[int]] = {}
+        n_windows = emits.shape[0]
+        rejected = overshoot = lagged = 0
+        for i, s in enumerate(self.slots):
+            if windowed:
+                if not active0[i] or i in self._chunked:
+                    continue
+            elif not s.live or i in self._chunked:
+                continue  # mid-prefill rows decode garbage; drop it
+            enabled = mask is None or bool(mask[i])
+            was_live = s.live
+            seen = over_row = 0
+            for w in range(n_windows):
+                if windowed:
+                    if w >= realized_w:
+                        break  # the whole batch froze before this window
+                elif not s.live:
+                    break
+                n = int(counts[w, i])
+                if windowed and n == 0:
+                    # frozen while the batch ran: its positions bought
+                    # nothing (a disabled row's one)
+                    over_row += (self.spec_k + 1) if enabled else 1
+                    continue
+                seen += 1
+                self.spec_windows += 1
+                s.spec_windows += 1
+                s.spec_emitted += n
+                if enabled:
+                    s.spec_recent_w += 1
+                    s.spec_recent_e += n
+                    rejected += self.spec_k + 1 - n
+                applied = (self._apply_burst(i, s, emits[w, i, :n], bursts)
+                           if s.live else 0)
+                self.spec_emitted += applied
+                if windowed:
+                    over_row += n - applied
+            if was_live or not self.pipeline:
+                overshoot += over_row
+            else:
+                lagged += over_row
+            if not windowed or was_live:
+                self._eval_spec_slot(s, enabled, seen)
+        # the applied tokens counted themselves in _apply_burst
+        self.tokens_computed += rejected + overshoot + lagged
+        if rejected and self.goodput is not None:
+            self.goodput.note("spec_rejected", rejected)
+        if overshoot:
+            self.window_overshoot += overshoot
+            if self.goodput is not None:
+                self.goodput.note("window_overshoot", overshoot)
+        if lagged:
+            self.pipeline_overshoot += lagged
+            if self.goodput is not None:
+                self.goodput.note("pipeline_overshoot", lagged)
+        self._fire_bursts(bursts)
+
+    def _eval_spec_slot(self, s: _Slot, enabled: bool, windows: int) -> None:
+        """Adaptive speculation, once a processed dispatch: an enabled slot
+        whose accept rate over at least ``_spec_probe_min`` windows falls
+        below ``spec_min_accept`` is disabled; a disabled one counts its
+        cooldown down and re-probes when it expires. Lossless either way."""
+        if not windows:
+            return
+        if not enabled:
+            if not s.spec_disabled:
+                return  # re-enabled since that dispatch was planned
+            s.spec_cooldown_left -= windows
+            if s.spec_cooldown_left <= 0:
+                s.spec_disabled = False
+                s.spec_recent_w = s.spec_recent_e = 0
+                self.spec_reprobes += 1
+            return
+        if s.spec_disabled:
+            # dispatched enabled just before the verdict landed: no second
+            # verdict, no restarted cooldown
+            return
+        if self.spec_min_accept <= 0 or not self.spec_k:
+            return
+        if s.spec_recent_w < self._spec_probe_min:
+            return
+        rate = max(0.0, (s.spec_recent_e - s.spec_recent_w)
+                   / (s.spec_recent_w * self.spec_k))
+        if rate < self.spec_min_accept:
+            s.spec_disabled = True
+            s.spec_cooldown_left = self.spec_cooldown
+            self.spec_disables += 1
+        s.spec_recent_w = s.spec_recent_e = 0
+
+    def _reseed_spec_rows(self) -> None:
+        """Rewrite the history rows from the host mirror (plain dispatches
+        advance the cache but not the rows): one upload for the batch, in
+        place. Rows of dead or mid-prefill slots are zeroed (a chunked
+        slot's row is seeded whole at its final segment). Callers drain
+        first, so the mirror is complete."""
+        rows = np.zeros((self.batch_slots, self._hist_cap), np.int32)
+        for i, s in enumerate(self.slots):
+            if not s.live or i in self._chunked:
+                continue
+            hist = s.hist[-self._hist_cap:]
+            rows[i, :len(hist)] = hist
+        _upload(self._tokens_dev[:, :self._hist_cap], rows)
+        self._spec_rows_stale = False
+
+    def spec_stats(self) -> dict | None:
+        """The ``speculation`` block of ``/debug/serving`` (None when off):
+        K, the draft mode, lifetime windows and emitted tokens, the accept
+        rate, and the adaptive disable / re-probe state."""
+        if not self.spec_k:
+            return None
+        accept = (max(0.0, (self.spec_emitted - self.spec_windows)
+                      / (self.spec_windows * self.spec_k))
+                  if self.spec_windows else None)
+        return {
+            "spec_k": self.spec_k,
+            "mode": "draft" if self.draft_params is not None else "lookup",
+            "min_accept": self.spec_min_accept,
+            "cooldown_windows": self.spec_cooldown,
+            "windows": self.spec_windows,
+            "emitted": self.spec_emitted,
+            "accept_rate": (round(accept, 4) if accept is not None
+                            else None),
+            "disabled_slots": sum(1 for s in self.slots
+                                  if s.live and s.spec_disabled),
+            "disables_total": self.spec_disables,
+            "reprobes_total": self.spec_reprobes,
+            "plain_fallback_armed": self._plain_armed,
+        }
 
     def _fire_bursts(self, bursts: dict[int, list[int]]) -> None:
         """Deliver each slot's burst to its callback: the ``emit`` phase of
@@ -1811,8 +2460,9 @@ class Generator:
         others stay registered; the host KV tier is left untouched, so
         offloaded entries stay restorable. The decode graphs replay fixed
         pointers, so the state they read is reset IN PLACE (the cache's
-        ``len``, the token row, the window masks; the page table through
-        its persistent buffer): nothing is rebound and nothing recaptured.
+        ``len``, the token row, the window masks, the speculative history
+        rows and the draft cache; the page table through its persistent
+        buffer): nothing is rebound and nothing recaptured.
         Last, one 1-step dispatch of the mini graph is read back and the
         card synchronised: recovery proves the decode path runs or raises
         (the watchdog then declares the server dead)."""
@@ -1842,9 +2492,19 @@ class Generator:
         if self.decode_window:
             self._win_active.zero_()
             self._win_cap.zero_()
+        if self.spec_k:
+            self._spec_rows_stale = False  # fresh rows, no live slots
+            self._tokens_dev.zero_()
+            self._spec_on.zero_()
+            if self.draft_params is not None:
+                for arr in self._draft_cache.values():
+                    arr.zero_()
         self.restarts += 1
-        if self.decode_window:
-            dead = np.zeros((self.batch_slots,), np.int32)
+        dead = np.zeros((self.batch_slots,), np.int32)
+        if self.spec_k:
+            block = self._decode_spec(1, dead.astype(bool), dead.astype(bool),
+                                      dead)
+        elif self.decode_window:
             block = self._decode_window(1, dead.astype(bool), dead)
         else:
             block = self._decode_chunk(1)

@@ -16,11 +16,13 @@ single server of the port charges:
 - ``window_overshoot`` — tokens a fused decode window computed past a
   row's EOS or budget before the row froze on the card;
 - ``pipeline_overshoot`` — tokens a double-buffered dispatch computed for
-  a slot that had already finished when its block settled.
+  a slot that had already finished when its block settled;
+- ``spec_rejected`` — verify-window positions whose drafts the verifier
+  rejected (K+1 computed a window, the emitted ones delivered).
 
-``spec_rejected`` (ROADMAP A.10), ``failover_recompute``,
-``migration_cold``, ``canary`` and ``federation_recompute`` (A.14) stay in
-the taxonomy for the modules that charge them.
+``failover_recompute``, ``migration_cold``, ``canary`` and
+``federation_recompute`` (ROADMAP A.14) stay in the taxonomy for the
+modules that charge them.
 
 The ledger balances by construction: each classification point adds to
 exactly one reason, so ``delivered + wasted == computed``. Per model and

@@ -10,7 +10,8 @@ dispatch shape once and replays it with one ``graph.replay()``.
 A graph replays fixed pointers, so everything a captured dispatch reads or
 writes keeps its storage for the graph's life: the cache (``len``
 included: every writer updates it in place), the page table's device
-buffer, the token row and the window masks. The outputs are the graph's
+buffer, the token row, the window masks and, under speculation, the
+history rows, the enable mask and the draft cache. The outputs are the graph's
 own tensors, overwritten by its next replay: a caller copies them off
 (``_HostBlock``) before it replays again.
 
@@ -43,11 +44,14 @@ __all__ = ["DecodeGraphs"]
 def _kernel_wrappers() -> tuple:
     """Every kernel wrapper that counts its launches."""
     from ..ops.decode_attention import (gqa_decode_attention_cuda,
-                                        gqa_decode_attention_int8_cuda)
+                                        gqa_decode_attention_int8_cuda,
+                                        gqa_decode_window_cuda,
+                                        gqa_decode_window_int8_cuda)
     from ..ops.flash_attention import flash_attention_cuda
 
     return (flash_attention_cuda, gqa_decode_attention_cuda,
-            gqa_decode_attention_int8_cuda)
+            gqa_decode_attention_int8_cuda, gqa_decode_window_cuda,
+            gqa_decode_window_int8_cuda)
 
 
 class DecodeGraphs:

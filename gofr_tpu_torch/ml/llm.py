@@ -262,6 +262,8 @@ class LLMServer:
         # publishes the deltas as counters
         self._kv_spills_seen = 0
         self._kv_restores_seen = 0
+        # adaptive speculation's disable counter, published as deltas
+        self._spec_disables_seen = 0
         self._default_deadline = (
             float(os.environ.get("GOFR_ML_DEFAULT_DEADLINE_S", "0"))
             if default_deadline_s is None else float(default_deadline_s))
@@ -1062,6 +1064,13 @@ class LLMServer:
                          float(sched.budget))
             self._metric("set_gauge", "app_llm_prefill_share",
                          float(sched.prefill_share))
+        disables = gen.spec_disables
+        if disables > self._spec_disables_seen:
+            # adaptive speculation turned a slot off: the alarm to the
+            # app_llm_spec_accept histogram
+            self._metric("add_counter", "app_llm_spec_disabled_total",
+                         disables - self._spec_disables_seen)
+            self._spec_disables_seen = disables
 
     def _export_offload_metrics(self) -> None:
         """The host tier's bytes held, and its spill / restore counts as
@@ -1097,6 +1106,13 @@ class LLMServer:
                 continue
             reason = ("eviction" if s.evicted
                       else "stop" if s.eos_hit else "length")
+            spec = self.gen.spec_k and s.spec_windows
+            if spec:
+                # the stream's draft acceptance in [0, 1]: accepted drafts
+                # over proposed ones
+                self._metric("record_histogram", "app_llm_spec_accept",
+                             (s.spec_emitted - s.spec_windows)
+                             / (s.spec_windows * self.gen.spec_k))
             if produced > 1 and req.first_token_at is not None:
                 # the stream's cadence after its first token: the SLO pair
                 # of TTFT
@@ -1108,6 +1124,9 @@ class LLMServer:
                                                 "ml.finish_reason": reason})
             if req.journey is not None:
                 req.journey.note(tokens=produced)
+                if spec:
+                    req.journey.note(spec_windows=s.spec_windows,
+                                     spec_emitted=s.spec_emitted)
                 self._finish_journey(req, reason)
             req.finish_spans()
             # a natural finish delivered every token; a consumer that went
@@ -1138,6 +1157,9 @@ class LLMServer:
         if n and (ids.min() < 0 or ids.max() >= vocab):
             raise ValueError(f"token ids must lie in [0, {vocab})")
         buckets = gen.prefill_buckets
+        # a draft model must ingest every request's full history in one
+        # prefill bucket
+        draft = gen.spec_k and gen.draft_params is not None
         if prefix is not None:
             info = getattr(gen, "_prefixes", {}).get(prefix)
             if info is None:
@@ -1151,18 +1173,29 @@ class LLMServer:
                 raise ValueError(
                     f"suffix length {n_suf} exceeds the largest prefill "
                     f"bucket {buckets[-1]}")
+            if draft and info["len"] + n_suf > buckets[-1]:
+                raise ValueError(
+                    f"prefix+suffix length {info['len'] + n_suf} exceeds "
+                    f"the largest prefill bucket {buckets[-1]} (the draft "
+                    f"model must ingest the full history)")
             return
         if n == 0 or n >= gen.max_seq:
             raise ValueError(
                 f"prompt length {n} out of range (1..{gen.max_seq - 1})")
         chunked = getattr(gen, "prefill_chunk", 0) and n > gen.prefill_chunk
         if not chunked and n > buckets[-1]:
-            # a cached prefix can still admit it: only the suffix prefills
-            if (self.prefix_cache is None
+            # a cached prefix can still admit it (only the suffix
+            # prefills), unless a draft model must ingest it whole
+            if (draft or self.prefix_cache is None
                     or self.prefix_cache.peek(ids)[0] is None):
                 raise ValueError(
                     f"prompt length {n} exceeds the largest prefill bucket "
                     f"{buckets[-1]}")
+        if chunked and draft and n > buckets[-1]:
+            raise ValueError(
+                f"prompt length {n} exceeds the largest prefill bucket "
+                f"{buckets[-1]} (the draft model must ingest the full "
+                f"history)")
         if getattr(gen, "page_size", 0):
             upto = min(n + 2 * gen.chunk, n + max_new_tokens, gen.max_seq)
             need = -(-upto // gen.page_size)
@@ -1329,9 +1362,9 @@ class LLMServer:
         """The serving state a status page shows: the generator's pool
         counters (the host tier's spills, restores and fallbacks among
         them), the host tier's occupancy, the scheduler's plan, the fused
-        window and pipeline counters (None when off), the decode graphs
-        (None on the CPU) and the prefix cache. Reads counters the serving
-        thread writes; safe from any thread."""
+        window, pipeline and speculation counters (None when off), the
+        decode graphs (None on the CPU) and the prefix cache. Reads
+        counters the serving thread writes; safe from any thread."""
         gen = self.gen
         host = getattr(gen, "host_kv", None)
         sched = gen.scheduler
@@ -1345,6 +1378,7 @@ class LLMServer:
             "scheduler": None if sched is None else sched.snapshot(),
             "window": gen.window_stats(),
             "pipeline": gen.pipeline_stats(),
+            "speculation": gen.spec_stats(),
             "graphs": gen.graph_stats(),
             "prefix_cache": (None if self.prefix_cache is None
                              else self.prefix_cache.snapshot()),

@@ -10,9 +10,9 @@
 - ``TokenBudgetScheduler``: the per-dispatch planner a ``Generator``
   consults to pick a decode-ladder entry (a chunk size, or with fused
   decode windows a window size) and the prefill segments to run before
-  it, paying down the debt host-tier restores charge to it. The
+  it, paying down the debt host-tier restores charge to it and charging
+  a speculative verify window K+1 positions a row (``unit_tokens``). The
   sequence-parallel debt waits for sequence parallelism (ROADMAP A.11);
-  the speculative unit cost for speculation (A.10);
 - ``SLOController``: steers the scheduler's prefill share from observed
   TTFT / TPOT against ``GOFR_ML_TTFT_TARGET_MS`` /
   ``GOFR_ML_TPOT_TARGET_MS``.
@@ -81,8 +81,10 @@ class TokenBudgetScheduler:
     segmented prefill.
 
     - without prefill pending, ``plan`` picks the largest ladder entry
-      whose decode tokens (``size * n_decodable``) fit the budget, never
-      below the ladder's first entry;
+      whose decode tokens (``size * n_decodable * unit_tokens``) fit the
+      budget, never below the ladder's first entry; ``unit_tokens`` is one
+      ladder step's cost a row: 1 for plain decode, K+1 for a speculative
+      verify window (``last_unit`` keeps the last plan's);
     - with prefill pending, ``prefill_share`` of the budget is reserved
       for prefill first (with a decode floor of half the largest chunk a
       live row), and the decode chunk shrinks down the ladder instead of
@@ -122,6 +124,7 @@ class TokenBudgetScheduler:
         self.mini_dispatches = 0
         self.last_chunk = self.ladder[-1]
         self.last_segments = 0
+        self.last_unit = 1
         self.restore_debt = 0
         self.restores_charged = 0
         self.window_mode = False
@@ -139,8 +142,10 @@ class TokenBudgetScheduler:
                                  max(self.min_share, float(share)))
         return self.prefill_share
 
-    def plan(self, n_decodable: int, prefill_pending: bool = False
-             ) -> tuple[int, int]:
+    def plan(self, n_decodable: int, prefill_pending: bool = False,
+             unit_tokens: int = 1) -> tuple[int, int]:
+        unit = max(1, int(unit_tokens))
+        self.last_unit = unit
         budget = self.budget
         if self.restore_debt:
             # at most half a budget a dispatch: decode keeps the ladder
@@ -150,7 +155,7 @@ class TokenBudgetScheduler:
             budget -= paid
         pending = prefill_pending and self.prefill_chunk > 0
         if pending:
-            floor = (self.ladder[-1] // 2) * max(1, n_decodable)
+            floor = (self.ladder[-1] // 2) * max(1, n_decodable) * unit
             decode_budget = max(budget - int(budget * self.prefill_share),
                                 min(floor, budget))
         else:
@@ -158,7 +163,7 @@ class TokenBudgetScheduler:
         rows = max(1, n_decodable)
         size = self.ladder[0]
         for c in self.ladder:
-            if c * rows <= decode_budget:
+            if c * rows * unit <= decode_budget:
                 size = c
         if not pending:
             self.last_segments = 0
@@ -166,7 +171,7 @@ class TokenBudgetScheduler:
         light = (self.slots is None
                  or n_decodable <= max(1, self.slots // 4)
                  or self.prefill_share > 0.6)
-        spare = budget - size * n_decodable
+        spare = budget - size * n_decodable * unit
         segments = max(1, spare // self.prefill_chunk if light else 1)
         self.last_segments = segments
         return size, segments
@@ -186,6 +191,7 @@ class TokenBudgetScheduler:
             "dispatches": {str(k): v for k, v in sorted(dispatches.items())},
             "mini_dispatches": self.mini_dispatches,
             "last_segments": self.last_segments,
+            "last_unit": self.last_unit,
             "restore_debt": self.restore_debt,
             "restores_charged": self.restores_charged,
         }

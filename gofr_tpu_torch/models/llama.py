@@ -46,9 +46,14 @@ the result is unchanged.
 
 The dense serving path is ported at bf16/f32 with the int8 cache and int8
 weights, chunked prefill (``prefill_segment_into``) and the paged cache at
-bf16/f32, int8 and int4. Sequence-parallel attention and checkpoint
-restore raise ``NotImplementedError`` naming the ROADMAP item that brings
-them.
+bf16/f32, int8 and int4. Speculative decoding's verify pass is
+``decode_window`` / ``paged_decode_window``: W tokens a row written at
+``len .. len+W-1`` (``len`` is not advanced) and attended through the
+decode kernels' window launch, position t over the first ``len + 1 + t``
+positions; ``draft_from_env`` builds its draft model.
+Sequence-parallel attention and checkpoint restore (``LLAMA_CKPT``,
+``LLM_DRAFT_CKPT``) raise ``NotImplementedError`` naming the ROADMAP item
+that brings them.
 """
 
 from __future__ import annotations
@@ -67,8 +72,9 @@ __all__ = ["LlamaConfig", "llama3_8b", "tiny_llama", "kv_bits_from_env",
            "params_from_config", "params_from_jax", "forward",
            "kv_plane_names", "kv_store_width", "kv_encode", "kv_decode",
            "init_cache", "prefill", "prefill_into", "prefill_into_many",
-           "prefill_segment_into", "decode_step", "init_paged_cache",
-           "paged_prefill_into", "paged_suffix_prefill", "paged_decode_step"]
+           "prefill_segment_into", "decode_step", "decode_window",
+           "init_paged_cache", "paged_prefill_into", "paged_suffix_prefill",
+           "paged_decode_step", "paged_decode_window", "draft_from_env"]
 
 _LAYER_KEYS = ("attn_norm", "mlp_norm", "wq", "wk", "wv", "wo", "w_gate",
                "w_up", "w_down")
@@ -198,6 +204,56 @@ def config_from_env(tiny_vocab_size: int | None = None) -> LlamaConfig:
     if preset == "8b":
         return llama3_8b(**kw)
     raise ValueError(f"unknown LLAMA_PRESET {preset!r}")
+
+
+def draft_from_env(target_cfg: LlamaConfig, target_params=None,
+                   device=None) -> tuple:
+    """(draft_params, draft_cfg) for speculative decoding from the
+    environment, or (None, None) when no draft is configured, as in the
+    JAX package. ``LLM_DRAFT_PRESET=self`` reuses the target's weights
+    under a clone of its config with the quantized and paged knobs off
+    (the draft keeps its own fp dense cache): the acceptance upper bound of
+    the draft-model path. ``tiny`` and ``1b`` build random drafts of that
+    shape (``params_from_config``, seed 1) on the target's device (or
+    ``device``): lossless, accepting next to nothing. ``LLM_DRAFT_CKPT``
+    raises: loading a checkpoint is not ported yet."""
+    from .. import resolve_device
+
+    ckpt = os.environ.get("LLM_DRAFT_CKPT")
+    preset = os.environ.get("LLM_DRAFT_PRESET")
+    if not ckpt and not preset:
+        return None, None
+    if ckpt:
+        raise NotImplementedError(
+            "a draft checkpoint (LLM_DRAFT_CKPT) needs the checkpoint "
+            "import, which is not ported yet (ROADMAP A.12)")
+    if preset == "self":
+        if target_params is None:
+            raise ValueError("LLM_DRAFT_PRESET=self needs target params")
+        dcfg = LlamaConfig(
+            vocab_size=target_cfg.vocab_size, dim=target_cfg.dim,
+            n_layers=target_cfg.n_layers, n_heads=target_cfg.n_heads,
+            n_kv_heads=target_cfg.n_kv_heads, ffn_dim=target_cfg.ffn_dim,
+            max_seq_len=target_cfg.max_seq_len,
+            rope_theta=target_cfg.rope_theta, norm_eps=target_cfg.norm_eps,
+            dtype=target_cfg.dtype, w8=target_cfg.w8,
+            rope_scaling=target_cfg.rope_scaling)
+        return target_params, dcfg
+    if preset == "1b":
+        dcfg = LlamaConfig(
+            vocab_size=target_cfg.vocab_size, dim=2048, n_layers=16,
+            n_heads=16, n_kv_heads=8, ffn_dim=8192,
+            max_seq_len=target_cfg.max_seq_len)
+    else:
+        dcfg = tiny_llama(vocab_size=target_cfg.vocab_size)
+    if dcfg.vocab_size != target_cfg.vocab_size:
+        raise ValueError(
+            f"draft vocab {dcfg.vocab_size} != target "
+            f"{target_cfg.vocab_size}: speculation needs a shared vocab")
+    if device is None and target_params is not None:
+        device = target_params["embed"].device
+    return params_from_config(dcfg, seed=1,
+                              device=resolve_device(device)), dcfg
 
 
 # -- parameters -----------------------------------------------------------------
@@ -739,6 +795,65 @@ def decode_step(params: dict, tokens, cache: dict, cfg: LlamaConfig
     return logits, cache
 
 
+def _window_positions(cache: dict, w: int):
+    """(pos0 [B], positions [B, W]) of a verify window at each row's
+    ``len``."""
+    pos0 = cache["len"]
+    positions = pos0[:, None] + torch.arange(w, device=pos0.device)[None, :]
+    return pos0, positions
+
+
+def _window_logits(params, cfg: LlamaConfig, x) -> torch.Tensor:
+    """f32 logits [B, W, V] of every window position."""
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _mm(x, params["lm_head"]).float()
+
+
+@torch.no_grad()
+def decode_window(params: dict, tokens, cache: dict, cfg: LlamaConfig
+                  ) -> tuple[torch.Tensor, dict]:
+    """Speculative verify window (JAX's ``decode_window``): W tokens a row
+    [B, W] at positions ``len .. len+W-1`` -> (f32 logits [B, W, V],
+    cache). Each row's W K/V rows are written in place at their positions
+    (a position past capacity writes nothing: JAX drops it) and query t
+    attends the row's first ``len + 1 + t`` positions: its prefix plus the
+    window so far, through the decode kernels' window launch. ``len`` is
+    NOT advanced: the caller advances it by 1 + the accepted drafts, and a
+    rejected position's row is written again before any query reaches it.
+    With the int8 cache the window rows are quantized on write and
+    attention reads int8. int4 is a paged precision and raises, as in
+    JAX."""
+    if cfg.kv_bits == 4:
+        raise ValueError("int4 KV is a paged-cache precision — use "
+                         "page_size > 0 (paged_decode_window)")
+    dev = params["embed"].device
+    tokens = torch.as_tensor(tokens).to(dev)
+    b, w = tokens.shape
+    S_max = cache["k"].shape[2]
+    pos0, positions = _window_positions(cache, w)
+    fits = positions < S_max
+    pos_w = positions.clamp(max=S_max - 1).long()
+    rows = torch.arange(b, device=dev)
+    scales = ({"k_scale": cache["k_scale"], "v_scale": cache["v_scale"]}
+              if cfg.kv_quant else {})
+    x = _embed(params, tokens, cfg)
+    cos, sin = rope_table(positions, cfg.head_dim, cfg.rope_theta,
+                          scaling=cfg.rope_scaling)
+    kv_len = pos0 + 1
+    for layer in range(cfg.n_layers):
+        lp = _layer_params(params, layer)
+        q, k, v = _qkv(cfg, x, lp, cos, sin)
+        # one position at a time: a position past capacity rewrites what
+        # an earlier one wrote at the clamped index, in order
+        for t in range(w):
+            _write_token_kv(cfg, cache, layer, k[:, t], v[:, t], rows,
+                            pos_w[:, t], fits[:, t])
+        o = cached_decode_attention(q.contiguous(), cache["k"], cache["v"],
+                                    kv_len, layer=layer, **scales)
+        x = _block_out(cfg, x, o, lp)
+    return _window_logits(params, cfg, x), cache
+
+
 # -- the paged cache ------------------------------------------------------------
 
 def init_paged_cache(cfg: LlamaConfig, batch: int, n_pages: int, page_s: int,
@@ -900,10 +1015,11 @@ def paged_suffix_prefill(params: dict, tokens, seq_lens, cfg: LlamaConfig,
 
 def _paged_attention(cfg: LlamaConfig, q, cache: dict, layer: int, virt,
                      kv_len):
-    """Decode attention of q [B, 1, H, D] over each row's gathered pages
-    (``virt`` [B * n]): an int8 pool goes to the int8 decode kernel with the
-    values flat [B, S, KV*D] and the scales transposed to [B, KV, S]; a
-    bf16 pool, and an int4 pool dequantized, to the bf16 one."""
+    """Decode attention of q [B, 1, H, D] (or a verify window [B, W, H,
+    D]) over each row's gathered pages (``virt`` [B * n]): an int8 pool
+    goes to the int8 decode kernel with the values flat [B, S, KV*D] and
+    the scales transposed to [B, KV, S]; a bf16 pool, and an int4 pool
+    dequantized, to the bf16 one."""
     b = q.shape[0]
     pages = _gather_pages(cfg, cache, layer, virt, b)
     if cfg.kv_bits == 8:
@@ -961,3 +1077,48 @@ def paged_decode_step(params: dict, tokens, cache: dict, table,
     logits = _mm(x[:, 0], params["lm_head"]).float()
     cache["len"].copy_(torch.clamp(kv_len, max=s_virt))
     return logits, cache
+
+
+@torch.no_grad()
+def paged_decode_window(params: dict, tokens, cache: dict, table,
+                        cfg: LlamaConfig, n_cols: int | None = None
+                        ) -> tuple[torch.Tensor, dict]:
+    """``decode_window`` against the page pool (JAX's
+    ``paged_decode_window``): tokens [B, W] at each row's virtual
+    positions ``len .. len+W-1``; K/V rows go through the row's page table
+    (a cell past virtual capacity into scratch page 0), quantized on write
+    for int8 and int4 pages; attention gathers the first ``n_cols`` table
+    columns (all by default) and attends position t over the first
+    ``len + 1 + t``, through the decode kernels' window launch (int4 pages
+    dequantized to bf16 first, as the decode step does). ``len`` is NOT
+    advanced. ``table`` as ``paged_decode_step`` takes it. Returns (f32
+    logits [B, W, V], cache)."""
+    dev = params["embed"].device
+    tokens = torch.as_tensor(tokens).to(dev)
+    if not torch.is_tensor(table):
+        if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("paged_decode_window under CUDA graph capture "
+                               "needs the page table as a device tensor")
+        table = _int32(table, dev)
+    b, w = tokens.shape
+    page_s = cache["k"].shape[2]
+    p_max = table.shape[1]
+    n = p_max if n_cols is None else max(1, min(int(n_cols), p_max))
+    pos0, positions = _window_positions(cache, w)
+    col = torch.clamp(positions // page_s, max=p_max - 1).long()
+    page = torch.where(positions < p_max * page_s, table.gather(1, col),
+                       0).long().reshape(-1)
+    off = (positions % page_s).long().reshape(-1)
+    virt = table[:, :n].reshape(-1)
+    kv_len = pos0 + 1
+    x = _embed(params, tokens, cfg)
+    cos, sin = rope_table(positions, cfg.head_dim, cfg.rope_theta,
+                          scaling=cfg.rope_scaling)
+    for layer in range(cfg.n_layers):
+        lp = _layer_params(params, layer)
+        q, k, v = _qkv(cfg, x, lp, cos, sin)
+        _write_paged(cfg, cache, layer, k.reshape(b * w, *k.shape[2:]),
+                     v.reshape(b * w, *v.shape[2:]), page, off)
+        o = _paged_attention(cfg, q.contiguous(), cache, layer, virt, kv_len)
+        x = _block_out(cfg, x, o, lp)
+    return _window_logits(params, cfg, x), cache

@@ -6,7 +6,8 @@ Two tiers, as in the JAX package:
   run on any device; the CPU tests hold them against the JAX functions;
 - hand-written CUDA kernels (``flash_attention.py``, ``decode_attention.py``
   with sources in ``csrc/``) behind the two dispatchers at the bottom; the
-  decode dispatcher takes an fp cache or an int8 cache with its scales.
+  decode dispatcher takes an fp cache or an int8 cache with its scales,
+  and one token a row or a speculative verify window.
 
 The dispatchers take no gate on shapes: a CUDA tensor always goes through
 its kernel (which masks its own ragged edges), a CPU tensor always goes to
@@ -231,7 +232,11 @@ def quantize_weight(w: torch.Tensor, eps: float = 1e-8
 from .decode_attention import (gqa_decode_attention_cuda,  # noqa: E402
                                gqa_decode_attention_int8_cuda,
                                gqa_decode_attention_int8_plain,
-                               gqa_decode_attention_plain)
+                               gqa_decode_attention_plain,
+                               gqa_decode_window_cuda,
+                               gqa_decode_window_int8_cuda,
+                               gqa_decode_window_int8_plain,
+                               gqa_decode_window_plain)
 from .flash_attention import (flash_attention_cuda,  # noqa: E402
                               flash_attention_plain)
 
@@ -250,20 +255,31 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
 
 def cached_decode_attention(q, k_cache, v_cache, kv_len, *, layer: int = 0,
                             k_scale=None, v_scale=None):
-    """One-token decode attention over the STACKED cache at ``layer``: the
-    CUDA kernel for a CUDA tensor (it reads the layer's slab in place and
-    only the first ``kv_len`` positions), the plain grouped version for a
-    CPU tensor.
+    """Decode attention over the STACKED cache at ``layer``: the CUDA
+    kernel for a CUDA tensor (it reads the layer's slab in place and only
+    the live positions), the plain version for a CPU tensor.
 
-    An fp cache is [L, B, S_max, KV, D]. With ``k_scale``/``v_scale`` the
-    cache is int8, stored FLAT [L, B, S_max, KV*D] with bf16 scales
-    seq-minor [L, B, KV, S_max] (the JAX package's layouts), and goes to
-    the int8 kernel or its plain version."""
+    q is one token a row [B, 1, H, D] (a decode step: attends the first
+    ``kv_len`` positions), or a speculative verify window [B, W, H, D] with
+    W > 1 (position t attends the first ``kv_len + t``, JAX's
+    ``attention(..., causal=True, q_offset=kv_len - 1)``). An fp cache is
+    [L, B, S_max, KV, D]. With ``k_scale``/``v_scale`` the cache is int8,
+    stored FLAT [L, B, S_max, KV*D] with bf16 scales seq-minor
+    [L, B, KV, S_max] (the JAX package's layouts), and goes to the int8
+    kernel or its plain version."""
     cpu = q.device.type == "cpu"
+    window = q.shape[1] > 1
     if k_scale is None:
-        fn = gqa_decode_attention_plain if cpu else gqa_decode_attention_cuda
+        if window:
+            fn = gqa_decode_window_plain if cpu else gqa_decode_window_cuda
+        else:
+            fn = gqa_decode_attention_plain if cpu else gqa_decode_attention_cuda
         return fn(q, k_cache, v_cache, kv_len, layer=layer)
-    fn = (gqa_decode_attention_int8_plain if cpu
-          else gqa_decode_attention_int8_cuda)
+    if window:
+        fn = (gqa_decode_window_int8_plain if cpu
+              else gqa_decode_window_int8_cuda)
+    else:
+        fn = (gqa_decode_attention_int8_plain if cpu
+              else gqa_decode_attention_int8_cuda)
     return fn(q, k_cache, v_cache, kv_len, layer=layer, k_scale=k_scale,
               v_scale=v_scale)

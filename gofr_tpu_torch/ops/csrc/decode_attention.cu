@@ -17,6 +17,18 @@
 // of 0 or less attends nothing valid: like the JAX code's finite -1e30 mask,
 // every position is then masked and the row is uniform over S_max.
 //
+// The verify window of speculative decoding goes through the same kernel:
+// q [B, W, H, D], and window position t of row b attends the first
+// kv_len[b] + t positions, which is what gofr_tpu/models/llama.py's
+// decode_window (:1504-1506) and paged_decode_window (:1404-1406) compute
+// in plain XLA with attention(..., causal=True, q_offset=kv_len - 1). The
+// JAX package has no kernel for it. The window's query rows (W * n_rep of
+// a KV head) take the place of a decode token's n_rep rows in the same
+// tiles, so a row's live prefix is still read once for all of them: a
+// window fills the whole m16 tile (up to 16 rows) or two (up to 32), where
+// a decode token keeps its rows 0..7 (W = 1 is the decode kernel as it
+// was). The wrapper splits a wider window into launches of up to 32 rows.
+//
 // What bounds both kernels on the H100: bytes. Each live position is read
 // once (K and V: KV*D*2 bytes each in bf16, KV*(D+2) in int8 with its
 // scale) for ~4*n_rep*D FLOPs, far under the tensor-core ridge, so the floor
@@ -90,6 +102,7 @@ constexpr int WP = TILE / WARPS;        // positions of a tile per warp
 constexpr int STAGES = 3;               // tiles in the ring
 constexpr int MAX_SPAN = 8192;          // positions per CTA, at most
 constexpr int MAX_SPLITS = 8;           // CTAs per row and head: one cluster
+constexpr int MAX_ROWS = 32;            // query rows a launch: two m16 tiles
 constexpr float NEG = -1e30f;
 
 __device__ __forceinline__ float ex2(float x) {
@@ -193,26 +206,29 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
 // The merge of a row and KV head's splits, run by every CTA of its cluster
 // (the splits, ranks 0 .. n_splits-1, of which 0 .. n_live-1 are live):
 // after the cluster barrier each rank reads the live ranks' (max, sum) and
-// accumulators [NREP][D] from their shared memory (c_ml, c_acc, at the same
-// offsets in every CTA) and writes its slice of the n_rep x D outputs. The
-// second barrier keeps every rank's memory alive until all have read it.
-template <int D, int NREP>
+// accumulators [ROWS][D] from their shared memory (c_ml, c_acc, at the
+// same offsets in every CTA) and writes its slice of the R x D outputs
+// (a decode token's rows at ob + r * D; a window's query row r at ob +
+// (r / NREP) * t_stride + (r % NREP) * D). The second barrier keeps every
+// rank's memory alive until all have read it.
+template <int D, int NREP, int ROWS, bool WIN>
 __device__ __forceinline__ void cluster_merge(const float* c_acc,
                                              const float* c_ml, int n_live,
-                                             bf16* __restrict__ o) {
+                                             int R, bf16* __restrict__ ob,
+                                             int64_t t_stride) {
   namespace cg = cooperative_groups;
-  __shared__ float s_ml[MAX_SPLITS][NREP][2];
-  __shared__ float s_w[MAX_SPLITS][NREP];
+  __shared__ float s_ml[MAX_SPLITS][ROWS][2];
+  __shared__ float s_w[MAX_SPLITS][ROWS];
   cg::cluster_group cluster = cg::this_cluster();
   const int tid = threadIdx.x;
   cluster.sync();
-  for (int i = tid; i < n_live * NREP * 2; i += THREADS) {
-    const int s = i / (NREP * 2);
-    s_ml[s][(i / 2) % NREP][i % 2] =
-        cluster.map_shared_rank(c_ml, s)[i % (NREP * 2)];
+  for (int i = tid; i < n_live * R * 2; i += THREADS) {
+    const int s = i / (R * 2);
+    s_ml[s][(i / 2) % R][i % 2] =
+        cluster.map_shared_rank(c_ml, s)[i % (R * 2)];
   }
   __syncthreads();
-  if (tid < NREP) {
+  if (tid < R) {
     float M = -INFINITY, den = 0.f;
     for (int s = 0; s < n_live; ++s) M = fmaxf(M, s_ml[s][tid][0]);
     for (int s = 0; s < n_live; ++s) {
@@ -223,9 +239,9 @@ __device__ __forceinline__ void cluster_merge(const float* c_acc,
   }
   __syncthreads();
   const int ranks = cluster.num_blocks();
-  const int per = (NREP * D + ranks - 1) / ranks;
+  const int per = (R * D + ranks - 1) / ranks;
   const int lo = (int)cluster.block_rank() * per;
-  const int hi = min(lo + per, NREP * D);
+  const int hi = min(lo + per, R * D);
   for (int i = lo + tid; i < hi; i += THREADS) {
     float v[MAX_SPLITS];
 #pragma unroll
@@ -235,45 +251,105 @@ __device__ __forceinline__ void cluster_merge(const float* c_acc,
 #pragma unroll
     for (int s = 0; s < MAX_SPLITS; ++s)
       if (s < n_live) out = fmaf(s_w[s][i / D], v[s], out);
-    o[i] = __float2bfloat16(out);
+    if constexpr (WIN) {
+      const int r = i / D;
+      ob[(r / NREP) * t_stride + (r % NREP) * D + i % D] =
+          __float2bfloat16(out);
+    } else {
+      ob[i] = __float2bfloat16(out);
+    }
   }
   cluster.sync();
 }
 
+// D[16x8] += A[16x16] B[16x8], all four rows' accumulators kept: the
+// verify window's query rows fill both halves of the m16 tile
+template <bool F16>
+__device__ __forceinline__ void mma16(float& d0, float& d1, float& d2,
+                                      float& d3, uint32_t a0, uint32_t a1,
+                                      uint32_t a2, uint32_t a3, uint32_t b0,
+                                      uint32_t b1) {
+  if constexpr (F16)
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d0), "+f"(d1), "+f"(d2), "+f"(d3)
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+  else
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d0), "+f"(d1), "+f"(d2), "+f"(d3)
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// two consecutive k slots of a query row's A fragment (null row: zero).
+// bf16: dims kk*16 + 2t (+8 for the high half), as they are; int8: f16 of
+// q / 16 at dims t*D/4 + 4kk (+2), the order in which one 32-bit word of
+// codes feeds a B fragment
+template <int D, bool INT8>
+__device__ __forceinline__ uint32_t q_word(const bf16* qr, int kk, int t4,
+                                           int hi) {
+  if (qr == nullptr) return 0u;
+  if constexpr (INT8) {
+    const bf16* p = qr + t4 * (D / 4) + 4 * kk + 2 * hi;
+    return pack2<true>(__bfloat162float(p[0]) * 0.0625f,
+                       __bfloat162float(p[1]) * 0.0625f);
+  } else {
+    return *reinterpret_cast<const uint32_t*>(qr + kk * 16 + 2 * t4 + 8 * hi);
+  }
+}
+
 // Fragment layout of mma.m16n8k16 (g = lane / 4, t = lane % 4): the f32
-// accumulator holds row g at columns 2t, 2t+1 (and row g + 8, unused here);
-// A holds row g at k = 2t, 2t+1 (a0) and 2t+8, 2t+9 (a2); B holds column g
-// at the same k. Query row r of a KV head is A's row g = r (rows >= n_rep
-// and 8..15 are zero). A warp owns 16 positions of each tile: S = q K^T is
-// two 8-position tiles, and their accumulators ARE the A operand of P V.
+// accumulator holds row g at columns 2t, 2t+1 and row g + 8 at the same
+// columns; A holds row g (and g + 8) at k = 2t, 2t+1 (a0, a1) and 2t+8,
+// 2t+9 (a2, a3); B holds column g at the same k. A warp owns 16 positions
+// of each tile: S = q K^T is two 8-position tiles, and their accumulators
+// ARE the A operand of P V.
+//
+// Query rows. One launch takes the wn window positions w0 .. w0+wn-1 of
+// q [B, W, H, D] (H = KV*NREP): query row r of a KV head is position
+// t = w0 + r / NREP, head r % NREP, R = wn*NREP rows in all, and row r
+// attends the first kv_len[b] + t positions (causal from kv_len[b] - 1,
+// capped at S). MROWS is the row capacity: 8 is the decode token (W = 1,
+// the decode kernel as it was: its n_rep rows in rows 0..7 of A, rows
+// 8..15 zero, mma_rows8, one key count for every row); 16 fills the m16
+// tile and 32 takes two, for a window (each row its own key count). A
+// lane holds the rows g + 8h, h < MROWS / 8.
 //
 // grid (KV, B, n_splits) in clusters of (1, 1, n_splits), THREADS threads.
-// q [B, KV*NREP, D]; kc/vc the stacked caches (see the note at the top);
-// ks/vs the int8 scales (null for bf16); o [B, KV*NREP, D].
-// qscale = D^-1/2 * log2(e).
-template <int D, int NREP, bool INT8>
+// kc/vc the stacked caches (see the note at the top); ks/vs the int8
+// scales (null for bf16); o like q. qscale = D^-1/2 * log2(e).
+template <int D, int NREP, bool INT8, int MROWS>
 __global__ void __launch_bounds__(THREADS)
 decode_kernel(const bf16* __restrict__ q, const void* __restrict__ kc,
               const void* __restrict__ vc, const bf16* __restrict__ ks,
               const bf16* __restrict__ vs, const int* __restrict__ kv_len,
               bf16* __restrict__ o, int B, int S, int KV, int layer, int span,
-              float qscale) {
+              int W, int w0, int wn, float qscale) {
   using T = typename Cache<INT8>::T;
   constexpr int ROW = Cache<INT8>::template row_bytes<D>;  // ring row bytes
   constexpr int TILE_BYTES = TILE * ROW;
   constexpr int CPR = D * (int)sizeof(T) / 16;  // 16-byte copies per row
   constexpr int KT = D / 16;                    // k-steps over the head dim
   constexpr int DT = D / 8;                     // P V output tiles of 8 dims
-  static_assert(WP == 16 && NREP <= 8, "a warp: 16 positions, 8 query rows");
-  static_assert((WARPS + 1) * NREP * D * 4 + NREP * 8 <=
-                    STAGES * 2 * TILE_BYTES,
-                "the warps' and the CTA's merge state reuse the ring");
+  constexpr int HR = MROWS / 8;                 // query rows a lane holds
+  constexpr int MT = (HR + 1) / 2;              // m16 tiles
+  constexpr bool WIN = MROWS > 8;               // a verify window
+  constexpr int ROWS = WIN ? MROWS : NREP;      // merge state rows
+  static_assert(WP == 16 && NREP <= MROWS && (MROWS == 8 || MROWS == 16 ||
+                                               MROWS == 32),
+                "a warp: 16 positions; 8, 16 or 32 query rows");
 
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* ring = smem;  // [STAGES][K, V][TILE_BYTES]
   // int8: the scales of this CTA's positions, [K, V][span]
   float* s_scale = reinterpret_cast<float*>(smem + STAGES * 2 * TILE_BYTES);
-  __shared__ float s_m[WARPS][NREP], s_l[WARPS][NREP];
+  // 32 rows: the A fragments of q, [MT][KT][lane] (16 rows keep them in
+  // registers)
+  uint4* s_qa = reinterpret_cast<uint4*>(
+      smem + STAGES * 2 * TILE_BYTES + (INT8 ? 2 * span * 4 : 0));
+  __shared__ float s_m[WARPS][ROWS], s_l[WARPS][ROWS];
 
   // the splits of a row-head are one cluster along z; split k takes the
   // tiles k, k + n_splits, k + 2 n_splits, ... of the live prefix, so the
@@ -282,18 +358,27 @@ decode_kernel(const bf16* __restrict__ q, const void* __restrict__ kc,
   const int n_splits = gridDim.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t4 = lane % 4;
+  const int R = WIN ? wn * NREP : NREP;
   const int raw = kv_len[b];
-  const bool live = raw > 0;
-  const int n_keys = live ? min(raw, S) : S;
+  // the launch's first row sees raw + w0 keys, its last raw + w0 + wn - 1;
+  // a row that sees none (raw + t <= 0) is masked over all S positions
+  const bool live = raw + w0 > 0;
+  const int n_keys = live ? min(raw + w0 + wn - 1, S) : S;
   const int n_key_tiles = (n_keys + TILE - 1) / TILE;
   const int n_live = min(n_splits, n_key_tiles);  // ranks with a tile
-  // the CTA's part of the merge state, in the ring once the loop is done
-  float* s_acc = reinterpret_cast<float*>(ring);  // [WARPS][NREP][D]
-  float* c_acc = s_acc + WARPS * NREP * D;         // [NREP][D]
-  float* c_ml = c_acc + NREP * D;                  // [NREP][2]
-  bf16* ob = o + ((int64_t)b * KV + kvh) * NREP * D;
+  // the CTA's part of the merge state, from the start of shared memory
+  // once the loop is done
+  float* s_acc = reinterpret_cast<float*>(smem);   // [WARPS][ROWS][D]
+  float* c_acc = s_acc + WARPS * ROWS * D;         // [ROWS][D]
+  float* c_ml = c_acc + ROWS * D;                  // [ROWS][2]
+  const int H = KV * NREP;
+  const int64_t t_stride = (int64_t)H * D;  // one window position
+  const int64_t row0 = (((int64_t)b * W + w0) * H + kvh * NREP) * D;
+  bf16* ob = o + row0;
   if (split >= n_live) {  // no live tile: only a share of the merge
-    if (n_live > 1) cluster_merge<D, NREP>(c_acc, c_ml, n_live, ob);
+    if (n_live > 1)
+      cluster_merge<D, NREP, ROWS, WIN>(c_acc, c_ml, n_live, R, ob,
+                                        t_stride);
     return;
   }
   const int n_tiles = (n_key_tiles - split + n_splits - 1) / n_splits;
@@ -327,8 +412,7 @@ decode_kernel(const bf16* __restrict__ q, const void* __restrict__ kc,
   }
 
   // while the first tiles load: the int8 scales of this CTA's tiles (zero
-  // past n_keys, so a masked row weighs nothing) and this lane's q
-  // fragments
+  // past n_keys, so a masked row weighs nothing) and the q fragments
   if constexpr (INT8) {
     const int64_t sb = (((int64_t)layer * B + b) * KV + kvh) * S;
     for (int j = tid; j < n_tiles * TILE; j += THREADS) {
@@ -338,36 +422,62 @@ decode_kernel(const bf16* __restrict__ q, const void* __restrict__ kc,
       s_scale[span + j] = ok ? __bfloat162float(vs[sb + pos]) : 0.f;
     }
   }
-  // bf16: q as it is, k-step kk at dims kk*16 + 2t (+8). int8: f16 q / 16
-  // (room for |q| up to 1e6), k-step kk at dims t*D/4 + 4kk .. +3, the
-  // order in which one 32-bit word of codes feeds a B fragment
-  uint32_t qa[KT][2];
-  {
-    const bf16* qr = q + (((int64_t)b * KV + kvh) * NREP + g) * D;
+  // query row r of this KV head (null past the launch's R rows)
+  auto q_row = [&](int r) -> const bf16* {
+    return r < R ? q + row0 + (r / NREP) * t_stride + (r % NREP) * D
+                 : nullptr;
+  };
+  // this lane's rows g + 8h: the keys each sees and whether it sees any
+  // (a decode token's rows all see n_keys)
+  int nk[HR];
+  bool lv[HR];
+#pragma unroll
+  for (int h = 0; h < HR; ++h) {
+    const int r = g + 8 * h;
+    const int seen = raw + w0 + r / NREP;
+    lv[h] = WIN ? seen > 0 : live;
+    nk[h] = !WIN ? n_keys : r < R ? (lv[h] ? min(seen, S) : S) : 0;
+  }
+  // A fragments of q: rows g (a0, a2) and g + 8 (a1, a3) of each m tile
+  uint32_t qa[KT][HR == 1 ? 2 : 4];
+  if constexpr (HR <= 2) {
+    const bf16* qr0 = q_row(g);
+    const bf16* qr1 = q_row(g + 8);
 #pragma unroll
     for (int kk = 0; kk < KT; ++kk) {
-      qa[kk][0] = qa[kk][1] = 0u;
-      if (g < NREP) {
-        if constexpr (INT8) {
-          const bf16* p = qr + t4 * (D / 4) + 4 * kk;
-          qa[kk][0] = pack2<true>(__bfloat162float(p[0]) * 0.0625f,
-                                  __bfloat162float(p[1]) * 0.0625f);
-          qa[kk][1] = pack2<true>(__bfloat162float(p[2]) * 0.0625f,
-                                  __bfloat162float(p[3]) * 0.0625f);
-        } else {
-          qa[kk][0] = *reinterpret_cast<const uint32_t*>(qr + kk * 16 + 2 * t4);
-          qa[kk][1] = *reinterpret_cast<const uint32_t*>(qr + kk * 16 + 2 * t4 + 8);
-        }
+      if constexpr (HR == 1) {
+        qa[kk][0] = q_word<D, INT8>(qr0, kk, t4, 0);
+        qa[kk][1] = q_word<D, INT8>(qr0, kk, t4, 1);
+      } else {
+        qa[kk][0] = q_word<D, INT8>(qr0, kk, t4, 0);
+        qa[kk][1] = q_word<D, INT8>(qr1, kk, t4, 0);
+        qa[kk][2] = q_word<D, INT8>(qr0, kk, t4, 1);
+        qa[kk][3] = q_word<D, INT8>(qr1, kk, t4, 1);
       }
+    }
+  } else {
+    for (int i = tid; i < MT * KT * 32; i += THREADS) {
+      const int mt = i / (KT * 32), kk = (i / 32) % KT, ln = i % 32;
+      const bf16* qr0 = q_row(16 * mt + ln / 4);
+      const bf16* qr1 = q_row(16 * mt + ln / 4 + 8);
+      s_qa[i] = make_uint4(q_word<D, INT8>(qr0, kk, ln % 4, 0),
+                           q_word<D, INT8>(qr1, kk, ln % 4, 0),
+                           q_word<D, INT8>(qr0, kk, ln % 4, 1),
+                           q_word<D, INT8>(qr1, kk, ln % 4, 1));
     }
   }
   const float sscale = INT8 ? qscale * 16.f : qscale;
 
-  // this lane's query row g: running max, sum (its share) and acc at dims
-  // dt*8 + 2t, +1
-  float m = -INFINITY, l = 0.f, acc[DT][2];
+  // this lane's query rows g + 8h: running max, sum (its share) and acc
+  // at dims dt*8 + 2t, +1
+  float m[HR], l[HR], acc[HR][DT][2];
 #pragma unroll
-  for (int dt = 0; dt < DT; ++dt) acc[dt][0] = acc[dt][1] = 0.f;
+  for (int h = 0; h < HR; ++h) {
+    m[h] = -INFINITY;
+    l[h] = 0.f;
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt) acc[h][dt][0] = acc[h][dt][1] = 0.f;
+  }
   const int r0 = warp * WP;  // the warp's rows of a tile
 
   for (int t = 0; t < n_tiles; ++t) {
@@ -378,14 +488,18 @@ decode_kernel(const bf16* __restrict__ q, const void* __restrict__ kc,
     const unsigned char* sk = ring + (t % STAGES) * 2 * TILE_BYTES;
     const unsigned char* sv = sk + TILE_BYTES;
 
-    // S = q K^T over the warp's 16 positions (two tiles of 8), even and
-    // odd k-steps in two accumulators: two short mma chains, not one long
-    float s[2][2], s2[2][2][2] = {};
+    // S = q K^T over the warp's 16 positions (two tiles of 8). One m tile
+    // of rows 0..7: even and odd k-steps in two accumulators, two short
+    // mma chains instead of one long one; more rows: one chain an m tile
+    float s[HR][2][2];
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt) {
       const int row = r0 + nt * 8 + g;
+      // one k-step's B fragment of K, converted where it is used so that
+      // no fragment array stays live across the mma chain
+      uint32_t w[INT8 ? KT : 1];  // int8: this lane's D/4 codes of the row
+      const unsigned char* kp = sk + row * ROW + 4 * t4;  // bf16
       if constexpr (INT8) {
-        uint32_t w[KT];  // this lane's D/4 codes of the row
         if constexpr (D >= 64) {
 #pragma unroll
           for (int h = 0; h < KT / 4; ++h) {
@@ -400,61 +514,112 @@ decode_kernel(const bf16* __restrict__ q, const void* __restrict__ kc,
         } else {
           w[0] = *reinterpret_cast<const uint32_t*>(sk + row * ROW + 4 * t4);
         }
+      }
+      auto kfrag = [&](int kk, uint32_t& b0, uint32_t& b1) {
+        if constexpr (INT8) {
+          codes_to_half2(w[kk], b0, b1);
+        } else {
+          b0 = *reinterpret_cast<const uint32_t*>(kp + kk * 32);
+          b1 = *reinterpret_cast<const uint32_t*>(kp + kk * 32 + 16);
+        }
+      };
+      if constexpr (HR == 1) {
+        float s2[2][2] = {};
 #pragma unroll
         for (int kk = 0; kk < KT; ++kk) {
           uint32_t b0, b1;
-          codes_to_half2(w[kk], b0, b1);
-          mma_rows8<true>(s2[nt][kk & 1][0], s2[nt][kk & 1][1], qa[kk][0],
-                          qa[kk][1], b0, b1);
+          kfrag(kk, b0, b1);
+          mma_rows8<INT8>(s2[kk & 1][0], s2[kk & 1][1], qa[kk][0], qa[kk][1],
+                          b0, b1);
         }
+        s[0][nt][0] = s2[0][0] + s2[1][0];
+        s[0][nt][1] = s2[0][1] + s2[1][1];
       } else {
-        const unsigned char* kp = sk + row * ROW + 4 * t4;
+        float d[MT][4] = {};
 #pragma unroll
-        for (int kk = 0; kk < KT; ++kk)
-          mma_rows8<false>(s2[nt][kk & 1][0], s2[nt][kk & 1][1], qa[kk][0],
-                           qa[kk][1],
-                           *reinterpret_cast<const uint32_t*>(kp + kk * 32),
-                           *reinterpret_cast<const uint32_t*>(kp + kk * 32 + 16));
+        for (int kk = 0; kk < KT; ++kk) {
+          uint32_t b0, b1;
+          kfrag(kk, b0, b1);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            uint4 a;
+            if constexpr (HR == 2)
+              a = make_uint4(qa[kk][0], qa[kk][1], qa[kk][2], qa[kk][3]);
+            else
+              a = s_qa[(mt * KT + kk) * 32 + lane];
+            mma16<INT8>(d[mt][0], d[mt][1], d[mt][2], d[mt][3], a.x, a.y, a.z,
+                        a.w, b0, b1);
+          }
+        }
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          s[2 * mt][nt][0] = d[mt][0];
+          s[2 * mt][nt][1] = d[mt][1];
+          s[2 * mt + 1][nt][0] = d[mt][2];
+          s[2 * mt + 1][nt][1] = d[mt][3];
+        }
       }
-      s[nt][0] = s2[nt][0][0] + s2[nt][1][0];
-      s[nt][1] = s2[nt][0][1] + s2[nt][1][1];
     }
 
-    // scale, mask, online softmax over the row's 16 positions (4 lanes)
-    float mx = m;
+    // scale, mask, online softmax over each row's 16 positions (4 lanes)
+    float pw[HR][2][2];
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
+    for (int h = 0; h < HR; ++h) {
+      float mx = m[h];
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int j = t * TILE + r0 + nt * 8 + 2 * t4 + e;  // in this CTA
-        const int pos = (split + t * n_splits) * TILE + r0 + nt * 8 + 2 * t4 + e;
-        const float v = s[nt][e] * sscale * (INT8 ? s_scale[j] : 1.f);
-        s[nt][e] = pos < n_keys ? (live ? v : NEG) : -INFINITY;
-        mx = fmaxf(mx, s[nt][e]);
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = t * TILE + r0 + nt * 8 + 2 * t4 + e;  // in this CTA
+          const int pos =
+              (split + t * n_splits) * TILE + r0 + nt * 8 + 2 * t4 + e;
+          const float v = s[h][nt][e] * sscale * (INT8 ? s_scale[j] : 1.f);
+          s[h][nt][e] = pos < nk[h] ? (lv[h] ? v : NEG) : -INFINITY;
+          mx = fmaxf(mx, s[h][nt][e]);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      // mx = -inf: nothing valid yet, acc and l are still 0
+      const float alpha = mx == -INFINITY ? 1.f : ex2(m[h] - mx);
+      m[h] = mx;
+      l[h] *= alpha;
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt) {
+        acc[h][dt][0] *= alpha;
+        acc[h][dt][1] *= alpha;
       }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    // mx = -inf: nothing valid yet, acc and l are still 0
-    const float alpha = mx == -INFINITY ? 1.f : ex2(m - mx);
-    m = mx;
-    l *= alpha;
 #pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
-      acc[dt][0] *= alpha;
-      acc[dt][1] *= alpha;
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = t * TILE + r0 + nt * 8 + 2 * t4 + e;
+          const float p = s[h][nt][e] == -INFINITY ? 0.f : ex2(s[h][nt][e] - m[h]);
+          l[h] += p;
+          pw[h][nt][e] = INT8 ? p * s_scale[span + j] : p;  // V scale rides P
+        }
     }
-    float pw[2][2];
+    // P as the A operand: row g + 8h at k = 2t, 2t+1 (positions of the
+    // first 8-tile) and 2t+8, 2t+9 (the second)
+    uint32_t pa[HR][2];
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
+    for (int h = 0; h < HR; ++h) {
+      pa[h][0] = pack2<INT8>(pw[h][0][0], pw[h][0][1]);
+      pa[h][1] = pack2<INT8>(pw[h][1][0], pw[h][1][1]);
+    }
+    // acc[rows] += P V for one 8-dim output tile from its B fragment
+    auto pv = [&](int dt, uint32_t b0, uint32_t b1) {
+      if constexpr (HR == 1) {
+        mma_rows8<INT8>(acc[0][dt][0], acc[0][dt][1], pa[0][0], pa[0][1], b0,
+                        b1);
+      } else {
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int j = t * TILE + r0 + nt * 8 + 2 * t4 + e;
-        const float p = s[nt][e] == -INFINITY ? 0.f : ex2(s[nt][e] - m);
-        l += p;
-        pw[nt][e] = INT8 ? p * s_scale[span + j] : p;  // the V scale rides P
+        for (int mt = 0; mt < MT; ++mt)
+          mma16<INT8>(acc[2 * mt][dt][0], acc[2 * mt][dt][1],
+                      acc[2 * mt + 1][dt][0], acc[2 * mt + 1][dt][1],
+                      pa[2 * mt][0], pa[2 * mt + 1][0], pa[2 * mt][1],
+                      pa[2 * mt + 1][1], b0, b1);
       }
-    const uint32_t pa0 = pack2<INT8>(pw[0][0], pw[0][1]);
-    const uint32_t pa2 = pack2<INT8>(pw[1][0], pw[1][1]);
+    };
 
     // O += P V over the warp's 16 rows of V
     if constexpr (INT8) {
@@ -490,9 +655,7 @@ decode_kernel(const bf16* __restrict__ q, const void* __restrict__ kc,
         pair_codes_to_half2(x[2][w], x[3][w], b1);
 #pragma unroll
         for (int i = 0; i < 4; ++i)
-          if (4 * w + i < DT)
-            mma_rows8<true>(acc[4 * w + i][0], acc[4 * w + i][1], pa0, pa2,
-                            b0[i], b1[i]);
+          if (4 * w + i < DT) pv(4 * w + i, b0[i], b1[i]);
       }
     } else {
       const unsigned char* vb0 = sv + r0 * ROW;
@@ -501,35 +664,39 @@ decode_kernel(const bf16* __restrict__ q, const void* __restrict__ kc,
       for (int dt = 0; dt < DT; dt += 2) {
         uint32_t vf[4];
         ldmatrix_x4_trans(vf, vb0 + vrow * ROW + (dt * 8 + (lane >> 4) * 8) * 2);
-        mma_rows8<false>(acc[dt][0], acc[dt][1], pa0, pa2, vf[0], vf[1]);
-        mma_rows8<false>(acc[dt + 1][0], acc[dt + 1][1], pa0, pa2, vf[2], vf[3]);
+        pv(dt, vf[0], vf[1]);
+        pv(dt + 1, vf[2], vf[3]);
       }
     }
   }
   cp_wait<0>();
   __syncthreads();  // the ring is free: reuse it for the warps' merge
 
-  // the row's sum over its 4 lanes; each lane keeps distinct dims of acc
-  l += __shfl_xor_sync(0xffffffffu, l, 1);
-  l += __shfl_xor_sync(0xffffffffu, l, 2);
-  if (g < NREP) {
+  // each row's sum over its 4 lanes; each lane keeps distinct dims of acc
 #pragma unroll
-    for (int dt = 0; dt < DT; ++dt)
+  for (int h = 0; h < HR; ++h) {
+    const int r = g + 8 * h;
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    if (r < R) {
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int d = INT8 ? (2 * t4 + e) * DT + dt : dt * 8 + 2 * t4 + e;
-        s_acc[(warp * NREP + g) * D + d] = acc[dt][e];
+      for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int d = INT8 ? (2 * t4 + e) * DT + dt : dt * 8 + 2 * t4 + e;
+          s_acc[(warp * ROWS + r) * D + d] = acc[h][dt][e];
+        }
+      if (t4 == 0) {
+        s_m[warp][r] = m[h];
+        s_l[warp][r] = l[h];
       }
-    if (t4 == 0) {
-      s_m[warp][g] = m;
-      s_l[warp][g] = l;
     }
   }
   __syncthreads();
 
   // this CTA's (max, sum, acc); a warp with no valid position weighs 0.
-  // A row with one live split is done; otherwise the cluster merges
-  for (int i = tid; i < NREP * D; i += THREADS) {
+  // A row-head with one live split is done; otherwise the cluster merges
+  for (int i = tid; i < R * D; i += THREADS) {
     const int r = i / D;
     float M = -INFINITY;
 #pragma unroll
@@ -539,10 +706,15 @@ decode_kernel(const bf16* __restrict__ q, const void* __restrict__ kc,
     for (int w = 0; w < WARPS; ++w) {
       const float wt = s_m[w][r] == -INFINITY ? 0.f : ex2(s_m[w][r] - M);
       L += wt * s_l[w][r];
-      A += wt * s_acc[(w * NREP + r) * D + i % D];
+      A += wt * s_acc[(w * ROWS + r) * D + i % D];
     }
     if (n_live == 1) {
-      ob[i] = __float2bfloat16(A / fmaxf(L, 1e-30f));
+      const float out = A / fmaxf(L, 1e-30f);
+      if constexpr (WIN)
+        ob[(r / NREP) * t_stride + (r % NREP) * D + i % D] =
+            __float2bfloat16(out);
+      else
+        ob[i] = __float2bfloat16(out);
     } else {
       c_acc[i] = A;
       if (i % D == 0) {
@@ -551,22 +723,30 @@ decode_kernel(const bf16* __restrict__ q, const void* __restrict__ kc,
       }
     }
   }
-  if (n_live > 1) cluster_merge<D, NREP>(c_acc, c_ml, n_live, ob);
+  if (n_live > 1)
+    cluster_merge<D, NREP, ROWS, WIN>(c_acc, c_ml, n_live, R, ob, t_stride);
 }
 
 struct Args {
   const void *q, *kc, *vc, *ks, *vs, *kv_len;  // ks/vs: int8 cache only
   void* o;
   int B, S, KV, layer, span, n_splits;
+  int W, w0, wn;  // q's window positions; this launch's first and count
 };
 
-template <int D, int NREP, bool INT8>
+template <int D, int NREP, bool INT8, int MROWS>
 int launch(const Args& a, cudaStream_t stream) {
   constexpr size_t ring =
       (size_t)STAGES * 2 * TILE * Cache<INT8>::template row_bytes<D>;
-  // int8: the scales of a CTA's positions
-  const size_t smem = ring + (INT8 ? 2 * (size_t)a.span * sizeof(float) : 0);
-  auto kernel = decode_kernel<D, NREP, INT8>;
+  // int8: the scales of a CTA's positions; 32 rows: q's A fragments
+  const size_t loop = ring + (INT8 ? 2 * (size_t)a.span * sizeof(float) : 0) +
+                      (MROWS == 32 ? (size_t)2 * (D / 16) * 32 * 16 : 0);
+  // after the loop: the warps' and the CTA's merge state
+  constexpr int ROWS = MROWS > 8 ? MROWS : NREP;
+  constexpr size_t merge =
+      ((size_t)(WARPS + 1) * ROWS * D + ROWS * 2) * sizeof(float);
+  const size_t smem = loop > merge ? loop : merge;
+  auto kernel = decode_kernel<D, NREP, INT8, MROWS>;
   // dynamic and static shared memory together may pass the 48 KB default
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -588,18 +768,28 @@ int launch(const Args& a, cudaStream_t stream) {
       &cfg, kernel, static_cast<const bf16*>(a.q), a.kc, a.vc,
       static_cast<const bf16*>(a.ks), static_cast<const bf16*>(a.vs),
       static_cast<const int*>(a.kv_len), static_cast<bf16*>(a.o), a.B, a.S,
-      a.KV, a.layer, a.span, qscale);
+      a.KV, a.layer, a.span, a.W, a.w0, a.wn, qscale);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// the row capacity of a launch: 8 for one token a row (the decode kernel;
+// a window of W = 1 too, so it is that launch), else 16 or 32 query rows
+template <bool INT8, int D, int NREP>
+int launch_rows(const Args& a, cudaStream_t s) {
+  const int rows = a.wn * NREP;
+  if (a.W == 1) return launch<D, NREP, INT8, 8>(a, s);
+  if (rows <= 16) return launch<D, NREP, INT8, 16>(a, s);
+  return launch<D, NREP, INT8, 32>(a, s);
 }
 
 template <bool INT8, int D>
 int launch_d(int n_rep, const Args& a, cudaStream_t s) {
   switch (n_rep) {
-    case 1: return launch<D, 1, INT8>(a, s);
-    case 2: return launch<D, 2, INT8>(a, s);
-    case 4: return launch<D, 4, INT8>(a, s);
-    case 8: return launch<D, 8, INT8>(a, s);
+    case 1: return launch_rows<INT8, D, 1>(a, s);
+    case 2: return launch_rows<INT8, D, 2>(a, s);
+    case 4: return launch_rows<INT8, D, 4>(a, s);
+    case 8: return launch_rows<INT8, D, 8>(a, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -609,7 +799,9 @@ int launch_any(int D, int n_rep, const Args& a, void* stream) {
   if (a.B <= 0 || a.S <= 0 || a.KV <= 0 || a.layer < 0 || a.span <= 0 ||
       a.span % TILE || a.span > MAX_SPAN || a.n_splits <= 0 ||
       a.n_splits > MAX_SPLITS ||
-      a.span < ((a.S + TILE - 1) / TILE + a.n_splits - 1) / a.n_splits * TILE)
+      a.span < ((a.S + TILE - 1) / TILE + a.n_splits - 1) / a.n_splits * TILE ||
+      a.W <= 0 || a.w0 < 0 || a.wn <= 0 || a.w0 + a.wn > a.W ||
+      a.wn * n_rep > MAX_ROWS)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
@@ -623,11 +815,12 @@ int launch_any(int D, int n_rep, const Args& a, void* stream) {
 }  // namespace
 
 // Positions per staged tile, the most positions one CTA takes (its span,
-// a multiple of the tile) and the most splits a row; the wrapper plans with
-// them.
+// a multiple of the tile), the most splits a row and the most query rows
+// (window positions x n_rep) one launch takes; the wrapper plans with them.
 extern "C" int gofr_decode_tile_len() { return TILE; }
 extern "C" int gofr_decode_max_span() { return MAX_SPAN; }
 extern "C" int gofr_decode_max_splits() { return MAX_SPLITS; }
+extern "C" int gofr_decode_max_rows() { return MAX_ROWS; }
 
 // q [B, H, D] bf16 (H = KV * n_rep); k/v cache [L, B, S, KV, D] bf16;
 // kv_len int32 [B]; o [B, H, D] bf16. n_splits: CTAs per row and KV head
@@ -639,7 +832,7 @@ extern "C" int gofr_gqa_decode_attention(
     void* o, int B, int S, int KV, int n_rep, int D, int layer, int span,
     int n_splits, void* stream) {
   const Args a{q, k_cache, v_cache, nullptr, nullptr, kv_len, o,
-               B, S, KV, layer, span, n_splits};
+               B, S, KV, layer, span, n_splits, 1, 0, 1};
   return launch_any<false>(D, n_rep, a, stream);
 }
 
@@ -651,6 +844,29 @@ extern "C" int gofr_gqa_decode_attention_int8(
     int B, int S, int KV, int n_rep, int D, int layer, int span, int n_splits,
     void* stream) {
   const Args a{q, k_cache, v_cache, k_scale, v_scale, kv_len, o,
-               B, S, KV, layer, span, n_splits};
+               B, S, KV, layer, span, n_splits, 1, 0, 1};
+  return launch_any<true>(D, n_rep, a, stream);
+}
+
+// The verify window: q and o [B, W, H, D] bf16, and this launch takes the
+// positions w0 .. w0+wn-1 (wn * n_rep <= MAX_ROWS); position t attends the
+// first kv_len[b] + t positions of the cache. The bf16 cache as above.
+extern "C" int gofr_gqa_decode_window(
+    const void* q, const void* k_cache, const void* v_cache, const void* kv_len,
+    void* o, int B, int S, int KV, int n_rep, int D, int layer, int span,
+    int n_splits, int W, int w0, int wn, void* stream) {
+  const Args a{q, k_cache, v_cache, nullptr, nullptr, kv_len, o,
+               B, S, KV, layer, span, n_splits, W, w0, wn};
+  return launch_any<false>(D, n_rep, a, stream);
+}
+
+// The verify window over the int8 cache.
+extern "C" int gofr_gqa_decode_window_int8(
+    const void* q, const void* k_cache, const void* v_cache,
+    const void* k_scale, const void* v_scale, const void* kv_len, void* o,
+    int B, int S, int KV, int n_rep, int D, int layer, int span, int n_splits,
+    int W, int w0, int wn, void* stream) {
+  const Args a{q, k_cache, v_cache, k_scale, v_scale, kv_len, o,
+               B, S, KV, layer, span, n_splits, W, w0, wn};
   return launch_any<true>(D, n_rep, a, stream);
 }

@@ -4,11 +4,15 @@ source, on one NVIDIA GPU, by chip_smoke.py's device-paced cold-L2 method.
     python3 scripts/decode_ab.py --baseline OLD/decode_attention.cu [--ptxas]
 
 The baseline is an earlier ``gofr_tpu_torch/ops/csrc/decode_attention.cu``
-with the split-and-combine C interface of the first port:
-``gofr_gqa_decode_attention(q, k, v, kv_len, part_acc, part_ml, o, B, S,
-KV, n_rep, D, layer, n_splits, stream)``, its int8 twin with the two scale
-planes after ``v``, and ``gofr_decode_split_len()``. It is built with the
-same ``nvcc`` flags into ``build/decode_ab/``.
+with either C interface the port has had: the first port's split and
+combine, ``gofr_gqa_decode_attention(q, k, v, kv_len, part_acc, part_ml, o,
+B, S, KV, n_rep, D, layer, n_splits, stream)`` with
+``gofr_decode_split_len()``, or the one-launch cluster merge of PR 3 on,
+``gofr_gqa_decode_attention(q, k, v, kv_len, o, B, S, KV, n_rep, D,
+layer, span, n_splits, stream)`` with ``gofr_decode_max_splits()`` (planned
+by ``split_plan``); the int8 twins take the two scale planes after ``v``.
+It is built with the same ``nvcc`` flags, with ``csrc/`` on the include
+path, into ``build/decode_ab/``.
 
 For every decode case of ``chip_smoke.decode_cases`` (both kernels at the
 serving shapes, 32-layer stacked caches from seed 0): the baseline and the
@@ -49,9 +53,19 @@ def build_baseline(src: Path) -> ctypes.CDLL:
     digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
     lib_path = out_dir / f"baseline-{digest}.so"
     if not lib_path.exists():
-        subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
-                        str(lib_path), str(src)], check=True)
+        # the current csrc/ on the include path: a baseline from PR 3 on
+        # includes cp_async.cuh
+        subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I",
+                        str(_build.CSRC), "-o", str(lib_path), str(src)],
+                       check=True)
     lib = ctypes.CDLL(str(lib_path))
+    lib.cluster = hasattr(lib, "gofr_decode_max_splits")
+    if lib.cluster:
+        lib.gofr_gqa_decode_attention.argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+        lib.gofr_gqa_decode_attention_int8.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+        return lib
     lib.gofr_gqa_decode_attention.argtypes = (
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     lib.gofr_gqa_decode_attention_int8.argtypes = (
@@ -65,10 +79,23 @@ def baseline_launcher(lib, c):
     q, kc, vc, kv_len = c["q"], c["kc"], c["vc"], c["kv_len"]
     B, S, KV, D, H = c["B"], c["S"], c["KV"], c["D"], c["H"]
     n_rep = H // KV
-    n_splits = -(-S // lib.gofr_decode_split_len())
     scales = [] if c["scales"] is None else [t.data_ptr() for t in c["scales"]]
     entry = (lib.gofr_gqa_decode_attention if c["scales"] is None
              else lib.gofr_gqa_decode_attention_int8)
+    if lib.cluster:
+        span, n_splits = da.split_plan(B, KV, S, da._n_sm(q.device))
+
+        def launch(layer):
+            out = torch.empty_like(q)
+            err = entry(q.data_ptr(), kc.data_ptr(), vc.data_ptr(), *scales,
+                        kv_len.data_ptr(), out.data_ptr(), B, S, KV, n_rep, D,
+                        layer, span, n_splits,
+                        torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"baseline launch failed: cudaError_t {err}")
+            return out
+        return launch
+    n_splits = -(-S // lib.gofr_decode_split_len())
 
     def launch(layer):
         part_acc = torch.empty((B, KV, n_splits, n_rep, D), dtype=torch.float32,
@@ -88,7 +115,8 @@ def baseline_launcher(lib, c):
 
 def ptxas_report() -> list[str]:
     """nvcc -Xptxas -v over the current decode source: one line per kernel
-    instantiation (D, n_rep, int8) with its registers, smem and spills."""
+    instantiation (D, n_rep, int8 and, since the verify window, the row
+    capacity) with its registers, smem and spills."""
     src = _build.CSRC / "decode_attention.cu"
     proc = subprocess.run(
         [_build.nvcc_path(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
@@ -96,9 +124,12 @@ def ptxas_report() -> list[str]:
         capture_output=True, text=True, check=True)
     lines, name = [], None
     for line in proc.stderr.splitlines():
-        m = re.search(r"decode_kernelILi(\d+)ELi(\d+)ELb([01])E", line)
+        m = re.search(r"decode_kernelILi(\d+)ELi(\d+)ELb([01])E(?:Li(\d+)E)?",
+                      line)
         if m and "Compiling entry function" in line:
             name = f"D={m[1]} n_rep={m[2]} {'int8' if m[3] == '1' else 'bf16'}"
+            if m[4]:
+                name += f" rows={m[4]}"
         elif name and ("spill" in line or "Used" in line):
             lines.append(f"{name}: {line.split('info', 1)[-1].strip(' :')}")
     return lines

@@ -601,8 +601,9 @@ def test_unported_fleet_knobs_raise_naming_their_item(model, env, kw, item,
 
 
 def test_example_knobs_of_later_items_raise(monkeypatch):
-    """LLAMA_CKPT / TOKENIZER_JSON name A.12; a positive LLM_SPEC_K names
-    A.10 (through the Generator); LLM_DISAGG=1 names A.14."""
+    """LLAMA_CKPT / TOKENIZER_JSON name A.12, and so does a draft
+    checkpoint (LLM_DRAFT_CKPT with a positive LLM_SPEC_K: speculation is
+    ported, the checkpoint import is not); LLM_DISAGG=1 names A.14."""
     from gofr_tpu_torch.examples import llama_server
 
     for knob, item in (("TOKENIZER_JSON", "A.12"), ("LLAMA_CKPT", "A.12")):
@@ -610,10 +611,12 @@ def test_example_knobs_of_later_items_raise(monkeypatch):
             m.setenv(knob, "/nonexistent")
             with pytest.raises(NotImplementedError, match=item):
                 llama_server.main(device="cpu")
-    for knob, value, item in (("LLM_SPEC_K", "2", "A.10"),
-                              ("LLM_DISAGG", "1", "A.14")):
+    for env, item in (({"LLM_SPEC_K": "2", "LLM_DRAFT_CKPT": "/nonexistent"},
+                       "A.12"),
+                      ({"LLM_DISAGG": "1"}, "A.14")):
         with monkeypatch.context() as m:
-            m.setenv(knob, value)
+            for knob, value in env.items():
+                m.setenv(knob, value)
             m.setenv("LLAMA_PRESET", "tiny")
             with pytest.raises(NotImplementedError, match=item):
                 llama_server.main(device="cpu")

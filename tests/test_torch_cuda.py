@@ -12,7 +12,9 @@ row is zeros) and under one tile, on structured inputs that expose a
 fragment-layout mix-up, in a CUDA-graph replay and on two streams. The
 decode kernels are also held at every head_dim and n_rep they take, at
 the kv_len edges (tiles, splits, 1, 0, -1, S_max, S_max + 1), for one long
-row, over 20 back-to-back calls and on two streams.
+row, over 20 back-to-back calls and on two streams; and over speculative
+verify windows of 8, 16 and 32 query rows a launch and of several
+launches, with W = 1 bit for bit the decode launch.
 
 Tolerance 2e-2 absolute on bf16 attention outputs of O(1) (one bf16 ulp is
 2**-7 there, and the kernels round P to bf16 before P@V).
@@ -309,6 +311,78 @@ def test_decode_kernels_at_every_head_dim_and_edge(dev, int8, n_rep, D):
     torch.cuda.synchronize()
     assert torch.isfinite(out.float()).all()
     assert (out.float() - ref.float()).abs().max().item() <= TOL
+
+
+def _window_fns(int8):
+    from gofr_tpu_torch.ops import decode_attention as da
+
+    if int8:
+        return da.gqa_decode_window_int8_cuda, da.gqa_decode_window_int8_plain
+    return da.gqa_decode_window_cuda, da.gqa_decode_window_plain
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("n_rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("D", [16, 64, 128])
+@pytest.mark.parametrize("W", [2, 5, 12])
+def test_window_kernels_at_every_head_dim_and_edge(dev, int8, n_rep, D, W):
+    """The verify window through the decode kernel against its plain
+    version (JAX's ``attention`` with ``q_offset = kv_len - 1``) at every
+    head_dim and n_rep, the kv_len edge cases a row, and windows of 8, 16
+    and 32 query rows a launch and of several launches (W * n_rep above
+    32: 12 positions at n_rep 4 and 8)."""
+    from gofr_tpu_torch.ops.decode_attention import MAX_ROWS
+
+    kernel, plain = _window_fns(int8)
+    L, KV, S, layer = 2, 2, 300, 1
+    lens = _edge_lens(dev, 16, KV, S)
+    q1, (kc, vc), sc = _decode_inputs(dev, 3, L, len(lens), S, KV, D, n_rep,
+                                      int8)
+    g = torch.Generator(device=dev).manual_seed(30 + W)
+    q = _rnd(g, dev, len(lens), W, KV * n_rep, D)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    n0 = kernel.launches
+    out = kernel(q, kc, vc, kv_len, layer=layer, **sc)
+    ref = plain(q, kc, vc, kv_len, layer=layer, **sc)
+    torch.cuda.synchronize()
+    per = MAX_ROWS // n_rep
+    assert kernel.launches == n0 + -(-W // per)
+    assert torch.isfinite(out.float()).all()
+    assert (out.float() - ref.float()).abs().max().item() <= TOL
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_window_kernel_one_position_is_the_decode_launch(dev, int8):
+    """W = 1 of the window entry is the decode kernel's own launch: the
+    same instantiation on the same inputs, bit for bit."""
+    window, _ = _window_fns(int8)
+    kernel, _ = _decode_fns(int8)
+    q, (kc, vc), sc = _decode_inputs(dev, 6, 4, 8, 2048, 8, 128, 4, int8)
+    kv_len = torch.tensor([2000, 1, 2048, 2049, 65, 0, 1500, 777],
+                          dtype=torch.int32, device=dev)
+    out = window(q, kc, vc, kv_len, layer=3, **sc)
+    ref = kernel(q, kc, vc, kv_len, layer=3, **sc)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_window_kernel_at_the_8b_verify_shape(dev, int8):
+    """Llama-3-8B's verify window (K = 4: q [8, 5, 32, 128]) over a 2048
+    cache with rows near capacity, and K = 9 split over two launches."""
+    kernel, plain = _window_fns(int8)
+    _, (kc, vc), sc = _decode_inputs(dev, 7, 2, 8, 2048, 8, 128, 4, int8)
+    kv_len = torch.tensor([2000, 1, 2044, 2048, 2049, 17, 1024, 1999],
+                          dtype=torch.int32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(8)
+    for W, launches in ((5, 1), (10, 2)):
+        q = _rnd(g, dev, 8, W, 32, 128)
+        n0 = kernel.launches
+        out = kernel(q, kc, vc, kv_len, layer=1, **sc)
+        ref = plain(q, kc, vc, kv_len, layer=1, **sc)
+        torch.cuda.synchronize()
+        assert kernel.launches == n0 + launches
+        assert (out.float() - ref.float()).abs().max().item() <= TOL
 
 
 @pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
@@ -680,6 +754,86 @@ def test_decode_graph_replay_equals_eager(dev, kv_bits):
     assert torch.equal(logits, eager_logits)
     for k, v in after[0].items():
         assert torch.equal(gen.cache[k], v), k
+
+
+@pytest.mark.parametrize("kv_bits,window,draft", [
+    (None, 0, False), (None, 0, True), (16, 0, False), (8, 4, False),
+    (4, 4, False)],
+    ids=["dense", "dense-draft", "paged-bf16", "paged-int8-window",
+         "paged-int4-window"])
+def test_spec_graph_replay_equals_eager(dev, kv_bits, window, draft):
+    """A speculative dispatch of 2 verify windows (K = 3; fused windows
+    where set, a self draft where set) replayed from its CUDA graph and
+    run eagerly from the same state: the same packed block, the same
+    first logits, the same cache, history rows and draft cache; the
+    replay counts its window-kernel launches (the draft's decode launches
+    too). Then the same tiny generator serves the CPU plain path's first
+    greedy tokens."""
+    from gofr_tpu_torch.ml.generate import Generator
+    from gofr_tpu_torch.ops import decode_attention as da
+
+    extra = dict(spec_k=3, decode_window=window)
+    if draft:
+        llama, cfg, params = _tiny_on_card(dev)
+        extra.update(draft_params=params, draft_cfg=cfg)
+    gen = _graph_gen(dev, kv_bits, **extra)
+    n_cols = gen._gather_cols() if gen.page_size else None
+    b = gen.batch_slots
+    mask = np.ones((b,), bool)
+    cap = np.full((b,), 6, np.int32)
+    kern = (da.gqa_decode_window_int8_cuda if kv_bits == 8
+            else da.gqa_decode_window_cuda)
+
+    def state():
+        out = {k: v.clone() for k, v in gen.cache.items()}
+        out["tok"] = gen._tok_dev.clone()
+        out["hist"] = gen._tokens_dev.clone()
+        for k, v in getattr(gen, "_draft_cache", {}).items():
+            out[f"draft_{k}"] = v.clone()
+        return out
+
+    def restore(saved):
+        for k, v in gen.cache.items():
+            v.copy_(saved[k])
+        gen._tok_dev.copy_(saved["tok"])
+        gen._tokens_dev.copy_(saved["hist"])
+        for k, v in getattr(gen, "_draft_cache", {}).items():
+            v.copy_(saved[f"draft_{k}"])
+
+    before = state()
+    n0, d0 = kern.launches, da.gqa_decode_attention_cuda.launches
+    block = gen._decode_spec(2, mask, mask, cap, n_cols).clone()
+    logits = gen.dispatch_logits.clone()
+    torch.cuda.synchronize()
+    assert kern.launches - n0 == 2 * gen.cfg.n_layers
+    if draft:  # 4 draft steps a window
+        assert da.gqa_decode_attention_cuda.launches - d0 \
+            == 2 * 4 * gen.cfg.n_layers
+    after = state()
+    restore(before)
+    eager, eager_logits = gen._spec_body(2, n_cols, bool(window))
+    torch.cuda.synchronize()
+    assert torch.equal(block, eager)
+    assert torch.equal(logits, eager_logits)
+    now = state()
+    for k, v in after.items():
+        assert torch.equal(now[k], v), k
+    # served end to end: the CPU plain path's first greedy tokens
+    llama, cfg, params = _tiny_on_card(
+        dev, **({"kv_bits": kv_bits} if kv_bits in (8, 4) else {}))
+    kw = dict(batch_slots=2, max_seq=256, prefill_buckets=(64,), chunk=4,
+              spec_k=3, decode_window=window)
+    if kv_bits is not None:
+        kw["page_size"] = 16
+    prompt = (np.arange(40) % 7 + 3).tolist()
+    card = Generator(params, cfg, device=dev, **kw,
+                     **({"draft_params": params, "draft_cfg": cfg}
+                        if draft else {})).generate(prompt, 8)
+    cpu_params = llama.params_from_config(cfg, seed=0, device="cpu")
+    cpu = Generator(cpu_params, cfg, device="cpu", **kw,
+                    **({"draft_params": cpu_params, "draft_cfg": cfg}
+                       if draft else {})).generate(prompt, 8)
+    assert card[:2] == cpu[:2]
 
 
 def test_two_dispatches_in_flight_keep_their_blocks(dev):

@@ -500,7 +500,21 @@ async def _drive_debug(app, server, name: str) -> dict:
 
 @pytest.fixture(scope="module")
 def debug_bodies(pair):
-    """(JAX bodies, port bodies) after the same traffic and crash."""
+    """(JAX bodies, port bodies) after the same traffic and crash. Each
+    package's process-wide profile vault is a fresh one for the fixture's
+    life, holding one identical synthetic capture: what earlier tests in
+    the worker left in either vault does not reach the bodies."""
+    with pytest.MonkeyPatch.context() as m:
+        for mod in (jfr, tfr):
+            vault = mod.ProfileVault()
+            vault.capture(model="fr-par/0",
+                          trigger={"reason": "p50", "ratio": 2.5},
+                          data=b"synthetic trace", truncated=False)
+            m.setattr(mod, "_PROFILES", vault)
+        yield _debug_bodies(pair)
+
+
+def _debug_bodies(pair):
     from gofr_tpu.app import App as JApp
     from gofr_tpu.config import MapConfig as JMapConfig
 
@@ -567,13 +581,11 @@ def test_debug_json_keys_match_jax(debug_bodies, route):
             keys["events"] = None
         if route in ("/debug/serving", "crash"):
             # keys of what the port has not: a failed asynchronous copy
-            # counter (the port's block copy has no separate failure),
-            # the speculative unit (ROADMAP A.10) and the
-            # sequence-parallel charges (A.11)
+            # counter (the port's block copy has no separate failure) and
+            # the sequence-parallel charges (ROADMAP A.11)
             block = keys["llms"]["M"] if route == "/debug/serving" \
                 else keys["state"]
             block["pool"].pop("prefetch_errors", None)
-            block["scheduler"].pop("last_unit", None)
             block["scheduler"].pop("sp_charges", None)
     assert tk == jk
 

@@ -298,20 +298,19 @@ def test_entry_points_take_the_card_unless_told_cpu(pair):
 
 
 def test_unported_generator_options_raise(pair, monkeypatch):
-    """What stays unported raises, naming its ROADMAP item: speculation
-    (``spec_k``, or a positive ``GOFR_ML_SPEC_K``) and sequence
-    parallelism. Paging, chunked prefill, fused windows, the depth-2
-    pipeline and the host KV tier (asked for by ``host_kv`` or by a
-    positive ``GOFR_ML_KV_HOST_BUDGET_MB``) are ported and construct."""
+    """What stays unported raises, naming its ROADMAP item: sequence
+    parallelism (A.11). Speculation (``spec_k``, or a positive
+    ``GOFR_ML_SPEC_K``), paging, chunked prefill, fused windows, the
+    depth-2 pipeline and the host KV tier (asked for by ``host_kv`` or by
+    a positive ``GOFR_ML_KV_HOST_BUDGET_MB``) are ported and construct."""
     from gofr_tpu_torch.ml.kv_offload import HostKVStore, OffloadConfig
 
     _, _, tcfg, tparams = pair
-    for kw, item in (({"spec_k": 2}, "A.10"), ({"sp": "ring"}, "A.11")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            Generator(tparams, tcfg, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
+        Generator(tparams, tcfg, device="cpu", sp="ring")
+    assert Generator(tparams, tcfg, device="cpu", spec_k=2).spec_k == 2
     monkeypatch.setenv("GOFR_ML_SPEC_K", "2")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
-        Generator(tparams, tcfg, device="cpu")
+    assert Generator(tparams, tcfg, device="cpu").spec_k == 2
     monkeypatch.delenv("GOFR_ML_SPEC_K")
     store = HostKVStore(OffloadConfig(budget_mb=1))
     gen = Generator(tparams, tcfg, device="cpu", page_size=8, host_kv=store,

@@ -4,7 +4,8 @@ with ``params_from_jax``).
 
 Twins of ``tests/test_journey.py``, less the replica pool's one-timeline
 test (ROADMAP A.14) and the speculation half of the chunked-prefill one
-(A.10): marks tile the wall and fold past their bound; tail sampling keeps
+(in ``test_torch_spec_serving.py``): marks tile the wall and fold past
+their bound; tail sampling keeps
 failures and the p99-slow; the knob; a chunked-prefill request's
 waterfall; a deadline-reaped request retained with its reason; the
 request↔dispatch cross-link both ways; ``GOFR_ML_JOURNEY=0`` leaves the

@@ -5,8 +5,8 @@ on the CPU.
   ``GOFR_ML_PIPELINE``, ``GOFR_ML_SPEC_K``, ``GOFR_ML_TOKEN_BUDGET``) the
   port builds the JAX Generator's serving loop — the same chunk or window
   size, ladder, pipeline depth and token budget, the same dispatches and
-  greedy tokens on a served scenario (tiny config, f32) — or raises
-  naming its ROADMAP item (speculation: A.10).
+  greedy tokens on a served scenario (tiny config, f32), the same verify
+  windows under ``GOFR_ML_SPEC_K``.
 - Storage: a CUDA graph replays fixed pointers, so every tensor a decode
   dispatch reads or writes — the cache arrays and ``len``, the page
   table's device buffer, the token row, the window masks — must keep its
@@ -114,15 +114,22 @@ def test_malformed_knobs_raise_like_jax(pair, monkeypatch, name, raw):
 
 
 def test_positive_spec_k_raises_naming_a10(pair, monkeypatch):
-    """JAX speculates under GOFR_ML_SPEC_K=2; the port does not silently
-    decode without it: it raises naming ROADMAP A.10."""
+    """Under GOFR_ML_SPEC_K=2 the port speculates as JAX does (it raised
+    naming ROADMAP A.10 before speculation was ported): the same K, the
+    same serving loop (the budget scaled by K+1), the same greedy tokens
+    and verify windows on a served scenario; an explicit spec_k beats the
+    environment, 0 included."""
     jcfg, jparams, tcfg, tparams = pair
     monkeypatch.setenv("GOFR_ML_SPEC_K", "2")
-    assert JGenerator(jparams, jcfg, **KW).spec_k == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
-        Generator(tparams, tcfg, device="cpu", **KW)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
-        Generator(tparams, tcfg, device="cpu", spec_k=4, **KW)
+    jgen = JGenerator(jparams, jcfg, **KW)
+    gen = Generator(tparams, tcfg, device="cpu", **KW)
+    assert gen.spec_k == jgen.spec_k == 2
+    assert _loop(gen) == _loop(jgen)
+    assert _serve(gen) == _serve(jgen)
+    assert (gen.spec_windows, gen.spec_emitted) == \
+        (jgen.spec_windows, jgen.spec_emitted)
+    assert gen.spec_windows > 0
+    assert Generator(tparams, tcfg, device="cpu", spec_k=4, **KW).spec_k == 4
     # an explicit 0 beats the environment, as in JAX
     assert Generator(tparams, tcfg, device="cpu", spec_k=0, **KW).spec_k == 0
 
