@@ -147,7 +147,31 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    same start: identical tokens (checked), the int8 window kernel only;
    (d) ``LLM_SPEC_K=4 LLM_DRAFT_PRESET=self`` through the example app over
    gRPC, 8 streams: accept >= 0.8 and the draft's decode launches
-   (checked). Each number on its own ``spec:`` line.
+   (checked). Each number on its own ``spec:`` line;
+12. the engine path (``register_model`` -> ``Engine`` -> ``DynamicBatcher``,
+   no kernel of the port: the three attention kernels' launches are
+   recorded, 0 expected) serving BASELINE configs #2, #3 and #5 through the
+   port's examples at full width, random weights from seed 0: the MNIST
+   MLP 784-512-512-10, BERT-base (12 x 768, vocab 30522, 128 tokens) and
+   DiT-XL/2 (28 x 1152, 16 heads of 72, 256 patches of a 32 x 32 x 4
+   latent, ``DIT_STEPS`` 30, guidance 5.0) on a BERT-base text encoder,
+   ``ada_w`` and ``patch_out`` perturbed. (a) Before traffic, on each
+   engine: every captured bucket's graph replay equals the eager apply on
+   the same inputs bit for bit, and the bf16 module is within 2e-2 of
+   range of the same module run eagerly in f32 (the DiT: its denoiser;
+   the whole sampler's difference is recorded); the device ms of one
+   replay (CUDA events), the eager wall, the busy share of a served
+   execute (profiler), capture seconds and pool bytes per bucket. (b)
+   Each example booted on free ports and driven over real sockets: 256
+   ``POST /predict`` with 64 in flight (and a bad shape: 400); config #3's
+   8 rounds of 32 concurrent gRPC ``ml.Embeddings/Embed`` calls of 16-128
+   ids, then 8 of them alone (an embedding served in a batch within 2e-2
+   of range of the same request alone) and one ``POST /embed``; 4
+   concurrent ``GET /image`` (two prompts twice: the same prompt, the
+   same PNG bytes; two prompts, two PNGs). Every call answers 200/201;
+   ``app_ml_batch_size`` shows a batch of more than one row (MNIST, BERT).
+   Printed on ``engine:`` lines: calls/s, p50/p99, realized batches, peak
+   memory, and per bucket replay ms, eager ms, capture s and pool bytes.
 
 Measurements under ``torch.profiler`` hold the flight recorder's
 ``PROFILE_LOCK``, so an auto-profiler capture never overlaps one.
@@ -166,6 +190,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 # H100 SXM published peaks (NVIDIA data sheet): dense bf16 tensor-core
@@ -859,6 +884,8 @@ def main_path(dev) -> tuple[dict, dict]:
 def _nbytes(tree) -> int:
     if isinstance(tree, dict):
         return sum(_nbytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_nbytes(v) for v in tree)
     return tree.numel() * tree.element_size()
 
 
@@ -3210,6 +3237,396 @@ def speculation_phase(dev, bf16_params, tol: float = 2e-2) -> dict:
             "draft_self": draft}
 
 
+# -- phase 12: the engine path ----------------------------------------------------
+
+ENGINE_TOL = 2e-2
+DIT_STEPS = 30      # bench/config5_sdxl.py's step count for the base preset
+MNIST_CALLS, MNIST_IN_FLIGHT = 256, 64
+BERT_ROUNDS, BERT_AT_ONCE = 8, 32
+
+
+def range_err(got: np.ndarray, want: np.ndarray) -> float:
+    """max |got - want| over the range of ``want``."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    span = float(want.max() - want.min()) or 1.0
+    return float(np.abs(got - want).max()) / span
+
+
+def host(out) -> np.ndarray:
+    """A model output as the engine hands it back (bf16 widened to f32)."""
+    if out.dtype == torch.bfloat16:
+        out = out.float()
+    return out.cpu().numpy()
+
+
+def as_f32(tree):
+    """Every floating tensor of ``tree`` in f32 (the reference module)."""
+    from gofr_tpu_torch.ml.engine import tree_map
+
+    return tree_map(lambda t: t.float() if t.is_floating_point() else t, tree)
+
+
+def perturb_dit(dit, dev, seed: int = 1) -> None:
+    """``ada_w`` and ``patch_out`` drawn from seeded noise (x 0.02): zero
+    as initialised, they would make the DiT predict eps = 0 whatever its
+    trunk computes (JAX's ``test_conditioning_changes_output`` does the
+    same)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    p = dit.params
+    for tree, key in ((p, "patch_out"), (p["layers"], "ada_w")):
+        w = tree[key]
+        w.copy_(torch.randn(w.shape, generator=g, device=dev) * 0.02)
+
+
+def engine_models(dev) -> dict:
+    """The four engines' models at full width, random weights from seed 0:
+    the MNIST MLP 784-512-512-10, BERT-base (config #3's encoder, and
+    config #5's text encoder), DiT-XL/2 with a BERT-base context, perturbed."""
+    from gofr_tpu_torch.models import bert, diffusion, mlp
+
+    dit = diffusion.DiT(diffusion.dit_xl(), device=dev)
+    perturb_dit(dit, dev)
+    return {"mnist": mlp.mnist_mlp(device=dev),
+            "bert": bert.Bert(bert.bert_base(), device=dev),
+            "text_encoder": bert.Bert(bert.bert_base(), seed=1, device=dev),
+            "dit": dit}
+
+
+def engine_inputs(name: str, key: tuple, rng) -> list[np.ndarray]:
+    """Seeded inputs of one engine's graph shape: images, token rows with
+    valid lengths (16-128 for BERT), a context of the encoder's width."""
+    shapes = [k[0] for k in key]
+    b = shapes[0][0] if shapes[0] else 1
+    if name == "mnist":
+        return [rng.random(shapes[0], dtype=np.float32)]
+    if name in ("bert", "text_encoder"):
+        s = shapes[0][1]
+        return [rng.integers(1, 30522, shapes[0]).astype(np.int32),
+                rng.integers(min(16, s), s + 1, b).astype(np.int32)]
+    return [rng.standard_normal(shapes[0]).astype(np.float32)]
+
+
+def f32_config(cfg):
+    """A copy of a model config at f32."""
+    import copy
+
+    cfg32 = copy.copy(cfg)
+    cfg32.dtype = torch.float32
+    return cfg32
+
+
+def reference_f32(name: str, model, engine, inputs: list, dev):
+    """The same module run eagerly in f32 on the card, on f32 copies of the
+    weights: the MLP, BERT's embedding (config #3) or hidden states (the
+    text encoder), and for the DiT its denoiser at the sampler's guidance
+    batch (cond + zero uncond, the first step's t). Returns (the bf16
+    module's output, the f32 one)."""
+    from gofr_tpu_torch.models import bert, diffusion
+
+    xs = [torch.from_numpy(x).to(dev) for x in inputs]
+    if name == "mnist":
+        return (host(engine.apply_fn(engine.params, *xs)),
+                host(model.apply(as_f32(model.params), *xs)))
+    if name in ("bert", "text_encoder"):
+        what = "mean" if name == "bert" else "hidden"
+        outs = [bert.forward(p, xs[0], c, seq_lens=xs[1])[what] for p, c in
+                ((model.params, model.cfg),
+                 (as_f32(model.params), f32_config(model.cfg)))]
+        return host(outs[0]), host(outs[1])
+    cfg = model.cfg
+    g = torch.Generator(device=dev).manual_seed(2)
+    lat = torch.randn((2, cfg.latent_size, cfg.latent_size,
+                       cfg.latent_channels), generator=g, device=dev)
+    ctx = torch.cat([xs[0], torch.zeros_like(xs[0])])
+    t = torch.full((2,), diffusion.ddim_timesteps(DIT_STEPS)[0],
+                   dtype=torch.int32, device=dev)
+    return (host(diffusion.forward(model.params, lat, t, ctx, cfg)),
+            host(diffusion.forward(as_f32(model.params), lat, t, ctx,
+                                   f32_config(cfg))))
+
+
+def engine_checks(name: str, model, engine, dev, card: str) -> dict:
+    """(a) on one engine: each captured bucket's replay against the eager
+    run of the same apply on the same inputs (bit for bit), the bf16 module
+    against f32 within ``ENGINE_TOL`` of range, the device ms of one
+    replay (CUDA events), the busy share of a served execute (profiler),
+    capture seconds and pool bytes per bucket."""
+    rng = np.random.default_rng(12)
+    rows = {r["name"]: r for r in engine.programs.snapshot()}
+    buckets = {}
+    for key in sorted(engine.graphs, key=lambda k: k[0][0]):
+        b = key[0][0][0]
+        inputs = engine_inputs(name, key, rng)
+        graph_out = engine.predict_sync(*inputs)
+        xs = [torch.from_numpy(x).to(dev) for x in inputs]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eager = host(engine.apply_fn(engine.params, *xs))
+        eager_ms = (time.perf_counter() - t0) * 1e3
+        check(np.array_equal(graph_out, eager),
+              f"engine {name} b{b}: graph replay differs from eager "
+              f"(max {np.abs(graph_out - eager).max()})")
+        graph = engine.graphs[key][1]
+        reps = 3 if name == "dit" else 20
+        row = rows[f"apply/b{b}"]
+        buckets[b] = {"replay_ms": timed_ms(graph.replay, iters=reps, warm=1),
+                      "eager_ms": eager_ms, "capture_s": row["wall_s"],
+                      "pool_bytes": row.get("pool_bytes"),
+                      "graph_equals_eager": True}
+    # the served bucket: bf16 against f32, and the busy share of an execute
+    served_b = {"mnist": 64, "bert": 32}.get(name, 1)
+    key = next(k for k in engine.graphs if k[0][0][0] == served_b)
+    inputs = engine_inputs(name, key, rng)
+    bf16_out, f32_out = reference_f32(name, model, engine, inputs, dev)
+    err = range_err(bf16_out, f32_out)
+    check(err <= ENGINE_TOL,
+          f"engine {name}: bf16 {err:.4f} of range from f32 (> {ENGINE_TOL})")
+    prof = device_profile(lambda: engine.predict_sync(*inputs),
+                          3 if name == "dit" else 10)
+    res = {"buckets": buckets, "served_bucket": served_b,
+           "weights_gib": _nbytes(engine.params) / 2**30,
+           "bf16_vs_f32_err": err, "busy_share": prof["busy_share"],
+           "execute_wall_ms": prof["wall_ms"],
+           "execute_device_ms": prof["device_ms"],
+           "top_device_ms": prof["top_device_ms"]}
+    if name == "dit":
+        # the whole sampler at bf16 against f32 from the same noise:
+        # recorded (30 guided steps compound the bf16 rounding)
+        from gofr_tpu_torch.models import diffusion
+
+        ctx = torch.from_numpy(inputs[0]).to(dev)
+        g = torch.Generator(device=dev).manual_seed(0)
+        noise = torch.randn((1, 32, 32, 4), generator=g, device=dev)
+        s16 = diffusion.ddim_sample(model.params, ctx, model.cfg, noise,
+                                    steps=DIT_STEPS)
+        s32 = diffusion.ddim_sample(as_f32(model.params), ctx,
+                                    f32_config(model.cfg), noise,
+                                    steps=DIT_STEPS)
+        res["sampler_bf16_vs_f32_err"] = range_err(host(s16), host(s32))
+        res["step_ms"] = buckets[1]["replay_ms"] / DIT_STEPS
+    print(f"engine: {name} buckets {sorted(buckets)} graph=eager; bf16 vs "
+          f"f32 {err:.5f} of range; busy {prof['busy_share']:.3f} at "
+          f"b{served_b}; weights {res['weights_gib']:.3f} GiB; {card}")
+    for b, r in buckets.items():
+        print(f"engine: {name} b{b} replay {r['replay_ms']:.4f} ms, eager "
+              f"{r['eager_ms']:.2f} ms (host wall), capture "
+              f"{r['capture_s']:.3f} s, pool {r['pool_bytes']} B; {card}")
+    return res
+
+
+def batch_sizes(text: str, model: str) -> dict:
+    """The ``app_ml_batch_size`` histogram of ``model`` from /metrics:
+    {"le": cumulative count}, the count and the sum."""
+    out: dict = {"buckets": {}}
+    tag = f'model="{model}"'
+    for line in text.splitlines():
+        if not line.startswith("app_ml_batch_size") or tag not in line:
+            continue
+        key, _, value = line.rpartition(" ")
+        if key.startswith("app_ml_batch_size_bucket"):
+            le = key.split('le="')[1].split('"')[0]
+            out["buckets"][le] = float(value)
+        elif key.startswith("app_ml_batch_size_count"):
+            out["count"] = float(value)
+        elif key.startswith("app_ml_batch_size_sum"):
+            out["sum"] = float(value)
+    return out
+
+
+def served_stats(lat: list, wall: float) -> dict:
+    return {"calls": len(lat), "per_s": len(lat) / wall, "wall_s": wall,
+            "p50_ms": pct(lat, 0.5) * 1e3, "p99_ms": pct(lat, 0.99) * 1e3}
+
+
+async def drive_mnist(app, rng) -> dict:
+    import aiohttp
+
+    base = f"http://127.0.0.1:{app.http_port}"
+    gate = asyncio.Semaphore(MNIST_IN_FLIGHT)
+    images = rng.random((MNIST_CALLS, 784), dtype=np.float32)
+    lat, codes = [], []
+
+    async with aiohttp.ClientSession() as s:
+        async def one(img):
+            async with gate:
+                t0 = time.perf_counter()
+                r = await s.post(base + "/predict", json={"image": img.tolist()})
+                body = await r.json()
+                lat.append(time.perf_counter() - t0)
+                codes.append(r.status)
+                return body
+
+        t0 = time.perf_counter()
+        bodies = await asyncio.gather(*(one(x) for x in images))
+        wall = time.perf_counter() - t0
+        r = await s.post(base + "/predict", json={"image": [1, 2]})
+        bad = r.status
+        metrics = await (await s.get(
+            f"http://127.0.0.1:{app.metrics_port}/metrics")).text()
+    check(all(c == 201 for c in codes), f"mnist: statuses {set(codes)}")
+    check(all(0 <= b["data"]["digit"] <= 9 and len(b["data"]["probs"]) == 10
+              for b in bodies), "mnist: a malformed answer")
+    check(bad == 400, f"mnist: a bad shape answered {bad}")
+    return {**served_stats(lat, wall), "bad_shape_status": bad,
+            "batch_size": batch_sizes(metrics, "mnist")}
+
+
+async def drive_bert(app, rng) -> dict:
+    import aiohttp
+    import grpc.aio
+
+    channel = grpc.aio.insecure_channel(f"127.0.0.1:{app.grpc_port}")
+    rpc = channel.unary_unary(
+        "/ml.Embeddings/Embed",
+        request_serializer=lambda o: json.dumps(o).encode(),
+        response_deserializer=json.loads)
+    rounds = [[rng.integers(1, 30522, int(n)).tolist()
+               for n in rng.integers(16, 129, BERT_AT_ONCE)]
+              for _ in range(BERT_ROUNDS)]
+    lat: list = []
+
+    async def one(ids):
+        t0 = time.perf_counter()
+        out = await rpc({"token_ids": ids}, timeout=120)
+        lat.append(time.perf_counter() - t0)
+        return np.asarray(out["embedding"], np.float32)
+
+    try:
+        t0 = time.perf_counter()
+        batched = []
+        for ids in rounds:
+            batched.append(await asyncio.gather(*(one(x) for x in ids)))
+        wall = time.perf_counter() - t0
+        served = served_stats(lat, wall)
+        # the first round's first 8 requests again, each alone (batch 1)
+        alone = [await one(ids) for ids in rounds[0][:8]]
+    finally:
+        await channel.close()
+    pad_err = max(range_err(a, b) for a, b in zip(alone, batched[0][:8]))
+    check(pad_err <= ENGINE_TOL,
+          f"bert: an embedding served in a batch is {pad_err:.4f} of range "
+          f"from the same request alone")
+    async with aiohttp.ClientSession() as s:
+        base = f"http://127.0.0.1:{app.http_port}"
+        r = await s.post(base + "/embed", json={"token_ids": rounds[0][0]})
+        http_status = r.status
+        vec = np.asarray((await r.json())["data"]["embedding"], np.float32)
+        metrics = await (await s.get(
+            f"http://127.0.0.1:{app.metrics_port}/metrics")).text()
+    check(http_status == 201, f"bert: POST /embed answered {http_status}")
+    check(vec.shape == batched[0][0].shape and np.isfinite(vec).all()
+          and range_err(vec, batched[0][0]) <= ENGINE_TOL,
+          "bert: POST /embed gave another embedding than gRPC")
+    return {**served, "batched_vs_alone_err": pad_err,
+            "batch_size": batch_sizes(metrics, "bert")}
+
+
+async def drive_sdxl(app) -> dict:
+    import aiohttp
+
+    base = f"http://127.0.0.1:{app.http_port}"
+    prompts = ["a red fox in the snow", "a lighthouse at dusk"] * 2
+    lat: list = []
+    async with aiohttp.ClientSession() as s:
+        async def one(prompt):
+            t0 = time.perf_counter()
+            r = await s.get(base + "/image", params={"prompt": prompt})
+            body = await r.read()
+            lat.append(time.perf_counter() - t0)
+            return r.status, r.headers.get("Content-Type"), body
+
+        t0 = time.perf_counter()
+        outs = await asyncio.gather(*(one(p) for p in prompts))
+        wall = time.perf_counter() - t0
+    check(all(st == 200 and ct == "image/png" and b[:8] == b"\x89PNG\r\n\x1a\n"
+              for st, ct, b in outs), "sdxl: not every call answered a PNG")
+    pngs = [b for _, _, b in outs]
+    check(pngs[0] == pngs[2] and pngs[1] == pngs[3],
+          "sdxl: the same prompt gave different PNG bytes")
+    check(pngs[0] != pngs[1], "sdxl: two prompts gave the same PNG")
+    return {**served_stats(lat, wall), "png_bytes": [len(b) for b in pngs]}
+
+
+def engine_app(mount, *models, **env):
+    """An app on free ports with ``mount`` on ``models`` (every engine's
+    buckets captured at registration) and the seconds it took."""
+    from gofr_tpu_torch.app import new_app
+
+    with knobs(LOG_LEVEL="ERROR", HTTP_PORT=str(free_port()),
+               GRPC_PORT=str(free_port()), METRICS_PORT=str(free_port()),
+               **env):
+        app = new_app()
+        t0 = time.perf_counter()
+        mount(app, *models)
+        return app, time.perf_counter() - t0
+
+
+def engine_phase(dev, card: str) -> dict:
+    """Phase 12: the engine path (``register_model`` -> ``Engine`` ->
+    ``DynamicBatcher``) serving BASELINE configs #2, #3 and #5 through the
+    port's examples at full width, each booted on free ports and driven
+    over real sockets; (a) each engine's graphs against eager and its bf16
+    module against f32 before the traffic."""
+    import gc
+
+    from gofr_tpu_torch.examples import bert_server, mnist_server, sdxl_server
+
+    rng = np.random.default_rng(1212)
+    models = engine_models(dev)
+    arms = (("mnist", mnist_server.mount, ("mnist",), drive_mnist),
+            ("bert", bert_server.mount, ("bert",), drive_bert),
+            ("sdxl", lambda app, enc, dit: sdxl_server.mount(
+                app, enc, dit, steps=DIT_STEPS), ("text_encoder", "dit"),
+             lambda app, _rng: drive_sdxl(app)))
+    out: dict = {}
+    for arm, mount, names, drive in arms:
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        app, boot_s = engine_app(mount, *(models[n] for n in names))
+        ml = app.container.ml
+        res = {"boot_s": boot_s, "models": {
+            n: engine_checks(n, models[n], ml.engine(n), dev, card)
+            for n in names}}
+
+        async def run(app=app, drive=drive):
+            await app.start()
+            try:
+                return await drive(app, rng)
+            finally:
+                await app.shutdown()
+
+        # the serving peak, above what was resident before the arm (the
+        # earlier phases' tensors and all four engine models' weights);
+        # the graphs' own pools are reserved memory, reported per bucket
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res["served"] = asyncio.run(run())
+        res["resident_before_gib"] = resident / 2**30
+        res["peak_mem_gib"] = (torch.cuda.max_memory_allocated()
+                               - resident) / 2**30
+        res["graph_pools_gib"] = sum(
+            r["pool_bytes"] for m in res["models"].values()
+            for r in m["buckets"].values()) / 2**30
+        if arm != "sdxl":
+            sizes = res["served"]["batch_size"]
+            check(sizes["buckets"].get("1", 0) < sizes.get("count", 0),
+                  f"{arm}: no realized batch had more than one row "
+                  f"({sizes})")
+        sv = res["served"]
+        print(f"engine: {arm} served {sv['calls']} calls {sv['per_s']:.2f}/s "
+              f"p50 {sv['p50_ms']:.2f} ms p99 {sv['p99_ms']:.2f} ms; "
+              f"batches {sv.get('batch_size', {}).get('buckets')}; peak "
+              f"+{res['peak_mem_gib']:.2f} GiB over "
+              f"{res['resident_before_gib']:.2f} resident, graph pools "
+              f"{res['graph_pools_gib']:.3f} GiB; boot "
+              f"{boot_s:.1f} s; {card}")
+        out[arm] = res
+        del app, ml
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv: list[str]) -> int:
     import pathlib
 
@@ -3282,6 +3699,10 @@ def main(argv: list[str]) -> int:
     done("resilience and observability", res)
     spec = speculation_phase(dev, bf16_params)
     done("speculation", spec)
+    reset_launches()
+    engine = engine_phase(dev, card)
+    engine["launches"] = read_launches()
+    done("the engine path", engine)
     rows += spec["kernels"]
     for row in rows:
         by_path = {"bf16": path["launches"][row["name"]],
@@ -3305,7 +3726,8 @@ def main(argv: list[str]) -> int:
                    "spec_paged_int8": spec["paged_int8"]["graph"][
                        "launches"][row["name"]],
                    "spec_draft_self": spec["draft_self"]["launches"][
-                       row["name"]]}
+                       row["name"]],
+                   "engine": engine["launches"][row["name"]]}
         own = {"gqa_decode_attention_int8_cuda": "int8",
                "gqa_decode_window_cuda": "spec_lookup",
                "gqa_decode_window_int8_cuda": "spec_paged_int8"}.get(
@@ -3319,7 +3741,7 @@ def main(argv: list[str]) -> int:
             {"card": card, "kernels": rows, "bf16": path, "int8": qpath,
              "paged": ppath, "graphs": graphs, "windows": windows,
              "host_tier": tier, "front": front, "resilience": res,
-             "speculation": spec}, indent=1))
+             "speculation": spec, "engine": engine}, indent=1))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

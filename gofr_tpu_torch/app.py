@@ -3,8 +3,9 @@
 
 ``new_app()`` reads config from the environment and builds the container
 (logger, metrics, tracer). Routes (``get``/``post``/...), websocket
-routes (``websocket``), gRPC services (``register_service``) and LLMs
-(``register_llm``, mounted in ``ctx.ml``) are registered before
+routes (``websocket``), gRPC services (``register_service``), models
+(``register_model``) and LLMs (``register_llm``), both mounted in
+``ctx.ml``, are registered before
 ``start()``, which serves HTTP on ``HTTP_PORT`` behind the middleware
 chain (tracing, request log with panic recovery, ``app_http_response``),
 the ``/debug/*`` routes (``debug.py``), the Prometheus text on
@@ -102,6 +103,12 @@ class App:
         """Mount a continuous-batching LLM (``ml/llm.py``); handlers reach
         it as ``ctx.ml.llm(name)``."""
         self._ensure_ml().register_llm(name, params, cfg, **kwargs)
+
+    def register_model(self, name: str, model: Any, **kwargs: Any) -> None:
+        """Mount a model in the ``ml`` datasource (an ``Engine``, with a
+        ``DynamicBatcher`` under ``batching=True``); handlers call
+        ``ctx.ml.predict(name, ...)``."""
+        self._ensure_ml().register(name, model, **kwargs)
 
     # -- servers ---------------------------------------------------------------
     def _build_http_app(self) -> web.Application:

@@ -1,6 +1,8 @@
 """Dependency-injection container — counterpart of
 ``gofr_tpu/container``, cut to the serving front: the logger, the metrics
-manager with the framework's metric set registered, the tracer, the
+manager with the framework's metric set registered (the model runtime's
+``app_tpu_*`` and ``app_ml_*`` series and the LLM's ``app_llm_*``), the
+tracer, the
 ``ml`` datasource, ``health()`` (the
 aggregate readiness behind ``/.well-known/health``) and ``close()``. The
 SQL, Redis, KV and pub/sub datasources of the JAX package are not
@@ -48,6 +50,15 @@ class Container:
         m.new_gauge("app_process_memory_bytes", "resident set size")
         m.new_gauge("app_process_threads", "thread count")
         m.new_gauge("app_process_uptime_seconds", "seconds since start")
+        # the model runtime's series keep the JAX package's names (the
+        # ``tpu`` in them included), so dashboards compare like with like
+        m.new_histogram(
+            "app_tpu_step_seconds", "on-device execute time per step")
+        m.new_gauge("app_tpu_hbm_bytes_in_use", "HBM bytes in use per device")
+        m.new_gauge("app_tpu_hbm_bytes_limit", "HBM bytes limit per device")
+        m.new_histogram("app_ml_batch_size", "dynamic batcher batch sizes",
+                        buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256))
+        m.new_histogram("app_ml_queue_seconds", "request time in batch queue")
         m.new_histogram(
             "app_llm_ttft_seconds", "LLM time to first token",
             buckets=(0.01, 0.025, 0.05, 0.1, 0.2, 0.4, 0.8, 1.6, 3.2))

@@ -10,7 +10,8 @@ from __future__ import annotations
 
 from http import HTTPStatus
 
-__all__ = ["GofrError", "MissingParam", "InvalidInput", "InvalidRoute",
+__all__ = ["GofrError", "MissingParam", "InvalidParam", "InvalidInput",
+           "InvalidRoute",
            "RequestTimeout", "PanicRecovery", "ServiceUnavailable",
            "status_code_of"]
 
@@ -37,6 +38,15 @@ class MissingParam(GofrError):
     def __init__(self, *params: str) -> None:
         super().__init__(
             f"'{len(params)}' missing parameter(s): {', '.join(params)}")
+        self.params = params
+
+
+class InvalidParam(GofrError):
+    status_code = HTTPStatus.BAD_REQUEST
+
+    def __init__(self, *params: str) -> None:
+        super().__init__(
+            f"'{len(params)}' invalid parameter(s): {', '.join(params)}")
         self.params = params
 
 

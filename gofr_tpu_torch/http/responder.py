@@ -5,7 +5,8 @@ Success: ``{"data": ...}``, POST 201, DELETE 204, otherwise 200. Error:
 ``{"error": {"message": ...}}`` at the error's ``status_code`` (500 for an
 untyped one), with the error's ``headers`` (``Overloaded``'s
 ``Retry-After``) and its ``response`` dict merged into the error object;
-an error with partial data answers 206 with both.
+an error with partial data answers 206 with both. A ``File`` result is
+written raw with its content type.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from typing import Any
 from aiohttp import web
 
 from .errors import status_code_of
+from .response import File
 
 __all__ = ["respond", "to_jsonable"]
 
@@ -58,6 +60,9 @@ def respond(method: str, result: Any, err: BaseException | None
     """The aiohttp response for a handler's (result, error) pair."""
     if err is None and isinstance(result, web.StreamResponse):
         return result
+    if err is None and isinstance(result, File):
+        return web.Response(body=result.content,
+                            content_type=result.content_type)
     headers: dict[str, str] = {}
     status = _status_code(method, result, err)
     envelope: dict[str, Any] = {}

@@ -1,15 +1,18 @@
 """Serving layer of the port: the ``Generator`` over a dense or paged KV
 cache (generate.py), its host-side scheduling policy (scheduler.py), the
 shared-prefix cache policy (prefix_cache.py), the ``LLMServer`` that owns
-the generator on a serving thread (llm.py), the typed errors clients see
-(errors.py), and ``MLDatasource``, the ``ctx.ml`` datasource the front
-mounts LLMs in — counterpart of ``gofr_tpu/ml/__init__.py``, cut to one
-server per model. ``serving_snapshot`` and ``programs_snapshot`` are the
-bodies of ``/debug/serving`` and ``/debug/programs``; the sampler exports
-queue depths, live slots, process RSS, event-log drops, the goodput
-ledger (``app_llm_tokens_wasted_total``, ``app_llm_goodput_fraction``) and
-the program inventory (``app_ml_programs``,
-``app_ml_compile_seconds_total``).
+the generator on a serving thread (llm.py), the model ``Engine``
+(engine.py) and its ``DynamicBatcher`` (batching.py), the typed errors
+clients see (errors.py), and ``MLDatasource``, the ``ctx.ml`` datasource
+the front mounts models (``register``, ``predict``) and LLMs
+(``register_llm``, ``llm``) in — counterpart of ``gofr_tpu/ml/__init__.py``,
+cut to one server per LLM. ``serving_snapshot`` and ``programs_snapshot``
+are the bodies of ``/debug/serving`` and ``/debug/programs``; the sampler
+exports the device memory (``app_tpu_hbm_bytes_in_use`` / ``_limit``, the
+process RSS on the CPU), queue depths, live slots, event-log drops, the
+goodput ledger (``app_llm_tokens_wasted_total``,
+``app_llm_goodput_fraction``) and the program inventory
+(``app_ml_programs``, ``app_ml_compile_seconds_total``).
 
 Not ported, and raising ``NotImplementedError`` naming their ROADMAP
 item when asked for: replica pools and the fleet (``replicas`` > 1,
@@ -24,7 +27,9 @@ import asyncio
 import os
 from typing import Any
 
-__all__ = ["MLDatasource"]
+from .engine import Engine, EngineConfig
+
+__all__ = ["MLDatasource", "Engine", "EngineConfig"]
 
 
 def _host_rss_bytes() -> float | None:
@@ -78,13 +83,32 @@ def _replicas_from_env() -> int:
     return n
 
 
+def _card_memory() -> dict:
+    """{"cuda:i": {"bytes_in_use", "bytes_limit"}} of every card: the
+    caching allocator's live bytes (``memory_stats``) and the card's total
+    (``mem_get_info``'s total, read from the properties so no idle card
+    gets a context). Empty without a card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return {}
+    return {f"cuda:{i}": {
+        "bytes_in_use": int(torch.cuda.memory_stats(i).get(
+            "allocated_bytes.all.current", 0)),
+        "bytes_limit": int(torch.cuda.get_device_properties(i).total_memory)}
+        for i in range(torch.cuda.device_count())}
+
+
 class MLDatasource:
-    """Registry of named LLM servers, exposed to handlers as ``ctx.ml``."""
+    """Registry of named model engines and LLM servers, exposed to handlers
+    as ``ctx.ml``."""
 
     def __init__(self, logger=None, metrics=None, tracer=None) -> None:
         self._logger = logger
         self._metrics = metrics
         self._tracer = tracer
+        self._engines: dict[str, Engine] = {}
+        self._batchers: dict[str, Any] = {}
         self._llms: dict[str, Any] = {}
         # watermarks: lifetime totals publish as counter deltas
         self._events_dropped_seen = 0
@@ -92,6 +116,67 @@ class MLDatasource:
         self._compile_seen: dict[str, float] = {}
         if metrics is not None:
             metrics.register_sampler(self.sample_runtime_gauges)
+
+    def register(self, name: str, model: Any = None, *, apply_fn=None,
+                 params=None, example_inputs: tuple | None = None,
+                 config: EngineConfig | None = None, batching: Any = None,
+                 device=None) -> Engine:
+        """Mount a model: an object with ``apply`` / ``params`` (the port's
+        model classes), an ``apply_fn`` / ``params`` pair, or a ready
+        ``Engine``. ``device`` defaults to the model's, else the params',
+        else the first card. ``batching=True`` (or a ``DynamicBatcher``)
+        puts a batcher in front of ``predict`` and captures every bucket
+        now."""
+        if isinstance(model, Engine):
+            engine = model
+        else:
+            if model is not None and apply_fn is None:
+                apply_fn = getattr(model, "apply", None) or model.__call__
+                params = params if params is not None else getattr(
+                    model, "params", None)
+                if example_inputs is None:
+                    example_inputs = getattr(model, "example_inputs", None)
+            if apply_fn is None:
+                raise ValueError("register needs a model object or apply_fn")
+            if device is None:
+                device = getattr(model, "device", None)
+            engine = Engine(name, apply_fn, params, config=config,
+                            logger=self._logger, metrics=self._metrics,
+                            tracer=self._tracer,
+                            example_inputs=example_inputs, device=device)
+        self._engines[name] = engine
+        if batching is not None:
+            from .batching import DynamicBatcher
+
+            if batching is True:
+                batching = DynamicBatcher(engine, metrics=self._metrics,
+                                          tracer=self._tracer)
+            self._batchers[name] = batching
+            engine.warmup_buckets()  # the batcher pads to buckets: all now
+        if self._logger is not None:
+            self._logger.infof("model %s registered on %s", name,
+                               str(engine.device))
+        return engine
+
+    def engine(self, name: str) -> Engine:
+        if name not in self._engines:
+            raise KeyError(f"model {name!r} is not registered; available: "
+                           f"{sorted(self._engines)}")
+        return self._engines[name]
+
+    def batcher(self, name: str):
+        return self._batchers.get(name)
+
+    async def predict(self, name: str, *inputs: Any) -> Any:
+        """One prediction: through the model's batcher when one is mounted
+        (one example, no batch axis), else straight to the engine."""
+        batcher = self._batchers.get(name)
+        if batcher is not None:
+            return await batcher.submit(*inputs)
+        return await self.engine(name).predict(*inputs)
+
+    def predict_sync(self, name: str, *inputs: Any) -> Any:
+        return self.engine(name).predict_sync(*inputs)
 
     def register_llm(self, name: str, params: Any, cfg: Any, *,
                      generator: Any = None, replicas: int | None = None,
@@ -161,16 +246,42 @@ class MLDatasource:
                            f"{sorted(self._llms)}")
         return self._llms[name]
 
+    def refresh_device_metrics(self, metrics) -> None:
+        """The HBM gauges per card; on the CPU, which reports no device
+        memory, the process RSS instead, as JAX publishes it."""
+        cards = _card_memory()
+        for label, row in cards.items():
+            metrics.set_gauge("app_tpu_hbm_bytes_in_use", row["bytes_in_use"],
+                              device=label)
+            metrics.set_gauge("app_tpu_hbm_bytes_limit", row["bytes_limit"],
+                              device=label)
+        if not cards:
+            rss = _host_rss_bytes()
+            if rss is not None:
+                try:
+                    metrics.set_gauge("app_ml_host_rss_bytes", rss)
+                except Exception:
+                    pass  # a bare manager without the series
+
     def sample_runtime_gauges(self) -> None:
-        """One sampler pass: each LLM's queue depth and live slots, the
-        process RSS, event-log drops, the goodput ledger and the program
-        inventory."""
+        """One sampler pass: device memory, each engine's, batcher's and
+        LLM's queue depth, live slots, the process RSS, event-log drops, the
+        goodput ledger and the program inventory."""
         from ..flight_recorder import event_log
 
         m = self._metrics
+        self.refresh_device_metrics(m)
         rss = _host_rss_bytes()
         if rss is not None:
             m.set_gauge("app_ml_host_rss_bytes", rss)
+        for name, engine in self._engines.items():
+            m.set_gauge("app_ml_queue_depth", engine.queue_depth(),
+                        component="engine", model=name)
+        for name, batcher in self._batchers.items():
+            depth = getattr(batcher, "queue_depth", None)
+            if depth is not None:
+                m.set_gauge("app_ml_queue_depth", depth(),
+                            component="batcher", model=name)
         dropped = event_log().dropped
         if dropped > self._events_dropped_seen:
             m.add_counter("app_ml_events_dropped_total",
@@ -203,11 +314,18 @@ class MLDatasource:
             if frac is not None:
                 m.set_gauge("app_llm_goodput_fraction", frac, model=model)
 
+    def _program_logs(self):
+        """Every (model, ProgramLog) pair: engines, then LLM generators."""
+        for name, engine in self._engines.items():
+            yield name, engine.programs
+        for name, server in self._llms.items():
+            yield name, server.gen.programs
+
     def _export_program_telemetry(self, m) -> None:
         """The program-inventory gauge and the capture-seconds counter
         delta."""
-        for name, server in self._llms.items():
-            totals = server.gen.programs.totals()
+        for name, log in self._program_logs():
+            totals = log.totals()
             m.set_gauge("app_ml_programs", float(totals["programs"]),
                         model=name)
             seen = self._compile_seen.get(name, 0.0)
@@ -221,26 +339,18 @@ class MLDatasource:
         one row per card (bytes allocated and the card's total), and on
         the CPU ``"unsupported"`` with the process RSS as the fallback, as
         JAX answers for a backend without memory stats."""
-        import torch
-
-        devices: dict[str, Any] = {}
-        if torch.cuda.is_available():
-            for i in range(torch.cuda.device_count()):
-                devices[f"cuda:{i}"] = {
-                    "bytes_in_use": int(torch.cuda.memory_allocated(i)),
-                    "bytes_limit": int(
-                        torch.cuda.get_device_properties(i).total_memory)}
-            return {"devices": devices}
+        cards = _card_memory()
+        if cards:
+            return {"devices": cards}
         return {"devices": {"cpu:0": "unsupported"}, "fallback": "host_rss",
                 "host_rss_bytes": _host_rss_bytes()}
 
     def programs_snapshot(self, cost: bool = True) -> dict:
-        """The ``/debug/programs`` body: each model's programs (decode
-        graphs and prefill buckets) with their totals, and the device
-        memory."""
+        """The ``/debug/programs`` body: each model's programs (engine
+        graphs by batch; decode graphs and prefill buckets) with their
+        totals, and the device memory."""
         out: dict[str, Any] = {"models": {}, "hbm": self.hbm_snapshot()}
-        for name, server in self._llms.items():
-            log = server.gen.programs
+        for name, log in self._program_logs():
             out["models"][name] = {"totals": log.totals(),
                                    "entries": log.snapshot(cost=cost)}
         return out
@@ -256,6 +366,18 @@ class MLDatasource:
         ledger = goodput_ledger()
         snap: dict[str, Any] = {"models": {}, "llms": {},
                                 "hbm": self.hbm_snapshot()}
+        for name, engine in self._engines.items():
+            entry = {"steps": engine.steps, "device": str(engine.device),
+                     "backend": engine.backend,
+                     "batch_buckets": list(engine.config.batch_buckets),
+                     "compiled_buckets": sorted(engine.compiled_buckets),
+                     "queue_depth": engine.queue_depth()}
+            batcher = self._batchers.get(name)
+            if batcher is not None:
+                entry["batcher"] = {"queue_depth": batcher.queue_depth(),
+                                    "max_batch": batcher._max_batch,
+                                    "max_delay_s": batcher._max_delay}
+            snap["models"][name] = entry
         for name, server in self._llms.items():
             gen = server.gen
             entry = dict(server.health_check()["details"])
@@ -299,7 +421,9 @@ class MLDatasource:
         devices = ([str(torch.device("cuda", i))
                     for i in range(torch.cuda.device_count())]
                    if torch.cuda.is_available() else ["cpu"])
-        details: dict[str, Any] = {"devices": devices, "models": {}}
+        details: dict[str, Any] = {"devices": devices, "models": {
+            name: {"steps": engine.steps, "device": str(engine.device)}
+            for name, engine in self._engines.items()}}
         status = "UP"
         if self._llms:
             details["llms"] = {}
@@ -313,7 +437,7 @@ class MLDatasource:
         return {"status": status, "details": details}
 
     def close(self):
-        """Close every LLM server. With an event loop running (the app's
+        """Close every engine, batcher and LLM server. With an event loop running (the app's
         shutdown) the teardown runs on a worker thread and this returns
         its awaitable: a drain of ``GOFR_ML_DRAIN_S`` must not freeze the
         loop that delivers the very tokens it waits for."""
@@ -325,5 +449,11 @@ class MLDatasource:
         return asyncio.to_thread(self._close_now)
 
     def _close_now(self) -> None:
+        for engine in self._engines.values():
+            engine.close()
+        for batcher in self._batchers.values():
+            closer = getattr(batcher, "close", None)
+            if closer is not None:
+                closer()
         for server in self._llms.values():
             server.close()

@@ -63,6 +63,7 @@ import os
 import numpy as np
 import torch
 
+from . import tensor_from_numpy as _tensor_from_numpy
 from ..ops import (apply_rope, cached_decode_attention, dequantize_kv,
                    dequantize_kv4, flash_attention, quantize_kv, quantize_kv4,
                    quantize_weight, rms_norm, rope_table)
@@ -350,16 +351,6 @@ def params_from_config(cfg: LlamaConfig, seed: int = 0,
     gen = torch.Generator(device=device).manual_seed(seed)
     params = init_params(cfg, gen, device=device)
     return quantize_weights(params) if cfg.w8 else params
-
-
-def _tensor_from_numpy(a, device) -> torch.Tensor:
-    """numpy -> torch, bit for bit. bfloat16 (``ml_dtypes``, the dtype JAX
-    hands to numpy) goes through its raw 16-bit pattern."""
-    a = np.asarray(a)
-    if a.dtype.name == "bfloat16":
-        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
-        return t.view(torch.bfloat16).to(device)
-    return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
 
 
 def params_from_jax(tree: dict, device=None) -> dict:

@@ -25,6 +25,8 @@ import torch
 __all__ = [
     "NEG_INF",
     "rms_norm",
+    "layer_norm",
+    "gelu",
     "scale_rope_freqs",
     "rope_table",
     "apply_rope",
@@ -52,6 +54,23 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.T
     var = xf.square().mean(dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
     return (out * scale.float()).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-12) -> torch.Tensor:
+    """LayerNorm with f32 statistics (BERT-family encoders), cast back to
+    the input dtype."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mean).square().mean(dim=-1, keepdim=True)
+    out = (xf - mean) * torch.rsqrt(var + eps)
+    return (out * scale.float() + bias.float()).to(x.dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh approximation (torch's default
+    is the exact erf form, which would drift every BERT and DiT layer)."""
+    return torch.nn.functional.gelu(x, approximate="tanh")
 
 
 def scale_rope_freqs(freqs: torch.Tensor, scaling: dict) -> torch.Tensor:

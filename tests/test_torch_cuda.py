@@ -899,3 +899,102 @@ def test_capture_failure_raises_without_eager_fallback(dev, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA graph capture"):
         gen.step()
     assert gen.steps == steps and len(gen._graphs) == 1  # the mini-chunk's
+
+
+# -- the model engine's graph path ---------------------------------------------
+
+def _engine_models(dev):
+    """The three engine models at tiny widths on the card, the DiT's
+    ``ada_w`` and ``patch_out`` perturbed (zero, they hide the trunk)."""
+    from gofr_tpu_torch.examples import sdxl_server
+    from gofr_tpu_torch.models import bert, diffusion, mlp
+
+    dit = diffusion.DiT(diffusion.tiny_dit(), device=dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    for tree, key in ((dit.params, "patch_out"), (dit.params["layers"], "ada_w")):
+        tree[key].copy_(torch.randn(tree[key].shape, generator=g,
+                                    device=dev) * 0.02)
+    # the example's sampler: its noise drawn once a batch shape, before
+    # the capture (a generator cannot be made inside one)
+    sample = sdxl_server._sampler(dit.cfg, steps=3)
+
+    m = mlp.mnist_mlp(64, device=dev)
+    b = bert.Bert(bert.tiny_bert(), device=dev)
+    rng = np.random.default_rng(0)
+    return {
+        "mlp": (m.apply, m.params,
+                lambda n: [rng.random((n, 784), dtype=np.float32)]),
+        "bert": (b.apply, b.params,
+                 lambda n: [rng.integers(0, 256, (n, 16)).astype(np.int32),
+                            rng.integers(1, 17, n).astype(np.int32)]),
+        "dit": (sample, dit.params,
+                lambda n: [rng.standard_normal((n, 5, 32)).astype(np.float32)]),
+    }
+
+
+@pytest.mark.parametrize("model", ["mlp", "bert", "dit"])
+def test_engine_graph_replay_equals_eager(dev, model):
+    """Each bucket's captured graph, replayed on fresh inputs, equals the
+    eager apply on the same inputs bit for bit; a second shape of the same
+    batch is a second graph; the row records the capture."""
+    from gofr_tpu_torch.ml import Engine, EngineConfig
+
+    apply, params, inputs = _engine_models(dev)[model]
+    engine = Engine(model, apply, params, device=dev,
+                    config=EngineConfig(batch_buckets=(1, 4)),
+                    example_inputs=tuple(x[:1] for x in inputs(1)))
+    try:
+        engine.warmup_buckets()
+        assert len(engine.graphs) == 2
+        for n in (1, 4, 4):
+            xs = inputs(n)
+            got = engine.predict_sync(*xs)
+            want = apply(engine.params, *(torch.from_numpy(x).to(dev)
+                                          for x in xs))
+            want = want.float().cpu().numpy()
+            assert np.array_equal(got, want)
+        rows = {r["name"]: r for r in engine.programs.snapshot()}
+        assert set(rows) == {"apply/b1", "apply/b4"}
+        assert all(r["kind"] == "graph" and r["wall_s"] > 0
+                   for r in rows.values())
+    finally:
+        engine.close()
+
+
+def test_engine_keeps_the_callers_tensor_and_serves_bf16_as_f32(dev):
+    from gofr_tpu_torch.ml import Engine, EngineConfig
+
+    engine = Engine("toy", lambda p, x: (x * p).to(torch.bfloat16),
+                    torch.tensor(3.0, device=dev), device=dev,
+                    config=EngineConfig(donate_inputs=True))
+    try:
+        x = torch.arange(8.0, device=dev).reshape(2, 4)
+        for _ in range(2):
+            out = engine.predict_sync(x)
+            assert out.dtype == np.float32
+            assert np.array_equal(out, 3 * np.arange(8.0).reshape(2, 4))
+        assert torch.equal(x, torch.arange(8.0, device=dev).reshape(2, 4))
+        assert engine.memory_stats()["bytes_in_use"] > 0
+    finally:
+        engine.close()
+
+
+def test_engine_capture_failure_raises_without_eager_fallback(dev):
+    """An apply that syncs the host cannot be captured: the execute raises
+    naming the shape, and nothing runs eagerly in its place."""
+    from gofr_tpu_torch.ml import Engine
+
+    calls = []
+
+    def apply(p, x):
+        calls.append(torch.cuda.is_current_stream_capturing())
+        return x * float(x.sum())  # .item() under capture: refused
+
+    engine = Engine("bad", apply, torch.tensor(1.0, device=dev), device=dev)
+    try:
+        with pytest.raises(RuntimeError, match="CUDA graph capture"):
+            engine.predict_sync(np.ones((2, 3), np.float32))
+        assert calls == [False, True]  # the warm run, the capture; no replay
+        assert engine.steps == 0 and not engine.graphs
+    finally:
+        engine.close()

@@ -388,7 +388,13 @@ def test_importing_the_port_loads_no_jax():
             "gofr_tpu_torch.app, gofr_tpu_torch.examples.llama_server, "
             "gofr_tpu_torch.debug, gofr_tpu_torch.flight_recorder, "
             "gofr_tpu_torch.ml.goodput, gofr_tpu_torch.ml.journey, "
-            "gofr_tpu_torch.ml.programs, gofr_tpu_torch.testutil.faults; "
+            "gofr_tpu_torch.ml.programs, gofr_tpu_torch.testutil.faults, "
+            "gofr_tpu_torch.ml.engine, gofr_tpu_torch.ml.batching, "
+            "gofr_tpu_torch.models.mlp, gofr_tpu_torch.models.bert, "
+            "gofr_tpu_torch.models.diffusion, "
+            "gofr_tpu_torch.examples.mnist_server, "
+            "gofr_tpu_torch.examples.bert_server, "
+            "gofr_tpu_torch.examples.sdxl_server; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'gofr_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")
