@@ -171,7 +171,41 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    same PNG bytes; two prompts, two PNGs). Every call answers 200/201;
    ``app_ml_batch_size`` shows a batch of more than one row (MNIST, BERT).
    Printed on ``engine:`` lines: calls/s, p50/p99, realized batches, peak
-   memory, and per bucket replay ms, eager ms, capture s and pool bytes.
+   memory, and per bucket replay ms, eager ms, capture s and pool bytes;
+13. the OpenAI-compatible front and the time machine on phase 3's weights
+   (the port's ``examples/openai_server``, 8 slots, chunk 4, with
+   ``examples/llama_server``'s ``POST /generate`` on the same server):
+   (a) dense (``max_seq`` 1024): ``OPTIONS`` answers 200 with the CORS
+   headers; three prompts alone give the same tokens over ``/generate``
+   and the same text not streamed and streamed (SSE, with the CORS and
+   correlation headers); then 32 calls at once (16 streamed chats with
+   ``include_usage``, 8 chats not streamed, 8 streamed completions; chat
+   prompts of 64-512 bytes rendered, 64 new tokens each): every stream
+   opens with the role delta and ends in a ``length`` finish and ``data:
+   [DONE]``, ``usage`` equals the tokens sent and ``app_llm_tokens_total``
+   their sum, flash and the bf16 decode kernel launch and the int8 one
+   never; measured: tok/s, TTFT (the first frame with text) and the gap
+   between text frames (p50, p99); (b) paged (phase 9's ``LLM_PAGE_SIZE``
+   16, ``LLM_PAGES`` 257, ``LLM_PREFILL_CHUNK`` 512): a window of 32
+   requests 100 ms apart (streamed and not, priorities high, normal and
+   low in turn, half on one 512-byte system prompt) through an app with
+   ``GOFR_ML_CAPTURE=256``; ``/debug/capture`` decoded by ``load_bundle``
+   and replayed at speed 1 on a fresh app of the same config: digest
+   identity 1.0 over all 32, a balanced goodput delta, no drift
+   (checked); capture on against off, 32 chats at once, 3 runs each in
+   turns; a scripted ``step`` fault with capture armed: the
+   ``/debug/crash/<id>`` body loads as a bundle holding the crashed
+   request; (c) ``Tuner`` over that bundle with ``default_grid()`` at
+   speed 1, every arm a fresh ``Generator`` of the paged config over the
+   same weights, warmed up and replayed once: the scoreboard (identity, steady tok/s, TTFT/TPOT p99,
+   pruning), a winner, and ``register_llm`` booted with the emitted
+   profile through ``GOFR_ML_PROFILE`` shows it on ``/debug/serving``
+   with the environment restored after (checked); (d) on a fresh dense
+   app, 8 SSE streams kept busy out of phase and a ``GET
+   /debug/profile?seconds=2`` (20 ms slices): the route's answer time and
+   the longest gap between two text frames of one stream across the
+   capture, at most ``OAI_PROFILE_GAP_S``, its trace naming the flash and
+   decode kernels (checked).
 
 Measurements under ``torch.profiler`` hold the flight recorder's
 ``PROFILE_LOCK``, so an auto-profiler capture never overlaps one.
@@ -2630,6 +2664,21 @@ def sticky_error() -> dict:
     return res
 
 
+def trace_slices(zip_bytes: bytes) -> list[list[dict]]:
+    """The kernel events of each Chrome trace in a ``/debug/profile`` zip
+    (one a slice)."""
+    import io
+    import zipfile
+
+    out = []
+    with zipfile.ZipFile(io.BytesIO(zip_bytes)) as zf:
+        for name in sorted(zf.namelist()):
+            trace = json.loads(zf.read(name))
+            out.append([e for e in trace.get("traceEvents", [])
+                        if e.get("cat") == "kernel" and "dur" in e])
+    return out
+
+
 async def observability(app, llm, cfg) -> dict:
     """10.5 under load (8 gRPC streams kept busy): the ``stalls`` phases of
     ``/debug/serving`` sum to its wall within 1 %; the recorder's idle share
@@ -2638,9 +2687,6 @@ async def observability(app, llm, cfg) -> dict:
     ``step`` sleep hook under a fresh auto-profiler (the JAX defaults)
     triggers exactly one capture in its cooldown; ``/debug/programs`` lists
     as many decode graphs as ``graph_stats()`` counts."""
-    import io
-    import zipfile
-
     from gofr_tpu_torch.flight_recorder import (AutoProfiler, event_log,
                                                 profile_vault)
 
@@ -2679,21 +2725,17 @@ async def observability(app, llm, cfg) -> dict:
         prof_wall = time.perf_counter() - t0
         check(r.status == 200 and r.content_type == "application/zip",
               f"observability: /debug/profile answered {r.status}")
-        with zipfile.ZipFile(io.BytesIO(data)) as zf:
-            trace = json.loads(zf.read(zf.namelist()[0]))
-        kernels = [e for e in trace.get("traceEvents", [])
-                   if e.get("cat") == "kernel" and "dur" in e]
+        slices = trace_slices(data)
+        kernels = [e for sl in slices for e in sl]
         names = {e["name"] for e in kernels}
         check(any("flash" in n for n in names)
               and any("decode" in n for n in names),
               f"observability: the trace names no flash or decode kernel "
               f"({sorted(names)[:8]})")
-        if kernels:
-            t_lo = min(e["ts"] for e in kernels)
-            t_hi = max(e["ts"] + e["dur"] for e in kernels)
-            busy = sum(e["dur"] for e in kernels) / max(t_hi - t_lo, 1e-9)
-        else:
-            busy = None
+        # kernel time over the spans the slices cover
+        spans = sum(max(e["ts"] + e["dur"] for e in sl)
+                    - min(e["ts"] for e in sl) for sl in slices if sl)
+        busy = sum(e["dur"] for e in kernels) / spans if spans else None
         _, body = await c.get(c.base + "/debug/serving")
         entry = json.loads(body)["data"]["llms"]["chat"]
         stalls = entry["stalls"]
@@ -3627,6 +3669,638 @@ def engine_phase(dev, card: str) -> dict:
     return out
 
 
+# -- phase 13: the OpenAI front, traffic capture and replay, the tuner -----------
+
+OAI_MAX_NEW = 64
+OAI_PAGED = dict(LLM_PAGE_SIZE="16", LLM_PAGES="257", LLM_PREFILL_CHUNK="512")
+# (b): the window's arrivals, 100 ms apart (an open-loop ~10 requests/s)
+OAI_SPACING_S = 0.1
+OAI_PROFILE_GAP_S = 1.0
+
+
+def oai_texts(n: int, lo: int, hi: int, seed: int) -> list[str]:
+    """``n`` prompt texts of ``lo``-``hi`` printable ASCII characters (one
+    byte-level token each) from ``seed``."""
+    r = np.random.default_rng(seed)
+    return ["".join(map(chr, r.integers(32, 127, int(r.integers(lo,
+                                                                hi + 1)))))
+            for _ in range(n)]
+
+
+def oai_chat_texts(n: int, seed: int) -> list[str]:
+    """``n`` chat contents whose rendered one-message prompt (the role
+    tags and the assistant cue around it) is 64-512 bytes: the dense
+    app's largest prefill bucket."""
+    from gofr_tpu_torch.examples.openai_server import _render_chat
+
+    tags = len(_render_chat([{"role": "user", "content": ""}]))
+    return oai_texts(n, 64 - tags, 512 - tags, seed)
+
+
+def oai_app(dev, params, **env):
+    """The port's ``examples/openai_server`` mounted on ``params`` (8
+    slots, chunk 4, the arm's knobs read at boot) on free ports, with the
+    existing ``POST /generate`` of ``examples/llama_server`` on the same
+    server (registered as ``chat`` too): (app, LLMServer, cfg)."""
+    from gofr_tpu_torch.app import new_app
+    from gofr_tpu_torch.examples import llama_server, openai_server
+    from gofr_tpu_torch.models import llama
+
+    with knobs(LLAMA_PRESET="8b", LOG_LEVEL="ERROR", LLM_SLOTS="8",
+               LLM_CHUNK="4", HTTP_PORT=str(free_port()),
+               GRPC_PORT=str(free_port()), METRICS_PORT=str(free_port()),
+               **env):
+        cfg = llama.config_from_env(tiny_vocab_size=257)
+        app = openai_server.mount(new_app(), params, cfg, device=dev)
+    llm = app.container.ml.llm(openai_server.MODEL_ID)
+    app.container.ml._llms["chat"] = llm
+    app.post("/generate", llama_server.generate)
+    return app, llm, cfg
+
+
+async def oai_call(session, base: str, path: str, body: dict,
+                   headers: dict | None = None,
+                   live: list | None = None) -> dict:
+    """One OpenAI call: a stream's record holds every ``data:`` payload and
+    its arrival (host seconds, ``time.perf_counter``), any other call its
+    JSON body. ``live`` gets the record as soon as the headers arrive, so
+    a stream's frames can be read while it runs."""
+    t0 = time.perf_counter()
+    async with session.post(base + path, json=body,
+                            headers=headers or {}) as r:
+        rec = {"status": r.status, "headers": dict(r.headers), "t0": t0,
+               "stream": bool(body.get("stream"))}
+        if live is not None:
+            live.append(rec)
+        if rec["stream"] and r.status == 200:
+            rec["frames"], rec["at"] = [], []
+            async for line in r.content:
+                if line.startswith(b"data: "):
+                    rec["at"].append(time.perf_counter())
+                    raw = line[6:].strip().decode()
+                    rec["frames"].append(raw if raw == "[DONE]"
+                                         else json.loads(raw))
+        else:
+            rec["body"] = await r.json()
+    rec["wall_s"] = time.perf_counter() - t0
+    return rec
+
+
+def oai_text(rec: dict) -> str:
+    """The generated text of a call, streamed or not."""
+    if "frames" not in rec:
+        choice = rec["body"]["choices"][0]
+        return choice["message"]["content"] if "message" in choice \
+            else choice["text"]
+    return "".join(c.get("delta", {}).get("content") or c.get("text") or ""
+                   for f in rec["frames"][:-1] for c in f["choices"])
+
+
+def oai_content_at(rec: dict) -> list[float]:
+    """Arrivals of a stream's frames that carry generated text."""
+    return [t for f, t in zip(rec["frames"], rec["at"])
+            if f != "[DONE]" and any(c.get("delta", {}).get("content")
+                                     or c.get("text") for c in f["choices"])]
+
+
+def check_oai_stream(what: str, rec: dict, chat: bool) -> None:
+    """A stream answered 200, started with the role delta (chat) and ended
+    in a ``length`` finish and ``data: [DONE]``."""
+    check(rec["status"] == 200 and rec["frames"]
+          and rec["frames"][-1] == "[DONE]",
+          f"{what}: a stream answered {rec['status']} or did not end in "
+          f"[DONE]")
+    if chat:
+        check(rec["frames"][0]["choices"][0]["delta"]
+              == {"role": "assistant", "content": ""},
+              f"{what}: a chat stream did not open with the role delta")
+    finishes = [c["finish_reason"] for f in rec["frames"][:-1]
+                for c in f["choices"] if c["finish_reason"]]
+    check(finishes == ["length"], f"{what}: finish reasons {finishes}")
+
+
+def oai_stream_stats(recs: list, wall: float, tokens: int) -> dict:
+    """tok/s over the wall, TTFT (the first frame with text) and the gap
+    between text frames of a stream (p50, p99), in ms."""
+    streams = [r for r in recs if "frames" in r]
+    ttft = [oai_content_at(r)[0] - r["t0"] for r in streams]
+    gaps = [b - a for r in streams
+            for a, b in zip(oai_content_at(r), oai_content_at(r)[1:])]
+    return {"requests": len(recs), "tokens": tokens, "wall_s": wall,
+            "tok_per_s": tokens / wall,
+            "ttft_ms_p50": 1e3 * pct(ttft, 0.5),
+            "ttft_ms_p99": 1e3 * pct(ttft, 0.99),
+            "chunk_gap_ms_p50": 1e3 * pct(gaps, 0.5),
+            "chunk_gap_ms_p99": 1e3 * pct(gaps, 0.99),
+            "streams": len(streams)}
+
+
+async def oai_dense(app) -> dict:
+    """13(a): three prompts alone (the same tokens over ``/generate``, the
+    same text not streamed and streamed), CORS, then 32 calls at once: 16
+    streamed chats with usage, 8 chats not streamed, 8 streamed
+    completions, 64 new tokens each."""
+    import aiohttp
+
+    from gofr_tpu_torch.examples import openai_server as oai
+
+    base = f"http://127.0.0.1:{app.http_port}"
+    metrics_url = f"http://127.0.0.1:{app.metrics_port}/metrics"
+    key = f'app_llm_tokens_total{{model="{oai.MODEL_ID}"}}'
+    out: dict = {}
+    async with aiohttp.ClientSession() as s:
+        r = await s.options(base + "/v1/chat/completions")
+        cors = {k: v for k, v in r.headers.items()
+                if k.startswith("Access-Control-")}
+        check(r.status == 200 and cors.get("Access-Control-Allow-Origin")
+              == "*" and "POST" in cors.get("Access-Control-Allow-Methods",
+                                            ""),
+              f"openai: OPTIONS answered {r.status} with {cors}")
+        out["options_cors"] = cors
+        for text in oai_chat_texts(3, seed=22):
+            messages = [{"role": "user", "content": text}]
+            ids = oai.TOKENIZER.encode(oai._render_chat(messages))
+            r = await s.post(base + "/generate", json={
+                "prompt_ids": ids, "max_new_tokens": OAI_MAX_NEW})
+            toks = (await r.json())["data"]["tokens"]
+            body = {"messages": messages, "max_tokens": OAI_MAX_NEW}
+            plain = await oai_call(s, base, "/v1/chat/completions", body)
+            streamed = await oai_call(s, base, "/v1/chat/completions",
+                                      {**body, "stream": True})
+            dec = oai._StreamDecoder()
+            want = "".join(dec.push(t) for t in toks) + dec.flush()
+            check(len(toks) == OAI_MAX_NEW
+                  and oai_text(plain) == oai._decode(toks)
+                  and oai_text(streamed) == want,
+                  f"openai: a prompt of {len(ids)} ids alone gives other "
+                  f"text over /generate, not streamed and streamed")
+        check(streamed["headers"].get("Access-Control-Allow-Origin") == "*"
+              and streamed["headers"].get("X-Correlation-ID"),
+              "openai: an SSE response lacks the CORS or correlation header")
+        texts = oai_chat_texts(32, seed=21)
+        calls = []
+        for i, text in enumerate(texts):
+            if i < 24:
+                body = {"messages": [{"role": "user", "content": text}],
+                        "max_tokens": OAI_MAX_NEW}
+                if i < 16:
+                    body.update(stream=True,
+                                stream_options={"include_usage": True})
+                calls.append(("/v1/chat/completions", body))
+            else:
+                calls.append(("/v1/completions", {
+                    "prompt": text, "max_tokens": OAI_MAX_NEW,
+                    "stream": True}))
+        before = scrape(await (await s.get(metrics_url)).text()).get(key, 0)
+        reset_launches()
+        t = time.perf_counter()
+        recs = await asyncio.gather(*(oai_call(s, base, path, body)
+                                      for path, body in calls))
+        wall = time.perf_counter() - t
+        out["launches"] = read_launches()
+        after = scrape(await (await s.get(metrics_url)).text()).get(key, 0)
+    for i, (rec, (path, body)) in enumerate(zip(recs, calls)):
+        chat = "chat" in path
+        ids = oai.TOKENIZER.encode(oai._render_chat(body["messages"])
+                                   if chat else body["prompt"])
+        if body.get("stream"):
+            check_oai_stream(f"openai call {i}", rec, chat)
+        else:
+            check(rec["status"] == 200
+                  and rec["body"]["choices"][0]["finish_reason"] == "length",
+                  f"openai call {i}: {rec['status']} {rec.get('body')}")
+        usage = (rec["frames"][-2].get("usage") if "frames" in rec
+                 else rec["body"]["usage"])
+        if usage is not None:
+            check(usage == {"prompt_tokens": len(ids),
+                            "completion_tokens": OAI_MAX_NEW,
+                            "total_tokens": len(ids) + OAI_MAX_NEW},
+                  f"openai call {i}: usage {usage} for {len(ids)} ids")
+    check(after - before == len(calls) * OAI_MAX_NEW,
+          f"openai: app_llm_tokens_total moved {after - before} for "
+          f"{len(calls)} calls of {OAI_MAX_NEW} tokens")
+    out["front"] = oai_stream_stats(recs, wall, len(calls) * OAI_MAX_NEW)
+    return out
+
+
+async def oai_window(app, plan: list) -> list:
+    """13(b): the capture window, each request sent at its offset."""
+    import aiohttp
+
+    base = f"http://127.0.0.1:{app.http_port}"
+    async with aiohttp.ClientSession() as s:
+        t0 = time.perf_counter()
+
+        async def one(i, path, body, headers):
+            await asyncio.sleep(max(0.0, t0 + i * OAI_SPACING_S
+                                    - time.perf_counter()))
+            return await oai_call(s, base, path, body, headers)
+
+        return await asyncio.gather(*(one(i, *p) for i, p in
+                                      enumerate(plan)))
+
+
+def oai_plan(seed: int = 31) -> list:
+    """The mixed window: 32 requests, streamed and not, priorities high,
+    normal and low in turn; the even ones chats on one 512-byte system
+    prompt, the odd ones chats and completions of their own."""
+    system = oai_texts(1, 512, 512, seed)[0]
+    users = oai_texts(32, 64, 400, seed + 1)
+    plan = []
+    for i, text in enumerate(users):
+        stream = (i // 2) % 2 == 0
+        headers = {"X-Request-Priority": ("high", "normal", "low")[i % 3]}
+        if i % 2 == 0:
+            path, body = "/v1/chat/completions", {"messages": [
+                {"role": "system", "content": system},
+                {"role": "user", "content": text[:256]}]}
+        elif i % 4 == 1:
+            path, body = "/v1/chat/completions", {
+                "messages": [{"role": "user", "content": text}]}
+        else:
+            path, body = "/v1/completions", {"prompt": text}
+        body.update(max_tokens=OAI_MAX_NEW, stream=stream)
+        plan.append((path, body, headers))
+    return plan
+
+
+async def oai_burst_tok_s(app, texts) -> float:
+    """All ``texts`` at once as chats not streamed: tokens a second."""
+    import aiohttp
+
+    base = f"http://127.0.0.1:{app.http_port}"
+    async with aiohttp.ClientSession() as s:
+        t = time.perf_counter()
+        recs = await asyncio.gather(*(oai_call(
+            s, base, "/v1/chat/completions",
+            {"messages": [{"role": "user", "content": x}],
+             "max_tokens": OAI_MAX_NEW}) for x in texts))
+        wall = time.perf_counter() - t
+    check(all(r["status"] == 200 for r in recs), "overhead: a call failed")
+    return sum(r["body"]["usage"]["completion_tokens"] for r in recs) / wall
+
+
+class ReplayTap:
+    """A server proxy that keeps each replayed request's output, so a
+    mismatch names its request."""
+
+    def __init__(self, server) -> None:
+        self.server = server
+        self.name = server.name
+        self.out: dict = {}
+
+    async def stream_chunks(self, tokens, max_new, **kw):
+        toks: list = []
+        async for burst in self.server.stream_chunks(tokens, max_new, **kw):
+            toks.extend(burst)
+            yield burst
+        self.out[tuple(tokens)] = toks
+
+
+def gen_shape(gen) -> dict:
+    """The arguments that rebuild ``gen``'s generator shape."""
+    return {k: getattr(gen, k) for k in (
+        "batch_slots", "max_seq", "chunk", "prefill_buckets", "page_size",
+        "n_pages", "prefill_chunk")}
+
+
+async def oai_capture_replay(cap_app, cap_llm, rep_app, rep_llm) -> tuple:
+    """13(b) on two booted apps of the paged config: the capture app
+    (``GOFR_ML_CAPTURE=256``) serves the window, ``/debug/capture`` is
+    decoded with ``load_bundle`` and replayed at speed 1 on the other;
+    then capture on against off, and a scripted crash with capture
+    armed. Returns (results, bundle)."""
+    import os
+    import tempfile
+
+    import aiohttp
+
+    from gofr_tpu_torch.ml.capture import token_digest
+    from gofr_tpu_torch.ml.replay import ReplayHarness, load_bundle
+
+    out: dict = {}
+    base = f"http://127.0.0.1:{cap_app.http_port}"
+    plan = oai_plan()
+    reset_launches()
+    recs = await oai_window(cap_app, plan)
+    out["capture_launches"] = read_launches()
+    for i, rec in enumerate(recs):
+        if rec["stream"]:
+            check_oai_stream(f"capture call {i}", rec,
+                             "chat" in plan[i][0])
+        else:
+            check(rec["status"] == 200, f"capture call {i}: {rec}")
+    tmp = tempfile.mkdtemp(prefix="gofr-capture-")
+    async with aiohttp.ClientSession() as s:
+        r = await s.get(base + "/debug/capture")
+        check(r.status == 200 and r.content_type
+              == "application/octet-stream",
+              f"capture: /debug/capture answered {r.status}")
+        raw = await r.read()
+    path = os.path.join(tmp, "window.gfrb")
+    with open(path, "wb") as f:
+        f.write(raw)
+    bundle = load_bundle(path)
+    rows = bundle["requests"]
+    reasons = collections.Counter(r["finish_reason"] for r in rows)
+    check(len(rows) == len(plan) and reasons == {"length": len(plan)},
+          f"capture: {len(rows)} records, finish reasons {dict(reasons)}")
+    out["bundle"] = {"bytes": len(raw), "requests": len(rows),
+                     "modes": dict(collections.Counter(r["mode"]
+                                                       for r in rows)),
+                     "priorities": dict(collections.Counter(
+                         r["priority"] for r in rows)),
+                     "fleet": bundle["fleet"]}
+    if cap_llm.prefix_cache is not None:
+        snap = cap_llm.prefix_cache.snapshot()
+        out["capture_prefix_cache"] = {k: snap[k] for k in (
+            "hits", "misses", "prefill_tokens_saved")}
+    tap = ReplayTap(rep_llm)
+    reset_launches()
+    verdict = await ReplayHarness(tap, bundle, speed=1.0).run()
+    out["replay_launches"] = read_launches()
+    bad = [{"prompt_ids": len(r["tokens"]), "mode": r["mode"],
+            "priority": r["priority"]}
+           for r in rows if token_digest(tap.out.get(tuple(r["tokens"]), []))
+           != r["digest"]]
+    out["replay"] = {k: verdict[k] for k in (
+        "identity", "throughput", "ttft", "tpot", "goodput",
+        "fingerprint_drift", "replay_failed", "wall_s")}
+    out["replay"]["mismatched"] = bad
+    print("13b replay: " + json.dumps(out["replay"]), flush=True)
+    check(verdict["identity"]["rate"] == 1.0
+          and verdict["identity"]["compared"] == len(rows),
+          f"replay: digest identity {verdict['identity']} at bf16; "
+          f"mismatched {bad}")
+    check(verdict["goodput"]["balanced"], "replay: goodput delta unbalanced")
+    check(verdict["fingerprint_drift"] == [],
+          f"replay: drift {verdict['fingerprint_drift']}")
+    texts = oai_texts(32, 64, 400, seed=33)
+    await oai_burst_tok_s(rep_app, texts[:8])  # first traffic off
+    runs: dict = {"on": [], "off": []}
+    for arm in ("on", "off") * 3:
+        runs[arm].append(await oai_burst_tok_s(
+            cap_app if arm == "on" else rep_app, texts))
+    import statistics
+
+    out["capture_overhead"] = {
+        "tok_per_s": runs, "median_on": statistics.median(runs["on"]),
+        "median_off": statistics.median(runs["off"]),
+        "on_over_off": (statistics.median(runs["on"])
+                        / statistics.median(runs["off"]))}
+    # a scripted step fault with capture armed: the crash bundle carries
+    # the capture tail, and a saved body loads as a bundle
+    fired = {"n": 0}
+
+    def hook(point):
+        if point == "step" and fired["n"] == 0:
+            fired["n"] += 1
+            raise RuntimeError("scripted step fault")
+
+    cap_llm.gen.fault = hook
+    async with aiohttp.ClientSession() as s:
+        rec = await oai_call(s, base, "/v1/chat/completions", {
+            "messages": [{"role": "user", "content": texts[0]}],
+            "max_tokens": OAI_MAX_NEW})
+        cap_llm.gen.fault = None
+        check(fired["n"] == 1 and rec["status"] == 503,
+              f"crash: the fault fired {fired['n']} times, the call "
+              f"answered {rec['status']}")
+        r = await s.get(base + "/debug/crash")
+        crashes = (await r.json())["data"]["crashes"]
+        r = await s.get(base + f"/debug/crash/{crashes[-1]['id']}")
+        body = await r.read()
+    path = os.path.join(tmp, "crash.json")
+    with open(path, "wb") as f:
+        f.write(body)
+    tail = load_bundle(path)
+    from gofr_tpu_torch.examples import openai_server as oai
+
+    crashed = oai.TOKENIZER.encode(oai._render_chat(
+        [{"role": "user", "content": texts[0]}]))
+    check(any(r["tokens"] == crashed for r in tail["requests"]),
+          "crash: state.capture does not hold the crashed request")
+    out["crash"] = {"id": crashes[-1]["id"],
+                    "capture_tail": len(tail["requests"])}
+    return out, bundle
+
+
+def oai_tune(dev, params, cfg, bundle, shape: dict) -> dict:
+    """13(c): ``Tuner`` over the window's bundle with ``default_grid()``,
+    each arm a fresh ``Generator`` of the paged config (``shape``: the
+    replay app's generator arguments) over the same parameter tensors,
+    warmed up and replayed once at speed 1; then ``register_llm`` boots
+    the emitted profile through ``GOFR_ML_PROFILE``."""
+    import gc
+    import os
+    import tempfile
+
+    from gofr_tpu_torch.ml.generate import Generator, Sampler
+    from gofr_tpu_torch.ml.llm import LLMServer
+    from gofr_tpu_torch.ml.tune import Tuner, default_grid
+
+    def build(arm):
+        gc.collect()
+        torch.cuda.empty_cache()
+        gen = Generator(params, cfg, device=dev, sampler=Sampler(), **shape)
+        gen.warmup()  # every decode graph captured, as register_llm does
+        return LLMServer(gen, name="tune-arm")
+
+    # one scored pass an arm on its fresh server: a warm-up replay would
+    # leave the prefix cache holding the window's system prompt, and the
+    # scored pass would then prefill its first request another way than
+    # the capture did (bf16: other bits)
+    t = time.perf_counter()
+    tuner = Tuner(bundle, build, default_grid(bundle), speed=1.0,
+                  warmup=False)
+    result = asyncio.run(tuner.run())
+    out: dict = {"seconds": time.perf_counter() - t}
+    out["scoreboard"] = [{k: row.get(k) for k in (
+        "arm", "identity", "steady_tok_s", "tok_s", "ttft_p99_ms",
+        "tpot_p99_ms", "goodput", "pruned_reason", "error", "score")}
+        for row in result["scoreboard"]]
+    print("13c scoreboard: " + json.dumps(out["scoreboard"]), flush=True)
+    check(result["winner"] is not None,
+          "tune: no arm survived the identity gate")
+    profile = tuner.profile(result)
+    out.update(winner=result["winner"]["arm"], knobs=profile["knobs"],
+               speedup_vs_default=result.get("speedup_vs_default"))
+    path = os.path.join(tempfile.mkdtemp(prefix="gofr-profile-"),
+                        "tuned.json")
+    with open(path, "w") as f:
+        json.dump(profile, f)
+    env0 = {k: os.environ.get(k) for k in profile["knobs"]}
+    with knobs(GOFR_ML_PROFILE=path):
+        app, llm, _ = oai_app(dev, params, **OAI_PAGED)
+
+    async def serving():
+        await app.start()
+        try:
+            import aiohttp
+
+            async with aiohttp.ClientSession() as s:
+                r = await s.get(f"http://127.0.0.1:{app.http_port}"
+                                "/debug/serving")
+                return (await r.json())["data"]["llms"]["gofr-llama"]
+        finally:
+            await app.shutdown()
+
+    entry = asyncio.run(serving())
+    check(entry.get("profile", {}).get("knobs") == profile["knobs"]
+          and entry["profile"]["path"] == path,
+          f"tune: /debug/serving shows {entry.get('profile')}")
+    check({k: os.environ.get(k) for k in profile["knobs"]} == env0,
+          "tune: the profile's knobs stayed in the environment")
+    out["booted_profile"] = entry["profile"]
+    del app, llm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+async def oai_profile_pause(app) -> dict:
+    """13(d): 8 streams kept busy (SSE chats of 64-120 tokens, out of
+    phase) and a ``GET /debug/profile?seconds=2``: the route's answer time
+    and the longest gap between two frames of one stream that overlaps the
+    capture, which must stay within ``OAI_PROFILE_GAP_S``; the trace must
+    name the flash and decode kernels. For reference, the longest gap of
+    the 4 s of serving just before the capture."""
+    import aiohttp
+
+    base = f"http://127.0.0.1:{app.http_port}"
+    texts = oai_chat_texts(64, seed=41)
+    streams: list = []
+    stop = {"on": False}
+    async with aiohttp.ClientSession() as s:
+        async def worker(k):
+            # staggered starts and lengths keep the 8 streams out of
+            # phase: in lockstep, a stall that falls between two rounds
+            # lands in every stream's wait for its first token, which no
+            # frame gap sees
+            await asyncio.sleep(0.15 * k)
+            i = k
+            while not stop["on"]:
+                await oai_call(
+                    s, base, "/v1/chat/completions",
+                    {"messages": [{"role": "user",
+                                   "content": texts[i % len(texts)]}],
+                     "max_tokens": 64 + 8 * k, "stream": True},
+                    live=streams)
+                i += 8
+
+        workers = [asyncio.ensure_future(worker(k)) for k in range(8)]
+        await asyncio.sleep(1.5)  # every stream started
+        b0 = time.perf_counter()
+        await asyncio.sleep(4.0)  # serving with no capture, for reference
+        b1 = t0 = time.perf_counter()
+        r = await s.get(base + "/debug/profile", params={"seconds": "2"})
+        data = await r.read()
+        t1 = time.perf_counter()
+        check(r.status == 200, f"profile: answered {r.status}")
+        await asyncio.sleep(3.0)  # frames in flight across t1 land
+        stop["on"] = True
+        await asyncio.gather(*workers)
+    def gaps_across(lo: float, hi: float) -> list:
+        # between text frames of a stream: a live stream's cadence (the
+        # role frame's wait for the first token is its TTFT)
+        return [b - a for rec in streams
+                for a, b in zip(oai_content_at(rec), oai_content_at(rec)[1:])
+                if b > lo and a < hi]
+
+    gaps = gaps_across(t0, t1)
+    slices = trace_slices(data)
+    names = {e["name"] for sl in slices for e in sl}
+    out = {"answer_s": t1 - t0, "longest_gap_ms": 1e3 * max(gaps),
+           "longest_gap_ms_no_capture": 1e3 * max(gaps_across(b0, b1)),
+           "gaps": len(gaps), "zip_bytes": len(data),
+           "slices": len(slices),
+           "kernels": sum(len(sl) for sl in slices),
+           "kernel_names": len(names),
+           "flash_and_decode_named": (any("flash" in n for n in names)
+                                      and any("decode" in n for n in names))}
+    print("13d profile: " + json.dumps(out), flush=True)
+    check(out["longest_gap_ms"] <= 1e3 * OAI_PROFILE_GAP_S,
+          f"profile: a stream stalled {out['longest_gap_ms']} ms across a "
+          f"capture")
+    check(out["flash_and_decode_named"],
+          "profile: the trace names no flash or decode kernel")
+    return out
+
+
+def openai_phase(dev, bf16_params) -> dict:
+    """Phase 13: the OpenAI-compatible front, traffic capture and replay,
+    the tuner and ``/debug/profile`` under serving on Llama-3-8B at full
+    width (see the module docstring)."""
+    import gc
+    import os
+
+    res: dict = {}
+    t = time.perf_counter()
+    app, llm, _ = oai_app(dev, bf16_params)
+
+    async def dense():
+        await app.start()
+        try:
+            res["dense"] = await oai_dense(app)
+        finally:
+            await app.shutdown()
+
+    asyncio.run(dense())
+    launches = res["dense"]["launches"]
+    check(launches["flash_attention_cuda"] > 0
+          and launches["gqa_decode_attention_cuda"] > 0
+          and launches["gqa_decode_attention_int8_cuda"] == 0,
+          f"openai: kernel launches {launches}")
+    res["dense"]["seconds"] = time.perf_counter() - t
+    print("13a openai dense: " + json.dumps(res["dense"]), flush=True)
+    del app, llm
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    with knobs(GOFR_ML_CAPTURE="256"):
+        cap_app, cap_llm, cfg = oai_app(dev, bf16_params, **OAI_PAGED)
+        os.environ.pop("GOFR_ML_CAPTURE")
+        rep_app, rep_llm, _ = oai_app(dev, bf16_params, **OAI_PAGED)
+        os.environ["GOFR_ML_CAPTURE"] = "256"
+
+        async def both():
+            await cap_app.start()
+            await rep_app.start()
+            try:
+                return await oai_capture_replay(cap_app, cap_llm, rep_app,
+                                                rep_llm)
+            finally:
+                await cap_app.shutdown()
+                await rep_app.shutdown()
+
+        res["capture"], bundle = asyncio.run(both())
+    res["capture"]["seconds"] = time.perf_counter() - t
+    print("13b capture and replay: " + json.dumps(res["capture"]),
+          flush=True)
+    shape = gen_shape(rep_llm.gen)
+    del cap_app, cap_llm, rep_app, rep_llm
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["tune"] = oai_tune(dev, bf16_params, cfg, bundle, shape)
+    print("13c tune: " + json.dumps(res["tune"]), flush=True)
+    t = time.perf_counter()
+    app, llm, _ = oai_app(dev, bf16_params)
+
+    async def profile():
+        await app.start()
+        try:
+            return await oai_profile_pause(app)
+        finally:
+            await app.shutdown()
+
+    res["profile"] = asyncio.run(profile())
+    res["profile"]["seconds"] = time.perf_counter() - t
+    del app, llm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def main(argv: list[str]) -> int:
     import pathlib
 
@@ -3703,6 +4377,8 @@ def main(argv: list[str]) -> int:
     engine = engine_phase(dev, card)
     engine["launches"] = read_launches()
     done("the engine path", engine)
+    oai = openai_phase(dev, bf16_params)
+    done("the OpenAI front, capture, replay and the tuner", oai)
     rows += spec["kernels"]
     for row in rows:
         by_path = {"bf16": path["launches"][row["name"]],
@@ -3727,7 +4403,12 @@ def main(argv: list[str]) -> int:
                        "launches"][row["name"]],
                    "spec_draft_self": spec["draft_self"]["launches"][
                        row["name"]],
-                   "engine": engine["launches"][row["name"]]}
+                   "engine": engine["launches"][row["name"]],
+                   "openai_dense": oai["dense"]["launches"][row["name"]],
+                   "openai_capture": oai["capture"]["capture_launches"][
+                       row["name"]],
+                   "openai_replay": oai["capture"]["replay_launches"][
+                       row["name"]]}
         own = {"gqa_decode_attention_int8_cuda": "int8",
                "gqa_decode_window_cuda": "spec_lookup",
                "gqa_decode_window_int8_cuda": "spec_paged_int8"}.get(
@@ -3741,7 +4422,8 @@ def main(argv: list[str]) -> int:
             {"card": card, "kernels": rows, "bf16": path, "int8": qpath,
              "paged": ppath, "graphs": graphs, "windows": windows,
              "host_tier": tier, "front": front, "resilience": res,
-             "speculation": spec, "engine": engine}, indent=1))
+             "speculation": spec, "engine": engine, "openai": oai},
+            indent=1))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -8,14 +8,28 @@ Pallas kernels on the serving path are CUDA C++ kernels here
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card and without an explicit ``cpu`` they raise instead of
-quietly running on the host.
+quietly running on the host. ``EventStream`` (SSE) and ``Raw`` (a JSON
+body without the envelope) are exported as ``gofr_tpu`` exports them,
+imported on first use so ``import gofr_tpu_torch`` stays torch alone.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "EventStream", "Raw"]
+
+
+def __getattr__(name: str):
+    if name == "EventStream":
+        from .http.sse import EventStream
+
+        return EventStream
+    if name == "Raw":
+        from .http.response import Raw
+
+        return Raw
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def resolve_device(device=None) -> torch.device:

@@ -7,7 +7,8 @@ routes (``websocket``), gRPC services (``register_service``), models
 (``register_model``) and LLMs (``register_llm``), both mounted in
 ``ctx.ml``, are registered before
 ``start()``, which serves HTTP on ``HTTP_PORT`` behind the middleware
-chain (tracing, request log with panic recovery, ``app_http_response``),
+chain (tracing, request log with panic recovery, CORS from the
+``ACCESS_CONTROL_*`` keys, ``app_http_response``: JAX's order),
 the ``/debug/*`` routes (``debug.py``), the Prometheus text on
 ``METRICS_PORT`` at ``/metrics``, and gRPC on
 ``GRPC_PORT`` when a service is registered. ``shutdown()`` is the bounded
@@ -111,9 +112,15 @@ class App:
         self._ensure_ml().register(name, model, **kwargs)
 
     # -- servers ---------------------------------------------------------------
+    def _registered_methods(self) -> str:
+        methods = sorted({m for m, _, _ in self._routes})
+        return ", ".join(methods + ["OPTIONS"]) if methods else "GET, OPTIONS"
+
     def _build_http_app(self) -> web.Application:
         chain = [mw.tracer_middleware(self.tracer),
                  mw.logging_middleware(self.logger),
+                 mw.cors_middleware(mw.CORSConfig.from_config(self.config),
+                                    self._registered_methods),
                  mw.metrics_middleware(self.container.metrics_manager)]
         app = web.Application(
             middlewares=[self._adapt_middleware(f) for f in chain],

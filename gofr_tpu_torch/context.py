@@ -1,8 +1,8 @@
 """Per-request Context — counterpart of ``gofr_tpu/context.py``: the one
 argument every handler receives. It wraps the transport request
-(``bind``, ``param``), reaches the container's members as attributes
-(``ctx.ml``, ``ctx.logger``, ``ctx.config``), and writes websocket frames
-with ``write_message_to_socket``."""
+(``bind``, ``param``, ``headers``), reaches the container's members as
+attributes (``ctx.ml``, ``ctx.logger``, ``ctx.config``), and writes
+websocket frames with ``write_message_to_socket``."""
 
 from __future__ import annotations
 
@@ -26,6 +26,10 @@ class Context:
 
     def param(self, key: str) -> str:
         return self.request.param(key)
+
+    @property
+    def headers(self) -> Any:
+        return getattr(self.request, "headers", {})
 
     async def bind(self) -> Any:
         return await self.request.bind()

@@ -5,13 +5,16 @@
   details, pool, host tier, prefix cache, window and pipeline blocks,
   scheduler, ``resilience``, ``stalls`` (the flight recorder),
   ``autoprof`` and ``goodput``; latency percentiles from the histograms
-  ``/metrics`` serves; and ``runtime``, the port's fingerprint (torch and
-  CUDA versions, card name and count, the armed ``GOFR_ML_*`` knobs).
-- ``GET /debug/profile?seconds=N`` — a ``torch.profiler`` capture of N
+  ``/metrics`` serves; and ``runtime``, the port's fingerprint
+  (``ml/capture.runtime_fingerprint``: torch and CUDA versions, card name
+  and count, the armed ``GOFR_ML_*`` knobs).
+- ``GET /debug/profile?seconds=N`` — a ``torch.profiler`` capture over N
   seconds (CPU and CUDA activities; every kernel of the process, graph
-  replays included) returned as a zip of its Chrome trace. One capture at
-  a time, process-wide (``flight_recorder.PROFILE_LOCK``): a second
-  request answers 409.
+  replays included) in slices (``flight_recorder.PROFILE_SLICE_S``,
+  ``PROFILE_PERIOD_S`` apart), returned as a zip of one Chrome trace a
+  slice.
+  One capture at a time, process-wide (``flight_recorder.PROFILE_LOCK``):
+  a second request answers 409.
 - ``GET /debug/events?since=&model=&kind=&rid=&limit=`` — the event log.
 - ``GET /debug/requests``, ``GET /debug/requests/<rid>`` — journeys.
 - ``GET /debug/goodput`` — the goodput ledger.
@@ -19,8 +22,9 @@
 - ``GET /debug/profile/auto``, ``GET /debug/profile/auto/<id>`` — the
   auto-profiler's captures.
 - ``GET /debug/crash``, ``GET /debug/crash/<id>`` — crash bundles.
-- ``GET /debug/capture`` — traffic capture is ROADMAP A.16; this answers
-  as the JAX route does with capture off.
+- ``GET /debug/capture?rid=`` — the traffic capture's binary bundle
+  (``ml/capture.py``), or one request's; ``{"enabled": false}`` when
+  ``GOFR_ML_CAPTURE`` is unset or 0, 404 for an unknown rid.
 """
 
 from __future__ import annotations
@@ -37,8 +41,7 @@ from aiohttp import web
 from .flight_recorder import LAUNCH_GATE
 from .flight_recorder import PROFILE_LOCK as _profile_lock
 
-__all__ = ["register_debug_routes", "serving_snapshot",
-           "runtime_fingerprint"]
+__all__ = ["register_debug_routes", "serving_snapshot"]
 
 _LATENCY_HISTOGRAMS = (
     "app_llm_queue_seconds",
@@ -50,25 +53,6 @@ _PRIORITY_HISTOGRAM = "app_llm_priority_queue_seconds"
 _QUANTILES = (0.5, 0.95, 0.99)
 
 MAX_PROFILE_SECONDS = 60.0
-
-
-def runtime_fingerprint() -> dict:
-    """The runtime this process serves on: torch and CUDA versions, the
-    card's name and count, and every armed ``GOFR_ML_*`` knob."""
-    import torch
-
-    out: dict = {
-        "knobs": {k: v for k, v in sorted(os.environ.items())
-                  if k.startswith("GOFR_ML_")},
-        "torch": torch.__version__,
-        "cuda": torch.version.cuda,
-    }
-    if torch.cuda.is_available():
-        out["devices"] = {"kind": torch.cuda.get_device_name(0),
-                          "count": torch.cuda.device_count()}
-    else:
-        out["devices"] = {"kind": "cpu", "count": 1}
-    return out
 
 
 def _histogram_percentiles(manager, model_names) -> dict:
@@ -103,6 +87,8 @@ def _histogram_percentiles(manager, model_names) -> dict:
 
 def serving_snapshot(container) -> dict:
     """The ``/debug/serving`` body."""
+    from .ml.capture import runtime_fingerprint
+
     snap: dict = {"ts": time.time(), "runtime": runtime_fingerprint()}
     ml = getattr(container, "ml", None)
     if ml is not None:
@@ -261,12 +247,25 @@ def register_debug_routes(app, aio_app: web.Application) -> None:
             headers={"Content-Disposition":
                      f'attachment; filename="{profile_id}.zip"'})
 
-    async def capture_handler(_: web.Request) -> web.Response:
-        # capture is ROADMAP A.16: the port's servers refuse to boot with
-        # it armed, so this answers as JAX's route does with capture off
-        return web.json_response(
-            {"data": {"enabled": False,
-                      "reason": "GOFR_ML_CAPTURE unset or 0"}})
+    async def capture_handler(request: web.Request) -> web.Response:
+        from .ml.capture import traffic_capture
+
+        cap = traffic_capture()
+        if cap is None:
+            return web.json_response(
+                {"data": {"enabled": False,
+                          "reason": "GOFR_ML_CAPTURE unset or 0"}})
+        rid = request.query.get("rid") or None
+        if rid is not None and cap.get(rid) is None:
+            return _error(f"unknown request id {rid!r}", 404)
+        # encoding walks the ring and packs token arrays: off the loop
+        loop = asyncio.get_running_loop()
+        body = await loop.run_in_executor(None, lambda: cap.encode(rid=rid))
+        name = f"capture-{rid}.gfrb" if rid is not None else "capture.gfrb"
+        return web.Response(
+            body=body, content_type="application/octet-stream",
+            headers={"Content-Disposition":
+                     f'attachment; filename="{name}"'})
 
     async def crash_list_handler(_: web.Request) -> web.Response:
         from .flight_recorder import crash_vault

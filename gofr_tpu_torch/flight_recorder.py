@@ -36,7 +36,11 @@ the manual ``/debug/profile``, the auto-profiler and any measurement that
 runs ``torch.profiler`` in the same process take it. An auto-capture that
 finds it held is skipped and counted (``skipped_busy``). ``LAUNCH_GATE``
 keeps the profiler's start and stop apart from device work on other
-threads: a serving pass holds it shared, a start or stop exclusively.
+threads: a serving pass holds it shared, a start or stop exclusively. A
+capture records in slices (``PROFILE_SLICE_S``, ``PROFILE_PERIOD_S``
+apart; a manual one starts each at an admission, the auto-profiler's on
+the timer): a stop converts its events holding the GIL, so a slice
+bounds how long serving waits.
 
 Everything but the capture itself is stdlib; ``torch`` is imported only
 inside ``_capture_profile_trace``.
@@ -57,7 +61,8 @@ import zipfile
 __all__ = ["PHASES", "DispatchRecorder", "EventLog", "CrashVault",
            "AutoProfiler", "ProfileVault", "PROFILE_LOCK", "LAUNCH_GATE",
            "event_log", "crash_vault", "profile_vault",
-           "recorder_enabled", "autoprof_enabled", "zip_dir_bytes"]
+           "recorder_enabled", "autoprof_enabled", "zip_dir_bytes",
+           "PROFILE_SLICE_S", "PROFILE_PERIOD_S"]
 
 # the profiler is process-global state: ONE capture at a time, ever —
 # shared by the manual /debug/profile endpoint, the auto-profiler and any
@@ -73,23 +78,40 @@ class _LaunchGate:
     holds the gate shared for each pass (``serving``), a profiler start or
     stop exclusively (``exclusive``); a waiting transition holds back new
     passes, so it gets in between two. Uncontended, a pass pays two lock
-    round trips on the host."""
+    round trips on the host. A CUDA graph capture holds it shared as well
+    (a stop's device synchronize would invalidate it); inside a pass the
+    same thread nests for free. A capture may start its slice at the next
+    admission (``await_admission`` / ``admission_point``), so its slices
+    record prefills and not only decode."""
 
     def __init__(self) -> None:
         self._cond = threading.Condition()
         self._passes = 0
         self._exclusive = False
         self._waiting = 0
+        self._transitions = 0  # exclusive() calls, ever
+        self._held = threading.local()  # this thread's nesting depth
+        self.want_admission = False  # a capture waits for a prefill
 
     @contextlib.contextmanager
     def serving(self):
+        depth = getattr(self._held, "depth", 0)
+        if depth:  # already inside this thread's pass
+            self._held.depth = depth + 1
+            try:
+                yield
+            finally:
+                self._held.depth = depth
+            return
         with self._cond:
             while self._exclusive or self._waiting:
                 self._cond.wait()
             self._passes += 1
+        self._held.depth = 1
         try:
             yield
         finally:
+            self._held.depth = 0
             with self._cond:
                 self._passes -= 1
                 if not self._passes:
@@ -98,7 +120,9 @@ class _LaunchGate:
     @contextlib.contextmanager
     def exclusive(self):
         with self._cond:
+            self._transitions += 1
             self._waiting += 1
+            self._cond.notify_all()  # an admission_point waits for this
             while self._passes or self._exclusive:
                 self._cond.wait()
             self._waiting -= 1
@@ -109,6 +133,37 @@ class _LaunchGate:
             with self._cond:
                 self._exclusive = False
                 self._cond.notify_all()
+
+    def admission_point(self) -> None:
+        """A serving thread, between passes, before a pass that admits (and
+        so prefills): when a profiler capture waits to start a slice at an
+        admission (``await_admission``), the pass waits until the slice's
+        start holds the gate, so the slice records the prefill. Otherwise
+        one attribute read."""
+        if not self.want_admission:
+            return
+        with self._cond:
+            if not self.want_admission:
+                return
+            self.want_admission = False
+            seen = self._transitions
+            self._cond.notify_all()
+            # until the slice's start has asked for the gate (it may even
+            # be done): the pass then runs inside the slice
+            until = time.monotonic() + 1.0  # a capture that died frees us
+            while self._transitions == seen and time.monotonic() < until:
+                self._cond.wait(0.01)
+
+    def await_admission(self, timeout: float) -> None:
+        """A capture, before a slice: wait up to ``timeout`` for a serving
+        thread to reach ``admission_point``."""
+        with self._cond:
+            self.want_admission = True
+            until = time.monotonic() + timeout
+            while self.want_admission and \
+                    (left := until - time.monotonic()) > 0:
+                self._cond.wait(left)
+            self.want_admission = False
 
 
 LAUNCH_GATE = _LaunchGate()
@@ -507,8 +562,8 @@ class CrashVault:
         """Store one bundle; returns its id (``/debug/crash/<id>``).
         Oldest bundles roll off past the capacity — postmortems read the
         bundle soon after the incident, not weeks later. ``capture`` is
-        a traffic-capture tail; it lands under ``state.capture``
-        (capture is ROADMAP A.16: the port passes None)."""
+        a traffic-capture tail (``ml/capture.py``, capture on only); it
+        lands under ``state.capture``."""
         with self._lock:
             self._n += 1
             # replica core names carry a slash ("chat/0") that would split
@@ -590,29 +645,73 @@ def zip_dir_bytes(root: str,
     return buf.getvalue(), truncated
 
 
-def _capture_profile_trace(trace_dir: str, seconds: float) -> None:
-    """Blocking profiler capture of ``seconds`` (the CPU activity, and the
-    card's kernels when there is one: CUPTI records every kernel of the
-    process, graph replays included), written as a Chrome trace into
-    ``trace_dir``. The kineto result is saved as the profiler returns it,
-    without ``torch.profiler``'s event parsing: at Llama-3-8B decode a
-    second of graph replays is ~170k kernel events, and parsing them costs
-    seconds of host time a second captured. Run off the serving thread;
-    callers hold ``PROFILE_LOCK``. Module-level so tests can replace it."""
+# a capture records in slices of PROFILE_SLICE_S, PROFILE_PERIOD_S of
+# unrecorded serving apart. A manual capture starts each slice at the
+# next admission (a pass that prefills) that comes before the window
+# ends, so its slices hold prefills; the auto-profiler's start on the
+# timer, so a regression in steady decode is recorded while it lasts. A
+# slice's stop (CUPTI's flush and the conversion of every event, under
+# LAUNCH_GATE) and its save (after the window, PROFILE_PERIOD_S apart)
+# each hold the GIL, and with it every serving thread, ~0.13 s plus tens
+# of microseconds an event: at Llama-3-8B decode ~1.2k kernels a step, a
+# whole 2 s window held serving ~25 s (H100). On the card a slice records
+# the card's activity only (kernels, copies, the runtime calls), not the
+# host's operators: fewer events a stop converts. The trace is a sample.
+PROFILE_SLICE_S = 0.02
+PROFILE_PERIOD_S = 0.25
+
+
+def _capture_profile_trace(trace_dir: str, seconds: float, *,
+                           at_admissions: bool = True) -> None:
+    """Blocking profiler capture over ``seconds`` (the card's kernels when
+    there is one: CUPTI records every kernel of the process, graph replays
+    included; the CPU activity without one) in slices, each written as a
+    Chrome trace ``trace-NNN.json`` into ``trace_dir``. A slice starts at
+    the next admission (``at_admissions``) or on the timer. Each slice's
+    start and stop wait for the end of a serving pass (``LAUNCH_GATE``): a
+    stop that races ``CUDAGraph.replay`` on another thread can deadlock,
+    and turning the collection off first (``_toggle_collection_dynamic``)
+    leaves an empty trace. The kineto result is saved as the profiler
+    returns it, without ``torch.profiler``'s event parsing. Run off the
+    serving thread; callers hold ``PROFILE_LOCK``. Module-level so tests
+    can replace it."""
     import torch
     from torch.autograd import profiler as autograd_profiler
 
-    prof = autograd_profiler.profile(
-        use_device="cuda" if torch.cuda.is_available() else None,
-        use_kineto=True)
-    with LAUNCH_GATE.exclusive():
-        prof.__enter__()
-    try:
-        time.sleep(seconds)
-    finally:
+    device = "cuda" if torch.cuda.is_available() else None
+    end = time.perf_counter() + seconds
+    results = []
+    while True:
+        if at_admissions:
+            LAUNCH_GATE.await_admission(max(0.0, end - time.perf_counter()))
+        prof = autograd_profiler.profile(use_device=device, use_kineto=True,
+                                         use_cpu=device is None)
         with LAUNCH_GATE.exclusive():
-            result = autograd_profiler._disable_profiler()
-    result.save(os.path.join(trace_dir, "trace.json"))
+            prof.__enter__()
+        try:
+            time.sleep(PROFILE_SLICE_S)  # the pass waiting to admit runs
+        finally:
+            with LAUNCH_GATE.exclusive():
+                if device is not None:
+                    # the slice's kernels finish first: CUPTI keeps no
+                    # record of one still queued when the stop flushes
+                    torch.cuda.synchronize()
+                results.append(autograd_profiler._disable_profiler())
+        if time.perf_counter() + PROFILE_PERIOD_S >= end:
+            break
+        # serving runs unrecorded between two stalls
+        time.sleep(PROFILE_PERIOD_S)
+    for n, result in enumerate(results):
+        # a save holds the GIL too: its own stall, apart from the stop's
+        time.sleep(PROFILE_PERIOD_S)
+        result.save(os.path.join(trace_dir, f"trace-{n:03d}.json"))
+
+
+def _capture_auto_trace(trace_dir: str, seconds: float) -> None:
+    """The auto-profiler's capture: slices on the timer, since the
+    regression that fired it (a slow dispatch) may come with no
+    admission in the window."""
+    _capture_profile_trace(trace_dir, seconds, at_admissions=False)
 
 
 class ProfileVault:
@@ -664,9 +763,10 @@ class AutoProfiler:
     compared against a rolling baseline of earlier windows. A regression
     — p50 ≥ ``multiplier`` × baseline p50, or a host phase's share of
     wall jumping by more than ``share_jump`` — spawns ONE background
-    capture (``torch.profiler``, ``capture_s`` seconds, zipped and
-    size-capped into the process-global :class:`ProfileVault`), emits a
-    ``profile`` fleet event, and starts the cooldown. Everything on the
+    capture (``torch.profiler`` over ``capture_s`` seconds, in slices on
+    the timer, zipped and size-capped into the process-global
+    :class:`ProfileVault`), emits a ``profile`` fleet event, and starts
+    the cooldown. Everything on the
     serving thread is deque appends and, once per window, two small
     sorts — the capture itself never runs there.
     """
@@ -706,7 +806,7 @@ class AutoProfiler:
         self._min_baseline = max(self._win_n, int(min_baseline))
         self._max_bytes = int(max_bytes)
         self._capture_fn = (capture_fn if capture_fn is not None
-                            else _capture_profile_trace)
+                            else _capture_auto_trace)
         self._cooldown_until = 0.0
         self.dispatches = 0
         self.captures = 0

@@ -20,8 +20,8 @@ from aiohttp import web
 
 from ..tracing import parse_traceparent
 
-__all__ = ["RequestLog", "tracer_middleware", "logging_middleware",
-           "metrics_middleware"]
+__all__ = ["RequestLog", "CORSConfig", "tracer_middleware",
+           "logging_middleware", "cors_middleware", "metrics_middleware"]
 
 Handler = Callable[[web.Request], Awaitable[web.StreamResponse]]
 Middleware = Callable[[web.Request, Handler], Awaitable[web.StreamResponse]]
@@ -101,6 +101,11 @@ def logging_middleware(logger) -> Middleware:
         start = time.perf_counter()
         span = request.get("gofr_span")
         trace_id = span.trace_id if span is not None else ""
+        if trace_id:
+            # a streaming handler prepares its response before this
+            # middleware can touch it: EventStream merges the stash
+            request.setdefault("gofr_response_headers", {})[
+                "X-Correlation-ID"] = trace_id
         start_str = time.strftime("%Y-%m-%dT%H:%M:%S", time.gmtime())
         resp = None
         try:
@@ -126,6 +131,62 @@ def logging_middleware(logger) -> Middleware:
             (logger.error if status >= 500 else logger.info)(entry)
         if trace_id and not resp.prepared:
             resp.headers["X-Correlation-ID"] = trace_id
+        return resp
+
+    return mw
+
+
+@dataclass
+class CORSConfig:
+    """Built from the ``ACCESS_CONTROL_*`` keys, JAX's defaults."""
+
+    allow_origin: str = "*"
+    allow_headers: str = ("Authorization, Content-Type, x-requested-with, "
+                          "origin, true-client-ip, X-Correlation-ID")
+    allow_methods: str = ""
+    allow_credentials: str = ""
+    expose_headers: str = ""
+    max_age: str = ""
+
+    @classmethod
+    def from_config(cls, config) -> "CORSConfig":
+        c = cls()
+        get = config.get_or_default
+        c.allow_origin = get("ACCESS_CONTROL_ALLOW_ORIGIN", c.allow_origin)
+        c.allow_headers = get("ACCESS_CONTROL_ALLOW_HEADERS", c.allow_headers)
+        c.allow_methods = get("ACCESS_CONTROL_ALLOW_METHODS", "")
+        c.allow_credentials = get("ACCESS_CONTROL_ALLOW_CREDENTIALS", "")
+        c.expose_headers = get("ACCESS_CONTROL_EXPOSE_HEADERS", "")
+        c.max_age = get("ACCESS_CONTROL_MAX_AGE", "")
+        return c
+
+    def headers(self, registered_methods: str) -> dict[str, str]:
+        out = {
+            "Access-Control-Allow-Origin": self.allow_origin,
+            "Access-Control-Allow-Headers": self.allow_headers,
+            "Access-Control-Allow-Methods": (self.allow_methods
+                                             or registered_methods),
+        }
+        if self.allow_credentials:
+            out["Access-Control-Allow-Credentials"] = self.allow_credentials
+        if self.expose_headers:
+            out["Access-Control-Expose-Headers"] = self.expose_headers
+        if self.max_age:
+            out["Access-Control-Max-Age"] = self.max_age
+        return out
+
+
+def cors_middleware(cfg: CORSConfig,
+                    registered_methods: Callable[[], str]) -> Middleware:
+    async def mw(request: web.Request, nxt: Handler) -> web.StreamResponse:
+        hdrs = cfg.headers(registered_methods())
+        if request.method == "OPTIONS":
+            return web.Response(status=HTTPStatus.OK, headers=hdrs)
+        request.setdefault("gofr_response_headers", {}).update(hdrs)
+        resp = await nxt(request)
+        if not resp.prepared:
+            for k, v in hdrs.items():
+                resp.headers[k] = v
         return resp
 
     return mw

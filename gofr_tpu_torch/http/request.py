@@ -6,7 +6,7 @@ form and multipart binders of the JAX package are not ported."""
 from __future__ import annotations
 
 import json
-from typing import Any
+from typing import Any, Mapping
 
 from .errors import InvalidInput
 
@@ -21,6 +21,10 @@ class HTTPRequest:
 
     def param(self, key: str) -> str:
         return self.raw.query.get(key, "")
+
+    @property
+    def headers(self) -> Mapping[str, str]:
+        return self.raw.headers
 
     async def bind(self) -> Any:
         ctype = (self.raw.content_type or "").lower()

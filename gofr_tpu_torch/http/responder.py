@@ -6,7 +6,8 @@ Success: ``{"data": ...}``, POST 201, DELETE 204, otherwise 200. Error:
 untyped one), with the error's ``headers`` (``Overloaded``'s
 ``Retry-After``) and its ``response`` dict merged into the error object;
 an error with partial data answers 206 with both. A ``File`` result is
-written raw with its content type.
+written raw with its content type, a ``Raw`` one as JSON without the
+envelope (200), and a prepared stream (``EventStream``) passes through.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from typing import Any
 from aiohttp import web
 
 from .errors import status_code_of
-from .response import File
+from .response import File, Raw
 
 __all__ = ["respond", "to_jsonable"]
 
@@ -63,6 +64,10 @@ def respond(method: str, result: Any, err: BaseException | None
     if err is None and isinstance(result, File):
         return web.Response(body=result.content,
                             content_type=result.content_type)
+    if err is None and isinstance(result, Raw):
+        return web.Response(body=json.dumps(to_jsonable(result.data)).encode(),
+                            status=HTTPStatus.OK,
+                            content_type="application/json")
     headers: dict[str, str] = {}
     status = _status_code(method, result, err)
     envelope: dict[str, Any] = {}

@@ -14,17 +14,22 @@ goodput ledger (``app_llm_tokens_wasted_total``,
 ``app_llm_goodput_fraction``) and the program inventory
 (``app_ml_programs``, ``app_ml_compile_seconds_total``).
 
+``register_llm(profile=)`` / ``GOFR_ML_PROFILE`` applies a tuned profile
+(``ml/tune.py``) around the server's construction.
+
 Not ported, and raising ``NotImplementedError`` naming their ROADMAP
-item when asked for: replica pools and the fleet (``replicas`` > 1,
-``GOFR_ML_REPLICAS`` > 1, ``GOFR_ML_ELASTIC``, ``GOFR_ML_CANARY``,
-``GOFR_ML_FEDERATION``, ``disagg``: A.14) and tuned profiles
-(``profile=``, ``GOFR_ML_PROFILE``: A.16).
+item when asked for, a profile's knob map included: replica pools and
+the fleet (``replicas`` > 1, ``GOFR_ML_REPLICAS`` > 1,
+``GOFR_ML_ELASTIC``, ``GOFR_ML_CANARY``, ``GOFR_ML_FEDERATION``,
+``disagg`` / ``GOFR_ML_DISAGG*``: A.14) and sequence-parallel prefill
+(``GOFR_ML_SP*``: A.11).
 """
 
 from __future__ import annotations
 
 import asyncio
 import os
+import sys
 from typing import Any
 
 from .engine import Engine, EngineConfig
@@ -54,9 +59,44 @@ _POOL_KWARGS = ("depth_per_replica", "affinity_min_tokens", "disagg",
                 "spawn", "elastic", "replicas_min", "replicas_max", "canary")
 
 
+# knobs a tuned profile may name (``tune.TUNABLE_KNOBS``) that the port
+# does not run yet, with the ROADMAP item that brings them
+_PROFILE_UNPORTED = {"GOFR_ML_DISAGG": "A.14", "GOFR_ML_DISAGG_PREFILL": "A.14",
+                     "GOFR_ML_SP": "A.11", "GOFR_ML_SP_SHARDS": "A.11"}
+
+
 def _not_ported(name: str, what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"llm {name}: {what} is not ported yet "
                                f"(ROADMAP {item})")
+
+
+def _tuned_profile(name: str, prof: Any) -> dict:
+    """A profile path or dict, validated as JAX validates it; a knob the
+    port does not run yet raises naming its item."""
+    from .tune import TUNABLE_KNOBS, load_profile
+
+    if isinstance(prof, str):
+        prof = load_profile(prof)
+    elif isinstance(prof, dict):
+        prof = dict(prof)
+        knobs = prof.get("knobs")
+        if not isinstance(knobs, dict):
+            raise ValueError(f"llm {name}: profile= dict has no 'knobs' map")
+        bad = set(knobs) - TUNABLE_KNOBS
+        if bad:
+            raise ValueError(
+                f"llm {name}: profile sets non-tunable knob(s) "
+                f"{sorted(bad)}")
+        prof["knobs"] = {k: str(v) for k, v in knobs.items()}
+    else:
+        raise TypeError(
+            f"llm {name}: profile= must be a path or a loaded profile "
+            f"dict, got {type(prof).__name__}")
+    for knob in sorted(prof["knobs"]):
+        if knob in _PROFILE_UNPORTED:
+            raise _not_ported(name, f"a tuned profile's {knob}",
+                              _PROFILE_UNPORTED[knob])
+    return prof
 
 
 def _switch_from_env(knob: str) -> bool:
@@ -190,15 +230,51 @@ class MLDatasource:
         captured before the first request. ``prefix_cache``,
         ``max_restarts``, ``restart_window_s``, ``default_deadline_s``,
         ``max_queue``, ``max_queued_tokens`` and ``fault`` go to the
-        server, everything else to the Generator."""
+        server, everything else to the Generator.
+
+        ``profile=`` (a path or a loaded dict; default
+        ``GOFR_ML_PROFILE``) applies a tuned profile (``ml/tune.py``): its
+        knob map overlays the environment for the construction only,
+        with loud validation, drift warnings and a ``profile`` block in
+        ``/debug/serving``. Unset constructs nothing."""
         if federation is not None or \
                 os.environ.get("GOFR_ML_FEDERATION", "").strip():
             raise _not_ported(name, "federation (GOFR_ML_FEDERATION)",
                               "A.14")
-        if profile is not None or \
-                os.environ.get("GOFR_ML_PROFILE", "").strip():
-            raise _not_ported(name, "a tuned profile (GOFR_ML_PROFILE)",
-                              "A.16")
+        prof = profile
+        if prof is None and os.environ.get("GOFR_ML_PROFILE", "").strip():
+            prof = os.environ["GOFR_ML_PROFILE"].strip()
+        if prof is None:
+            server = self._build_llm(name, params, cfg, generator, replicas,
+                                     device, gen_kwargs)
+        else:
+            from .tune import profile_boot_warnings, profile_overlay
+
+            prof = _tuned_profile(name, prof)
+            warnings = profile_boot_warnings(prof)
+            for line in warnings:
+                if self._logger is not None:
+                    self._logger.warnf("llm %s: %s", name, line)
+                else:
+                    print(f"WARNING: llm {name}: {line}", file=sys.stderr)
+            with profile_overlay(prof["knobs"]):
+                server = self._build_llm(name, params, cfg, generator,
+                                         replicas, device, gen_kwargs)
+            # what /debug/serving shows: which knob map steered this boot
+            # and what drifted
+            server.tuned_profile = {
+                "path": prof.get("path"),
+                "created_at": prof.get("created_at"),
+                "knobs": dict(prof["knobs"]),
+                "warnings": warnings,
+            }
+        self._llms[name] = server
+        return server
+
+    def _build_llm(self, name: str, params: Any, cfg: Any, generator: Any,
+                   replicas: int | None, device, gen_kwargs: dict):
+        """The construction half of ``register_llm``: a tuned profile
+        overlays the environment around all of it."""
         n = _replicas_from_env() if replicas is None else int(replicas)
         if n < 1:
             raise ValueError(
@@ -237,7 +313,6 @@ class MLDatasource:
         if self._logger is not None:
             self._logger.infof("llm %s registered (1 replica(s), %d slots)",
                                name, generator.batch_slots)
-        self._llms[name] = server
         return server
 
     def llm(self, name: str):
@@ -409,6 +484,8 @@ class MLDatasource:
                 entry["autoprof"] = server.autoprof.snapshot()
             if ledger is not None:
                 entry["goodput"] = ledger.snapshot_model(name)
+            if getattr(server, "tuned_profile", None) is not None:
+                entry["profile"] = server.tuned_profile
             snap["llms"][name] = entry
         return snap
 

@@ -42,6 +42,7 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
+from ..flight_recorder import LAUNCH_GATE
 from ..tracing import current_context
 from .programs import ProgramLog
 
@@ -214,7 +215,9 @@ class Engine:
         reserved0 = torch.cuda.memory_reserved(self.device)
         graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.stream(self._stream):
+            # no profiler start or stop (its device synchronize would
+            # invalidate the capture) while capturing
+            with LAUNCH_GATE.serving(), torch.cuda.stream(self._stream):
                 graph.capture_begin(pool=self._pool,
                                     capture_error_mode="thread_local")
                 try:

@@ -38,6 +38,8 @@ import time
 
 import torch
 
+from ..flight_recorder import LAUNCH_GATE
+
 __all__ = ["DecodeGraphs"]
 
 
@@ -96,7 +98,9 @@ class DecodeGraphs:
             graph.register_generator_state(self.rng)
         self.stream.wait_stream(torch.cuda.current_stream(self.device))
         try:
-            with torch.cuda.stream(self.stream):
+            # no profiler start or stop (its device synchronize would
+            # invalidate the capture) while capturing
+            with LAUNCH_GATE.serving(), torch.cuda.stream(self.stream):
                 graph.capture_begin(pool=self.pool,
                                     capture_error_mode="thread_local")
                 try:

@@ -55,8 +55,10 @@ JAX: the flight recorder (a ``DispatchRecorder`` record per dispatch, the
 event log, crash bundles; ``GOFR_ML_FLIGHT_RECORDER``), the auto-profiler
 (``GOFR_ML_AUTOPROF``), request journeys (``GOFR_ML_JOURNEY``) and the
 goodput ledger (``GOFR_ML_GOODPUT``). Traffic capture
-(``GOFR_ML_CAPTURE``) is ROADMAP A.16: a positive value raises
-``NotImplementedError``.
+(``GOFR_ML_CAPTURE``, ``ml/capture.py``) is off by default: armed, every
+request is recorded at submit, before any radix split, its output digest
+folded once a burst, and a crash bundle carries the newest 32 records
+under ``state.capture``.
 """
 
 from __future__ import annotations
@@ -78,6 +80,7 @@ from ..flight_recorder import (LAUNCH_GATE, AutoProfiler, DispatchRecorder,
                                recorder_enabled)
 from ..testutil.faults import FaultInjector, fault_snapshot
 from ..tracing import current_context
+from .capture import sampler_snapshot, traffic_capture
 from .errors import DeadlineExceeded, GeneratorCrashed, Overloaded, ServerClosed
 from .generate import PagePoolExhausted, PrefixEvicted
 from .goodput import goodput_ledger
@@ -87,7 +90,7 @@ from .prefix_cache import PrefixCacheConfig, RadixPrefixCache
 from .scheduler import (PRIORITIES, AgingPriorityQueue, SLOController,
                         normalize_priority, retry_after_s)
 
-__all__ = ["LLMServer", "drain_s_from_env", "capture_from_env"]
+__all__ = ["LLMServer", "drain_s_from_env"]
 
 _log = logging.getLogger("gofr_tpu_torch.ml.llm")
 _DONE = object()
@@ -127,29 +130,6 @@ def drain_s_from_env() -> float:
         raise ValueError(
             f"GOFR_ML_DRAIN_S must be finite and >= 0, got {raw!r}")
     return drain_s
-
-
-def capture_from_env() -> None:
-    """``GOFR_ML_CAPTURE``, parsed as the JAX package parses it: unset,
-    empty or ``0`` is capture off; a malformed or negative value raises the
-    JAX message; a positive ring size raises ``NotImplementedError``:
-    traffic capture and replay are ROADMAP A.16."""
-    raw = os.environ.get("GOFR_ML_CAPTURE", "").strip()
-    if not raw:
-        return
-    try:
-        n = int(raw)
-    except ValueError:
-        raise ValueError(
-            f"GOFR_ML_CAPTURE must be a ring size (requests), "
-            f"got {raw!r}") from None
-    if n < 0:
-        raise ValueError(
-            f"GOFR_ML_CAPTURE must be >= 0 (0 disables), got {raw!r}")
-    if n > 0:
-        raise NotImplementedError(
-            f"traffic capture (GOFR_ML_CAPTURE={raw}) is not ported yet "
-            f"(ROADMAP A.16)")
 
 
 class _Finish:
@@ -233,9 +213,16 @@ class LLMServer:
                  max_queue: int | None = None,
                  max_queued_tokens: int | None = None,
                  fault: Any = None) -> None:
-        # capture first: asking for it fails the boot before a serving
-        # thread exists
-        capture_from_env()
+        # traffic capture first: a malformed GOFR_ML_CAPTURE fails the boot
+        # before a serving thread exists; unset or 0 constructs nothing
+        # and every site below guards on is-not-None
+        self._capture = traffic_capture()
+        self._cap_sampler = None
+        if self._capture is not None:
+            self._cap_sampler = sampler_snapshot(generator)
+            self._capture.note_model(
+                name, kind="server", slots=generator.batch_slots,
+                page_size=getattr(generator, "page_size", 0))
         self.gen = generator
         self.name = name
         self._logger = logger
@@ -356,6 +343,11 @@ class LLMServer:
             # prefills, spill and restore) and the emit callbacks run
             # supervised; see ``_recover_or_die``
             rec = self.recorder
+            if LAUNCH_GATE.want_admission and (
+                    self._requests.qsize() or len(self._waiting)):
+                # a profiler capture waits to slice at a prefill, and this
+                # pass may admit: the slice records it
+                LAUNCH_GATE.admission_point()
             try:
                 # one pass of device work: a profiler start or stop waits
                 # for its end (flight_recorder.LAUNCH_GATE)
@@ -664,9 +656,13 @@ class LLMServer:
                 state["pool"] = self.gen.pool_stats()
             except Exception:
                 pass
+            # capture on only: the newest captured requests ride the
+            # bundle, so a saved /debug/crash/<id> body replays offline
+            capture_tail = (self._capture.export(newest=32)
+                            if self._capture is not None else None)
             return self._crashes.capture(
                 model=self.name, trigger=trigger, state=state,
-                events=self._events.tail(128))
+                events=self._events.tail(128), capture=capture_tail)
         except Exception:
             return None
 
@@ -1208,7 +1204,8 @@ class LLMServer:
                             info: dict | None = None,
                             priority: int | str | None = None,
                             deadline_s: float | None = None,
-                            prefix: int | None = None
+                            prefix: int | None = None,
+                            mode: str = "chunks"
                             ) -> AsyncIterator[list[int]]:
         """Yield BURSTS of tokens — each list is the slot's share of one
         processed decode block (the first is ``[first_token]``).
@@ -1223,7 +1220,8 @@ class LLMServer:
         ``prefix``: a ``register_prefix`` id (paged); ``prompt_ids`` is
         then the suffix. Pass ``info={}`` to receive
         ``info["finish_reason"]`` (``"stop"``, ``"length"`` or
-        ``"eviction"``)."""
+        ``"eviction"``). ``mode`` labels the consumer (``chunks``,
+        ``stream``, ``generate``) in the traffic-capture record."""
         if self._closed or self._draining:
             raise self._closed_error()
         prio = normalize_priority(priority)
@@ -1240,6 +1238,15 @@ class LLMServer:
                 "ml.queue", parent=ctx, activate=False,
                 attributes={"ml.model": self.name})
         rid = next_rid()
+        cap_rec = None
+        if self._capture is not None:
+            # at the submit boundary, before any radix split: the bundle
+            # carries the full ids the caller sent
+            cap_rec = self._capture.admit(
+                rid, model=self.name, tokens=prompt_ids,
+                max_new=max_new_tokens, priority=prio, deadline_s=ttl,
+                mode=mode, sampler=self._cap_sampler,
+                prefix=prefix is not None)
         journey = None
         if self._journeys is not None:
             journey = self._journeys.start(Journey(
@@ -1254,6 +1261,8 @@ class LLMServer:
             # close() may have flushed before our put landed: never park on
             # a queue nobody reads
             req.cancelled = True
+            if cap_rec is not None:
+                cap_rec.finish("error")
             if journey is not None:
                 self._finish_journey(req, "error", "server closed")
             raise self._closed_error()
@@ -1265,14 +1274,26 @@ class LLMServer:
                 if isinstance(item, _Finish):
                     if info is not None:
                         info["finish_reason"] = item.reason
+                    if cap_rec is not None:
+                        # the capture record and the journey share the
+                        # rid; the journey's summary names the digest
+                        digest = cap_rec.finish(item.reason)
+                        if journey is not None and digest is not None:
+                            journey.note(output_digest=digest)
                     return
                 if isinstance(item, Exception):
+                    if cap_rec is not None:
+                        cap_rec.finish(_abort_reason(item) or "error")
                     raise item
+                if cap_rec is not None:
+                    cap_rec.add_tokens(item)
                 yield item
         finally:
             # consumer closed the stream (disconnect, break, cancellation):
             # the serving thread frees the slot instead of decoding on
             req.cancelled = True
+            if cap_rec is not None and not cap_rec.done:
+                cap_rec.finish("cancelled")
             if journey is not None and not journey.done:
                 # abandonment, not a serving failure (errors and natural
                 # finishes sealed the journey before this)
@@ -1286,7 +1307,7 @@ class LLMServer:
         """Yield tokens one at a time (a view of ``stream_chunks``)."""
         agen = self.stream_chunks(prompt_ids, max_new_tokens, info=info,
                                   priority=priority, deadline_s=deadline_s,
-                                  prefix=prefix)
+                                  prefix=prefix, mode="stream")
         try:
             async for burst in agen:
                 for tok in burst:
@@ -1304,7 +1325,8 @@ class LLMServer:
         async for burst in self.stream_chunks(prompt_ids, max_new_tokens,
                                               info=info, priority=priority,
                                               deadline_s=deadline_s,
-                                              prefix=prefix):
+                                              prefix=prefix,
+                                              mode="generate"):
             out.extend(burst)
         return out
 

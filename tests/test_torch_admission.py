@@ -555,9 +555,10 @@ def test_fault_knob_arms_the_injector(model, how, monkeypatch):
 
 @pytest.mark.parametrize("raw", ["128", "1", "lots", "-1", "", "0"])
 def test_capture_knob_raises_naming_a16(model, raw, monkeypatch):
-    """Traffic capture is ROADMAP A.16: a positive ``GOFR_ML_CAPTURE``
-    raises naming it, a malformed one raises the JAX package's message,
-    unset, empty or 0 is accepted."""
+    """``GOFR_ML_CAPTURE`` parsed as JAX parses it: a malformed value
+    raises the JAX package's message; a positive ring size arms the
+    traffic capture (ROADMAP A.16, ported) with that bound; unset, empty or
+    0 constructs none."""
     from gofr_tpu.ml.capture import _ring_size
 
     monkeypatch.setenv("GOFR_ML_CAPTURE", raw)
@@ -570,11 +571,15 @@ def test_capture_knob_raises_naming_a16(model, raw, monkeypatch):
         with pytest.raises(ValueError) as got:
             LLMServer(_gen(model))
         assert str(got.value) == want
-    elif n > 0:
-        with pytest.raises(NotImplementedError, match="ROADMAP A.16"):
-            LLMServer(_gen(model))
-    else:
-        LLMServer(_gen(model)).close()
+        return
+    server = LLMServer(_gen(model))
+    try:
+        if n > 0:
+            assert server._capture.stats()["capacity"] == n
+        else:
+            assert server._capture is None
+    finally:
+        server.close()
 
 
 @pytest.mark.parametrize("env,kw,item", [
@@ -595,6 +600,19 @@ def test_unported_fleet_knobs_raise_naming_their_item(model, env, kw, item,
     cfg, params = model
     for k, v in env.items():
         monkeypatch.setenv(k, v)
+    if item == "A.16":
+        # tuned profiles are ported: a profile that cannot be read fails
+        # the boot loudly, with the JAX package's message
+        from gofr_tpu.ml.tune import load_profile
+
+        with pytest.raises(ValueError) as want:
+            load_profile("tuned.json")
+        with pytest.raises(ValueError) as got:
+            MLDatasource().register_llm("chat", params, cfg, device="cpu",
+                                        max_seq=64, prefill_buckets=(8,),
+                                        **kw)
+        assert str(got.value) == str(want.value)
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         MLDatasource().register_llm("chat", params, cfg, device="cpu",
                                     max_seq=64, prefill_buckets=(8,), **kw)

@@ -502,8 +502,12 @@ async def _drive_debug(app, server, name: str) -> dict:
 def debug_bodies(pair):
     """(JAX bodies, port bodies) after the same traffic and crash. Each
     package's process-wide profile vault is a fresh one for the fixture's
-    life, holding one identical synthetic capture: what earlier tests in
-    the worker left in either vault does not reach the bodies."""
+    life, holding one identical synthetic capture, and so is each
+    package's goodput ledger: what earlier tests in the worker left in
+    either vault or ledger does not reach the bodies."""
+    from gofr_tpu.ml import goodput as jgp
+    from gofr_tpu_torch.ml import goodput as tgp
+
     with pytest.MonkeyPatch.context() as m:
         for mod in (jfr, tfr):
             vault = mod.ProfileVault()
@@ -511,6 +515,8 @@ def debug_bodies(pair):
                           trigger={"reason": "p50", "ratio": 2.5},
                           data=b"synthetic trace", truncated=False)
             m.setattr(mod, "_PROFILES", vault)
+        for mod in (jgp, tgp):
+            m.setattr(mod, "_LEDGER", mod.GoodputLedger())
         yield _debug_bodies(pair)
 
 
@@ -660,3 +666,115 @@ def test_debug_profiler_session_routes(run, tmp_path):
             await client.close()
 
     run(scenario())
+
+
+def test_profile_capture_holds_serving_for_one_slice_at_most(tmp_path,
+                                                             monkeypatch):
+    """A profiler stop converts every event it recorded while holding the
+    GIL and ``LAUNCH_GATE``, so its cost grows with the time recorded. A
+    capture records in slices: with a conversion that takes half the
+    recorded time, a serving pass during a 1 s capture waits for one
+    slice's stop at most, never for the whole second's."""
+    import threading
+
+    from torch.autograd import profiler as autograd_profiler
+
+    real_disable = autograd_profiler._disable_profiler
+    real_enter = autograd_profiler.profile.__enter__
+    started = {"t": 0.0, "stops": 0}
+
+    def enter(self):
+        started["t"] = time.perf_counter()
+        return real_enter(self)
+
+    def conversion():
+        started["stops"] += 1
+        time.sleep(0.5 * (time.perf_counter() - started["t"]))
+        return real_disable()
+
+    monkeypatch.setattr(autograd_profiler.profile, "__enter__", enter)
+    monkeypatch.setattr(autograd_profiler, "_disable_profiler", conversion)
+    capture = threading.Thread(target=tfr._capture_profile_trace,
+                               args=(str(tmp_path), 1.0))
+    waits = []
+    capture.start()
+    while capture.is_alive():
+        tfr.LAUNCH_GATE.admission_point()  # every pass may admit
+        t0 = time.perf_counter()
+        with tfr.LAUNCH_GATE.serving():
+            waits.append(time.perf_counter() - t0)
+        time.sleep(0.002)
+    capture.join()
+    assert started["stops"] == len(list(tmp_path.glob("trace-*.json"))) > 1
+    assert max(waits) < 0.2, f"a serving pass waited {max(waits):.3f} s"
+
+
+def test_profile_slices_start_at_admissions(tmp_path, monkeypatch):
+    """A slice starts at the next admission: the serving pass that
+    prefills waits at ``admission_point`` until the slice holds the gate,
+    so every slice records an admission pass, not only decode."""
+    import threading
+
+    from torch.autograd import profiler as autograd_profiler
+
+    real_enter = autograd_profiler.profile.__enter__
+    real_disable = autograd_profiler._disable_profiler
+    state = {"recording": False}
+
+    def enter(self):
+        out = real_enter(self)
+        state["recording"] = True
+        return out
+
+    def disable():
+        state["recording"] = False
+        return real_disable()
+
+    monkeypatch.setattr(autograd_profiler.profile, "__enter__", enter)
+    monkeypatch.setattr(autograd_profiler, "_disable_profiler", disable)
+    # slices long enough that the waiting pass gets its turn on a loaded
+    # host, short against the time between admissions
+    # and a period (the wait for an admission) well past the time
+    # between admissions however slow the passes run
+    monkeypatch.setattr(tfr, "PROFILE_SLICE_S", 0.05)
+    monkeypatch.setattr(tfr, "PROFILE_PERIOD_S", 0.8)
+    capture = threading.Thread(target=tfr._capture_profile_trace,
+                               args=(str(tmp_path), 2.0))
+    capture.start()
+    recorded = 0
+    i = 0
+    while capture.is_alive():
+        admit = i % 12 == 0  # a prefill every ~150 ms among decode passes
+        if admit:
+            tfr.LAUNCH_GATE.admission_point()
+        with tfr.LAUNCH_GATE.serving():
+            recorded += admit and state["recording"]
+            time.sleep(0.01)
+        i += 1
+    capture.join()
+    slices = len(list(tmp_path.glob("trace-*.json")))
+    assert slices >= 2 and recorded >= slices, (slices, recorded)
+
+
+def test_auto_profile_slices_start_on_the_timer():
+    """The auto-profiler fires on a slow dispatch, often in steady decode
+    with no admission in sight. Its capture starts its slices on the
+    timer: a 1 s capture with no serving pass reaching an admission
+    records several slices across the second, not one slice after
+    waiting the window out."""
+    import io
+    import zipfile
+
+    vault = tfr.ProfileVault()
+    prof = tfr.AutoProfiler(model="ap-timer", vault=vault,
+                            events=tfr.EventLog(), capture_s=1.0)
+    prof._trigger({"reason": "step_ms_p50"})
+    deadline = time.monotonic() + 30.0
+    while prof.captures + prof.failures == 0 and \
+            time.monotonic() < deadline:
+        time.sleep(0.01)
+    assert prof.captures == 1 and prof.failures == 0, prof.snapshot()
+    bundle = vault.get(vault.list()[0]["id"])
+    with zipfile.ZipFile(io.BytesIO(bundle["data"])) as zf:
+        slices = [n for n in zf.namelist() if n.startswith("trace-")]
+    assert len(slices) > 1, slices

@@ -45,16 +45,15 @@ SERVING_METRICS = (
     "app_llm_active_slots", "app_llm_free_pages", "app_llm_evictions",
     "app_llm_prefix_evictions", "app_llm_token_budget",
     "app_llm_prefill_share", "app_llm_chunk_tokens")
-# series whose values the same traffic fixes; ``app_llm_free_pages`` is
-# written each serving pass and may predate the last release when
-# scraped, ``app_llm_prefill_share`` follows the host's pace: their series
-# are compared, not their values
+# series whose values the same traffic fixes, scraped once the serving
+# thread is idle (``_idle_metrics``); ``app_llm_prefill_share`` follows the
+# host's pace: its series is compared, not its value
 STEADY = ("app_llm_tokens_total", "app_llm_shed_total",
           "app_llm_deadline_exceeded_total", "app_llm_ttft_seconds_count",
           "app_llm_tpot_seconds_count", "app_llm_queue_seconds_count",
           "app_llm_priority_queue_seconds_count", "app_llm_active_slots",
           "app_llm_evictions", "app_llm_prefix_evictions",
-          "app_llm_token_budget")
+          "app_llm_token_budget", "app_llm_free_pages")
 ERRORS = ("missing", "overlong", "bad_priority", "bad_deadline",
           "deadline_mid_decode", "closed")
 ARMS = {"dense": {}, "paged": {"LLM_PAGE_SIZE": "8"}}
@@ -88,6 +87,24 @@ def _metrics(text: str) -> dict:
         if m and m.group(1).startswith(SERVING_METRICS):
             out[(m.group(1), m.group(2) or "")] = float(m.group(3))
     return out
+
+
+async def _idle_metrics(s, app, llm) -> dict:
+    """The serving series once the serving thread is idle: no live slot,
+    nothing queued, and the pool gauges written after the last release
+    (a pass exports them before it releases its finished slots; the next,
+    idle pass exports them again). Polled against a 10 s deadline."""
+    url = f"http://127.0.0.1:{app.metrics_port}/metrics"
+    key = ("app_llm_free_pages", '{model="chat"}')
+    deadline = time.monotonic() + 10.0
+    while True:
+        got = _metrics(await (await s.get(url)).text())
+        idle = not llm._active and llm.queue_depth() == 0
+        if idle and (key not in got or
+                     got[key] == float(llm.gen.free_pages)):
+            return got
+        assert time.monotonic() < deadline, "the server never went idle"
+        await asyncio.sleep(0.02)
 
 
 def _slow_steps(llm, seconds: float):
@@ -154,8 +171,7 @@ async def _drive(app, llm) -> dict:
             res["ws"].append(await ws_tokens(s, body))
         cache = getattr(llm, "prefix_cache", None)
         res["prefix_hits"] = None if cache is None else cache.hits
-        res["metrics"] = _metrics(await (await s.get(
-            f"http://127.0.0.1:{app.metrics_port}/metrics")).text())
+        res["metrics"] = await _idle_metrics(s, app, llm)
         r = await s.get(base + "/.well-known/health")
         res["health"] = (r.status, await r.json())
 
@@ -176,8 +192,7 @@ async def _drive(app, llm) -> dict:
                                                     await grpc_call(body))
         finally:
             undo()
-        res["metrics_after_deadline"] = _metrics(await (await s.get(
-            f"http://127.0.0.1:{app.metrics_port}/metrics")).text())
+        res["metrics_after_deadline"] = await _idle_metrics(s, app, llm)
         llm.close()
         res["errors"]["closed"] = (await http(s, ok), await grpc_call(ok))
         r = await s.get(base + "/.well-known/health")

@@ -92,7 +92,8 @@ def _balanced(snap: dict) -> bool:
 def _both(pair, run, scenario, name: str, gen_kw=None, **server_kw):
     """``scenario(server)`` through the JAX server and the port's (each its
     own ledger under ``name``): (JAX ledger row, port ledger row, port
-    generator)."""
+    generator). The names start ``tw-``: the JAX ledger is process-wide,
+    and ``tests/test_goodput.py`` may run in the same worker."""
     gen_kw = gen_kw or {}
     out = []
     for mod, srv, make in ((jgp, JLLMServer, _jgen), (tgp, LLMServer, _gen)):
@@ -165,7 +166,7 @@ def test_delivered_end_to_end(pair, run):
     async def scenario(server):
         assert len(await server.generate([3, 1, 4, 1], 8)) == 8
 
-    want, got, gen = _both(pair, run, scenario, "gp-ok")
+    want, got, gen = _both(pair, run, scenario, "tw-gp-ok")
     assert got["delivered"] == want["delivered"] == 8
     assert got["wasted"] == want["wasted"] == {}
     assert got["goodput"] == 1.0 and _balanced(got)
@@ -180,7 +181,7 @@ def test_deadline_cancelled_mid_decode(pair, run):
             await server.generate([3, 1, 4], 50, deadline_s=0.3)
         assert type(ei.value).__name__ == "DeadlineExceeded"
 
-    want, got, gen = _both(pair, run, scenario, "gp-dl")
+    want, got, gen = _both(pair, run, scenario, "tw-gp-dl")
     for snap in (want, got):
         assert snap["wasted"].get("deadline_cancelled", 0) >= 1
         assert snap["delivered"] == 0 and _balanced(snap)
@@ -199,7 +200,7 @@ def test_disconnected_consumer(pair, run):
                 break
             await asyncio.sleep(0.005)
 
-    want, got, gen = _both(pair, run, scenario, "gp-bye")
+    want, got, gen = _both(pair, run, scenario, "tw-gp-bye")
     for snap in (want, got):
         assert snap["wasted"].get("disconnected", 0) >= 1
         assert snap["delivered"] == 0 and _balanced(snap)
@@ -226,7 +227,7 @@ def test_crashed_slots(pair, run):
             assert type(ei.value).__name__ == "GeneratorCrashed"
         return go()
 
-    want, got, gen = _both(pair, run, scenario, "gp-boom",
+    want, got, gen = _both(pair, run, scenario, "tw-gp-boom",
                            gen_kw={"chunk": 2}, max_restarts=0)
     assert got["wasted"] == want["wasted"]
     assert got["wasted"]["crashed"] >= 1 and got["delivered"] == 0
@@ -312,7 +313,7 @@ def test_restore_fault_charged_as_fallback_and_served_cold(pair, run,
         servers.append(server)
         return _restore_fault_scenario(server)
 
-    want, got, gen = _both(pair, run, scenario, "gp-restore",
+    want, got, gen = _both(pair, run, scenario, "tw-gp-restore",
                            gen_kw={"batch_slots": 1, "chunk": 2,
                                    "page_size": 4, "n_pages": 16})
     assert got["wasted"] == want["wasted"]
@@ -508,11 +509,12 @@ def test_autoprof_serving_integration(pair, run):
 
 def test_profiler_capture_writes_a_chrome_trace(tmp_path):
     """The capture the auto-profiler and ``/debug/profile`` share is a
-    ``torch.profiler`` run written as a Chrome trace, zipped whole."""
+    ``torch.profiler`` run written as Chrome traces (one a slice), zipped
+    whole."""
     tfr._capture_profile_trace(str(tmp_path), 0.05)
     data, truncated = tfr.zip_dir_bytes(str(tmp_path))
     assert not truncated and data[:2] == b"PK"
-    assert (tmp_path / "trace.json").stat().st_size > 0
+    assert (tmp_path / "trace-000.json").stat().st_size > 0
 
 
 # -- the program inventory -----------------------------------------------------------
