@@ -63,7 +63,8 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    the same kernels: identical tokens (checked) and the first step's
    logits' largest difference; the graphed step's wall, device time and
    busy share;
-7. fused windows and the pipeline: phase 5's paged bf16 serving arm with
+7. fused windows and the pipeline, at 16 of the 32 layers
+   (``WINDOW_LAYERS``): phase 5's paged bf16 serving arm with
    windows off, ``GOFR_ML_DECODE_WINDOW=auto``, ``GOFR_ML_PIPELINE=1``
    and both: served tok/s, the decode step in steady state (8 streams)
    under the profiler, ``window_stats``/``pipeline_stats``, the graphs
@@ -205,7 +206,35 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    /debug/profile?seconds=2`` (20 ms slices): the route's answer time and
    the longest gap between two text frames of one stream across the
    capture, at most ``OAI_PROFILE_GAP_S``, its trace naming the flash and
-   decode kernels (checked).
+   decode kernels (checked);
+14. the fleet (``ml/replica.py``, ``ml/kv_transport.py``) through the
+   example app over gRPC, pages of 16, 513 pages a replica,
+   ``prefill_chunk`` 512, ``max_seq`` 2048, every replica on phase 3's
+   weights without a copy; each arm counts the launches of its fleet
+   traffic alone, its reference runs after the count is read: (a)
+   ``GOFR_ML_REPLICAS=2``, 32 requests x 64 tokens at once: both
+   replicas take work, the added peak memory stays below a second copy
+   of the weights, and each stream equals that of one replica (a
+   single-replica app with its prefix cache off, the same 32 requests
+   at once) or differs on a near-tie (the two
+   tokens' logits within ``FLEET_TIE`` of the range at the first
+   divergent step, one plain forward); (b) a ``step`` fault on replica 0
+   past a restart budget of 0: the request re-admits on replica 1 with
+   the tokens of one replica alone, health DEGRADED with ``{"0":
+   "dead", "1": "serving"}``; the time from the crash event to the
+   client's first frame and the bytes the dead replica gives back; (c)
+   ``GOFR_ML_DISAGG=1`` at bf16 pages and at int8 pages (w8): two
+   1600-token prompts ship from replica 0 to replica 1 (ships == lands,
+   no failure, the decode replica restores; tokens equal one replica
+   computing the same prefix + tail split), the bytes a ship, the
+   journey's ship / land / route / admit / prefill ms of the first ship
+   and a later one, TTFT against a cold prompt on one replica; (d)
+   ``GOFR_ML_ELASTIC=1`` from one replica under 16 concurrent requests:
+   ``scale_to(2)`` (time to routable: build, warmup, graph capture,
+   backfill) and, after a hot prefix on replica 1, ``scale_to(1)`` (the
+   migration's bytes and ms, the ledger balanced): no request fails and a
+   fixed prompt's tokens before, during and after agree (or differ on a
+   near-tie). Each arm counts its flash and decode launches.
 
 Measurements under ``torch.profiler`` hold the flight recorder's
 ``PROFILE_LOCK``, so an auto-profiler capture never overlaps one.
@@ -1677,8 +1706,14 @@ def frozen_tail(gen, n_win: int = 32, fill: int = 1000) -> dict:
     return out
 
 
+# phase 7 runs at this depth (of 32 layers) to keep the script inside its
+# time limit; its checks compare arms of the same depth
+WINDOW_LAYERS = 16
+
+
 def window_pipeline_phase(dev, bf16_params) -> dict:
-    """The paged bf16 serving arm four times: windows off,
+    """The paged bf16 serving arm four times, at ``WINDOW_LAYERS`` of the
+    model's 32 layers (the first ones of phase 3's weights): windows off,
     ``GOFR_ML_DECODE_WINDOW=auto``, ``GOFR_ML_PIPELINE=1`` and both.
     Each: served tok/s, the decode step in steady state (8 streams),
     ``window_stats``/``pipeline_stats``, the graphs. With windows off and
@@ -1691,7 +1726,9 @@ def window_pipeline_phase(dev, bf16_params) -> dict:
     from gofr_tpu_torch.ml.generate import Generator
     from gofr_tpu_torch.models import llama
 
-    cfg = llama.llama3_8b()
+    cfg = llama.llama3_8b(n_layers=WINDOW_LAYERS)
+    bf16_params = {**bf16_params, "layers": {
+        k: v[:WINDOW_LAYERS] for k, v in bf16_params["layers"].items()}}
     arms = {"off": {}, "window_auto": {"GOFR_ML_DECODE_WINDOW": "auto"},
             "pipeline": {"GOFR_ML_PIPELINE": "1"},
             "window_auto_pipeline": {"GOFR_ML_DECODE_WINDOW": "auto",
@@ -1730,6 +1767,7 @@ def window_pipeline_phase(dev, bf16_params) -> dict:
     check(err <= 5e-2, f"window arm's first-step logits vs window off: rel "
           f"err {err} > 5e-2")
     out["window_first_step_logit_rel_err"] = err
+    out["n_layers"] = WINDOW_LAYERS
     out["identical_stream_share_vs_off"] = {
         name: sum(a == b for a, b in zip(streams[name], streams["off"],
                                          strict=True)) / len(streams["off"])
@@ -4301,6 +4339,457 @@ def openai_phase(dev, bf16_params) -> dict:
     return res
 
 
+# -- phase 14: the fleet -----------------------------------------------------------
+
+FLEET_MAX_NEW = 64
+FLEET_PAGED = dict(LLM_PAGE_SIZE="16", LLM_PAGES="513", LLM_PREFILL_CHUNK="512")
+FLEET_MAX_SEQ = 2048
+# a stream that differs between two serving paths must differ on a bf16
+# near-tie: the two tokens' logits at the first divergent step within
+# this fraction of the logits' range (ROADMAP C)
+FLEET_TIE = 5e-2
+
+
+def fleet_app(dev, params, preset: str = "8b", mount_kw=None, **env):
+    """Boot the port's example app (``mount`` on weights the caller holds:
+    every replica shares them) with the fleet's knobs ``env``, pages of 16
+    and ``prefill_chunk`` 512 (phase 9's paged arm), on free ports;
+    ``mount_kw`` goes to ``register_llm``. Returns (app, cfg, boot
+    seconds)."""
+    from gofr_tpu_torch.app import new_app
+    from gofr_tpu_torch.examples.llama_server import mount
+    from gofr_tpu_torch.models import llama
+
+    with knobs(LLAMA_PRESET=preset, LOG_LEVEL="ERROR", LLM_SLOTS="8",
+               LLM_CHUNK="4", HTTP_PORT=str(free_port()),
+               GRPC_PORT=str(free_port()), METRICS_PORT=str(free_port()),
+               **FLEET_PAGED, **env):
+        cfg = llama.config_from_env(tiny_vocab_size=257)
+        app = new_app()
+        t0 = time.perf_counter()
+        mount(app, params, cfg, device=dev, max_seq=FLEET_MAX_SEQ,
+              **(mount_kw or {}))
+        boot_s = time.perf_counter() - t0
+    return app, cfg, boot_s
+
+
+async def counted(traffic):
+    """Await the fleet traffic ``traffic`` with the launch counts set to 0
+    just before and read just after, so that no reference run counts.
+    Returns (result, launches)."""
+    reset_launches()
+    res = await traffic
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return res, read_launches()
+
+
+def fleet_run(app, drive):
+    """Start ``app``, run ``drive(clients, pool)``, shut the app down and
+    free its memory. Returns what ``drive`` returns."""
+    import gc
+
+    async def run():
+        await app.start()
+        try:
+            async with FrontClients(app) as c:
+                check(await c.health() == 200, "fleet: health not 200")
+                return await drive(c, app.container.ml.llm("chat"))
+        finally:
+            await app.shutdown()
+
+    try:
+        return asyncio.run(run())
+    finally:
+        gc.collect()
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+
+
+def check_fleet_launches(what: str, launches: dict, dev, int8: bool) -> None:
+    if dev.type != "cuda":
+        return  # the plain path: no kernel on the CPU
+    want, other = decode_kinds(int8)
+    check(launches["flash_attention_cuda"] > 0 and launches[want] > 0,
+          f"fleet {what}: kernels did not launch ({launches})")
+    check(launches[other] == 0,
+          f"fleet {what}: the other decode kernel launched ({launches})")
+
+
+def near_tie(params, cfg, prompt, a: list, b: list) -> dict | None:
+    """Where two greedy streams of ``prompt`` first differ: the step, and
+    the two tokens' logit gap over the logits' range there (one plain
+    ``llama.forward`` of the prompt and the common tokens). None when
+    they are equal."""
+    from gofr_tpu_torch.models import llama
+
+    d = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+    if d is None:
+        return None
+    with torch.no_grad():
+        row = llama.forward(params, [list(prompt) + list(a[:d])],
+                            cfg)[0, len(prompt) + d - 1]
+    gap = (row[a[d]] - row[b[d]]).abs().item()
+    return {"step": d, "gap_over_range": gap / (row.max() - row.min()).item()}
+
+
+def stream_agreement(what: str, params, cfg, prompts, got, want) -> dict:
+    """The share of streams equal to the reference's; every difference
+    must sit on a near-tie (``FLEET_TIE``)."""
+    ties = []
+    for p, a, b in zip(prompts, got, want, strict=True):
+        tie = near_tie(params, cfg, p, a, b)
+        if tie is not None:
+            ties.append(tie)
+            check(tie["gap_over_range"] <= FLEET_TIE,
+                  f"fleet {what}: a stream differs at step {tie['step']} "
+                  f"by {tie['gap_over_range']:.4f} of the logits' range")
+    return {"equal_share": 1 - len(ties) / len(prompts),
+            "differing": ties}
+
+
+def single_replica_streams(dev, params, preset: str, prompts) -> tuple:
+    """The reference of (a) and (b): a fresh single-replica app over the
+    same weights with its prefix cache off (every prompt cold, as in the
+    pool), ``prompts[0]`` alone and then all of ``prompts`` at once over
+    gRPC. Returns (streams, the alone stream)."""
+    app, _, _ = fleet_app(dev, params, preset,
+                          mount_kw={"prefix_cache": False})
+    body = {"max_new_tokens": FLEET_MAX_NEW}
+
+    async def drive(c, llm):
+        alone = await c.grpc({**body, "prompt_ids": prompts[0]})
+        recs = await asyncio.gather(*(c.grpc({**body, "prompt_ids": p})
+                                      for p in prompts))
+        for r in (alone, *recs):
+            check(r["status"] == "OK" and len(r["tokens"]) == FLEET_MAX_NEW,
+                  f"fleet reference: a call answered {r['status']}")
+        return [r["tokens"] for r in recs], alone["tokens"]
+
+    streams = fleet_run(app, drive)
+    del app
+    return streams
+
+
+def fleet_pool(dev, params, preset: str) -> dict:
+    """(a) ``GOFR_ML_REPLICAS=2``: 32 requests x 64 tokens at once over
+    gRPC into two 8-slot replicas on one card, against one replica on the
+    same prompts (``single_replica_streams``); the replicas share the
+    weights."""
+    base = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    app, cfg, boot_s = fleet_app(dev, params, preset, GOFR_ML_REPLICAS="2")
+    prompts = front_prompts(cfg.vocab_size, 32, 64, 512, seed=0)
+
+    async def drive(c, pool):
+        check(len(pool.replicas) == 2
+              and pool.replicas[0].gen.params is pool.replicas[1].gen.params
+              is params, "fleet pool: the replicas do not share the weights")
+        body = {"max_new_tokens": FLEET_MAX_NEW}
+        t = time.perf_counter()
+        recs, launches = await counted(asyncio.gather(
+            *(c.grpc({**body, "prompt_ids": p}) for p in prompts)))
+        wall = time.perf_counter() - t
+        for r in recs:
+            check(r["status"] == "OK" and len(r["tokens"]) == FLEET_MAX_NEW,
+                  f"fleet pool: a call answered {r['status']} with "
+                  f"{len(r['tokens'])} tokens")
+        routed = pool.routing_snapshot()["routed"]
+        check(all(sum(v.values()) > 0 for v in routed.values()),
+              f"fleet pool: a replica took no request ({routed})")
+        gens = [r.gen for r in pool.replicas]
+        return {"recs": recs, "wall": wall, "routed": routed,
+                "launches": launches,
+                "page_pool_bytes": [_nbytes(g.cache) for g in gens],
+                "graphs": [g.graph_stats() for g in gens]}
+
+    res = fleet_run(app, drive)
+    del app
+    launches = res["launches"]
+    check_fleet_launches("pool", launches, dev, False)
+    tokens = sum(len(r["tokens"]) for r in res["recs"])
+    out = {"boot_s": boot_s, "requests": len(prompts), "tokens": tokens,
+           "wall_s": res["wall"], "tok_per_s": tokens / res["wall"],
+           "tok_per_s_note": "two replicas share one card; not a "
+                             "throughput figure",
+           "routed": res["routed"], "launches": launches,
+           "graphs": res["graphs"], "page_pool_bytes": res["page_pool_bytes"]}
+    if dev.type == "cuda":
+        weights = _nbytes(params)
+        graph_pools = sum((g or {}).get("pool_reserved_bytes", 0)
+                          for g in res["graphs"])
+        added = torch.cuda.max_memory_allocated() - base
+        predicted = sum(res["page_pool_bytes"]) + graph_pools
+        out.update(weights_bytes=weights, added_peak_bytes=added,
+                   predicted_added_bytes=predicted,
+                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+        # one copy of the weights (phase 3's, already resident): what the
+        # pool adds is its two page pools, graph pools and activations,
+        # far below a second copy of the weights
+        check(added < weights, f"fleet pool: the pool added {added} bytes, "
+              f"a second copy of the weights ({weights})")
+    single, alone = single_replica_streams(dev, params, preset, prompts)
+    out["vs_single_replica"] = stream_agreement(
+        "pool", params, cfg, prompts, [r["tokens"] for r in res["recs"]],
+        single)
+    return out, alone, prompts[0]
+
+
+def fleet_failover(dev, params, preset: str, prompt, alone) -> dict:
+    """(b) a ``step`` fault on replica 0 past a restart budget of 0: the
+    request re-admits on replica 1 with the tokens of one replica alone;
+    health reads DEGRADED with replica 0 dead."""
+    from gofr_tpu_torch.flight_recorder import event_log
+
+    app, cfg, boot_s = fleet_app(
+        dev, params, preset, GOFR_ML_REPLICAS="2", GOFR_ML_FAULT="step:1",
+        GOFR_ML_FAULT_REPLICA="0", GOFR_ML_MAX_RESTARTS="0")
+
+    async def drive(c, pool):
+        mem0 = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+        cursor = event_log().cursor
+        t_send = time.time()
+        rec, launches = await counted(c.grpc({
+            "prompt_ids": prompt, "max_new_tokens": FLEET_MAX_NEW}))
+        crash = event_log().query(since=cursor, model="chat",
+                                  kind="crash")["events"]
+        check(rec["status"] == "OK" and rec["tokens"] == alone,
+              f"fleet failover: {rec['status']}, tokens equal to one "
+              f"replica alone: {rec['tokens'] == alone}")
+        check(crash and crash[0]["model"] == "chat/0",
+              f"fleet failover: no crash on replica 0 ({crash})")
+        status, text = await c.get(c.base + "/.well-known/health")
+        body = json.loads(text)["data"]["ml"]
+        replicas = body["details"]["llms"]["chat"]["replicas"]
+        check(status == 200 and body["status"] == "DEGRADED"
+              and replicas == {"0": "dead", "1": "serving"},
+              f"fleet failover: health {status} {body['status']} "
+              f"{replicas}")
+        snap = pool.routing_snapshot()
+        mem1 = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+        return {"failover_ms": (t_send + rec["ttft_s"] - crash[0]["ts"])
+                * 1e3,
+                "client_ttft_ms": rec["ttft_s"] * 1e3,
+                "health": {"status": body["status"], "replicas": replicas},
+                "failovers": snap["failovers"], "routed": snap["routed"],
+                "launches": launches,
+                "memory_allocated_before": mem0,
+                "memory_allocated_after": mem1,
+                "bytes_given_back": mem0 - mem1}
+
+    res = fleet_run(app, drive)
+    del app
+    check_fleet_launches("failover", res["launches"], dev, False)
+    return {"boot_s": boot_s, "tokens_equal_no_fault": True, **res}
+
+
+def fleet_disagg(dev, params, preset: str, int8: bool) -> dict:
+    """(c) ``GOFR_ML_DISAGG=1``: two 1600-token prompts (a 1536-token
+    prefix and a 64-token suffix) each prefill on replica 0 and ship to
+    replica 1, which restores the pages and prefills only the tail; the
+    first ship and a later one timed apart, TTFT against a cold prompt of
+    the same length on one replica, tokens against one replica computing
+    the same split."""
+    from gofr_tpu_torch.ml.journey import journey_log
+
+    env = {"GOFR_ML_REPLICAS": "2", "GOFR_ML_DISAGG": "1"}
+    if int8:
+        env.update(LLAMA_KV_QUANT="1", LLAMA_W8="1")
+    app, cfg, boot_s = fleet_app(dev, params, preset, **env)
+    r = np.random.default_rng(41)
+    first, later, cold = (r.integers(0, cfg.vocab_size, SHARED_LEN + 64)
+                          .tolist() for _ in range(3))
+
+    async def ttft_on(core, prompt):
+        t = time.perf_counter()
+        agen = core.stream_chunks(prompt, FLEET_MAX_NEW)
+        toks = list(await agen.__anext__())
+        ttft = time.perf_counter() - t
+        async for burst in agen:
+            toks.extend(burst)
+        return toks, ttft
+
+    async def drive(c, pool):
+        body = {"max_new_tokens": FLEET_MAX_NEW}
+
+        async def ship_two():
+            return [await c.grpc({**body, "prompt_ids": p})
+                    for p in (first, later)]
+
+        recs, launches = await counted(ship_two())
+        for rec in recs:
+            check(rec["status"] == "OK"
+                  and len(rec["tokens"]) == FLEET_MAX_NEW,
+                  f"fleet disagg: a call answered {rec['status']}")
+        snap = pool.routing_snapshot()["disagg"]
+        ships = pool._events.query(model="chat",
+                                   kind="kv_ship")["events"][-2:]
+        marks = []
+        for ev in ships:
+            j = journey_log().get(ev["rid"]).snapshot()
+            marks.append({m["mark"]: round(m["dur_s"] * 1e3, 3)
+                          for m in j["marks"]
+                          if m["mark"] in ("ship", "land", "route", "admit",
+                                           "prefill")})
+        recorders = {name: core.recorder.snapshot()["totals_s"].get(name)
+                     for name, core in (("ship", pool.replicas[0]),
+                                        ("land", pool.replicas[1]))}
+        restores = pool.replicas[1].gen.kv_restores
+        # one replica computing the split the pool shipped: the prompt
+        # less its last token (1600 is page-aligned) registered, the rest
+        # prefilled over it
+        core = pool.replicas[0]
+        ship_ids = pool._ship_ids(first)
+        pid = await asyncio.to_thread(core.register_prefix, ship_ids)
+        ref = await core.generate(first[len(ship_ids):], FLEET_MAX_NEW,
+                                  prefix=pid)
+        _, cold_ttft = await ttft_on(pool.replicas[1], cold)
+        return {"snap": snap, "marks": marks, "recs": recs, "ref": ref,
+                "recorders_s": recorders, "cold_ttft": cold_ttft,
+                "restores": restores, "launches": launches}
+
+    res = fleet_run(app, drive)
+    del app
+    launches = res["launches"]
+    what = "disagg int8" if int8 else "disagg bf16"
+    check_fleet_launches(what, launches, dev, int8)
+    snap = res["snap"]
+    check(snap["ships"] == snap["lands"] == 2 and snap["failures"] == 0,
+          f"fleet {what}: ships {snap['ships']} lands {snap['lands']} "
+          f"failures {snap['failures']}")
+    check(res["restores"] >= 2, f"fleet {what}: the decode replica restored "
+          f"{res['restores']} prefixes")
+    check(res["recs"][0]["tokens"] == res["ref"],
+          f"fleet {what}: tokens differ from one replica on the same split")
+    return {"boot_s": boot_s, "prompt_tokens": len(first),
+            "ships": snap["ships"], "lands": snap["lands"],
+            "failures": snap["failures"],
+            "bytes_per_ship": snap["bytes_moved"] / snap["ships"],
+            "mib_per_ship": snap["bytes_moved"] / snap["ships"] / 2**20,
+            "journey_ms": {"first": res["marks"][0],
+                           "later": res["marks"][1]},
+            "recorder_s": res["recorders_s"],
+            "ttft_ms": {"first": res["recs"][0]["ttft_s"] * 1e3,
+                        "later": res["recs"][1]["ttft_s"] * 1e3,
+                        "cold_one_replica": res["cold_ttft"] * 1e3},
+            "tokens_equal_one_replica_split": True, "launches": launches}
+
+
+def fleet_elastic(dev, params, preset: str) -> dict:
+    """(d) ``GOFR_ML_ELASTIC=1`` from one replica under load (16 gRPC
+    requests at a time): ``scale_to(2)`` (build, warmup, graph capture
+    beside the serving replica's replays, pin backfill), a hot prefix on
+    each replica, then ``scale_to(1)`` (migration and drain). No request
+    fails; a fixed prompt's tokens before, during and after agree."""
+    app, cfg, boot_s = fleet_app(dev, params, preset, GOFR_ML_ELASTIC="1",
+                                 GOFR_ML_REPLICAS_MAX="2",
+                                 GOFR_ML_ELASTIC_INTERVAL_S="3600")
+    r = np.random.default_rng(43)
+    fixed = r.integers(0, cfg.vocab_size, 300).tolist()
+    hot = r.integers(0, cfg.vocab_size, 200).tolist()
+
+    async def scale_events(c, pool):
+        body = {"max_new_tokens": FLEET_MAX_NEW}
+        check(pool.fleet_size() == 1, "fleet elastic: not at size 1")
+        before = (await c.grpc({**body, "prompt_ids": fixed}))["tokens"]
+        stop = asyncio.Event()
+        recs: list = []
+
+        async def traffic():
+            seed = 5
+            while not stop.is_set():  # fresh prompts: nothing promotes
+                recs.extend(await asyncio.gather(*(
+                    c.grpc({**body, "prompt_ids": p}) for p in
+                    front_prompts(cfg.vocab_size, 16, 64, 512, seed=seed))))
+                seed += 1
+
+        loader = asyncio.create_task(traffic())
+        await asyncio.sleep(0.5)
+        migrate_ms: list = []
+        migrate = pool._migrate_out
+
+        def timed_migrate(idx):
+            t = time.perf_counter()
+            try:
+                return migrate(idx)
+            finally:
+                migrate_ms.append((time.perf_counter() - t) * 1e3)
+
+        pool._migrate_out = timed_migrate
+        up = asyncio.create_task(asyncio.to_thread(pool.scale_to, 2))
+        during = []
+        while not up.done():
+            during.append((await c.grpc({**body,
+                                         "prompt_ids": fixed}))["tokens"])
+        check(await up == 2, "fleet elastic: scale_to(2) did not reach 2")
+        for _ in range(2):  # promoted on the replica scale_to(1) retires
+            await pool.replicas[1].generate(hot, 8)
+        during.append((await c.grpc({**body, "prompt_ids": fixed}))["tokens"])
+        stop.set()
+        await loader
+        down = await asyncio.to_thread(pool.scale_to, 1)
+        after = (await c.grpc({**body, "prompt_ids": fixed}))["tokens"]
+        routing = pool.routing_snapshot()
+        return {"before": before, "during": during, "after": after,
+                "recs": recs, "down": down, "migrate_ms": migrate_ms,
+                "events": routing["elastic"]["events"],
+                "migrations": routing["elastic"]["migrations"],
+                "routed": routing["routed"]}
+
+    async def drive(c, pool):
+        # every request and scale event here is the fleet's traffic
+        res, launches = await counted(scale_events(c, pool))
+        return {**res, "launches": launches}
+
+    res = fleet_run(app, drive)
+    del app
+    launches = res["launches"]
+    check_fleet_launches("elastic", launches, dev, False)
+    failed = [r for r in res["recs"] if r["status"] != "OK"
+              or len(r["tokens"]) != FLEET_MAX_NEW]
+    check(not failed and res["recs"],
+          f"fleet elastic: {len(failed)} of {len(res['recs'])} requests "
+          f"failed")
+    check(res["down"] == 1, "fleet elastic: scale_to(1) did not reach 1")
+    led = res["migrations"] or {}
+    check(led.get("ships", 0) == led.get("adoptions", 0)
+          + led.get("failures", 0) and led.get("adoptions", 0) >= 1,
+          f"fleet elastic: migration ledger {led}")
+    ups = [e for e in res["events"] if e["kind"] == "scale_up"]
+    downs = [e for e in res["events"] if e["kind"] == "scale_down"]
+    check(ups and downs, f"fleet elastic: events {res['events']}")
+    runs = [res["before"], *res["during"], res["after"]]
+    agree = stream_agreement("elastic", params, cfg, [fixed] * len(runs),
+                             runs, [res["before"]] * len(runs))
+    return {"boot_s": boot_s, "requests_under_load": len(res["recs"]),
+            "failed_requests": 0,
+            "scale_up": {"time_to_routable_ms": ups[-1]["build_ms"],
+                         "backfilled_pins": ups[-1]["backfilled_pins"]},
+            "scale_down": {"wall_ms": downs[-1]["wall_ms"],
+                           "migrated": downs[-1]["migrated"],
+                           "migration_ms": res["migrate_ms"]},
+            "migration_ledger": led,
+            "migration_mib": led.get("bytes", 0) / 2**20,
+            "fixed_prompt_runs": len(runs), "fixed_prompt_agreement": agree,
+            "routed": res["routed"], "launches": launches}
+
+
+def fleet_phase(dev, bf16_params, w8_params, preset: str = "8b") -> dict:
+    """Phase 14: the replica pool, failover, disaggregated prefill/decode
+    (bf16 and int8 pages) and the elastic fleet on Llama-3-8B at its
+    published shape and full depth, through the port's example app over
+    gRPC, two replicas sharing phase 3's weights on one card."""
+    pool, alone, prompt = fleet_pool(dev, bf16_params, preset)
+    return {
+        "pool": pool,
+        "failover": fleet_failover(dev, bf16_params, preset, prompt, alone),
+        "disagg_bf16": fleet_disagg(dev, bf16_params, preset, int8=False),
+        "disagg_int8": fleet_disagg(dev, w8_params, preset, int8=True),
+        "elastic": fleet_elastic(dev, bf16_params, preset),
+    }
+
+
 def main(argv: list[str]) -> int:
     import pathlib
 
@@ -4379,6 +4868,8 @@ def main(argv: list[str]) -> int:
     done("the engine path", engine)
     oai = openai_phase(dev, bf16_params)
     done("the OpenAI front, capture, replay and the tuner", oai)
+    fleet = fleet_phase(dev, bf16_params, w8_params)
+    done("the fleet", fleet)
     rows += spec["kernels"]
     for row in rows:
         by_path = {"bf16": path["launches"][row["name"]],
@@ -4408,7 +4899,10 @@ def main(argv: list[str]) -> int:
                    "openai_capture": oai["capture"]["capture_launches"][
                        row["name"]],
                    "openai_replay": oai["capture"]["replay_launches"][
-                       row["name"]]}
+                       row["name"]],
+                   **{f"fleet_{arm}": fleet[arm]["launches"][row["name"]]
+                      for arm in ("pool", "failover", "disagg_bf16",
+                                  "disagg_int8", "elastic")}}
         own = {"gqa_decode_attention_int8_cuda": "int8",
                "gqa_decode_window_cuda": "spec_lookup",
                "gqa_decode_window_int8_cuda": "spec_paged_int8"}.get(
@@ -4422,7 +4916,8 @@ def main(argv: list[str]) -> int:
             {"card": card, "kernels": rows, "bf16": path, "int8": qpath,
              "paged": ppath, "graphs": graphs, "windows": windows,
              "host_tier": tier, "front": front, "resilience": res,
-             "speculation": spec, "engine": engine, "openai": oai},
+             "speculation": spec, "engine": engine, "openai": oai,
+             "fleet": fleet},
             indent=1))
     print(json.dumps({"kernels": rows}))
     print(card)

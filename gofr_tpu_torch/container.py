@@ -117,6 +117,33 @@ class Container:
         m.new_gauge("app_llm_prefix_evictions",
                     "idle shared prefixes LRU-dropped under pool pressure")
         m.new_gauge("app_llm_free_pages", "free KV pages in the paged pool")
+        # the replica pool (ml/replica.py) and its KV transport
+        m.new_counter("app_ml_kv_transport_ships_total",
+                      "prefix KV page sets exported off a prefill replica "
+                      "by the disaggregated-serving KV transport")
+        m.new_counter("app_ml_kv_transport_lands_total",
+                      "transported prefix KV page sets landed in a decode "
+                      "replica's host tier")
+        m.new_counter("app_ml_kv_transport_bytes",
+                      "payload bytes moved by the KV transport "
+                      "(successful ships)")
+        m.new_counter("app_ml_kv_migrations_total",
+                      "live-KV-migration attempts during elastic scale "
+                      "events, by outcome (adopted / failed / skipped)")
+        m.new_gauge("app_llm_fleet_size",
+                    "live (non-retired) replicas in an elastic pool")
+        m.new_gauge("app_llm_replica_state",
+                    "per-replica serving state ordinal (0 serving, "
+                    "1 degraded, 2 recovering, 3 dead) — alert on >= 2")
+        m.new_gauge("app_llm_replica_outstanding",
+                    "requests in flight toward a replica from the fleet "
+                    "router (slots + staged margin)")
+        m.new_counter("app_llm_replica_routed_total",
+                      "requests routed to a replica, by routing reason "
+                      "(affinity / least_loaded / failover)")
+        m.new_counter("app_llm_replica_failovers_total",
+                      "requests re-admitted to a surviving replica after "
+                      "their first replica crashed or died")
         # the serving recorders: watchdog, flight recorder, journeys,
         # goodput ledger and the program inventory
         m.new_counter("app_ml_generator_restarts_total",
@@ -137,7 +164,7 @@ class Container:
             "app_llm_dispatch_phase_seconds",
             "serving dispatch wall time per phase (flight recorder: "
             "queue_pop / decide / assemble / launch / d2h_issue / "
-            "device_wait / emit / other)",
+            "device_wait / emit / route / ship / land / other)",
             # phases run from microseconds (a scheduler plan) to a whole
             # device step: the default buckets' 1 ms floor would flatten
             # every host-side phase into one bucket

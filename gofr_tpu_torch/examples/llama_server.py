@@ -18,9 +18,13 @@ weights it already holds. Knobs: ``LLAMA_PRESET`` / ``LLAMA_DTYPE`` /
 decoding, falling back to ``GOFR_ML_SPEC_K``; drafts from
 ``LLM_DRAFT_PRESET=self|tiny|1b``, else prompt lookup) (the generator),
 the server's ``GOFR_ML_*`` knobs, and ``HTTP_PORT`` / ``GRPC_PORT`` /
-``METRICS_PORT``. A checkpoint or tokenizer file (``LLAMA_CKPT``,
-``TOKENIZER_JSON``, ``LLM_DRAFT_CKPT``) is not ported yet (ROADMAP
-A.12), nor disaggregation (``LLM_DISAGG=1``, A.14): each raises.
+``METRICS_PORT``. ``GOFR_ML_REPLICAS=2`` serves through a replica pool
+(on one card the replicas share the weights), and ``LLM_DISAGG=1`` with
+it (falling back to ``GOFR_ML_DISAGG``) splits the pool into a
+prefill-biased and a decode replica over the KV transport (paged
+generators only: set ``LLM_PAGE_SIZE``). A checkpoint or tokenizer file
+(``LLAMA_CKPT``, ``TOKENIZER_JSON``, ``LLM_DRAFT_CKPT``) is not ported
+yet (ROADMAP A.12): each raises.
 """
 
 from __future__ import annotations

@@ -19,8 +19,10 @@ those of ``examples/llama_server.py`` (the model, ``LLM_SLOTS`` default 4,
 ``LLM_PREFILL_CHUNK``, ``LLM_SPEC_K``), ``MODEL_ID`` (default
 ``gofr-llama``), and the headers ``X-Request-Priority`` (``high`` /
 ``normal`` / ``low``) and ``X-Request-Deadline-S``. The byte-level
-tokenizer keeps the example self-contained; ``LLAMA_CKPT`` /
-``TOKENIZER_JSON`` (ROADMAP A.12) and ``LLM_DISAGG=1`` (A.14) raise.
+tokenizer keeps the example self-contained; ``LLM_DISAGG=1`` with
+``GOFR_ML_REPLICAS=2`` boots a disaggregated pool as in
+``llama_server.py``; ``LLAMA_CKPT`` / ``TOKENIZER_JSON`` (ROADMAP A.12)
+raise.
 """
 
 from __future__ import annotations

@@ -173,9 +173,11 @@ LAUNCH_GATE = _LaunchGate()
 # stamps queue_pop, decide, assemble, launch (a graph replay or a
 # prefill, chunked-prefill segments included), d2h_issue (enqueueing the
 # token block's copy to pinned host memory), device_wait (the blocking
-# read of it) and emit. ``route``, ``ship``, ``land`` and ``sp_prefill``
-# belong to the fleet and sequence-parallel serving (ROADMAP A.14, A.11)
-# and stay unstamped until those are ported. ``other`` is the honest
+# read of it) and emit. A replica pool (ml/replica.py) stamps ``route``
+# (its routing decision, pool side) and its cores ``ship`` / ``land`` (the
+# KV transport's export and import on their serving threads);
+# ``sp_prefill`` belongs to sequence-parallel serving (ROADMAP A.11) and
+# stays unstamped until that is ported. ``other`` is the honest
 # remainder: wall time of a dispatch pass no
 # instrumented site claimed (host bookkeeping loops, GC, OS scheduling).
 PHASES = ("queue_pop", "decide", "assemble", "sp_prefill", "launch",

@@ -17,11 +17,18 @@ goodput ledger (``app_llm_tokens_wasted_total``,
 ``register_llm(profile=)`` / ``GOFR_ML_PROFILE`` applies a tuned profile
 (``ml/tune.py``) around the server's construction.
 
+``register_llm(replicas=)`` / ``GOFR_ML_REPLICAS`` > 1, a list of ready
+generators, ``elastic`` / ``GOFR_ML_ELASTIC=1`` or ``canary`` /
+``GOFR_ML_CANARY`` mount a ``ReplicaPool`` (``ml/replica.py``) instead of
+one server; ``disagg`` / ``GOFR_ML_DISAGG=1`` splits it into prefill and
+decode replicas over the KV transport (``ml/kv_transport.py``).
+``/debug/serving`` then shows the pool's ``routing`` block and one
+``replicas.{i}`` row per core, and the sampler exports
+``app_llm_fleet_size`` and the per-replica gauges.
+
 Not ported, and raising ``NotImplementedError`` naming their ROADMAP
-item when asked for, a profile's knob map included: replica pools and
-the fleet (``replicas`` > 1, ``GOFR_ML_REPLICAS`` > 1,
-``GOFR_ML_ELASTIC``, ``GOFR_ML_CANARY``, ``GOFR_ML_FEDERATION``,
-``disagg`` / ``GOFR_ML_DISAGG*``: A.14) and sequence-parallel prefill
+item when asked for, a profile's knob map included: federation across
+hosts (``GOFR_ML_FEDERATION``: A.14b) and sequence-parallel prefill
 (``GOFR_ML_SP*``: A.11).
 """
 
@@ -61,8 +68,7 @@ _POOL_KWARGS = ("depth_per_replica", "affinity_min_tokens", "disagg",
 
 # knobs a tuned profile may name (``tune.TUNABLE_KNOBS``) that the port
 # does not run yet, with the ROADMAP item that brings them
-_PROFILE_UNPORTED = {"GOFR_ML_DISAGG": "A.14", "GOFR_ML_DISAGG_PREFILL": "A.14",
-                     "GOFR_ML_SP": "A.11", "GOFR_ML_SP_SHARDS": "A.11"}
+_PROFILE_UNPORTED = {"GOFR_ML_SP": "A.11", "GOFR_ML_SP_SHARDS": "A.11"}
 
 
 def _not_ported(name: str, what: str, item: str) -> NotImplementedError:
@@ -97,30 +103,6 @@ def _tuned_profile(name: str, prof: Any) -> dict:
             raise _not_ported(name, f"a tuned profile's {knob}",
                               _PROFILE_UNPORTED[knob])
     return prof
-
-
-def _switch_from_env(knob: str) -> bool:
-    """A 0/1 fleet switch read as JAX reads it (malformed raises)."""
-    raw = os.environ.get(knob, "").strip()
-    if not raw or raw == "0":
-        return False
-    if raw == "1":
-        return True
-    raise ValueError(f"{knob} must be 0 or 1, got {raw!r}")
-
-
-def _replicas_from_env() -> int:
-    raw = os.environ.get("GOFR_ML_REPLICAS", "").strip()
-    if not raw:
-        return 1
-    try:
-        n = int(raw)
-    except ValueError:
-        raise ValueError(
-            f"GOFR_ML_REPLICAS must be an integer, got {raw!r}") from None
-    if n < 1:
-        raise ValueError(f"GOFR_ML_REPLICAS must be >= 1, got {n}")
-    return n
 
 
 def _card_memory() -> dict:
@@ -232,6 +214,20 @@ class MLDatasource:
         ``max_queue``, ``max_queued_tokens`` and ``fault`` go to the
         server, everything else to the Generator.
 
+        ``replicas`` (default ``GOFR_ML_REPLICAS``; 1) > 1 mounts a
+        ``ReplicaPool``: N generators, one per card while cards last and
+        round-robin past them (on one card they share the weights),
+        behind one cache-aware routing and admission front with fleet
+        failover (``ml/replica.py``). ``generator`` may be a list of
+        ready generators, one per replica. ``depth_per_replica``,
+        ``affinity_min_tokens``, ``disagg``, ``spawn``, ``elastic``,
+        ``replicas_min``, ``replicas_max`` and ``canary`` go to the pool.
+        ``elastic`` / ``GOFR_ML_ELASTIC=1`` and ``canary`` /
+        ``GOFR_ML_CANARY`` mount the pool even at one replica; built from
+        ``params`` and ``cfg``, the pool gets a default ``spawn`` factory
+        that builds and warms a replica on the next device slice.
+        ``disagg`` / ``GOFR_ML_DISAGG=1`` needs ``replicas >= 2``.
+
         ``profile=`` (a path or a loaded dict; default
         ``GOFR_ML_PROFILE``) applies a tuned profile (``ml/tune.py``): its
         knob map overlays the environment for the construction only,
@@ -240,7 +236,7 @@ class MLDatasource:
         if federation is not None or \
                 os.environ.get("GOFR_ML_FEDERATION", "").strip():
             raise _not_ported(name, "federation (GOFR_ML_FEDERATION)",
-                              "A.14")
+                              "A.14b")
         prof = profile
         if prof is None and os.environ.get("GOFR_ML_PROFILE", "").strip():
             prof = os.environ["GOFR_ML_PROFILE"].strip()
@@ -259,7 +255,8 @@ class MLDatasource:
                     print(f"WARNING: llm {name}: {line}", file=sys.stderr)
             with profile_overlay(prof["knobs"]):
                 server = self._build_llm(name, params, cfg, generator,
-                                         replicas, device, gen_kwargs)
+                                         replicas, device, gen_kwargs,
+                                         profile_knobs=prof["knobs"])
             # what /debug/serving shows: which knob map steered this boot
             # and what drifted
             server.tuned_profile = {
@@ -272,47 +269,102 @@ class MLDatasource:
         return server
 
     def _build_llm(self, name: str, params: Any, cfg: Any, generator: Any,
-                   replicas: int | None, device, gen_kwargs: dict):
+                   replicas: int | None, device, gen_kwargs: dict,
+                   profile_knobs: dict | None = None):
         """The construction half of ``register_llm``: a tuned profile
-        overlays the environment around all of it."""
-        n = _replicas_from_env() if replicas is None else int(replicas)
-        if n < 1:
-            raise ValueError(
-                f"llm {name}: replicas must be >= 1, got {replicas}")
-        if n > 1:
-            raise _not_ported(name, f"a replica pool (replicas={n})", "A.14")
+        overlays the environment around all of it (the replica count, the
+        Generator's env defaults, the pool's knobs)."""
+        from .. import resolve_device
+        from .llm import LLMServer
+        from .replica import (ReplicaPool, build_replica_generators,
+                              canary_from_env, disagg_from_env,
+                              elastic_from_env, replicas_from_env,
+                              spawn_devices)
+
         server_kwargs = {k: gen_kwargs.pop(k) for k in _SERVER_KWARGS
                          if k in gen_kwargs}
         pool_kwargs = {k: gen_kwargs.pop(k) for k in _POOL_KWARGS
                        if k in gen_kwargs}
-        asked = [k for k, v in pool_kwargs.items() if v]
-        if pool_kwargs.get("disagg") is None and \
-                _switch_from_env("GOFR_ML_DISAGG"):
-            asked.append("GOFR_ML_DISAGG")
-        if pool_kwargs.get("elastic") is None and \
-                _switch_from_env("GOFR_ML_ELASTIC"):
-            asked.append("GOFR_ML_ELASTIC")
-        if pool_kwargs.get("canary") is None and \
-                os.environ.get("GOFR_ML_CANARY", "").strip():
-            asked.append("GOFR_ML_CANARY")
-        if asked:
-            raise _not_ported(name, f"the replica pool's {', '.join(asked)}",
-                              "A.14")
-        warm = gen_kwargs.pop("warmup", True)
-        if generator is None:
-            from .generate import Generator
+        if profile_knobs:
+            # a scale-up spawns outside this boot's overlay: the pool
+            # re-applies the knob map around every spawn
+            pool_kwargs["profile_knobs"] = dict(profile_knobs)
+        explicit = (replicas is not None
+                    or os.environ.get("GOFR_ML_REPLICAS", "").strip() != "")
+        n = replicas_from_env(1) if replicas is None else int(replicas)
+        if n < 1:
+            raise ValueError(
+                f"llm {name}: replicas must be >= 1, got {replicas}")
+        devices = None if device is None else [device]
+        if isinstance(generator, (list, tuple)):
+            gens = list(generator)
+            if not gens:
+                raise ValueError(
+                    f"llm {name}: generator= was an empty list; pass one "
+                    f"ready generator per replica, or params/cfg")
+            if explicit and len(gens) != n:
+                raise ValueError(
+                    f"llm {name}: {n} replicas requested but {len(gens)} "
+                    f"ready generator(s) were passed; the list must have "
+                    f"one generator per replica")
+        elif generator is not None:
+            if n > 1:
+                raise ValueError(
+                    f"llm {name}: {n} replicas requested but a single "
+                    f"ready generator was passed; pass a list of {n} "
+                    f"generators (one per replica) or (params, cfg) so "
+                    f"replicas can be built")
+            gens = [generator]
+        else:
+            warm = gen_kwargs.pop("warmup", True)
+            if "spawn" not in pool_kwargs:
+                # an elastic pool built from (params, cfg) can grow at
+                # runtime: one warmed replica on the new index's device
+                # (round-robin past the card count, split_devices' rule)
+                def _default_spawn(idx, _p=params, _c=cfg,
+                                   _devs=devices, _kw=dict(gen_kwargs)):
+                    return build_replica_generators(
+                        _p, _c, 1, warmup=True,
+                        devices=spawn_devices(idx, _devs), **_kw)[0]
 
-            generator = Generator(params, cfg, device=device, **gen_kwargs)
-            if warm:
-                generator.warmup()  # startup pays every build and capture
-        from .llm import LLMServer
-
-        server = LLMServer(generator, name=name, logger=self._logger,
-                           metrics=self._metrics, tracer=self._tracer,
-                           **server_kwargs)
+                pool_kwargs["spawn"] = _default_spawn
+            # one replica sits on ``device`` (default the first card), as
+            # a bare Generator does; more split every card. Startup pays
+            # every build and capture (``warm``)
+            gens = build_replica_generators(
+                params, cfg, n, warmup=warm,
+                devices=(devices if devices or n > 1
+                         else [resolve_device(None)]),
+                **gen_kwargs)
+        elastic_req = pool_kwargs.get("elastic")
+        if elastic_req is None:
+            elastic_req = elastic_from_env()
+        # a shadow canary needs the pool front even at fleet size 1
+        canary_req = pool_kwargs.get("canary")
+        if canary_req is None:
+            canary_req = canary_from_env()
+            if canary_req is not None:
+                pool_kwargs["canary"] = canary_req
+        if len(gens) == 1:
+            disagg_req = pool_kwargs.get("disagg")
+            if disagg_req is None:
+                disagg_req = disagg_from_env()
+            if disagg_req:
+                raise ValueError(
+                    f"llm {name}: disaggregated prefill/decode "
+                    f"(GOFR_ML_DISAGG/disagg=) requires replicas >= 2")
+        if len(gens) > 1 or elastic_req or canary_req:
+            server = ReplicaPool(gens, name=name, logger=self._logger,
+                                 metrics=self._metrics, tracer=self._tracer,
+                                 **pool_kwargs, **server_kwargs)
+        else:
+            server = LLMServer(gens[0], name=name, logger=self._logger,
+                               metrics=self._metrics, tracer=self._tracer,
+                               **server_kwargs)
         if self._logger is not None:
-            self._logger.infof("llm %s registered (1 replica(s), %d slots)",
-                               name, generator.batch_slots)
+            self._logger.infof("llm %s registered (%d replica(s), %d slots)",
+                               name, len(gens),
+                               sum(g.batch_slots for g in gens))
         return server
 
     def llm(self, name: str):
@@ -365,6 +417,11 @@ class MLDatasource:
         for name, server in self._llms.items():
             m.set_gauge("app_ml_queue_depth", server.queue_depth(),
                         component="llm", model=name)
+            if hasattr(server, "export_gauges"):
+                # a replica pool: per-replica state and occupancy, the
+                # fleet's live slots and app_llm_fleet_size
+                server.export_gauges(m)
+                continue
             m.set_gauge("app_llm_active_slots", float(server.gen.n_live),
                         model=name)
         self._export_goodput(m)
@@ -390,11 +447,16 @@ class MLDatasource:
                 m.set_gauge("app_llm_goodput_fraction", frac, model=model)
 
     def _program_logs(self):
-        """Every (model, ProgramLog) pair: engines, then LLM generators."""
+        """Every (model, ProgramLog) pair: engines, then LLM generators, a
+        pool's cores under ``pool/idx``."""
         for name, engine in self._engines.items():
             yield name, engine.programs
         for name, server in self._llms.items():
-            yield name, server.gen.programs
+            if hasattr(server, "replicas"):
+                for i, core in enumerate(server.replicas):
+                    yield f"{name}/{i}", core.gen.programs
+            else:
+                yield name, server.gen.programs
 
     def _export_program_telemetry(self, m) -> None:
         """The program-inventory gauge and the capture-seconds counter
@@ -453,7 +515,7 @@ class MLDatasource:
                                     "max_batch": batcher._max_batch,
                                     "max_delay_s": batcher._max_delay}
             snap["models"][name] = entry
-        for name, server in self._llms.items():
+        def llm_entry(server, model: str) -> dict:
             gen = server.gen
             entry = dict(server.health_check()["details"])
             entry["pool"] = gen.pool_stats()
@@ -483,9 +545,28 @@ class MLDatasource:
             if server.autoprof is not None:
                 entry["autoprof"] = server.autoprof.snapshot()
             if ledger is not None:
-                entry["goodput"] = ledger.snapshot_model(name)
+                entry["goodput"] = ledger.snapshot_model(model)
             if getattr(server, "tuned_profile", None) is not None:
                 entry["profile"] = server.tuned_profile
+            return entry
+
+        for name, server in self._llms.items():
+            if hasattr(server, "replicas"):
+                # a replica pool: fleet health and the routing state once,
+                # then one full row per core keyed by its index
+                entry = dict(server.health_check()["details"])
+                entry["routing"] = server.routing_snapshot()
+                entry["replicas"] = {
+                    str(i): llm_entry(core, core.name)
+                    for i, core in enumerate(server.replicas)}
+                if ledger is not None:
+                    # the pool name aggregates its fleet-level waste
+                    # (failover, migration) and every core's ledger
+                    entry["goodput"] = ledger.snapshot_model(name)
+                if getattr(server, "tuned_profile", None) is not None:
+                    entry["profile"] = server.tuned_profile
+            else:
+                entry = llm_entry(server, name)
             snap["llms"][name] = entry
         return snap
 

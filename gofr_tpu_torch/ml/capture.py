@@ -2,8 +2,9 @@
 replay — counterpart of ``gofr_tpu/ml/capture.py``.
 
 Armed by ``GOFR_ML_CAPTURE`` (a ring size; unset or ``0`` constructs no
-capture machinery and leaves the hot path as it is), every request
-``LLMServer`` admits records what a replay needs:
+capture machinery and leaves the hot path as it is), every request a
+serving front (``LLMServer`` or a ``ReplicaPool``, whose cores see the
+front's rid and skip) admits records what a replay needs:
 
 - the prompt **token ids**, taken at submit, before any radix split (the
   replayed request makes its own cache decisions);
@@ -283,6 +284,13 @@ class TrafficCapture:
     def note_model(self, name: str, **shape) -> None:
         with self._lock:
             self._fleet[name] = dict(shape)
+
+    def forget_model(self, name: str) -> None:
+        """Drop a fleet-block entry: a ``ReplicaPool`` unregisters its
+        replica cores (they never own capture records; the pool's entry
+        is the serving front the bundle names)."""
+        with self._lock:
+            self._fleet.pop(name, None)
 
     def admit(self, rid: str, *, model: str, tokens, max_new: int,
               priority: int, deadline_s: float, mode: str,

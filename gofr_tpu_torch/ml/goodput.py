@@ -20,9 +20,13 @@ single server of the port charges:
 - ``spec_rejected`` — verify-window positions whose drafts the verifier
   rejected (K+1 computed a window, the emitted ones delivered).
 
-``failover_recompute``, ``migration_cold``, ``canary`` and
-``federation_recompute`` (ROADMAP A.14) stay in the taxonomy for the
-modules that charge them.
+A replica pool (``ml/replica.py``) charges the fleet's reasons under its
+own name: ``failover_recompute`` (a rerouted request's re-prefill on a
+survivor), ``migration_cold`` (a scale-down's migrated prefix lost on the
+way), and its shadow canary core bills every token it delivers as
+``canary`` (the output is judged, never delivered).
+``federation_recompute`` stays in the taxonomy for federation (ROADMAP
+A.14b).
 
 The ledger balances by construction: each classification point adds to
 exactly one reason, so ``delivered + wasted == computed``. Per model and

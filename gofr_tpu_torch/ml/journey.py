@@ -12,7 +12,11 @@ Served at ``GET /debug/requests`` (per-mark percentiles, indexes) and
 ``GET /debug/requests/<rid>`` (the waterfall). Cross-linked with the
 flight recorder: a dispatch record names the rids it served, and a
 journey's prefill/decode marks carry the dispatch ``seq`` and the
-in-flight depth. Stdlib only.
+in-flight depth. Under a replica pool (``ml/replica.py``) the FRONT owns
+one journey per request: the cores mark into it (``route``, ``ship``,
+``land``, a ``reject`` on a replica that failed the request, the
+survivor's ``admit``), so a rerouted or two-stage request stays one
+timeline. Stdlib only.
 """
 
 from __future__ import annotations
@@ -128,6 +132,16 @@ class Journey:
         """Attach request-level summary data (no segment attribution)."""
         with self._lock:
             self.data.update(data)
+
+    def count_mark(self, name: str) -> int:
+        """How many times this timeline recorded ``name``, folded repeats
+        included. A pool's failover accounting compares
+        ``count_mark("admit")`` against the charges it already made, so a
+        replica that started the request (its prefill is lost work) is
+        told apart from one that only queued it."""
+        with self._lock:
+            return sum(1 + m.get("folded", 0)
+                       for m in self.marks if m["mark"] == name)
 
     def finish(self, reason: str, error: str | None = None) -> bool:
         """Seal the journey: close the tail segment as ``finish`` (carrying

@@ -59,6 +59,15 @@ goodput ledger (``GOFR_ML_GOODPUT``). Traffic capture
 request is recorded at submit, before any radix split, its output digest
 folded once a burst, and a crash bundle carries the newest 32 records
 under ``state.capture``.
+
+Under a ``ReplicaPool`` (``ml/replica.py``) each replica is one of these
+servers: the front passes its ``rid`` and journey to ``stream_chunks``
+(the core then records no capture and leaves the journey open on an
+error, so the front can reroute), ``fleet_info`` gives crash bundles and
+``snapshot()`` the fleet's shape, ``delivery_reason`` bills a shadow
+canary's tokens as ``canary``, and ``export_prefix_kv`` /
+``export_resident_prefix`` / ``import_prefix_kv`` are the KV transport's
+halves, each run on the serving thread.
 """
 
 from __future__ import annotations
@@ -148,12 +157,13 @@ class _Request:
                  "enqueued_at", "deadline_at", "deadline_hit", "cancelled",
                  "prefix", "full_prompt", "cache_seen", "n_tokens",
                  "first_token_at", "last_burst_at", "trace_ctx",
-                 "queue_span", "decode_span", "slot", "rid", "journey")
+                 "queue_span", "decode_span", "slot", "rid", "journey",
+                 "journey_owned")
 
     def __init__(self, prompt, max_new, out_q, loop, priority: int,
                  deadline_s: float, prefix: int | None = None,
                  trace_ctx=None, queue_span=None, rid: str | None = None,
-                 journey=None) -> None:
+                 journey=None, journey_owned: bool = True) -> None:
         self.prompt = prompt
         self.prefix = prefix      # registered shared-prefix id (paged)
         self.full_prompt = None   # the original ids when the prefix cache
@@ -177,6 +187,9 @@ class _Request:
         self.slot = None
         self.rid = rid                # process-unique id (the journey key)
         self.journey = journey        # its timeline (None: journeys off)
+        # this server seals the journey on an error; a pool front owns
+        # (and may reroute) the journey it passed in
+        self.journey_owned = journey_owned
 
     def finish_spans(self, status: str = "OK", message: str = "") -> None:
         """End the phase spans still open."""
@@ -305,6 +318,13 @@ class LLMServer:
         # the goodput ledger: model-bound handles for the generator, the
         # prefix cache and the host tier, whose charge sites stay one-liners
         self._goodput = goodput_ledger()
+        # what this server's delivered tokens bill as: a shadow-canary
+        # core (ml/replica.py) flips it to "canary", its output never
+        # reaching a client
+        self.delivery_reason = "delivered"
+        # a ReplicaPool front installs a fleet-shape provider here, so a
+        # core's crash bundle snapshots the membership at crash time
+        self.fleet_info = None
         handle = (self._goodput.handle(name)
                   if self._goodput is not None else None)
         generator.goodput = handle
@@ -474,8 +494,11 @@ class LLMServer:
 
     def _note_goodput(self, reason: str, tokens: int) -> None:
         """Classify device-computed tokens in the goodput ledger: one call
-        a fate decision, never one a token."""
+        a fate decision, never one a token. ``delivered`` bills as
+        ``delivery_reason`` (``canary`` on a shadow-canary core)."""
         if self._goodput is not None and tokens > 0:
+            if reason == "delivered":
+                reason = self.delivery_reason
             self._goodput.note(self.name, reason, int(tokens))
 
     def _slot_produced(self, slot: int | None) -> int:
@@ -502,7 +525,12 @@ class LLMServer:
                     span.set_attribute("ml.finish_reason", reason)
         req.finish_spans("ERROR", str(exc))
         if req.journey is not None:
-            self._finish_journey(req, reason or "error", str(exc))
+            if req.journey_owned:
+                self._finish_journey(req, reason or "error", str(exc))
+            else:
+                # a pool's journey stays open: the front may reroute the
+                # request to a survivor, so the reject is one mark
+                req.journey.mark("reject", reason=reason or "error")
         req.send(exc)
         req.send(_DONE)
 
@@ -652,6 +680,12 @@ class LLMServer:
                 state["journeys"] = journeys
             if self.recorder is not None:
                 state["dispatches"] = self.recorder.tail(16)
+            if self.fleet_info is not None:
+                try:  # the fleet shape at crash time (an elastic pool
+                    # scales at runtime)
+                    state["fleet"] = self.fleet_info()
+                except Exception:
+                    pass
             try:  # the pool counters may be mid-wreck; best effort
                 state["pool"] = self.gen.pool_stats()
             except Exception:
@@ -966,6 +1000,118 @@ class LLMServer:
 
         self._run_on_serving(work, timeout_s, "drop_prefix")
 
+    # -- KV transport (ml/kv_transport.py): disaggregated prefill/decode ---
+    def export_prefix_kv(self, prefix_ids,
+                         timeout_s: float = 120.0) -> tuple | None:
+        """The PREFILL replica's half of a ship: compute the prefix's KV
+        pages (``register_prefix``, in chunked segments past the largest
+        bucket), spill them through the host tier
+        (``drop_prefix(spill=True)``) and take the settled host slabs out
+        of the store. Returns ``(key, arrays, meta)``, or ``None`` when
+        this core cannot ship (dense cache, host tier off, nothing
+        page-whole, pool too tight, entry over the host budget): the
+        transport then falls back to a full prefill. Runs on the serving
+        thread, where the ``ship`` fault point and recorder phase fire."""
+        def work() -> tuple | None:
+            gen = self.gen
+            if not getattr(gen, "page_size", 0) \
+                    or getattr(gen, "host_kv", None) is None:
+                return None
+            ids = tuple(int(t) for t in prefix_ids)
+            t0 = time.perf_counter()
+            try:
+                pid = gen.register_prefix(ids)
+            except (PagePoolExhausted, ValueError):
+                return None  # pool too tight / shape-impossible
+            try:
+                spilled = gen.drop_prefix(pid, spill=True)
+            except Exception:
+                # the spill failed mid-handoff (an armed ``spill`` fault):
+                # the registration is idle on the card — give its pages
+                # back instead of parking them until a reclaim pass
+                if gen.has_prefix(pid):
+                    gen.drop_prefix(pid)
+                raise
+            entry = gen.host_kv.take(ids) if spilled else None
+            if self._fault is not None:
+                self._fault("ship")  # chaos: pages lost mid-handoff
+            if self.recorder is not None:
+                self.recorder.note("ship", time.perf_counter() - t0)
+            if entry is None:
+                return None
+            return ids, entry[0], entry[1]
+
+        return self._run_on_serving(work, timeout_s, "export_prefix_kv")
+
+    def export_resident_prefix(self, prefix_ids, pid: int | None = None,
+                               timeout_s: float = 30.0) -> tuple | None:
+        """The MIGRATION export (an elastic scale-down): hand over KV this
+        core already holds — a registered radix-cache prefix (spilled and
+        taken out of the store) or an offloaded host-tier entry — without
+        recomputing it. ``None`` when nothing is migratable under the key
+        (a borrowed registration, a spill the budget refused, an entry
+        already gone): the survivor cold-starts that prefix. Runs on the
+        serving thread, where the ``migrate`` fault point fires."""
+        def work() -> tuple | None:
+            gen = self.gen
+            if not getattr(gen, "page_size", 0) \
+                    or getattr(gen, "host_kv", None) is None:
+                return None
+            ids = tuple(int(t) for t in prefix_ids)
+            t0 = time.perf_counter()
+            if self._fault is not None:
+                self._fault("migrate")  # chaos: export lost mid-handoff
+            if pid is not None and gen.has_prefix(pid):
+                info = gen._prefixes[pid]
+                if info["refs"] > 0:
+                    return None  # borrowed: drains with its slots
+                key = tuple(int(t) for t in info["ids_full"])
+                spilled = gen.drop_prefix(pid, spill=True)
+                if self.prefix_cache is not None:
+                    # registered -> offloaded in the trie (cleared below
+                    # once the entry leaves)
+                    self.prefix_cache.invalidate(pid)
+                if not spilled:
+                    return None  # the host budget refused it: discarded
+                ids = key
+            entry = gen.host_kv.take(ids)
+            if self.prefix_cache is not None:
+                self.prefix_cache.forget_offloaded(ids)
+            if self.recorder is not None:
+                self.recorder.note("ship", time.perf_counter() - t0)
+            if entry is None:
+                return None
+            return ids, entry[0], entry[1]
+
+        return self._run_on_serving(work, timeout_s, "export_resident_prefix")
+
+    def import_prefix_kv(self, key, arrays: dict, meta: dict,
+                         timeout_s: float = 30.0) -> bool:
+        """The DECODE replica's half of a ship: land the settled slabs in
+        this core's host tier and seed the radix trie with the OFFLOADED
+        node, so the next prompt longest-matching ``key`` restores the
+        pages at admission (suffix-only prefill, the restore charged to
+        this core's token-budget scheduler like a local offload hit).
+        False when the entry cannot land (host tier off, or over its
+        budget). Runs on the serving thread, where the ``land`` fault
+        point and recorder phase fire."""
+        def work() -> bool:
+            gen = self.gen
+            if getattr(gen, "host_kv", None) is None:
+                return False
+            ids = tuple(int(t) for t in key)
+            t0 = time.perf_counter()
+            if self._fault is not None:
+                self._fault("land")  # chaos: arrival dropped on the floor
+            ok = gen.host_kv.receive(ids, arrays, dict(meta))
+            if ok and self.prefix_cache is not None:
+                self.prefix_cache.adopt_offloaded(ids)
+            if self.recorder is not None:
+                self.recorder.note("land", time.perf_counter() - t0)
+            return ok
+
+        return self._run_on_serving(work, timeout_s, "import_prefix_kv")
+
     def has_prefix(self, pid: int) -> bool:
         """False once the prefix was dropped or evicted under pool
         pressure."""
@@ -1205,7 +1351,9 @@ class LLMServer:
                             priority: int | str | None = None,
                             deadline_s: float | None = None,
                             prefix: int | None = None,
-                            mode: str = "chunks"
+                            mode: str = "chunks",
+                            rid: str | None = None,
+                            journey=None,
                             ) -> AsyncIterator[list[int]]:
         """Yield BURSTS of tokens — each list is the slot's share of one
         processed decode block (the first is ``[first_token]``).
@@ -1221,7 +1369,11 @@ class LLMServer:
         then the suffix. Pass ``info={}`` to receive
         ``info["finish_reason"]`` (``"stop"``, ``"length"`` or
         ``"eviction"``). ``mode`` labels the consumer (``chunks``,
-        ``stream``, ``generate``) in the traffic-capture record."""
+        ``stream``, ``generate``) in the traffic-capture record.
+        ``rid`` / ``journey``: a ``ReplicaPool`` front passes its own, so
+        the fleet hop and this core's hop share one timeline; the core
+        then records no capture (the front did) and seals the journey
+        only on a natural finish."""
         if self._closed or self._draining:
             raise self._closed_error()
         prio = normalize_priority(priority)
@@ -1237,25 +1389,30 @@ class LLMServer:
             queue_span = self._tracer.start_span(
                 "ml.queue", parent=ctx, activate=False,
                 attributes={"ml.model": self.name})
-        rid = next_rid()
         cap_rec = None
-        if self._capture is not None:
+        if rid is None:
+            rid = next_rid()
+            capture = self._capture
+        else:
+            capture = None  # a pool front captured the fleet request
+        if capture is not None:
             # at the submit boundary, before any radix split: the bundle
             # carries the full ids the caller sent
-            cap_rec = self._capture.admit(
+            cap_rec = capture.admit(
                 rid, model=self.name, tokens=prompt_ids,
                 max_new=max_new_tokens, priority=prio, deadline_s=ttl,
                 mode=mode, sampler=self._cap_sampler,
                 prefix=prefix is not None)
-        journey = None
-        if self._journeys is not None:
+        owned = False
+        if journey is None and self._journeys is not None:
             journey = self._journeys.start(Journey(
                 rid, model=self.name,
                 trace_id=ctx.trace_id if ctx is not None else None))
+            owned = True
         req = _Request(np.asarray(prompt_ids).reshape(-1), max_new_tokens,
                        out_q, asyncio.get_running_loop(), prio, ttl,
                        prefix=prefix, trace_ctx=ctx, queue_span=queue_span,
-                       rid=rid, journey=journey)
+                       rid=rid, journey=journey, journey_owned=owned)
         self._requests.put(req)
         if self._closed:
             # close() may have flushed before our put landed: never park on
@@ -1263,7 +1420,7 @@ class LLMServer:
             req.cancelled = True
             if cap_rec is not None:
                 cap_rec.finish("error")
-            if journey is not None:
+            if owned:
                 self._finish_journey(req, "error", "server closed")
             raise self._closed_error()
         try:
@@ -1294,7 +1451,7 @@ class LLMServer:
             req.cancelled = True
             if cap_rec is not None and not cap_rec.done:
                 cap_rec.finish("cancelled")
-            if journey is not None and not journey.done:
+            if owned and not journey.done:
                 # abandonment, not a serving failure (errors and natural
                 # finishes sealed the journey before this)
                 self._finish_journey(req, "cancelled")
@@ -1404,6 +1561,9 @@ class LLMServer:
             "graphs": gen.graph_stats(),
             "prefix_cache": (None if self.prefix_cache is None
                              else self.prefix_cache.snapshot()),
+            # a pool core: the fleet's shape now (None when standalone)
+            "fleet": (None if self.fleet_info is None
+                      else self.fleet_info()),
         }
 
     def health(self) -> str:

@@ -9,9 +9,11 @@ penalty, and emit a **tuned profile**: a fingerprint-stamped JSON knob
 map and the per-arm scoreboard that justifies it.
 
 ``GOFR_ML_PROFILE=<path>`` / ``register_llm(profile=)`` applies a profile
-at boot (loud validation, drift warnings; unset constructs nothing). The
-shadow canary (``GOFR_ML_CANARY``) is a replica pool's and waits for
-ROADMAP A.14a.
+at boot (loud validation, drift warnings; unset constructs nothing).
+``GOFR_ML_CANARY=<path>`` / ``register_llm(canary=)`` boots a profile as
+a replica pool's shadow canary (``ml/replica.py``): every Nth request is
+mirrored to a core built under the candidate's knobs, and the core is
+promoted into the fleet or rolled back on digest identity and latency.
 
 CLI::
 

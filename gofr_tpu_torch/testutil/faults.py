@@ -20,10 +20,15 @@ the dispatch each guards (never inside a CUDA-graph capture):
 - ``restore``  — a host-to-device KV restore (``Generator.restore_prefix``)
 - ``emit``     — the token-burst callback into the serving layer
 
-The fleet's points (``route``, ``ship``, ``land``, ``scale_up``,
-``scale_down``, ``migrate``, ``peer_*``) and the sequence-parallel ones
-(``sp_prefill``, ``sp_gather``) parse here and fire once their modules are
-ported (ROADMAP A.14 and A.11).
+A replica pool (``ml/replica.py``) fires the fleet's points: ``route``
+(the routing decision), ``ship`` / ``land`` (the KV transport's export and
+import on the cores' serving threads), ``scale_up`` / ``scale_down`` (a
+scale event) and ``migrate`` (a scale-down's export). Each core gets its
+own injector (``for_replica``: base seed + index), and
+``GOFR_ML_FAULT_REPLICA=i`` narrows the spec to replica ``i``. The
+cross-host points (``peer_*``, ``ml/multihost.py``'s framing) and the
+sequence-parallel ones (``sp_prefill``, ``sp_gather``) parse here; the
+latter fire once A.11 is ported.
 
 The injector exists only when the knob is set (``from_env`` returns None
 otherwise) and the call sites guard with ``is not None``. Draws come from a
@@ -117,6 +122,42 @@ class FaultInjector:
             return None
         seed_raw = os.environ.get("GOFR_ML_FAULT_SEED", "").strip()
         return cls.parse(spec, seed=int(seed_raw) if seed_raw else None)
+
+    @classmethod
+    def armed_replica(cls) -> int | None:
+        """``GOFR_ML_FAULT_REPLICA`` as an index, or None (all replicas).
+        A malformed value fails loudly like a malformed spec."""
+        raw = os.environ.get("GOFR_ML_FAULT_REPLICA", "").strip()
+        if not raw:
+            return None
+        try:
+            return int(raw)
+        except ValueError:
+            raise ValueError(
+                f"GOFR_ML_FAULT_REPLICA must be a replica index, "
+                f"got {raw!r}") from None
+
+    @classmethod
+    def from_env_for_replica(cls, idx: int) -> "FaultInjector | None":
+        """Per-replica arming for the pool: the env spec applies to
+        replica ``idx`` only when ``GOFR_ML_FAULT_REPLICA`` is unset or
+        names it; each armed replica gets its own injector (seed + idx)."""
+        armed = cls.armed_replica()
+        if armed is not None and armed != idx:
+            return None
+        inj = cls.from_env()
+        if inj is None:
+            return None
+        return inj.for_replica(idx)
+
+    def for_replica(self, idx: int) -> "FaultInjector | None":
+        """This injector for replica ``idx``: the same
+        ``GOFR_ML_FAULT_REPLICA`` narrowing and per-replica seeding as
+        ``from_env_for_replica``, for an injector passed as ``fault=``."""
+        armed = self.armed_replica()
+        if armed is not None and armed != idx:
+            return None
+        return type(self)(self.points, seed=self.seed + idx)
 
     def fire(self, point: str) -> None:
         armed = self.points.get(point)

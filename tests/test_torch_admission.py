@@ -582,46 +582,84 @@ def test_capture_knob_raises_naming_a16(model, raw, monkeypatch):
         server.close()
 
 
-@pytest.mark.parametrize("env,kw,item", [
-    ({"GOFR_ML_REPLICAS": "2"}, {}, "A.14"),
-    ({}, {"replicas": 2}, "A.14"),
-    ({"GOFR_ML_ELASTIC": "1"}, {}, "A.14"),
-    ({"GOFR_ML_CANARY": "candidate.json"}, {}, "A.14"),
-    ({"GOFR_ML_FEDERATION": "a=127.0.0.1:1"}, {}, "A.14"),
-    ({"GOFR_ML_DISAGG": "1"}, {}, "A.14"),
-    ({}, {"disagg": True}, "A.14"),
-    ({"GOFR_ML_PROFILE": "tuned.json"}, {}, "A.16"),
-    ({}, {"profile": "tuned.json"}, "A.16"),
+# Each case keeps the name and id it had while every fleet knob raised
+# naming its ROADMAP item; ``want`` says what a case now checks: "pool"
+# and "disagg" that a ReplicaPool mounts, "profile" a loud boot failure,
+# "A.14b" the raise that federation still gives.
+@pytest.mark.parametrize("env,kw,want", [
+    pytest.param({"GOFR_ML_REPLICAS": "2"}, {}, "pool", id="env0-kw0-A.14"),
+    pytest.param({}, {"replicas": 2}, "pool", id="env1-kw1-A.14"),
+    pytest.param({"GOFR_ML_ELASTIC": "1"}, {}, "pool", id="env2-kw2-A.14"),
+    pytest.param({"GOFR_ML_CANARY": "candidate.json"}, {}, "profile",
+                 id="env3-kw3-A.14"),
+    pytest.param({"GOFR_ML_FEDERATION": "a=127.0.0.1:1"}, {}, "A.14b",
+                 id="env4-kw4-A.14"),
+    pytest.param({"GOFR_ML_DISAGG": "1"}, {}, "disagg", id="env5-kw5-A.14"),
+    pytest.param({}, {"disagg": True}, "disagg", id="env6-kw6-A.14"),
+    pytest.param({"GOFR_ML_PROFILE": "tuned.json"}, {}, "profile",
+                 id="env7-kw7-A.16"),
+    pytest.param({}, {"profile": "tuned.json"}, "profile",
+                 id="env8-kw8-A.16"),
 ])
-def test_unported_fleet_knobs_raise_naming_their_item(model, env, kw, item,
+def test_unported_fleet_knobs_raise_naming_their_item(model, env, kw, want,
                                                       monkeypatch):
+    """The fleet knobs (ROADMAP A.14a, ported) mount a ``ReplicaPool`` as
+    JAX's ``register_llm`` does: ``GOFR_ML_REPLICAS`` / ``replicas=`` > 1
+    and ``GOFR_ML_ELASTIC=1`` (even at one replica). A canary or tuned
+    profile that cannot be read fails the boot with the JAX package's
+    message; disaggregation on one replica gives JAX's "requires replicas
+    >= 2" and mounts a disaggregated pool at two. Federation across hosts
+    still raises, naming A.14b."""
     from gofr_tpu_torch.ml import MLDatasource
+    from gofr_tpu_torch.ml.replica import ReplicaPool
 
     cfg, params = model
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    if item == "A.16":
-        # tuned profiles are ported: a profile that cannot be read fails
-        # the boot loudly, with the JAX package's message
+    knobs = dict(device="cpu", max_seq=64, prefill_buckets=(8,), **kw)
+    if want == "profile":
         from gofr_tpu.ml.tune import load_profile
 
-        with pytest.raises(ValueError) as want:
+        with pytest.raises(ValueError) as jax_err:
             load_profile("tuned.json")
         with pytest.raises(ValueError) as got:
-            MLDatasource().register_llm("chat", params, cfg, device="cpu",
-                                        max_seq=64, prefill_buckets=(8,),
-                                        **kw)
-        assert str(got.value) == str(want.value)
+            MLDatasource().register_llm("chat", params, cfg, **knobs)
+        assert str(got.value) == str(jax_err.value).replace(
+            "tuned.json", env.get("GOFR_ML_CANARY", "tuned.json"))
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        MLDatasource().register_llm("chat", params, cfg, device="cpu",
-                                    max_seq=64, prefill_buckets=(8,), **kw)
+    if want == "A.14b":
+        with pytest.raises(NotImplementedError, match="ROADMAP A.14b"):
+            MLDatasource().register_llm("chat", params, cfg, **knobs)
+        return
+    if want == "disagg":
+        from gofr_tpu.ml import MLDatasource as JMLDatasource
+
+        with pytest.raises(ValueError) as jax_err:
+            JMLDatasource().register_llm("chat", None, None,
+                                         generator=object(),
+                                         **({"disagg": True} if kw else {}))
+        with pytest.raises(ValueError) as got:
+            MLDatasource().register_llm("chat", params, cfg, **knobs)
+        assert str(got.value) == str(jax_err.value)
+        knobs.update(replicas=2, page_size=4, batch_slots=1)
+    server = MLDatasource().register_llm("chat", params, cfg, **knobs)
+    try:
+        assert isinstance(server, ReplicaPool)
+        assert server.fleet_size() == (1 if want == "pool" and env.get(
+            "GOFR_ML_ELASTIC") else 2)
+        assert (server.routing_snapshot()["disagg"] is not None) == (
+            want == "disagg")
+    finally:
+        server.close()
 
 
 def test_example_knobs_of_later_items_raise(monkeypatch):
     """LLAMA_CKPT / TOKENIZER_JSON name A.12, and so does a draft
     checkpoint (LLM_DRAFT_CKPT with a positive LLM_SPEC_K: speculation is
-    ported, the checkpoint import is not); LLM_DISAGG=1 names A.14."""
+    ported, the checkpoint import is not). LLM_DISAGG=1 (A.14a, ported)
+    gives JAX's "requires replicas >= 2" on one replica and boots a
+    disaggregated pool with GOFR_ML_REPLICAS=2 over paged generators (the
+    name is kept from when it raised naming A.14)."""
     from gofr_tpu_torch.examples import llama_server
 
     for knob, item in (("TOKENIZER_JSON", "A.12"), ("LLAMA_CKPT", "A.12")):
@@ -629,15 +667,29 @@ def test_example_knobs_of_later_items_raise(monkeypatch):
             m.setenv(knob, "/nonexistent")
             with pytest.raises(NotImplementedError, match=item):
                 llama_server.main(device="cpu")
-    for env, item in (({"LLM_SPEC_K": "2", "LLM_DRAFT_CKPT": "/nonexistent"},
-                       "A.12"),
-                      ({"LLM_DISAGG": "1"}, "A.14")):
-        with monkeypatch.context() as m:
-            for knob, value in env.items():
-                m.setenv(knob, value)
-            m.setenv("LLAMA_PRESET", "tiny")
-            with pytest.raises(NotImplementedError, match=item):
-                llama_server.main(device="cpu")
+    with monkeypatch.context() as m:
+        m.setenv("LLM_SPEC_K", "2")
+        m.setenv("LLM_DRAFT_CKPT", "/nonexistent")
+        m.setenv("LLAMA_PRESET", "tiny")
+        with pytest.raises(NotImplementedError, match="A.12"):
+            llama_server.main(device="cpu")
+    from gofr_tpu_torch.ml.replica import ReplicaPool
+
+    with monkeypatch.context() as m:
+        m.setenv("LLM_DISAGG", "1")
+        m.setenv("LLAMA_PRESET", "tiny")
+        with pytest.raises(ValueError, match="requires replicas >= 2"):
+            llama_server.main(device="cpu")
+        m.setenv("GOFR_ML_REPLICAS", "2")
+        m.setenv("LLM_PAGE_SIZE", "8")
+        app = llama_server.main(device="cpu")
+        pool = app._ensure_ml().llm("chat")
+        try:
+            assert isinstance(pool, ReplicaPool)
+            assert pool.routing_snapshot()["disagg"]["roles"] == {
+                "0": "prefill", "1": "decode"}
+        finally:
+            pool.close()
 
 
 def test_slo_steering_moves_the_share_as_jax_does(model, jax_model, run,

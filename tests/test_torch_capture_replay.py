@@ -518,3 +518,51 @@ def test_jax_window_replays_on_the_port_at_identity_one(model, run,
     assert any(line.startswith("torch:")
                for line in verdict["fingerprint_drift"])
     assert verdict["goodput"]["balanced"]
+
+
+def test_mixed_pool_window_replays_bit_identical(model, run, monkeypatch):
+    """A greedy mixed-load window (priorities, deadlines, a 2-replica
+    pool) captured at the pool front, then replayed on the same config:
+    identity 1.0, the fleet block names the pool (never its cores), and
+    every digest equals the JAX package's single replica on the prompt."""
+    from gofr_tpu_torch.ml.replica import ReplicaPool
+
+    cap = _arm(monkeypatch)
+    prompts = [[3, 1, 4, 1], [2, 7, 1], [5, 9, 2, 6, 5],
+               [3, 5, 8, 9], [7, 9, 3], [2, 3, 8, 4, 6]]
+    prios = ["high", "normal", "low", "normal", "high", "low"]
+
+    def build():
+        return ReplicaPool([_gen(model), _gen(model)], name="cap-pool")
+
+    async def window(server):
+        return await asyncio.gather(*(
+            server.generate(prompts[i], 6, priority=prios[i],
+                            deadline_s=30.0) for i in range(len(prompts))))
+
+    pool = build()
+    try:
+        outs = run(window(pool))
+    finally:
+        pool.close()
+    jgen = _jgen(model, batch_slots=1)
+    assert outs == [jgen.generate(p, 6) for p in prompts]
+    bundle = cap.export()
+    assert len(bundle["requests"]) == len(prompts)
+    assert bundle["fleet"]["cap-pool"]["replicas"] == 2
+    assert all("/" not in name for name in bundle["fleet"])
+    rows = {tuple(r["tokens"]): r for r in bundle["requests"]}
+    for p, out in zip(prompts, outs, strict=True):
+        row = rows[tuple(p)]
+        assert row["finish_reason"] == "length"
+        assert row["digest"] == token_digest(out) == jcap.token_digest(out)
+        assert row["deadline_s"] == 30.0 and row["mode"] == "generate"
+    bundle = decode_bundle(encode_bundle(bundle))
+    replay_pool = build()
+    try:
+        verdict = run(ReplayHarness(replay_pool, bundle, speed=8.0).run())
+    finally:
+        replay_pool.close()
+    assert verdict["identity"]["compared"] == len(prompts)
+    assert verdict["identity"]["rate"] == 1.0
+    assert verdict["replay_failed"] == 0 and verdict["skipped"] == 0

@@ -998,3 +998,93 @@ def test_engine_capture_failure_raises_without_eager_fallback(dev):
         assert engine.steps == 0 and not engine.graphs
     finally:
         engine.close()
+
+
+def test_pool_replicas_on_one_card_share_weights(dev):
+    """Two replicas of a ``ReplicaPool`` on ``cuda:0`` share the weight
+    tensors (no copy) and each owns its page pool and decode graphs; the
+    disaggregated path ships the prefix through the host tier and both
+    replicas' greedy tokens equal a single server's on the same prompts."""
+    import asyncio
+
+    from gofr_tpu_torch.ml.generate import Generator
+    from gofr_tpu_torch.ml.llm import LLMServer
+    from gofr_tpu_torch.ml.replica import (ReplicaPool,
+                                           build_replica_generators)
+
+    _, cfg, params = _tiny_on_card(dev)
+    opts = dict(batch_slots=2, max_seq=256, prefill_buckets=(64,), chunk=4,
+                page_size=16, n_pages=64)
+    gens = build_replica_generators(params, cfg, 2, devices=[dev], **opts)
+    assert gens[0].params is params and gens[1].params is params
+    assert gens[0].cache["k"].data_ptr() != gens[1].cache["k"].data_ptr()
+    r = np.random.default_rng(1)
+    long, short = (r.integers(0, cfg.vocab_size, n).tolist() for n in (41, 9))
+    single = LLMServer(Generator(params, cfg, device=dev, **opts))
+    pool = ReplicaPool(gens, name="card-pool", disagg=True)
+
+    async def both():
+        # the single server computes the split the pool ships: 32 tokens
+        # of whole pages registered, the rest prefilled over them
+        pid = await asyncio.to_thread(single.register_prefix, long[:40])
+        want = [await single.generate(long[40:], 12, prefix=pid),
+                await single.generate(short, 12)]
+        got = [await pool.generate(long, 12), await pool.generate(short, 12)]
+        return want, got
+
+    try:
+        want, got = asyncio.run(both())
+        assert got == want
+        snap = pool.routing_snapshot()["disagg"]
+        assert snap["ships"] == snap["lands"] == 1 and snap["failures"] == 0
+        assert pool.replicas[1].gen.kv_restores == 1
+        assert all(c.gen.graph_stats()["graphs"] for c in pool.replicas)
+    finally:
+        pool.close()
+        single.close()
+
+
+def test_scale_up_capture_beside_a_serving_replica(dev):
+    """A scale-up builds, warms and captures a replica's decode graphs
+    on a side stream while the other replica replays its own: no request
+    fails and a fixed prompt's tokens are the same before, during and
+    after the scale event."""
+    import asyncio
+    import threading
+
+    from gofr_tpu_torch.ml.generate import Generator
+    from gofr_tpu_torch.ml.replica import ReplicaPool
+
+    _, cfg, params = _tiny_on_card(dev)
+    opts = dict(batch_slots=2, max_seq=256, prefill_buckets=(64,), chunk=4,
+                page_size=16, n_pages=64)
+
+    def spawn(idx):
+        gen = Generator(params, cfg, device=dev, **opts)
+        gen.warmup()
+        return gen
+
+    first = spawn(0)
+    pool = ReplicaPool([first], name="card-elastic", spawn=spawn)
+    fixed = list(range(3, 40))
+
+    async def scenario():
+        before = await pool.generate(fixed, 16)
+        scaler = threading.Thread(target=pool.scale_to, args=(2,))
+        scaler.start()
+        during = []
+        while scaler.is_alive():
+            during.append(await pool.generate(fixed, 16))
+        scaler.join()
+        after = await asyncio.gather(*(pool.generate(fixed, 16)
+                                       for _ in range(4)))
+        return before, during, after
+
+    try:
+        before, during, after = asyncio.run(scenario())
+        assert pool.fleet_size() == 2
+        assert during and all(o == before for o in during)
+        assert all(o == before for o in after)
+        assert pool.replicas[1].gen.graph_stats()["graphs"]
+    finally:
+        pool.close()

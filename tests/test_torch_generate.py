@@ -378,7 +378,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     assert len(files) > 10
     scanned = {str(p.relative_to(ROOT)) for p in files}
     for new in ("http/sse.py", "examples/openai_server.py", "ml/capture.py",
-                "ml/replay.py", "ml/tune.py"):
+                "ml/replay.py", "ml/tune.py", "ml/replica.py",
+                "ml/kv_transport.py", "ml/multihost.py"):
         assert f"gofr_tpu_torch/{new}" in scanned
     for path in files:
         for name in _imports(path):
@@ -401,7 +402,8 @@ def test_importing_the_port_loads_no_jax():
             "gofr_tpu_torch.examples.sdxl_server, "
             "gofr_tpu_torch.http.sse, gofr_tpu_torch.examples.openai_server, "
             "gofr_tpu_torch.ml.capture, gofr_tpu_torch.ml.replay, "
-            "gofr_tpu_torch.ml.tune; "
+            "gofr_tpu_torch.ml.tune, gofr_tpu_torch.ml.replica, "
+            "gofr_tpu_torch.ml.kv_transport, gofr_tpu_torch.ml.multihost; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'gofr_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")

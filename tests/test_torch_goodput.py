@@ -686,3 +686,37 @@ def test_metrics_export_wasted_and_goodput_fraction(pair, run):
     assert 'app_llm_goodput_fraction{model="gp-met"} 0' in text
     assert 'app_ml_programs{model="gp-met"}' in text
     assert DeadlineExceeded is not None
+
+
+def test_failover_recompute_in_pool(pair, run, monkeypatch):
+    """A replica loss re-prefills the rerouted prompt on the survivor: the
+    pool charges those prompt tokens as ``failover_recompute`` under its
+    own name, the dead core its in-flight tokens as ``crashed``, and the
+    pool's rollup balances — the same ledger rows as the JAX pool's on
+    the same request, and the JAX package's tokens."""
+    from gofr_tpu.ml.replica import ReplicaPool as JReplicaPool
+    from gofr_tpu_torch.ml.replica import ReplicaPool
+
+    monkeypatch.setenv("GOFR_ML_FAULT", "step:1.0:RuntimeError")
+    monkeypatch.setenv("GOFR_ML_FAULT_REPLICA", "0")
+    rows, outs = [], []
+    for mod, cls, make in ((jgp, JReplicaPool, _jgen),
+                           (tgp, ReplicaPool, _gen)):
+        pool = cls([make(pair, batch_slots=1), make(pair, batch_slots=1)],
+                   name="tw-gp-pool", max_restarts=0)
+
+        async def scenario():
+            return await pool.generate([3, 1, 4], 6)
+
+        try:
+            outs.append(run(scenario()))
+        finally:
+            pool.close()
+        rows.append(mod.goodput_ledger().snapshot_model("tw-gp-pool"))
+    jrow, trow = rows
+    assert outs[0] == outs[1] and len(outs[1]) == 6
+    assert trow["wasted"].get("failover_recompute", 0) >= 3
+    assert trow["delivered"] >= 6
+    assert _balanced(trow)
+    assert trow["wasted"] == jrow["wasted"]
+    assert trow["delivered"] == jrow["delivered"]

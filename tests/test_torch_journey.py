@@ -393,3 +393,78 @@ def test_debug_requests_disabled(pair, run, monkeypatch):
             await client.close()
 
     run(scenario())
+
+
+def test_pool_request_is_one_timeline(pair, run):
+    """A replica-pool request keeps ONE journey across the fleet hop and
+    the core hop: route, admit, prefill, decode and finish in a single
+    record, the rid on the route and admit events, the trace id attached,
+    and ``app_ml_journeys_total`` labelled with the POOL name though a
+    core sealed it. The marks are the JAX pool's, in order."""
+    from gofr_tpu.ml.replica import ReplicaPool as JReplicaPool
+    from gofr_tpu_torch.ml.replica import ReplicaPool
+    from gofr_tpu_torch.tracing import Tracer
+
+    counts: dict = {}
+
+    class _Metrics:
+        def add_counter(self, name, delta, **labels):
+            key = (name, labels.get("model"), labels.get("reason"))
+            counts[key] = counts.get(key, 0) + delta
+
+        def set_gauge(self, name, value, **labels):
+            pass
+
+        def record_histogram(self, name, value, **labels):
+            pass
+
+    class _Tracer(Tracer):
+        def __init__(self) -> None:
+            super().__init__("test", None, 1.0)
+
+        def _on_end(self, span) -> None:
+            pass
+
+    tracer = _Tracer()
+    cursor = event_log().cursor
+    pool = ReplicaPool([_gen(pair), _gen(pair)], name="jr-pool",
+                       tracer=tracer, metrics=_Metrics())
+    jpool = JReplicaPool([_jgen(pair), _jgen(pair)], name="jr-jpool")
+
+    async def scenario():
+        with tracer.start_span("req") as root:
+            out = await pool.generate([3, 1, 4, 1, 5], 5)
+        jout = await jpool.generate([3, 1, 4, 1, 5], 5)
+        assert out == jout and len(out) == 5
+        return root
+
+    try:
+        root = run(scenario())
+    finally:
+        pool.close()
+        jpool.close()
+    routes = [e for e in event_log().query(
+        since=cursor, kind="route")["events"] if e["model"] == "jr-pool"]
+    assert routes and routes[-1]["rid"]
+    rid = routes[-1]["rid"]
+    assert routes[-1]["trace"] == root.trace_id
+    admits = [e for e in event_log().query(
+        since=cursor, kind="admit")["events"] if e.get("rid") == rid]
+    assert admits and admits[0]["model"].startswith("jr-pool/")
+    waterfall = tjr.journey_log().get(rid).snapshot()
+    assert waterfall["trace_id"] == root.trace_id
+    _assert_tiles(waterfall)
+    names = [m["mark"] for m in waterfall["marks"]]
+    assert names[0] == "route" and "admit" in names
+    route = waterfall["marks"][0]
+    assert route["reason"] in ("affinity", "least_loaded")
+    assert route["replica"] in (0, 1)
+    assert counts.get(("app_ml_journeys_total", "jr-pool", "length")) == 1
+    assert not any(name == "app_ml_journeys_total" and model != "jr-pool"
+                   for name, model, _ in counts)
+    jlog = jjr.journey_log()
+    jrid = next(r for r in reversed(jlog.snapshot()["recent_rids"])
+                if jlog.get(r) is not None and jlog.get(r).model == "jr-jpool")
+    jnames = [m["mark"] for m in jlog.get(jrid).snapshot()["marks"]]
+    assert [n for n in names if n != "other"] == \
+        [n for n in jnames if n != "other"]

@@ -332,15 +332,35 @@ def test_overlong_prompt_gets_400_not_500(served):
 
 
 @pytest.mark.parametrize("env,item", [
-    ({"LLAMA_CKPT": "/nonexistent"}, "A.12"),
-    ({"TOKENIZER_JSON": "/nonexistent"}, "A.12"),
-    ({"LLM_DISAGG": "1"}, "A.14"),
+    pytest.param({"LLAMA_CKPT": "/nonexistent"}, "A.12", id="env0-A.12"),
+    pytest.param({"TOKENIZER_JSON": "/nonexistent"}, "A.12",
+                 id="env1-A.12"),
+    pytest.param({"LLM_DISAGG": "1"}, "A.14a", id="env2-A.14"),
 ])
 def test_example_knobs_of_later_items_raise(env, item):
-    """A checkpoint or tokenizer file (ROADMAP A.12) and disaggregation
-    (A.14) raise naming their item, as in ``examples/llama_server``."""
+    """A checkpoint or tokenizer file (ROADMAP A.12) raises naming its
+    item, as in ``examples/llama_server``. Disaggregation (A.14a, ported)
+    gives JAX's "requires replicas >= 2" on one replica and boots a
+    disaggregated pool with ``GOFR_ML_REPLICAS=2`` over paged
+    generators."""
     from gofr_tpu_torch.examples import openai_server
 
+    if item == "A.14a":
+        from gofr_tpu_torch.ml.replica import ReplicaPool
+
+        with _env(**env):
+            with pytest.raises(ValueError, match="requires replicas >= 2"):
+                openai_server.main(device="cpu")
+        with _env(GOFR_ML_REPLICAS="2",
+                  LLM_PAGE_SIZE="8", **env):
+            app = openai_server.main(device="cpu")
+        pool = app._ensure_ml().llm(openai_server.MODEL_ID)
+        try:
+            assert isinstance(pool, ReplicaPool)
+            assert pool.routing_snapshot()["disagg"]["ships"] == 0
+        finally:
+            pool.close()
+        return
     with _env(**env):
         with pytest.raises(NotImplementedError, match=item):
             openai_server.main(device="cpu")

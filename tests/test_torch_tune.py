@@ -356,15 +356,31 @@ def test_register_llm_applies_profile_and_restores_env(
     with pytest.raises(ValueError, match="non-tunable"):
         ml.register_llm("tune-bad", params, cfg, warmup=False, device="cpu",
                         profile={"knobs": {"GOFR_ML_EVIL": "1"}})
-    for knobs, item in (({"GOFR_ML_REPLICAS": "2"}, "A.14"),
-                        ({"GOFR_ML_DISAGG": "1"}, "A.14"),
-                        ({"GOFR_ML_SP": "1", "GOFR_ML_SP_SHARDS": "2"},
-                         "A.11")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            ml.register_llm("tune-unported", params, cfg, warmup=False,
-                            device="cpu", max_seq=64, prefill_buckets=(8,),
-                            profile={"knobs": knobs})
-        assert "GOFR_ML_REPLICAS" not in os.environ
+    # the fleet's knobs (ROADMAP A.14a) act under a profile as in JAX: a
+    # pool of two replicas; disaggregation on one replica gives JAX's
+    # error. Sequence parallelism still raises naming A.11.
+    from gofr_tpu_torch.ml.replica import ReplicaPool
+
+    pool = ml.register_llm("tune-pool", params, cfg, warmup=False,
+                           device="cpu", max_seq=64, prefill_buckets=(8,),
+                           profile={"knobs": {"GOFR_ML_REPLICAS": "2"}})
+    try:
+        assert isinstance(pool, ReplicaPool) and pool.fleet_size() == 2
+        assert pool._profile_knobs == {"GOFR_ML_REPLICAS": "2"}
+    finally:
+        pool.close()
+    assert "GOFR_ML_REPLICAS" not in os.environ
+    with pytest.raises(ValueError, match="requires replicas >= 2"):
+        ml.register_llm("tune-disagg", params, cfg, warmup=False,
+                        device="cpu", max_seq=64, prefill_buckets=(8,),
+                        profile={"knobs": {"GOFR_ML_DISAGG": "1"}})
+    assert "GOFR_ML_DISAGG" not in os.environ
+    with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
+        ml.register_llm("tune-unported", params, cfg, warmup=False,
+                        device="cpu", max_seq=64, prefill_buckets=(8,),
+                        profile={"knobs": {"GOFR_ML_SP": "1",
+                                           "GOFR_ML_SP_SHARDS": "2"}})
+    assert "GOFR_ML_REPLICAS" not in os.environ
 
 
 # -- the committed bundle ----------------------------------------------------------
@@ -420,3 +436,180 @@ def test_committed_bundle_replays_the_same_on_both_packages(run):
     assert verdict["throughput"]["out_tokens"] == \
         jverdict["throughput"]["out_tokens"]
     assert verdict["goodput"]["balanced"]
+
+
+# -- the shadow canary (a replica pool's; twins of tests/test_tune.py) ------------
+
+_JAX_OUT: dict = {}
+
+
+def _jax_expected(prompts, n=6, seed=0):
+    """The JAX package's single-replica greedy outputs on the weights
+    ``_bridged(seed)`` bridges (one JAX Generator, memoized)."""
+    from gofr_tpu.ml.generate import Generator as JGenerator
+
+    if seed not in _JAX_OUT:
+        jcfg = jllama.tiny_llama(use_flash=False, dtype=jnp.float32)
+        _JAX_OUT[seed] = JGenerator(
+            jllama.init_params(jcfg, jax.random.PRNGKey(seed)), jcfg,
+            batch_slots=2, max_seq=64, prefill_buckets=(8, 16), page_size=8)
+    return [_JAX_OUT[seed].generate(list(p), n) for p in prompts]
+
+
+def _canary_pool(model, spawn_model=None, *, knobs=None, **kw):
+    from gofr_tpu_torch.ml.replica import ReplicaPool
+
+    src = spawn_model if spawn_model is not None else model
+    return ReplicaPool(
+        [_gen(model)], name=kw.pop("name"), spawn=lambda idx: _gen(src),
+        canary={"knobs": knobs or {"GOFR_ML_DECODE_WINDOW": "4"}}, **kw)
+
+
+async def _drive(pool, prompts, n=6):
+    outs = []
+    for p in prompts:  # sequential: each mirror settles before the next
+        outs.append(await pool.generate(p, n, deadline_s=30.0))
+    return outs
+
+
+async def _await_decided(pool, timeout=30.0):
+    import time
+
+    t0 = time.monotonic()
+    while pool._canary is not None:
+        assert time.monotonic() - t0 < timeout, "canary never decided"
+        await asyncio.sleep(0.05)
+
+
+def _wait(cond, timeout=15.0):
+    import time
+
+    t0 = time.monotonic()
+    while not cond():
+        assert time.monotonic() - t0 < timeout, "condition never held"
+        time.sleep(0.05)
+
+
+def test_canary_mirror_bills_canary_waste_then_promotes(model, run,
+                                                         monkeypatch):
+    """Every admitted request is mirrored (1/1), the mirrors' tokens bill
+    as ``canary`` waste while clients get the primary's tokens (the JAX
+    package's), and a full window of identity-true pairs promotes the
+    candidate into the fleet with a ``canary_promote`` event and a
+    ``scale_up`` marked ``canary``."""
+    from gofr_tpu_torch.flight_recorder import event_log
+    from gofr_tpu_torch.ml.goodput import goodput_ledger
+
+    monkeypatch.setenv("GOFR_ML_CANARY_SAMPLE", "1")
+    monkeypatch.setenv("GOFR_ML_CANARY_WINDOW", "3")
+    prompts = [[3, 1, 4, 1], [2, 7, 1], [5, 9, 2, 6, 5]]
+    exp = _jax_expected(prompts)
+    since = event_log().cursor
+    pool = _canary_pool(model, name="cn-pool")
+    pool._canary.slo_slack = float("inf")
+    led = goodput_ledger()
+    base = led.snapshot_model("cn-pool")
+
+    async def scenario():
+        outs = await _drive(pool, prompts)
+        await _await_decided(pool)
+        return outs
+
+    try:
+        outs = run(scenario())
+        assert outs == exp
+        _wait(lambda: pool.fleet_size() == 2)
+        snap = pool.routing_snapshot()["canary"]
+        assert snap["state"] == "promoted" and snap["replica"] == 1
+        assert snap["knobs"] == {"GOFR_ML_DECODE_WINDOW": "4"}
+        assert snap["mirrored"] == 3
+        after = led.snapshot_model("cn-pool")
+        assert after["delivered"] - base["delivered"] == sum(
+            len(o) for o in outs)
+        assert (after["wasted"].get("canary", 0)
+                - base["wasted"].get("canary", 0)) == 3 * 6
+        evs = event_log().query(since, model="cn-pool",
+                                kind="canary_promote")["events"]
+        assert len(evs) == 1 and evs[0]["replica"] == 1
+        scale = event_log().query(since, model="cn-pool",
+                                  kind="scale_up")["events"]
+        assert scale and scale[-1]["canary"] is True
+
+        async def after_promo():
+            return await pool.generate(prompts[0], 6, deadline_s=30.0)
+
+        assert run(after_promo()) == exp[0]
+    finally:
+        pool.close()
+
+
+@pytest.mark.parametrize("how", ["slo", "identity", "crash"])
+def test_canary_rolls_back(model, poisoned_model, run, monkeypatch, how):
+    """A candidate whose latency medians breach the slack (``slo``), whose
+    tokens differ from the primary's (``identity``: other weights, one
+    mismatch is enough) or whose core fails (``crash``) rolls back and
+    never joins; clients keep getting the JAX package's tokens."""
+    from gofr_tpu_torch.flight_recorder import event_log
+
+    monkeypatch.setenv("GOFR_ML_CANARY_SAMPLE", "1")
+    monkeypatch.setenv("GOFR_ML_CANARY_WINDOW",
+                       {"slo": "2", "identity": "8", "crash": "4"}[how])
+    prompts = ([[3, 1, 4, 1], [2, 7, 1], [5, 9, 2, 6, 5]] if how == "slo"
+               else [[3, 1, 4, 1], [2, 7, 1]])
+    exp = _jax_expected(prompts)
+    since = event_log().cursor
+    name = f"cn-{how}"
+    pool = _canary_pool(model, poisoned_model if how == "identity" else None,
+                        name=name)
+    if how == "slo":
+        pool._canary.slo_slack = 0.0
+    elif how == "crash":
+        def boom(*args, **kwargs):
+            raise RuntimeError("canary boom")
+
+        pool._canary.core.stream_chunks = boom
+
+    async def scenario():
+        outs = await _drive(pool, prompts)
+        await _await_decided(pool)
+        return outs
+
+    try:
+        assert run(scenario()) == exp
+        _wait(lambda: pool._canary_last is not None)
+        assert pool.fleet_size() == 1
+        snap = pool.routing_snapshot()["canary"]
+        assert snap["state"] == "rolled_back"
+        want = {"slo": "slo:", "identity": "identity",
+                "crash": "canary_error:RuntimeError"}[how]
+        assert snap["reason"].startswith(want)
+        evs = event_log().query(since, model=name,
+                                kind="canary_rollback")["events"]
+        assert len(evs) == 1 and evs[0]["reason"].startswith(want)
+        assert not event_log().query(since, model=name,
+                                     kind="canary_promote")["events"]
+    finally:
+        pool.close()
+
+
+def test_canary_boot_validation(model, monkeypatch):
+    from gofr_tpu_torch.ml.replica import ReplicaPool
+
+    gen = _gen(model)
+    with pytest.raises(ValueError, match="spawn"):
+        ReplicaPool([gen], name="cn-bad",
+                    canary={"knobs": {"GOFR_ML_PIPELINE": "1"}})
+    with pytest.raises(ValueError, match="knobs"):
+        ReplicaPool([gen], name="cn-bad2", spawn=lambda i: _gen(model),
+                    canary={"knobs": {}})
+    monkeypatch.setenv("GOFR_ML_CANARY_SAMPLE", "banana")
+    with pytest.raises(ValueError, match="GOFR_ML_CANARY_SAMPLE"):
+        ReplicaPool([gen], name="cn-bad3", spawn=lambda i: _gen(model),
+                    canary={"knobs": {"GOFR_ML_PIPELINE": "1"}})
+    monkeypatch.delenv("GOFR_ML_CANARY_SAMPLE", raising=False)
+    pool = ReplicaPool([gen], name="cn-off")
+    try:
+        assert pool._canary is None
+        assert pool.routing_snapshot()["canary"] is None
+    finally:
+        pool.close()
