@@ -210,7 +210,8 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
 14. the fleet (``ml/replica.py``, ``ml/kv_transport.py``) through the
    example app over gRPC, pages of 16, 513 pages a replica,
    ``prefill_chunk`` 512, ``max_seq`` 2048, every replica on phase 3's
-   weights without a copy; each arm counts the launches of its fleet
+   weights (their first ``FLEET_LAYERS``, 16, of 32 layers) without a
+   copy; each arm counts the launches of its fleet
    traffic alone, its reference runs after the count is read: (a)
    ``GOFR_ML_REPLICAS=2``, 32 requests x 64 tokens at once: both
    replicas take work, the added peak memory stays below a second copy
@@ -235,6 +236,36 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    migration's bytes and ms, the ledger balanced): no request fails and a
    fixed prompt's tokens before, during and after agree (or differ on a
    near-tie). Each arm counts its flash and decode launches.
+15. HF import, training, checkpoints and serving what was trained, on
+   Llama-3-8B at its published width cut to ``TRAIN_LAYERS`` (8) of its 32
+   layers (phase 3's first 8), last, with phases 3 and 4's weights still
+   resident: (a) the 8 layers written by the script's own safetensors
+   writer as an HF directory (two shards and an index, ``[out, in]``
+   projections, ``config.json``, a small byte-level ``tokenizer.json``) and
+   imported onto the card by ``ml.hf_import.import_hf_llama``: every leaf
+   bit for bit, the import's seconds and GB/s, the host's peak RSS over its
+   start (checked below half a model); (c) on one batch at the training
+   shape (2 x 2048, ``remat``), the loss and every gradient leaf through the
+   flash kernel under autograd (``ops._FlashDiff``) against the plain
+   attention (loss within 1e-2 relative, every leaf's cosine >= 0.99), and
+   the training-shape flash launch timed as phase 2 times the others, with
+   the plain backward the Function runs; (b) ``Trainer(llama.loss_fn)``,
+   ``adamw(3e-4, mu_dtype=f32)``, bf16 params, fed by ``DataLoader(
+   jsonl_source(...), batch_size=2, prefetch=2)`` over a JSONL written from
+   seed 0, 8 steps (the first 6 one batch): every loss finite, the loss
+   over the repeated batch falls, 2 x 8 flash launches a step (forward
+   and the remat recompute); step ms, tokens/s, the share of 989 TFLOP/s
+   (6 N tokens + 3 (2 L H D) B S^2), peak allocated memory, and one more
+   step split into forward + backward and the optimizer; the state
+   (params, f32 mu, bf16 nu, step) saved by ``ml.checkpoint.Checkpointer``
+   after step 3; (d) restored and resumed: step 4's loss within 1e-3 of
+   the uninterrupted run's; then the port's ``examples/llama_server``
+   serves the saved weights from ``LLAMA_CKPT=<checkpointer dir>``
+   (bf16, and with ``LLAMA_W8=1``, which quantizes the restored weights)
+   and the imported ones through ``main()`` from ``LLAMA_CKPT=<HF dir>``
+   with ``TOKENIZER_JSON``: each boot's weights equal the saved / source
+   ones, 3 gRPC calls and a text ``POST /generate`` answer, and the greedy
+   tokens equal a ``Generator`` built in process on the served tensors.
 
 Measurements under ``torch.profiler`` hold the flight recorder's
 ``PROFILE_LOCK``, so an auto-profiler capture never overlaps one.
@@ -4365,6 +4396,7 @@ def fleet_app(dev, params, preset: str = "8b", mount_kw=None, **env):
                GRPC_PORT=str(free_port()), METRICS_PORT=str(free_port()),
                **FLEET_PAGED, **env):
         cfg = llama.config_from_env(tiny_vocab_size=257)
+        cfg.n_layers = n_layers(params)  # the depth of the weights given
         app = new_app()
         t0 = time.perf_counter()
         mount(app, params, cfg, device=dev, max_seq=FLEET_MAX_SEQ,
@@ -4775,11 +4807,31 @@ def fleet_elastic(dev, params, preset: str) -> dict:
             "routed": res["routed"], "launches": launches}
 
 
+def n_layers(params) -> int:
+    w = params["layers"]["wq"]
+    return (w["q"] if isinstance(w, dict) else w).shape[0]
+
+
+def first_layers(params, n: int) -> dict:
+    """``params`` (bf16 or w8) cut to its first ``n`` layers, as views."""
+    return {**params, "layers": {
+        k: ({q: t[:n] for q, t in v.items()} if isinstance(v, dict)
+            else v[:n]) for k, v in params["layers"].items()}}
+
+
+# phase 14 runs at this depth (of 32 layers), as phase 7 does, to keep the
+# script inside its time limit once phase 15 joined it
+FLEET_LAYERS = 16
+
+
 def fleet_phase(dev, bf16_params, w8_params, preset: str = "8b") -> dict:
     """Phase 14: the replica pool, failover, disaggregated prefill/decode
     (bf16 and int8 pages) and the elastic fleet on Llama-3-8B at its
-    published shape and full depth, through the port's example app over
-    gRPC, two replicas sharing phase 3's weights on one card."""
+    published width and ``FLEET_LAYERS`` of its 32 layers (the first ones
+    of phases 3 and 4's weights), through the port's example app over
+    gRPC, two replicas sharing those weights on one card."""
+    bf16_params = first_layers(bf16_params, FLEET_LAYERS)
+    w8_params = first_layers(w8_params, FLEET_LAYERS)
     pool, alone, prompt = fleet_pool(dev, bf16_params, preset)
     return {
         "pool": pool,
@@ -4788,6 +4840,661 @@ def fleet_phase(dev, bf16_params, w8_params, preset: str = "8b") -> dict:
         "disagg_int8": fleet_disagg(dev, w8_params, preset, int8=True),
         "elastic": fleet_elastic(dev, bf16_params, preset),
     }
+
+
+# -- phase 15: HF import, training, checkpoints, serving what was trained ----------
+
+# the training model: Llama-3-8B at its published width, cut to this many of
+# its 32 layers (the first ones of phase 3's weights): params, grads, the
+# f32 first moment and the bf16 second moment of all 32 layers alone would
+# take ~80 GB
+TRAIN_LAYERS = 8
+TRAIN_BATCH, TRAIN_SEQ = 2, 2048
+TRAIN_STEPS, TRAIN_REPEAT = 8, 6   # the first TRAIN_REPEAT steps: one batch
+TRAIN_SAVE_AT = 3
+TRAIN_MAX_NEW = 24
+
+
+def _gpt2_chars() -> dict[int, str]:
+    """byte -> the printable character byte-level BPE files write for it
+    (GPT-2's table: printable bytes keep their codepoint, the rest map to
+    256 + n)."""
+    keep = (list(range(ord("!"), ord("~") + 1))
+            + list(range(ord("¡"), ord("¬") + 1))
+            + list(range(ord("®"), ord("ÿ") + 1)))
+    out, n = {}, 0
+    for b in range(256):
+        if b in keep:
+            out[b] = chr(b)
+        else:
+            out[b] = chr(256 + n)
+            n += 1
+    return out
+
+
+def write_st(path: str, entries: list) -> int:
+    """A plain safetensors writer (the format of the ``safetensors``
+    package, which the card's machine does not have): ``entries`` are
+    (name, dtype, shape, make) with ``make()`` giving the tensor, called
+    one at a time while its bytes are written. Returns the bytes written."""
+    import struct
+
+    names = {torch.bfloat16: "BF16", torch.float32: "F32"}
+    header, off = {}, 0
+    for name, dtype, shape, _ in entries:
+        n = int(np.prod(shape)) * torch.empty((), dtype=dtype).element_size()
+        header[name] = {"dtype": names[dtype], "shape": list(shape),
+                        "data_offsets": [off, off + n]}
+        off += n
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for name, dtype, shape, make in entries:
+            t = make().contiguous()
+            check(t.dtype == dtype and list(t.shape) == list(shape),
+                  f"hf writer: {name} is {t.dtype} {tuple(t.shape)}")
+            f.write(memoryview(t.cpu().reshape(-1).view(torch.uint8)
+                               .numpy()))
+    return 8 + len(head) + off
+
+
+def write_hf_dir(path: str, params: dict, cfg) -> dict:
+    """``params`` (the port's layout, of the shape of ``cfg``) as an HF
+    Llama directory: ``config.json`` (Meta-Llama-3-8B's fields), two
+    safetensors shards of ``[out, in]`` projections and per-layer names
+    with ``model.safetensors.index.json``, and a small byte-level
+    ``tokenizer.json`` (256 bytes, a few merges, Llama-3's two specials)."""
+    import os
+
+    os.makedirs(path)
+    V, D = params["embed"].shape
+    lay = params["layers"]
+    norms = {"input_layernorm": "attn_norm",
+             "post_attention_layernorm": "mlp_norm"}
+    projs = {"self_attn.q_proj": "wq", "self_attn.k_proj": "wk",
+             "self_attn.v_proj": "wv", "self_attn.o_proj": "wo",
+             "mlp.gate_proj": "w_gate", "mlp.up_proj": "w_up",
+             "mlp.down_proj": "w_down"}
+
+    def layer_entries(i):
+        out = []
+        for hf, ours in norms.items():
+            t = lay[ours]
+            out.append((f"model.layers.{i}.{hf}.weight", t.dtype,
+                        (t.shape[1],), lambda t=t: t[i]))
+        for hf, ours in projs.items():
+            t = lay[ours]
+            out.append((f"model.layers.{i}.{hf}.weight", t.dtype,
+                        (t.shape[2], t.shape[1]), lambda t=t: t[i].T))
+        return out
+
+    n_layers = cfg.n_layers
+    half = n_layers // 2
+    shards = [
+        [("model.embed_tokens.weight", params["embed"].dtype, (V, D),
+          lambda: params["embed"])]
+        + [e for i in range(half) for e in layer_entries(i)],
+        [e for i in range(half, n_layers) for e in layer_entries(i)]
+        + [("model.norm.weight", params["final_norm"].dtype, (D,),
+            lambda: params["final_norm"]),
+           ("lm_head.weight", params["lm_head"].dtype, (V, D),
+            lambda: params["lm_head"].T)]]
+    weight_map, total = {}, 0
+    for s, entries in enumerate(shards):
+        fn = f"model-{s + 1:05d}-of-{len(shards):05d}.safetensors"
+        total += write_st(os.path.join(path, fn), entries)
+        weight_map.update({e[0]: fn for e in entries})
+    with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total},
+                   "weight_map": weight_map}, f)
+    ffn = lay["w_gate"].shape[2]
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({"architectures": ["LlamaForCausalLM"],
+                   "model_type": "llama", "vocab_size": V, "hidden_size": D,
+                   "intermediate_size": ffn, "num_hidden_layers": n_layers,
+                   "num_attention_heads": cfg.n_heads,
+                   "num_key_value_heads": cfg.n_kv_heads,
+                   "max_position_embeddings": cfg.max_seq_len,
+                   "rope_theta": cfg.rope_theta,
+                   "rms_norm_eps": cfg.norm_eps, "bos_token_id": 128000,
+                   "eos_token_id": 128001, "tie_word_embeddings": False,
+                   "torch_dtype": "bfloat16"}, f)
+    ch = _gpt2_chars()
+    vocab = {ch[b]: b for b in range(256)}
+    merges = []
+    for pair in (b"he", b"ll", b"th", b"in", b" t", b"er", b"the"):
+        left, right = ((pair[:1], pair[1:]) if len(pair) == 2
+                       else (pair[:2], pair[2:]))
+        enc = ["".join(ch[b] for b in part) for part in (left, right)]
+        vocab[enc[0] + enc[1]] = len(vocab)
+        merges.append(f"{enc[0]} {enc[1]}")
+    with open(os.path.join(path, "tokenizer.json"), "w") as f:
+        json.dump({"model": {"type": "BPE", "vocab": vocab,
+                             "merges": merges},
+                   "added_tokens": [
+                       {"id": 128000, "content": "<|begin_of_text|>"},
+                       {"id": 128001, "content": "<|end_of_text|>"}]}, f)
+    return {"bytes": total, "shards": len(shards)}
+
+
+class RssPeak:
+    """The process's peak resident set (``VmRSS``) inside the block, sampled
+    every 2 ms on a thread, over its value at the start."""
+
+    def __enter__(self):
+        import threading
+
+        self.base = self.peak = self._rss()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._watch, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self._rss())
+
+    @staticmethod
+    def _rss() -> int:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) * 1024
+        return 0
+
+    def _watch(self):
+        while not self._stop.wait(0.002):
+            self.peak = max(self.peak, self._rss())
+
+
+def _leaves_equal(a: dict, b: dict) -> list[str]:
+    """Paths of the leaves of two param trees that differ (moved to ``a``'s
+    device one leaf at a time)."""
+    bad = []
+    for k in ("embed", "final_norm", "lm_head"):
+        if not torch.equal(a[k], b[k].to(a[k].device)):
+            bad.append(k)
+    for k, v in a["layers"].items():
+        if not torch.equal(v, b["layers"][k].to(v.device)):
+            bad.append(f"layers/{k}")
+    return bad
+
+
+def train_import(dev, src: dict, cfg, work: str) -> tuple:
+    """(a) ``src`` written as an HF directory, then ``import_hf_llama`` onto
+    the card: every leaf bit for bit, seconds, GB/s and the host's peak
+    RSS over its start. Returns (result, params, cfg, hf_dir)."""
+    import os
+
+    from gofr_tpu_torch.ml.hf_import import import_hf_llama
+
+    hf_dir = os.path.join(work, "hf")
+    t0 = time.perf_counter()
+    wrote = write_hf_dir(hf_dir, src, cfg)
+    write_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    with RssPeak() as rss:
+        t0 = time.perf_counter()
+        cfg, params = import_hf_llama(hf_dir, device=dev)
+        torch.cuda.synchronize()
+        import_s = time.perf_counter() - t0
+    bad = _leaves_equal(params, src)
+    check(not bad, f"hf import: leaves differ from the source: {bad}")
+    model_bytes = _nbytes(params)
+    rss_gb = (rss.peak - rss.base) / 1e9
+    # one mapped tensor at a time: the embedding (1.05 GB) is the largest
+    check(rss.peak - rss.base < 0.5 * model_bytes,
+          f"hf import: host RSS rose {rss_gb:.2f} GB for a "
+          f"{model_bytes / 1e9:.2f} GB model")
+    return {"n_layers": cfg.n_layers, "dir_bytes": wrote["bytes"],
+            "shards": wrote["shards"], "write_s": write_s,
+            "import_s": import_s,
+            "import_gb_per_s": model_bytes / import_s / 1e9,
+            "model_gb": model_bytes / 1e9,
+            "host_rss_peak_over_base_gb": rss_gb,
+            "host_rss_base_gb": rss.base / 1e9,
+            "leaves_bit_equal": True}, params, cfg, hf_dir
+
+
+def train_batch(cfg, seed: int = 0):
+    """The records of the training JSONL: ids drawn from ``seed``, one
+    batch repeated ``TRAIN_REPEAT`` times, then fresh ones."""
+    r = np.random.default_rng(seed)
+    fresh = TRAIN_BATCH * (TRAIN_STEPS - TRAIN_REPEAT)
+    rows = [r.integers(0, cfg.vocab_size, TRAIN_SEQ + 1).tolist()
+            for _ in range(TRAIN_BATCH + fresh)]
+    return rows[:TRAIN_BATCH] * TRAIN_REPEAT + rows[TRAIN_BATCH:]
+
+
+def _example(rec: dict) -> dict:
+    ids = np.asarray(rec["ids"], np.int32)
+    return {"tokens": ids[:-1], "targets": ids[1:],
+            "mask": np.ones(TRAIN_SEQ, np.int32)}
+
+
+def _batch_tensors(rows, dev) -> tuple:
+    ex = [_example({"ids": r}) for r in rows]
+    return tuple(torch.from_numpy(np.stack([e[k] for e in ex])).to(dev)
+                 for k in ("tokens", "targets", "mask"))
+
+
+def train_grad_check(dev, params, cfg, tol: float) -> dict:
+    """(c) One batch at the training shape: the loss and every gradient
+    leaf through the flash kernel (``_FlashDiff``) against the plain
+    attention; then the training-shape flash launch timed (``sweep_ms``)
+    beside its plain version, the SDPA yardstick and its bound, and the
+    plain backward the kernel's Function runs."""
+    import functools
+
+    import torch.nn.functional as F
+
+    from gofr_tpu_torch.ml.train import _value_and_grad
+    from gofr_tpu_torch.models import llama
+    from gofr_tpu_torch.ops.flash_attention import flash_attention_plain
+
+    from gofr_tpu_torch.ml.tree import tree_map
+
+    batch = _batch_tensors(train_batch(cfg)[:TRAIN_BATCH], dev)
+    loss_fn = functools.partial(llama.loss_fn, cfg=cfg)
+    k_loss, k_grads = _value_and_grad(loss_fn, params, *batch)
+    # the kernel's gradients wait on the host while the plain ones are taken
+    k_grads = tree_map(lambda t: t.to("cpu", copy=True), k_grads)
+    kernel = llama.flash_attention
+    llama.flash_attention = (lambda q, k, v, *, causal=True, kv_len=None:
+                             flash_attention_plain(q, k, v, kv_len,
+                                                   causal=causal))
+    try:
+        p_loss, p_grads = _value_and_grad(loss_fn, params, *batch)
+    finally:
+        llama.flash_attention = kernel
+    cos = {}
+
+    def cosine(path, a, b, chunk=1 << 26):
+        """f64 sums over f32 chunks of the two flattened leaves."""
+        a, b = a.reshape(-1), b.reshape(-1)
+        dot = na = nb = 0.0
+        for i in range(0, a.numel(), chunk):
+            x = a[i:i + chunk].to(dev).double()
+            y = b[i:i + chunk].double()
+            dot += (x * y).sum().item()
+            na += (x * x).sum().item()
+            nb += (y * y).sum().item()
+        cos[path] = dot / max((na * nb) ** 0.5, 1e-300)
+
+    for k in ("embed", "final_norm", "lm_head"):
+        cosine(k, k_grads[k], p_grads[k])
+    for k, v in k_grads["layers"].items():
+        cosine(f"layers/{k}", v, p_grads["layers"][k])
+    del k_grads, p_grads
+    loss_rel = abs(k_loss.item() - p_loss.item()) / abs(p_loss.item())
+    check(loss_rel <= 1e-2, f"train grads: loss through the kernel "
+          f"{k_loss.item()} vs plain {p_loss.item()}")
+    check(min(cos.values()) >= 0.99,
+          f"train grads: a gradient's cosine below 0.99: {cos}")
+
+    # the training shape's flash launch, as the kernel table times it
+    g = torch.Generator(device=dev).manual_seed(0)
+    H, KV, D, L = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 8
+    case = {"label": "train 2 x 2048", "B": TRAIN_BATCH, "T": TRAIN_SEQ,
+            "Tk": TRAIN_SEQ, "q_offset": 0, "H": H, "KV": KV, "D": D,
+            "L": L, "kv_len": None,
+            "q": [rnd_bf16(g, dev, TRAIN_BATCH, TRAIN_SEQ, H, D)
+                  for _ in range(L)],
+            "k": [rnd_bf16(g, dev, TRAIN_BATCH, TRAIN_SEQ, KV, D)
+                  for _ in range(L)],
+            "v": [rnd_bf16(g, dev, TRAIN_BATCH, TRAIN_SEQ, KV, D)
+                  for _ in range(L)]}
+    row = measure_flash(case, tol)
+    # the backward the Function runs (the plain attention's vjp) and SDPA's
+    # forward + backward beside it, one layer's inputs, CUDA events
+    q, k, v = (t[0].clone().requires_grad_(True)
+               for t in (case["q"], case["k"], case["v"]))
+    up = rnd_bf16(g, dev, TRAIN_BATCH, TRAIN_SEQ, H, D)
+
+    def plain_bwd():
+        out = flash_attention_plain(q, k, v, None, causal=True)
+        torch.autograd.grad(out, (q, k, v), up)
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True)
+        torch.autograd.grad(out, (q, k, v), up.transpose(1, 2))
+
+    row["plain_fwd_bwd_ms"] = timed_ms(plain_bwd, iters=3, warm=1)
+    row["library_fwd_bwd_ms"] = timed_ms(sdpa_fwd_bwd, iters=5, warm=2)
+    del case, q, k, v, up
+    torch.cuda.empty_cache()
+    return {"loss_kernel": k_loss.item(), "loss_plain": p_loss.item(),
+            "loss_rel_diff": loss_rel, "grad_cosine_min": min(cos.values()),
+            "grad_cosine": cos, "flash_row": row}
+
+
+def train_run(dev, params, cfg, work: str) -> dict:
+    """(b) ``Trainer(llama.loss_fn)`` with ``adamw(3e-4, mu_dtype=f32)``
+    over ``DataLoader(jsonl_source(...), batch_size=2, prefetch=2)``,
+    ``TRAIN_STEPS`` steps, the launch counts set to 0 just before and read
+    just after; the state saved with ``Checkpointer`` after step
+    ``TRAIN_SAVE_AT``; then one more step split into forward + backward and
+    the optimizer, under CUDA events. Returns the results plus what the
+    resume and serving checks need."""
+    import os
+
+    from gofr_tpu_torch.ml.checkpoint import Checkpointer
+    from gofr_tpu_torch.ml.data import DataLoader, jsonl_source
+    from gofr_tpu_torch.ml.train import Trainer, _value_and_grad
+    from gofr_tpu_torch.ml.tree import tree_map
+    from gofr_tpu_torch.models import llama
+
+    rows = train_batch(cfg)
+    jsonl = os.path.join(work, "train.jsonl")
+    with open(jsonl, "w") as f:
+        for r in rows:
+            f.write(json.dumps({"ids": r}) + "\n")
+    loader = DataLoader(jsonl_source(jsonl), batch_size=TRAIN_BATCH,
+                        prefetch=2, transform=_example, device=dev)
+
+    def loss_fn(p, t, y, m):
+        return llama.loss_fn(p, t, y, m, cfg)
+
+    trainer = Trainer(loss_fn, params)
+    ckpt_dir = os.path.join(work, "ckpt")
+    ckpt = Checkpointer(ckpt_dir, max_to_keep=2)
+    losses, step_s, per_step, saved = [], [], [], {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    for b in loader:
+        before = read_launches()
+        t0 = time.perf_counter()
+        losses.append(trainer.step(b["tokens"], b["targets"], b["mask"]))
+        step_s.append(time.perf_counter() - t0)
+        after = read_launches()
+        per_step.append({k: after[k] - before[k] for k in after})
+        if trainer.step_count == TRAIN_SAVE_AT:
+            saved["host"] = tree_map(
+                lambda t: t.detach().to("cpu", copy=True), trainer.params)
+            state = {"params": trainer.params, "opt": trainer.opt_state,
+                     "step": trainer.step_count}
+            t0 = time.perf_counter()
+            ckpt.save(TRAIN_SAVE_AT, state)
+            saved["save_s"] = time.perf_counter() - t0
+            saved["like"] = tree_map(
+                lambda t: torch.empty_like(t, device="meta")
+                if isinstance(t, torch.Tensor) else t, state)
+            del state
+    torch.cuda.synchronize()
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ckpt.close()
+    check(len(losses) == TRAIN_STEPS, f"train: {len(losses)} steps")
+    check(all(np.isfinite(losses)), f"train: a loss is not finite {losses}")
+    check(losses[TRAIN_REPEAT - 1] < losses[0],
+          f"train: the loss over the repeated batch did not fall {losses}")
+    flash_per_step = [s["flash_attention_cuda"] for s in per_step]
+    check(dev.type != "cuda" or all(n == 2 * cfg.n_layers
+                                    for n in flash_per_step),
+          f"train: flash launches a step {flash_per_step}, expected "
+          f"{2 * cfg.n_layers} (forward and remat recompute a layer)")
+
+    # one more step on the repeated batch, split under CUDA events into
+    # the two calls the trainer's step makes (``make_train_step``)
+    batch = _batch_tensors(rows[:TRAIN_BATCH], dev)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    _, grads = _value_and_grad(loss_fn, trainer.params, *batch)
+    ev[1].record()
+    trainer.opt_state = trainer.optimizer.apply(grads, trainer.opt_state,
+                                                trainer.params)
+    del grads
+    ev[2].record()
+    torch.cuda.synchronize()
+    fwd_bwd_ms, opt_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+
+    n_params = sum(t.numel() for t in (
+        trainer.params["embed"], trainer.params["final_norm"],
+        trainer.params["lm_head"], *trainer.params["layers"].values()))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = (6 * n_params * tokens + 3 * (2 * cfg.n_layers * cfg.n_heads
+                                          * cfg.head_dim)
+             * TRAIN_BATCH * TRAIN_SEQ ** 2)
+    steady = sorted(step_s[1:])
+    step_ms = 1e3 * steady[len(steady) // 2]
+    ckpt_bytes = sum(os.path.getsize(os.path.join(ckpt_dir, str(TRAIN_SAVE_AT),
+                                                  f))
+                     for f in os.listdir(os.path.join(ckpt_dir,
+                                                      str(TRAIN_SAVE_AT))))
+    del trainer, loader
+    return {"result": {
+        "n_layers": cfg.n_layers, "n_params": n_params, "batch": TRAIN_BATCH,
+        "seq": TRAIN_SEQ, "losses": losses,
+        "step_ms": [1e3 * s for s in step_s], "step_ms_median": step_ms,
+        "tokens_per_s": tokens / (step_ms / 1e3),
+        "flops_per_step": flops,
+        "tflops_per_s": flops / (step_ms / 1e3) / 1e12,
+        "share_of_peak": flops / (step_ms / 1e3) / PEAK_BF16_FLOPS,
+        "fwd_bwd_ms": fwd_bwd_ms, "optimizer_ms": opt_ms,
+        "optimizer_share": opt_ms / (fwd_bwd_ms + opt_ms),
+        "peak_allocated_gb": peak_gb, "launches": launches,
+        "launches_per_step": per_step[-1],
+        "checkpoint_bytes": ckpt_bytes, "save_s": saved["save_s"],
+        "save_gb_per_s": ckpt_bytes / saved["save_s"] / 1e9},
+        "ckpt_dir": ckpt_dir, "saved_host": saved["host"],
+        "like": saved["like"], "batch_rows": rows[:TRAIN_BATCH]}
+
+
+def train_resume(dev, cfg, run: dict) -> dict:
+    """(d) The saved state restored (``like`` the training state, on the
+    card) and one step resumed on step ``TRAIN_SAVE_AT + 1``'s batch: its
+    loss against the uninterrupted run's, within 1e-3 relative (the
+    embedding's backward accumulates with atomics on the card)."""
+    from gofr_tpu_torch.ml.checkpoint import Checkpointer
+    from gofr_tpu_torch.ml.train import Trainer
+    from gofr_tpu_torch.models import llama
+
+    ckpt = Checkpointer(run["ckpt_dir"])
+    check(ckpt.latest_step() == TRAIN_SAVE_AT,
+          f"resume: latest step {ckpt.latest_step()}")
+    t0 = time.perf_counter()
+    state = ckpt.restore(like=run["like"], device=dev)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    check(state["step"] == TRAIN_SAVE_AT, "resume: the step counter")
+    bad = _leaves_equal(state["params"], run["saved_host"])
+    check(not bad, f"resume: restored params differ from the saved: {bad}")
+    trainer = Trainer(lambda p, t, y, m: llama.loss_fn(p, t, y, m, cfg),
+                      state["params"])
+    trainer.opt_state = state["opt"]
+    del state
+    resumed = trainer.step(*_batch_tensors(run["batch_rows"], dev))
+    want = run["result"]["losses"][TRAIN_SAVE_AT]
+    rel = abs(resumed - want) / abs(want)
+    check(rel <= 1e-3, f"resume: step {TRAIN_SAVE_AT + 1}'s loss {resumed} "
+          f"vs the uninterrupted run's {want}")
+    del trainer
+    return {"restore_s": restore_s,
+            "restore_gb_per_s": run["result"]["checkpoint_bytes"]
+            / restore_s / 1e9,
+            "loss_uninterrupted": want, "loss_resumed": resumed,
+            "rel_diff": rel, "exact": resumed == want}
+
+
+def train_serve_arm(dev, what: str, cfg, saved: dict, **env) -> dict:
+    """Boot the port's ``examples/llama_server`` on the trained or imported
+    weights (``env``: ``LLAMA_CKPT`` and friends; ``cfg`` None boots
+    ``main()``, which takes the architecture from the HF directory, else
+    ``mount`` on ``params_from_config(cfg)`` restoring ``LLAMA_CKPT``), on
+    free ports; 3 gRPC ``llm.Chat/Generate`` calls and one text
+    ``POST /generate``, one at a time, with the launch counts read around
+    them. Checks: the served weights equal ``saved`` (or quantize to what
+    ``saved`` quantizes to under w8), and the greedy tokens equal a
+    ``Generator`` built in process on the served tensors."""
+    from gofr_tpu_torch.app import new_app
+    from gofr_tpu_torch.examples import llama_server
+    from gofr_tpu_torch.ml.generate import Generator
+    from gofr_tpu_torch.models import llama
+
+    with knobs(LOG_LEVEL="ERROR", LLM_SLOTS="4", LLM_CHUNK="4",
+               HTTP_PORT=str(free_port()), GRPC_PORT=str(free_port()),
+               METRICS_PORT=str(free_port()), **env):
+        t0 = time.perf_counter()
+        if cfg is None:
+            app = llama_server.main(device=dev)
+        else:
+            app = llama_server.mount(
+                new_app(), llama.params_from_config(cfg, device=dev), cfg,
+                device=dev)
+        boot_s = time.perf_counter() - t0
+    gen = app.container.ml.llm("chat").gen
+    served, scfg = gen.params, gen.cfg
+    if scfg.w8:
+        want = llama.quantize_weights(tree_to(saved, dev))
+        bad = [k for k in ("wq", "w_down")
+               if not torch.equal(served["layers"][k]["q"],
+                                  want["layers"][k]["q"])]
+        if not torch.equal(served["lm_head"]["q"], want["lm_head"]["q"]):
+            bad.append("lm_head")
+        del want
+    else:
+        bad = _leaves_equal(served, saved)
+    check(not bad, f"serve {what}: served weights differ: {bad}")
+    r = np.random.default_rng(5)
+    room = min(scfg.max_seq_len, 1024) - TRAIN_MAX_NEW - 1
+    prompts = [r.integers(0, min(scfg.vocab_size, 128000),
+                          min(n, room)).tolist() for n in (17, 100, 300)]
+    text = "the weather in the hills is fine"
+
+    async def drive(c, llm):
+        recs = []
+        reset_launches()
+        for p in prompts:
+            recs.append(await c.grpc({"prompt_ids": p,
+                                      "max_new_tokens": TRAIN_MAX_NEW}))
+        resp = await c.session.post(c.base + "/generate", json={
+            "prompt": text, "max_new_tokens": TRAIN_MAX_NEW})
+        body = await resp.json()
+        torch.cuda.synchronize()
+        return recs, resp.status, body, read_launches()
+
+    recs, status, body, launches = fleet_run(app, drive)
+    check(all(r["status"] == "OK" and r["tokens"] for r in recs),
+          f"serve {what}: a gRPC call failed {[r['status'] for r in recs]}")
+    check(status == 201 and isinstance(body.get("data", {}).get("text"), str),
+          f"serve {what}: POST /generate answered {status} {body}")
+    check(dev.type != "cuda" or (launches["flash_attention_cuda"] > 0 and
+                                 launches[decode_kinds(scfg.kv_quant)[0]]
+                                 > 0),
+          f"serve {what}: kernels did not launch ({launches})")
+    ref = Generator(served, scfg, batch_slots=4,
+                    max_seq=min(scfg.max_seq_len, 1024), chunk=4,
+                    eos_id=getattr(scfg, "eos_id", None), device=dev)
+    want_toks = [ref.generate(p, TRAIN_MAX_NEW) for p in prompts]
+    check([r["tokens"] for r in recs] == want_toks,
+          f"serve {what}: served tokens differ from an in-process "
+          "Generator's on the same tensors")
+    del ref, gen, served, app
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"boot_s": boot_s, "w8": scfg.w8,
+            "eos_id": getattr(scfg, "eos_id", None),
+            "tokens": [len(r["tokens"]) for r in recs],
+            "text_tokens": len(body["data"]["tokens"]),
+            "launches": launches}
+
+
+def tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def leftovers() -> dict:
+    """Before phase 15: what the earlier phases leave on the card. Every
+    app they booted is shut down, and a shut-down app must not stay
+    reachable with its models: none of their ``MLDatasource`` or
+    ``Generator`` objects may be alive. The memory allocated then."""
+    import gc
+
+    from gofr_tpu_torch.ml import MLDatasource
+    from gofr_tpu_torch.ml.generate import Generator
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    alive = {"datasources": 0, "generators": 0}
+    for o in gc.get_objects():
+        if isinstance(o, MLDatasource):
+            alive["datasources"] += 1
+        elif isinstance(o, Generator):
+            alive["generators"] += 1
+    del o
+    check(not any(alive.values()),
+          f"shut-down apps are still alive with their models: {alive}")
+    return {"alive": alive,
+            "allocated_gb": torch.cuda.memory_allocated() / 1e9}
+
+
+def training_phase(dev, bf16_params, base=None, tol: float = 2e-2) -> dict:
+    """Phase 15: HF import, training, checkpoints and serving what was
+    trained (see the module docstring), on Llama-3-8B at its published
+    width (``base``, default ``llama3_8b()``, the config of
+    ``bf16_params``) cut to ``TRAIN_LAYERS`` layers of phase 3's weights."""
+    import gc
+    import os
+    import shutil
+    import tempfile
+
+    from gofr_tpu_torch.ml.hf_import import hf_config
+    from gofr_tpu_torch.models import llama
+
+    def cut(**kw):
+        b = base or llama.llama3_8b()
+        return llama.LlamaConfig(
+            vocab_size=b.vocab_size, dim=b.dim, n_layers=TRAIN_LAYERS,
+            n_heads=b.n_heads, n_kv_heads=b.n_kv_heads, ffn_dim=b.ffn_dim,
+            max_seq_len=b.max_seq_len, rope_theta=b.rope_theta,
+            norm_eps=b.norm_eps, **kw)
+
+    src = {**bf16_params, "layers": {
+        k: v[:TRAIN_LAYERS] for k, v in bf16_params["layers"].items()}}
+    work = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        out["import"], params, cfg, hf_dir = train_import(dev, src, cut(),
+                                                          work)
+        cfg = hf_config(hf_dir, remat=True)
+        out["grad_check"] = train_grad_check(dev, params, cfg, tol)
+        run = train_run(dev, params, cfg, work)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["train"] = run["result"]
+        out["resume"] = train_resume(dev, cfg, run)
+        saved = run.pop("saved_host")
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["serve"] = {
+            "checkpointer": train_serve_arm(
+                dev, "checkpointer", cut(), saved,
+                LLAMA_CKPT=os.path.join(work, "ckpt")),
+            "checkpointer_w8": train_serve_arm(
+                dev, "checkpointer w8", cut(w8=True), saved,
+                LLAMA_CKPT=os.path.join(work, "ckpt")),
+            "hf": train_serve_arm(
+                dev, "hf", None, src, LLAMA_CKPT=hf_dir,
+                TOKENIZER_JSON=os.path.join(hf_dir, "tokenizer.json")),
+        }
+        out["phase_s"] = time.perf_counter() - t0
+        return out
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
 
 
 def main(argv: list[str]) -> int:
@@ -4840,8 +5547,12 @@ def main(argv: list[str]) -> int:
 
     def done(what: str, result) -> None:
         nonlocal t0
-        print(f"{what} ({time.perf_counter() - t0:.1f} s): "
-              + json.dumps(result))
+        took = time.perf_counter() - t0
+        print(f"{what} ({took:.1f} s): " + json.dumps(result))
+        if out_dir is not None:  # each phase's seconds, as it ends
+            out_dir.mkdir(parents=True, exist_ok=True)
+            with open(out_dir / "phases.txt", "a") as f:
+                f.write(f"{what}\t{took:.1f}\n")
         t0 = time.perf_counter()
 
     path, bf16_params = main_path(dev)
@@ -4870,6 +5581,28 @@ def main(argv: list[str]) -> int:
     done("the OpenAI front, capture, replay and the tuner", oai)
     fleet = fleet_phase(dev, bf16_params, w8_params)
     done("the fleet", fleet)
+    # phase 15 reckons its memory on top of phases 3 and 4's weights: what
+    # the earlier phases leave is listed first; past 5 GB of it the w8
+    # weights go too
+    held = leftovers()
+    resident = (_nbytes(bf16_params) + _nbytes(w8_params["layers"])
+                + _nbytes(w8_params["lm_head"]))
+    held["leftover_gb"] = held["allocated_gb"] - resident / 1e9
+    held["w8_params_freed"] = held["leftover_gb"] > 5
+    if held["w8_params_freed"]:
+        del w8_params
+        import gc
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        held["allocated_without_w8_gb"] = torch.cuda.memory_allocated() / 1e9
+    done("memory before phase 15", held)
+    train = training_phase(dev, bf16_params)
+    train["memory_before"] = held
+    done("HF import, training, checkpoints, serving the trained weights",
+         train)
+    # the training shape's flash launch joins the kernel's timed shapes
+    rows[0]["by_shape"].append(train["grad_check"]["flash_row"])
     rows += spec["kernels"]
     for row in rows:
         by_path = {"bf16": path["launches"][row["name"]],
@@ -4902,7 +5635,11 @@ def main(argv: list[str]) -> int:
                        row["name"]],
                    **{f"fleet_{arm}": fleet[arm]["launches"][row["name"]]
                       for arm in ("pool", "failover", "disagg_bf16",
-                                  "disagg_int8", "elastic")}}
+                                  "disagg_int8", "elastic")},
+                   "train": train["train"]["launches"][row["name"]],
+                   **{f"train_serve_{arm}": train["serve"][arm]["launches"][
+                       row["name"]] for arm in ("checkpointer",
+                                                "checkpointer_w8", "hf")}}
         own = {"gqa_decode_attention_int8_cuda": "int8",
                "gqa_decode_window_cuda": "spec_lookup",
                "gqa_decode_window_int8_cuda": "spec_paged_int8"}.get(
@@ -4917,7 +5654,7 @@ def main(argv: list[str]) -> int:
              "paged": ppath, "graphs": graphs, "windows": windows,
              "host_tier": tier, "front": front, "resilience": res,
              "speculation": spec, "engine": engine, "openai": oai,
-             "fleet": fleet},
+             "fleet": fleet, "training": train},
             indent=1))
     print(json.dumps({"kernels": rows}))
     print(card)

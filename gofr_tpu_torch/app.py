@@ -241,8 +241,22 @@ class App:
             await asyncio.wait_for(_drain(), timeout=SHUTDOWN_GRACE_PERIOD)
         except asyncio.TimeoutError:
             self.logger.error("graceful shutdown timed out; forcing exit")
+        _forget_routed_handlers()
         self.tracer.shutdown()
         self.logger.info("server shutdown complete")
+
+
+def _forget_routed_handlers() -> None:
+    """Empty aiohttp's module-level cache of middleware chains. It is keyed
+    by each routed request's (handler, applications), so it keeps every
+    handler that ever answered, with what the handler closes over: a
+    shut-down app, its models and their device memory. Live apps rebuild
+    their entries on their next request."""
+    from aiohttp import web_app
+
+    cache = getattr(web_app, "_cached_build_middleware", None)
+    if cache is not None:
+        cache.cache_clear()
 
 
 def new_app(config: Config | None = None) -> App:

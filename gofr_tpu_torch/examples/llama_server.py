@@ -22,9 +22,13 @@ the server's ``GOFR_ML_*`` knobs, and ``HTTP_PORT`` / ``GRPC_PORT`` /
 (on one card the replicas share the weights), and ``LLM_DISAGG=1`` with
 it (falling back to ``GOFR_ML_DISAGG``) splits the pool into a
 prefill-biased and a decode replica over the KV transport (paged
-generators only: set ``LLM_PAGE_SIZE``). A checkpoint or tokenizer file
-(``LLAMA_CKPT``, ``TOKENIZER_JSON``, ``LLM_DRAFT_CKPT``) is not ported
-yet (ROADMAP A.12): each raises.
+generators only: set ``LLM_PAGE_SIZE``). Real weights: ``LLAMA_CKPT``
+names an HF directory (it defines the architecture, and its
+``tokenizer.json``, when present, the tokenizer) or a ``Checkpointer``
+directory (a params tree or a training state; the preset gives the
+architecture); ``TOKENIZER_JSON`` names a tokenizer over either;
+``LLM_DRAFT_CKPT`` an HF draft. A checkpoint's ``eos_token_id`` ends a
+stream.
 """
 
 from __future__ import annotations
@@ -44,16 +48,21 @@ from ..tokenizer import BPETokenizer
 
 __all__ = ["main", "mount"]
 
-# byte-level vocabulary: 256 bytes + <eos>
+# byte-level fallback vocabulary: 256 bytes + <eos>; a real one loads from
+# TOKENIZER_JSON or the LLAMA_CKPT directory's tokenizer.json in main()
 TOKENIZER = BPETokenizer.byte_level(specials=["<eos>"])
 
 
 def _tokenizer_from_env() -> BPETokenizer:
-    for knob in ("TOKENIZER_JSON", "LLAMA_CKPT"):
-        if os.environ.get(knob):
-            raise NotImplementedError(
-                f"{knob}: loading a tokenizer or checkpoint is not ported "
-                f"yet (ROADMAP A.12)")
+    tk = os.environ.get("TOKENIZER_JSON")
+    ckpt = os.environ.get("LLAMA_CKPT")
+    if not tk and ckpt and os.path.isfile(os.path.join(ckpt,
+                                                       "tokenizer.json")):
+        tk = os.path.join(ckpt, "tokenizer.json")
+    if tk:
+        from ..ml.hf_import import load_hf_tokenizer
+
+        return load_hf_tokenizer(tk)
     return BPETokenizer.byte_level(specials=["<eos>"])
 
 
@@ -145,9 +154,10 @@ def mount(app: App, params, cfg, **kwargs) -> App:
         chunk=int(os.environ.get("LLM_CHUNK", "4")),
         sampler=Sampler(temperature=float(
             os.environ.get("LLM_TEMPERATURE", "0"))),
-        # random weights keep decoding to max_new (any id is as likely
-        # as eos)
-        eos_id=None, spec_k=spec_k, draft_params=draft_params,
+        # a checkpoint carries its stop id (hf_config); random-weight
+        # presets keep decoding to max_new (any id is as likely as eos)
+        eos_id=getattr(cfg, "eos_id", None), spec_k=spec_k,
+        draft_params=draft_params,
         draft_cfg=draft_cfg,
         prefill_chunk=int(os.environ.get("LLM_PREFILL_CHUNK", "0")),
         page_size=int(os.environ.get("LLM_PAGE_SIZE", "0")),
@@ -177,7 +187,8 @@ def mount(app: App, params, cfg, **kwargs) -> App:
 
 def main(device=None) -> App:
     """The example app on ``device`` (default the first CUDA card): the
-    model from ``LLAMA_PRESET`` with random weights from seed 0."""
+    model from ``LLAMA_PRESET`` with random weights from seed 0, or from
+    ``LLAMA_CKPT``."""
     global TOKENIZER
     device = resolve_device(device)
     TOKENIZER = _tokenizer_from_env()

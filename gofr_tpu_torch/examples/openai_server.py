@@ -18,11 +18,11 @@ those of ``examples/llama_server.py`` (the model, ``LLM_SLOTS`` default 4,
 ``LLM_CHUNK``, ``LLM_TEMPERATURE``, ``LLM_PAGE_SIZE``, ``LLM_PAGES``,
 ``LLM_PREFILL_CHUNK``, ``LLM_SPEC_K``), ``MODEL_ID`` (default
 ``gofr-llama``), and the headers ``X-Request-Priority`` (``high`` /
-``normal`` / ``low``) and ``X-Request-Deadline-S``. The byte-level
-tokenizer keeps the example self-contained; ``LLM_DISAGG=1`` with
+``normal`` / ``low``) and ``X-Request-Deadline-S``. Without a checkpoint
+the byte-level tokenizer keeps the example self-contained; ``LLM_DISAGG=1`` with
 ``GOFR_ML_REPLICAS=2`` boots a disaggregated pool as in
-``llama_server.py``; ``LLAMA_CKPT`` / ``TOKENIZER_JSON`` (ROADMAP A.12)
-raise.
+``llama_server.py``; ``LLAMA_CKPT`` / ``TOKENIZER_JSON`` load real weights
+and a real tokenizer as there.
 """
 
 from __future__ import annotations
@@ -332,7 +332,8 @@ def mount(app: App, params, cfg, **kwargs) -> App:
 
 def main(device=None) -> App:
     """The example app on ``device`` (default the first CUDA card): the
-    model from ``LLAMA_PRESET`` with random weights from seed 0."""
+    model from ``LLAMA_PRESET`` with random weights from seed 0, or from
+    ``LLAMA_CKPT``."""
     global TOKENIZER
     device = resolve_device(device)
     TOKENIZER = _tokenizer_from_env()

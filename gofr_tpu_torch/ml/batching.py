@@ -23,7 +23,7 @@ from typing import Any
 import numpy as np
 
 from ..tracing import current_context
-from .engine import tree_map
+from .tree import tree_map
 
 __all__ = ["DynamicBatcher"]
 

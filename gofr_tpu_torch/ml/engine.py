@@ -45,28 +45,9 @@ import torch
 from ..flight_recorder import LAUNCH_GATE
 from ..tracing import current_context
 from .programs import ProgramLog
+from .tree import tree_leaves, tree_map
 
-__all__ = ["Engine", "EngineConfig", "tree_map"]
-
-
-def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
-    """``fn`` over every leaf of nested dicts, lists and tuples."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
-
-
-def _leaves(tree: Any):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
+__all__ = ["Engine", "EngineConfig"]
 
 
 def _next_bucket(n: int, buckets: Sequence[int] | None) -> int:
@@ -161,7 +142,7 @@ class Engine:
         self._tracer = tracer
         self.backend = backend
         if device is None:
-            device = next((x.device for x in _leaves(params)
+            device = next((x.device for x in tree_leaves(params)
                            if isinstance(x, torch.Tensor)), None)
         self.device = resolve_device(device)
         self.apply_fn = apply_fn

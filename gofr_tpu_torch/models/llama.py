@@ -51,9 +51,19 @@ bf16/f32, int8 and int4. Speculative decoding's verify pass is
 ``len .. len+W-1`` (``len`` is not advanced) and attended through the
 decode kernels' window launch, position t over the first ``len + 1 + t``
 positions; ``draft_from_env`` builds its draft model.
-Sequence-parallel attention and checkpoint restore (``LLAMA_CKPT``,
-``LLM_DRAFT_CKPT``) raise ``NotImplementedError`` naming the ROADMAP item
-that brings them.
+
+Training: ``loss_fn`` (masked next-token cross-entropy over f32 logits)
+runs the differentiable full-sequence forward, through the flash kernel
+under autograd (``ops._FlashDiff``) on a card; ``LlamaConfig(remat=True)``
+recomputes each layer in the backward pass
+(``torch.utils.checkpoint``, JAX's ``jax.checkpoint``). The stacked
+weights are unbound once a forward, so a layer's gradient lands in its
+slice of the stacked gradient in one copy. ``LLAMA_CKPT`` /
+``checkpoint_dir`` restore real weights (an HF directory through
+``ml.hf_import``, a ``ml.checkpoint.Checkpointer`` directory of a params
+tree or of a training state) and ``LLM_DRAFT_CKPT`` loads an HF draft.
+Sequence-parallel attention raises ``NotImplementedError`` naming the
+ROADMAP item that brings it.
 """
 
 from __future__ import annotations
@@ -70,7 +80,7 @@ from ..ops import (apply_rope, cached_decode_attention, dequantize_kv,
 
 __all__ = ["LlamaConfig", "llama3_8b", "tiny_llama", "kv_bits_from_env",
            "config_from_env", "init_params", "quantize_weights",
-           "params_from_config", "params_from_jax", "forward",
+           "params_from_config", "params_from_jax", "forward", "loss_fn",
            "kv_plane_names", "kv_store_width", "kv_encode", "kv_decode",
            "init_cache", "prefill", "prefill_into", "prefill_into_many",
            "prefill_segment_into", "decode_step", "decode_window",
@@ -95,6 +105,7 @@ class LlamaConfig:
         rope_theta: float = 500_000.0,
         norm_eps: float = 1e-5,
         dtype: torch.dtype = torch.bfloat16,
+        remat: bool = False,
         attn_impl: str = "auto",
         kv_quant: bool = False,
         kv_bits: int | None = None,
@@ -130,6 +141,9 @@ class LlamaConfig:
         self.rope_scaling = rope_scaling
         self.norm_eps = norm_eps
         self.dtype = dtype
+        # recompute each layer's activations in the backward pass
+        # (``loss_fn``): the memory of training stays O(1) in depth
+        self.remat = bool(remat)
         self.kv_bits = kv_bits
         self.kv_quant = kv_bits < 16
         self.w8 = bool(w8)
@@ -176,7 +190,9 @@ def config_from_env(tiny_vocab_size: int | None = None) -> LlamaConfig:
     ``LLAMA_KV_QUANT=1`` (the int8 cache), ``GOFR_ML_KV_BITS=4|8|16`` (the KV
     precision, over ``LLAMA_KV_QUANT``; 4 needs a paged generator)
     and ``LLAMA_W8=1`` (int8 weights: pair with ``params_from_config``), as
-    in the JAX package."""
+    in the JAX package. ``LLAMA_CKPT`` naming an HF directory defines the
+    architecture (``hf_import.hf_config``): the preset then only brings
+    the serving knobs."""
     preset = os.environ.get("LLAMA_PRESET", "tiny")
     kv_quant = os.environ.get("LLAMA_KV_QUANT") == "1"
     kv_bits = kv_bits_from_env()
@@ -194,6 +210,11 @@ def config_from_env(tiny_vocab_size: int | None = None) -> LlamaConfig:
             raise ValueError(f"LLAMA_DTYPE must be one of {sorted(names)}, "
                              f"got {raw_dtype!r}")
         kw["dtype"] = names[raw_dtype]
+    from ..ml.hf_import import hf_config, is_hf_dir
+
+    ckpt = os.environ.get("LLAMA_CKPT")
+    if ckpt and is_hf_dir(ckpt):
+        return hf_config(ckpt, **kw)
     if preset == "tiny":
         if tiny_vocab_size is not None:
             kw["vocab_size"] = tiny_vocab_size
@@ -217,17 +238,30 @@ def draft_from_env(target_cfg: LlamaConfig, target_params=None,
     the draft-model path. ``tiny`` and ``1b`` build random drafts of that
     shape (``params_from_config``, seed 1) on the target's device (or
     ``device``): lossless, accepting next to nothing. ``LLM_DRAFT_CKPT``
-    raises: loading a checkpoint is not ported yet."""
+    names an HF directory of a shared-vocab draft (anything else raises, as
+    in the JAX package: a random draft in its place would serve slower with
+    no sign why)."""
     from .. import resolve_device
+    from ..ml.hf_import import hf_config, is_hf_dir
 
     ckpt = os.environ.get("LLM_DRAFT_CKPT")
     preset = os.environ.get("LLM_DRAFT_PRESET")
     if not ckpt and not preset:
         return None, None
+    if device is None and target_params is not None:
+        device = target_params["embed"].device
     if ckpt:
-        raise NotImplementedError(
-            "a draft checkpoint (LLM_DRAFT_CKPT) needs the checkpoint "
-            "import, which is not ported yet (ROADMAP A.12)")
+        if not is_hf_dir(ckpt):
+            raise ValueError(
+                f"LLM_DRAFT_CKPT={ckpt!r} is not a HF model directory "
+                "(config.json + *.safetensors)")
+        dcfg = hf_config(ckpt)
+        if dcfg.vocab_size != target_cfg.vocab_size:
+            raise ValueError(
+                f"draft vocab {dcfg.vocab_size} != target "
+                f"{target_cfg.vocab_size}: speculation needs a shared vocab")
+        return params_from_config(dcfg, checkpoint_dir=ckpt,
+                                  device=resolve_device(device)), dcfg
     if preset == "self":
         if target_params is None:
             raise ValueError("LLM_DRAFT_PRESET=self needs target params")
@@ -251,8 +285,6 @@ def draft_from_env(target_cfg: LlamaConfig, target_params=None,
         raise ValueError(
             f"draft vocab {dcfg.vocab_size} != target "
             f"{target_cfg.vocab_size}: speculation needs a shared vocab")
-    if device is None and target_params is not None:
-        device = target_params["embed"].device
     return params_from_config(dcfg, seed=1,
                               device=resolve_device(device)), dcfg
 
@@ -337,20 +369,66 @@ def quantize_weights(params: dict) -> dict:
 
 def params_from_config(cfg: LlamaConfig, seed: int = 0,
                        checkpoint_dir: str | None = None, device=None) -> dict:
-    """Random weights from ``seed`` (``init_params``), quantized when
-    ``cfg.w8`` — the one place that applies ``w8``, as in the JAX package.
-    A checkpoint (``checkpoint_dir`` or ``LLAMA_CKPT``) raises: restoring
-    one is not ported yet."""
+    """Random weights from ``seed`` (``init_params``), or real ones from
+    ``checkpoint_dir`` / ``LLAMA_CKPT``, quantized when ``cfg.w8`` — the one
+    place that applies ``w8`` and ``LLAMA_CKPT``, as in the JAX package.
+    Two layouts restore: an HF model directory (``ml.hf_import``), and a
+    ``ml.checkpoint.Checkpointer`` directory whose latest step holds a
+    bare params tree or a training state's ``"params"`` entry (cast to
+    ``cfg.dtype``; only that entry is read). ``w8`` quantizes AFTER the
+    restore: checkpoints hold fp weights."""
     from .. import resolve_device
+    from ..ml.hf_import import import_hf_llama, is_hf_dir
 
-    if checkpoint_dir or os.environ.get("LLAMA_CKPT"):
-        raise NotImplementedError(
-            "checkpoint restore (LLAMA_CKPT / checkpoint_dir) is not ported "
-            "yet (ROADMAP A.12)")
+    checkpoint_dir = checkpoint_dir or os.environ.get("LLAMA_CKPT")
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
-    params = init_params(cfg, gen, device=device)
+    if checkpoint_dir and is_hf_dir(checkpoint_dir):
+        _, params = import_hf_llama(checkpoint_dir, cfg, device=device)
+    elif checkpoint_dir:
+        params = _restore_params(checkpoint_dir, cfg, device)
+    else:
+        gen = torch.Generator(device=device).manual_seed(seed)
+        params = init_params(cfg, gen, device=device)
     return quantize_weights(params) if cfg.w8 else params
+
+
+def _param_like(cfg: LlamaConfig) -> dict:
+    """The params tree's shapes and dtypes as meta tensors (no memory): the
+    ``like`` of a checkpoint restore."""
+    L, D, V = cfg.n_layers, cfg.dim, cfg.vocab_size
+
+    def meta(shape, dtype=cfg.dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    layers = {"attn_norm": meta((L, D), torch.float32),
+              "mlp_norm": meta((L, D), torch.float32)}
+    layers.update({name: meta(shape)
+                   for name, (shape, _) in _param_shapes(cfg).items()})
+    return {"embed": meta((V, D)), "layers": layers,
+            "final_norm": meta((D,), torch.float32),
+            "lm_head": meta((D, V))}
+
+
+def _restore_params(directory: str, cfg: LlamaConfig, device) -> dict:
+    """The latest step of a ``Checkpointer`` directory on ``device``: a bare
+    params tree, else a training state's ``"params"`` entry."""
+    from ..ml.checkpoint import Checkpointer
+
+    if not os.path.isdir(directory):
+        # a mistyped LLAMA_CKPT must not create an empty run directory
+        raise FileNotFoundError(f"no checkpoint directory {directory!r}")
+    ckpt = Checkpointer(directory)
+    try:
+        step = ckpt.latest_step()
+        keys = ckpt.saved_keys(step) or []
+        # a training state {"params": ..., "opt": ..., "step": ...}: read
+        # its params entry alone; a bare params tree whole, so a mismatch
+        # (a wrong LLAMA_PRESET) raises with the saved and target shapes
+        item = "params" if "params" in keys and "embed" not in keys else None
+        return ckpt.restore(step, like=_param_like(cfg), device=device,
+                            item=item)
+    finally:
+        ckpt.close()
 
 
 def params_from_jax(tree: dict, device=None) -> dict:
@@ -441,23 +519,73 @@ def _int32(x, device) -> torch.Tensor:
     return t.to(device)
 
 
-@torch.no_grad()
-def forward(params: dict, tokens, cfg: LlamaConfig, *, seq_lens=None
-            ) -> torch.Tensor:
-    """Full-sequence forward: tokens [B, S] -> f32 logits [B, S, V].
-    ``seq_lens`` [B] masks padded tail positions out of attention."""
+def _token_tensor(tokens, cfg: LlamaConfig, device) -> torch.Tensor:
+    """``_tokens`` for host ids or for a tensor (a ``DataLoader`` batch
+    already on the device: its range is checked there)."""
+    if not isinstance(tokens, torch.Tensor):
+        return _tokens(tokens, cfg, device)
+    tokens = tokens.to(device)
+    if tokens.numel() and bool(((tokens < 0) | (tokens >= cfg.vocab_size))
+                               .any()):
+        raise ValueError(f"token ids must lie in [0, {cfg.vocab_size})")
+    return tokens
+
+
+def _forward(params: dict, tokens, cfg: LlamaConfig, seq_lens=None
+             ) -> torch.Tensor:
+    """The full-sequence forward, differentiable: autograd records it when
+    grad is on. Each stacked layer weight is unbound once, so the backward
+    stacks a weight's per-layer gradients in one pass; with ``cfg.remat``
+    (and grad on) a layer keeps only its input and recomputes the rest in
+    the backward pass."""
     dev = params["embed"].device
-    tokens = _tokens(tokens, cfg, dev)
+    tokens = _token_tensor(tokens, cfg, dev)
     kv_len = None if seq_lens is None else _int32(seq_lens, dev)
     x = _embed(params, tokens, cfg)
     positions = torch.arange(tokens.shape[1], device=dev)[None, :]
     cos, sin = rope_table(positions, cfg.head_dim, cfg.rope_theta,
                           scaling=cfg.rope_scaling)
+    unbound = {k: ({n: t.unbind(0) for n, t in v.items()}
+                   if isinstance(v, dict) else v.unbind(0))
+               for k, v in params["layers"].items()}
+
+    def body(x, lp):
+        return _layer(cfg, x, lp, cos, sin, kv_len=kv_len)[0]
+
+    remat = cfg.remat and torch.is_grad_enabled()
     for layer in range(cfg.n_layers):
-        x, _, _ = _layer(cfg, x, _layer_params(params, layer), cos, sin,
-                         kv_len=kv_len)
+        lp = {k: ({n: t[layer] for n, t in v.items()} if isinstance(v, dict)
+                  else v[layer]) for k, v in unbound.items()}
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(body, x, lp,
+                                                  use_reentrant=False)
+        else:
+            x = body(x, lp)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _mm(x, params["lm_head"]).float()
+
+
+@torch.no_grad()
+def forward(params: dict, tokens, cfg: LlamaConfig, *, seq_lens=None
+            ) -> torch.Tensor:
+    """Full-sequence forward: tokens [B, S] -> f32 logits [B, S, V].
+    ``seq_lens`` [B] masks padded tail positions out of attention."""
+    return _forward(params, tokens, cfg, seq_lens)
+
+
+def loss_fn(params: dict, tokens, targets, mask, cfg: LlamaConfig
+            ) -> torch.Tensor:
+    """Masked next-token cross-entropy over f32 logits, as JAX's
+    ``loss_fn``: -sum(log p(target) * mask) / max(sum(mask), 1).
+    ``tokens``, ``targets`` and ``mask`` are [B, S], host arrays or tensors;
+    differentiable when grad is on (``ml.train``)."""
+    logits = _forward(params, tokens, cfg)
+    dev = logits.device
+    targets = torch.as_tensor(targets, device=dev).long()
+    logp = torch.log_softmax(logits, dim=-1)
+    ll = torch.gather(logp, -1, targets[..., None])[..., 0]
+    maskf = torch.as_tensor(mask, device=dev).float()
+    return -(ll * maskf).sum() / torch.clamp(maskf.sum(), min=1.0)
 
 
 # -- KV-cache serving path ------------------------------------------------------

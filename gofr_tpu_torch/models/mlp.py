@@ -5,8 +5,8 @@ Params are a list of ``{"w": [in, out], "b": [out] f32}`` layers, the JAX
 tree's layout; ``apply`` is a pure function the engine runs (and on a card
 captures, one CUDA graph per batch shape). The hidden layers run in the
 weights' dtype (bf16, as JAX's ``x.astype(bfloat16)``) with the bias cast
-to it; the logits come back in f32 with the f32 bias added. The JAX
-model's training ``loss`` belongs to the trainer (ROADMAP A.12).
+to it; the logits come back in f32 with the f32 bias added. ``loss`` is the
+mean cross-entropy the trainer (``ml.train``) differentiates, as JAX's.
 """
 
 from __future__ import annotations
@@ -66,6 +66,12 @@ class MLP:
             h = torch.relu(h @ layer["w"] + layer["b"].to(h.dtype))
         last = params[-1]
         return (h @ last["w"]).float() + last["b"]
+
+    @staticmethod
+    def loss(params: Any, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """Mean cross-entropy of the f32 logits against int labels ``y``."""
+        logp = torch.log_softmax(MLP.apply(params, x), dim=-1)
+        return -torch.gather(logp, 1, y.long()[:, None]).mean()
 
 
 def mnist_mlp(hidden: int = 512, seed: int = 0, *, device=None,

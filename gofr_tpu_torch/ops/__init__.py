@@ -7,7 +7,9 @@ Two tiers, as in the JAX package:
 - hand-written CUDA kernels (``flash_attention.py``, ``decode_attention.py``
   with sources in ``csrc/``) behind the two dispatchers at the bottom; the
   decode dispatcher takes an fp cache or an int8 cache with its scales,
-  and one token a row or a speculative verify window.
+  and one token a row or a speculative verify window; the flash
+  dispatcher is differentiable (``_FlashDiff``: the kernel forward, the
+  plain version's backward), so training runs through the kernel.
 
 The dispatchers take no gate on shapes: a CUDA tensor always goes through
 its kernel (which masks its own ragged edges), a CPU tensor always goes to
@@ -260,16 +262,54 @@ from .flash_attention import (flash_attention_cuda,  # noqa: E402
                               flash_attention_plain)
 
 
+class _FlashDiff(torch.autograd.Function):
+    """The flash kernel under autograd, the counterpart of JAX's
+    ``_flash_diff`` (``custom_vjp``): the forward launches the hand-written
+    kernel, the backward recomputes attention through the plain version
+    and returns ITS vector-Jacobian product. Flash forward speed,
+    standard-attention backward: the [Tq, Tk] logits materialise in the
+    backward, so long-sequence training pairs this with
+    ``LlamaConfig(remat=True)``. The kernel writes its output through
+    ``ctypes``, so without this Function a loss through it would carry no
+    gradient to q, k or v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_len, causal, q_offset):
+        ctx.save_for_backward(q, k, v, kv_len)
+        ctx.causal, ctx.q_offset = causal, q_offset
+        return flash_attention_cuda(q, k, v, kv_len, causal=causal,
+                                    q_offset=q_offset)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, kv_len = ctx.saved_tensors
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            out = flash_attention_plain(*qkv, kv_len, causal=ctx.causal,
+                                        q_offset=ctx.q_offset)
+        dq, dk, dv = torch.autograd.grad(out, qkv, g)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
                     kv_len=None):
     """Prefill attention over GROUPED K/V [B, Tk, KV, D] (KV divides H).
 
     A CUDA tensor goes through the hand-written kernel, which reads the
-    grouped K/V directly (no ``repeat_kv``); a CPU tensor goes to the plain
-    version, ``attention`` over ``repeat_kv``-expanded K/V.
+    grouped K/V directly (no ``repeat_kv``): under autograd, when grad is
+    on and an input requires it, through ``_FlashDiff`` (the kernel's
+    forward, the plain version's backward). A CPU tensor goes to the plain
+    version, ``attention`` over ``repeat_kv``-expanded K/V, which autograd
+    differentiates as it is.
     """
-    fn = flash_attention_plain if q.device.type == "cpu" else flash_attention_cuda
-    return fn(q, k, v, kv_len, causal=causal, q_offset=q_offset)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, kv_len, causal=causal,
+                                     q_offset=q_offset)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashDiff.apply(q, k, v, kv_len, causal, q_offset)
+    return flash_attention_cuda(q, k, v, kv_len, causal=causal,
+                                q_offset=q_offset)
 
 
 def cached_decode_attention(q, k_cache, v_cache, kv_len, *, layer: int = 0,

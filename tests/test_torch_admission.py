@@ -654,24 +654,26 @@ def test_unported_fleet_knobs_raise_naming_their_item(model, env, kw, want,
 
 
 def test_example_knobs_of_later_items_raise(monkeypatch):
-    """LLAMA_CKPT / TOKENIZER_JSON name A.12, and so does a draft
-    checkpoint (LLM_DRAFT_CKPT with a positive LLM_SPEC_K: speculation is
-    ported, the checkpoint import is not). LLM_DISAGG=1 (A.14a, ported)
-    gives JAX's "requires replicas >= 2" on one replica and boots a
+    """LLAMA_CKPT / TOKENIZER_JSON (A.12, ported) naming nothing raise
+    FileNotFoundError at boot, and a draft checkpoint (LLM_DRAFT_CKPT with
+    a positive LLM_SPEC_K) that is not an HF directory raises JAX's
+    ValueError (the name is kept from when A.12 raised). LLM_DISAGG=1
+    (A.14a, ported) gives JAX's "requires replicas >= 2" on one replica
+    and boots a
     disaggregated pool with GOFR_ML_REPLICAS=2 over paged generators (the
     name is kept from when it raised naming A.14)."""
     from gofr_tpu_torch.examples import llama_server
 
-    for knob, item in (("TOKENIZER_JSON", "A.12"), ("LLAMA_CKPT", "A.12")):
+    for knob in ("TOKENIZER_JSON", "LLAMA_CKPT"):
         with monkeypatch.context() as m:
             m.setenv(knob, "/nonexistent")
-            with pytest.raises(NotImplementedError, match=item):
+            with pytest.raises(FileNotFoundError, match="nonexistent"):
                 llama_server.main(device="cpu")
     with monkeypatch.context() as m:
         m.setenv("LLM_SPEC_K", "2")
         m.setenv("LLM_DRAFT_CKPT", "/nonexistent")
         m.setenv("LLAMA_PRESET", "tiny")
-        with pytest.raises(NotImplementedError, match="A.12"):
+        with pytest.raises(ValueError, match="is not a HF model directory"):
             llama_server.main(device="cpu")
     from gofr_tpu_torch.ml.replica import ReplicaPool
 

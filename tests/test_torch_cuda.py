@@ -1088,3 +1088,105 @@ def test_scale_up_capture_beside_a_serving_replica(dev):
         assert pool.replicas[1].gen.graph_stats()["graphs"]
     finally:
         pool.close()
+
+
+@pytest.mark.parametrize("case", [
+    # B, T, H, KV, D, kv_len, q_offset
+    (2, 200, 8, 2, 128, [200, 150], 0),
+    (1, 96, 4, 4, 16, None, 0),
+    (1, 64, 4, 2, 64, [120], 64),
+])
+def test_flash_under_autograd_is_the_kernel_forward_and_plain_backward(
+        dev, case):
+    """``ops.flash_attention`` on inputs that require grad goes through
+    ``_FlashDiff``: one kernel launch forward, and a backward that is the
+    plain version's vjp on the same inputs (bit for bit)."""
+    from gofr_tpu_torch.ops import flash_attention
+    from gofr_tpu_torch.ops.flash_attention import (flash_attention_cuda,
+                                                    flash_attention_plain)
+
+    B, T, H, KV, D, kvl, off = case
+    Tk = T + off
+    g = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (_rnd(g, dev, B, T, H, D), _rnd(g, dev, B, Tk, KV, D),
+               _rnd(g, dev, B, Tk, KV, D))
+    kv_len = (None if kvl is None
+              else torch.tensor(kvl, dtype=torch.int32, device=dev))
+    up = _rnd(g, dev, B, T, H, D)
+    grads = {}
+    for name in ("kernel", "plain"):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        n0 = flash_attention_cuda.launches
+        if name == "kernel":
+            out = flash_attention(*leaves, causal=True, q_offset=off,
+                                  kv_len=kv_len)
+            assert flash_attention_cuda.launches == n0 + 1
+            assert out.grad_fn is not None
+        else:
+            out = flash_attention_plain(*leaves, kv_len, causal=True,
+                                        q_offset=off)
+        out.backward(up)
+        assert flash_attention_cuda.launches == n0 + (name == "kernel")
+        grads[name] = (out.detach(), [t.grad for t in leaves])
+    (ko, kg), (po, pg) = grads["kernel"], grads["plain"]
+    assert (ko.float() - po.float()).abs().max().item() <= TOL
+    for a, b in zip(kg, pg):
+        assert torch.equal(a, b)
+    # with grad off the serving path launches the kernel directly
+    with torch.no_grad():
+        assert flash_attention(q, k, v, causal=True, q_offset=off,
+                               kv_len=kv_len).grad_fn is None
+
+
+def test_tiny_training_through_the_kernel_matches_plain(dev, monkeypatch):
+    """The card-side twin of ``chip_smoke.py`` phase 15(c), on the tiny bf16
+    model with ``remat``: loss and every gradient leaf through the flash
+    kernel (``_FlashDiff``) against the plain attention, loss within 1e-2
+    relative and each leaf's gradient cosine >= 0.99; the kernel launches
+    twice a layer a step (forward and the remat recompute); then a
+    ``Trainer`` fed by a ``DataLoader`` on the card lowers the loss over a
+    repeated batch."""
+    import functools
+
+    from gofr_tpu_torch.ml.data import DataLoader
+    from gofr_tpu_torch.ml.train import Trainer, _value_and_grad
+    from gofr_tpu_torch.ml.tree import tree_leaves
+    from gofr_tpu_torch.ops.flash_attention import (flash_attention_cuda,
+                                                    flash_attention_plain)
+
+    llama, cfg, params = _tiny_on_card(dev, remat=True)
+    r = np.random.default_rng(0)
+    toks = r.integers(0, cfg.vocab_size, (2, 128)).astype(np.int32)
+    tgts = np.roll(toks, -1, axis=1)
+    mask = np.ones_like(toks)
+    mask[:, -1] = 0
+    batch = [torch.from_numpy(a).to(dev) for a in (toks, tgts, mask)]
+    loss_fn = functools.partial(llama.loss_fn, cfg=cfg)
+
+    n0 = flash_attention_cuda.launches
+    k_loss, k_grads = _value_and_grad(loss_fn, params, *batch)
+    assert flash_attention_cuda.launches - n0 == 2 * cfg.n_layers
+    monkeypatch.setattr(llama, "flash_attention",
+                        lambda q, k, v, *, causal=True, kv_len=None:
+                        flash_attention_plain(q, k, v, kv_len,
+                                              causal=causal))
+    p_loss, p_grads = _value_and_grad(loss_fn, params, *batch)
+    monkeypatch.undo()
+    assert abs(k_loss.item() - p_loss.item()) <= 1e-2 * abs(p_loss.item())
+    for a, b in zip(tree_leaves(k_grads), tree_leaves(p_grads)):
+        cos = torch.nn.functional.cosine_similarity(
+            a.float().flatten(), b.float().flatten(), dim=0).item()
+        assert cos >= 0.99, cos
+
+    records = [{"t": toks[i], "y": tgts[i], "m": mask[i]} for i in range(2)]
+    loader = DataLoader(lambda: iter(records), batch_size=2, repeat=True,
+                        prefetch=2, device=dev)
+    trainer = Trainer(lambda p, t, y, m: llama.loss_fn(p, t, y, m, cfg),
+                      params, learning_rate=1e-2)
+    it = iter(loader)
+    losses = []
+    for _ in range(4):
+        b = next(it)
+        assert b["t"].device.type == "cuda"
+        losses.append(trainer.step(b["t"], b["y"], b["m"]))
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]

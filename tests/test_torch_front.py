@@ -466,6 +466,49 @@ def test_llama_server_example(run):
     run(scenario())
 
 
+def test_shut_down_app_releases_its_model(run):
+    """After ``App.shutdown()`` nothing keeps the app, or the ``Generator``
+    it served over HTTP and gRPC, alive: a process that boots app after
+    app gets each one's memory back."""
+    import gc
+    import weakref
+
+    async def scenario():
+        import aiohttp
+        import grpc.aio
+
+        from gofr_tpu_torch.examples.llama_server import main
+
+        with _env():
+            app = main(device="cpu")
+        await app.start()
+        try:
+            async with aiohttp.ClientSession() as s:
+                r = await s.post(f"http://127.0.0.1:{app.http_port}/generate",
+                                 json={"prompt": "hi", "max_new_tokens": 2})
+                assert r.status == 201, await r.text()
+                r = await s.get(f"http://127.0.0.1:{app.metrics_port}"
+                                "/metrics")
+                assert r.status == 200
+            async with grpc.aio.insecure_channel(
+                    f"127.0.0.1:{app.grpc_port}") as channel:
+                rpc = channel.unary_stream(
+                    "/llm.Chat/Generate",
+                    request_serializer=lambda o: json.dumps(o).encode(),
+                    response_deserializer=json.loads)
+                frames = [f async for f in rpc({"prompt_ids": [1, 2, 3],
+                                                "max_new_tokens": 2})]
+                assert frames
+        finally:
+            await app.shutdown()
+        return weakref.ref(app), weakref.ref(app.container.ml.llm("chat").gen)
+
+    app_ref, gen_ref = run(scenario())
+    gc.collect()
+    assert app_ref() is None, "a shut-down app is still reachable"
+    assert gen_ref() is None, "a shut-down app's Generator is still alive"
+
+
 def test_example_entry_point_needs_a_card_or_cpu():
     """``main()`` resolves its device like every entry point: without a
     card and without ``device="cpu"`` it raises instead of running on the

@@ -379,12 +379,15 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     scanned = {str(p.relative_to(ROOT)) for p in files}
     for new in ("http/sse.py", "examples/openai_server.py", "ml/capture.py",
                 "ml/replay.py", "ml/tune.py", "ml/replica.py",
-                "ml/kv_transport.py", "ml/multihost.py"):
+                "ml/kv_transport.py", "ml/multihost.py", "ml/train.py",
+                "ml/optim.py", "ml/checkpoint.py", "ml/data.py",
+                "ml/hf_import.py"):
         assert f"gofr_tpu_torch/{new}" in scanned
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]
-            assert top not in ("jax", "jaxlib", "gofr_tpu", "flax", "optax"), \
+            assert top not in ("jax", "jaxlib", "gofr_tpu", "flax", "optax",
+                               "orbax", "safetensors", "ml_dtypes"), \
                 f"{path.relative_to(ROOT)} imports {name}"
 
 
@@ -403,9 +406,13 @@ def test_importing_the_port_loads_no_jax():
             "gofr_tpu_torch.http.sse, gofr_tpu_torch.examples.openai_server, "
             "gofr_tpu_torch.ml.capture, gofr_tpu_torch.ml.replay, "
             "gofr_tpu_torch.ml.tune, gofr_tpu_torch.ml.replica, "
-            "gofr_tpu_torch.ml.kv_transport, gofr_tpu_torch.ml.multihost; "
+            "gofr_tpu_torch.ml.kv_transport, gofr_tpu_torch.ml.multihost, "
+            "gofr_tpu_torch.ml.train, gofr_tpu_torch.ml.optim, "
+            "gofr_tpu_torch.ml.checkpoint, gofr_tpu_torch.ml.data, "
+            "gofr_tpu_torch.ml.hf_import; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'gofr_tpu')]; print(bad); "
+            "('jax', 'jaxlib', 'gofr_tpu', 'optax', 'orbax', 'safetensors', "
+            "'ml_dtypes')]; print(bad); "
             "sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)

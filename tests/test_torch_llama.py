@@ -10,6 +10,8 @@ equal, or off by one on at most 0.1 % of entries (a summation order may move
 a value across a .5); scales within one bf16 ulp.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -212,9 +214,11 @@ def test_decode_steps_match_jax_with_a_row_at_capacity(pair):
 
 def test_unported_configurations_raise(monkeypatch):
     """What stays unported raises, naming its ROADMAP item:
-    sequence-parallel attention and restoring a checkpoint in
-    params_from_config. int4 KV is ported as a paged-cache precision: the
-    config takes it, and the dense paths refuse it as JAX does."""
+    sequence-parallel attention. int4 KV is ported as a paged-cache
+    precision: the config takes it, and the dense paths refuse it as JAX
+    does. Restoring a checkpoint in params_from_config is ported (A.12): a
+    directory that does not exist raises FileNotFoundError, as JAX's
+    restore of an empty run does, and is not created."""
     for kw, item in (({"attn_impl": "ring"}, "A.11"),
                      ({"attn_impl": "ulysses"}, "A.11")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
@@ -228,12 +232,13 @@ def test_unported_configurations_raise(monkeypatch):
             tllama.prefill_segment_into(None, np.zeros((1, 4), np.int32),
                                         [4], cfg4, {}, 0, 0, 4)
     cfg = tllama.tiny_llama()
-    with pytest.raises(NotImplementedError, match="ROADMAP A.12"):
-        tllama.params_from_config(cfg, checkpoint_dir="/nonexistent",
-                                  device="cpu")
-    monkeypatch.setenv("LLAMA_CKPT", "/nonexistent")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.12"):
+    missing = "/nonexistent/gofr-checkpoint"
+    with pytest.raises(FileNotFoundError, match="no checkpoint directory"):
+        tllama.params_from_config(cfg, checkpoint_dir=missing, device="cpu")
+    monkeypatch.setenv("LLAMA_CKPT", missing)
+    with pytest.raises(FileNotFoundError, match="no checkpoint directory"):
         tllama.params_from_config(cfg, device="cpu")
+    assert not os.path.exists(missing)
 
 
 @pytest.mark.parametrize("kw,want", [

@@ -338,8 +338,10 @@ def test_overlong_prompt_gets_400_not_500(served):
     pytest.param({"LLM_DISAGG": "1"}, "A.14a", id="env2-A.14"),
 ])
 def test_example_knobs_of_later_items_raise(env, item):
-    """A checkpoint or tokenizer file (ROADMAP A.12) raises naming its
-    item, as in ``examples/llama_server``. Disaggregation (A.14a, ported)
+    """A checkpoint or tokenizer file (ROADMAP A.12, ported) that does not
+    exist raises FileNotFoundError at boot, as in the JAX example; the
+    loading itself is held in ``tests/test_torch_hf_import.py`` and
+    ``tests/test_torch_checkpoint.py``. Disaggregation (A.14a, ported)
     gives JAX's "requires replicas >= 2" on one replica and boots a
     disaggregated pool with ``GOFR_ML_REPLICAS=2`` over paged
     generators."""
@@ -362,5 +364,5 @@ def test_example_knobs_of_later_items_raise(env, item):
             pool.close()
         return
     with _env(**env):
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(FileNotFoundError, match="nonexistent"):
             openai_server.main(device="cpu")

@@ -530,8 +530,9 @@ def test_draft_from_env_presets(pairs, monkeypatch):
     """None without the knobs; ``self`` reuses the target's weights under
     a config clone with the quantized cache off; ``tiny`` and ``1b`` are
     random drafts of the target's vocabulary on its device; a draft
-    checkpoint raises naming ROADMAP A.12, as a missing target does for
-    ``self`` (JAX's message)."""
+    checkpoint that is not an HF directory raises (JAX's message), as a
+    missing target does for ``self``; an HF draft loads (A.12,
+    ``tests/test_torch_hf_import.py`` holds the import)."""
     _, _, tcfg, tparams = pairs["int8"]
     for name in ("LLM_DRAFT_PRESET", "LLM_DRAFT_CKPT"):
         monkeypatch.delenv(name, raising=False)
@@ -558,5 +559,5 @@ def test_draft_from_env_presets(pairs, monkeypatch):
     assert dcfg.vocab_size == tcfg.vocab_size and dparams == {"cfg": dcfg}
     assert built[0][1:] == (1, torch.device("cpu"))
     monkeypatch.setenv("LLM_DRAFT_CKPT", "/nonexistent")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.12"):
+    with pytest.raises(ValueError, match="is not a HF model directory"):
         tllama.draft_from_env(tcfg, tparams)
