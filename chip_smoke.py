@@ -6,7 +6,10 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
 
 1. device and build: print the card's name and power limit, build every
    CUDA kernel of the serving path from ``gofr_tpu_torch/ops/csrc`` (one
-   ``nvcc`` per source, all started together);
+   ``nvcc`` per source, all started together); before it, start phase
+   16's compile child (``--native-child``: nice 19, one compile thread),
+   which builds the native binding and the tokenizer with ``g++`` and
+   compiles phase 16's packages while phases 1-15 run;
 2. kernels against their plain PyTorch versions on the card, at the shapes
    the Llama-3-8B serving paths give them: flash prefill for a wave of 2
    prompts in the 512 bucket, one 2048-token prompt, a burst of 8
@@ -174,7 +177,9 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    Printed on ``engine:`` lines: calls/s, p50/p99, realized batches, peak
    memory, and per bucket replay ms, eager ms, capture s and pool bytes;
 13. the OpenAI-compatible front and the time machine on phase 3's weights
-   (the port's ``examples/openai_server``, 8 slots, chunk 4, with
+   (their first ``OAI_LAYERS``, 16, of 32 layers, as phases 7 and 14 run,
+   since phase 16 joined the script; the port's
+   ``examples/openai_server``, 8 slots, chunk 4, with
    ``examples/llama_server``'s ``POST /generate`` on the same server):
    (a) dense (``max_seq`` 1024): ``OPTIONS`` answers 200 with the CORS
    headers; three prompts alone give the same tokens over ``/generate``
@@ -266,6 +271,28 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    with ``TOKENIZER_JSON``: each boot's weights equal the saved / source
    ones, 3 gRPC calls and a text ``POST /generate`` answer, and the greedy
    tokens equal a ``Generator`` built in process on the served tensors.
+
+16. the native executor slot (``Engine(backend="pjrt")``: AOTInductor
+   packages run by the port's C++ binding; no kernel of the port, the
+   attention kernels' launches recorded, 0 expected): (a) the child's
+   result: the selftest on the card (JAX's ``tanh(x @ y) + 1, (2 x).sum(1)``
+   through export, compile, load, run and host copy against eager, and a
+   native MNIST engine against a graphed one) and, per package, its export
+   and compile seconds; the BPE tokenizer's C++ core builds here
+   (``.native``) and gives the Python path's ids; (b) native engines of
+   config #2 (the MNIST MLP at f32, all 7 buckets) and config #3
+   (BERT-base at bf16, ``MAX_LEN``, buckets ``NATIVE_BERT_BUCKETS``), every
+   package loaded from the disk cache (no compile in this process:
+   checked), held per bucket against graphed engines of the same models
+   (MNIST: argmax identical, ``NATIVE_MNIST_TOL`` of range; BERT:
+   ``ENGINE_TOL``), then mounted in the examples with ``batching=True``
+   and driven with phase 12's traffic (256 ``POST /predict`` at 64 in
+   flight; 8 x 32 concurrent gRPC ``Embed``), every answer held against
+   the graphed engine; (c) on ``native:`` lines with the card: per bucket
+   the export, compile (child) and load seconds, the device ms of one
+   native run and one graph replay (CUDA events) beside phase 12's
+   replay; calls/s, p50 / p99 beside phase 12's; the busy share of a
+   served execute.
 
 Measurements under ``torch.profiler`` hold the flight recorder's
 ``PROFILE_LOCK``, so an auto-profiler capture never overlaps one.
@@ -3549,7 +3576,9 @@ def served_stats(lat: list, wall: float) -> dict:
             "p50_ms": pct(lat, 0.5) * 1e3, "p99_ms": pct(lat, 0.99) * 1e3}
 
 
-async def drive_mnist(app, rng) -> dict:
+async def drive_mnist(app, rng, keep: bool = False) -> dict:
+    """256 ``POST /predict`` at 64 in flight and a bad shape; ``keep``
+    also returns the images and the answers."""
     import aiohttp
 
     base = f"http://127.0.0.1:{app.http_port}"
@@ -3578,11 +3607,17 @@ async def drive_mnist(app, rng) -> dict:
     check(all(0 <= b["data"]["digit"] <= 9 and len(b["data"]["probs"]) == 10
               for b in bodies), "mnist: a malformed answer")
     check(bad == 400, f"mnist: a bad shape answered {bad}")
-    return {**served_stats(lat, wall), "bad_shape_status": bad,
-            "batch_size": batch_sizes(metrics, "mnist")}
+    out = {**served_stats(lat, wall), "bad_shape_status": bad,
+           "batch_size": batch_sizes(metrics, "mnist")}
+    if keep:
+        out.update(images=images, answers=[b["data"] for b in bodies])
+    return out
 
 
-async def drive_bert(app, rng) -> dict:
+async def drive_bert(app, rng, keep: bool = False) -> dict:
+    """8 rounds of 32 concurrent gRPC ``Embed`` calls of 16-128 ids, 8 of
+    them again alone, and one ``POST /embed``; ``keep`` also returns the
+    rounds' ids and embeddings."""
     import aiohttp
     import grpc.aio
 
@@ -3628,8 +3663,11 @@ async def drive_bert(app, rng) -> dict:
     check(vec.shape == batched[0][0].shape and np.isfinite(vec).all()
           and range_err(vec, batched[0][0]) <= ENGINE_TOL,
           "bert: POST /embed gave another embedding than gRPC")
-    return {**served, "batched_vs_alone_err": pad_err,
-            "batch_size": batch_sizes(metrics, "bert")}
+    out = {**served, "batched_vs_alone_err": pad_err,
+           "batch_size": batch_sizes(metrics, "bert")}
+    if keep:
+        out.update(rounds=rounds, embeddings=batched)
+    return out
 
 
 async def drive_sdxl(app) -> dict:
@@ -3768,9 +3806,10 @@ def oai_chat_texts(n: int, seed: int) -> list[str]:
 
 def oai_app(dev, params, **env):
     """The port's ``examples/openai_server`` mounted on ``params`` (8
-    slots, chunk 4, the arm's knobs read at boot) on free ports, with the
-    existing ``POST /generate`` of ``examples/llama_server`` on the same
-    server (registered as ``chat`` too): (app, LLMServer, cfg)."""
+    slots, chunk 4, the arm's knobs read at boot, the depth of the weights
+    given) on free ports, with the existing ``POST /generate`` of
+    ``examples/llama_server`` on the same server (registered as ``chat``
+    too): (app, LLMServer, cfg)."""
     from gofr_tpu_torch.app import new_app
     from gofr_tpu_torch.examples import llama_server, openai_server
     from gofr_tpu_torch.models import llama
@@ -3780,6 +3819,7 @@ def oai_app(dev, params, **env):
                GRPC_PORT=str(free_port()), METRICS_PORT=str(free_port()),
                **env):
         cfg = llama.config_from_env(tiny_vocab_size=257)
+        cfg.n_layers = n_layers(params)
         app = openai_server.mount(new_app(), params, cfg, device=dev)
     llm = app.container.ml.llm(openai_server.MODEL_ID)
     app.container.ml._llms["chat"] = llm
@@ -4296,14 +4336,22 @@ async def oai_profile_pause(app) -> dict:
     return out
 
 
+# phase 13 runs at this depth (of 32 layers), as phases 7 and 14 do, to keep
+# the script inside its time limit once phase 16 joined it; its checks
+# compare arms of the same depth
+OAI_LAYERS = 16
+
+
 def openai_phase(dev, bf16_params) -> dict:
     """Phase 13: the OpenAI-compatible front, traffic capture and replay,
-    the tuner and ``/debug/profile`` under serving on Llama-3-8B at full
-    width (see the module docstring)."""
+    the tuner and ``/debug/profile`` under serving on Llama-3-8B at its
+    published width and ``OAI_LAYERS`` of its 32 layers (see the module
+    docstring)."""
     import gc
     import os
 
-    res: dict = {}
+    bf16_params = first_layers(bf16_params, OAI_LAYERS)
+    res: dict = {"n_layers": OAI_LAYERS}
     t = time.perf_counter()
     app, llm, _ = oai_app(dev, bf16_params)
 
@@ -5497,6 +5545,311 @@ def training_phase(dev, bf16_params, base=None, tol: float = 2e-2) -> dict:
 
 
 
+# -- phase 16: the native executor slot, Engine(backend="pjrt") ------------------
+
+# config #3's served batch and a request alone (a native engine compiles one
+# package an input shape, ~1 minute each for BERT-base on the card); config
+# #2 keeps every bucket of its example
+NATIVE_BERT_BUCKETS = (1, 32)
+# f32 logits of the MNIST MLP, native against the graphed eager ops, as a
+# fraction of the range: Inductor fuses and orders the sums its own way
+NATIVE_MNIST_TOL = 1e-3
+# the child compiles beside phases 1-15; phase 16 waits for it at most this
+NATIVE_CHILD_LIMIT_S = 600
+
+
+def native_models(dev) -> dict:
+    """Phase 16's models at full width, random weights from seed 0, each
+    with its engine config and example inputs: the MNIST MLP 784-512-512-10
+    at f32 (phase 12's bf16 draw widened) and BERT-base at bf16 at
+    ``MAX_LEN``."""
+    from gofr_tpu_torch.examples import bert_server
+    from gofr_tpu_torch.ml.engine import EngineConfig
+    from gofr_tpu_torch.models import bert, mlp
+
+    mnist = mlp.mnist_mlp(device=dev)
+    mnist.params = [{k: v.float() for k, v in layer.items()}
+                    for layer in mnist.params]
+    example = (np.zeros((1, bert_server.MAX_LEN), np.int32),
+               np.full((1,), 1, np.int32))
+    return {"mnist": (mnist, EngineConfig(), mnist.example_inputs),
+            "bert": (bert.Bert(bert.bert_base(), device=dev),
+                     EngineConfig(batch_buckets=NATIVE_BERT_BUCKETS),
+                     example)}
+
+
+def native_engines(dev, models: dict, backend: str) -> dict:
+    """An engine of ``backend`` a model, every bucket warmed up (a native
+    engine compiles or loads one package a bucket), and its seconds."""
+    from gofr_tpu_torch.ml.engine import Engine
+
+    out = {}
+    for name, (model, config, example) in models.items():
+        t0 = time.perf_counter()
+        engine = Engine(name, model.apply, model.params, config=config,
+                        example_inputs=example, backend=backend, device=dev)
+        engine.warmup_buckets()
+        out[name] = (engine, time.perf_counter() - t0)
+    return out
+
+
+def native_child(path: str) -> int:
+    """16(a), in a child process (``--native-child PATH``) that the script
+    starts before phase 1, at a lower priority, so that its compiles run
+    beside phases 1-15: the native executor's selftest on the card, then
+    every package phase 16 serves, compiled into the disk cache by native
+    engines of its models at every bucket. Writes the results to PATH."""
+    import ctypes
+    import os
+    import signal
+
+    import gofr_tpu_torch
+    from gofr_tpu_torch import native
+    from gofr_tpu_torch.native import aoti_selftest
+
+    # the child ends with the script, however the script ends
+    ctypes.CDLL("libc.so.6", use_errno=True).prctl(1, signal.SIGKILL)
+    os.nice(19)  # the phases' threads first
+    native.start_builds()
+    dev = gofr_tpu_torch.resolve_device()
+    t0 = time.perf_counter()
+    res: dict = {"selftest": aoti_selftest.run(dev)}
+    res["selftest_s"] = time.perf_counter() - t0
+    for name, (engine, wall) in native_engines(dev, native_models(dev),
+                                               "pjrt").items():
+        res[name] = {"wall_s": wall, "stats": dict(engine._pjrt.stats),
+                     "programs": engine.programs.snapshot()}
+        engine.close()
+    res["wall_s"] = time.perf_counter() - t0
+    with open(path + ".tmp", "w") as f:
+        json.dump(res, f)
+    os.replace(path + ".tmp", path)
+    return 0
+
+
+def start_native_child() -> tuple:
+    """Start ``native_child`` (one compile thread: Inductor then starts no
+    worker pool) with its log and result in a directory of its own."""
+    import os
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="gofr_native_")
+    path = os.path.join(work, "native_child.json")
+    log = open(os.path.join(work, "native_child.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, __file__, "--native-child", path], stdout=log,
+        stderr=subprocess.STDOUT,
+        env={**os.environ, "TORCHINDUCTOR_COMPILE_THREADS": "1"})
+    return proc, path, log, work
+
+
+def native_child_result(child: tuple) -> dict:
+    """Wait for the child (``NATIVE_CHILD_LIMIT_S`` at most) and read what
+    it compiled; the selftest must hold on the card."""
+    import os
+    import shutil
+
+    proc, path, log, work = child
+    t0 = time.perf_counter()
+    try:
+        rc = proc.wait(timeout=NATIVE_CHILD_LIMIT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = None
+    log.close()
+    with open(log.name) as f:
+        tail = f.read()[-3000:]
+    ok = rc == 0 and os.path.exists(path)
+    built = None
+    if ok:
+        with open(path) as f:
+            built = json.load(f)
+    shutil.rmtree(work, ignore_errors=True)
+    check(ok, f"native: the compile child exited {rc}:\n{tail}")
+    built["waited_s"] = time.perf_counter() - t0
+    st = built["selftest"]
+    check(st["ok"] and st["platform"] == "cuda",
+          f"native: the selftest failed on the card: {st}")
+    return built
+
+
+def native_tokenizer() -> dict:
+    """The BPE tokenizer's C++ core builds on this machine and gives the
+    Python path's ids, on non-ASCII text and a special."""
+    from gofr_tpu_torch.tokenizer import BPETokenizer, train_bpe
+
+    corpus = ["the quick brown fox jumps over the lazy dog",
+              "épée à la crème, 漢字かな 🙂 <eos>"] * 4
+    tok = train_bpe(corpus, vocab_size=300, specials=["<eos>"])
+    check(tok.native, "native: the C++ BPE tokenizer did not build here")
+    py = BPETokenizer(tok.vocab, tok.merges, tok.byte_map, use_native=False)
+    text = "a lazy fox at the crème: 漢字 🙂 <eos>"
+    ids = tok.encode(text)
+    check(ids == py.encode(text) and tok.decode(ids) == text,
+          "native: the C++ BPE gives other ids than the Python path")
+    return {"native": tok.native, "merges": len(tok.merges),
+            "ids": len(ids), "bytes": len(text.encode())}
+
+
+def native_buckets(name: str, native, jit, built: dict, engine12: dict,
+                   rng) -> dict:
+    """Per bucket: the native engine against the graphed one on the same
+    inputs (MNIST f32: argmax identical and ``NATIVE_MNIST_TOL`` of range;
+    BERT bf16: ``ENGINE_TOL``), the device ms of one native run and one
+    graph replay (CUDA events), phase 12's replay at that bucket, the
+    child's export and compile seconds and this process's load seconds."""
+    compiled = {r["shapes"]["inputs"][0][0]: r for r in built[name]["programs"]}
+    loaded = {r["shapes"]["inputs"][0][0]: r for r in native.programs.snapshot()}
+    phase12 = engine12[name]["models"][name]["buckets"]
+    tol = NATIVE_MNIST_TOL if name == "mnist" else ENGINE_TOL
+    out = {}
+    for key in sorted(jit.graphs, key=lambda k: k[0][0]):
+        b = key[0][0][0]
+        inputs = engine_inputs(name, key, rng)
+        got, want = native.predict_sync(*inputs), jit.predict_sync(*inputs)
+        err = range_err(got, want)
+        check(err <= tol, f"native: {name} b{b} {err:.2e} of range from the "
+              f"graphed engine (> {tol})")
+        if name == "mnist":
+            check(np.array_equal(got.argmax(1), want.argmax(1)),
+                  f"native: mnist b{b} argmax differs from the graphed engine")
+        exe, _ = native._pjrt._cache[key]
+        params = native._pjrt._param_bufs
+        xs = [torch.from_numpy(x).to(native.device) for x in inputs]
+        out[b] = {"err": err,
+                  "native_ms": timed_ms(lambda: exe.run(*params, *xs)),
+                  "graph_ms": timed_ms(jit.graphs[key][1].replay),
+                  "phase12_graph_ms": phase12.get(b, {}).get("replay_ms"),
+                  "export_s": compiled[b]["export_s"],
+                  "compile_s": compiled[b]["compile_s"],
+                  "child_cache": compiled[b]["cache"],
+                  "load_s": loaded[b]["load_s"]}
+    return out
+
+
+def native_served(arm: str, native, jit, rng) -> dict:
+    """Config #2 or #3 through its example app on the native engine
+    (``batching=True``), phase 12's traffic; every answer held against the
+    graphed engine on the same inputs."""
+    from gofr_tpu_torch.examples import bert_server, mnist_server
+
+    mount, drive = {"mnist": (mnist_server.mount, drive_mnist),
+                    "bert": (bert_server.mount, drive_bert)}[arm]
+    app, boot_s = engine_app(mount, native)
+
+    async def run():
+        await app.start()
+        try:
+            return await drive(app, rng, keep=True)
+        finally:
+            await app.shutdown()
+
+    served = asyncio.run(run())
+    served["boot_s"] = boot_s
+    if arm == "mnist":
+        images, answers = served.pop("images"), served.pop("answers")
+        logits = np.concatenate([jit.predict_sync(images[i:i + 64])
+                                 for i in range(0, len(images), 64)])
+        digits = [a["digit"] for a in answers]
+        check(digits == logits.argmax(1).tolist(),
+              "native: a served digit differs from the graphed engine's")
+        probs = np.exp(logits - logits.max(1, keepdims=True))
+        probs /= probs.sum(1, keepdims=True)
+        served["probs_max_abs_err"] = float(np.abs(
+            np.asarray([a["probs"] for a in answers]) - probs).max())
+        check(served["probs_max_abs_err"] <= NATIVE_MNIST_TOL,
+              f"native: served probabilities {served['probs_max_abs_err']} "
+              f"from the graphed engine's")
+    else:
+        rounds, embeddings = served.pop("rounds"), served.pop("embeddings")
+        errs = []
+        for ids, got in zip(rounds, embeddings):
+            rows = [bert_server._prep(x) for x in ids]
+            want = jit.predict_sync(np.stack([r[0] for r in rows]),
+                                    np.asarray([r[1] for r in rows]))
+            errs += [range_err(g, w) for g, w in zip(got, want)]
+        served["max_err"] = max(errs)
+        check(served["max_err"] <= ENGINE_TOL,
+              f"native: a served embedding {served['max_err']:.4f} of range "
+              f"from the graphed engine's (> {ENGINE_TOL})")
+    return served
+
+
+def native_phase(dev, card: str, child: tuple, engine12: dict) -> dict:
+    """Phase 16: the native executor slot. (a) the child's selftest and
+    compiles; the tokenizer's C++ core; (b) configs #2 and #3 on native
+    engines (every package a disk hit: no compile in this process), held
+    against graphed engines of the same models per bucket and through the
+    examples' fronts; (c) the seconds, device ms, served rates and busy
+    shares beside the graphed path's and phase 12's."""
+    import gc
+
+    built = native_child_result(child)
+    res: dict = {"child": {k: built[k] for k in ("selftest_s", "wall_s",
+                                                 "waited_s")},
+                 "selftest": built["selftest"],
+                 "tokenizer": native_tokenizer()}
+    models = native_models(dev)
+    natives = native_engines(dev, models, "pjrt")
+    jits = native_engines(dev, models, "jit")
+    rng = np.random.default_rng(1616)
+    for name in models:
+        native, load_s = natives[name]
+        jit, capture_s = jits[name]
+        stats = dict(native._pjrt.stats)
+        check(stats["compiles"] == 0 and all(
+            r["cache"] == "disk" for r in native.programs.snapshot()),
+            f"native: {name} compiled in the script ({stats}): the child's "
+            f"packages were not found")
+        arm = {"child_stats": built[name]["stats"],
+               "child_wall_s": built[name]["wall_s"], "stats": stats,
+               "boot_s": load_s, "graphed_boot_s": capture_s,
+               "buckets": native_buckets(name, native, jit, built, engine12,
+                                         rng)}
+        served_b = {"mnist": 64, "bert": 32}[name]
+        key = next(k for k in jit.graphs if k[0][0][0] == served_b)
+        inputs = engine_inputs(name, key, rng)
+        prof = device_profile(lambda: native.predict_sync(*inputs), 10)
+        gprof = device_profile(lambda: jit.predict_sync(*inputs), 10)
+        arm.update(served_bucket=served_b, busy_share=prof["busy_share"],
+                   execute_wall_ms=prof["wall_ms"],
+                   execute_device_ms=prof["device_ms"],
+                   top_device_ms=prof["top_device_ms"],
+                   graphed_busy_share=gprof["busy_share"],
+                   graphed_execute_wall_ms=gprof["wall_ms"])
+        arm["served"] = native_served(name, native, jit, rng)
+        jit.close()
+        sv, sv12 = arm["served"], engine12[name]["served"]
+        for b, r in arm["buckets"].items():
+            print(f"native: {name} b{b} export {r['export_s']:.2f} s + "
+                  f"compile {r['compile_s']:.2f} s (child, {r['child_cache']})"
+                  f", load {r['load_s']:.3f} s (disk); native "
+                  f"{r['native_ms']:.4f} ms, graph replay {r['graph_ms']:.4f}"
+                  f" ms, phase 12 {r['phase12_graph_ms']}; err "
+                  f"{r['err']:.2e}; {card}")
+        print(f"native: {name} served {sv['calls']} calls {sv['per_s']:.2f}/s"
+              f" p50 {sv['p50_ms']:.2f} ms p99 {sv['p99_ms']:.2f} ms "
+              f"(phase 12 graphed: {sv12['per_s']:.2f}/s p50 "
+              f"{sv12['p50_ms']:.2f} p99 {sv12['p99_ms']:.2f}); busy "
+              f"{arm['busy_share']:.3f} at b{served_b} (graphed "
+              f"{arm['graphed_busy_share']:.3f}); {card}")
+        res[name] = arm
+        del native, jit
+    st = res["selftest"]
+    print(f"native: selftest ok, export {st['export_s']:.2f} s compile "
+          f"{st['compile_s']:.2f} s load {st['load_s']:.3f} s, max err "
+          f"{st['max_abs_err']:.2e}, MNIST engines {st['mnist_max_abs_err']:.2e}"
+          f"; child {res['child']['wall_s']:.1f} s, waited "
+          f"{res['child']['waited_s']:.1f} s; tokenizer native; {card}")
+    natives.clear()
+    jits.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+
 def main(argv: list[str]) -> int:
     import pathlib
 
@@ -5516,6 +5869,10 @@ def main(argv: list[str]) -> int:
         return 1
     if "--sticky-child" in argv:
         return sticky_child()
+    if "--native-child" in argv:
+        return native_child(argv[argv.index("--native-child") + 1])
+    # phase 16's packages compile in a child beside phases 1-15
+    child = start_native_child()
     import faulthandler
 
     from gofr_tpu_torch.ops import _build
@@ -5601,6 +5958,10 @@ def main(argv: list[str]) -> int:
     train["memory_before"] = held
     done("HF import, training, checkpoints, serving the trained weights",
          train)
+    reset_launches()
+    native = native_phase(dev, card, child, engine)
+    native["launches"] = read_launches()
+    done("the native executor slot", native)
     # the training shape's flash launch joins the kernel's timed shapes
     rows[0]["by_shape"].append(train["grad_check"]["flash_row"])
     rows += spec["kernels"]
@@ -5637,6 +5998,7 @@ def main(argv: list[str]) -> int:
                       for arm in ("pool", "failover", "disagg_bf16",
                                   "disagg_int8", "elastic")},
                    "train": train["train"]["launches"][row["name"]],
+                   "native": native["launches"][row["name"]],
                    **{f"train_serve_{arm}": train["serve"][arm]["launches"][
                        row["name"]] for arm in ("checkpointer",
                                                 "checkpointer_w8", "hf")}}
@@ -5654,7 +6016,7 @@ def main(argv: list[str]) -> int:
              "paged": ppath, "graphs": graphs, "windows": windows,
              "host_tier": tier, "front": front, "resilience": res,
              "speculation": spec, "engine": engine, "openai": oai,
-             "fleet": fleet, "training": train},
+             "fleet": fleet, "training": train, "native": native},
             indent=1))
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -484,12 +484,17 @@ class MLDatasource:
 
     def programs_snapshot(self, cost: bool = True) -> dict:
         """The ``/debug/programs`` body: each model's programs (engine
-        graphs by batch; decode graphs and prefill buckets) with their
+        graphs by batch, or a native engine's ``pjrt/…`` packages with its
+        ``pjrt`` stats; decode graphs and prefill buckets) with their
         totals, and the device memory."""
         out: dict[str, Any] = {"models": {}, "hbm": self.hbm_snapshot()}
         for name, log in self._program_logs():
-            out["models"][name] = {"totals": log.totals(),
-                                   "entries": log.snapshot(cost=cost)}
+            row = {"totals": log.totals(), "entries": log.snapshot(cost=cost)}
+            engine = self._engines.get(name)
+            pjrt = getattr(engine, "_pjrt", None)
+            if pjrt is not None and engine.programs is log:
+                row["pjrt"] = dict(pjrt.stats)  # the native executor's
+            out["models"][name] = row
         return out
 
     def serving_snapshot(self) -> dict:

@@ -25,9 +25,16 @@ does.
 - Each execute opens the ``ml.device_step`` span (``ml.model``,
   ``ml.backend``, ``ml.batch``); ``app_tpu_step_seconds{model}`` counts
   successful steps only (JAX's series name, kept for the dashboards).
-- ``backend="pjrt"`` (the native executor slot) raises naming ROADMAP
-  A.15, an ``out_sharding`` naming A.11; any other backend raises JAX's
-  ``ValueError``.
+- ``backend="pjrt"`` (the native executor slot, JAX's PJRT C binding)
+  runs the apply through the port's own native executor instead
+  (``ml/pjrt_backend.py``: an AOTInductor package per input shape, loaded
+  and run by the port's C++ binding without the GIL), on the same executor
+  thread; it captures no CUDA graph and writes ``pjrt/…`` rows in place of
+  ``apply/b{B}``. There is no fallback: a binding that does not build, an
+  export or compile that fails, or a package for another device raises in
+  the caller's future. ``plugin_path`` raises (the port has no plugin).
+- An ``out_sharding`` raises naming ROADMAP A.11; any other backend raises
+  JAX's ``ValueError``.
 """
 
 from __future__ import annotations
@@ -125,11 +132,7 @@ class Engine:
     ) -> None:
         from .. import resolve_device
 
-        if backend == "pjrt":
-            raise NotImplementedError(
-                f"engine {name}: backend='pjrt' (the native executor slot) "
-                f"is not ported yet (ROADMAP A.15)")
-        if backend != "jit":
+        if backend not in ("jit", "pjrt"):
             raise ValueError(f"unknown engine backend {backend!r}")
         if out_sharding is not None:
             raise NotImplementedError(
@@ -155,7 +158,17 @@ class Engine:
         # a card only
         self.graphs: dict[tuple, tuple] = {}
         self._shapes: set[tuple] = set()
-        if self.device.type == "cuda":
+        self._pjrt = None
+        if backend == "pjrt":
+            # the native path: the executor holds the params as the
+            # program's leading inputs and writes its own pjrt/… rows
+            from .pjrt_backend import PjrtExecutor
+
+            self._pjrt = PjrtExecutor(apply_fn, self.params,
+                                      device=self.device,
+                                      plugin_path=plugin_path,
+                                      programs=self.programs)
+        elif self.device.type == "cuda":
             self._pool = torch.cuda.graph_pool_handle()
             self._stream = torch.cuda.Stream(self.device)
         self._work: queue.Queue = queue.Queue()
@@ -217,8 +230,11 @@ class Engine:
         return entry
 
     def _run(self, key: tuple, arrays: list) -> Any:
-        """One execute: a graph replay on a card (captured on first use of
-        the shape), an eager run on the CPU."""
+        """One execute: the native executor's run (``backend="pjrt"``), a
+        graph replay on a card (captured on first use of the shape), an
+        eager run on the CPU."""
+        if self._pjrt is not None:
+            return self._pjrt(*arrays)
         if self.device.type != "cuda":
             return self.apply_fn(self.params, *arrays)
         entry = self.graphs.get(key)
@@ -264,7 +280,9 @@ class Engine:
         dur = time.perf_counter() - start
         if new_shape:
             self._shapes.add(key)
-            if batch is not None:
+            # the native path records its own pjrt/… rows: an apply/bN row
+            # as well would count every compile second twice
+            if batch is not None and self._pjrt is None:
                 extra = {}
                 if key in self.graphs:
                     extra["pool_bytes"] = self.graphs[key][3]
@@ -335,9 +353,15 @@ class Engine:
                 "bytes_limit": int(total)}
 
     def close(self) -> None:
-        """Stop the executor thread after the queued work; the graphs are
-        dropped once it has stopped."""
+        """Stop the executor thread after the queued work; the graphs, or
+        the native executables and params, are freed once it has stopped.
+        A thread still busy (a slow compile, a stalled device) keeps them:
+        freeing a package under a run would be a use after free, so they
+        leak instead, as JAX's engine leaks its client."""
         self._work.put(None)
         self._thread.join(timeout=5)
-        if not self._thread.is_alive():
-            self.graphs.clear()
+        if self._thread.is_alive():
+            return
+        self.graphs.clear()
+        if self._pjrt is not None:
+            self._pjrt.close()

@@ -9,8 +9,10 @@ first run at ``warmup``); on the CPU the decode shapes are eager too. A
 row holds the shapes, the capture (or first-use) seconds, the graph pool
 bytes the capture added (graphs only), and FLOPs and bytes from the
 model's own count (``model_cost``) where JAX's rows take them from XLA.
-There is no compiler cache in the port: ``cache`` reads ``"none"`` and
-``cache_hits`` stays 0.
+A native engine's row (``backend="pjrt"``, ``ml/pjrt_backend.py``) is one
+AOTInductor package, kind ``pjrt_native``; its ``cache`` reads ``"disk"``
+when the package was loaded rather than compiled, and ``cache_hits``
+counts those rows. Every other row's ``cache`` reads ``"none"``.
 
 Aggregates export as ``app_ml_programs`` and
 ``app_ml_compile_seconds_total`` (the datasource's sampler publishes the
@@ -101,4 +103,5 @@ class ProgramLog:
             return {"programs": len(self._entries),
                     "compile_s": round(self.compile_s_total, 6),
                     "backend_compile_s": 0.0,
-                    "cache_hits": 0}
+                    "cache_hits": sum(r["cache"] == "disk"
+                                      for r in self._entries.values())}

@@ -276,9 +276,18 @@ def test_backends_raise_as_jax_does():
         Engine("m", lambda p, x: x, np.float32(1.0), backend="xla",
                device="cpu")
     assert str(terr.value) == str(jerr.value)
-    with pytest.raises(NotImplementedError, match="A.15"):
-        Engine("m", lambda p, x: x, np.float32(1.0), backend="pjrt",
-               device="cpu")
+    # the native slot builds and runs (tests/test_torch_pjrt.py holds it
+    # against JAX's jit engine)
+    native = Engine("m", lambda p, x: x * p, np.float32(2.0), backend="pjrt",
+                    device="cpu")
+    try:
+        x = np.arange(6, dtype=np.float32).reshape(2, 3)
+        assert np.array_equal(native.predict_sync(x), 2 * x)
+        assert native.backend == "pjrt"
+        assert [r["kind"] for r in native.programs.snapshot()] == \
+            ["pjrt_native"]
+    finally:
+        native.close()
     with pytest.raises(NotImplementedError, match="A.11"):
         Engine("m", lambda p, x: x, np.float32(1.0), out_sharding=object(),
                device="cpu")

@@ -381,7 +381,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
                 "ml/replay.py", "ml/tune.py", "ml/replica.py",
                 "ml/kv_transport.py", "ml/multihost.py", "ml/train.py",
                 "ml/optim.py", "ml/checkpoint.py", "ml/data.py",
-                "ml/hf_import.py"):
+                "ml/hf_import.py", "ml/pjrt_backend.py", "native/__init__.py",
+                "native/aoti.py", "native/aoti_selftest.py"):
         assert f"gofr_tpu_torch/{new}" in scanned
     for path in files:
         for name in _imports(path):
@@ -389,6 +390,14 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
             assert top not in ("jax", "jaxlib", "gofr_tpu", "flax", "optax",
                                "orbax", "safetensors", "ml_dtypes"), \
                 f"{path.relative_to(ROOT)} imports {name}"
+    # the native sources include no XLA or PJRT header
+    sources = sorted((ROOT / "gofr_tpu_torch" / "native").glob("*.cpp"))
+    assert {p.name for p in sources} >= {"aoti_shim.cpp", "bpe.cpp"}
+    for path in sources:
+        for line in path.read_text().splitlines():
+            if line.startswith("#include"):
+                assert "xla/" not in line and "pjrt" not in line.lower(), \
+                    f"{path.name}: {line}"
 
 
 def test_importing_the_port_loads_no_jax():
@@ -409,7 +418,9 @@ def test_importing_the_port_loads_no_jax():
             "gofr_tpu_torch.ml.kv_transport, gofr_tpu_torch.ml.multihost, "
             "gofr_tpu_torch.ml.train, gofr_tpu_torch.ml.optim, "
             "gofr_tpu_torch.ml.checkpoint, gofr_tpu_torch.ml.data, "
-            "gofr_tpu_torch.ml.hf_import; "
+            "gofr_tpu_torch.ml.hf_import, gofr_tpu_torch.ml.pjrt_backend, "
+            "gofr_tpu_torch.native.aoti, gofr_tpu_torch.native.aoti_selftest, "
+            "gofr_tpu_torch.tokenizer; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'gofr_tpu', 'optax', 'orbax', 'safetensors', "
             "'ml_dtypes')]; print(bad); "
