@@ -293,6 +293,36 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    native run and one graph replay (CUDA events) beside phase 12's
    replay; calls/s, p50 / p99 beside phase 12's; the busy share of a
    served execute.
+17. the cross-host fleet, last: (a) federation: two hosts ``a`` and
+   ``b`` in this process on 127.0.0.1, each the example app booted with
+   ``register_llm(federation=FederationConfig(...))`` over a paged
+   ``LLMServer`` of phase 14's shape (8 slots, 513 pages of 16, bf16, a 1
+   GiB host tier) on phase 3's weights at full depth, shared: b promotes
+   a 1536-token prefix; 8 gRPC requests to a extending it route to b by
+   its gossiped digest (``app_llm_fed_remote_routed_total``, checked);
+   a partition injected at ``peer_partition`` falls back locally within
+   the same call; b closed with 8 streams in flight and 3 queued: the 8
+   raise ``GeneratorCrashed``, the 3 finish on a (charged
+   ``federation_recompute``), health reads ``degraded``; every routed,
+   partitioned and queued stream equals a's single-host output or
+   differs on a near-tie; b rejoins on its address and a ``leave()``
+   migrates a's hot subtrees to it (ships == adoptions, no failure).
+   Measured: TTFT routed against a's cold prompt and a's prefix hit, the
+   kill to the first local token, the migration's bytes and ms. (b) the
+   serving mesh: two ``MultiHostWorker`` ranks in child processes
+   (``--mesh-child``; started before (a), which waits for them before its
+   traffic) on ``cuda:0`` over gloo, 8 slots each, at full depth when two
+   more weight copies fit beside this process (else 16 layers; the
+   reckoning is printed), this script the front end through
+   ``MultiHostLLMClient``: 16 concurrent prompts of 64-512 tokens and
+   one of 900 (past ``prefill_chunk`` 256), 64 new tokens each, against
+   an in-process ``Generator`` over the same seed-0 weights (near-tie
+   check); each rank's flash and bf16 decode launches (from its
+   ``MESH_RANK`` lines); rank 1 killed mid-stream: every stream ends in
+   a typed error inside ``MESH_KILL_BOUND_S`` and rank 0 exits non-zero.
+   Measured: each rank's boot, tok/s and TTFT (two ranks share the card:
+   not a throughput figure), rank 0's ms a gather (its wait for the
+   other rank included), the kill to the last error.
 
 Measurements under ``torch.profiler`` hold the flight recorder's
 ``PROFILE_LOCK``, so an auto-profiler capture never overlaps one.
@@ -5850,12 +5880,595 @@ def native_phase(dev, card: str, child: tuple, engine12: dict) -> dict:
 
 
 
+# -- phase 17: the cross-host fleet: federation and the serving mesh ---------------
+
+FED_GOSSIP_S = 0.25
+FED_HOST_TIER_MB = "1024"   # the leave's migration lands in a host tier
+FED_INFLIGHT_NEW = 256      # the kill wave: streams in flight ...
+FED_QUEUED = 3              # ... and requests queued behind them on b
+MESH_SLOTS = 16             # 8 a rank
+MESH_MAX_SEQ = 2048
+MESH_BUCKETS = (128, 512, 1024)
+MESH_PREFILL_CHUNK = 256
+MESH_MAX_NEW = 64
+MESH_KILL_BOUND_S = 30.0    # a rank kill ends every stream inside this
+MESH_BOOT_LIMIT_S = 240.0
+
+
+def fed_config(host: str, port: int, peer: str, peer_port: int):
+    """One member of the two-host fleet on 127.0.0.1. ``frame_gap_s``
+    30: streams queued behind a busy peer are not failed by the liveness
+    bound; the kill drill closes the links instead, as JAX's test does."""
+    from gofr_tpu_torch.ml.federation import FederationConfig
+
+    return FederationConfig(host, ("127.0.0.1", port),
+                            {peer: ("127.0.0.1", peer_port)},
+                            gossip_s=FED_GOSSIP_S, suspect_beats=2,
+                            dead_beats=4, frame_gap_s=30.0)
+
+
+async def first_burst_s(agen_fn):
+    """Run ``agen_fn()`` (a stream of bursts) to its end. Returns (tokens,
+    seconds to the first burst)."""
+    t0 = time.perf_counter()
+    first = None
+    out: list = []
+    async for burst in agen_fn():
+        if first is None:
+            first = time.perf_counter() - t0
+        out.extend(burst)
+    return out, first
+
+
+async def wait_until(pred, limit_s: float, what: str) -> float:
+    t0 = time.perf_counter()
+    while not pred():
+        check(time.perf_counter() - t0 < limit_s, f"{what} within "
+              f"{limit_s} s")
+        await asyncio.sleep(0.02)
+    return time.perf_counter() - t0
+
+
+def fed_phase(dev, params, preset: str = "8b", before_traffic=None) -> dict:
+    """17(a): two federated hosts ``a`` and ``b`` in this process on
+    127.0.0.1, each the example app booted with ``register_llm(federation=
+    ...)`` over a paged ``LLMServer`` of phase 14's shape on the same
+    weights. A prefix promoted on b routes a's requests to b by digest; a
+    partition falls back locally on the same call; b killed mid-stream
+    crashes the streams in flight and completes the queued ones on a; a
+    rejoined b takes a's hot subtree when a leaves."""
+    from gofr_tpu_torch.ml.errors import GeneratorCrashed
+    from gofr_tpu_torch.ml.federation import FederatedPool
+    from gofr_tpu_torch.ml.goodput import goodput_ledger
+
+    pa, pb = free_port(), free_port()
+    env = {"GOFR_ML_KV_HOST_BUDGET_MB": FED_HOST_TIER_MB}
+    app_a, cfg, boot_a = fleet_app(dev, params, preset, mount_kw={
+        "federation": fed_config("a", pa, "b", pb)}, **env)
+    app_b, _, boot_b = fleet_app(dev, params, preset, mount_kw={
+        "federation": fed_config("b", pb, "a", pa)}, **env)
+    fed_a = app_a.container.ml.llm("chat")
+    fed_b = app_b.container.ml.llm("chat")
+    check(isinstance(fed_a, FederatedPool) and isinstance(fed_b, FederatedPool)
+          and fed_a.local.gen.params is fed_b.local.gen.params is params,
+          "fed: the hosts are not federated fronts over the shared weights")
+    rng = np.random.default_rng(1717)
+    vocab = cfg.vocab_size
+
+    def draw(n):
+        return rng.integers(0, vocab, n).tolist()
+
+    warm, own, cold = draw(SHARED_LEN), draw(SHARED_LEN), draw(1600)
+    tails = [draw(64) for _ in range(8 + 2 + 8 + FED_QUEUED)]
+    res: dict = {"boot_s": [boot_a, boot_b]}
+    if before_traffic is not None:
+        res["waited_for_mesh_s"] = before_traffic()
+
+    async def drive():
+        await app_a.start()
+        await app_b.start()
+        try:
+            async with FrontClients(app_a) as c:
+                out = await fed_drive(c, fed_a, fed_b)
+            out["leave"] = await fed_leave(dev, params, preset, fed_a, pa, pb,
+                                           env)
+            return out
+        finally:
+            await app_a.shutdown()
+            await app_b.shutdown()
+
+    async def fed_drive(c, fed_a, fed_b):
+        body = {"max_new_tokens": FLEET_MAX_NEW}
+        # b promotes a 1536-token prefix (its second hit); the digest
+        # row covers the registered run, which the routed prompts extend
+        for _ in range(2):
+            await fed_b.generate(warm, 4)
+        reg = []
+
+        def registered():
+            rows = fed_b.local.prefix_cache.hot_prefixes(16)
+            reg[:] = [int(t) for t in rows[0]["ids"]] if rows else []
+            return bool(reg)
+
+        await wait_until(registered, 10, "fed: b's prefix registered")
+        peer = fed_a._peers["b"]
+        await wait_until(lambda: peer.state == "up" and peer.warm and any(
+            n == len(reg) for n, _ in peer.digests), 10,
+            "fed: a saw b's digest")
+        # local TTFT on a: a cold 1600-token prompt
+        cold_rec = await c.grpc({**body, "prompt_ids": cold})
+        check(cold_rec["status"] == "OK", "fed: a's cold prompt failed")
+        # 8 requests to a over gRPC extending b's run: routed by digest
+        routed_p = [reg + t for t in tails[:8]]
+        m0 = await c.metrics()
+        recs, launches = await counted(asyncio.gather(
+            *(c.grpc({**body, "prompt_ids": p}) for p in routed_p)))
+        m1 = await c.metrics()
+        for r in recs:
+            check(r["status"] == "OK" and len(r["tokens"]) == FLEET_MAX_NEW,
+                  f"fed: a routed call answered {r['status']}")
+        routed_metric = sum(
+            v - m0.get(k, 0) for k, v in m1.items()
+            if k.startswith("app_llm_fed_remote_routed_total")
+            and 'host="b"' in k)
+        check(fed_a.remote_routed == 8 and routed_metric == 8
+              and fed_b.remote_served == 8,
+              f"fed: routed {fed_a.remote_routed}, metric {routed_metric}, "
+              f"served on b {fed_b.remote_served} (want 8)")
+        check_fleet_launches("federation", launches, dev, False)
+        # a partition at peer_partition: the routed call falls back on the
+        # SAME call, locally
+
+        def partition(point):
+            if point == "peer_partition":
+                raise RuntimeError("injected partition")
+
+        fail0 = fed_a.remote_failovers
+        fed_a._fault = partition
+        try:
+            part_p = reg + tails[8]
+            part = await fed_a.generate(part_p, FLEET_MAX_NEW)
+        finally:
+            fed_a._fault = None
+        check(len(part) == FLEET_MAX_NEW
+              and fed_a.remote_failovers == fail0 + 1
+              and fed_a.remote_routed == 9,
+              "fed: the partitioned call did not fall back locally")
+        # a local prefix hit on a: its own prefix, promoted, then hit
+        for _ in range(2):
+            await fed_a.generate(own, 4)
+        hit_rec = await c.grpc({**body, "prompt_ids": own + tails[9][:64]})
+        check(hit_rec["status"] == "OK", "fed: a's prefix hit failed")
+        await wait_until(lambda: peer.state == "up", 10,
+                         "fed: b back up after the partition")
+        # the kill: 8 streams in flight on b, FED_QUEUED queued behind
+        # them, then b closed mid-stream
+        led = goodput_ledger()
+        waste0 = led.snapshot_model("chat")["wasted"].get(
+            "federation_recompute", 0) if led is not None else 0
+        fail0 = fed_a.remote_failovers
+        started = [asyncio.get_running_loop().create_future()
+                   for _ in range(8)]
+
+        async def inflight(i, p):
+            got = []
+            try:
+                async for burst in fed_a.stream_chunks(p, FED_INFLIGHT_NEW):
+                    got.extend(burst)
+                    if not started[i].done():
+                        started[i].set_result(None)
+            except GeneratorCrashed as exc:
+                return got, type(exc).__name__
+            return got, None
+
+        fly_p = [reg + t for t in tails[10:18]]
+        queued_p = [reg + t for t in tails[18:18 + FED_QUEUED]]
+        fly = [asyncio.create_task(inflight(i, p))
+               for i, p in enumerate(fly_p)]
+        await asyncio.wait_for(asyncio.gather(*started), 120)
+        first_tok: dict = {}
+
+        async def queued(i, p):
+            out = []
+            async for burst in fed_a.stream_chunks(p, FLEET_MAX_NEW):
+                first_tok.setdefault(i, time.perf_counter())
+                out.extend(burst)
+            return out
+
+        q = [asyncio.create_task(queued(i, p))
+             for i, p in enumerate(queued_p)]
+        await wait_until(lambda: fed_a.remote_routed == 9 + 8 + FED_QUEUED
+                         and fed_b.remote_served == 8 + 8 + FED_QUEUED, 10,
+                         "fed: the kill wave routed to b")
+        await asyncio.sleep(0.2)  # the queued gen frames land on b
+        check(not first_tok, "fed: a queued request yielded before the "
+              "kill (b was not full)")
+        t_kill = time.perf_counter()
+        await asyncio.to_thread(fed_b.close)
+        close_s = time.perf_counter() - t_kill
+        fly_res = await asyncio.wait_for(asyncio.gather(*fly), 60)
+        q_out = await asyncio.wait_for(asyncio.gather(*q), 120)
+        check(all(err == "GeneratorCrashed" and 0 < len(got) < FED_INFLIGHT_NEW
+                  for got, err in fly_res),
+              f"fed: a stream in flight did not crash typed "
+              f"({[(len(g), e) for g, e in fly_res]})")
+        check(all(len(o) == FLEET_MAX_NEW for o in q_out)
+              and fed_a.remote_failovers == fail0 + FED_QUEUED,
+              f"fed: the queued requests did not complete on a "
+              f"(failovers {fed_a.remote_failovers - fail0})")
+        kill_to_first = [first_tok[i] - t_kill for i in sorted(first_tok)]
+        waste = (led.snapshot_model("chat")["wasted"].get(
+            "federation_recompute", 0) - waste0) if led is not None else None
+        check(waste == sum(len(p) for p in queued_p),
+              f"fed: federation_recompute {waste}, want "
+              f"{sum(len(p) for p in queued_p)}")
+        await wait_until(lambda: fed_a.health() == "degraded", 10,
+                         "fed: a degraded after the kill")
+        await wait_until(lambda: peer.state == "dead", 10,
+                         "fed: b declared dead")
+        dead_s = time.perf_counter() - t_kill
+        health = fed_a.health_check()
+        # a's single-host output of every routed, partitioned and queued
+        # prompt, on a's own server
+        ref_p = routed_p + [part_p] + queued_p
+        ref = [await fed_a.local.generate(p, FLEET_MAX_NEW) for p in ref_p]
+        got = [r["tokens"] for r in recs] + [part] + list(q_out)
+        return {
+            "registered_tokens": len(reg), "launches": launches,
+            "routed_metric": routed_metric,
+            "ttft_ms": {"remote_p50": pct([r["ttft_s"] * 1e3 for r in recs],
+                                          50),
+                        "remote_max": max(r["ttft_s"] for r in recs) * 1e3,
+                        "local_cold": cold_rec["ttft_s"] * 1e3,
+                        "local_prefix_hit": hit_rec["ttft_s"] * 1e3},
+            "kill": {"in_flight": len(fly_res), "queued": FED_QUEUED,
+                     "tokens_before_crash": [len(g) for g, _ in fly_res],
+                     "kill_to_first_local_token_ms": [
+                         s * 1e3 for s in kill_to_first],
+                     "federation_recompute": waste,
+                     "declared_dead_after_s": dead_s,
+                     "close_s": close_s,
+                     "health": health["status"]},
+            "vs_single_host": stream_agreement(
+                "federation", params, cfg, ref_p, got, ref),
+        }
+
+    res.update(asyncio.run(drive()))
+    import gc
+
+    del app_a, app_b, fed_a, fed_b
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    return res
+
+
+async def fed_leave(dev, params, preset, fed_a, pa: int, pb: int,
+                    env) -> dict:
+    """b rejoins (a fresh host on the same address and weights); then a
+    leaves: its hot subtrees migrate to b over ``migrate_bytes`` frames
+    and the fleet ledger balances (a's ships == b's adoptions + both
+    sides' failures)."""
+    app_b2, _, boot_b2 = await asyncio.to_thread(
+        fleet_app, dev, params, preset,
+        mount_kw={"federation": fed_config("b", pb, "a", pa)}, **env)
+    fed_b2 = app_b2.container.ml.llm("chat")
+    try:
+        heal_s = await wait_until(
+            lambda: fed_a.health() == "serving"
+            and fed_a._routable(fed_a._peers["b"]), 20,
+            "fed: the fleet healed (b up and warm) after b rejoined")
+        t0 = time.perf_counter()
+        tally = await asyncio.to_thread(fed_a.leave)
+        leave_ms = (time.perf_counter() - t0) * 1e3
+        check(tally.get("target") == "b" and tally["migrated"] >= 1
+              and tally["lost_frames"] == 0, f"fed: leave {tally}")
+        ships = fed_a._transport.migrations["ships"]
+
+        def balanced():
+            a, b = fed_a._transport.migrations, fed_b2._transport.migrations
+            return a["ships"] == b["adoptions"] + b["failures"] + a["failures"]
+
+        land_s = await wait_until(balanced, 30, "fed: the ledger balanced")
+        await wait_until(lambda: fed_b2._peers["a"].state == "left", 10,
+                         "fed: b saw a leave")
+        b = fed_b2._transport.migrations
+        check(b["adoptions"] == ships and b["failures"] == 0,
+              f"fed: b adopted {b['adoptions']} of {ships}")
+        return {"boot_s": boot_b2, "heal_s": heal_s, "tally": tally,
+                "leave_ms": leave_ms, "balanced_after_s": land_s,
+                "bytes": fed_a._transport.migrations["bytes"],
+                "a": dict(fed_a._transport.migrations), "b": dict(b)}
+    finally:
+        await asyncio.to_thread(fed_b2.close)
+
+
+def mesh_child(argv: list[str]) -> int:
+    """17(b), one rank of the serving mesh in a child process
+    (``--mesh-child RANK WORLD COORD PORT PRESET LAYERS DEVICE``): the
+    port's ``MultiHostWorker`` on the preset's model (Llama-3-8B: its
+    first LAYERS layers, random weights from seed 0). After ``setup``
+    the launch counts are set to 0; a thread prints the rank's counts and
+    stats on a ``MESH_RANK`` line whenever they change, so what a killed
+    rank did stays readable."""
+    import ctypes
+    import signal
+    import threading
+
+    from gofr_tpu_torch.ml.multihost import MultiHostWorker
+
+    ctypes.CDLL("libc.so.6", use_errno=True).prctl(1, signal.SIGKILL)
+    rank, world, coord, port, preset, layers, device = argv[:7]
+    rank, world = int(rank), int(world)
+    cfg = mesh_cfg(preset, int(layers))
+    w = MultiHostWorker(
+        rank, world, coord, port=int(port) if rank == 0 else 0, cfg=cfg,
+        seed=0, batch_slots=MESH_SLOTS, max_seq=MESH_MAX_SEQ,
+        prefill_buckets=MESH_BUCKETS, chunk=4,
+        prefill_chunk=MESH_PREFILL_CHUNK, heartbeat_s=2.0,
+        device=None if device == "cuda" else device)
+    t0 = time.perf_counter()
+    w.setup()
+    boot_s = time.perf_counter() - t0
+    reset_launches()
+    stop = threading.Event()
+
+    def line() -> str:
+        return "MESH_RANK " + json.dumps({
+            "rank": rank, "boot_s": boot_s, "device": str(w.device),
+            "launches": read_launches(), "stats": dict(w.stats)})
+
+    def report():
+        last = None
+        while not stop.wait(0.25):
+            now = line()
+            if now != last:
+                print(now, flush=True)
+                last = now
+
+    threading.Thread(target=report, daemon=True).start()
+    try:
+        w.serve()
+    finally:
+        stop.set()
+        print(line(), flush=True)
+    return 0
+
+
+def mesh_cfg(preset: str, layers: int):
+    """The model of the mesh's ranks: the preset's config (``fleet_app``'s
+    vocabulary for ``tiny``) at ``layers`` layers."""
+    from gofr_tpu_torch.models import llama
+
+    with knobs(LLAMA_PRESET=preset):
+        cfg = llama.config_from_env(tiny_vocab_size=257)
+    cfg.n_layers = layers
+    return cfg
+
+
+def start_mesh(dev, layers: int, preset: str = "8b") -> dict:
+    """Start the two ranks of 17(b), rank 0's model port and the
+    coordinator on 127.0.0.1, both on ``dev``'s card."""
+    import os
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="gofr_mesh_")
+    coord = f"127.0.0.1:{free_port()}"
+    port = free_port()
+    logs, procs = [], []
+    t0 = time.perf_counter()
+    for rank in range(2):
+        log = open(os.path.join(work, f"rank{rank}.log"), "w+")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, __file__, "--mesh-child", str(rank), "2", coord,
+             str(port), preset, str(layers), dev.type],
+            stdout=log, stderr=subprocess.STDOUT,
+            env={**os.environ, "OMP_NUM_THREADS": "2"}))
+    return {"procs": procs, "logs": logs, "port": port, "layers": layers,
+            "work": work, "t0": t0}
+
+
+def mesh_log(mesh: dict, rank: int) -> str:
+    log = mesh["logs"][rank]
+    log.flush()
+    with open(log.name) as f:
+        return f.read()
+
+
+def mesh_rank_line(mesh: dict, rank: int) -> dict | None:
+    """The newest ``MESH_RANK`` line of a rank."""
+    lines = [ln for ln in mesh_log(mesh, rank).splitlines()
+             if ln.startswith("MESH_RANK ")]
+    return json.loads(lines[-1][len("MESH_RANK "):]) if lines else None
+
+
+def wait_mesh(mesh: dict) -> float:
+    """Block until rank 0 prints its model port (every rank has booted:
+    the serving group is made after each rank's warmup). Returns the
+    seconds waited here."""
+    t0 = time.perf_counter()
+    while "MODEL_PORT" not in mesh_log(mesh, 0):
+        dead = [i for i, p in enumerate(mesh["procs"]) if p.poll() is not None]
+        check(not dead, f"mesh: rank {dead[0] if dead else ''} died while "
+              f"booting:\n{mesh_log(mesh, dead[0])[-3000:] if dead else ''}")
+        check(time.perf_counter() - mesh["t0"] < MESH_BOOT_LIMIT_S,
+              f"mesh: no model port within {MESH_BOOT_LIMIT_S} s")
+        time.sleep(0.2)
+    mesh.setdefault("ready_s", time.perf_counter() - mesh["t0"])
+    return time.perf_counter() - t0
+
+
+def mesh_layers(dev, params) -> tuple[int, dict]:
+    """The ranks' depth: 32 layers when two more copies of the weights
+    and their caches fit beside what this process holds (and phase
+    17(a)'s two hosts), else 16."""
+    if dev.type != "cuda":
+        return n_layers(params), {}
+    free, total = torch.cuda.mem_get_info(dev)
+    weights = _nbytes(params)
+    cache = 2 * 32 * (MESH_SLOTS // 2) * MESH_MAX_SEQ * 8 * 128 * 2
+    per_rank = weights + cache + 2 * 2**30  # context, graphs, activations
+    fed = 2 * (2 * 32 * 513 * 16 * 8 * 128 * 2 + 2 * 2**30)
+    need = 2 * per_rank + fed + 4 * 2**30
+    layers = 32 if need <= free else 16
+    return layers, {"free_gb": free / 1e9, "total_gb": total / 1e9,
+                    "need_full_depth_gb": need / 1e9, "layers": layers}
+
+
+def mesh_phase(dev, params, mesh: dict, preset: str = "8b") -> dict:
+    """17(b): two ``MultiHostWorker`` ranks on one card over gloo; this
+    script is the front end through ``MultiHostLLMClient``: 16 concurrent
+    distinct prompts of 64-512 tokens and one of 900 (past
+    ``prefill_chunk``), 64 new tokens each, against an in-process
+    ``Generator`` over the same seed-0 weights; then rank 1 killed
+    mid-stream: every stream ends typed inside ``MESH_KILL_BOUND_S`` and
+    rank 0 exits."""
+    import shutil
+
+    from gofr_tpu_torch.ml.errors import GeneratorCrashed, ServerClosed
+    from gofr_tpu_torch.ml.generate import Generator
+    from gofr_tpu_torch.ml.multihost import MultiHostLLMClient
+    from gofr_tpu_torch.models import llama
+
+    layers = mesh["layers"]
+    cfg = mesh_cfg(preset, layers)
+    if layers == n_layers(params):
+        ref_params = params  # the same seed-0 draw as the ranks'
+    else:
+        ref_params = llama.params_from_config(cfg, seed=0, device=dev)
+    prompts = front_prompts(cfg.vocab_size, 16, 64, 512, seed=1718)
+    prompts.append(np.random.default_rng(1719).integers(
+        0, cfg.vocab_size, 900).tolist())
+    res: dict = {"layers": layers}
+    try:
+        wait_mesh(mesh)
+        res["ready_s"] = mesh["ready_s"]
+
+        async def drive():
+            llm = MultiHostLLMClient("127.0.0.1", mesh["port"])
+            try:
+                await llm._ensure()
+                t = time.perf_counter()
+                recs = await asyncio.gather(*(first_burst_s(
+                    lambda p=p: llm.stream_chunks(p, MESH_MAX_NEW))
+                    for p in prompts))
+                wall = time.perf_counter() - t
+                await asyncio.sleep(1.0)  # the ranks' reporters catch up
+                ranks = [mesh_rank_line(mesh, r) for r in range(2)]
+                started = asyncio.get_running_loop().create_future()
+                n_first = {"n": 0}
+
+                async def doomed(p):
+                    got = []
+                    try:
+                        async for burst in llm.stream_chunks(p, 500):
+                            if not got:
+                                n_first["n"] += 1
+                                if n_first["n"] == 4 and not started.done():
+                                    started.set_result(None)
+                            got.extend(burst)
+                    except (GeneratorCrashed, ServerClosed) as exc:
+                        return got, type(exc).__name__, time.perf_counter()
+                    return got, None, time.perf_counter()
+
+                tasks = [asyncio.create_task(doomed(p)) for p in prompts[:4]]
+                await asyncio.wait_for(started, 120)
+                t_kill = time.perf_counter()
+                mesh["procs"][1].kill()
+                doom = await asyncio.wait_for(asyncio.gather(*tasks),
+                                              MESH_KILL_BOUND_S)
+                return recs, wall, ranks, doom, t_kill
+            finally:
+                await llm.close()
+
+        recs, wall, ranks, doom, t_kill = asyncio.run(drive())
+        outs = [toks for toks, _ in recs]
+        for toks in outs:
+            check(len(toks) == MESH_MAX_NEW, f"mesh: a stream gave "
+                  f"{len(toks)} tokens, want {MESH_MAX_NEW}")
+        for got, err, _ in doom:
+            check(err in ("GeneratorCrashed", "ServerClosed")
+                  and len(got) < 500,
+                  f"mesh: a stream at the rank kill ended {err} after "
+                  f"{len(got)} tokens")
+        kill_ms = max(t for _, _, t in doom) - t_kill
+        rc0 = mesh["procs"][0].wait(timeout=60)
+        check(rc0 != 0, "mesh: rank 0 exited 0 after the rank kill")
+        launches = {k: sum(r["launches"][k] for r in ranks)
+                    for k in ranks[0]["launches"]}
+        for r in ranks:
+            check_fleet_launches(f"mesh rank {r['rank']}", r["launches"],
+                                 dev, False)
+        final0 = mesh_rank_line(mesh, 0)
+        st = final0["stats"]
+        tokens = sum(len(t) for t in outs)
+        res.update({
+            "ranks": [{"rank": r["rank"], "boot_s": r["boot_s"],
+                       "device": r["device"], "launches": r["launches"]}
+                      for r in ranks],
+            "launches": launches, "requests": len(prompts),
+            "tokens": tokens, "wall_s": wall, "tok_per_s": tokens / wall,
+            "tok_per_s_note": "two ranks share one card; not a throughput "
+                              "figure",
+            "ttft_ms": {"p50": pct([s * 1e3 for _, s in recs], 50),
+                        "p99": pct([s * 1e3 for _, s in recs], 99)},
+            "rank0": {"steps": st["steps"], "admits": st["admits"],
+                      "gathers": st["gathers"],
+                      "gather_ms_per_call": st["gather_s"] / max(
+                          1, st["gathers"]) * 1e3},
+            "kill": {"streams": len(doom), "errors": [e for _, e, _ in doom],
+                     "tokens_before": [len(g) for g, _, _ in doom],
+                     "kill_to_last_error_ms": kill_ms * 1e3,
+                     "bound_ms": MESH_KILL_BOUND_S * 1e3,
+                     "rank0_exit_code": rc0}})
+    finally:
+        for p in mesh["procs"]:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for log in mesh["logs"]:
+            log.close()
+        shutil.rmtree(mesh["work"], ignore_errors=True)
+    # the reference: one in-process Generator over the same weights
+    gen = Generator(ref_params, cfg, batch_slots=MESH_SLOTS // 2,
+                    max_seq=MESH_MAX_SEQ, prefill_buckets=MESH_BUCKETS,
+                    chunk=4, prefill_chunk=MESH_PREFILL_CHUNK, device=dev)
+    want, _, _ = serve(gen, prompts, MESH_MAX_NEW, prompts[0])
+    del gen
+    res["vs_in_process"] = stream_agreement("mesh", ref_params, cfg, prompts,
+                                            outs, want)
+    return res
+
+
+def cross_host_phase(dev, bf16_params, preset: str = "8b") -> dict:
+    """Phase 17: the mesh's ranks start first (they boot while 17(a)
+    boots its hosts), 17(a) waits for them before its traffic, then
+    17(b) drives them."""
+    layers, reckon = mesh_layers(dev, bf16_params)
+    mesh = start_mesh(dev, layers, preset)
+    try:
+        fed = fed_phase(dev, bf16_params, preset,
+                        before_traffic=lambda: wait_mesh(mesh))
+    except BaseException:
+        for p in mesh["procs"]:
+            p.kill()
+        raise
+    return {"federation": fed, "mesh": mesh_phase(dev, bf16_params, mesh,
+                                                  preset),
+            "memory": reckon}
+
+
 def main(argv: list[str]) -> int:
     import pathlib
 
     # --out DIR: also write every result to DIR/chip_smoke.json
     out_dir = (pathlib.Path(argv[argv.index("--out") + 1])
                if "--out" in argv else None)
+    if "--mesh-child" in argv:
+        # one rank of phase 17(b): on the card, or on the CPU when the
+        # phase is driven there at the tiny size; it prints no verdict
+        return mesh_child(argv[argv.index("--mesh-child") + 1:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -5962,6 +6575,33 @@ def main(argv: list[str]) -> int:
     native = native_phase(dev, card, child, engine)
     native["launches"] = read_launches()
     done("the native executor slot", native)
+    # phase 17 holds two more copies of the weights in its mesh ranks:
+    # the w8 weights (no later use) go first
+    if not held["w8_params_freed"]:
+        del w8_params
+        import gc
+
+        gc.collect()
+        torch.cuda.empty_cache()
+    cross = cross_host_phase(dev, bf16_params)
+    fed, mesh = cross["federation"], cross["mesh"]
+    print(f"17a federation: routed 8 by digest ({fed['registered_tokens']}"
+          f"-token run), remote TTFT p50 {fed['ttft_ms']['remote_p50']:.1f} "
+          f"ms against local cold {fed['ttft_ms']['local_cold']:.1f} and "
+          f"local prefix hit {fed['ttft_ms']['local_prefix_hit']:.1f}; kill "
+          f"-> first local token {fed['kill']['kill_to_first_local_token_ms']}"
+          f" ms; leave migrated {fed['leave']['tally']['migrated']} subtree(s)"
+          f", {fed['leave']['bytes']} bytes in {fed['leave']['leave_ms']:.1f}"
+          f" ms; streams equal {fed['vs_single_host']['equal_share']:.3f}; "
+          f"{card}")
+    boots = [round(r["boot_s"], 1) for r in mesh["ranks"]]
+    print(f"17b mesh: {mesh['layers']} layers, boot {boots} s, "
+          f"{mesh['tok_per_s']:.1f} tok/s (ranks share the card), TTFT p50 "
+          f"{mesh['ttft_ms']['p50']:.1f} ms, rank 0 gather "
+          f"{mesh['rank0']['gather_ms_per_call']:.3f} ms a call, kill -> "
+          f"errors {mesh['kill']['kill_to_last_error_ms']:.1f} ms; streams "
+          f"equal {mesh['vs_in_process']['equal_share']:.3f}; {card}")
+    done("the cross-host fleet: federation and the serving mesh", cross)
     # the training shape's flash launch joins the kernel's timed shapes
     rows[0]["by_shape"].append(train["grad_check"]["flash_row"])
     rows += spec["kernels"]
@@ -5999,6 +6639,8 @@ def main(argv: list[str]) -> int:
                                   "disagg_int8", "elastic")},
                    "train": train["train"]["launches"][row["name"]],
                    "native": native["launches"][row["name"]],
+                   "federation": fed["launches"][row["name"]],
+                   "mesh": mesh["launches"][row["name"]],
                    **{f"train_serve_{arm}": train["serve"][arm]["launches"][
                        row["name"]] for arm in ("checkpointer",
                                                 "checkpointer_w8", "hf")}}
@@ -6016,7 +6658,8 @@ def main(argv: list[str]) -> int:
              "paged": ppath, "graphs": graphs, "windows": windows,
              "host_tier": tier, "front": front, "resilience": res,
              "speculation": spec, "engine": engine, "openai": oai,
-             "fleet": fleet, "training": train, "native": native},
+             "fleet": fleet, "training": train, "native": native,
+             "cross_host": cross},
             indent=1))
     print(json.dumps({"kernels": rows}))
     print(card)

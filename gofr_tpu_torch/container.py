@@ -144,6 +144,16 @@ class Container:
         m.new_counter("app_llm_replica_failovers_total",
                       "requests re-admitted to a surviving replica after "
                       "their first replica crashed or died")
+        # the federated front (ml/federation.py)
+        m.new_gauge("app_llm_fed_peer_state",
+                    "per-peer membership state ordinal (0 up, 1 suspect, "
+                    "2 dead, 3 left, 4 unknown)")
+        m.new_counter("app_llm_fed_remote_routed_total",
+                      "requests routed to a federated peer by its "
+                      "gossiped prefix digests")
+        m.new_counter("app_llm_fed_remote_failovers_total",
+                      "remote attempts that failed before a token and "
+                      "were served locally")
         # the serving recorders: watchdog, flight recorder, journeys,
         # goodput ledger and the program inventory
         m.new_counter("app_ml_generator_restarts_total",

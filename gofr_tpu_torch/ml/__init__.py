@@ -26,9 +26,13 @@ decode replicas over the KV transport (``ml/kv_transport.py``).
 ``replicas.{i}`` row per core, and the sampler exports
 ``app_llm_fleet_size`` and the per-replica gauges.
 
-Not ported, and raising ``NotImplementedError`` naming their ROADMAP
-item when asked for, a profile's knob map included: federation across
-hosts (``GOFR_ML_FEDERATION``: A.14b) and sequence-parallel prefill
+``register_llm(federation=)`` / ``GOFR_ML_FEDERATION`` wraps the built
+server in a ``FederatedPool`` (``ml/federation.py``): gossip membership,
+cross-host digest routing and host-level failover over the multihost
+wire; ``/debug/serving`` then carries a ``federation`` block.
+
+Not ported, and raising ``NotImplementedError`` naming its ROADMAP item
+when asked for, a profile's knob map included: sequence-parallel prefill
 (``GOFR_ML_SP*``: A.11).
 """
 
@@ -232,11 +236,28 @@ class MLDatasource:
         ``GOFR_ML_PROFILE``) applies a tuned profile (``ml/tune.py``): its
         knob map overlays the environment for the construction only,
         with loud validation, drift warnings and a ``profile`` block in
-        ``/debug/serving``. Unset constructs nothing."""
-        if federation is not None or \
+        ``/debug/serving``. Unset constructs nothing.
+
+        ``federation=`` (a ``FederationConfig``; default
+        ``GOFR_ML_FEDERATION``) wraps the built server in a
+        ``FederatedPool`` (``ml/federation.py``). Unset constructs no
+        federation machinery: the bare server is returned."""
+        # parse the fleet map BEFORE building the server: a typo'd
+        # GOFR_ML_FEDERATION fails the boot without leaking a live
+        # serving thread it would never mount
+        fed_cfg = federation
+        if fed_cfg is None and \
                 os.environ.get("GOFR_ML_FEDERATION", "").strip():
-            raise _not_ported(name, "federation (GOFR_ML_FEDERATION)",
-                              "A.14b")
+            from .federation import federation_from_env
+
+            fed_cfg = federation_from_env()
+        if fed_cfg is not None:
+            from .federation import FederationConfig
+
+            if not isinstance(fed_cfg, FederationConfig):
+                raise TypeError(
+                    f"llm {name}: federation= must be a FederationConfig, "
+                    f"got {type(fed_cfg).__name__}")
         prof = profile
         if prof is None and os.environ.get("GOFR_ML_PROFILE", "").strip():
             prof = os.environ["GOFR_ML_PROFILE"].strip()
@@ -265,6 +286,19 @@ class MLDatasource:
                 "knobs": dict(prof["knobs"]),
                 "warnings": warnings,
             }
+        if fed_cfg is not None:
+            from .federation import FederatedPool
+
+            server = FederatedPool(server, fed_cfg, name=name,
+                                   logger=self._logger,
+                                   metrics=self._metrics,
+                                   tracer=self._tracer)
+            if self._logger is not None:
+                self._logger.infof(
+                    "llm %s federated: host %s listening on %s:%d "
+                    "(%d peer(s))", name, fed_cfg.host_id,
+                    server.listen_addr[0], server.listen_addr[1],
+                    len(fed_cfg.peers))
         self._llms[name] = server
         return server
 
@@ -419,9 +453,11 @@ class MLDatasource:
                         component="llm", model=name)
             if hasattr(server, "export_gauges"):
                 # a replica pool: per-replica state and occupancy, the
-                # fleet's live slots and app_llm_fleet_size
+                # fleet's live slots and app_llm_fleet_size; a federated
+                # front adds each peer's state
                 server.export_gauges(m)
-                continue
+                if hasattr(server, "replicas"):
+                    continue
             m.set_gauge("app_llm_active_slots", float(server.gen.n_live),
                         model=name)
         self._export_goodput(m)
@@ -556,22 +592,33 @@ class MLDatasource:
             return entry
 
         for name, server in self._llms.items():
-            if hasattr(server, "replicas"):
+            # a federated front wraps the host-local server: the local
+            # shape as usual, then the per-host fleet view, and the
+            # federated health owns the top-level state
+            fed = None
+            inner = server
+            if hasattr(server, "federation_snapshot"):
+                fed = server.federation_snapshot()
+                inner = server.local
+            if hasattr(inner, "replicas"):
                 # a replica pool: fleet health and the routing state once,
                 # then one full row per core keyed by its index
-                entry = dict(server.health_check()["details"])
+                entry = dict(inner.health_check()["details"])
                 entry["routing"] = server.routing_snapshot()
                 entry["replicas"] = {
                     str(i): llm_entry(core, core.name)
-                    for i, core in enumerate(server.replicas)}
+                    for i, core in enumerate(inner.replicas)}
                 if ledger is not None:
                     # the pool name aggregates its fleet-level waste
                     # (failover, migration) and every core's ledger
                     entry["goodput"] = ledger.snapshot_model(name)
-                if getattr(server, "tuned_profile", None) is not None:
-                    entry["profile"] = server.tuned_profile
+                if getattr(inner, "tuned_profile", None) is not None:
+                    entry["profile"] = inner.tuned_profile
             else:
-                entry = llm_entry(server, name)
+                entry = llm_entry(inner, name)
+            if fed is not None:
+                entry["state"] = server.health()
+                entry["federation"] = fed
             snap["llms"][name] = entry
         return snap
 

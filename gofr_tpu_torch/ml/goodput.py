@@ -24,9 +24,10 @@ A replica pool (``ml/replica.py``) charges the fleet's reasons under its
 own name: ``failover_recompute`` (a rerouted request's re-prefill on a
 survivor), ``migration_cold`` (a scale-down's migrated prefix lost on the
 way), and its shadow canary core bills every token it delivers as
-``canary`` (the output is judged, never delivered).
-``federation_recompute`` stays in the taxonomy for federation (ROADMAP
-A.14b).
+``canary`` (the output is judged, never delivered). A federated front
+(``ml/federation.py``) charges ``federation_recompute``: a request
+routed to a peer that died before its first token, prefilled again on
+the local host.
 
 The ledger balances by construction: each classification point adds to
 exactly one reason, so ``delivered + wasted == computed``. Per model and

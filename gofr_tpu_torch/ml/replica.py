@@ -65,9 +65,10 @@ replica while cards last, round-robin past the card count, so on one
 H100 every replica shares ``cuda:0`` — and then the replicas share the
 weight tensors (no copy), each owning its cache, page pool, host tier,
 decode graphs and serving thread. A replica over several cards (tensor
-or sequence parallelism) waits for ROADMAP A.11; the cross-host fleet
-(``MultiHostWorker``, federation) for A.14b — ``ml/multihost.py`` holds
-the wire's framing.
+or sequence parallelism) waits for ROADMAP A.11. The cross-host fleet
+sits above and beside the pool: ``ml/federation.py`` fronts a pool or a
+server on each host, ``ml/multihost.py`` runs a mesh of Generators over
+``torch.distributed``.
 """
 
 from __future__ import annotations
@@ -1432,9 +1433,8 @@ class ReplicaPool:
         the stream cannot be resumed mid-generation.
 
         ``front=True`` admits at the head of the request's priority class
-        instead of the tail — the federation layer re-admits a dead
-        peer's queued work this way (JAX's ml/federation.py; ROADMAP A.14b),
-        so a host loss
+        instead of the tail — the federation layer (``ml/federation.py``)
+        re-admits a dead peer's queued work this way, so a host loss
         doesn't also cost those requests their queue position."""
         if self._closed:
             raise self._closed_error()

@@ -18,8 +18,8 @@ from dataclasses import dataclass, field
 from typing import Any, Mapping
 
 __all__ = ["Span", "SpanContext", "Tracer", "new_tracer",
-           "current_span", "current_context", "parse_traceparent",
-           "format_traceparent"]
+           "current_span", "current_context", "current_traceparent",
+           "parse_traceparent", "format_traceparent"]
 
 _current_span: contextvars.ContextVar["Span | None"] = contextvars.ContextVar(
     "gofr_torch_current_span", default=None)
@@ -136,6 +136,14 @@ def current_context() -> SpanContext | None:
     work handed to another thread)."""
     span = _current_span.get()
     return span.context if span is not None else None
+
+
+def current_traceparent() -> str | None:
+    """The active span's W3C ``traceparent``, or None: what a wire frame
+    carries so the receiving process parents its spans in the same
+    trace."""
+    ctx = current_context()
+    return format_traceparent(ctx) if ctx is not None else None
 
 
 class ConsoleExporter:

@@ -585,7 +585,9 @@ def test_capture_knob_raises_naming_a16(model, raw, monkeypatch):
 # Each case keeps the name and id it had while every fleet knob raised
 # naming its ROADMAP item; ``want`` says what a case now checks: "pool"
 # and "disagg" that a ReplicaPool mounts, "profile" a loud boot failure,
-# "A.14b" the raise that federation still gives.
+# "A.14b" (federation, ported since) JAX's boot error for a fleet map
+# that does not name this host, then a mounted FederatedPool once
+# GOFR_ML_FEDERATION_SELF names it.
 @pytest.mark.parametrize("env,kw,want", [
     pytest.param({"GOFR_ML_REPLICAS": "2"}, {}, "pool", id="env0-kw0-A.14"),
     pytest.param({}, {"replicas": 2}, "pool", id="env1-kw1-A.14"),
@@ -609,7 +611,9 @@ def test_unported_fleet_knobs_raise_naming_their_item(model, env, kw, want,
     profile that cannot be read fails the boot with the JAX package's
     message; disaggregation on one replica gives JAX's "requires replicas
     >= 2" and mounts a disaggregated pool at two. Federation across hosts
-    still raises, naming A.14b."""
+    (A.14b, ported) fails the boot with JAX's error while
+    ``GOFR_ML_FEDERATION_SELF`` is unset and mounts a ``FederatedPool``
+    once it names a member."""
     from gofr_tpu_torch.ml import MLDatasource
     from gofr_tpu_torch.ml.replica import ReplicaPool
 
@@ -628,8 +632,26 @@ def test_unported_fleet_knobs_raise_naming_their_item(model, env, kw, want,
             "tuned.json", env.get("GOFR_ML_CANARY", "tuned.json"))
         return
     if want == "A.14b":
-        with pytest.raises(NotImplementedError, match="ROADMAP A.14b"):
+        from gofr_tpu.ml.federation import \
+            federation_from_env as jax_federation_from_env
+        from gofr_tpu.testutil import get_free_port
+        from gofr_tpu_torch.ml.federation import FederatedPool
+
+        monkeypatch.delenv("GOFR_ML_FEDERATION_SELF", raising=False)
+        with pytest.raises(ValueError) as jax_err:
+            jax_federation_from_env()
+        with pytest.raises(ValueError) as got:
             MLDatasource().register_llm("chat", params, cfg, **knobs)
+        assert str(got.value) == str(jax_err.value)
+        monkeypatch.setenv("GOFR_ML_FEDERATION",
+                           f"a=127.0.0.1:{get_free_port()}")
+        monkeypatch.setenv("GOFR_ML_FEDERATION_SELF", "a")
+        server = MLDatasource().register_llm("chat", params, cfg, **knobs)
+        try:
+            assert isinstance(server, FederatedPool)
+            assert server.federation_snapshot()["host"] == "a"
+        finally:
+            server.close()
         return
     if want == "disagg":
         from gofr_tpu.ml import MLDatasource as JMLDatasource

@@ -1190,3 +1190,156 @@ def test_tiny_training_through_the_kernel_matches_plain(dev, monkeypatch):
         assert b["t"].device.type == "cuda"
         losses.append(trainer.step(b["t"], b["y"], b["m"]))
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
+
+
+_MESH_RANK = r"""
+import sys
+import torch
+
+from gofr_tpu_torch.ml.multihost import MultiHostWorker
+from gofr_tpu_torch.models import llama
+
+pid, coord, port = int(sys.argv[1]), sys.argv[2], int(sys.argv[3])
+w = MultiHostWorker(pid, 2, coord, port=port if pid == 0 else 0,
+                    cfg=llama.tiny_llama(max_seq_len=512), batch_slots=4,
+                    max_seq=256, prompt_bucket=64, chunk=4, heartbeat_s=1.0)
+w.run()
+print(f"OK proc={pid} device={w.device}", flush=True)
+"""
+
+
+def test_mesh_ranks_share_one_card(dev, tmp_path):
+    """Two ``MultiHostWorker`` ranks over gloo on ``cuda:0`` (one rank a
+    card, round-robin past the card count): each request's tokens equal
+    an in-process Generator of the rank's shape over the same seed-0
+    weights, concurrent requests all finish, and both ranks exit clean on
+    ``shutdown_workers``."""
+    import asyncio
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    from gofr_tpu_torch.ml.generate import Generator
+    from gofr_tpu_torch.ml.multihost import MultiHostLLMClient
+    from gofr_tpu_torch.models import llama
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    coord, port = f"127.0.0.1:{free_port()}", free_port()
+    script = tmp_path / "rank.py"
+    script.write_text(_MESH_RANK)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    logs = [open(tmp_path / f"r{i}.log", "w+") for i in range(2)]
+    procs = [subprocess.Popen([sys.executable, str(script), str(i), coord,
+                               str(port)], stdout=logs[i],
+                              stderr=subprocess.STDOUT, env=env, cwd=root)
+             for i in range(2)]
+    cfg = llama.tiny_llama(max_seq_len=512)
+    gen = Generator(llama.params_from_config(cfg, seed=0, device=dev), cfg,
+                    batch_slots=2, max_seq=256, prefill_buckets=(64,),
+                    chunk=4, device=dev)
+    r = np.random.default_rng(3)
+    prompts = [r.integers(0, cfg.vocab_size, n).tolist() for n in (5, 33, 60)]
+    want = [gen.generate(p, 12) for p in prompts]
+
+    async def scenario():
+        llm = MultiHostLLMClient("127.0.0.1", port)
+        for _ in range(600):
+            try:
+                await llm._ensure()
+                break
+            except OSError:
+                assert all(p.poll() is None for p in procs)
+                await asyncio.sleep(0.2)
+        try:
+            got = [await llm.generate(p, 12) for p in prompts]
+            many = await asyncio.gather(*(llm.generate(p, 12)
+                                          for p in prompts * 2))
+            await llm.shutdown_workers()
+            return got, many
+        finally:
+            await llm.close()
+
+    try:
+        got, many = asyncio.run(scenario())
+        assert got == want
+        assert [len(m) for m in many] == [12] * 6
+        for i, p in enumerate(procs):
+            assert p.wait(timeout=60) == 0
+            logs[i].seek(0)
+            assert f"OK proc={i} device=cuda:0" in logs[i].read()
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        for f in logs:
+            f.close()
+
+
+def test_federated_hosts_on_one_card_share_weights(dev):
+    """Two federated hosts in one process on one card over one weight
+    dict: a prompt extending b's promoted prefix routes from a to b by its
+    gossiped digest and its tokens equal a single server computing the
+    same prefix split."""
+    import asyncio
+    import socket
+    import time
+
+    from gofr_tpu_torch.ml.federation import FederatedPool, FederationConfig
+    from gofr_tpu_torch.ml.generate import Generator
+    from gofr_tpu_torch.ml.llm import LLMServer
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    _, cfg, params = _tiny_on_card(dev)
+    opts = dict(batch_slots=2, max_seq=256, prefill_buckets=(64,), chunk=4,
+                page_size=16, n_pages=64, device=dev)
+    pa, pb = free_port(), free_port()
+
+    def fed(host, port, peer, peer_port):
+        return FederatedPool(
+            LLMServer(Generator(params, cfg, **opts), name=f"card-{host}"),
+            FederationConfig(host, ("127.0.0.1", port),
+                             {peer: ("127.0.0.1", peer_port)}, gossip_s=0.1,
+                             suspect_beats=2, dead_beats=5, frame_gap_s=30),
+            name=f"card-{host}")
+
+    fed_a, fed_b = fed("a", pa, "b", pb), fed("b", pb, "a", pa)
+    single = LLMServer(Generator(params, cfg, **opts))
+    assert fed_a.local.gen.params is fed_b.local.gen.params is params
+    r = np.random.default_rng(4)
+    warm = r.integers(0, cfg.vocab_size, 40).tolist()
+    tail = r.integers(0, cfg.vocab_size, 7).tolist()
+
+    async def scenario():
+        for _ in range(2):
+            await fed_b.generate(warm, 4)
+        rows = fed_b.local.prefix_cache.hot_prefixes(16)
+        reg = [int(t) for t in rows[0]["ids"]]
+        peer = fed_a._peers["b"]
+        deadline = time.monotonic() + 10
+        while not (peer.state == "up" and peer.warm and peer.digests):
+            assert time.monotonic() < deadline
+            await asyncio.sleep(0.05)
+        got = await fed_a.generate(reg + tail, 12)
+        pid = await asyncio.to_thread(single.register_prefix, reg)
+        want = await single.generate(tail, 12, prefix=pid)
+        return got, want
+
+    try:
+        got, want = asyncio.run(scenario())
+        assert got == want
+        assert fed_a.remote_routed == 1 and fed_b.remote_served == 1
+    finally:
+        fed_a.close()
+        fed_b.close()
+        single.close()

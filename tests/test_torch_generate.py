@@ -416,11 +416,15 @@ def test_importing_the_port_loads_no_jax():
             "gofr_tpu_torch.ml.capture, gofr_tpu_torch.ml.replay, "
             "gofr_tpu_torch.ml.tune, gofr_tpu_torch.ml.replica, "
             "gofr_tpu_torch.ml.kv_transport, gofr_tpu_torch.ml.multihost, "
+            "gofr_tpu_torch.ml.federation, "
             "gofr_tpu_torch.ml.train, gofr_tpu_torch.ml.optim, "
             "gofr_tpu_torch.ml.checkpoint, gofr_tpu_torch.ml.data, "
             "gofr_tpu_torch.ml.hf_import, gofr_tpu_torch.ml.pjrt_backend, "
             "gofr_tpu_torch.native.aoti, gofr_tpu_torch.native.aoti_selftest, "
             "gofr_tpu_torch.tokenizer; "
+            "from gofr_tpu_torch.ml.multihost import MultiHostWorker, "
+            "MultiHostLLMClient; "
+            "from gofr_tpu_torch.ml.federation import FederatedPool; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'gofr_tpu', 'optax', 'orbax', 'safetensors', "
             "'ml_dtypes')]; print(bad); "
