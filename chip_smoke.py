@@ -322,7 +322,33 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    a typed error inside ``MESH_KILL_BOUND_S`` and rank 0 exits non-zero.
    Measured: each rank's boot, tok/s and TTFT (two ranks share the card:
    not a throughput figure), rank 0's ms a gather (its wait for the
-   other rank included), the kill to the last error.
+   other rank included), the kill to the last error;
+18. sequence-parallel long-context serving on Llama-3-8B at its published
+   width and ``SP_LAYERS`` (8) of its 32 layers, over
+   ``make_mesh(MeshConfig(sp=4), devices=[cuda:0] * 4)`` (four shards on
+   the one card: the ring rotation, the Ulysses reshard, the striped
+   pool and the decode combine run, nothing crosses cards), buckets
+   1024 / 4096 / 16384, ``max_seq`` 16384, ``GOFR_ML_SP_MIN_TOKENS``
+   4096: four arms armed through ``GOFR_ML_SP`` (dense bf16 cache under
+   ring and Ulysses, striped bf16 pages under ring, int8 pages under
+   Ulysses), each serving 4 prompts of 11000-12500 tokens (the SP path)
+   and 2 of 512 (the single-device path) x 64 tokens through
+   ``LLMServer``, against the single-device generator on the same
+   prompts. Checks: streams equal or differing on a near-tie, no SP
+   fallback and one SP prefill a long prompt, flash launched for the
+   short prompts (and per shard under Ulysses), no decode kernel (the SP
+   combine is plain torch), one ``sp_prefill`` fault falling back to the
+   single-device prefill's tokens, a long prompt's last-token logits and
+   those of its next 16 teacher-forced decode steps (the SP combine
+   against the decode kernel) SP against single-device within 5 % of
+   range, Ulysses through flash against the plain attention at [1, 16384,
+   32, 128] (4 launches, every row within 2e-2 of its own largest output,
+   and that measure shown to fail a dropped block of 128 keys);
+   one MoE layer at Mixtral-8x7B's shape (2048 tokens) in bf16 against
+   f32 within 5 % of range. Measured: SP prefill ms, TTFT and the decode
+   step beside the single-device generator's, peak memory, the Ulysses
+   shard's flash call as a row of the kernel table, the MoE layer's bf16
+   and f32 ms and its dispatch product's share.
 
 Measurements under ``torch.profiler`` hold the flight recorder's
 ``PROFILE_LOCK``, so an auto-profiler capture never overlaps one.
@@ -6459,6 +6485,508 @@ def cross_host_phase(dev, bf16_params, preset: str = "8b") -> dict:
             "memory": reckon}
 
 
+# -- phase 18: sequence-parallel long-context serving, MoE ---------------------
+
+# Llama-3-8B at its published width, this many of its 32 layers (the first
+# ones of phase 3's weights): the ring's f32 block logits make a 12k-token
+# SP prefill cost seconds a prompt, and the script's watchdog is 1140 s
+SP_LAYERS = 8
+SP_SHARDS = 4               # sp shards, all on the one card
+SP_BUCKETS = (1024, 4096, 16384)
+SP_MAX_SEQ = 16384
+SP_MIN_TOKENS = "4096"      # GOFR_ML_SP_MIN_TOKENS: the dual-path threshold
+SP_LONG = (11000, 11800, 12000, 12500)   # the SP path's prompts
+SP_SHORT = (512, 512)                    # the single-device path's
+SP_MAX_NEW = 64
+SP_PAGE = 16
+SP_TOL = 5e-2               # logits, of their range
+SP_DECODE_STEPS = 16        # teacher-forced decode steps held an arm
+# Ulysses through flash against plain attention: the largest error of a
+# row (query position x head) over that row's largest output (a late
+# causal row's outputs are ~sqrt(e / n) at n keys, far under any absolute
+# tolerance worth the name)
+SP_KERNEL_TOL = 2e-2
+SP_DROP = 128               # keys a wrong kernel drops in the power check
+# the arms, each with its single-device reference
+SP_ARMS = {"dense_ring": "dense", "dense_ulysses": "dense",
+           "striped_bf16_ring": "paged_bf16",
+           "striped_int8_ulysses": "paged_int8"}
+
+
+def sp_prompts(vocab: int, seed: int = 18) -> list:
+    r = np.random.default_rng(seed)
+    return [r.integers(0, vocab, n).tolist() for n in SP_LONG + SP_SHORT]
+
+
+def sp_tie(params, cfg, prompt, a: list, b: list) -> dict | None:
+    """``near_tie`` for prompts of 12k tokens: where two greedy streams
+    first differ, the two tokens' gap over the logits' range there, from
+    one plain prefill of the prompt and the common tokens (its last-token
+    logits only: a full forward's [S, V] logits would take 6 GB)."""
+    from gofr_tpu_torch.models import llama
+
+    d = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+    if d is None:
+        return None
+    ids = list(prompt) + list(a[:d])
+    bucket = next(s for s in SP_BUCKETS if len(ids) <= s)
+    toks = np.zeros((1, bucket), np.int32)
+    toks[0, :len(ids)] = ids
+    dev = params["embed"].device
+    with torch.no_grad():
+        row, _ = llama.prefill(params, toks, [len(ids)], cfg,
+                               llama.init_cache(cfg, 1, bucket, device=dev))
+    row = row[0]
+    gap = (row[a[d]] - row[b[d]]).abs().item()
+    return {"step": d, "gap_over_range": gap / (row.max() - row.min()).item()}
+
+
+def sp_streams(gen, prompts, max_new: int) -> tuple[list, float]:
+    """Every prompt through ``LLMServer`` at once (half ``generate``, half
+    ``stream_chunks``; the prefix cache off, so every prompt prefills
+    whole). Returns (streams, wall seconds)."""
+    from gofr_tpu_torch.ml.llm import LLMServer
+
+    async def run():
+        server = LLMServer(gen, name="sp", prefix_cache=False)
+
+        async def chunks(p):
+            out = []
+            async for burst in server.stream_chunks(p, max_new):
+                out.extend(burst)
+            return out
+
+        try:
+            t = time.perf_counter()
+            outs = await asyncio.gather(*(
+                server.generate(p, max_new) if i % 2 else chunks(p)
+                for i, p in enumerate(prompts)))
+            return outs, time.perf_counter() - t
+        finally:
+            server.close()
+
+    return asyncio.run(run())
+
+
+def sp_timings(gen, prompts) -> dict:
+    """On the idle generator: TTFT of the first long prompt admitted alone
+    (host wall from admission to its first token on the host), then the
+    short prompts admitted beside it and, with those rows live, the host
+    wall a decode step over 4 dispatches (ending in a drain)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    slots = [gen.add_request(prompts[0], SP_MAX_NEW)]
+    gen.step()  # the mini dispatch: the first token reaches the host
+    ttft = time.perf_counter() - t0
+    slots += gen.add_requests([(p, SP_MAX_NEW, None)
+                               for p in prompts[len(SP_LONG):]])
+    while gen._pending_first:
+        gen.step()
+    gen.drain()
+    torch.cuda.synchronize()
+    steps0, t1 = gen.steps, time.perf_counter()
+    for _ in range(4):
+        gen.step()
+    gen.drain()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t1) * 1e3 / max(gen.steps - steps0, 1)
+    for i in slots:
+        gen.slots[i].live = False
+    gen.drain()
+    for i in slots:
+        gen.release(i)
+    return {"ttft_ms": ttft * 1e3, "decode_step_ms": step_ms,
+            "rows": len(slots)}
+
+
+def sp_prefill_logits(params, cfg, sp_cfg, mesh, prompt, dev, page_size=0):
+    """One long prompt through the SP prefill and the single-device one
+    (flash), each into a fresh one-row cache of the generator's layout,
+    each prefill's ms (host wall to a synchronised card); then
+    ``SP_DECODE_STEPS`` decode steps on both caches, teacher-forced with
+    the single-device argmax: the SP combine (``decode_step(mesh=)`` /
+    ``sp_paged_decode_step``) against the decode kernel on the same
+    tokens. Every step's f32 logits are held within ``SP_TOL`` of their
+    range, the prefill's too."""
+    from gofr_tpu_torch.models import llama
+
+    bucket = next(s for s in SP_BUCKETS if len(prompt) <= s)
+    toks = np.zeros((1, bucket), np.int32)
+    toks[0, :len(prompt)] = prompt
+    lens = [len(prompt)]
+    n_pg = bucket // page_size if page_size else 0
+    table = torch.arange(1, n_pg + 1, dtype=torch.int32, device=dev)[None]
+    arms = (("sp", sp_cfg, mesh), ("plain", cfg, None))
+    caches, logits, ms = {}, {}, {}
+    for name, c, m in arms:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            if page_size:
+                caches[name] = llama.init_paged_cache(
+                    cfg, 1, n_pg + SP_SHARDS, page_size, device=dev, mesh=m)
+                out, _ = llama.paged_prefill_into(
+                    params, toks, lens, c, caches[name], table[0].tolist(),
+                    0, page_size, mesh=m)
+            else:
+                caches[name] = llama.init_cache(cfg, 1, SP_MAX_SEQ,
+                                                device=dev, mesh=m)
+                out, _ = llama.prefill_into(params, toks, lens, c,
+                                            caches[name], 0, mesh=m)
+        torch.cuda.synchronize()
+        logits[name] = out[0].float()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+
+    def over_range(got, want):
+        return ((got - want).abs().max() / (want.max() - want.min())).item()
+
+    def step(name, c, m, tok):
+        if page_size and m is not None:
+            return llama.sp_paged_decode_step(params, tok, caches[name],
+                                              table, c, m)[0]
+        if page_size:
+            return llama.paged_decode_step(params, tok, caches[name], table,
+                                           c)[0]
+        return llama.decode_step(params, tok, caches[name], c, mesh=m)[0]
+
+    got, want = logits["sp"], logits["plain"]
+    err = over_range(got, want)
+    argmax_equal = int(got.argmax()) == int(want.argmax())
+    step_errs, step_equal = [], 0
+    with torch.no_grad():
+        for _ in range(SP_DECODE_STEPS):
+            tok = want.argmax().to(torch.int32)[None]
+            # a paged SP step decodes as the generator's: with the model's
+            # config over the striped pool
+            got = step("sp", cfg if page_size else sp_cfg, mesh,
+                       tok)[0].float()
+            want = step("plain", cfg, None, tok)[0].float()
+            step_errs.append(over_range(got, want))
+            step_equal += int(got.argmax()) == int(want.argmax())
+    del caches
+    check(err <= SP_TOL and max(step_errs) <= SP_TOL,
+          f"sp logits off the single-device ones: prefill {err}, decode "
+          f"steps {step_errs} of range > {SP_TOL}")
+    return {"logit_err_over_range": err, "argmax_equal": argmax_equal,
+            "decode_err_over_range": max(step_errs),
+            "decode_steps": len(step_errs), "decode_argmax_equal": step_equal,
+            "sp_prefill_ms": ms["sp"], "plain_prefill_ms": ms["plain"]}
+
+
+def sp_arm(dev, params, cfg, mesh, mode: str, page_size: int, prompts,
+           ref: list, what: str) -> dict:
+    """One SP arm: a Generator armed through ``GOFR_ML_SP=<mode>`` and
+    ``GOFR_ML_SP_MIN_TOKENS`` over the 4-shard mesh, serving ``prompts``
+    through ``LLMServer``; its streams against the single-device
+    generator's (``ref``: equal, or differing on a near-tie), its launch
+    counts, the SP counters, one ``sp_prefill`` fault that must fall back
+    with the reference's tokens, the logits of one long prompt's prefill
+    and of its next ``SP_DECODE_STEPS`` steps SP against single-device
+    (``sp_prefill_logits``), TTFT and the decode step."""
+    from gofr_tpu_torch.ml.generate import Generator
+    from gofr_tpu_torch.testutil.faults import FaultInjector
+
+    kw = dict(batch_slots=len(prompts), max_seq=SP_MAX_SEQ,
+              prefill_buckets=SP_BUCKETS, chunk=4, device=dev)
+    if page_size:
+        kw.update(page_size=page_size,
+                  n_pages=1 + len(prompts) * SP_MAX_SEQ // page_size)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with knobs(GOFR_ML_SP=mode, GOFR_ML_SP_MIN_TOKENS=SP_MIN_TOKENS):
+        gen = Generator(params, cfg, mesh=mesh, **kw)
+    check(gen.sp_stats()["shards"] == SP_SHARDS and gen._graphs is None,
+          f"sp {what}: the plan did not arm over {SP_SHARDS} shards")
+    warm_s = None
+    if mode == "ulysses":
+        # the ring's warmup would add seconds of f32 block logits a
+        # bucket: the Ulysses arms warm up, the ring arms serve cold
+        t0 = time.perf_counter()
+        gen.warmup()
+        warm_s = time.perf_counter() - t0
+        check(f"sp_prefill/b{SP_BUCKETS[-1]}" in gen.programs,
+              f"sp {what}: warmup ran no SP prefill of the largest bucket")
+    n_long = len(SP_LONG)
+    reset_launches()
+    outs, wall = sp_streams(gen, prompts, SP_MAX_NEW)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    stats = gen.sp_stats()
+    check(stats["fallbacks"] == 0,
+          f"sp {what}: {stats['fallbacks']} SP prefill(s) fell back")
+    check(stats["prefills"] == n_long,
+          f"sp {what}: {stats['prefills']} SP prefills, want {n_long}")
+    # the short prompts take flash on the single-device path; Ulysses
+    # attends each long prompt's shards through flash too; the SP decode
+    # combine is plain torch, so no decode kernel
+    want_flash = cfg.n_layers * (len(SP_SHORT)
+                                 + (n_long * SP_SHARDS
+                                    if mode == "ulysses" else 0))
+    check(launches["flash_attention_cuda"] >= want_flash,
+          f"sp {what}: flash launched {launches['flash_attention_cuda']} "
+          f"times, want >= {want_flash}")
+    check(launches["gqa_decode_attention_cuda"] == 0
+          and launches["gqa_decode_attention_int8_cuda"] == 0,
+          f"sp {what}: a decode kernel launched under SP ({launches})")
+    ties = []
+    for p, a, b in zip(prompts, outs, ref, strict=True):
+        check(len(a) == SP_MAX_NEW, f"sp {what}: a stream ended early")
+        tie = sp_tie(params, cfg, p, a, b)
+        if tie is not None:
+            ties.append(tie)
+            check(tie["gap_over_range"] <= FLEET_TIE,
+                  f"sp {what}: a stream differs at step {tie['step']} by "
+                  f"{tie['gap_over_range']:.4f} of the logits' range")
+    # one SP prefill fault: the generator's single-device prefill takes
+    # the prompt over, bit for bit: its tokens equal those of the same
+    # prompt sent down that path on purpose (the threshold raised past
+    # it), and the reference's or differ from them on a near-tie (the
+    # reference decodes through the kernel, this generator through the SP
+    # combine)
+    gen.fault = FaultInjector.parse("sp_prefill:1")
+    fell = gen.generate(prompts[0], SP_MAX_NEW)
+    gen.fault = None
+    min_tokens, gen._sp.min_tokens = gen._sp.min_tokens, SP_MAX_SEQ + 1
+    direct = gen.generate(prompts[0], SP_MAX_NEW)
+    gen._sp.min_tokens = min_tokens
+    check(gen.sp_fallbacks == 1 and gen.sp_prefills == n_long
+          and fell == direct,
+          f"sp {what}: the sp_prefill fault did not fall back to the "
+          f"single-device prefill's tokens (fallbacks {gen.sp_fallbacks})")
+    fell_tie = sp_tie(params, cfg, prompts[0], fell, ref[0])
+    check(fell_tie is None or fell_tie["gap_over_range"] <= FLEET_TIE,
+          f"sp {what}: the fallback's stream differs from the reference "
+          f"by {fell_tie}")
+    timing = sp_timings(gen, prompts)
+    logits = sp_prefill_logits(params, cfg, gen._sp.sp_cfg, mesh,
+                               prompts[0], dev, page_size)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    served = sum(len(o) for o in outs)
+    del gen
+    return {"mode": mode, "page_size": page_size, "warmup_s": warm_s,
+            "launches": launches, "sp_stats": stats,
+            "served_tokens": served, "served_wall_s": wall,
+            "equal_share": 1 - len(ties) / len(prompts), "differing": ties,
+            "fallback_vs_reference": fell_tie, **timing, **logits,
+            "peak_mem_gib": peak}
+
+
+def sp_reference(dev, params, cfg, page_size: int, prompts) -> dict:
+    """The same serving without SP: the single-device generator at the
+    same buckets, slots and capacity (flash prefill, graphed decode; no
+    warmup: its graphs are captured at first use, only the shapes the
+    traffic takes, before the timings)."""
+    from gofr_tpu_torch.ml.generate import Generator
+
+    kw = dict(batch_slots=len(prompts), max_seq=SP_MAX_SEQ,
+              prefill_buckets=SP_BUCKETS, chunk=4, device=dev, sp=False)
+    if page_size:
+        kw.update(page_size=page_size,
+                  n_pages=1 + len(prompts) * SP_MAX_SEQ // page_size)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = Generator(params, cfg, **kw)
+    reset_launches()
+    outs, wall = sp_streams(gen, prompts, SP_MAX_NEW)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    timing = sp_timings(gen, prompts)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del gen
+    return {"streams": outs, "served_wall_s": wall, "launches": launches,
+            **timing, "peak_mem_gib": peak}
+
+
+def heads_plain(q, k, v, kv_len, step: int = 2):
+    """The plain attention (``flash_attention_plain``) of [B, S, H, D]
+    inputs ``step`` heads at a time, so its f32 logits at 16384 positions
+    stay ~2 GB a call."""
+    from gofr_tpu_torch.ops.flash_attention import flash_attention_plain
+
+    return torch.cat([flash_attention_plain(
+        q[:, :, h:h + step], k[:, :, h:h + step], v[:, :, h:h + step],
+        kv_len) for h in range(0, q.shape[2], step)], dim=2)
+
+
+def row_rel_err(got, want, rows: int) -> float:
+    """The largest error of a row (query position x head, the first
+    ``rows`` positions) over that row's largest output: max over rows of
+    max|got - want| / max|want|."""
+    g, w = got[:, :rows].float(), want[:, :rows].float()
+    return ((g - w).abs().amax(-1) / w.abs().amax(-1)).max().item()
+
+
+def ulysses_kernel_row(dev, mesh, cfg) -> dict:
+    """(c) Ulysses through the flash kernel at the phase's shape: q/k/v
+    [1, 16384, 32, 128] bf16 (GQA expanded), kv_len 12000, causal, over
+    the 4-shard mesh (each shard's flash call attends 8 heads over the
+    whole sequence): against the plain attention on one device
+    (``heads_plain``), launches counted, both timed (CUDA events). Then
+    the per-shard call as a row of the flash kernel's table
+    (``by_shape``): kernel and SDPA by ``sweep_ms`` over 2 layers' inputs,
+    the plain version eagerly, the bound from ``flash_bound``. Both are
+    held by ``row_rel_err`` within ``SP_KERNEL_TOL``; the whole call's
+    measure is also shown to fail, on the late rows alone, against the
+    attention that drops the first ``SP_DROP`` keys."""
+    from gofr_tpu_torch.parallel.ulysses import ulysses_attention
+
+    g = torch.Generator(device=dev).manual_seed(18)
+    S, H, D = SP_MAX_SEQ, cfg.n_heads, cfg.head_dim
+    n = SP_LONG[2]
+    q, k, v = (rnd_bf16(g, dev, 1, S, H, D) for _ in range(3))
+    kv_len = torch.tensor([n], dtype=torch.int32, device=dev)
+    reset_launches()
+    got = ulysses_attention(q, k, v, mesh, kv_len=kv_len)
+    torch.cuda.synchronize()
+    launches = read_launches()["flash_attention_cuda"]
+    want = heads_plain(q, k, v, kv_len)
+    err = (got[:, :n].float() - want[:, :n].float()).abs().max().item()
+    rel = row_rel_err(got, want, n)
+    del want
+    # the measure's power: a kernel that dropped the first SP_DROP keys
+    # would be off by ~sqrt(SP_DROP / n) of a row's scale at n keys, so
+    # even the rows past n / 2 alone must fail the tolerance
+    half = n // 2
+    drop = heads_plain(q[:, SP_DROP:], k[:, SP_DROP:], v[:, SP_DROP:],
+                       kv_len - SP_DROP)
+    drop_rel = row_rel_err(got[:, SP_DROP + half:], drop[:, half:],
+                           n - SP_DROP - half)
+    del got, drop
+    check(launches == SP_SHARDS,
+          f"Ulysses launched flash {launches} times, want {SP_SHARDS}")
+    check(rel <= SP_KERNEL_TOL,
+          f"Ulysses through flash vs plain attention: {rel} of a row's "
+          f"scale > {SP_KERNEL_TOL}")
+    check(drop_rel > SP_KERNEL_TOL,
+          f"the row measure cannot tell a dropped key block on the late "
+          f"rows: {drop_rel} <= {SP_KERNEL_TOL}")
+    whole = {"shape": [1, S, H, D], "kv_len": n, "launches": launches,
+             "max_abs_err": err, "max_row_rel_err": rel,
+             "dropped_block_row_rel_err": drop_rel,
+             "ms": timed_ms(lambda: ulysses_attention(q, k, v, mesh,
+                                                      kv_len=kv_len),
+                            iters=5, warm=1),
+             "plain_ms": timed_ms(lambda: heads_plain(q, k, v, kv_len),
+                                  iters=2, warm=1)}
+    del q, k, v
+    hs = H // SP_SHARDS
+    c = {"label": "Ulysses shard 16384", "B": 1, "T": S, "Tk": S,
+         "q_offset": 0, "H": hs, "KV": hs, "D": D, "L": 2, "kv_len": kv_len,
+         **{t: [rnd_bf16(g, dev, 1, S, hs, D) for _ in range(2)]
+            for t in ("q", "k", "v")}}
+    kernel, _, library = flash_launchers(c)
+    out = kernel(0)
+    ref = heads_plain(c["q"][0], c["k"][0], c["v"][0], kv_len)
+    shard_err = (out[:, :n].float() - ref[:, :n].float()).abs().max().item()
+    shard_rel = row_rel_err(out, ref, n)
+    del out, ref
+    check(shard_rel <= SP_KERNEL_TOL,
+          f"flash at the Ulysses shard shape vs plain: {shard_rel} of a "
+          f"row's scale")
+    b_ms, b_by, nbytes = flash_bound(c)
+    ms = sweep_ms(kernel, c["L"])
+    shard_row = {
+        "case": c["label"],
+        "shape": f"q[1,{S},{hs},{D}] kv[1,{S},{hs},{D}] causal q_offset=0 "
+                 f"kv_len=[{n}]",
+        "max_abs_err": shard_err, "max_row_rel_err": shard_rel, "ms": ms,
+        "library_ms": sweep_ms(library, c["L"]),
+        "plain_ms": timed_ms(lambda: heads_plain(c["q"][1], c["k"][1],
+                                                 c["v"][1], kv_len),
+                             iters=2, warm=1),
+        "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms,
+        "tb_per_s": nbytes / (ms * 1e-3) / 1e12}
+    return {"whole": whole, "flash_row": shard_row}
+
+
+# (e)'s layer: Mixtral-8x7B's published MoE shape, over 2048 tokens
+MOE_DIM, MOE_FFN, MOE_TOKENS = 4096, 14336, 2048
+
+
+def moe_row(dev) -> dict:
+    """(e) One MoE layer at Mixtral-8x7B's published shape (dim 4096, ffn
+    14336, 8 experts, top 2, capacity 1.25) over 2048 tokens, random
+    weights from seed 0: bf16 against the same weights in f32 (the
+    router is f32 in both, so both route alike), each timed (CUDA events),
+    and the dispatch product's ("nd,nec->ecd", f32) share of the bf16
+    layer."""
+    from gofr_tpu_torch.models import moe
+
+    dim, ffn, n = MOE_DIM, MOE_FFN, MOE_TOKENS
+    cfg = moe.MoEConfig(dim=dim, ffn_dim=ffn, n_experts=8, top_k=2,
+                        capacity_factor=1.25, dtype=torch.bfloat16)
+    params = moe.init_moe_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    x = rnd_bf16(torch.Generator(device=dev).manual_seed(1), dev,
+                 1, n, dim)
+    cfg32 = moe.MoEConfig(dim=dim, ffn_dim=ffn, n_experts=8, top_k=2,
+                          capacity_factor=1.25, dtype=torch.float32)
+    params32 = {"router": params["router"], "experts": {
+        k: v.float() for k, v in params["experts"].items()}}
+    with torch.no_grad():
+        y, aux = moe.moe_layer(params, x, cfg)
+        y32, aux32 = moe.moe_layer(params32, x.float(), cfg32)
+        err = ((y.float() - y32).abs().max()
+               / (y32.max() - y32.min())).item()
+        check(err <= SP_TOL and torch.isfinite(y).all().item(),
+              f"MoE bf16 vs f32: {err} of range > {SP_TOL}")
+        cap = max(1, int(cfg.capacity_factor * n * cfg.top_k
+                         / cfg.n_experts))
+        probs = torch.softmax(x.reshape(n, -1).float() @ params["router"], -1)
+        dispatch, _, _ = moe._dispatch_combine(probs, cfg.top_k, cap)
+        xf = x.reshape(n, -1).float()
+        ms = timed_ms(lambda: moe.moe_layer(params, x, cfg), iters=5, warm=1)
+        ms32 = timed_ms(lambda: moe.moe_layer(params32, x.float(), cfg32),
+                        iters=3, warm=1)
+        disp = timed_ms(lambda: torch.einsum("nd,nec->ecd", xf, dispatch),
+                        iters=5, warm=1)
+    kept = float(dispatch.sum())
+    return {"tokens": n, "capacity": cap, "kept_share": kept / (n * 2),
+            "aux_bf16": float(aux), "aux_f32": float(aux32),
+            "err_over_range": err, "bf16_ms": ms, "f32_ms": ms32,
+            "dispatch_ms": disp, "dispatch_share": disp / ms}
+
+
+def sp_phase(dev, bf16_params) -> dict:
+    """Phase 18: long-context sequence-parallel serving on Llama-3-8B at its
+    published width and ``SP_LAYERS`` of its 32 layers (phase 3's seed-0
+    weights), over ``make_mesh(MeshConfig(sp=4), devices=[cuda:0] * 4)``:
+    four shards on one card run the ring rotation, the Ulysses reshard,
+    the striped page pool and the decode combine, moving nothing between
+    cards (no throughput claim). (a) the dense bf16 cache under ring and
+    Ulysses, (b) striped bf16 pages (ring) and int8 pages (Ulysses), each
+    against the single-device generator; (c) Ulysses through flash against
+    the plain attention; (e) one MoE layer at Mixtral-8x7B's shape. (d)'s
+    checks run inside each arm."""
+    from gofr_tpu_torch import parallel as par
+    from gofr_tpu_torch.models import llama
+
+    params = first_layers(bf16_params, SP_LAYERS)
+    cfg = llama.llama3_8b(n_layers=SP_LAYERS)
+    cfg8 = llama.llama3_8b(n_layers=SP_LAYERS, kv_quant=True)
+    mesh = par.make_mesh(par.MeshConfig(sp=SP_SHARDS),
+                         devices=[dev] * SP_SHARDS)
+    prompts = sp_prompts(cfg.vocab_size)
+    out: dict = {"layers": SP_LAYERS, "shards": SP_SHARDS,
+                 "buckets": list(SP_BUCKETS), "max_seq": SP_MAX_SEQ,
+                 "min_tokens": int(SP_MIN_TOKENS),
+                 "prompt_tokens": [len(p) for p in prompts]}
+    layouts = {"dense": (cfg, 0), "paged_bf16": (cfg, SP_PAGE),
+               "paged_int8": (cfg8, SP_PAGE)}
+    refs = {name: sp_reference(dev, params, c, ps, prompts)
+            for name, (c, ps) in layouts.items()}
+    for name, ref in SP_ARMS.items():
+        c, ps = layouts[ref]
+        out[name] = sp_arm(dev, params, c, mesh, name.rsplit("_", 1)[1], ps,
+                           prompts, refs[ref]["streams"], name)
+    for r in refs.values():
+        r.pop("streams")
+    out["single_device"] = refs
+    out["ulysses_flash"] = ulysses_kernel_row(dev, mesh, cfg)
+    out["moe"] = moe_row(dev)
+    return out
+
+
 def main(argv: list[str]) -> int:
     import pathlib
 
@@ -6602,6 +7130,26 @@ def main(argv: list[str]) -> int:
           f"errors {mesh['kill']['kill_to_last_error_ms']:.1f} ms; streams "
           f"equal {mesh['vs_in_process']['equal_share']:.3f}; {card}")
     done("the cross-host fleet: federation and the serving mesh", cross)
+    sp = sp_phase(dev, bf16_params)
+    for arm, ref in SP_ARMS.items():
+        a, r = sp[arm], sp["single_device"][ref]
+        print(f"18 {arm}: SP prefill {a['sp_prefill_ms']:.1f} ms (single "
+              f"device {a['plain_prefill_ms']:.1f}), TTFT "
+              f"{a['ttft_ms']:.1f} ms ({r['ttft_ms']:.1f}), decode step "
+              f"{a['decode_step_ms']:.2f} ms ({r['decode_step_ms']:.2f}), "
+              f"peak {a['peak_mem_gib']:.2f} GiB ({r['peak_mem_gib']:.2f}); "
+              f"streams equal {a['equal_share']:.3f}, logits "
+              f"{a['logit_err_over_range']:.4f} of range; {card}")
+    uly, moe = sp["ulysses_flash"], sp["moe"]
+    print(f"18 Ulysses through flash: max_abs_err "
+          f"{uly['whole']['max_abs_err']:.3g}, {uly['whole']['ms']:.3f} ms "
+          f"against plain {uly['whole']['plain_ms']:.3f} ms; MoE (Mixtral "
+          f"shape, 2048 tokens): bf16 {moe['bf16_ms']:.3f} ms, f32 "
+          f"{moe['f32_ms']:.3f} ms, dispatch {moe['dispatch_share']:.3f} of "
+          f"bf16, bf16 vs f32 {moe['err_over_range']:.4f} of range; {card}")
+    done("sequence-parallel long-context serving and MoE", sp)
+    # the Ulysses shard's flash call joins the kernel's timed shapes
+    rows[0]["by_shape"].append(uly["flash_row"])
     # the training shape's flash launch joins the kernel's timed shapes
     rows[0]["by_shape"].append(train["grad_check"]["flash_row"])
     rows += spec["kernels"]
@@ -6641,6 +7189,8 @@ def main(argv: list[str]) -> int:
                    "native": native["launches"][row["name"]],
                    "federation": fed["launches"][row["name"]],
                    "mesh": mesh["launches"][row["name"]],
+                   **{f"sp_{arm}": sp[arm]["launches"][row["name"]]
+                      for arm in SP_ARMS},
                    **{f"train_serve_{arm}": train["serve"][arm]["launches"][
                        row["name"]] for arm in ("checkpointer",
                                                 "checkpointer_w8", "hf")}}
@@ -6659,7 +7209,7 @@ def main(argv: list[str]) -> int:
              "host_tier": tier, "front": front, "resilience": res,
              "speculation": spec, "engine": engine, "openai": oai,
              "fleet": fleet, "training": train, "native": native,
-             "cross_host": cross},
+             "cross_host": cross, "sequence_parallel": sp},
             indent=1))
     print(json.dumps({"kernels": rows}))
     print(card)

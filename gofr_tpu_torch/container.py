@@ -130,6 +130,16 @@ class Container:
         m.new_counter("app_ml_kv_migrations_total",
                       "live-KV-migration attempts during elastic scale "
                       "events, by outcome (adopted / failed / skipped)")
+        # sequence-parallel serving (GOFR_ML_SP)
+        m.new_counter("app_ml_sp_prefills_total",
+                      "prompts prefilled sequence-parallel across the "
+                      "generator's sp mesh (GOFR_ML_SP)")
+        m.new_counter("app_ml_sp_fallbacks_total",
+                      "sequence-parallel prefills that fell back to the "
+                      "single-device full prefill (bit-identical output)")
+        m.new_gauge("app_ml_sp_shards",
+                    "shard count of the generator's sequence-parallel "
+                    "serving plan (the sp mesh axis size)")
         m.new_gauge("app_llm_fleet_size",
                     "live (non-retired) replicas in an elastic pool")
         m.new_gauge("app_llm_replica_state",

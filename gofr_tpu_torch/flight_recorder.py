@@ -176,9 +176,9 @@ LAUNCH_GATE = _LaunchGate()
 # read of it) and emit. A replica pool (ml/replica.py) stamps ``route``
 # (its routing decision, pool side) and its cores ``ship`` / ``land`` (the
 # KV transport's export and import on their serving threads);
-# ``sp_prefill`` belongs to sequence-parallel serving (ROADMAP A.11) and
-# stays unstamped until that is ported. ``other`` is the honest
-# remainder: wall time of a dispatch pass no
+# ``sp_prefill`` is a sequence-parallel prefill wave (GOFR_ML_SP), its own
+# label because it is neither a plain admission nor a decode launch.
+# ``other`` is the honest remainder: wall time of a dispatch pass no
 # instrumented site claimed (host bookkeeping loops, GC, OS scheduling).
 PHASES = ("queue_pop", "decide", "assemble", "sp_prefill", "launch",
           "d2h_issue", "device_wait", "emit", "route", "ship", "land",

@@ -31,9 +31,12 @@ server in a ``FederatedPool`` (``ml/federation.py``): gossip membership,
 cross-host digest routing and host-level failover over the multihost
 wire; ``/debug/serving`` then carries a ``federation`` block.
 
-Not ported, and raising ``NotImplementedError`` naming its ROADMAP item
-when asked for, a profile's knob map included: sequence-parallel prefill
-(``GOFR_ML_SP*``: A.11).
+``GOFR_ML_SP`` / ``GOFR_ML_SP_MIN_TOKENS`` / ``GOFR_ML_SP_SHARDS`` (in the
+environment, or the first and last in a tuned profile's knob map) reach
+the ``Generator``, which plans sequence-parallel serving from them
+(``ml/sp_serving.py``) over its mesh: a replica's devices
+(``ml/replica.py``), or the ``mesh`` of a ready generator passed as
+``generator=`` (on one card, the card named once a shard).
 """
 
 from __future__ import annotations
@@ -70,19 +73,9 @@ _POOL_KWARGS = ("depth_per_replica", "affinity_min_tokens", "disagg",
                 "spawn", "elastic", "replicas_min", "replicas_max", "canary")
 
 
-# knobs a tuned profile may name (``tune.TUNABLE_KNOBS``) that the port
-# does not run yet, with the ROADMAP item that brings them
-_PROFILE_UNPORTED = {"GOFR_ML_SP": "A.11", "GOFR_ML_SP_SHARDS": "A.11"}
-
-
-def _not_ported(name: str, what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"llm {name}: {what} is not ported yet "
-                               f"(ROADMAP {item})")
-
 
 def _tuned_profile(name: str, prof: Any) -> dict:
-    """A profile path or dict, validated as JAX validates it; a knob the
-    port does not run yet raises naming its item."""
+    """A profile path or dict, validated as JAX validates it."""
     from .tune import TUNABLE_KNOBS, load_profile
 
     if isinstance(prof, str):
@@ -102,10 +95,6 @@ def _tuned_profile(name: str, prof: Any) -> dict:
         raise TypeError(
             f"llm {name}: profile= must be a path or a loaded profile "
             f"dict, got {type(prof).__name__}")
-    for knob in sorted(prof["knobs"]):
-        if knob in _PROFILE_UNPORTED:
-            raise _not_ported(name, f"a tuned profile's {knob}",
-                              _PROFILE_UNPORTED[knob])
     return prof
 
 
@@ -568,6 +557,11 @@ class MLDatasource:
                 entry["kv_host_tier"] = tier
             if server.prefix_cache is not None:
                 entry["prefix_cache"] = server.prefix_cache.snapshot()
+            sp = gen.sp_stats()
+            if sp is not None:
+                # sequence-parallel serving (GOFR_ML_SP): mode, shards, the
+                # dual-path threshold, striping and the prefill tally
+                entry["sp"] = sp
             spec = gen.spec_stats()
             if spec is not None:
                 # speculative serving: K, the draft mode, lifetime windows

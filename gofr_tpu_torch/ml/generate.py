@@ -1,5 +1,5 @@
 """Continuous-batching token generation — counterpart of
-``gofr_tpu/ml/generate.py`` without sequence parallelism.
+``gofr_tpu/ml/generate.py``.
 
 ``Generator`` holds a fixed batch of slots over one KV cache; every decode
 dispatch runs the whole batch (free slots decode garbage that is ignored).
@@ -76,13 +76,31 @@ slot, a rolling accept rate under ``spec_min_accept`` /
 verified token); with every decodable slot disabled in lookup mode the
 whole dispatch takes the plain ladder, and the history rows are reseeded
 from a host mirror before speculation re-probes. Fused windows and the
-pipeline compose with it. Sequence parallelism raises
-``NotImplementedError`` naming ROADMAP A.11.
+pipeline compose with it.
+
+Sequence-parallel serving (``sp`` / ``GOFR_ML_SP``, planned by
+``sp_serving.resolve`` over ``mesh`` or the visible cards): a prompt of at
+least ``GOFR_ML_SP_MIN_TOKENS`` that fits a prefill bucket prefills whole
+through ring or Ulysses attention across the mesh's sp shards, a shorter
+one through the single-device prefill (the dual path); the dense cache
+splits its sequence axis over the shards and decodes through
+``sp_decode_attention``, a paged one stripes its pool (one free stack a
+shard, pages handed out round-robin) and decodes through
+``llama.sp_paged_decode_step``. Each shard's state is one tensor on its
+device (``parallel.ShardedTensor``); weights and activations stay on the
+generator's device, the mesh's first. A fault in an SP prefill
+(``sp_prefill`` / ``sp_gather``) falls back to the single-device prefill
+of the same rows or pages, bit for bit. The decode dispatches of an SP
+generator run eagerly, on a card too (no CUDA graphs: their bodies move
+data between the shards' devices). A bare sequence-parallel ``cfg``
+(``attn_impl``) with a ``mesh`` runs JAX's all-or-nothing switch: every
+prefill sequence-parallel, the dense cache split.
 """
 
 from __future__ import annotations
 
 import collections
+import logging
 import os
 import time
 from typing import Any
@@ -90,6 +108,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from .. import parallel as par
 from .. import resolve_device
 from ..models import llama
 from .graphs import DecodeGraphs
@@ -102,6 +121,8 @@ __all__ = ["Sampler", "greedy", "Generator", "PagePoolExhausted",
            "decode_window_from_env", "pipeline_from_env", "spec_k_from_env"]
 
 NEG_INF = -1e30
+
+_log = logging.getLogger(__name__)
 
 
 class PagePoolExhausted(RuntimeError):
@@ -268,7 +289,7 @@ class _Slot:
                  "eos_hit", "evicted", "callback", "deadline_at",
                  "spec_windows", "spec_emitted", "spec_disabled",
                  "spec_cooldown_left", "spec_recent_w", "spec_recent_e",
-                 "hist")
+                 "hist", "sp_shards")
 
     def __init__(self) -> None:
         self.live = False
@@ -297,6 +318,9 @@ class _Slot:
         # when the plain-ladder fallback is armed: it reseeds the device
         # history rows when speculation re-probes
         self.hist: list[int] = []
+        # the shard count that prefilled this slot sequence-parallel (0:
+        # the single-device path); journey marks and the sp block read it
+        self.sp_shards = 0
 
 
 class _HostBlock:
@@ -354,7 +378,7 @@ class Generator:
                  spec_cooldown: int | None = None, draft_params: Any = None,
                  draft_cfg: Any = None, decode_window: int | None = None,
                  pipeline: int | None = None, sp: Any = None,
-                 host_kv: Any = None, device=None) -> None:
+                 host_kv: Any = None, mesh=None, device=None) -> None:
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
         self.chunk = chunk
@@ -421,10 +445,6 @@ class Generator:
         self.spec_reprobes = 0    # cooldown expiries re-arming a slot
         self._plain_armed = False  # set in _init_spec (lookup mode only)
         self._spec_rows_stale = False  # device history lags the mirror
-        if sp:
-            raise NotImplementedError(
-                "sequence-parallel serving (sp) is not ported yet "
-                "(ROADMAP A.11)")
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(f"params live on {params['embed'].device}, "
@@ -466,7 +486,43 @@ class Generator:
         self.evictions = 0  # slots truncated because the page pool ran dry
         self.page_size = int(page_size)
         self.host_kv = None
+        # -- the sequence-parallel serving plan (sp_serving.py): sp=None
+        # reads GOFR_ML_SP, and unset or off builds no SP machinery; every
+        # bad combination raises here, before any dispatch
+        from .sp_serving import resolve as _resolve_sp
+
+        self._sp = _resolve_sp(
+            sp, cfg=cfg, mesh=mesh, prefill_buckets=self.prefill_buckets,
+            max_seq=max_seq, page_size=self.page_size, spec_k=self.spec_k,
+            shard_cache=False,
+            devices=(par.visible_devices() if self.device.type == "cuda"
+                     else [self.device]))
+        if self._sp is not None:
+            mesh = self._sp.mesh
+            self.sp_prefills = 0    # prompts prefilled sequence-parallel
+            self.sp_fallbacks = 0   # SP failures served single-device
+            self.sp_tokens = 0      # prompt tokens through the SP path
+        if mesh is not None and mesh.first != self.device:
+            raise ValueError(
+                f"the mesh's first device is {mesh.first}, the generator's "
+                f"{self.device}: weights and activations live there")
+        self.mesh = mesh
+        # the dense cache splits its sequence axis over the mesh under a
+        # plan or a bare sequence-parallel cfg; decode then attends with
+        # the plan's cfg clone (or that cfg) through sp_decode_attention
+        self._sp_dense = (not self.page_size and mesh is not None
+                          and (self._sp is not None
+                               or cfg.sequence_parallel))
+        self._decode_cfg = (self._sp.sp_cfg
+                            if self._sp is not None and not self.page_size
+                            else cfg)
         if self.page_size:
+            if self._sp is None and mesh is not None \
+                    and cfg.sequence_parallel:
+                raise ValueError(
+                    "page_size composes with sequence parallelism only "
+                    "through the serving plan (GOFR_ML_SP / sp=) — not "
+                    "shard_cache or a bare cfg.attn_impl mesh")
             for b in (*self.prefill_buckets, max_seq):
                 # max_seq included: it is the prefill-bucket fallback, and
                 # a non-multiple would silently drop trailing prompt rows
@@ -476,11 +532,24 @@ class Generator:
                         f"page_size")
             self._p_max = -(-max_seq // self.page_size)
             self.n_pages = n_pages or (1 + batch_slots * self._p_max)
+            if self._sp is not None and self.n_pages % self._sp.shards:
+                # striped pool: each shard owns n_pages / shards pages;
+                # round UP so the capacity asked for stays a floor
+                self.n_pages += self._sp.shards - (
+                    self.n_pages % self._sp.shards)
             self.cache = llama.init_paged_cache(
                 cfg, batch_slots, self.n_pages, self.page_size,
-                device=self.device)
-            # page 0 is scratch; the free list is a stack of real pages
-            self._free_pages = list(range(self.n_pages - 1, 0, -1))
+                device=self.device,
+                mesh=self.mesh if self._sp is not None else None)
+            # page 0 is scratch; the free pool is ONE STACK A SHARD of real
+            # pages (one stack unstriped), and the allocator round-robins
+            # across them (_pop_free_page), so a slot's consecutive
+            # virtual pages land on different shards
+            n_stacks = self._sp.shards if self._sp is not None else 1
+            self._free_dev: list[list[int]] = [[] for _ in range(n_stacks)]
+            for pg in range(self.n_pages - 1, 0, -1):
+                self._free_dev[par.owner(self.cache["k"], pg)].append(pg)
+            self._stripe_rr = 0
             self._slot_pages: list[list[int]] = [[] for _ in
                                                  range(batch_slots)]
             self._table = np.zeros((batch_slots, self._p_max), np.int32)
@@ -510,8 +579,9 @@ class Generator:
             self.kv_restores = 0           # prefixes copied host -> card
             self.kv_restore_fallbacks = 0  # restores lost to pool pressure
         else:
-            self.cache = llama.init_cache(cfg, batch_slots, max_seq,
-                                          device=self.device)
+            self.cache = llama.init_cache(
+                cfg, batch_slots, max_seq, device=self.device,
+                mesh=self.mesh if self._sp_dense else None)
         self.slots = [_Slot() for _ in range(batch_slots)]
         self._rng = torch.Generator(device=self.device).manual_seed(seed)
         # the token row: decode reads and writes it in place (a graph input)
@@ -526,8 +596,10 @@ class Generator:
         # logits of the first step of the last decode dispatch (f32 [B, V]):
         # on a card the graph's own output, overwritten by its next replay
         self.dispatch_logits: torch.Tensor | None = None
+        # an SP generator's dispatches run eagerly (module docstring)
         self._graphs = (DecodeGraphs(self.device, self._rng, cfg.dtype)
-                        if self.device.type == "cuda" else None)
+                        if self.device.type == "cuda" and self._sp is None
+                        and not self._sp_dense else None)
         self._inflight: collections.deque = collections.deque()
         self._pending_first: collections.deque[int] = collections.deque()
         self.steps = 0           # decode steps dispatched
@@ -553,8 +625,10 @@ class Generator:
         if self.scheduler is not None and self.decode_window:
             self.scheduler.window_mode = True  # entries are window sizes
         # admission-wave row buckets: 1 (the trickle) and the cap (bursts);
-        # paged mode admits one request a wave
-        self._admit_cap = 1 if self.page_size else min(8, batch_slots)
+        # paged mode admits one request a wave, and so does SP mode (the
+        # dual-path threshold is per prompt)
+        self._admit_cap = (1 if self.page_size or self._sp is not None
+                           else min(8, batch_slots))
         # -- serving instrumentation, installed by the LLMServer (None =
         # off, one attribute test a site): the fault hook (GOFR_ML_FAULT,
         # testutil/faults.py), the flight recorder's DispatchRecorder and
@@ -667,14 +741,20 @@ class Generator:
 
     def _model_step(self, tok: torch.Tensor, n_cols: int | None):
         """One decode step of the model over the whole batch; the cache is
-        updated in place. Returns the f32 logits [B, V]."""
-        if self.page_size:
+        updated in place. Returns the f32 logits [B, V]. A striped pool
+        decodes through ``sp_paged_decode_step``; a split dense cache
+        through ``decode_step``'s sequence-parallel combine."""
+        if self.page_size and self._sp is not None:
+            logits, _ = llama.sp_paged_decode_step(
+                self.params, tok, self.cache, self._table_dev, self.cfg,
+                self.mesh, n_cols=n_cols)
+        elif self.page_size:
             logits, _ = llama.paged_decode_step(
                 self.params, tok, self.cache, self._table_dev, self.cfg,
                 n_cols=n_cols)
         else:
             logits, _ = llama.decode_step(self.params, tok, self.cache,
-                                          self.cfg)
+                                          self._decode_cfg, mesh=self.mesh)
         return logits
 
     def _chunk_body(self, n_steps: int, n_cols: int | None):
@@ -1108,9 +1188,11 @@ class Generator:
                 lens = np.ones((b,), np.int32)
                 logits, self.cache = llama.prefill_into_many(
                     self.params, toks, lens, self.cfg, self.cache,
-                    np.zeros((b,), np.int32), valid)
+                    np.zeros((b,), np.int32), valid, self.mesh)
                 self._after_prefill(logits, toks, lens, [0] * b, valid)
             self._record_prefill(bucket, time.perf_counter() - t_bucket)
+        if self._sp is not None:
+            self._warm_sp()
         if self._graphs is not None:
             for kind, n, n_cols in self._graph_keys():
                 if (kind, n, n_cols) in self._graphs:
@@ -1158,6 +1240,34 @@ class Generator:
             else:
                 body()
 
+    def _warm_sp(self) -> None:
+        """The sequence-parallel prefill of every bucket the dual path can
+        route to, once, each a program row (``sp_prefill/b<bucket>``): a
+        dense wave with no valid row (nothing written), a paged one into
+        scratch page 0."""
+        sp = self._sp
+        ones = np.ones((1,), np.int32)
+        for bucket in self.prefill_buckets:
+            if bucket < sp.min_tokens:
+                continue
+            padded = np.zeros((1, bucket), np.int32)
+            t0 = time.perf_counter()
+            if self.page_size:
+                logits, self.cache = llama.paged_prefill_into(
+                    self.params, padded, ones, sp.sp_cfg, self.cache,
+                    np.zeros((bucket // self.page_size,), np.int32), 0,
+                    self.page_size, mesh=sp.mesh, set_len=False)
+            else:
+                logits, self.cache = llama.prefill_into_many(
+                    self.params, padded, ones, sp.sp_cfg, self.cache, [0],
+                    [False], sp.mesh)
+            self._post_prefill(logits, [0], [False])
+            self.programs.record(
+                f"sp_prefill/b{bucket}", wall_s=time.perf_counter() - t0,
+                kind="prefill",
+                shapes={"tokens": [1, bucket], "shards": sp.shards},
+                cost=model_cost(self.cfg, 1, bucket, bucket, prefill=True))
+
     def _record_prefill(self, bucket: int, wall_s: float) -> None:
         """A prefill bucket's program row: the seconds of its first runs
         at ``warmup`` (eager on the card too, the kernels' first launches
@@ -1170,14 +1280,30 @@ class Generator:
 
     # -- paged-pool bookkeeping (page_size > 0) ------------------------------
     def _pop_free_page(self) -> int | None:
-        """One page off the free pool, or None when dry."""
-        return self._free_pages.pop() if self._free_pages else None
+        """One page off the free pool, or None when dry. The allocator
+        round-robins across the per-shard stacks, so a striped slot's
+        consecutive virtual pages land on different shards."""
+        n = len(self._free_dev)
+        for i in range(n):
+            d = (self._stripe_rr + i) % n
+            if self._free_dev[d]:
+                self._stripe_rr = (d + 1) % n
+                return self._free_dev[d].pop()
+        return None
 
     def _return_pages(self, pages) -> None:
-        self._free_pages.extend(pages)
+        """Give pages back to the pool, each to the stack of the shard that
+        owns it (fixed by its id)."""
+        for pg in pages:
+            self._free_dev[par.owner(self.cache["k"], pg)].append(pg)
 
     def _n_free_pages(self) -> int:
-        return len(self._free_pages)
+        return sum(len(stack) for stack in self._free_dev)
+
+    @property
+    def _free_pages(self) -> list[int]:
+        """Every free page, stack after stack (a read-only copy)."""
+        return [pg for stack in self._free_dev for pg in stack]
 
     def _alloc_pages_to(self, slot: int, upto_len: int) -> bool:
         """Grow the slot's page list to cover ``upto_len`` virtual
@@ -1341,7 +1467,20 @@ class Generator:
             row[:n_need] = pages
             seg_cap = bucket if bucket is not None else self.prefill_buckets[-1]
             try:
-                for off in range(0, shared_len, seg_cap):
+                sp_built = False
+                if (self._sp is not None and bucket is not None
+                        and shared_len >= self._sp.min_tokens):
+                    # the whole prefix in ONE wave across the mesh: what
+                    # makes a disaggregated prefill replica an SP prefill
+                    # worker; a failure falls through to the segments
+                    # below, which rewrite every position
+                    toks = np.zeros((1, bucket), np.int32)
+                    toks[0, :shared_len] = ids[:shared_len]
+                    sp_built = self._run_sp_prefill(
+                        toks, np.array([shared_len], np.int32),
+                        row[:bucket // ps], 0, prefix=True) is not None
+                for off in (() if sp_built
+                            else range(0, shared_len, seg_cap)):
                     seg = ids[off:min(off + seg_cap, shared_len)]
                     toks = np.zeros((1, seg_cap), np.int32)
                     toks[0, :len(seg)] = seg
@@ -1481,8 +1620,8 @@ class Generator:
             t0 = time.perf_counter()
             idx = self._page_index(pages)
             for name, slab in arrays.items():
-                self.cache[name][:, idx] = slab.to(self.device,
-                                                   non_blocking=True)
+                self.cache[name].index_copy_(
+                    1, idx, slab.to(self.device, non_blocking=True))
             if "paged/scatter" not in self.programs:
                 self.programs.record("paged/scatter",
                                      wall_s=time.perf_counter() - t0,
@@ -1615,8 +1754,12 @@ class Generator:
         return sum(s.live for s in self.slots)
 
     def _routes_chunked(self, n: int) -> bool:
-        """Does a prompt of ``n`` tokens take the segmented prefill?"""
-        return bool(self.prefill_chunk) and n > self.prefill_chunk
+        """Does a prompt of ``n`` tokens take the segmented prefill? An
+        SP-eligible one prefills whole instead: one sequence-parallel wave
+        beats ``prefill_chunk``-sized single-device segments."""
+        if not self.prefill_chunk or n <= self.prefill_chunk:
+            return False
+        return not self._sp_eligible(n)
 
     def add_request(self, prompt_ids, max_new_tokens: int,
                     callback=None, prefix: int | None = None) -> int:
@@ -1864,14 +2007,21 @@ class Generator:
                 lens[row] = n
                 valid[row] = True
                 slot_arr[row] = slots[row]
+            sp_used = False  # this wave prefilled sequence-parallel
             try:
                 if self.page_size:
-                    self._prefill_paged(tokens, lens, slots[0], wave[0][2],
-                                        s_bucket)
+                    sp_used = self._prefill_paged(tokens, lens, slots[0],
+                                                  wave[0][2], s_bucket)
                 else:
-                    logits, self.cache = llama.prefill_into_many(
-                        self.params, tokens, lens, self.cfg, self.cache,
-                        slot_arr, valid)
+                    logits = None
+                    if b == 1 and self._sp_eligible(int(lens[0])):
+                        logits = self._run_sp_prefill(tokens, lens, None,
+                                                      slots[0])
+                        sp_used = logits is not None
+                    if logits is None:
+                        logits, self.cache = llama.prefill_into_many(
+                            self.params, tokens, lens, self.cfg, self.cache,
+                            slot_arr, valid, self.mesh)
                     self._after_prefill(logits, tokens, lens, slot_arr, valid)
                 self.prefill_waves += 1
             except Exception:
@@ -1890,6 +2040,8 @@ class Generator:
                 s.produced = 1  # the pending first token counts as sampled
                 s.prompt_len = n
                 s.callback = callback
+                if sp_used:
+                    s.sp_shards = self._sp.shards
                 if self._plain_armed:
                     s.hist = [int(t) for t in _ids]
                 self.slots[slot] = s
@@ -1897,11 +2049,12 @@ class Generator:
         return out
 
     def _prefill_paged(self, tokens, lens, slot: int, max_new: int,
-                       s_bucket: int) -> None:
-        """One prompt into ``slot``'s own pages. Admission control: no
-        pages, no slot — ``PagePoolExhausted`` (the caller requeues) rather
-        than a silent eviction mid-generation; the estimate never exceeds
-        the request's own budget."""
+                       s_bucket: int) -> bool:
+        """One prompt into ``slot``'s own pages, sequence-parallel when it
+        is eligible; returns whether it was. Admission control: no pages,
+        no slot — ``PagePoolExhausted`` (the caller requeues) rather than a
+        silent eviction mid-generation; the estimate never exceeds the
+        request's own budget."""
         if self._slot_shared[slot]:
             # the previous occupant borrowed prefix pages: reusing its list
             # would write INTO the shared prefix
@@ -1922,10 +2075,77 @@ class Generator:
         row = np.zeros((s_bucket // self.page_size,), np.int32)
         pages = self._slot_pages[slot]
         row[:min(len(pages), len(row))] = pages[:len(row)]
-        logits, self.cache = llama.paged_prefill_into(
-            self.params, tokens, lens, self.cfg, self.cache, row, slot,
-            self.page_size)
+        logits = None
+        if self._sp_eligible(n):
+            logits = self._run_sp_prefill(tokens, lens, row, slot)
+        sp_used = logits is not None
+        if logits is None:
+            logits, self.cache = llama.paged_prefill_into(
+                self.params, tokens, lens, self.cfg, self.cache, row, slot,
+                self.page_size)
         self._after_prefill(logits, tokens, lens, [slot], [True])
+        return sp_used
+
+    # -- sequence-parallel prefill (the sp_serving.py plan) ------------------
+    def _sp_eligible(self, n: int) -> bool:
+        """Does a prompt of ``n`` tokens take the sequence-parallel
+        prefill? The dual-path threshold: below ``min_tokens`` (or past the
+        largest bucket) the single-device prefill runs."""
+        return (self._sp is not None and n >= self._sp.min_tokens
+                and n <= self.prefill_buckets[-1])
+
+    def _run_sp_prefill(self, tokens, lens, row, slot: int, *,
+                        prefix: bool = False):
+        """One sequence-parallel prefill wave: a slot's admission, or with
+        ``prefix`` a ``register_prefix`` page build (pages fill, no slot
+        admits). The forward attends across the mesh (ring or Ulysses) and
+        the K/V land split: on the striped pool's owners, or on the dense
+        row's sequence shards. Returns the last-token logits, or None after
+        a failure (the ``sp_prefill`` / ``sp_gather`` fault points
+        included): the caller then runs the single-device prefill over the
+        same rows or pages, which rewrites them whole, so the fallback is
+        bit-identical to never having tried. Charged to the scheduler at
+        tokens over shards: each shard swept its slice."""
+        sp = self._sp
+        t0 = time.perf_counter()
+        try:
+            if self.fault is not None:
+                self.fault("sp_prefill")
+            if self.page_size:
+                logits, self.cache = llama.paged_prefill_into(
+                    self.params, tokens, lens, sp.sp_cfg, self.cache, row,
+                    slot, self.page_size, mesh=sp.mesh, set_len=not prefix)
+            else:
+                logits, self.cache = llama.prefill_into(
+                    self.params, tokens, lens, sp.sp_cfg, self.cache, slot,
+                    mesh=sp.mesh)
+            if self.fault is not None:
+                self.fault("sp_gather")
+        except Exception as exc:  # the single-device prefill takes over
+            self.sp_fallbacks += 1
+            _log.warning("sp prefill fell back to single-device (%s: %s)",
+                         type(exc).__name__, exc)
+            return None
+        self.sp_prefills += 1
+        self.sp_tokens += int(lens[0])
+        if self.scheduler is not None:
+            self.scheduler.charge_sp(-(-int(lens[0]) // sp.shards))
+        if self.recorder is not None:
+            self.recorder.note("sp_prefill", time.perf_counter() - t0)
+        return logits
+
+    def sp_stats(self) -> dict | None:
+        """The sequence-parallel block of ``/debug/serving`` (None when SP
+        is off: no SP machinery exists then)."""
+        if self._sp is None:
+            return None
+        return {
+            **self._sp.snapshot(),
+            "striped_pages": bool(self.page_size),
+            "prefills": self.sp_prefills,
+            "fallbacks": self.sp_fallbacks,
+            "tokens": self.sp_tokens,
+        }
 
     def _resolve_first(self, tok_in_row: np.ndarray) -> None:
         """Fold newly-admitted slots' first tokens (row 0 of an arriving

@@ -87,10 +87,10 @@ _MIGRATE_KEY = "_migration"
 # page-sliced frames (each settles as its device's D2H finishes —
 # pipelining instead of one monolithic blob); the receiving host
 # reassembles the page axis in shard order before landing
-# (_pending_shards), so the store only ever sees whole entries. The codec
-# and the receiver are here; the sharded-ship sender, a sequence-parallel
-# prefill worker, waits for ROADMAP A.11 with the rest of sequence
-# parallelism.
+# (_pending_shards), so the store only ever sees whole entries.
+# ``ship_bytes_sharded`` is the sender (a replica whose generator runs an
+# SP plan ships ``sp_stats()["shards"]`` frames), ``land_bytes`` the
+# receiver.
 _SHARD_KEY = "_sp_shard"
 
 

@@ -264,6 +264,8 @@ class LLMServer:
         self._kv_restores_seen = 0
         # adaptive speculation's disable counter, published as deltas
         self._spec_disables_seen = 0
+        self._sp_prefills_seen = 0
+        self._sp_fallbacks_seen = 0
         self._default_deadline = (
             float(os.environ.get("GOFR_ML_DEFAULT_DEADLINE_S", "0"))
             if default_deadline_s is None else float(default_deadline_s))
@@ -878,6 +880,11 @@ class LLMServer:
                     sched = self.gen.scheduler
                     if sched is not None and sched.restore_debt:
                         extra["restore_debt"] = sched.restore_debt
+                    sp_shards = self.gen.slots[slot].sp_shards
+                    if sp_shards:
+                        # this prompt prefilled sequence-parallel: the
+                        # waterfall names the shard count that carried it
+                        extra["sp_shards"] = sp_shards
                     req.journey.mark("admit", **extra)
                 if req.full_prompt is not None:
                     # the hit is real only now: the slot borrowed the
@@ -1206,6 +1213,19 @@ class LLMServer:
                          float(sched.budget))
             self._metric("set_gauge", "app_llm_prefill_share",
                          float(sched.prefill_share))
+        sp = gen.sp_stats()
+        if sp is not None:
+            # sequence-parallel serving: the shard count, and the prefill
+            # and fallback counts as counter deltas
+            self._metric("set_gauge", "app_ml_sp_shards", float(sp["shards"]))
+            if sp["prefills"] > self._sp_prefills_seen:
+                self._metric("add_counter", "app_ml_sp_prefills_total",
+                             sp["prefills"] - self._sp_prefills_seen)
+                self._sp_prefills_seen = sp["prefills"]
+            if sp["fallbacks"] > self._sp_fallbacks_seen:
+                self._metric("add_counter", "app_ml_sp_fallbacks_total",
+                             sp["fallbacks"] - self._sp_fallbacks_seen)
+                self._sp_fallbacks_seen = sp["fallbacks"]
         disables = gen.spec_disables
         if disables > self._spec_disables_seen:
             # adaptive speculation turned a slot off: the alarm to the

@@ -64,8 +64,11 @@ Placement (``split_devices``, ``build_replica_generators``): one card per
 replica while cards last, round-robin past the card count, so on one
 H100 every replica shares ``cuda:0`` — and then the replicas share the
 weight tensors (no copy), each owning its cache, page pool, host tier,
-decode graphs and serving thread. A replica over several cards (tensor
-or sequence parallelism) waits for ROADMAP A.11. The cross-host fleet
+decode graphs and serving thread. With sequence-parallel serving armed
+(``sp=`` or ``GOFR_ML_SP``), a replica that owns several devices gets an
+sp mesh over them (``devices=[cuda:0] * 4`` gives one replica four shards
+on one card); a replica over several devices without it (tensor
+parallelism) waits for ROADMAP A.11. The cross-host fleet
 sits above and beside the pool: ``ml/federation.py`` fronts a pool or a
 server on each host, ``ml/multihost.py`` runs a mesh of Generators over
 ``torch.distributed``.
@@ -454,25 +457,49 @@ def build_replica_generators(params, cfg, n: int, *, warmup: bool = True,
     Replicas on the same card share ``params`` (no copy); each owns its
     KV cache, page pool, host tier, decode graphs and (once served) its
     serving thread. A replica whose build or warmup fails fails the
-    call. A subset of several devices (a replica over several cards) and
-    ``sp=`` raise: tensor and sequence parallelism are ROADMAP A.11."""
-    from .generate import Generator
+    call.
 
-    if gen_kwargs.get("sp"):
-        raise NotImplementedError(
-            "sequence-parallel replicas (sp=) are not ported yet "
-            "(ROADMAP A.11)")
-    gen_kwargs.pop("sp", None)
+    With sequence-parallel serving armed (``GOFR_ML_SP`` or an ``sp=``
+    kwarg), a subset of several devices gets an sp mesh over them (the
+    weights on its first): the replica prefills long prompts across them,
+    which makes a disaggregated prefill-biased replica a sequence-parallel
+    prefill worker. A one-device subset cannot shard: an explicit ``sp=``
+    raises, an env-armed one stays off for it, as in JAX. A subset of
+    several devices without SP (tensor parallelism) raises naming ROADMAP
+    A.11."""
+    from .. import parallel as par
+    from .generate import Generator
+    from .sp_serving import SPConfig
+
+    # an explicit sp=None means the same as absent (the Generator reads
+    # the env): neither spelling lets a one-device replica build a mesh
+    sp_req = gen_kwargs.get("sp")
+    if sp_req is None:
+        sp_req = SPConfig.from_env()
     gens = []
     for subset in split_devices(n, devices):
-        if len(subset) != 1:
+        kw = dict(gen_kwargs)
+        dev = subset[0]
+        mesh = None
+        if len(subset) == 1:
+            if gen_kwargs.get("sp"):
+                raise ValueError(
+                    f"sp= requested but replica {len(gens)} owns a "
+                    f"single device ({dev}) — sequence parallelism needs "
+                    f">= 2 devices per replica (fewer replicas, or more "
+                    f"devices)")
+            if sp_req is not None:
+                kw["sp"] = False
+        elif sp_req:
+            mesh = par.make_mesh(par.MeshConfig(sp=len(subset)),
+                                 devices=subset)
+        else:
             raise NotImplementedError(
                 f"replica {len(gens)} spans {len(subset)} devices: a "
                 f"replica over several cards (tensor parallelism) is not "
                 f"ported yet (ROADMAP A.11); use as many replicas as cards")
-        dev = subset[0]
-        gen = Generator(_params_on(params, dev), cfg, device=dev,
-                        **gen_kwargs)
+        gen = Generator(_params_on(params, dev), cfg, device=dev, mesh=mesh,
+                        **kw)
         if warmup:
             gen.warmup()
         gens.append(gen)

@@ -11,8 +11,9 @@
   consults to pick a decode-ladder entry (a chunk size, or with fused
   decode windows a window size) and the prefill segments to run before
   it, paying down the debt host-tier restores charge to it and charging
-  a speculative verify window K+1 positions a row (``unit_tokens``). The
-  sequence-parallel debt waits for sequence parallelism (ROADMAP A.11);
+  a speculative verify window K+1 positions a row (``unit_tokens``), and
+  charging a sequence-parallel prefill wave at tokens over shards
+  (``charge_sp``, on the same ledger as the restores);
 - ``SLOController``: steers the scheduler's prefill share from observed
   TTFT / TPOT against ``GOFR_ML_TTFT_TARGET_MS`` /
   ``GOFR_ML_TPOT_TARGET_MS``.
@@ -127,7 +128,18 @@ class TokenBudgetScheduler:
         self.last_unit = 1
         self.restore_debt = 0
         self.restores_charged = 0
+        self.sp_charges = 0  # sequence-parallel prefill waves charged
         self.window_mode = False
+
+    def charge_sp(self, tokens: int) -> None:
+        """Charge one sequence-parallel prefill wave. The caller passes
+        tokens / shards: each shard swept only its slice of the prompt, so
+        the debt upcoming plans repay is one shard's work, not the whole
+        prompt's. Rides the restore-debt ledger: the same cap, the same
+        repayment."""
+        self.restore_debt = min(self.restore_debt + max(0, int(tokens)),
+                                4 * self.budget)
+        self.sp_charges += 1
 
     def charge_restore(self, tokens: int) -> None:
         """Debit ``tokens`` of restore copy work against upcoming
@@ -194,6 +206,7 @@ class TokenBudgetScheduler:
             "last_unit": self.last_unit,
             "restore_debt": self.restore_debt,
             "restores_charged": self.restores_charged,
+            "sp_charges": self.sp_charges,
         }
 
 

@@ -1,15 +1,17 @@
 """Models of the port: ``llama`` (the Llama-3 decoder of the chat path),
 ``mlp`` (the MNIST classifier), ``bert`` (the encoder of the embeddings
-service and of the text-to-image prompt) and ``diffusion`` (the DiT and its
-DDIM sampler). ``tensor_from_numpy`` carries a JAX parameter leaf across
-bit for bit; ``normal`` draws a seeded weight."""
+service and of the text-to-image prompt), ``diffusion`` (the DiT and its
+DDIM sampler) and ``moe`` (the Mixture-of-Experts layer).
+``tensor_from_numpy`` carries a JAX parameter leaf across bit for bit,
+``tree_from_numpy`` a whole tree (the MoE tree, stage-stacked pipeline
+parameters); ``normal`` draws a seeded weight."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["tensor_from_numpy", "normal"]
+__all__ = ["tensor_from_numpy", "tree_from_numpy", "normal"]
 
 
 def tensor_from_numpy(a, device) -> torch.Tensor:
@@ -20,6 +22,14 @@ def tensor_from_numpy(a, device) -> torch.Tensor:
         t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
         return t.view(torch.bfloat16).to(device)
     return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
+
+
+def tree_from_numpy(tree, device):
+    """A tree of numpy leaves (``jax.tree.map(np.asarray, params)``) as the
+    same tree of tensors on ``device``, each leaf bit for bit."""
+    from ..ml.tree import tree_map
+
+    return tree_map(lambda a: tensor_from_numpy(a, device), tree)
 
 
 def normal(generator: torch.Generator, shape, std: float,

@@ -62,8 +62,21 @@ slice of the stacked gradient in one copy. ``LLAMA_CKPT`` /
 ``checkpoint_dir`` restore real weights (an HF directory through
 ``ml.hf_import``, a ``ml.checkpoint.Checkpointer`` directory of a params
 tree or of a training state) and ``LLM_DRAFT_CKPT`` loads an HF draft.
-Sequence-parallel attention raises ``NotImplementedError`` naming the
-ROADMAP item that brings it.
+
+Sequence parallelism (``LlamaConfig(attn_impl="ring"|"ulysses")`` with a
+``parallel.Mesh``): the forward and the prefills attend through
+``parallel.ring`` / ``parallel.ulysses`` over the mesh's sp axis;
+``init_cache(mesh=)`` splits the dense cache's sequence axis over the
+shards and ``decode_step(mesh=)`` combines them through
+``sp_decode_attention``; ``init_paged_cache(mesh=)`` stripes the page
+pool and ``sp_paged_decode_step`` decodes it. Split arrays are
+``parallel.ShardedTensor``s, one block a shard on its device; every
+cache write or read here goes through ``parallel``'s cache accesses
+(``row_write``, ``row_read``, ``set_at_pos``, ``pool_put``,
+``pool_take``), which route a position or a page to its owner, so the
+single-device paths (a short prompt's prefill, a segment, a suffix) run
+on a split cache too. Weights and activations stay
+on the mesh's first device, as JAX's are replicated.
 """
 
 from __future__ import annotations
@@ -76,7 +89,9 @@ import torch
 from . import tensor_from_numpy as _tensor_from_numpy
 from ..ops import (apply_rope, cached_decode_attention, dequantize_kv,
                    dequantize_kv4, flash_attention, quantize_kv, quantize_kv4,
-                   quantize_weight, rms_norm, rope_table)
+                   quantize_weight, repeat_kv, rms_norm, rope_table)
+from ..parallel import (ShardedTensor, pool_put, pool_take, row_read,
+                        row_write, set_at_pos)
 
 __all__ = ["LlamaConfig", "llama3_8b", "tiny_llama", "kv_bits_from_env",
            "config_from_env", "init_params", "quantize_weights",
@@ -85,7 +100,8 @@ __all__ = ["LlamaConfig", "llama3_8b", "tiny_llama", "kv_bits_from_env",
            "init_cache", "prefill", "prefill_into", "prefill_into_many",
            "prefill_segment_into", "decode_step", "decode_window",
            "init_paged_cache", "paged_prefill_into", "paged_suffix_prefill",
-           "paged_decode_step", "paged_decode_window", "draft_from_env"]
+           "paged_decode_step", "sp_paged_decode_step",
+           "paged_decode_window", "draft_from_env"]
 
 _LAYER_KEYS = ("attn_norm", "mlp_norm", "wq", "wk", "wv", "wo", "w_gate",
                "w_up", "w_down")
@@ -112,10 +128,13 @@ class LlamaConfig:
         w8: bool = False,
         rope_scaling: dict | None = None,
     ) -> None:
-        if attn_impl != "auto":
-            raise NotImplementedError(
-                f"attn_impl={attn_impl!r}: sequence-parallel attention is not "
-                "ported yet (ROADMAP A.11)")
+        # "auto" (single-device flash), "ring" or "ulysses": sequence-
+        # parallel attention over the mesh's sp axis, the long-context
+        # path; it needs ``mesh=`` passed to the forward, the prefills
+        # and ``decode_step`` (the Generator does this with a mesh)
+        if attn_impl not in ("auto", "ring", "ulysses"):
+            raise ValueError(f"unknown attn_impl {attn_impl!r}")
+        self.attn_impl = attn_impl
         # kv_bits as in the JAX config: 8 (the int8 cache, the default with
         # kv_quant), 4 (packed int4 codes with a scale and a zero point a
         # vector; paged caches only) or 16 (the fp cache); 4 and 8 imply
@@ -151,6 +170,10 @@ class LlamaConfig:
     @property
     def n_rep(self) -> int:
         return self.n_heads // self.n_kv_heads
+
+    @property
+    def sequence_parallel(self) -> bool:
+        return self.attn_impl in ("ring", "ulysses")
 
 
 def llama3_8b(**kw) -> LlamaConfig:
@@ -478,18 +501,30 @@ def _layer_params(params: dict, layer: int) -> dict:
             for k, v in params["layers"].items()}
 
 
-def _layer(cfg: LlamaConfig, x, lp, cos, sin, *, kv_len=None):
+def _layer(cfg: LlamaConfig, x, lp, cos, sin, *, kv_len=None, mesh=None):
     """One full-sequence decoder block (prefill). Returns (x, k, v) with k
     and v GROUPED [B, S, KV, D]: the flash dispatcher takes them as they are
-    (its plain version expands them with ``repeat_kv`` itself)."""
+    (its plain version expands them with ``repeat_kv`` itself). A
+    sequence-parallel ``cfg`` with a ``mesh`` attends through ring or
+    Ulysses attention over the mesh's sp axis instead, K/V GQA-expanded
+    first, as JAX does."""
     b, s, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
     q = apply_rope(_mm(h, lp["wq"]).reshape(b, s, H, hd), cos, sin)
     k = apply_rope(_mm(h, lp["wk"]).reshape(b, s, KV, hd), cos, sin)
     v = _mm(h, lp["wv"]).reshape(b, s, KV, hd)
-    o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                        causal=True, kv_len=kv_len)
+    if cfg.sequence_parallel and mesh is not None:
+        from ..parallel.ring import ring_attention
+        from ..parallel.ulysses import ulysses_attention
+
+        sp_attn = (ring_attention if cfg.attn_impl == "ring"
+                   else ulysses_attention)
+        o = sp_attn(q, repeat_kv(k, cfg.n_rep), repeat_kv(v, cfg.n_rep),
+                    mesh, kv_len=kv_len, causal=True)
+    else:
+        o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                            causal=True, kv_len=kv_len)
     x = x + _mm(o.reshape(b, s, H * hd), lp["wo"])
     x = x + _swiglu(rms_norm(x, lp["mlp_norm"], cfg.norm_eps), lp)
     return x, k, v
@@ -531,8 +566,8 @@ def _token_tensor(tokens, cfg: LlamaConfig, device) -> torch.Tensor:
     return tokens
 
 
-def _forward(params: dict, tokens, cfg: LlamaConfig, seq_lens=None
-             ) -> torch.Tensor:
+def _forward(params: dict, tokens, cfg: LlamaConfig, seq_lens=None,
+             mesh=None) -> torch.Tensor:
     """The full-sequence forward, differentiable: autograd records it when
     grad is on. Each stacked layer weight is unbound once, so the backward
     stacks a weight's per-layer gradients in one pass; with ``cfg.remat``
@@ -550,7 +585,7 @@ def _forward(params: dict, tokens, cfg: LlamaConfig, seq_lens=None
                for k, v in params["layers"].items()}
 
     def body(x, lp):
-        return _layer(cfg, x, lp, cos, sin, kv_len=kv_len)[0]
+        return _layer(cfg, x, lp, cos, sin, kv_len=kv_len, mesh=mesh)[0]
 
     remat = cfg.remat and torch.is_grad_enabled()
     for layer in range(cfg.n_layers):
@@ -566,11 +601,12 @@ def _forward(params: dict, tokens, cfg: LlamaConfig, seq_lens=None
 
 
 @torch.no_grad()
-def forward(params: dict, tokens, cfg: LlamaConfig, *, seq_lens=None
-            ) -> torch.Tensor:
+def forward(params: dict, tokens, cfg: LlamaConfig, *, seq_lens=None,
+            mesh=None) -> torch.Tensor:
     """Full-sequence forward: tokens [B, S] -> f32 logits [B, S, V].
-    ``seq_lens`` [B] masks padded tail positions out of attention."""
-    return _forward(params, tokens, cfg, seq_lens)
+    ``seq_lens`` [B] masks padded tail positions out of attention; a
+    sequence-parallel ``cfg`` attends over ``mesh``'s sp axis."""
+    return _forward(params, tokens, cfg, seq_lens, mesh)
 
 
 def loss_fn(params: dict, tokens, targets, mask, cfg: LlamaConfig
@@ -644,19 +680,35 @@ def _quant_cache(cfg: LlamaConfig, lead: tuple, seq: int, device) -> dict:
 
 
 def init_cache(cfg: LlamaConfig, batch: int, max_seq: int | None = None,
-               device=None) -> dict:
+               device=None, mesh=None) -> dict:
     """Dense cache, all zeros, with the JAX package's keys, shapes and
     dtypes: k/v [L, B, S_max, KV, D] in ``cfg.dtype``, or with
     ``kv_quant`` the values FLAT [L, B, S_max, KV*W] (int8, or uint8 holding
     two int4 codes) and their bf16 planes (``k_scale``/``v_scale``, and
     ``k_zero``/``v_zero`` at int4) [L, B, KV, S_max] (seq minor); ``len``
-    [B] int32."""
+    [B] int32.
+
+    With ``mesh`` (sequence-parallel serving) every K/V array splits its
+    sequence axis over the mesh's sp axis: a ``ShardedTensor`` of one
+    [.., S_max / sp, ..] block a shard on the shard's device (JAX's
+    ``P(None, "dp", "sp", ...)``); ``len`` stays on ``device``."""
     from .. import resolve_device
 
     device = resolve_device(device)
     S = max_seq or cfg.max_seq_len
     L, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
-    if cfg.kv_quant:
+    if mesh is not None:
+        devs = mesh.axis_devices("sp")
+        if S % len(devs):
+            raise ValueError(f"max_seq {S} does not divide over sp="
+                             f"{len(devs)}")
+        blocks = [init_cache(cfg, batch, S // len(devs), device=dev)
+                  for dev in devs]
+        cache = {name: ShardedTensor([blk[name] for blk in blocks],
+                                     3 if name.endswith(("_scale", "_zero"))
+                                     else 2)
+                 for name in blocks[0] if name != "len"}
+    elif cfg.kv_quant:
         cache = _quant_cache(cfg, (L, batch), S, device)
     else:
         cache = {name: torch.zeros((L, batch, S, KV, hd), dtype=cfg.dtype,
@@ -682,10 +734,11 @@ def _kv_planes(cfg: LlamaConfig, k, v) -> dict:
     return planes
 
 
-def _prefill_layers(params, tokens, seq_lens, cfg, write):
+def _prefill_layers(params, tokens, seq_lens, cfg, write, mesh=None):
     """Run the prompt wave [B, S_pad] through every layer, handing each
     layer's (layer, k, v) to ``write``; returns last-valid-token logits
-    [B, V] in f32 (``x[rows, seq_lens - 1]``, as the JAX code gathers)."""
+    [B, V] in f32 (``x[rows, seq_lens - 1]``, as the JAX code gathers).
+    A sequence-parallel ``cfg`` attends over ``mesh``."""
     b, s = tokens.shape
     dev = tokens.device
     x = _embed(params, tokens, cfg)
@@ -693,7 +746,7 @@ def _prefill_layers(params, tokens, seq_lens, cfg, write):
                           cfg.rope_theta, scaling=cfg.rope_scaling)
     for layer in range(cfg.n_layers):
         x, k, v = _layer(cfg, x, _layer_params(params, layer), cos, sin,
-                         kv_len=seq_lens)
+                         kv_len=seq_lens, mesh=mesh)
         write(layer, k, v)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     last = x[torch.arange(b, device=dev), seq_lens.long() - 1]
@@ -701,11 +754,12 @@ def _prefill_layers(params, tokens, seq_lens, cfg, write):
 
 
 @torch.no_grad()
-def prefill(params: dict, tokens, seq_lens, cfg: LlamaConfig, cache: dict
-            ) -> tuple[torch.Tensor, dict]:
+def prefill(params: dict, tokens, seq_lens, cfg: LlamaConfig, cache: dict,
+            mesh=None) -> tuple[torch.Tensor, dict]:
     """Run the prompt [B, S_pad] through the model into a NEW cache shaped
     like ``cache`` (S_max = its length; the bucket is zero-padded to it).
-    Returns (last-token logits [B, V], cache)."""
+    Returns (last-token logits [B, V], cache). A sequence-parallel ``cfg``
+    attends over ``mesh``."""
     dev = params["embed"].device
     tokens, seq_lens = _tokens(tokens, cfg, dev), _int32(seq_lens, dev)
     b, s = tokens.shape
@@ -718,20 +772,23 @@ def prefill(params: dict, tokens, seq_lens, cfg: LlamaConfig, cache: dict
         for name, (new, axis) in _kv_planes(cfg, k, v).items():
             out[name][layer].narrow(axis + 1, 0, s).copy_(new)
 
-    logits = _prefill_layers(params, tokens, seq_lens, cfg, write)
+    logits = _prefill_layers(params, tokens, seq_lens, cfg, write, mesh)
     out["len"] = seq_lens.clone()
     return logits, out
 
 
 @torch.no_grad()
 def prefill_into_many(params: dict, tokens, seq_lens, cfg: LlamaConfig,
-                      cache: dict, slots, valid) -> tuple[torch.Tensor, dict]:
+                      cache: dict, slots, valid, mesh=None
+                      ) -> tuple[torch.Tensor, dict]:
     """Prefill a WAVE of B prompts [B, S_pad] into rows ``slots`` [B] of the
     shared cache, in place. ``valid`` [B] masks padding rows (B is a shape
     bucket): an invalid row writes nothing. A valid row's cache row is
     replaced whole — the prompt's K/V (values and planes of a quantized
     cache), then zeros to S_max — and its ``len`` set, as the JAX version's
-    fresh-cache scatter does. Returns (last-token logits [B, V], cache)."""
+    fresh-cache scatter does. Returns (last-token logits [B, V], cache).
+    A sequence-parallel ``cfg`` attends over ``mesh``; a cache split over
+    a mesh (``init_cache(mesh=)``) takes each position on its shard."""
     dev = params["embed"].device
     tokens, seq_lens = _tokens(tokens, cfg, dev), _int32(seq_lens, dev)
     s = tokens.shape[1]
@@ -745,22 +802,21 @@ def prefill_into_many(params: dict, tokens, seq_lens, cfg: LlamaConfig,
         planes = _kv_planes(cfg, k, v)
         for i in rows:  # in order: a later row for the same slot wins
             for name, (new, axis) in planes.items():
-                dst = cache[name][layer, slots[i]]
-                dst.narrow(axis, 0, s).copy_(new[i])
-                dst.narrow(axis, s, S_max - s).zero_()
+                row_write(cache[name], layer, slots[i], axis, 0, new[i],
+                           zero_to=S_max)
 
-    logits = _prefill_layers(params, tokens, seq_lens, cfg, write)
+    logits = _prefill_layers(params, tokens, seq_lens, cfg, write, mesh)
     for i in rows:
         cache["len"][slots[i]] = seq_lens[i]
     return logits, cache
 
 
 def prefill_into(params: dict, tokens, seq_lens, cfg: LlamaConfig,
-                 cache: dict, slot) -> tuple[torch.Tensor, dict]:
+                 cache: dict, slot, mesh=None) -> tuple[torch.Tensor, dict]:
     """Prefill ONE prompt [1, S_pad] into row ``slot`` of the shared cache
     (in place): ``prefill_into_many`` with a one-row wave."""
     return prefill_into_many(params, tokens, seq_lens, cfg, cache,
-                             [int(slot)], [True])
+                             [int(slot)], [True], mesh)
 
 
 def _qkv(cfg: LlamaConfig, x, lp, cos, sin):
@@ -829,15 +885,18 @@ def prefill_segment_into(params: dict, tokens, seg_len, cfg: LlamaConfig,
         lp = _layer_params(params, layer)
         q, k, v = _qkv(cfg, x, lp, cos, sin)
         for name, (new, axis) in _kv_planes(cfg, k, v).items():
-            cache[name][layer, slot].narrow(axis, start, c).copy_(new[0])
+            row_write(cache[name], layer, slot, axis, start, new[0])
         if cfg.kv_quant:
             k_row, v_row = (
-                dequantize_kv(cache[name][layer, slot].view(S_max, KV, hd),
-                              cache[f"{name}_scale"][layer, slot].t(),
+                dequantize_kv(row_read(cache[name], layer, slot, 0)
+                              .view(S_max, KV, hd),
+                              row_read(cache[f"{name}_scale"], layer, slot,
+                                        1).t(),
                               cfg.dtype)
                 for name in ("k", "v"))
         else:
-            k_row, v_row = cache["k"][layer, slot], cache["v"][layer, slot]
+            k_row, v_row = (row_read(cache[name], layer, slot, 0)
+                            for name in ("k", "v"))
         o = flash_attention(q.contiguous(), k_row[None], v_row[None],
                             causal=True, q_offset=start, kv_len=valid_to)
         x = _block_out(cfg, x, o, lp)
@@ -845,35 +904,36 @@ def prefill_segment_into(params: dict, tokens, seg_len, cfg: LlamaConfig,
     return _logits_at(params, cfg, x, seg - 1), cache
 
 
-def _masked_set(arr, idx, new, fits) -> None:
-    """arr[idx] = new, in place, for the rows where ``fits`` [B] holds."""
-    keep = fits.view(-1, *([1] * (new.dim() - 1)))
-    arr[idx] = torch.where(keep, new, arr[idx])
-
-
 def _write_token_kv(cfg: LlamaConfig, cache: dict, layer: int, k, v, rows,
                     pos, fits) -> None:
     """Write one token's K/V [B, KV, D] of each row at ``[layer, rows,
     pos]``, in place, masked to the rows where ``fits``. int8: quantize,
     scatter the flat [B, KV*D] values at ``[layer, rows, pos]`` and the
-    [B, KV] scales at ``[layer, rows, :, pos]`` (seq minor)."""
+    [B, KV] scales at ``[layer, rows, :, pos]`` (seq minor). A cache split
+    over a mesh takes each row's write on the shard owning ``pos``."""
+    def values_at(p, dev):
+        return rows.to(dev), p
+
+    def planes_at(p, dev):
+        heads = torch.arange(cfg.n_kv_heads, device=dev)[None, :]
+        return rows.to(dev)[:, None], heads, p[:, None]
+
     if not cfg.kv_quant:
         for name, x in (("k", k), ("v", v)):
-            _masked_set(cache[name][layer], (rows, pos), x, fits)
+            set_at_pos(cache[name], layer, values_at, pos, x, fits)
         return
-    heads = torch.arange(cfg.n_kv_heads, device=k.device)[None, :]
     for name, x in (("k", k), ("v", v)):
         codes, planes = kv_encode(cfg, x)
-        _masked_set(cache[name][layer], (rows, pos),
+        set_at_pos(cache[name], layer, values_at, pos,
                     codes.reshape(x.shape[0], -1), fits)
         for pl, val in planes.items():
-            _masked_set(cache[f"{name}_{pl}"][layer],
-                        (rows[:, None], heads, pos[:, None]), val, fits)
+            set_at_pos(cache[f"{name}_{pl}"], layer, planes_at, pos, val,
+                        fits)
 
 
 @torch.no_grad()
-def decode_step(params: dict, tokens, cache: dict, cfg: LlamaConfig
-                ) -> tuple[torch.Tensor, dict]:
+def decode_step(params: dict, tokens, cache: dict, cfg: LlamaConfig,
+                mesh=None) -> tuple[torch.Tensor, dict]:
     """One token per row: tokens [B] -> (f32 logits [B, V], cache).
 
     Rows may sit at different positions (continuous batching); each row
@@ -883,7 +943,13 @@ def decode_step(params: dict, tokens, cache: dict, cfg: LlamaConfig
     kernels clamp kv_len to S_max). The cache is updated in place, ``len``
     too (capped at S_max): a CUDA graph of the step keeps its pointers. With an int8 cache the new
     token's K/V are quantized on write and attention reads the int8 cache
-    with its scales. int4 is a paged precision and raises, as in JAX."""
+    with its scales. int4 is a paged precision and raises, as in JAX.
+
+    A sequence-parallel ``cfg`` with ``mesh`` attends through
+    ``parallel.ring.sp_decode_attention`` over the cache's sequence split
+    across the mesh (``init_cache(mesh=)``): each shard over its own
+    positions, one pmax and two psums to combine; the new token's K/V go
+    to the shard owning its position."""
     if cfg.kv_bits == 4:
         raise ValueError("int4 KV is a paged-cache precision — use "
                          "page_size > 0 (paged_decode_step)")
@@ -891,6 +957,7 @@ def decode_step(params: dict, tokens, cache: dict, cfg: LlamaConfig
     tokens = torch.as_tensor(tokens).to(dev)
     b = tokens.shape[0]
     S_max = cache["k"].shape[2]
+    sp = cfg.sequence_parallel and mesh is not None
     pos = cache["len"]
     kv_len = pos + 1
     fits = pos < S_max
@@ -905,8 +972,15 @@ def decode_step(params: dict, tokens, cache: dict, cfg: LlamaConfig
         lp = _layer_params(params, layer)
         q, k, v = _qkv(cfg, x, lp, cos, sin)
         _write_token_kv(cfg, cache, layer, k[:, 0], v[:, 0], rows, pos_w, fits)
-        o = cached_decode_attention(q.contiguous(), cache["k"], cache["v"],
-                                    kv_len, layer=layer, **scales)
+        if sp:
+            from ..parallel.ring import sp_decode_attention
+
+            o = sp_decode_attention(q, cache["k"], cache["v"], kv_len, mesh,
+                                    layer=layer, **scales)
+        else:
+            o = cached_decode_attention(q.contiguous(), cache["k"],
+                                        cache["v"], kv_len, layer=layer,
+                                        **scales)
         x = _block_out(cfg, x, o, lp)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = _mm(x[:, 0], params["lm_head"]).float()
@@ -976,19 +1050,35 @@ def decode_window(params: dict, tokens, cache: dict, cfg: LlamaConfig
 # -- the paged cache ------------------------------------------------------------
 
 def init_paged_cache(cfg: LlamaConfig, batch: int, n_pages: int, page_s: int,
-                     device=None) -> dict:
+                     device=None, mesh=None) -> dict:
     """Block-paged KV cache: a POOL of ``n_pages`` pages of ``page_s``
     positions shared by every slot, all zeros. bf16/f32 values [L, N, ps,
     KV, D]; quantized values flat [L, N, ps, KV*W] (uint8 at int4) with
     their bf16 planes [L, N, KV, ps]; ``len`` [B] int32. Slots map virtual
     positions onto pages through a host-owned page table; page 0 is
     scratch: unallocated table entries point at it, over-capacity writes
-    land there, and ``kv_len`` keeps reads of it out of every live row."""
+    land there, and ``kv_len`` keeps reads of it out of every live row.
+
+    With ``mesh`` the pool is STRIPED over the mesh's sp axis: shard d owns
+    pages ``[d * N/sp, (d+1) * N/sp)`` (a ``ShardedTensor`` along the page
+    axis, one block a shard on its device) plus one dump page of its own
+    past its block, where a write of a page it does not own lands (JAX
+    drops such writes as out of bounds); ``len`` stays on ``device``."""
     from .. import resolve_device
 
     device = resolve_device(device)
     L, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
-    if cfg.kv_quant:
+    if mesh is not None:
+        devs = mesh.axis_devices("sp")
+        if n_pages % len(devs):
+            raise ValueError(f"{n_pages} pages do not stripe over sp="
+                             f"{len(devs)}")
+        p_loc = n_pages // len(devs)
+        blocks = [init_paged_cache(cfg, batch, p_loc + 1, page_s, device=dev)
+                  for dev in devs]
+        cache = {name: ShardedTensor([blk[name] for blk in blocks], 1, p_loc)
+                 for name in blocks[0] if name != "len"}
+    elif cfg.kv_quant:
         cache = _quant_cache(cfg, (L, n_pages), page_s, device)
     else:
         cache = {name: torch.zeros((L, n_pages, page_s, KV, hd),
@@ -1003,18 +1093,20 @@ def _write_paged(cfg: LlamaConfig, cache: dict, layer: int, k, v, page, off
     """Write K/V [N, KV, D] of N positions at pool coordinates (``page``
     [N], ``off`` [N]) of ``layer``, in place, quantizing at the config's
     precision. Index assignment, never an accumulating scatter: rows that
-    share a scratch position (page 0) overwrite one another."""
+    share a scratch position (page 0) overwrite one another. A striped
+    pool writes each position on the shard owning its page."""
     if not cfg.kv_quant:
         for name, x in (("k", k), ("v", v)):
-            cache[name][layer][page, off] = x.to(cache[name].dtype)
+            pool_put(cache[name], layer, page, (off,), x)
         return
     heads = torch.arange(cfg.n_kv_heads, device=k.device)[None, :]
     for name, x in (("k", k), ("v", v)):
         codes, planes = kv_encode(cfg, x)
-        cache[name][layer][page, off] = codes.reshape(x.shape[0], -1)
+        pool_put(cache[name], layer, page, (off,),
+                  codes.reshape(x.shape[0], -1))
         for pl, val in planes.items():
-            cache[f"{name}_{pl}"][layer][page[:, None], heads,
-                                         off[:, None]] = val
+            pool_put(cache[f"{name}_{pl}"], layer, page[:, None],
+                      (heads, off[:, None]), val)
 
 
 def _gather_pages(cfg: LlamaConfig, cache: dict, layer: int, idx,
@@ -1027,7 +1119,7 @@ def _gather_pages(cfg: LlamaConfig, cache: dict, layer: int, idx,
     for name, arr in cache.items():
         if name == "len":
             continue
-        pages = arr[layer].index_select(0, idx)
+        pages = pool_take(arr, layer, idx)
         if name in ("k", "v"):
             out[name] = pages.view(b, -1, *pages.shape[2:])
         else:
@@ -1056,14 +1148,20 @@ def _virtual_kv(cfg: LlamaConfig, pages: dict):
 @torch.no_grad()
 def paged_prefill_into(params: dict, tokens, seq_lens, cfg: LlamaConfig,
                        cache: dict, table_row, slot, page_s: int,
-                       set_len: bool = True) -> tuple[torch.Tensor, dict]:
+                       mesh=None, set_len: bool = True
+                       ) -> tuple[torch.Tensor, dict]:
     """Prefill ONE prompt [1, S_pad] (the flash kernel through
     ``_prefill_layers``) and write its K/V, page-sized slab by slab, into
     the pages ``table_row`` [S_pad // page_s] (host ints) names, in place:
     one index assignment a cache array a layer. Entries past the prompt
     point at scratch page 0, so whole-page writes need no mask.
     ``set_len=False`` fills pages without admitting a slot (a prefix
-    build). Returns (last-token logits [1, V], cache)."""
+    build). Returns (last-token logits [1, V], cache).
+
+    A sequence-parallel ``cfg`` with ``mesh`` is the long-context prefill:
+    attention shards the prompt over the mesh's sp axis (ring or
+    Ulysses), and a striped pool takes each page on the shard owning
+    it."""
     dev = params["embed"].device
     tokens, seq_lens = _tokens(tokens, cfg, dev), _int32(seq_lens, dev)
     n_pg = tokens.shape[1] // page_s
@@ -1077,9 +1175,9 @@ def paged_prefill_into(params: dict, tokens, seq_lens, cfg: LlamaConfig,
                 slabs = row.reshape(n_pg, page_s, *row.shape[1:])
             else:            # planes [KV, S] -> [n_pg, KV, ps]
                 slabs = row.reshape(row.shape[0], n_pg, page_s).transpose(0, 1)
-            cache[name][layer][pages] = slabs
+            pool_put(cache[name], layer, pages, (), slabs)
 
-    logits = _prefill_layers(params, tokens, seq_lens, cfg, write)
+    logits = _prefill_layers(params, tokens, seq_lens, cfg, write, mesh)
     if set_len:
         cache["len"][int(slot)] = seq_lens[0]
     return logits, cache
@@ -1191,6 +1289,71 @@ def paged_decode_step(params: dict, tokens, cache: dict, table,
         q, k, v = _qkv(cfg, x, lp, cos, sin)
         _write_paged(cfg, cache, layer, k[:, 0], v[:, 0], page, off)
         o = _paged_attention(cfg, q.contiguous(), cache, layer, virt, kv_len)
+        x = _block_out(cfg, x, o, lp)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = _mm(x[:, 0], params["lm_head"]).float()
+    cache["len"].copy_(torch.clamp(kv_len, max=s_virt))
+    return logits, cache
+
+
+@torch.no_grad()
+def sp_paged_decode_step(params: dict, tokens, cache: dict, table,
+                         cfg: LlamaConfig, mesh, n_cols: int | None = None
+                         ) -> tuple[torch.Tensor, dict]:
+    """``paged_decode_step`` against a pool STRIPED over the mesh's sp
+    axis (``init_paged_cache(mesh=)``; JAX's ``sp_paged_decode_step``):
+    shard d owns pages ``[d * N/sp, (d+1) * N/sp)``, and the host allocator
+    round-robins a slot's pages across the shards, so one request's KV
+    spans every shard. The new token's K/V row is written only by the
+    page's owner. Each shard gathers its own pages of every row's first
+    ``n_cols`` table columns (all by default) into a virtual sequence,
+    masks the pages it does not own and the positions past ``len``, and
+    runs the grouped softmax over them; the shards combine exactly (one
+    pmax, two psums: ``parallel.ring.combine_decode``). Activations and
+    weights stay on the mesh's first device (the params' device), as
+    JAX's replicated layers do; only the pool is sharded. int8 and int4
+    pages dequantize on their own shard. ``table`` holds GLOBAL page ids,
+    as the single-device layout's. The pool is updated in place, ``len``
+    too (capped at P_max * ps)."""
+    from ..parallel.ring import combine_decode
+
+    dev = params["embed"].device
+    tokens = torch.as_tensor(tokens).to(dev)
+    if not torch.is_tensor(table):
+        table = _int32(table, dev)
+    b = tokens.shape[0]
+    page_s = cache["k"].shape[2]
+    p_max = table.shape[1]
+    n = p_max if n_cols is None else max(1, min(int(n_cols), p_max))
+    pos = cache["len"]
+    s_virt = p_max * page_s
+    col = torch.clamp(pos // page_s, max=p_max - 1).long()
+    page = torch.where(pos < s_virt, table.gather(1, col[:, None])[:, 0],
+                       0).long()
+    off = (pos % page_s).long()
+    kv_len = pos + 1
+    pool = {name: arr for name, arr in cache.items() if name != "len"}
+    vpos = torch.arange(n * page_s, device=dev).reshape(n, page_s)
+    views = []  # per shard: (shard, local gather index, valid [B, S])
+    for d, sdev, _ in cache["k"].blocks():
+        ltab, owned = cache["k"].local(d, table[:, :n].long())
+        valid = (owned[:, :, None] & (vpos.to(sdev)[None]
+                                      < kv_len.to(sdev)[:, None, None]))
+        views.append((d, ltab.reshape(-1), valid.reshape(b, -1)))
+    x = _embed(params, tokens, cfg)[:, None, :]
+    cos, sin = rope_table(pos[:, None], cfg.head_dim, cfg.rope_theta,
+                          scaling=cfg.rope_scaling)
+    for layer in range(cfg.n_layers):
+        lp = _layer_params(params, layer)
+        q, k, v = _qkv(cfg, x, lp, cos, sin)
+        _write_paged(cfg, cache, layer, k[:, 0], v[:, 0], page, off)
+        parts = []
+        for d, ltab, valid in views:
+            local = {name: arr.block_of(d) for name, arr in pool.items()}
+            k_virt, v_virt = _virtual_kv(
+                cfg, _gather_pages(cfg, local, layer, ltab, b))
+            parts.append((k_virt, v_virt, valid))
+        o = combine_decode(q[:, 0], parts, x.dtype)
         x = _block_out(cfg, x, o, lp)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = _mm(x[:, 0], params["lm_head"]).float()

@@ -587,12 +587,10 @@ def test_debug_json_keys_match_jax(debug_bodies, route):
             keys["events"] = None
         if route in ("/debug/serving", "crash"):
             # keys of what the port has not: a failed asynchronous copy
-            # counter (the port's block copy has no separate failure) and
-            # the sequence-parallel charges (ROADMAP A.11)
+            # counter (the port's block copy has no separate failure)
             block = keys["llms"]["M"] if route == "/debug/serving" \
                 else keys["state"]
             block["pool"].pop("prefetch_errors", None)
-            block["scheduler"].pop("sp_charges", None)
     assert tk == jk
 
 

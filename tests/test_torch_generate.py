@@ -298,15 +298,17 @@ def test_entry_points_take_the_card_unless_told_cpu(pair):
 
 
 def test_unported_generator_options_raise(pair, monkeypatch):
-    """What stays unported raises, naming its ROADMAP item: sequence
-    parallelism (A.11). Speculation (``spec_k``, or a positive
-    ``GOFR_ML_SPEC_K``), paging, chunked prefill, fused windows, the
-    depth-2 pipeline and the host KV tier (asked for by ``host_kv`` or by
-    a positive ``GOFR_ML_KV_HOST_BUDGET_MB``) are ported and construct."""
+    """Every generator option is ported. Sequence parallelism needs a mesh
+    of >= 2 devices: asked for on one CPU device without one, it raises
+    JAX's "needs >= 2 devices" (the SP tests pass a mesh). Speculation
+    (``spec_k``, or a positive ``GOFR_ML_SPEC_K``), paging, chunked
+    prefill, fused windows, the depth-2 pipeline and the host KV tier
+    (asked for by ``host_kv`` or by a positive
+    ``GOFR_ML_KV_HOST_BUDGET_MB``) construct."""
     from gofr_tpu_torch.ml.kv_offload import HostKVStore, OffloadConfig
 
     _, _, tcfg, tparams = pair
-    with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
+    with pytest.raises(ValueError, match="needs >= 2 devices"):
         Generator(tparams, tcfg, device="cpu", sp="ring")
     assert Generator(tparams, tcfg, device="cpu", spec_k=2).spec_k == 2
     monkeypatch.setenv("GOFR_ML_SPEC_K", "2")
@@ -421,7 +423,10 @@ def test_importing_the_port_loads_no_jax():
             "gofr_tpu_torch.ml.checkpoint, gofr_tpu_torch.ml.data, "
             "gofr_tpu_torch.ml.hf_import, gofr_tpu_torch.ml.pjrt_backend, "
             "gofr_tpu_torch.native.aoti, gofr_tpu_torch.native.aoti_selftest, "
-            "gofr_tpu_torch.tokenizer; "
+            "gofr_tpu_torch.tokenizer, gofr_tpu_torch.parallel.ring, "
+            "gofr_tpu_torch.parallel.ulysses, "
+            "gofr_tpu_torch.parallel.pipeline, gofr_tpu_torch.models.moe, "
+            "gofr_tpu_torch.ml.sp_serving; "
             "from gofr_tpu_torch.ml.multihost import MultiHostWorker, "
             "MultiHostLLMClient; "
             "from gofr_tpu_torch.ml.federation import FederatedPool; "

@@ -213,16 +213,18 @@ def test_decode_steps_match_jax_with_a_row_at_capacity(pair):
 
 
 def test_unported_configurations_raise(monkeypatch):
-    """What stays unported raises, naming its ROADMAP item:
-    sequence-parallel attention. int4 KV is ported as a paged-cache
+    """Sequence-parallel attention is ported: ``attn_impl`` takes ring and
+    Ulysses and refuses anything else, as JAX's config does. int4 KV is
+    ported as a paged-cache
     precision: the config takes it, and the dense paths refuse it as JAX
     does. Restoring a checkpoint in params_from_config is ported (A.12): a
     directory that does not exist raises FileNotFoundError, as JAX's
     restore of an empty run does, and is not created."""
-    for kw, item in (({"attn_impl": "ring"}, "A.11"),
-                     ({"attn_impl": "ulysses"}, "A.11")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            tllama.tiny_llama(**kw)
+    for impl in ("ring", "ulysses"):
+        assert tllama.tiny_llama(attn_impl=impl).sequence_parallel
+    assert not tllama.tiny_llama().sequence_parallel
+    with pytest.raises(ValueError, match="attn_impl"):
+        tllama.tiny_llama(attn_impl="nope")
     for kw in ({"kv_bits": 4}, {"kv_quant": True, "kv_bits": 4}):
         cfg4 = tllama.tiny_llama(**kw)
         assert (cfg4.kv_bits, cfg4.kv_quant) == (4, True)

@@ -177,7 +177,8 @@ def test_split_devices():
 def test_replicas_on_one_device_share_the_weights(model):
     """Replicas that land on the same device share the weight tensors (no
     copy, as JAX's ``device_put`` onto their own device); each owns its
-    cache and page pool. ``sp=`` and a multi-device replica raise naming
+    cache and page pool. An explicit ``sp=`` on a one-device replica
+    raises JAX's error; a multi-device replica without SP raises naming
     A.11."""
     _, _, cfg, params, _ = model
     gens = build_replica_generators(params, cfg, 2, warmup=False,
@@ -186,7 +187,7 @@ def test_replicas_on_one_device_share_the_weights(model):
                                     page_size=4, n_pages=16)
     assert gens[0].params is params and gens[1].params is params
     assert gens[0].cache["k"].data_ptr() != gens[1].cache["k"].data_ptr()
-    with pytest.raises(NotImplementedError, match="A.11"):
+    with pytest.raises(ValueError, match="owns a single device"):
         build_replica_generators(params, cfg, 1, devices=[CPU], sp=True)
     with pytest.raises(NotImplementedError, match="A.11"):
         build_replica_generators(params, cfg, 1, devices=[CPU, CPU])

@@ -358,7 +358,9 @@ def test_register_llm_applies_profile_and_restores_env(
                         profile={"knobs": {"GOFR_ML_EVIL": "1"}})
     # the fleet's knobs (ROADMAP A.14a) act under a profile as in JAX: a
     # pool of two replicas; disaggregation on one replica gives JAX's
-    # error. Sequence parallelism still raises naming A.11.
+    # error. The sequence-parallel knobs reach the build: a malformed
+    # GOFR_ML_SP raises naming it, and a well-formed one stays off on a
+    # one-device replica (JAX's rule: it needs a replica of >= 2 devices).
     from gofr_tpu_torch.ml.replica import ReplicaPool
 
     pool = ml.register_llm("tune-pool", params, cfg, warmup=False,
@@ -375,11 +377,20 @@ def test_register_llm_applies_profile_and_restores_env(
                         device="cpu", max_seq=64, prefill_buckets=(8,),
                         profile={"knobs": {"GOFR_ML_DISAGG": "1"}})
     assert "GOFR_ML_DISAGG" not in os.environ
-    with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
+    with pytest.raises(ValueError, match="GOFR_ML_SP must be one of"):
         ml.register_llm("tune-unported", params, cfg, warmup=False,
                         device="cpu", max_seq=64, prefill_buckets=(8,),
                         profile={"knobs": {"GOFR_ML_SP": "1",
                                            "GOFR_ML_SP_SHARDS": "2"}})
+    server = ml.register_llm("tune-sp", params, cfg, warmup=False,
+                             device="cpu", max_seq=64, prefill_buckets=(8,),
+                             profile={"knobs": {"GOFR_ML_SP": "ring",
+                                                "GOFR_ML_SP_SHARDS": "2"}})
+    try:
+        assert server.gen.sp_stats() is None
+    finally:
+        server.close()
+    assert "GOFR_ML_SP" not in os.environ
     assert "GOFR_ML_REPLICAS" not in os.environ
 
 
