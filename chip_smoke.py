@@ -42,9 +42,10 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    measurements only,
    the decode step at the same shape with bf16 weights over the int8
    cache and fully in bf16, and the cost of quantize-on-write;
-5. the paged path (``PAGED``: 8 slots x 2048 from a pool of 513 pages of
-   16, half the dense equivalent; buckets 128/512/2048, 512-token prefill
-   segments, chunk 4) behind ``LLMServer`` with its prefix cache: bf16
+5. the paged path, at 16 of the 32 layers (``PAGED_LAYERS``; ``PAGED``:
+   8 slots x 2048 from a pool of 513 pages of 16, half the dense
+   equivalent; buckets 128/512/2048, 512-token prefill segments, chunk 4)
+   behind ``LLMServer`` with its prefix cache: bf16
    (16 requests on a 1536-token prefix pinned through the server, two
    unshared 1900-token prompts prefilled in segments while they decode),
    int8 pages on the w8 + kv8 weights and int4 pages on the bf16 weights
@@ -66,7 +67,7 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    the same kernels: identical tokens (checked) and the first step's
    logits' largest difference; the graphed step's wall, device time and
    busy share;
-7. fused windows and the pipeline, at 16 of the 32 layers
+7. fused windows and the pipeline, at 4 of the 32 layers
    (``WINDOW_LAYERS``): phase 5's paged bf16 serving arm with
    windows off, ``GOFR_ML_DECODE_WINDOW=auto``, ``GOFR_ML_PIPELINE=1``
    and both: served tok/s, the decode step in steady state (8 streams)
@@ -177,7 +178,7 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    Printed on ``engine:`` lines: calls/s, p50/p99, realized batches, peak
    memory, and per bucket replay ms, eager ms, capture s and pool bytes;
 13. the OpenAI-compatible front and the time machine on phase 3's weights
-   (their first ``OAI_LAYERS``, 16, of 32 layers, as phases 7 and 14 run,
+   (their first ``OAI_LAYERS``, 8, of 32 layers, as phases 7 and 14 run,
    since phase 16 joined the script; the port's
    ``examples/openai_server``, 8 slots, chunk 4, with
    ``examples/llama_server``'s ``POST /generate`` on the same server):
@@ -215,7 +216,7 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
 14. the fleet (``ml/replica.py``, ``ml/kv_transport.py``) through the
    example app over gRPC, pages of 16, 513 pages a replica,
    ``prefill_chunk`` 512, ``max_seq`` 2048, every replica on phase 3's
-   weights (their first ``FLEET_LAYERS``, 16, of 32 layers) without a
+   weights (their first ``FLEET_LAYERS``, 8, of 32 layers) without a
    copy; each arm counts the launches of its fleet
    traffic alone, its reference runs after the count is read: (a)
    ``GOFR_ML_REPLICAS=2``, 32 requests x 64 tokens at once: both
@@ -242,9 +243,9 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    fixed prompt's tokens before, during and after agree (or differ on a
    near-tie). Each arm counts its flash and decode launches.
 15. HF import, training, checkpoints and serving what was trained, on
-   Llama-3-8B at its published width cut to ``TRAIN_LAYERS`` (8) of its 32
-   layers (phase 3's first 8), last, with phases 3 and 4's weights still
-   resident: (a) the 8 layers written by the script's own safetensors
+   Llama-3-8B at its published width cut to ``TRAIN_LAYERS`` (4) of its 32
+   layers (phase 3's first 4), last, with phases 3 and 4's weights still
+   resident: (a) the 4 layers written by the script's own safetensors
    writer as an HF directory (two shards and an index, ``[out, in]``
    projections, ``config.json``, a small byte-level ``tokenizer.json``) and
    imported onto the card by ``ml.hf_import.import_hf_llama``: every leaf
@@ -258,7 +259,7 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    ``adamw(3e-4, mu_dtype=f32)``, bf16 params, fed by ``DataLoader(
    jsonl_source(...), batch_size=2, prefetch=2)`` over a JSONL written from
    seed 0, 8 steps (the first 6 one batch): every loss finite, the loss
-   over the repeated batch falls, 2 x 8 flash launches a step (forward
+   over the repeated batch falls, 2 x 4 flash launches a step (forward
    and the remat recompute); step ms, tokens/s, the share of 989 TFLOP/s
    (6 N tokens + 3 (2 L H D) B S^2), peak allocated memory, and one more
    step split into forward + backward and the optimizer; the state
@@ -324,7 +325,7 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    not a throughput figure), rank 0's ms a gather (its wait for the
    other rank included), the kill to the last error;
 18. sequence-parallel long-context serving on Llama-3-8B at its published
-   width and ``SP_LAYERS`` (8) of its 32 layers, over
+   width and ``SP_LAYERS`` (4) of its 32 layers, over
    ``make_mesh(MeshConfig(sp=4), devices=[cuda:0] * 4)`` (four shards on
    the one card: the ring rotation, the Ulysses reshard, the striped
    pool and the decode combine run, nothing crosses cards), buckets
@@ -349,6 +350,33 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    step beside the single-device generator's, peak memory, the Ulysses
    shard's flash call as a row of the kernel table, the MoE layer's bf16
    and f32 ms and its dispatch product's share.
+19. tensor-parallel serving on Llama-3-8B at full width and depth (phase
+   3's weights), each replica a tp mesh over ``[cuda:0] * tp`` (the
+   Megatron split, the psum after the row-parallel products and the
+   vocabulary gather run on the one card; over distinct cards as well
+   when the machine has two): (a) ``build_replica_generators(...,
+   devices=[cuda:0] * tp)`` serving 8 prompts of 60-1900 tokens x 64
+   through ``LLMServer`` in four arms (dense bf16, pages of 16 and the
+   int8 cache at tp = 2, dense bf16 at tp = 4; 8 slots x 2048), each
+   against the tp = 1 graphed Generator of its layout: streams equal or
+   differing on a near-tie, a 1900-token prompt's prefill logits and 16
+   teacher-forced decode steps' within 5 % of range, argmax equal in >= 12
+   of 16; (b) flash launched tp x layers x prefill waves, the layout's
+   decode kernel tp x layers x decode steps, the other one and every
+   plain attention never; (c) measured: the eager tp decode step (8 rows
+   of 1000) beside the tp = 1 graphed step, the 2048-token prefill, the
+   psum / all_gather share of the step's device time under the profiler,
+   peak memory; (d) flash and both decode kernels at the tp shards'
+   shapes (16 / 4 and 8 / 2 heads) as rows of the kernel table; (e) a tp
+   = 2 paged prefill replica shipping to a tp = 1 decode replica (tokens
+   against the decode replica's own split), one ``MultiHostWorker`` rank
+   (world 1, gloo, ``device=[cuda:0, cuda:0]``, a ``--mesh-child``
+   started at the phase's start) serving 4 prompts x 32 tokens through
+   ``MultiHostLLMClient`` against an in-process tp = 1 Generator, one MoE
+   layer at Mixtral-8x7B's shape at ep = 2 against ep = 1 (5 % of range)
+   and BERT-base b32 at tp = 2 against tp = 1 (2 %). To make room for it,
+   phase 5 runs 16 of the 32 layers, phases 9, 10, 13 and 14 run 8, and
+   phases 7 and 18 run 4; 19(e)'s rank runs ``TP_RANK_LAYERS`` (8).
 
 Measurements under ``torch.profiler`` hold the flight recorder's
 ``PROFILE_LOCK``, so an auto-profiler capture never overlaps one.
@@ -444,7 +472,6 @@ def sweep_ms(launch, n_layers: int, reps: int = 10, graph: bool = True) -> float
 def profiled_ms(launch, n_layers: int, reps: int) -> float:
     """The device time of the kernels ``launch`` runs, per launch, under
     torch.profiler (the fallback of ``sweep_ms``)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     # one profiler a process: wait for an auto-profiler capture to end
@@ -453,9 +480,24 @@ def profiled_ms(launch, n_layers: int, reps: int) -> float:
             for layer in range(n_layers):
                 launch(layer)
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
+    us = sum(us for us, _ in device_kernels(prof).values())
     return us / 1e3 / (reps * n_layers)
+
+
+def device_kernels(prof) -> dict:
+    """The device's kernels and copies in a finished torch.profiler run, as
+    {name: [microseconds, launches]}, read from its kineto events: what
+    ``key_averages`` sums for them, without its Python event tree, which
+    takes seconds a call for a full-depth decode step."""
+    from torch.autograd import DeviceType
+
+    out: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and not e.is_user_annotation():
+            tally = out.setdefault(e.name(), [0.0, 0])
+            tally[0] += e.duration_ns() / 1e3
+            tally[1] += 1
+    return out
 
 
 @contextlib.contextmanager
@@ -474,7 +516,6 @@ def device_profile(fn, n: int) -> dict:
     device's kernel time per call, their ratio (the busy share; the rest of
     the wall the card sat idle waiting for the host) and the kernels that
     took the most device time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -486,29 +527,26 @@ def device_profile(fn, n: int) -> dict:
             fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and e.self_device_time_total > 0]
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    flash_us = sum(e.self_device_time_total for e in kernels
-                   if "flash" in e.key)
+    kernels = {k: v for k, v in device_kernels(prof).items() if v[0] > 0}
+    busy_us = sum(us for us, _ in kernels.values())
+    flash_us = sum(us for k, (us, _) in kernels.items() if "flash" in k)
     # torch's gather kernels: in a paged step, the index_select of each
     # row's pages into its virtual sequence (and the token embedding's
     # few-row lookup, a few microseconds)
-    gather_us = sum(e.self_device_time_total for e in kernels
-                    if "gather_kernel" in e.key or "indexSelect" in e.key)
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    gather_us = sum(us for k, (us, _) in kernels.items()
+                    if "gather_kernel" in k or "indexSelect" in k)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:6]
     return {"wall_ms": wall * 1e3 / n, "device_ms": busy_us / 1e3 / n,
             "busy_share": busy_us / 1e6 / wall,
             # the flash kernel's device time and its share of the device's
             "flash_device_ms": flash_us / 1e3 / n,
             "flash_share": flash_us / busy_us if busy_us else 0.0,
             "gather_device_ms": gather_us / 1e3 / n,
-            "top_device_ms": {e.key[:80]: e.self_device_time_total / 1e3 / n
-                              for e in top},
+            "top_device_ms": {k[:80]: us / 1e3 / n for k, (us, _) in top},
             # launches per call of every attention kernel of the port
-            "attention_launches": {e.key[:80]: e.count / n for e in kernels
-                                   if "decode" in e.key or "flash" in e.key}}
+            "attention_launches": {k[:80]: c / n
+                                   for k, (_, c) in kernels.items()
+                                   if "decode" in k or "flash" in k}}
 
 
 @contextlib.contextmanager
@@ -1512,9 +1550,15 @@ def paged_arm(llama, params, cfg, dev, *, n_shared: int, n_long: int,
             "pool": stats}, gen
 
 
+# phase 5 runs at this depth (of 32 layers) to keep the script inside its
+# time limit once phase 19 joined it; its checks compare arms of the same
+# depth
+PAGED_LAYERS = 16
+
+
 def paged_path(dev, bf16_params, w8_params) -> dict:
-    """Llama-3-8B at full width from a shared page pool (``PAGED``): the
-    bf16 arm (16 requests on a 1536-token prefix pinned through the
+    """Llama-3-8B at full width and the weights' depth from a shared page
+    pool (``PAGED``): the bf16 arm (16 requests on a 1536-token prefix pinned through the
     server, and two unshared 1900-token prompts that prefill in segments
     while they decode), then the int8-page arm on the w8 + kv8 weights and
     the int4-page arm on the bf16 weights (8 requests each, the prefix
@@ -1527,7 +1571,7 @@ def paged_path(dev, bf16_params, w8_params) -> dict:
     from gofr_tpu_torch.ml.generate import Generator
     from gofr_tpu_torch.models import llama
 
-    cfg = llama.llama3_8b()
+    cfg = llama.llama3_8b(n_layers=n_layers(bf16_params))
     out = {}
     out["bf16"], gen = paged_arm(llama, bf16_params, cfg, dev, n_shared=16,
                                  n_long=2, pin=True, seed=1, int8=False)
@@ -1620,13 +1664,13 @@ def paged_path(dev, bf16_params, w8_params) -> dict:
                                   "dense_step_ms_events": dense_ms}
 
     # the int8-page arm (w8 + kv8 weights) and the int4-page arm (bf16)
-    cfg8 = llama.llama3_8b(kv_quant=True, w8=True)
+    cfg8 = llama.llama3_8b(n_layers=cfg.n_layers, kv_quant=True, w8=True)
     out["int8"], gen = paged_arm(llama, w8_params, cfg8, dev, n_shared=8,
                                  n_long=0, pin=False, seed=2, int8=True)
     del gen
     out["int8"]["step_8x2000"] = paged_step(llama, w8_params, cfg8, dev,
                                             "paged int8 step")
-    cfg4 = llama.llama3_8b(kv_bits=4)
+    cfg4 = llama.llama3_8b(n_layers=cfg.n_layers, kv_bits=4)
     out["int4"], gen = paged_arm(llama, bf16_params, cfg4, dev, n_shared=8,
                                  n_long=0, pin=False, seed=2, int8=False)
     del gen
@@ -1821,8 +1865,9 @@ def frozen_tail(gen, n_win: int = 32, fill: int = 1000) -> dict:
 
 
 # phase 7 runs at this depth (of 32 layers) to keep the script inside its
-# time limit; its checks compare arms of the same depth
-WINDOW_LAYERS = 16
+# time limit (16 until phase 19 joined it, 4 since); its checks
+# compare arms of the same depth
+WINDOW_LAYERS = 4
 
 
 def window_pipeline_phase(dev, bf16_params) -> dict:
@@ -2001,6 +2046,9 @@ def host_tier_phase(dev, bf16_params, w8_params) -> dict:
 # -- phase 9: the serving front ---------------------------------------------------
 
 FRONT_MAX_NEW = 64
+# phases 9 and 10 run at this depth (of 32 layers), as phases 7, 13 and 14
+# do, to keep the script inside its time limit once phase 19 joined it
+FRONT_LAYERS = 8
 FRONT_DRAIN_S = 20.0
 
 
@@ -2348,6 +2396,7 @@ def front_arm(dev, params, arm: str, **env) -> dict:
                GRPC_PORT=str(free_port()), METRICS_PORT=str(free_port()),
                GOFR_ML_DRAIN_S=str(FRONT_DRAIN_S), **env):
         cfg = llama.config_from_env(tiny_vocab_size=257)
+        cfg.n_layers = n_layers(params)  # the depth of the weights given
         app = new_app()
         t0 = time.perf_counter()
         mount(app, params, cfg, device=dev)
@@ -2416,6 +2465,7 @@ def res_app(dev, params, mount_kw=None, **env):
                GRPC_PORT=str(free_port()), METRICS_PORT=str(free_port()),
                **env):
         cfg = llama.config_from_env(tiny_vocab_size=257)
+        cfg.n_layers = n_layers(params)  # the depth of the weights given
         app = mount(new_app(), params, cfg, device=dev, **(mount_kw or {}))
     return app, app.container.ml.llm("chat"), cfg
 
@@ -4395,7 +4445,7 @@ async def oai_profile_pause(app) -> dict:
 # phase 13 runs at this depth (of 32 layers), as phases 7 and 14 do, to keep
 # the script inside its time limit once phase 16 joined it; its checks
 # compare arms of the same depth
-OAI_LAYERS = 16
+OAI_LAYERS = 8
 
 
 def openai_phase(dev, bf16_params) -> dict:
@@ -4925,7 +4975,7 @@ def first_layers(params, n: int) -> dict:
 
 # phase 14 runs at this depth (of 32 layers), as phase 7 does, to keep the
 # script inside its time limit once phase 15 joined it
-FLEET_LAYERS = 16
+FLEET_LAYERS = 8
 
 
 def fleet_phase(dev, bf16_params, w8_params, preset: str = "8b") -> dict:
@@ -4951,8 +5001,8 @@ def fleet_phase(dev, bf16_params, w8_params, preset: str = "8b") -> dict:
 # the training model: Llama-3-8B at its published width, cut to this many of
 # its 32 layers (the first ones of phase 3's weights): params, grads, the
 # f32 first moment and the bf16 second moment of all 32 layers alone would
-# take ~80 GB
-TRAIN_LAYERS = 8
+# take ~80 GB; 8 until phase 19 joined the script, 4 since
+TRAIN_LAYERS = 4
 TRAIN_BATCH, TRAIN_SEQ = 2, 2048
 TRAIN_STEPS, TRAIN_REPEAT = 8, 6   # the first TRAIN_REPEAT steps: one batch
 TRAIN_SAVE_AT = 3
@@ -6211,8 +6261,10 @@ async def fed_leave(dev, params, preset, fed_a, pa: int, pb: int,
 
 def mesh_child(argv: list[str]) -> int:
     """17(b), one rank of the serving mesh in a child process
-    (``--mesh-child RANK WORLD COORD PORT PRESET LAYERS DEVICE``): the
-    port's ``MultiHostWorker`` on the preset's model (Llama-3-8B: its
+    (``--mesh-child RANK WORLD COORD PORT PRESET LAYERS DEVICE``; DEVICE
+    ``cuda``, one device, or a comma-separated list: a tensor-parallel
+    rank, phase 19(e)): the port's ``MultiHostWorker`` on the preset's
+    model (Llama-3-8B: its
     first LAYERS layers, random weights from seed 0). After ``setup``
     the launch counts are set to 0; a thread prints the rank's counts and
     stats on a ``MESH_RANK`` line whenever they change, so what a killed
@@ -6232,7 +6284,8 @@ def mesh_child(argv: list[str]) -> int:
         seed=0, batch_slots=MESH_SLOTS, max_seq=MESH_MAX_SEQ,
         prefill_buckets=MESH_BUCKETS, chunk=4,
         prefill_chunk=MESH_PREFILL_CHUNK, heartbeat_s=2.0,
-        device=None if device == "cuda" else device)
+        device=(None if device == "cuda" else
+                device.split(",") if "," in device else device))
     t0 = time.perf_counter()
     w.setup()
     boot_s = time.perf_counter() - t0
@@ -6490,7 +6543,7 @@ def cross_host_phase(dev, bf16_params, preset: str = "8b") -> dict:
 # Llama-3-8B at its published width, this many of its 32 layers (the first
 # ones of phase 3's weights): the ring's f32 block logits make a 12k-token
 # SP prefill cost seconds a prompt, and the script's watchdog is 1140 s
-SP_LAYERS = 8
+SP_LAYERS = 4
 SP_SHARDS = 4               # sp shards, all on the one card
 SP_BUCKETS = (1024, 4096, 16384)
 SP_MAX_SEQ = 16384
@@ -6518,18 +6571,20 @@ def sp_prompts(vocab: int, seed: int = 18) -> list:
     return [r.integers(0, vocab, n).tolist() for n in SP_LONG + SP_SHORT]
 
 
-def sp_tie(params, cfg, prompt, a: list, b: list) -> dict | None:
+def sp_tie(params, cfg, prompt, a: list, b: list,
+           buckets=SP_BUCKETS) -> dict | None:
     """``near_tie`` for prompts of 12k tokens: where two greedy streams
     first differ, the two tokens' gap over the logits' range there, from
-    one plain prefill of the prompt and the common tokens (its last-token
-    logits only: a full forward's [S, V] logits would take 6 GB)."""
+    one plain prefill of the prompt and the common tokens in the smallest
+    of ``buckets`` that holds them (its last-token logits only: a full
+    forward's [S, V] logits would take 6 GB)."""
     from gofr_tpu_torch.models import llama
 
     d = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
     if d is None:
         return None
     ids = list(prompt) + list(a[:d])
-    bucket = next(s for s in SP_BUCKETS if len(ids) <= s)
+    bucket = next(s for s in buckets if len(ids) <= s)
     toks = np.zeros((1, bucket), np.int32)
     toks[0, :len(ids)] = ids
     dev = params["embed"].device
@@ -6987,6 +7042,671 @@ def sp_phase(dev, bf16_params) -> dict:
     return out
 
 
+# -- phase 19: tensor-parallel serving ----------------------------------------
+
+TP_SLOTS = 8
+TP_MAX_SEQ = 2048
+TP_BUCKETS = (128, 512, 2048)
+TP_MAX_NEW = 64
+TP_PAGE = 16
+TP_PAGES = 1 + TP_SLOTS * TP_MAX_SEQ // TP_PAGE
+TP_PROMPTS = (60, 200, 333, 480, 700, 1000, 1500, 1900)
+TP_STEPS = 16               # teacher-forced decode steps held an arm
+TP_TOL = 5e-2               # logits, of their range (phase 18's rule)
+TP_ARGMAX_MIN = 12          # of TP_STEPS steps with the tp = 1 argmax
+TP_FILL = 1000              # the timed decode steps' row length
+TP_KERNEL_TOL = 2e-2        # the kernel rows' (phase 2's)
+TP_BERT_TOL = 2e-2          # BERT-base at tp = 2 against tp = 1
+TP_MESH_PROMPTS = (100, 300, 700, 1000)   # under the rank's 1024 cap
+TP_MESH_NEW = 32
+TP_RANK_LAYERS = 8          # the rank's depth (of 32): it boots beside (a)-(d)
+TP_TIE_BUCKETS = tuple(range(128, 2 * TP_MAX_SEQ + 1, 128))  # near-ties
+# arm -> (tp, layout); each layout's tp = 1 graphed Generator is its
+# reference
+TP_ARMS = {"dense_bf16_tp2": (2, "dense"), "paged_bf16_tp2": (2, "paged"),
+           "dense_int8_tp2": (2, "int8"), "dense_bf16_tp4": (4, "dense")}
+
+
+def tp_layout(layout: str):
+    """(cfg, Generator kwargs) of a layout at phase 19's shape."""
+    from gofr_tpu_torch.models import llama
+
+    cfg = llama.llama3_8b(kv_quant=layout == "int8")
+    kw = dict(batch_slots=TP_SLOTS, max_seq=TP_MAX_SEQ,
+              prefill_buckets=TP_BUCKETS, chunk=4)
+    if layout == "paged":
+        kw.update(page_size=TP_PAGE, n_pages=TP_PAGES)
+    return cfg, kw
+
+
+@contextlib.contextmanager
+def plain_calls():
+    """Count the calls of the attention dispatchers' plain versions inside
+    the block (``ops``' names, which the dispatchers look up): a CUDA
+    tensor must never reach one."""
+    import gofr_tpu_torch.ops as ops
+
+    names = ("flash_attention_plain", "gqa_decode_attention_plain",
+             "gqa_decode_attention_int8_plain", "gqa_decode_window_plain",
+             "gqa_decode_window_int8_plain")
+    seen = collections.Counter()
+    inner = {n: getattr(ops, n) for n in names}
+
+    def wrap(name, fn):
+        def counted_call(*a, **kw):
+            seen[name] += 1
+            return fn(*a, **kw)
+        return counted_call
+
+    for n, fn in inner.items():
+        setattr(ops, n, wrap(n, fn))
+    try:
+        yield seen
+    finally:
+        for n, fn in inner.items():
+            setattr(ops, n, fn)
+
+
+@contextlib.contextmanager
+def labelled_collectives(llama):
+    """The model's ``psum`` / ``all_gather`` inside profiler ranges named
+    ``tp_psum`` / ``tp_all_gather``."""
+    from torch.profiler import record_function
+
+    inner = {n: getattr(llama, n) for n in ("psum", "all_gather")}
+
+    def wrap(name, fn):
+        def labelled(*a, **kw):
+            with record_function(f"tp_{name}"):
+                return fn(*a, **kw)
+        return labelled
+
+    for n, fn in inner.items():
+        setattr(llama, n, wrap(n, fn))
+    try:
+        yield
+    finally:
+        for n, fn in inner.items():
+            setattr(llama, n, fn)
+
+
+def collective_share(fn, n: int) -> dict:
+    """``n`` calls of ``fn`` under torch.profiler: the device time of the
+    kernels, and of those launched inside the model's ``psum`` /
+    ``all_gather`` (their ranges' device time), per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gofr_tpu_torch.models import llama
+
+    fn()
+    torch.cuda.synchronize()
+    with labelled_collectives(llama), profile_lock(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in events
+               if e.device_type == DeviceType.CUDA
+               and not e.key.startswith("tp_"))
+    # the device time of the kernels each range launched (its CPU-side
+    # event's), not the device-side annotation's span, which holds the
+    # idle gaps between them
+    coll = {key: sum(e.device_time_total for e in events
+                     if e.key == key and e.device_type == DeviceType.CPU)
+            for key in ("tp_psum", "tp_all_gather")}
+    total = sum(coll.values())
+    return {"device_ms": busy / 1e3 / n,
+            "psum_device_ms": coll["tp_psum"] / 1e3 / n,
+            "all_gather_device_ms": coll["tp_all_gather"] / 1e3 / n,
+            "collective_share": total / busy if busy else None}
+
+
+def graphed_ms(fn) -> float:
+    """Device ms of one replay of a CUDA graph of ``fn`` (CUDA events)."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=stream):
+        fn()
+    return timed_ms(g.replay, iters=20, warm=2)
+
+
+def tp_step(params, cfg, layout: str, dev, mesh):
+    """One decode step over 8 rows of ``TP_FILL`` positions, as a call to
+    time: a fresh cache of the layout (the paged one through a table of
+    distinct pages), ``len`` reset in the call."""
+    from gofr_tpu_torch.models import llama
+
+    tok = torch.zeros(TP_SLOTS, dtype=torch.int32, device=dev)
+    if layout == "paged":
+        cache = llama.init_paged_cache(cfg, TP_SLOTS, TP_PAGES, TP_PAGE,
+                                       device=dev, mesh=mesh)
+        p_max = TP_MAX_SEQ // TP_PAGE
+        table = torch.arange(1, TP_PAGES, dtype=torch.int32,
+                             device=dev).view(TP_SLOTS, p_max)
+        cols = 1 << (-(-TP_FILL // TP_PAGE) - 1).bit_length()
+
+        def step():
+            llama.paged_decode_step(params, tok, cache, table, cfg,
+                                    n_cols=cols)
+            cache["len"].fill_(TP_FILL)
+    else:
+        cache = llama.init_cache(cfg, TP_SLOTS, TP_MAX_SEQ, device=dev,
+                                 mesh=mesh)
+
+        def step():
+            llama.decode_step(params, tok, cache, cfg)
+            cache["len"].fill_(TP_FILL)
+    cache["len"].fill_(TP_FILL)
+    return torch.no_grad()(step)
+
+
+def tp_teacher_forced(params, tparams, cfg, layout: str, mesh, prompt,
+                      dev) -> dict:
+    """One 1900-token prompt prefilled by the tp weights into a fresh
+    head-split cache and by the unsplit weights into a plain one, then
+    ``TP_STEPS`` decode steps on both, teacher-forced with the tp = 1
+    argmax: every step's f32 logits within ``TP_TOL`` of their range, the
+    argmax equal in at least ``TP_ARGMAX_MIN``. The 2048-bucket prefill of
+    each is timed (CUDA events)."""
+    from gofr_tpu_torch.models import llama
+
+    toks = np.zeros((1, TP_MAX_SEQ), np.int32)
+    toks[0, :len(prompt)] = prompt
+    lens = [len(prompt)]
+    p_max = TP_MAX_SEQ // TP_PAGE
+    table = torch.arange(1, p_max + 1, dtype=torch.int32, device=dev)[None]
+    caches, first, prefill_ms = {}, {}, {}
+    for name, p, m in (("tp", tparams, mesh), ("one", params, None)):
+        if layout == "paged":
+            caches[name] = llama.init_paged_cache(cfg, 1, p_max + 1, TP_PAGE,
+                                                  device=dev, mesh=m)
+
+            def fill(p=p, c=caches[name]):
+                return llama.paged_prefill_into(p, toks, lens, cfg, c,
+                                                table[0].tolist(), 0,
+                                                TP_PAGE)[0]
+        else:
+            caches[name] = llama.init_cache(cfg, 1, TP_MAX_SEQ, device=dev,
+                                            mesh=m)
+
+            def fill(p=p, c=caches[name]):
+                return llama.prefill_into(p, toks, lens, cfg, c, 0)[0]
+        with torch.no_grad():
+            prefill_ms[name] = timed_ms(fill, iters=2, warm=1)
+            first[name] = fill()[0].float()
+
+    def step(name, p, tok):
+        if layout == "paged":
+            return llama.paged_decode_step(p, tok, caches[name], table,
+                                           cfg)[0]
+        return llama.decode_step(p, tok, caches[name], cfg)[0]
+
+    def over_range(got, want):
+        return ((got - want).abs().max() / (want.max() - want.min())).item()
+
+    got, want = first["tp"], first["one"]
+    err = over_range(got, want)
+    step_errs, equal = [], 0
+    with torch.no_grad():
+        for _ in range(TP_STEPS):
+            tok = want.argmax().to(torch.int32)[None]
+            got = step("tp", tparams, tok)[0].float()
+            want = step("one", params, tok)[0].float()
+            step_errs.append(over_range(got, want))
+            equal += int(got.argmax() == want.argmax())
+    del caches
+    check(max(err, *step_errs) <= TP_TOL,
+          f"tp {layout}: logits off tp = 1: prefill {err}, decode steps "
+          f"{step_errs} of range > {TP_TOL}")
+    check(equal >= TP_ARGMAX_MIN,
+          f"tp {layout}: argmax equal in {equal} of {TP_STEPS} steps")
+    return {"prefill_err_over_range": err,
+            "forced_err_over_range": max(step_errs),
+            "forced_argmax_equal": equal, "forced_steps": TP_STEPS,
+            "prefill_2048_ms": prefill_ms["tp"],
+            "prefill_2048_ms_tp1": prefill_ms["one"]}
+
+
+def tp_reference(dev, params, layout: str, prompts) -> dict:
+    """The tp = 1 graphed Generator of a layout on the same weights and
+    prompts (graphs captured at first use): its streams, launches and the
+    graphed decode step."""
+    from gofr_tpu_torch.ml.generate import Generator
+
+    cfg, kw = tp_layout(layout)
+    torch.cuda.empty_cache()
+    gen = Generator(params, cfg, device=dev, **kw)
+    reset_launches()
+    outs, wall = sp_streams(gen, prompts, TP_MAX_NEW)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    del gen
+    torch.cuda.empty_cache()
+    return {"streams": outs, "served_wall_s": wall, "launches": launches,
+            "decode_step_ms_graphed": graphed_ms(tp_step(params, cfg, layout,
+                                                         dev, None))}
+
+
+def tp_arm(dev, params, tp: int, layout: str, prompts, ref: dict,
+           devices) -> dict:
+    """One tensor-parallel arm: a replica over ``devices`` (a tp mesh,
+    ``build_replica_generators``) serving ``prompts`` through
+    ``LLMServer``; checks: a head-split cache of contiguous blocks and no
+    decode graphs; flash launched tp x layers x prefill waves and the
+    layout's decode kernel tp x layers x steps, the other decode kernel
+    and every plain attention never; every stream equal to tp = 1's or
+    differing on a near-tie; teacher-forced logits (``tp_teacher_forced``).
+    Measured: the eager decode step beside tp = 1's graphed one, the
+    2048-token prefill, the collectives' share of the step's device time
+    and peak memory."""
+    from gofr_tpu_torch import parallel as par
+    from gofr_tpu_torch.ml.replica import build_replica_generators
+
+    cfg, kw = tp_layout(layout)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    (gen,) = build_replica_generators(params, cfg, 1, warmup=False,
+                                      devices=devices, **kw)
+    k = gen.cache["k"]
+    check(gen._tp and gen._graphs is None
+          and isinstance(k, par.ShardedTensor) and k.n == tp
+          and all(b.is_contiguous() for b in k.shards),
+          f"tp {layout} x{tp}: not a head-split eager generator")
+    steps0, waves0 = gen.steps, gen.prefill_waves
+    reset_launches()
+    with plain_calls() as plain:
+        outs, wall = sp_streams(gen, prompts, TP_MAX_NEW)
+        torch.cuda.synchronize()
+    launches = read_launches()
+    steps, waves = gen.steps - steps0, gen.prefill_waves - waves0
+    L = cfg.n_layers
+    want_k, other = decode_kinds(layout == "int8")
+    check(launches["flash_attention_cuda"] == tp * L * waves > 0,
+          f"tp {layout} x{tp}: flash launched "
+          f"{launches['flash_attention_cuda']} times, want {tp} x {L} x "
+          f"{waves} waves")
+    check(launches[want_k] == tp * L * steps > 0 and launches[other] == 0,
+          f"tp {layout} x{tp}: {launches}, want {want_k} {tp} x {L} x "
+          f"{steps} steps")
+    check(sum(plain.values()) == 0,
+          f"tp {layout} x{tp}: a plain attention ran ({dict(plain)})")
+    ties = []
+    for p, a, b in zip(prompts, outs, ref["streams"], strict=True):
+        check(len(a) == TP_MAX_NEW, f"tp {layout} x{tp}: a stream ended "
+              f"early")
+        tie = sp_tie(params, cfg, p, a, b, TP_TIE_BUCKETS)
+        if tie is not None:
+            ties.append(tie)
+            check(tie["gap_over_range"] <= FLEET_TIE,
+                  f"tp {layout} x{tp}: a stream differs at step "
+                  f"{tie['step']} by {tie['gap_over_range']:.4f} of range")
+    tparams, mesh = gen.params, gen.mesh
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del gen
+    torch.cuda.empty_cache()
+    logits = tp_teacher_forced(params, tparams, cfg, layout, mesh,
+                               prompts[-1], dev)
+    step = tp_step(tparams, cfg, layout, dev, mesh)
+    step_ms = timed_ms(step, iters=4, warm=1)
+    share = collective_share(step, 2)
+    del step
+    return {"tp": tp, "layout": layout,
+            "devices": [str(d) for d in devices],
+            "launches": launches, "prefill_waves": waves,
+            "decode_steps": steps, "plain_attention_calls": dict(plain),
+            "served_tokens": sum(len(o) for o in outs),
+            "served_wall_s": wall,
+            "served_wall_s_tp1": ref["served_wall_s"],
+            "equal_share": 1 - len(ties) / len(prompts), "differing": ties,
+            "decode_step_ms_eager": step_ms,
+            "decode_step_ms_tp1_graphed": ref["decode_step_ms_graphed"],
+            "step_collectives": share, **logits, "peak_mem_gib": peak}
+
+
+def tp_row_measure(c, flash: bool) -> dict:
+    """18(c)'s measure for a tp-shard kernel row: the kernel against its
+    plain version by ``row_rel_err`` within ``SP_KERNEL_TOL`` (flash on
+    layer 0, every query position of every row; decode on layer 7, each
+    row's one query), and the measure shown to fail against the attention
+    that drops the first ``SP_DROP`` keys of the case's first row (kv_len
+    2000): for flash on that row's late positions alone (past half its
+    keys), for decode on every row."""
+    from gofr_tpu_torch.ops.decode_attention import (
+        gqa_decode_attention_int8_plain, gqa_decode_attention_plain)
+    from gofr_tpu_torch.ops.flash_attention import flash_attention_plain
+
+    n = int(c["kv_len"][0])
+    if flash:
+        kernel, plain, _ = flash_launchers(c)
+        got, want = kernel(0), plain(0)
+        rel = row_rel_err(got, want, c["T"])
+        half = n // 2
+        q, k, v = (c[t][0][:1, SP_DROP:] for t in ("q", "k", "v"))
+        drop = flash_attention_plain(q, k, v, c["kv_len"][:1] - SP_DROP)
+        drop_rel = row_rel_err(got[:1, SP_DROP + half:], drop[:, half:],
+                               n - SP_DROP - half)
+    else:
+        kernel, plain, *_ = decode_launchers(c)
+        got, want = kernel(7), plain(7)
+        rel = row_rel_err(got, want, 1)
+        kc, vc = c["kc"][7][:, SP_DROP:], c["vc"][7][:, SP_DROP:]
+        lens = c["kv_len"] - SP_DROP
+        if c["scales"] is None:
+            drop = gqa_decode_attention_plain(c["q"], kc, vc, lens)
+        else:
+            ks, vs = (x[7][..., SP_DROP:] for x in c["scales"])
+            drop = gqa_decode_attention_int8_plain(c["q"], kc, vc, lens,
+                                                   k_scale=ks, v_scale=vs)
+        drop_rel = row_rel_err(got, drop, 1)
+    del got, want, drop
+    what = f"{'flash' if flash else 'decode'} {c['label']}"
+    check(rel <= SP_KERNEL_TOL,
+          f"{what}: kernel vs plain {rel} of a row's scale > "
+          f"{SP_KERNEL_TOL}")
+    check(drop_rel > SP_KERNEL_TOL,
+          f"{what}: the row measure cannot tell a dropped key block: "
+          f"{drop_rel} <= {SP_KERNEL_TOL}")
+    return {"max_row_rel_err": rel, "dropped_block_row_rel_err": drop_rel,
+            "row_tol": SP_KERNEL_TOL}
+
+
+def tp_kernel_rows(dev) -> dict:
+    """(d) The kernels at the tp shards' shapes of Llama-3-8B: flash over a
+    burst of 8 prompts into the 2048 bucket with 16 query / 4 KV heads
+    (tp = 2) and 8 / 2 (tp = 4); the decode kernels at the 8-row step (len
+    2000 of 4096) over a 4-head and a 2-head cache, bf16 and int8, 32
+    layers. Each against its plain version (the largest error within
+    ``TP_KERNEL_TOL``, and ``tp_row_measure``), timed as phase 2 times the
+    others, with SDPA and the bound."""
+    g = torch.Generator(device=dev).manual_seed(19)
+    D, L, B, S = 128, 32, 8, 4096
+    burst = [2000, 1942, 1500, 1024, 777, 513, 129, 37]
+    out = {"flash": [], "bf16": [], "int8": []}
+    for H, KV in ((16, 4), (8, 2)):
+        tp = 32 // H
+        c = {"label": f"tp={tp} shard, 2048 burst of 8", "B": B, "T": 2048,
+             "Tk": 2048, "q_offset": 0, "H": H, "KV": KV, "D": D, "L": 4,
+             "kv_len": torch.tensor(burst, dtype=torch.int32, device=dev),
+             "q": [rnd_bf16(g, dev, B, 2048, H, D) for _ in range(4)],
+             "k": [rnd_bf16(g, dev, B, 2048, KV, D) for _ in range(4)],
+             "v": [rnd_bf16(g, dev, B, 2048, KV, D) for _ in range(4)]}
+        out["flash"].append({**measure_flash(c, TP_KERNEL_TOL),
+                             **tp_row_measure(c, flash=True)})
+        del c
+        base = {"L": L, "B": B, "S": S, "KV": KV, "D": D, "H": H,
+                "q": rnd_bf16(g, dev, B, 1, H, D),
+                "kv_len": torch.tensor([2000] * B, dtype=torch.int32,
+                                       device=dev)}
+        kc, vc = (rnd_bf16(g, dev, L, B, S, KV, D) for _ in range(2))
+        label = f"tp={tp} shard, 8x2000"
+        kc, vc = (rnd_bf16(g, dev, L, B, S, KV, D) for _ in range(2))
+        dc = {**base, "label": label, "kc": kc, "vc": vc, "scales": None}
+        out["bf16"].append({**measure_decode(dc, TP_KERNEL_TOL),
+                            **tp_row_measure(dc, flash=False)})
+        del kc, vc, dc
+        kc, vc, ks, vs = int8_cache(g, dev, L, B, S, KV, D)
+        dc = {**base, "label": label, "kc": kc, "vc": vc, "scales": (ks, vs)}
+        out["int8"].append({**measure_decode(dc, TP_KERNEL_TOL),
+                            **tp_row_measure(dc, flash=False)})
+        del kc, vc, ks, vs, dc
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_disagg(dev, params) -> dict:
+    """(e) A disaggregated pair: a tp = 2 paged prefill replica ships a
+    1600-token prompt's pages to a tp = 1 decode replica (the host tier's
+    full-head layout), which restores them and prefills the tail; the
+    tokens against the decode replica computing the same split itself
+    (equal, or differing on a near-tie: the shipped K/V were computed
+    split)."""
+    from gofr_tpu_torch.ml.generate import Generator
+    from gofr_tpu_torch.ml.replica import (ReplicaPool,
+                                           build_replica_generators)
+
+    cfg, kw = tp_layout("paged")
+    (src,) = build_replica_generators(params, cfg, 1, warmup=False,
+                                      devices=[dev] * 2, **kw)
+    dst = Generator(params, cfg, device=dev, **kw)
+    pool = ReplicaPool([src, dst], name="tpdg", disagg=True)
+    prompt = np.random.default_rng(191).integers(
+        0, cfg.vocab_size, SHARED_LEN + 64).tolist()
+
+    async def drive():
+        out, launches = await counted(pool.generate(prompt, TP_MAX_NEW))
+        snap = pool.routing_snapshot()["disagg"]
+        core = pool.replicas[1]
+        ship_ids = pool._ship_ids(prompt)
+        pid = await asyncio.to_thread(core.register_prefix, ship_ids)
+        ref = await core.generate(prompt[len(ship_ids):], TP_MAX_NEW,
+                                  prefix=pid)
+        return out, launches, snap, ref, core.gen.kv_restores
+
+    try:
+        out, launches, snap, ref, restores = asyncio.run(drive())
+    finally:
+        pool.close()
+    check(snap["ships"] == snap["lands"] == 1 and snap["failures"] == 0
+          and restores >= 1,
+          f"tp disagg: ships {snap['ships']} lands {snap['lands']} "
+          f"failures {snap['failures']} restores {restores}")
+    check_fleet_launches("tp disagg", launches, dev, False)
+    tie = sp_tie(params, cfg, prompt, out, ref, TP_TIE_BUCKETS)
+    check(tie is None or tie["gap_over_range"] <= FLEET_TIE,
+          f"tp disagg: tokens differ from the decode replica's own by {tie}")
+    return {"prompt_tokens": len(prompt), "bytes_moved": snap["bytes_moved"],
+            "ships": snap["ships"], "lands": snap["lands"],
+            "tokens_equal": tie is None, "differing": tie,
+            "launches": launches}
+
+
+def start_tp_rank(dev, layers: int, preset: str = "8b") -> dict:
+    """(e) One ``MultiHostWorker`` rank (world 1, gloo) over ``device=[dev,
+    dev]`` in a child (``--mesh-child``), at ``layers`` layers."""
+    import os
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="gofr_tp_rank_")
+    port = free_port()
+    log = open(os.path.join(work, "rank0.log"), "w+")
+    proc = subprocess.Popen(
+        [sys.executable, __file__, "--mesh-child", "0", "1",
+         f"127.0.0.1:{free_port()}", str(port), preset, str(layers),
+         f"{dev},{dev}"],
+        stdout=log, stderr=subprocess.STDOUT,
+        env={**os.environ, "OMP_NUM_THREADS": "2"})
+    return {"procs": [proc], "logs": [log], "port": port, "layers": layers,
+            "work": work, "t0": time.perf_counter()}
+
+
+def tp_rank(dev, params, mesh: dict, preset: str = "8b") -> dict:
+    """(e) The tp rank serving 4 prompts x 32 tokens through
+    ``MultiHostLLMClient``, against an in-process tp = 1 Generator over
+    the rank's seed-0 weights (equal, or a near-tie)."""
+    import shutil
+
+    from gofr_tpu_torch.ml.generate import Generator
+    from gofr_tpu_torch.ml.multihost import MultiHostLLMClient
+    from gofr_tpu_torch.models import llama
+
+    cfg = mesh_cfg(preset, mesh["layers"])
+    r = np.random.default_rng(192)
+    prompts = [r.integers(0, cfg.vocab_size, n).tolist()
+               for n in TP_MESH_PROMPTS]
+    try:
+        wait_mesh(mesh)
+
+        async def drive():
+            llm = MultiHostLLMClient("127.0.0.1", mesh["port"])
+            try:
+                await llm._ensure()
+                t = time.perf_counter()
+                outs = await asyncio.gather(*(llm.generate(p, TP_MESH_NEW)
+                                              for p in prompts))
+                wall = time.perf_counter() - t
+                await asyncio.sleep(1.0)  # the rank's reporter catches up
+                line = mesh_rank_line(mesh, 0)
+                await llm.shutdown_workers()
+                return outs, wall, line
+            finally:
+                await llm.close()
+
+        outs, wall, line = asyncio.run(drive())
+        rc = mesh["procs"][0].wait(timeout=60)
+    finally:
+        for p in mesh["procs"]:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for log in mesh["logs"]:
+            log.close()
+        shutil.rmtree(mesh["work"], ignore_errors=True)
+    check(rc == 0, f"tp rank: exited {rc}")
+    check_fleet_launches("tp rank", line["launches"], dev, False)
+    if mesh["layers"] != n_layers(params):  # the rank's own seed-0 draw
+        params = llama.params_from_config(cfg, seed=0, device=dev)
+    gen = Generator(params, cfg, batch_slots=len(prompts),
+                    max_seq=MESH_MAX_SEQ, prefill_buckets=MESH_BUCKETS,
+                    chunk=4, prefill_chunk=MESH_PREFILL_CHUNK, device=dev)
+    want, _ = sp_streams(gen, prompts, TP_MESH_NEW)
+    del gen
+    ties = []
+    for p, a, b in zip(prompts, outs, want, strict=True):
+        check(len(a) == TP_MESH_NEW, "tp rank: a stream ended early")
+        tie = sp_tie(params, cfg, p, a, b, TP_TIE_BUCKETS)
+        if tie is not None:
+            ties.append(tie)
+            check(tie["gap_over_range"] <= FLEET_TIE,
+                  f"tp rank: a stream differs by {tie}")
+    return {"boot_s": line["boot_s"], "device": line["device"],
+            "ready_s": mesh["ready_s"], "launches": line["launches"],
+            "wall_s": wall, "equal_share": 1 - len(ties) / len(prompts),
+            "differing": ties}
+
+
+def tp_moe(dev) -> dict:
+    """(e) One MoE layer at Mixtral-8x7B's shape (2048 tokens, bf16) with
+    its experts split over ``ep`` = 2 (``MOE_SHARDING_RULES`` over
+    ``[dev] * 2``) against ``ep`` = 1, within ``TP_TOL`` of range."""
+    from gofr_tpu_torch import parallel as par
+    from gofr_tpu_torch.models import moe
+
+    cfg = moe.MoEConfig(dim=MOE_DIM, ffn_dim=MOE_FFN, n_experts=8, top_k=2,
+                        capacity_factor=1.25, dtype=torch.bfloat16)
+    params = moe.init_moe_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    x = rnd_bf16(torch.Generator(device=dev).manual_seed(1), dev, 1,
+                 MOE_TOKENS, MOE_DIM)
+    mesh = par.make_mesh(par.MeshConfig(ep=2), devices=[dev] * 2)
+    split = par.shard_params(
+        params, par.specs_from_rules(params, moe.MOE_SHARDING_RULES), mesh)
+    check(isinstance(split["experts"]["w_gate"], par.ShardedTensor),
+          "tp moe: the experts were not split over ep")
+    with torch.no_grad(), mesh:
+        y1, _ = moe.moe_layer(params, x, cfg)
+        y2, _ = moe.moe_layer(split, x, cfg)
+        err = ((y2.float() - y1.float()).abs().max()
+               / (y1.float().max() - y1.float().min())).item()
+        ms1 = timed_ms(lambda: moe.moe_layer(params, x, cfg), iters=3,
+                       warm=1)
+        ms2 = timed_ms(lambda: moe.moe_layer(split, x, cfg), iters=3,
+                       warm=1)
+    check(err <= TP_TOL, f"tp moe: ep = 2 vs 1 {err} of range > {TP_TOL}")
+    return {"err_over_range": err, "ep1_ms": ms1, "ep2_ms": ms2}
+
+
+def tp_bert(dev) -> dict:
+    """(e) BERT-base (random weights, seed 0, bf16) on a batch of 32
+    sequences of up to 128 tokens at tp = 2 (``Bert.sharding_specs`` over
+    ``[dev] * 2``) against tp = 1: the mean embedding within
+    ``TP_BERT_TOL`` of its range."""
+    from gofr_tpu_torch import parallel as par
+    from gofr_tpu_torch.models import bert
+
+    model = bert.Bert(bert.bert_base(), device=dev)
+    r = np.random.default_rng(193)
+    toks = torch.as_tensor(r.integers(0, 30522, (32, 128)), dtype=torch.int32,
+                           device=dev)
+    lens = torch.as_tensor(r.integers(8, 129, 32), dtype=torch.int32,
+                           device=dev)
+    split = par.shard_params(model.params, model.sharding_specs(),
+                             par.make_mesh(par.MeshConfig(tp=2),
+                                           devices=[dev] * 2))
+    with torch.no_grad():
+        want = bert.forward(model.params, toks, model.cfg, seq_lens=lens)
+        got = bert.forward(split, toks, model.cfg, seq_lens=lens)
+        ms1 = timed_ms(lambda: bert.forward(model.params, toks, model.cfg,
+                                            seq_lens=lens), iters=5, warm=1)
+        ms2 = timed_ms(lambda: bert.forward(split, toks, model.cfg,
+                                            seq_lens=lens), iters=5, warm=1)
+    err = {k: ((got[k].float() - want[k].float()).abs().max()
+               / (want[k].float().max() - want[k].float().min())).item()
+           for k in ("hidden", "mean")}
+    check(max(err.values()) <= TP_BERT_TOL,
+          f"tp bert: tp = 2 vs 1 {err} of range > {TP_BERT_TOL}")
+    return {"err_over_range": err, "tp1_ms": ms1, "tp2_ms": ms2}
+
+
+def tp_phase(dev, bf16_params, preset: str = "8b") -> dict:
+    """Phase 19: tensor-parallel serving on Llama-3-8B at full width and
+    depth (phase 3's seed-0 weights), each replica a tp mesh over ``[dev]
+    * tp`` (the Megatron split, the psum and the vocabulary gather run on
+    the one card, nothing crosses cards; over distinct cards as well when
+    the machine has them). (a)-(c) the arms of ``TP_ARMS`` against the
+    tp = 1 graphed generator of their layout, (d) the kernels at the
+    shards' shapes, (e) a tp = 2 -> tp = 1 disaggregated pair, a tp mesh
+    rank, MoE at ep = 2 and BERT-base at tp = 2."""
+    from gofr_tpu_torch.models import llama
+
+    rank = start_tp_rank(dev, min(TP_RANK_LAYERS, n_layers(bf16_params)),
+                         preset)
+    prompts = [np.random.default_rng(19 + i).integers(
+        0, llama.llama3_8b().vocab_size, n).tolist()
+        for i, n in enumerate(TP_PROMPTS)]
+    out: dict = {"prompt_tokens": list(TP_PROMPTS), "seconds": {}}
+    t0 = time.perf_counter()
+
+    def took(part: str) -> None:
+        nonlocal t0
+        out["seconds"][part] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    refs = {}
+    for arm, (tp, layout) in TP_ARMS.items():
+        if layout not in refs:
+            refs[layout] = tp_reference(dev, bf16_params, layout, prompts)
+            took(f"tp1_{layout}")
+        out[arm] = tp_arm(dev, bf16_params, tp, layout, prompts,
+                          refs[layout], [dev] * tp)
+        took(arm)
+    for tp in (2, 4):  # the dense arm again over distinct cards, if any
+        if torch.cuda.device_count() >= tp:
+            cards = [torch.device("cuda", i) for i in range(tp)]
+            out[f"dense_bf16_tp{tp}_cards"] = tp_arm(
+                dev, bf16_params, tp, "dense", prompts, refs["dense"], cards)
+            took(f"dense_bf16_tp{tp}_cards")
+    out["distinct_cards"] = torch.cuda.device_count() >= 2
+    for ref in refs.values():
+        ref.pop("streams")
+    out["tp1"] = refs
+    out["kernel_rows"] = tp_kernel_rows(dev)
+    took("kernel_rows")
+    out["disagg"] = tp_disagg(dev, bf16_params)
+    took("disagg")
+    out["rank"] = tp_rank(dev, bf16_params, rank, preset)
+    took("rank")
+    out["moe"] = tp_moe(dev)
+    out["bert"] = tp_bert(dev)
+    took("moe_bert")
+    return out
+
+
 def main(argv: list[str]) -> int:
     import pathlib
 
@@ -7057,7 +7777,8 @@ def main(argv: list[str]) -> int:
     done("main path (bf16)", path)
     qpath, w8_params = int8_path(dev, bf16_params)
     done("main path (int8 cache + int8 weights)", qpath)
-    ppath = paged_path(dev, bf16_params, w8_params)
+    ppath = paged_path(dev, first_layers(bf16_params, PAGED_LAYERS),
+                       first_layers(w8_params, PAGED_LAYERS))
     done("paged path", ppath)
     graphs = graph_phase(dev, bf16_params, w8_params)
     done("graph vs eager", graphs)
@@ -7065,9 +7786,9 @@ def main(argv: list[str]) -> int:
     done("windows and pipeline", windows)
     tier = host_tier_phase(dev, bf16_params, w8_params)
     done("host KV tier", tier)
-    front = front_phase(dev, bf16_params)
+    front = front_phase(dev, first_layers(bf16_params, FRONT_LAYERS))
     done("the front", front)
-    res = resilience_phase(dev, bf16_params)
+    res = resilience_phase(dev, first_layers(bf16_params, FRONT_LAYERS))
     done("resilience and observability", res)
     spec = speculation_phase(dev, bf16_params)
     done("speculation", spec)
@@ -7148,6 +7869,42 @@ def main(argv: list[str]) -> int:
           f"{moe['f32_ms']:.3f} ms, dispatch {moe['dispatch_share']:.3f} of "
           f"bf16, bf16 vs f32 {moe['err_over_range']:.4f} of range; {card}")
     done("sequence-parallel long-context serving and MoE", sp)
+    tp = tp_phase(dev, bf16_params)
+    for arm in [a for a in (*TP_ARMS, "dense_bf16_tp2_cards",
+                            "dense_bf16_tp4_cards") if a in tp]:
+        a = tp[arm]
+        print(f"19 {arm} on {a['devices']}: decode step eager "
+              f"{a['decode_step_ms_eager']:.2f} ms (tp = 1 graphed "
+              f"{a['decode_step_ms_tp1_graphed']:.2f}), 2048-token prefill "
+              f"{a['prefill_2048_ms']:.1f} ms ({a['prefill_2048_ms_tp1']:.1f})"
+              f", collectives {a['step_collectives']['collective_share']} of "
+              f"the step's device time, peak {a['peak_mem_gib']:.2f} GiB; "
+              f"streams equal {a['equal_share']:.3f}, teacher-forced logits "
+              f"{a['forced_err_over_range']:.4f} of range; {card}")
+    print(f"19 other paths: disagg tp=2 -> tp=1 tokens equal "
+          f"{tp['disagg']['tokens_equal']}; tp rank over "
+          f"{tp['rank']['device']} streams equal "
+          f"{tp['rank']['equal_share']:.3f}; MoE ep=2 "
+          f"{tp['moe']['err_over_range']:.4f} of range; BERT-base tp=2 "
+          f"{max(tp['bert']['err_over_range'].values()):.4f}; distinct "
+          f"cards: {tp['distinct_cards']}; {card}")
+    done("tensor-parallel serving", tp)
+    by_name = {row["name"]: row for row in rows}
+    for name, key in (("flash_attention_cuda", "flash"),
+                      ("gqa_decode_attention_cuda", "bf16"),
+                      ("gqa_decode_attention_int8_cuda", "int8")):
+        for r in tp["kernel_rows"][key]:
+            print(f"{name} [{r['case']}]: max_abs_err {r['max_abs_err']:.3g} "
+                  f"row_rel_err {r['max_row_rel_err']:.3g} (dropped block "
+                  f"{r['dropped_block_row_rel_err']:.3g}) "
+                  f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
+                  f"library/yardstick "
+                  f"{r['library_ms'] or r.get('yardstick_ms'):.4f} ms bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}) = "
+                  f"{100 * r['bound_share']:.1f} % of the bound; {card}")
+            by_name[name]["by_shape"].append(r)
+            by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"],
+                                               r["max_abs_err"])
     # the Ulysses shard's flash call joins the kernel's timed shapes
     rows[0]["by_shape"].append(uly["flash_row"])
     # the training shape's flash launch joins the kernel's timed shapes
@@ -7191,6 +7948,10 @@ def main(argv: list[str]) -> int:
                    "mesh": mesh["launches"][row["name"]],
                    **{f"sp_{arm}": sp[arm]["launches"][row["name"]]
                       for arm in SP_ARMS},
+                   **{f"tp_{arm}": tp[arm]["launches"][row["name"]]
+                      for arm in TP_ARMS},
+                   "tp_disagg": tp["disagg"]["launches"][row["name"]],
+                   "tp_rank": tp["rank"]["launches"][row["name"]],
                    **{f"train_serve_{arm}": train["serve"][arm]["launches"][
                        row["name"]] for arm in ("checkpointer",
                                                 "checkpointer_w8", "hf")}}
@@ -7209,7 +7970,8 @@ def main(argv: list[str]) -> int:
              "host_tier": tier, "front": front, "resilience": res,
              "speculation": spec, "engine": engine, "openai": oai,
              "fleet": fleet, "training": train, "native": native,
-             "cross_host": cross, "sequence_parallel": sp},
+             "cross_host": cross, "sequence_parallel": sp,
+             "tensor_parallel": tp},
             indent=1))
     print(json.dumps({"kernels": rows}))
     print(card)

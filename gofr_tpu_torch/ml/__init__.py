@@ -343,12 +343,13 @@ class MLDatasource:
             if "spawn" not in pool_kwargs:
                 # an elastic pool built from (params, cfg) can grow at
                 # runtime: one warmed replica on the new index's device
-                # (round-robin past the card count, split_devices' rule)
-                def _default_spawn(idx, _p=params, _c=cfg,
+                # slice (spares first, round-robin past the card count:
+                # JAX's default spawn)
+                def _default_spawn(idx, _p=params, _c=cfg, _n0=n,
                                    _devs=devices, _kw=dict(gen_kwargs)):
                     return build_replica_generators(
                         _p, _c, 1, warmup=True,
-                        devices=spawn_devices(idx, _devs), **_kw)[0]
+                        devices=spawn_devices(idx, _devs, _n0), **_kw)[0]
 
                 pool_kwargs["spawn"] = _default_spawn
             # one replica sits on ``device`` (default the first card), as

@@ -33,7 +33,11 @@ does.
   ``apply/b{B}``. There is no fallback: a binding that does not build, an
   export or compile that fails, or a package for another device raises in
   the caller's future. ``plugin_path`` raises (the port has no plugin).
-- An ``out_sharding`` raises naming ROADMAP A.11; any other backend raises
+- ``out_sharding`` is a ``(parallel.Mesh, parallel.P)`` pair (JAX's
+  ``NamedSharding``): each output is checked against the spec over the
+  mesh (``parallel.constrain``: an unknown axis or a dimension it does not
+  divide raises in the caller's future) before it returns to the host as
+  numpy, as every output does in both packages. Any other backend raises
   JAX's ``ValueError``.
 """
 
@@ -49,6 +53,7 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
+from .. import parallel as par
 from ..flight_recorder import LAUNCH_GATE
 from ..tracing import current_context
 from .programs import ProgramLog
@@ -135,9 +140,14 @@ class Engine:
         if backend not in ("jit", "pjrt"):
             raise ValueError(f"unknown engine backend {backend!r}")
         if out_sharding is not None:
-            raise NotImplementedError(
-                f"engine {name}: out_sharding is not ported yet (ROADMAP "
-                f"A.11)")
+            pair = (tuple(out_sharding)
+                    if isinstance(out_sharding, (tuple, list)) else ())
+            if (len(pair) != 2 or not isinstance(pair[0], par.Mesh)
+                    or not isinstance(pair[1], par.P)):
+                raise TypeError(
+                    f"engine {name}: out_sharding is a (parallel.Mesh, "
+                    f"parallel.P) pair")
+        self.out_sharding = out_sharding
         self.name = name
         self.config = config or EngineConfig()
         self._logger = logger
@@ -265,7 +275,12 @@ class Engine:
                 batch = int(arrays[0].shape[0])
             key = tuple((tuple(a.shape), a.dtype) for a in arrays)
             new_shape = key not in self._shapes
-            out = tree_map(_to_numpy, self._run(key, arrays))  # blocks
+            out = self._run(key, arrays)
+            if self.out_sharding is not None:
+                mesh, spec = self.out_sharding
+                with mesh:
+                    tree_map(lambda t: par.constrain(t, spec), out)
+            out = tree_map(_to_numpy, out)  # blocks
         except BaseException as exc:
             if span is not None:
                 span.record_exception(exc)

@@ -95,6 +95,17 @@ generator run eagerly, on a card too (no CUDA graphs: their bodies move
 data between the shards' devices). A bare sequence-parallel ``cfg``
 (``attn_impl``) with a ``mesh`` runs JAX's all-or-nothing switch: every
 prefill sequence-parallel, the dense cache split.
+
+Tensor-parallel serving: params split by ``llama.SHARDING_RULES``
+(``parallel.shard_params`` over a mesh with tp > 1; a replica over a
+device subset and a mesh rank over several devices do it) make the
+Generator build its cache, dense or paged, split by KV head over the
+params' shards (``mesh`` defaults to a tp mesh of them; ``shard_cache``
+is accepted as in JAX and needs a mesh); prefill, segments, windows,
+prefix hits and the host tier run through the model's tensor-parallel
+path, and decode runs eagerly (no CUDA graphs: a graph cannot span
+cards). Speculation and sequence parallelism over split weights raise
+naming ROADMAP A.11.
 """
 
 from __future__ import annotations
@@ -378,7 +389,8 @@ class Generator:
                  spec_cooldown: int | None = None, draft_params: Any = None,
                  draft_cfg: Any = None, decode_window: int | None = None,
                  pipeline: int | None = None, sp: Any = None,
-                 host_kv: Any = None, mesh=None, device=None) -> None:
+                 host_kv: Any = None, mesh=None, shard_cache: bool = False,
+                 device=None) -> None:
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
         self.chunk = chunk
@@ -494,7 +506,7 @@ class Generator:
         self._sp = _resolve_sp(
             sp, cfg=cfg, mesh=mesh, prefill_buckets=self.prefill_buckets,
             max_seq=max_seq, page_size=self.page_size, spec_k=self.spec_k,
-            shard_cache=False,
+            shard_cache=shard_cache,
             devices=(par.visible_devices() if self.device.type == "cuda"
                      else [self.device]))
         if self._sp is not None:
@@ -502,6 +514,34 @@ class Generator:
             self.sp_prefills = 0    # prompts prefilled sequence-parallel
             self.sp_fallbacks = 0   # SP failures served single-device
             self.sp_tokens = 0      # prompt tokens through the SP path
+        # -- tensor parallelism: params split by llama.SHARDING_RULES run
+        # every block a shard at a time, over a cache split by KV head
+        tp_devs = llama.tp_devices(params)
+        self._tp = tp_devs is not None
+        if shard_cache and mesh is None and not self._tp:
+            raise ValueError("shard_cache requires a mesh")
+        if self._tp:
+            if self._sp is not None:
+                raise NotImplementedError(
+                    "sequence parallelism over tensor-parallel weights is "
+                    "not ported yet (ROADMAP A.11)")
+            if self.spec_k:
+                raise NotImplementedError(
+                    "speculative decoding with tensor-parallel weights is "
+                    "not ported yet (ROADMAP A.11)")
+            if mesh is None:
+                mesh = par.make_mesh(par.MeshConfig(tp=len(tp_devs)),
+                                     devices=tp_devs)
+            elif mesh.shape.get("tp", 1) != len(tp_devs):
+                raise ValueError(
+                    f"params split {len(tp_devs)} ways over a mesh with "
+                    f"tp={mesh.shape.get('tp', 1)}")
+        elif (mesh is not None and mesh.shape.get("tp", 1) > 1
+              and self._sp is None and not cfg.sequence_parallel):
+            raise ValueError(
+                "a mesh with tp > 1 needs params split over it: "
+                "parallel.shard_params(params, llama.sharding_specs(params), "
+                "mesh)")
         if mesh is not None and mesh.first != self.device:
             raise ValueError(
                 f"the mesh's first device is {mesh.first}, the generator's "
@@ -517,8 +557,8 @@ class Generator:
                             if self._sp is not None and not self.page_size
                             else cfg)
         if self.page_size:
-            if self._sp is None and mesh is not None \
-                    and cfg.sequence_parallel:
+            if shard_cache or (self._sp is None and mesh is not None
+                               and cfg.sequence_parallel):
                 raise ValueError(
                     "page_size composes with sequence parallelism only "
                     "through the serving plan (GOFR_ML_SP / sp=) — not "
@@ -540,7 +580,7 @@ class Generator:
             self.cache = llama.init_paged_cache(
                 cfg, batch_slots, self.n_pages, self.page_size,
                 device=self.device,
-                mesh=self.mesh if self._sp is not None else None)
+                mesh=self.mesh if self._sp is not None or self._tp else None)
             # page 0 is scratch; the free pool is ONE STACK A SHARD of real
             # pages (one stack unstriped), and the allocator round-robins
             # across them (_pop_free_page), so a slot's consecutive
@@ -548,7 +588,7 @@ class Generator:
             n_stacks = self._sp.shards if self._sp is not None else 1
             self._free_dev: list[list[int]] = [[] for _ in range(n_stacks)]
             for pg in range(self.n_pages - 1, 0, -1):
-                self._free_dev[par.owner(self.cache["k"], pg)].append(pg)
+                self._free_dev[self._page_stack(pg)].append(pg)
             self._stripe_rr = 0
             self._slot_pages: list[list[int]] = [[] for _ in
                                                  range(batch_slots)]
@@ -581,7 +621,7 @@ class Generator:
         else:
             self.cache = llama.init_cache(
                 cfg, batch_slots, max_seq, device=self.device,
-                mesh=self.mesh if self._sp_dense else None)
+                mesh=self.mesh if self._sp_dense or self._tp else None)
         self.slots = [_Slot() for _ in range(batch_slots)]
         self._rng = torch.Generator(device=self.device).manual_seed(seed)
         # the token row: decode reads and writes it in place (a graph input)
@@ -596,10 +636,11 @@ class Generator:
         # logits of the first step of the last decode dispatch (f32 [B, V]):
         # on a card the graph's own output, overwritten by its next replay
         self.dispatch_logits: torch.Tensor | None = None
-        # an SP generator's dispatches run eagerly (module docstring)
+        # an SP or a TP generator's dispatches run eagerly (module
+        # docstring)
         self._graphs = (DecodeGraphs(self.device, self._rng, cfg.dtype)
                         if self.device.type == "cuda" and self._sp is None
-                        and not self._sp_dense else None)
+                        and not self._sp_dense and not self._tp else None)
         self._inflight: collections.deque = collections.deque()
         self._pending_first: collections.deque[int] = collections.deque()
         self.steps = 0           # decode steps dispatched
@@ -1279,6 +1320,12 @@ class Generator:
                             prefill=True))
 
     # -- paged-pool bookkeeping (page_size > 0) ------------------------------
+    def _page_stack(self, pg: int) -> int:
+        """The free stack of page ``pg``: its owner in a pool striped over
+        the SP shards, else the one stack (a head-split pool's pages span
+        every shard)."""
+        return par.owner(self.cache["k"], pg) if self._sp is not None else 0
+
     def _pop_free_page(self) -> int | None:
         """One page off the free pool, or None when dry. The allocator
         round-robins across the per-shard stacks, so a striped slot's
@@ -1295,7 +1342,7 @@ class Generator:
         """Give pages back to the pool, each to the stack of the shard that
         owns it (fixed by its id)."""
         for pg in pages:
-            self._free_dev[par.owner(self.cache["k"], pg)].append(pg)
+            self._free_dev[self._page_stack(pg)].append(pg)
 
     def _n_free_pages(self) -> int:
         return sum(len(stack) for stack in self._free_dev)

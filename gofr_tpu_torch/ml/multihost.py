@@ -52,10 +52,13 @@ surfaces as an error, never as a hang. A ``stop`` frame makes rank 0
 broadcast STOP; every rank exits its loop. A front-end disconnect only
 cancels that connection's requests.
 
-What differs (ROADMAP C): JAX splits each rank's model over its host's
-chips (tensor parallelism); here a rank holds the whole model on one card
-and loads its own copy of the weights. A rank given several cards raises,
-naming ROADMAP A.11.
+Tensor parallelism within a rank: ``device=[a, b, ...]`` splits the
+rank's model over those devices (a tp mesh of them, the weights split by
+``llama.SHARDING_RULES``, the cache by KV head), as JAX's ``(dp, tp)``
+mesh splits it over a host's chips. What differs (ROADMAP C): JAX runs one
+SPMD Generator over the whole ``(dp = processes, tp = local chips)`` mesh;
+here each rank keeps its own Generator over its slots (``dp`` stays across
+ranks) with its ``tp`` inside it, and loads its own copy of the weights.
 
 The front end (``MultiHostLLMClient``) is pure asyncio and never touches
 torch: one multiplexed connection, one reader task, a retry budget of one
@@ -236,7 +239,9 @@ class MultiHostWorker:
     """One rank of the serving mesh. ``run()`` blocks for the process
     lifetime (``setup()`` then ``serve()``); rank 0 also serves the model
     port. ``device`` defaults to ``cuda:{process_id % device_count}``;
-    without a card it raises unless ``device="cpu"``."""
+    without a card it raises unless ``device="cpu"``. A list of devices
+    makes the rank tensor-parallel over them (the first holds the
+    activations)."""
 
     def __init__(self, process_id: int, num_processes: int,
                  coordinator: str, *, port: int = 0, cfg=None, seed: int = 0,
@@ -280,6 +285,17 @@ class MultiHostWorker:
                       "gather_s": 0.0, "gathers": 0}
 
     # -- mesh + model setup ----------------------------------------------------
+    def _resolve_devices(self) -> list:
+        """The rank's devices: one, or the tp devices of a list."""
+        dev = self._device_arg
+        if isinstance(dev, (list, tuple)):
+            if not dev:
+                raise ValueError("device=[] names no device")
+            from .. import resolve_device
+
+            return [resolve_device(d) for d in dev]
+        return [self._resolve_device()]
+
     def _resolve_device(self):
         import torch
 
@@ -287,12 +303,7 @@ class MultiHostWorker:
 
         dev = self._device_arg
         if isinstance(dev, (list, tuple)):
-            if len(dev) != 1:
-                raise NotImplementedError(
-                    f"a mesh rank over {len(dev)} devices (tensor "
-                    f"parallelism over a host's cards) is not ported yet "
-                    f"(ROADMAP A.11); run one rank a card")
-            dev = dev[0]
+            return self._resolve_devices()[0]
         if dev is not None:
             return resolve_device(dev)
         if not torch.cuda.is_available():
@@ -311,10 +322,12 @@ class MultiHostWorker:
         import torch
         import torch.distributed as dist
 
+        from .. import parallel as par
         from ..models import llama
         from .generate import Generator
 
-        dev = self._resolve_device()
+        devs = self._resolve_devices()
+        dev = devs[0]
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
         self.device = dev
@@ -340,12 +353,21 @@ class MultiHostWorker:
 
         # LLAMA_CKPT names real weights; else random ones from ``seed``
         params = llama.params_from_config(cfg, seed=self.seed, device=dev)
+        # tp spans the rank's devices (JAX's tp over a host's chips); dp
+        # spans the ranks, one Generator each
+        self.mesh = None
+        if len(devs) > 1:
+            self.mesh = par.make_mesh(par.MeshConfig(tp=len(devs)),
+                                      devices=devs)
+            params = par.shard_params(params, llama.sharding_specs(params),
+                                      self.mesh)
         self.gen = Generator(
             params, cfg, batch_slots=self.local_slots, max_seq=self.max_seq,
             sampler=self.sampler, eos_id=self.eos_id,
             prefill_buckets=self.prefill_buckets, seed=self.seed,
             chunk=self.chunk, spec_k=self.spec_k,
-            prefill_chunk=self.prefill_chunk, device=dev)
+            prefill_chunk=self.prefill_chunk, mesh=self.mesh,
+            shard_cache=self.mesh is not None, device=dev)
         # build every kernel and capture every graph up front ON EVERY
         # RANK: a first-use capture inside the loop would stall one rank
         self.gen.warmup()

@@ -67,8 +67,10 @@ weight tensors (no copy), each owning its cache, page pool, host tier,
 decode graphs and serving thread. With sequence-parallel serving armed
 (``sp=`` or ``GOFR_ML_SP``), a replica that owns several devices gets an
 sp mesh over them (``devices=[cuda:0] * 4`` gives one replica four shards
-on one card); a replica over several devices without it (tensor
-parallelism) waits for ROADMAP A.11. The cross-host fleet
+on one card); a replica over several devices without it is
+tensor-parallel over them, as in JAX: a tp mesh, the weights split by
+``llama.SHARDING_RULES`` (views of the shared ones on a repeated device)
+and a cache split by KV head. The cross-host fleet
 sits above and beside the pool: ``ml/federation.py`` fronts a pool or a
 server on each host, ``ml/multihost.py`` runs a mesh of Generators over
 ``torch.distributed``.
@@ -419,11 +421,20 @@ def split_devices(n: int, devices=None) -> list[list]:
     return [devs[i * per:(i + 1) * per] for i in range(n)]
 
 
-def spawn_devices(idx: int, devices=None) -> list:
-    """The one-device subset a replica added at pool index ``idx`` lands
-    on: ``devices`` (default every card) round-robin, as
+def spawn_devices(idx: int, devices=None, n_boot: int | None = None
+                  ) -> list:
+    """The device subset a replica added at pool index ``idx`` lands on,
+    as JAX's default spawn picks it: with ``n_boot`` (the boot's replica
+    count) the idx-th slice of ``len(devices) // n_boot`` devices (spares
+    first: a tensor-parallel replica like the boot's) while one fits,
+    else one device of ``devices`` (default every card) round-robin, as
     ``split_devices`` places replicas past the device count."""
     devs = [d for subset in split_devices(1, devices) for d in subset]
+    if n_boot:
+        per = max(1, len(devs) // n_boot)
+        lo = idx * per
+        if lo + per <= len(devs):
+            return devs[lo:lo + per]
     return [devs[idx % len(devs)]]
 
 
@@ -465,9 +476,13 @@ def build_replica_generators(params, cfg, n: int, *, warmup: bool = True,
     which makes a disaggregated prefill-biased replica a sequence-parallel
     prefill worker. A one-device subset cannot shard: an explicit ``sp=``
     raises, an env-armed one stays off for it, as in JAX. A subset of
-    several devices without SP (tensor parallelism) raises naming ROADMAP
-    A.11."""
+    several devices without SP is a tensor-parallel replica, as in JAX: a
+    tp mesh over the subset, the weights split by ``llama.SHARDING_RULES``
+    (``parallel.shard_params``: blocks on the weights' own device are
+    views, so replicas on one card still share them) and a cache split by
+    KV head."""
     from .. import parallel as par
+    from ..models import llama
     from .generate import Generator
     from .sp_serving import SPConfig
 
@@ -494,12 +509,14 @@ def build_replica_generators(params, cfg, n: int, *, warmup: bool = True,
             mesh = par.make_mesh(par.MeshConfig(sp=len(subset)),
                                  devices=subset)
         else:
-            raise NotImplementedError(
-                f"replica {len(gens)} spans {len(subset)} devices: a "
-                f"replica over several cards (tensor parallelism) is not "
-                f"ported yet (ROADMAP A.11); use as many replicas as cards")
-        gen = Generator(_params_on(params, dev), cfg, device=dev, mesh=mesh,
-                        **kw)
+            mesh = par.make_mesh(
+                par.mesh_shape_for(len(subset), tp=len(subset)),
+                devices=subset)
+        rep_params = _params_on(params, dev)
+        if mesh is not None and mesh.shape["tp"] > 1:
+            rep_params = par.shard_params(
+                rep_params, llama.sharding_specs(rep_params), mesh)
+        gen = Generator(rep_params, cfg, device=dev, mesh=mesh, **kw)
         if warmup:
             gen.warmup()
         gens.append(gen)

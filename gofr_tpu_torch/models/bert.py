@@ -11,8 +11,14 @@ Attention is the plain ``ops.attention``, bidirectional, masked only by
 its unpadded sequence. Token ids outside the vocabulary are wrapped and
 clamped on the device as JAX's gather does (a torch gather would fault).
 
-Tensor-parallel sharding (``sharding_specs``) raises: it belongs to
-ROADMAP A.11.
+Tensor parallelism: ``sharding_specs`` returns JAX's rules
+(``SHARDING_RULES``); params split by them over a mesh with tp > 1
+(``parallel.shard_params``) carry their sharding. Each layer runs a shard
+at a time (unsplit params are one shard holding every weight whole): the
+shard's heads of the column-parallel q/k/v (with its slice of the
+replicated biases) through ``ops.attention``, its rows of ``wo``, its ffn
+slice, a ``psum`` after each row-parallel product (the bias added once
+after it), and the pooler's column blocks joined by ``all_gather``.
 """
 
 from __future__ import annotations
@@ -23,10 +29,11 @@ import numpy as np
 import torch
 
 from ..ops import attention, gelu, layer_norm
+from ..parallel import P, all_gather, psum, shards_of, specs_from_rules
 from . import normal, tensor_from_numpy
 
 __all__ = ["BertConfig", "Bert", "bert_base", "tiny_bert", "init_params",
-           "params_from_jax", "forward"]
+           "params_from_jax", "forward", "SHARDING_RULES"]
 
 _LAYER_KEYS = ("wq", "wk", "wv", "wo", "bq", "bk", "bv", "bo",
                "attn_norm_scale", "attn_norm_bias", "w_in", "b_in", "w_out",
@@ -67,6 +74,15 @@ def tiny_bert(**kw) -> BertConfig:
                     ffn_dim=128, max_pos=64)
     defaults.update(kw)
     return BertConfig(**defaults)
+
+
+SHARDING_RULES = (
+    (r"layers/(wq|wk|wv|w_in)", P(None, None, "tp")),   # column parallel
+    (r"layers/(wo|w_out)", P(None, "tp", None)),        # row parallel
+    (r"layers/", P(None)),                              # biases/norms replicate
+    (r"pooler/w", P(None, "tp")),
+    (r".*", P()),
+)
 
 
 def init_params(cfg: BertConfig, generator: torch.Generator,
@@ -148,32 +164,22 @@ def forward(params: dict, tokens: torch.Tensor, cfg: BertConfig, *,
     "pooled": [B, D] f32, "mean": [B, D] f32}: pooled is the tanh-projected
     [CLS], mean the masked mean over the valid positions."""
     b, s = tokens.shape
-    H, hd, dt = cfg.n_heads, cfg.head_dim, cfg.dtype
     pos = torch.arange(s, device=tokens.device)
     x = take_rows(params["tok_embed"], tokens)
     x = x + take_rows(params["pos_embed"], pos)[None]
     types = token_types if token_types is not None else torch.zeros_like(tokens)
     x = x + take_rows(params["type_embed"], types)
-    x = layer_norm(x.to(dt), params["embed_norm_scale"],
+    x = layer_norm(x.to(cfg.dtype), params["embed_norm_scale"],
                    params["embed_norm_bias"], cfg.norm_eps)
 
-    layers = params["layers"]
     for i in range(cfg.n_layers):
-        lp = {k: v[i] for k, v in layers.items()}
-        q = (x @ lp["wq"] + lp["bq"].to(dt)).reshape(b, s, H, hd)
-        k = (x @ lp["wk"] + lp["bk"].to(dt)).reshape(b, s, H, hd)
-        v = (x @ lp["wv"] + lp["bv"].to(dt)).reshape(b, s, H, hd)
-        o = attention(q, k, v, causal=False, kv_len=seq_lens)
-        o = o.reshape(b, s, H * hd) @ lp["wo"] + lp["bo"].to(dt)
-        x = layer_norm(x + o, lp["attn_norm_scale"], lp["attn_norm_bias"],
-                       cfg.norm_eps)
-        h = gelu(x @ lp["w_in"] + lp["b_in"].to(dt))
-        h = h @ lp["w_out"] + lp["b_out"].to(dt)
-        x = layer_norm(x + h, lp["mlp_norm_scale"], lp["mlp_norm_bias"],
-                       cfg.norm_eps)
+        x = _layer(params["layers"], i, x, cfg, seq_lens)
 
-    pooled = torch.tanh(x[:, 0].float() @ params["pooler"]["w"].float()
-                        + params["pooler"]["b"])
+    x0 = x[:, 0].float()
+    proj = all_gather([x0.to(w.device) @ w.float()
+                       for w in shards_of(params["pooler"]["w"])], -1,
+                      to=x.device)
+    pooled = torch.tanh(proj + params["pooler"]["b"])
     if seq_lens is not None:
         mask = (pos[None, :] < seq_lens[:, None]).float()
     else:
@@ -181,6 +187,44 @@ def forward(params: dict, tokens: torch.Tensor, cfg: BertConfig, *,
     mean = (x.float() * mask[..., None]).sum(1) / torch.clamp(
         mask.sum(1, keepdim=True), min=1.0)
     return {"hidden": x, "pooled": pooled, "mean": mean}
+
+
+def _column(x, w, layer: int, bias, dt) -> list:
+    """A column-parallel product a shard at a time: ``x`` [.., D] on each
+    block's device times its [D, F/tp] block of ``w[layer]`` (the whole
+    weight, one block, when it is not split), plus its slice of the
+    replicated ``bias`` [F]."""
+    out = []
+    for d, blk in enumerate(shards_of(w)):
+        n = blk.shape[-1]
+        out.append(x.to(blk.device) @ blk[layer]
+                   + bias[d * n:(d + 1) * n].to(blk.device, dt))
+    return out
+
+
+def _layer(layers: dict, i: int, x, cfg: BertConfig, seq_lens):
+    """Encoder layer ``i``, a shard at a time (module docstring); unsplit
+    weights are one shard."""
+    b, s, _ = x.shape
+    dt, hd = cfg.dtype, cfg.head_dim
+    qs, ks, vs = (_column(x, layers[w], i, layers[bn][i], dt)
+                  for w, bn in (("wq", "bq"), ("wk", "bk"), ("wv", "bv")))
+    parts = []
+    for q, k, v, wo in zip(qs, ks, vs, shards_of(layers["wo"]), strict=True):
+        o = attention(q.reshape(b, s, -1, hd), k.reshape(b, s, -1, hd),
+                      v.reshape(b, s, -1, hd), causal=False,
+                      kv_len=None if seq_lens is None
+                      else seq_lens.to(q.device))
+        parts.append(o.reshape(b, s, -1) @ wo[i])
+    o = psum(parts, to=x.device) + layers["bo"][i].to(dt)
+    x = layer_norm(x + o, layers["attn_norm_scale"][i],
+                   layers["attn_norm_bias"][i], cfg.norm_eps)
+    hs = _column(x, layers["w_in"], i, layers["b_in"][i], dt)
+    h = psum([gelu(h) @ w[i] for h, w in zip(hs, shards_of(layers["w_out"]),
+                                              strict=True)], to=x.device)
+    h = h + layers["b_out"][i].to(dt)
+    return layer_norm(x + h, layers["mlp_norm_scale"][i],
+                      layers["mlp_norm_bias"][i], cfg.norm_eps)
 
 
 class Bert:
@@ -209,6 +253,4 @@ class Bert:
         return forward(params, tokens, self.cfg, seq_lens=seq_lens)["mean"]
 
     def sharding_specs(self):
-        raise NotImplementedError(
-            "Bert.sharding_specs: tensor-parallel sharding is not ported yet "
-            "(ROADMAP A.11)")
+        return specs_from_rules(self.params, SHARDING_RULES)

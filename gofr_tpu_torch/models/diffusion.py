@@ -24,8 +24,13 @@ batch shape. What differs from JAX:
   exactly, and each step's scalar coefficients are f32 values computed on
   the host from the same ``alphas_bar`` table.
 
-Tensor-parallel sharding (``sharding_specs``) raises: it belongs to
-ROADMAP A.11.
+Tensor parallelism: ``sharding_specs`` returns JAX's rules
+(``SHARDING_RULES``); params split by them over a mesh with tp > 1
+(``parallel.shard_params``) carry their sharding. Each branch of a block
+runs a shard at a time (unsplit params are one shard holding every weight
+whole): the shard's heads of the column-parallel self- and cross-attention
+projections, its ffn slice, its rows of the row-parallel outputs, and a
+``psum`` before each gate. The modulation and the norms stay replicated.
 """
 
 from __future__ import annotations
@@ -38,11 +43,12 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import attention, gelu, layer_norm
+from ..parallel import P, psum, shards_of, specs_from_rules
 from . import normal, tensor_from_numpy
 
 __all__ = ["DiTConfig", "DiT", "dit_xl", "tiny_dit", "init_params",
            "params_from_jax", "patchify", "unpatchify", "forward",
-           "ddim_timesteps", "alphas_bar", "ddim_sample"]
+           "ddim_timesteps", "alphas_bar", "ddim_sample", "SHARDING_RULES"]
 
 _LAYER_KEYS = ("wq", "wk", "wv", "wo", "xq", "xk", "xv", "xo", "w_in",
                "w_out", "ada_w", "ada_b")
@@ -87,6 +93,14 @@ def tiny_dit(**kw) -> DiTConfig:
                     ffn_dim=128, ctx_dim=32)
     defaults.update(kw)
     return DiTConfig(**defaults)
+
+
+SHARDING_RULES = (
+    (r"layers/(wq|wk|wv|xq|xk|xv|w_in)", P(None, None, "tp")),
+    (r"layers/(wo|xo|w_out)", P(None, "tp", None)),
+    (r"layers/", P(None)),
+    (r".*", P()),
+)
 
 
 def _timestep_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -186,50 +200,63 @@ def forward(params: dict, latents: torch.Tensor, t: torch.Tensor,
             context: torch.Tensor, cfg: DiTConfig) -> torch.Tensor:
     """Predict noise: latents [B, H, W, C], t [B], context [B, S, ctx_dim]
     -> eps [B, H, W, C] f32."""
-    b = latents.shape[0]
-    H, hd, dt = cfg.n_heads, cfg.head_dim, cfg.dtype
-
+    dt = cfg.dtype
     x = patchify(latents.to(dt), cfg) @ params["patch_in"]
     x = x + params["pos_embed"][None]
-    s = x.shape[1]
 
     temb = _timestep_embedding(t, cfg.dim).to(dt)
     temb = F.silu(temb @ params["t_mlp1"]) @ params["t_mlp2"]  # [B, D]
     ctx = context.to(dt) @ params["ctx_proj"]
-    sc = ctx.shape[1]
 
-    layers = params["layers"]
     for i in range(cfg.n_layers):
-        lp = {k: v[i] for k, v in layers.items()}
-        mod = F.silu(temb) @ lp["ada_w"] + lp["ada_b"].to(dt)
-        (sa_shift, sa_scale, sa_gate, xa_shift, xa_scale, xa_gate,
-         mlp_shift, mlp_scale, mlp_gate) = mod[:, None, :].chunk(9, dim=-1)
-
-        # self-attention (bidirectional over patches)
-        h = _modulation_norm(x, cfg.norm_eps) * (1 + sa_scale) + sa_shift
-        q = (h @ lp["wq"]).reshape(b, s, H, hd)
-        k = (h @ lp["wk"]).reshape(b, s, H, hd)
-        v = (h @ lp["wv"]).reshape(b, s, H, hd)
-        o = attention(q, k, v, causal=False).reshape(b, s, H * hd)
-        x = x + sa_gate * (o @ lp["wo"])
-
-        # cross-attention over the text tokens
-        h = _modulation_norm(x, cfg.norm_eps) * (1 + xa_scale) + xa_shift
-        q = (h @ lp["xq"]).reshape(b, s, H, hd)
-        k = (ctx @ lp["xk"]).reshape(b, sc, H, hd)
-        v = (ctx @ lp["xv"]).reshape(b, sc, H, hd)
-        o = attention(q, k, v, causal=False).reshape(b, s, H * hd)
-        x = x + xa_gate * (o @ lp["xo"])
-
-        # mlp
-        h = _modulation_norm(x, cfg.norm_eps) * (1 + mlp_scale) + mlp_shift
-        h = gelu(h @ lp["w_in"]) @ lp["w_out"]
-        x = x + mlp_gate * h
+        x = _block(params["layers"], i, x, temb, ctx, cfg)
 
     x = layer_norm(x, params["final_norm_scale"], params["final_norm_bias"],
                    cfg.norm_eps)
     eps = x @ params["patch_out"]
     return unpatchify(eps.float(), cfg)
+
+
+def _attention(layers: dict, i: int, names: tuple, h, kv, hd: int):
+    """One attention branch, a shard at a time (unsplit weights are one
+    shard): each shard's heads of q (from ``h``) and k, v (from ``kv``)
+    through its blocks of the three column-parallel projections, then its
+    rows of the output projection; the partial outputs summed on ``h``'s
+    device."""
+    wq, wk, wv, wo = (shards_of(layers[n]) for n in names)
+    b, s, sk = h.shape[0], h.shape[1], kv.shape[1]
+    parts = []
+    for q_w, k_w, v_w, o_w in zip(wq, wk, wv, wo, strict=True):
+        dev = q_w.device
+        hq, hkv = h.to(dev), kv.to(dev)
+        o = attention((hq @ q_w[i]).reshape(b, s, -1, hd),
+                      (hkv @ k_w[i]).reshape(b, sk, -1, hd),
+                      (hkv @ v_w[i]).reshape(b, sk, -1, hd), causal=False)
+        parts.append(o.reshape(b, s, -1) @ o_w[i])
+    return psum(parts, to=h.device)
+
+
+def _block(layers: dict, i: int, x, temb, ctx, cfg: DiTConfig):
+    """DiT block ``i``, a shard at a time (module docstring): bidirectional
+    self-attention over the patches, cross-attention over the text tokens,
+    the mlp."""
+    dt, hd = cfg.dtype, cfg.head_dim
+    mod = F.silu(temb) @ layers["ada_w"][i] + layers["ada_b"][i].to(dt)
+    (sa_shift, sa_scale, sa_gate, xa_shift, xa_scale, xa_gate,
+     mlp_shift, mlp_scale, mlp_gate) = mod[:, None, :].chunk(9, dim=-1)
+    h = _modulation_norm(x, cfg.norm_eps) * (1 + sa_scale) + sa_shift
+    x = x + sa_gate * _attention(layers, i, ("wq", "wk", "wv", "wo"), h, h,
+                                 hd)
+    h = _modulation_norm(x, cfg.norm_eps) * (1 + xa_scale) + xa_shift
+    x = x + xa_gate * _attention(layers, i, ("xq", "xk", "xv", "xo"), h,
+                                 ctx, hd)
+    h = _modulation_norm(x, cfg.norm_eps) * (1 + mlp_scale) + mlp_shift
+    h = psum([gelu(h.to(w_in.device) @ w_in[i]) @ w_out[i]
+              for w_in, w_out in zip(shards_of(layers["w_in"]),
+                                     shards_of(layers["w_out"]),
+                                     strict=True)],
+             to=x.device)
+    return x + mlp_gate * h
 
 
 def _linspace_f32(start: float, stop: float, num: int) -> np.ndarray:
@@ -328,6 +355,4 @@ class DiT:
         return forward(params, latents, t, context, self.cfg)
 
     def sharding_specs(self):
-        raise NotImplementedError(
-            "DiT.sharding_specs: tensor-parallel sharding is not ported yet "
-            "(ROADMAP A.11)")
+        return specs_from_rules(self.params, SHARDING_RULES)

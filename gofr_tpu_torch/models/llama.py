@@ -77,10 +77,21 @@ cache write or read here goes through ``parallel``'s cache accesses
 single-device paths (a short prompt's prefill, a segment, a suffix) run
 on a split cache too. Weights and activations stay
 on the mesh's first device, as JAX's are replicated.
+
+Tensor parallelism (params split by ``SHARDING_RULES`` through
+``parallel.shard_params`` over a mesh with tp > 1): every function here
+sees the split weights and runs each decoder block a shard at a time
+(``_blocks``), each shard's heads attended through the same two kernels
+over its own KV-head block of a cache split by ``init_cache(mesh=)`` /
+``init_paged_cache(mesh=)``; ``psum`` joins the row-parallel outputs and
+``all_gather`` the vocabulary-split logits (the section "tensor
+parallelism" below). A tp that does not divide the KV heads raises, where
+JAX replicates K/V.
 """
 
 from __future__ import annotations
 
+import copy
 import os
 
 import numpy as np
@@ -90,8 +101,9 @@ from . import tensor_from_numpy as _tensor_from_numpy
 from ..ops import (apply_rope, cached_decode_attention, dequantize_kv,
                    dequantize_kv4, flash_attention, quantize_kv, quantize_kv4,
                    quantize_weight, repeat_kv, rms_norm, rope_table)
-from ..parallel import (ShardedTensor, pool_put, pool_take, row_read,
-                        row_write, set_at_pos)
+from ..parallel import (P, ShardedTensor, all_gather, pool_put, pool_take,
+                        psum, row_read, row_write, set_at_pos, shards_of,
+                        specs_from_rules)
 
 __all__ = ["LlamaConfig", "llama3_8b", "tiny_llama", "kv_bits_from_env",
            "config_from_env", "init_params", "quantize_weights",
@@ -101,7 +113,9 @@ __all__ = ["LlamaConfig", "llama3_8b", "tiny_llama", "kv_bits_from_env",
            "prefill_segment_into", "decode_step", "decode_window",
            "init_paged_cache", "paged_prefill_into", "paged_suffix_prefill",
            "paged_decode_step", "sp_paged_decode_step",
-           "paged_decode_window", "draft_from_env"]
+           "paged_decode_window", "draft_from_env", "SHARDING_RULES",
+           "SHARDING_RULES_FSDP", "CACHE_SPEC", "sharding_specs",
+           "tp_devices"]
 
 _LAYER_KEYS = ("attn_norm", "mlp_norm", "wq", "wk", "wv", "wo", "w_gate",
                "w_up", "w_down")
@@ -182,13 +196,55 @@ def llama3_8b(**kw) -> LlamaConfig:
 
 
 def tiny_llama(**kw) -> LlamaConfig:
-    """Test-scale config: same topology, toy widths."""
+    """Test-scale config: same topology, toy widths (divisible by tp=4)."""
     defaults = dict(
         vocab_size=512, dim=128, n_layers=2, n_heads=8, n_kv_heads=4,
         ffn_dim=256, max_seq_len=128, rope_theta=10_000.0,
     )
     defaults.update(kw)
     return LlamaConfig(**defaults)
+
+
+# Megatron-style TP over the canonical mesh, JAX's rules. The leading axis
+# of every layer weight is the stacked n_layers axis (never sharded). The
+# ``/s`` rules (first match wins) cover int8 weights' per-out-channel
+# scales: column-parallel outputs shard the scale over tp, row-parallel
+# outputs are full-width so their scales replicate.
+SHARDING_RULES = (
+    (r"layers/(wq|wk|wv|w_gate|w_up)/s", P(None, "tp")),
+    (r"layers/(wo|w_down)/s", P(None, None)),
+    (r"lm_head/s", P("tp")),
+    (r"layers/(wq|wk|wv|w_gate|w_up)", P(None, None, "tp")),  # column parallel
+    (r"layers/(wo|w_down)", P(None, "tp", None)),             # row parallel
+    (r"layers/(attn_norm|mlp_norm)", P(None)),
+    (r"embed", P(None, None)),
+    (r"lm_head", P(None, "tp")),                              # vocab sharded
+    (r"final_norm", P(None)),
+)
+
+# FSDP variant (JAX's, for training): weights also sharded over the fsdp
+# axis. ``parallel.shard_params`` raises for fsdp > 1 (ROADMAP A.11).
+SHARDING_RULES_FSDP = (
+    (r"layers/(wq|wk|wv|w_gate|w_up)/s", P(None, "tp")),
+    (r"layers/(wo|w_down)/s", P(None, "fsdp")),
+    (r"lm_head/s", P("tp")),
+    (r"layers/(wq|wk|wv|w_gate|w_up)", P(None, "fsdp", "tp")),
+    (r"layers/(wo|w_down)", P(None, "tp", "fsdp")),
+    (r"layers/(attn_norm|mlp_norm)", P(None)),
+    (r"embed", P("fsdp", None)),
+    (r"lm_head", P("fsdp", "tp")),
+    (r"final_norm", P(None)),
+)
+
+# KV cache [L, B, S, KV, D]: batch on dp, kv heads on tp.
+CACHE_SPEC = P(None, "dp", None, "tp", None)
+
+
+def sharding_specs(params: dict) -> dict:
+    """The spec tree of ``params`` under ``SHARDING_RULES`` (JAX's
+    ``Llama.sharding_specs``): ``parallel.shard_params(params,
+    sharding_specs(params), mesh)`` splits them over the mesh's tp axis."""
+    return specs_from_rules(params, SHARDING_RULES)
 
 
 def kv_bits_from_env() -> int | None:
@@ -482,11 +538,12 @@ def params_from_jax(tree: dict, device=None) -> dict:
 def _mm(x, w):
     """x @ w for a plain or an int8 (``{"q": int8, "s": f32}``) weight. The
     per-output-channel scale commutes out of the contraction:
-    ``(x @ q) * s``, in ``x.dtype``, in the JAX code's order. Eager PyTorch
-    materialises the widened copy of ``q`` for each call; a fused int8-weight
-    GEMM is later work."""
+    ``(x @ q) * s``, in ``x.dtype``, in the JAX code's order (a row-parallel
+    shard reads its replicated scale on ``x``'s device). Eager PyTorch
+    materialises the widened copy of ``q`` for each call; a fused
+    int8-weight GEMM is later work."""
     if isinstance(w, dict):
-        return (x @ w["q"].to(x.dtype)) * w["s"].to(x.dtype)
+        return (x @ w["q"].to(x.dtype)) * w["s"].to(x.device, x.dtype)
     return x @ w
 
 
@@ -495,39 +552,185 @@ def _swiglu(x, lp):
     return _mm(g * _mm(x, lp["w_up"]), lp["w_down"])
 
 
-def _layer_params(params: dict, layer: int) -> dict:
-    return {k: ({n: t[layer] for n, t in v.items()} if isinstance(v, dict)
-                else v[layer])
-            for k, v in params["layers"].items()}
+def _per_layer(layers: dict, n_layers: int) -> list:
+    """Stacked layer weights -> one dict a layer. Each weight is unbound
+    once, so a backward pass stacks its per-layer gradients in one pass."""
+    un = {k: ({n: t.unbind(0) for n, t in v.items()} if isinstance(v, dict)
+              else v.unbind(0)) for k, v in layers.items()}
+    return [{k: ({n: t[i] for n, t in v.items()} if isinstance(v, dict)
+                 else v[i]) for k, v in un.items()}
+            for i in range(n_layers)]
 
 
-def _layer(cfg: LlamaConfig, x, lp, cos, sin, *, kv_len=None, mesh=None):
-    """One full-sequence decoder block (prefill). Returns (x, k, v) with k
-    and v GROUPED [B, S, KV, D]: the flash dispatcher takes them as they are
-    (its plain version expands them with ``repeat_kv`` itself). A
-    sequence-parallel ``cfg`` with a ``mesh`` attends through ring or
-    Ulysses attention over the mesh's sp axis instead, K/V GQA-expanded
-    first, as JAX does."""
-    b, s, _ = x.shape
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-    q = apply_rope(_mm(h, lp["wq"]).reshape(b, s, H, hd), cos, sin)
-    k = apply_rope(_mm(h, lp["wk"]).reshape(b, s, KV, hd), cos, sin)
-    v = _mm(h, lp["wv"]).reshape(b, s, KV, hd)
+# -- tensor parallelism ---------------------------------------------------------
+#
+# Params split by ``SHARDING_RULES`` (``parallel.shard_params`` over a mesh
+# with tp > 1) carry their own sharding, as JAX's arrays do. Every function
+# below runs each decoder block a shard at a time (``_blocks``); unsplit
+# params are one shard holding every weight whole. Shard i owns query heads
+# [i*H/tp, (i+1)*H/tp), KV heads [i*KV/tp, ...) and an ffn slice; it
+# projects them from the block's normed input (column-parallel
+# wq/wk/wv/w_gate/w_up), attends over ITS heads of a cache split along the
+# KV-head axis (one contiguous block a shard, ``_split_cache``) through the
+# same two kernels, and multiplies by its rows of wo / w_down (row
+# parallel); ``psum`` adds the shards' partial outputs onto the
+# activations' device (the params' first), where norms, residuals and the
+# embedding stay replicated. ``lm_head`` is split by vocabulary columns and
+# ``all_gather`` joins the logits for sampling. With one shard the
+# collectives return their one input and nothing is copied.
+
+
+def _split(w) -> list:
+    """A weight's blocks in shard order: a split weight's shards (an int8
+    weight's codes and scales zipped, a replicated scale repeated), or the
+    weight whole as the one block of an unsplit one."""
+    if not isinstance(w, dict):
+        return shards_of(w)
+    parts = {k: shards_of(v) for k, v in w.items()}
+    n = max(len(p) for p in parts.values())
+    return [{k: p[d] if len(p) == n else p[0] for k, p in parts.items()}
+            for d in range(n)]
+
+
+def _device_of(w) -> torch.device:
+    return (w["q"] if isinstance(w, dict) else w).device
+
+
+def _shards(params: dict) -> list:
+    """(device, its blocks of the seven stacked layer weights) of each
+    tensor-parallel shard, in shard order: one for unsplit params."""
+    layers = {k: _split(params["layers"][k]) for k in _QUANT_KEYS}
+    n = len(layers["wq"])
+    for k, blocks in layers.items():
+        if len(blocks) != n:
+            raise ValueError(f"layers/{k} is split {len(blocks)} ways, wq "
+                             f"{n}: split every weight by "
+                             f"llama.SHARDING_RULES")
+    return [(_device_of(layers["wq"][d]),
+             {k: blocks[d] for k, blocks in layers.items()})
+            for d in range(n)]
+
+
+def tp_devices(params: dict) -> list | None:
+    """The devices of tensor-parallel params' shards, in shard order, or
+    None for unsplit params."""
+    shards = _shards(params)
+    return None if len(shards) == 1 else [dev for dev, _ in shards]
+
+
+def _shard_cfg(cfg: LlamaConfig, n: int) -> LlamaConfig:
+    """One shard's view of ``cfg``: H/n query heads, KV/n KV heads and an
+    ffn slice of F/n (head_dim and n_rep unchanged); ``cfg`` itself for
+    one shard. A tp that does not divide the heads raises (JAX would
+    replicate K/V, ROADMAP C)."""
+    if n == 1:
+        return cfg
+    if cfg.sequence_parallel:
+        raise NotImplementedError(
+            "sequence parallelism over tensor-parallel weights is not "
+            "ported yet (ROADMAP A.11)")
+    if cfg.n_kv_heads % n or cfg.n_heads % n or cfg.ffn_dim % n:
+        raise ValueError(
+            f"tp={n} must divide n_kv_heads={cfg.n_kv_heads}, "
+            f"n_heads={cfg.n_heads} and ffn_dim={cfg.ffn_dim}: each shard "
+            f"owns whole KV heads")
+    c = copy.copy(cfg)
+    c.n_heads, c.n_kv_heads = cfg.n_heads // n, cfg.n_kv_heads // n
+    c.ffn_dim = cfg.ffn_dim // n
+    return c
+
+
+def _split_cache(cfg: LlamaConfig, devices, batch: int, make,
+                 device) -> dict:
+    """A cache split along its KV-head axis over ``devices`` (JAX's
+    ``CACHE_SPEC`` tp entry): shard d's block is ``make(shard cfg, its
+    device)``, its own contiguous allocation, so values [.., KV/tp, D]
+    (int8 flat [.., KV/tp * D], head-contiguous) and planes [.., KV/tp,
+    S]; ``len`` [B] stays on ``device``."""
+    scfg = _shard_cfg(cfg, len(devices))
+    blocks = [make(scfg, dev) for dev in devices]
+    cache = {name: ShardedTensor([blk[name] for blk in blocks],
+                                 2 if name.endswith(("_scale", "_zero"))
+                                 else 3)
+             for name in blocks[0] if name != "len"}
+    cache["len"] = torch.zeros((batch,), dtype=torch.int32, device=device)
+    return cache
+
+
+def _cache_views(cache, n: int) -> list:
+    """Each of ``n`` shards' view of ``cache``: the cache itself for one
+    shard; of a head-split cache, shard d's blocks as plain tensors
+    (``len`` stays the shared one)."""
+    if cache is None or n == 1:
+        return [cache] * n
+    return [{name: arr.shards[d] if isinstance(arr, ShardedTensor) else arr
+             for name, arr in cache.items()} for d in range(n)]
+
+
+def _blocks(params: dict, cfg: LlamaConfig, x, cos, sin, attend,
+            cache=None):
+    """Every decoder block over x [B, T, D], in layer order, a shard at a
+    time (the section above). ``attend(cfg, cache, layer, q, k, v)`` -> o
+    [B, T, H, D] is the block's attention (and its cache writes) over
+    rope'd q [B, T, H, D] and k, v [B, T, KV, D], called with the shard's
+    config, its view of ``cache`` and its heads (on its device). With
+    ``cfg.remat`` (and grad on) a block keeps only its input and
+    recomputes the rest in the backward pass."""
+    shards = _shards(params)
+    scfg = _shard_cfg(cfg, len(shards))
+    views = _cache_views(cache, len(shards))
+    ropes = [(cos.to(dev), sin.to(dev)) for dev, _ in shards]
+    lps = [_per_layer(blocks, cfg.n_layers) for _, blocks in shards]
+    norms = _per_layer({k: params["layers"][k]
+                        for k in ("attn_norm", "mlp_norm")}, cfg.n_layers)
+
+    def block(x, layer):
+        h = rms_norm(x, norms[layer]["attn_norm"], cfg.norm_eps)
+        parts = []
+        for (dev, _), view, (c, s), lp in zip(shards, views, ropes, lps,
+                                              strict=True):
+            q, k, v = _project_qkv(scfg, h.to(dev), lp[layer], c, s)
+            o = attend(scfg, view, layer, q, k, v)
+            parts.append(_mm(o.reshape(*o.shape[:2], -1), lp[layer]["wo"]))
+        x = x + psum(parts, to=x.device)
+        h = rms_norm(x, norms[layer]["mlp_norm"], cfg.norm_eps)
+        return x + psum([_swiglu(h.to(dev), lp[layer])
+                         for (dev, _), lp in zip(shards, lps, strict=True)],
+                        to=x.device)
+
+    remat = cfg.remat and torch.is_grad_enabled()
+    for layer in range(cfg.n_layers):
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(block, x, layer,
+                                                  use_reentrant=False)
+        else:
+            x = block(x, layer)
+    return x
+
+
+def _head(params: dict, x) -> torch.Tensor:
+    """f32 logits of the final-normed x [..., D]: each vocabulary block of
+    ``lm_head`` on its device, gathered on the activations' device."""
+    return all_gather([_mm(x.to(_device_of(w)), w)
+                       for w in _split(params["lm_head"])], -1,
+                      to=x.device).float()
+
+def _causal_attention(cfg: LlamaConfig, q, k, v, kv_len, mesh):
+    """Full-sequence causal attention of q [B, S, H, D] over GROUPED k, v
+    [B, S, KV, D]: the flash dispatcher, or for a sequence-parallel ``cfg``
+    with a ``mesh`` ring or Ulysses attention over its sp axis with K/V
+    GQA-expanded first, as JAX does."""
     if cfg.sequence_parallel and mesh is not None:
         from ..parallel.ring import ring_attention
         from ..parallel.ulysses import ulysses_attention
 
         sp_attn = (ring_attention if cfg.attn_impl == "ring"
                    else ulysses_attention)
-        o = sp_attn(q, repeat_kv(k, cfg.n_rep), repeat_kv(v, cfg.n_rep),
-                    mesh, kv_len=kv_len, causal=True)
-    else:
-        o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                            causal=True, kv_len=kv_len)
-    x = x + _mm(o.reshape(b, s, H * hd), lp["wo"])
-    x = x + _swiglu(rms_norm(x, lp["mlp_norm"], cfg.norm_eps), lp)
-    return x, k, v
+        return sp_attn(q, repeat_kv(k, cfg.n_rep), repeat_kv(v, cfg.n_rep),
+                       mesh, kv_len=kv_len, causal=True)
+    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           causal=True, kv_len=None if kv_len is None
+                           else kv_len.to(q.device))
 
 
 def _embed(params, tokens, cfg):
@@ -569,10 +772,9 @@ def _token_tensor(tokens, cfg: LlamaConfig, device) -> torch.Tensor:
 def _forward(params: dict, tokens, cfg: LlamaConfig, seq_lens=None,
              mesh=None) -> torch.Tensor:
     """The full-sequence forward, differentiable: autograd records it when
-    grad is on. Each stacked layer weight is unbound once, so the backward
-    stacks a weight's per-layer gradients in one pass; with ``cfg.remat``
-    (and grad on) a layer keeps only its input and recomputes the rest in
-    the backward pass."""
+    grad is on (``_blocks``: each stacked weight unbound once, ``cfg.remat``
+    recomputing a block in the backward pass). Training over split weights
+    is ROADMAP A.11."""
     dev = params["embed"].device
     tokens = _token_tensor(tokens, cfg, dev)
     kv_len = None if seq_lens is None else _int32(seq_lens, dev)
@@ -580,24 +782,12 @@ def _forward(params: dict, tokens, cfg: LlamaConfig, seq_lens=None,
     positions = torch.arange(tokens.shape[1], device=dev)[None, :]
     cos, sin = rope_table(positions, cfg.head_dim, cfg.rope_theta,
                           scaling=cfg.rope_scaling)
-    unbound = {k: ({n: t.unbind(0) for n, t in v.items()}
-                   if isinstance(v, dict) else v.unbind(0))
-               for k, v in params["layers"].items()}
 
-    def body(x, lp):
-        return _layer(cfg, x, lp, cos, sin, kv_len=kv_len, mesh=mesh)[0]
+    def attend(c, _, layer, q, k, v):
+        return _causal_attention(c, q, k, v, kv_len, mesh)
 
-    remat = cfg.remat and torch.is_grad_enabled()
-    for layer in range(cfg.n_layers):
-        lp = {k: ({n: t[layer] for n, t in v.items()} if isinstance(v, dict)
-                  else v[layer]) for k, v in unbound.items()}
-        if remat:
-            x = torch.utils.checkpoint.checkpoint(body, x, lp,
-                                                  use_reentrant=False)
-        else:
-            x = body(x, lp)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _mm(x, params["lm_head"]).float()
+    x = _blocks(params, cfg, x, cos, sin, attend)
+    return _head(params, rms_norm(x, params["final_norm"], cfg.norm_eps))
 
 
 @torch.no_grad()
@@ -691,12 +881,18 @@ def init_cache(cfg: LlamaConfig, batch: int, max_seq: int | None = None,
     With ``mesh`` (sequence-parallel serving) every K/V array splits its
     sequence axis over the mesh's sp axis: a ``ShardedTensor`` of one
     [.., S_max / sp, ..] block a shard on the shard's device (JAX's
-    ``P(None, "dp", "sp", ...)``); ``len`` stays on ``device``."""
+    ``P(None, "dp", "sp", ...)``); ``len`` stays on ``device``. A mesh
+    with tp > 1 splits the KV-head axis over its tp devices instead
+    (``CACHE_SPEC``): the cache of tensor-parallel serving."""
     from .. import resolve_device
 
     device = resolve_device(device)
     S = max_seq or cfg.max_seq_len
     L, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    if _mesh_tp(mesh) > 1:
+        return _split_cache(cfg, mesh.axis_devices("tp"), batch,
+                            lambda c, dev: init_cache(c, batch, S, dev),
+                            device)
     if mesh is not None:
         devs = mesh.axis_devices("sp")
         if S % len(devs):
@@ -717,6 +913,15 @@ def init_cache(cfg: LlamaConfig, batch: int, max_seq: int | None = None,
     return cache
 
 
+def _mesh_tp(mesh) -> int:
+    """The tp size a cache splits its KV heads over: ``mesh``'s tp axis
+    when it has no sp axis > 1 (a sequence split takes precedence: ring
+    and Ulysses leave the tp axis unused), else 1."""
+    if mesh is None or mesh.shape.get("sp", 1) > 1:
+        return 1
+    return mesh.shape.get("tp", 1)
+
+
 def _kv_planes(cfg: LlamaConfig, k, v) -> dict:
     """K/V [B, s, KV, D] as the cache stores them: name -> (tensor [B, ...],
     seq axis within one row). fp: k/v as they are; quantized: the values
@@ -734,23 +939,28 @@ def _kv_planes(cfg: LlamaConfig, k, v) -> dict:
     return planes
 
 
-def _prefill_layers(params, tokens, seq_lens, cfg, write, mesh=None):
+def _prefill_layers(params, tokens, seq_lens, cfg, cache, write,
+                    mesh=None):
     """Run the prompt wave [B, S_pad] through every layer, handing each
-    layer's (layer, k, v) to ``write``; returns last-valid-token logits
-    [B, V] in f32 (``x[rows, seq_lens - 1]``, as the JAX code gathers).
-    A sequence-parallel ``cfg`` attends over ``mesh``."""
+    layer's K/V to ``write(cfg, cache, layer, k, v)`` (a shard's config
+    and view of ``cache`` under tensor parallelism); returns
+    last-valid-token logits [B, V] in f32 (``x[rows, seq_lens - 1]``, as
+    the JAX code gathers). A sequence-parallel ``cfg`` attends over
+    ``mesh`` (ring or Ulysses, K/V GQA-expanded first, as JAX does)."""
     b, s = tokens.shape
     dev = tokens.device
     x = _embed(params, tokens, cfg)
     cos, sin = rope_table(torch.arange(s, device=dev)[None, :], cfg.head_dim,
                           cfg.rope_theta, scaling=cfg.rope_scaling)
-    for layer in range(cfg.n_layers):
-        x, k, v = _layer(cfg, x, _layer_params(params, layer), cos, sin,
-                         kv_len=seq_lens, mesh=mesh)
-        write(layer, k, v)
+
+    def attend(c, view, layer, q, k, v):
+        o = _causal_attention(c, q, k, v, seq_lens, mesh)
+        write(c, view, layer, k, v)
+        return o
+
+    x = _blocks(params, cfg, x, cos, sin, attend, cache)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    last = x[torch.arange(b, device=dev), seq_lens.long() - 1]
-    return _mm(last, params["lm_head"]).float()
+    return _head(params, x[torch.arange(b, device=dev), seq_lens.long() - 1])
 
 
 @torch.no_grad()
@@ -766,13 +976,17 @@ def prefill(params: dict, tokens, seq_lens, cfg: LlamaConfig, cache: dict,
     S_max = cache["k"].shape[2]
     if s > S_max:
         raise ValueError(f"prompt bucket {s} exceeds cache length {S_max}")
-    out = init_cache(cfg, b, S_max, device=dev)
+    devs = tp_devices(params)
+    out = (init_cache(cfg, b, S_max, device=dev) if devs is None else
+           _split_cache(cfg, devs, b,
+                        lambda c, d: init_cache(c, b, S_max, d), dev))
 
-    def write(layer, k, v):
-        for name, (new, axis) in _kv_planes(cfg, k, v).items():
-            out[name][layer].narrow(axis + 1, 0, s).copy_(new)
+    def write(c, view, layer, k, v):
+        for name, (new, axis) in _kv_planes(c, k, v).items():
+            view[name][layer].narrow(axis + 1, 0, s).copy_(new)
 
-    logits = _prefill_layers(params, tokens, seq_lens, cfg, write, mesh)
+    logits = _prefill_layers(params, tokens, seq_lens, cfg, out, write,
+                             mesh)
     out["len"] = seq_lens.clone()
     return logits, out
 
@@ -798,14 +1012,15 @@ def prefill_into_many(params: dict, tokens, seq_lens, cfg: LlamaConfig,
     slots = [int(x) for x in np.asarray(slots).reshape(-1)]
     rows = [i for i, ok in enumerate(np.asarray(valid).reshape(-1)) if ok]
 
-    def write(layer, k, v):
-        planes = _kv_planes(cfg, k, v)
+    def write(c, view, layer, k, v):
+        planes = _kv_planes(c, k, v)
         for i in rows:  # in order: a later row for the same slot wins
             for name, (new, axis) in planes.items():
-                row_write(cache[name], layer, slots[i], axis, 0, new[i],
+                row_write(view[name], layer, slots[i], axis, 0, new[i],
                            zero_to=S_max)
 
-    logits = _prefill_layers(params, tokens, seq_lens, cfg, write, mesh)
+    logits = _prefill_layers(params, tokens, seq_lens, cfg, cache, write,
+                             mesh)
     for i in rows:
         cache["len"][slots[i]] = seq_lens[i]
     return logits, cache
@@ -819,30 +1034,21 @@ def prefill_into(params: dict, tokens, seq_lens, cfg: LlamaConfig,
                              [int(slot)], [True], mesh)
 
 
-def _qkv(cfg: LlamaConfig, x, lp, cos, sin):
-    """The attention inputs of one block: rope'd q [B, T, H, D], rope'd k
-    and v [B, T, KV, D]."""
-    b, t, _ = x.shape
+def _project_qkv(cfg: LlamaConfig, h, lp, cos, sin):
+    """The attention inputs of one block from its normed input ``h``:
+    rope'd q [B, T, H, D], rope'd k and v [B, T, KV, D]."""
+    b, t, _ = h.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
     q = apply_rope(_mm(h, lp["wq"]).reshape(b, t, H, hd), cos, sin)
     k = apply_rope(_mm(h, lp["wk"]).reshape(b, t, KV, hd), cos, sin)
     v = _mm(h, lp["wv"]).reshape(b, t, KV, hd)
     return q, k, v
 
 
-def _block_out(cfg: LlamaConfig, x, o, lp):
-    """Close one block: the output projection of attention ``o`` [B, T, H,
-    D], then the MLP, each with its residual."""
-    b, t = o.shape[:2]
-    x = x + _mm(o.reshape(b, t, -1), lp["wo"])
-    return x + _swiglu(rms_norm(x, lp["mlp_norm"], cfg.norm_eps), lp)
-
-
 def _logits_at(params, cfg: LlamaConfig, x, row: int) -> torch.Tensor:
     """f32 logits [1, V] of position ``row`` of the one-row stream x."""
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _mm(x[:, row], params["lm_head"]).float()
+    return _head(params, x[:, row])
 
 
 @torch.no_grad()
@@ -876,30 +1082,31 @@ def prefill_segment_into(params: dict, tokens, seg_len, cfg: LlamaConfig,
     if start + c > S_max:
         raise ValueError(f"segment {start}..{start + c} exceeds cache "
                          f"length {S_max}")
-    KV, hd = cfg.n_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
     valid_to = _int32([start + seg], dev)
     cos, sin = rope_table(torch.arange(start, start + c, device=dev)[None],
                           hd, cfg.rope_theta, scaling=cfg.rope_scaling)
     x = _embed(params, tokens, cfg)
-    for layer in range(cfg.n_layers):
-        lp = _layer_params(params, layer)
-        q, k, v = _qkv(cfg, x, lp, cos, sin)
-        for name, (new, axis) in _kv_planes(cfg, k, v).items():
-            row_write(cache[name], layer, slot, axis, start, new[0])
-        if cfg.kv_quant:
+
+    def attend(cf, view, layer, q, k, v):
+        for name, (new, axis) in _kv_planes(cf, k, v).items():
+            row_write(view[name], layer, slot, axis, start, new[0])
+        if cf.kv_quant:
             k_row, v_row = (
-                dequantize_kv(row_read(cache[name], layer, slot, 0)
-                              .view(S_max, KV, hd),
-                              row_read(cache[f"{name}_scale"], layer, slot,
+                dequantize_kv(row_read(view[name], layer, slot, 0)
+                              .view(S_max, cf.n_kv_heads, hd),
+                              row_read(view[f"{name}_scale"], layer, slot,
                                         1).t(),
-                              cfg.dtype)
+                              cf.dtype)
                 for name in ("k", "v"))
         else:
-            k_row, v_row = (row_read(cache[name], layer, slot, 0)
+            k_row, v_row = (row_read(view[name], layer, slot, 0)
                             for name in ("k", "v"))
-        o = flash_attention(q.contiguous(), k_row[None], v_row[None],
-                            causal=True, q_offset=start, kv_len=valid_to)
-        x = _block_out(cfg, x, o, lp)
+        return flash_attention(q.contiguous(), k_row[None], v_row[None],
+                               causal=True, q_offset=start,
+                               kv_len=valid_to.to(q.device))
+
+    x = _blocks(params, cfg, x, cos, sin, attend, cache)
     cache["len"][slot] = int(new_len)
     return _logits_at(params, cfg, x, seg - 1), cache
 
@@ -963,27 +1170,27 @@ def decode_step(params: dict, tokens, cache: dict, cfg: LlamaConfig,
     fits = pos < S_max
     pos_w = pos.clamp(max=S_max - 1).long()
     rows = torch.arange(b, device=dev)
-    scales = ({"k_scale": cache["k_scale"], "v_scale": cache["v_scale"]}
-              if cfg.kv_quant else {})
     x = _embed(params, tokens, cfg)[:, None, :]
     cos, sin = rope_table(pos[:, None], cfg.head_dim, cfg.rope_theta,
                           scaling=cfg.rope_scaling)
-    for layer in range(cfg.n_layers):
-        lp = _layer_params(params, layer)
-        q, k, v = _qkv(cfg, x, lp, cos, sin)
-        _write_token_kv(cfg, cache, layer, k[:, 0], v[:, 0], rows, pos_w, fits)
+
+    def attend(c, view, layer, q, k, v):
+        d = q.device
+        _write_token_kv(c, view, layer, k[:, 0], v[:, 0], rows.to(d),
+                        pos_w.to(d), fits.to(d))
+        scales = ({"k_scale": view["k_scale"], "v_scale": view["v_scale"]}
+                  if c.kv_quant else {})
         if sp:
             from ..parallel.ring import sp_decode_attention
 
-            o = sp_decode_attention(q, cache["k"], cache["v"], kv_len, mesh,
-                                    layer=layer, **scales)
-        else:
-            o = cached_decode_attention(q.contiguous(), cache["k"],
-                                        cache["v"], kv_len, layer=layer,
-                                        **scales)
-        x = _block_out(cfg, x, o, lp)
+            return sp_decode_attention(q, view["k"], view["v"], kv_len,
+                                       mesh, layer=layer, **scales)
+        return cached_decode_attention(q.contiguous(), view["k"], view["v"],
+                                       kv_len.to(d), layer=layer, **scales)
+
+    x = _blocks(params, cfg, x, cos, sin, attend, cache)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = _mm(x[:, 0], params["lm_head"]).float()
+    logits = _head(params, x[:, 0])
     cache["len"].copy_(torch.clamp(kv_len, max=S_max))
     return logits, cache
 
@@ -998,8 +1205,7 @@ def _window_positions(cache: dict, w: int):
 
 def _window_logits(params, cfg: LlamaConfig, x) -> torch.Tensor:
     """f32 logits [B, W, V] of every window position."""
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _mm(x, params["lm_head"]).float()
+    return _head(params, rms_norm(x, params["final_norm"], cfg.norm_eps))
 
 
 @torch.no_grad()
@@ -1027,23 +1233,24 @@ def decode_window(params: dict, tokens, cache: dict, cfg: LlamaConfig
     fits = positions < S_max
     pos_w = positions.clamp(max=S_max - 1).long()
     rows = torch.arange(b, device=dev)
-    scales = ({"k_scale": cache["k_scale"], "v_scale": cache["v_scale"]}
-              if cfg.kv_quant else {})
     x = _embed(params, tokens, cfg)
     cos, sin = rope_table(positions, cfg.head_dim, cfg.rope_theta,
                           scaling=cfg.rope_scaling)
     kv_len = pos0 + 1
-    for layer in range(cfg.n_layers):
-        lp = _layer_params(params, layer)
-        q, k, v = _qkv(cfg, x, lp, cos, sin)
+
+    def attend(c, view, layer, q, k, v):
+        d = q.device
         # one position at a time: a position past capacity rewrites what
         # an earlier one wrote at the clamped index, in order
         for t in range(w):
-            _write_token_kv(cfg, cache, layer, k[:, t], v[:, t], rows,
-                            pos_w[:, t], fits[:, t])
-        o = cached_decode_attention(q.contiguous(), cache["k"], cache["v"],
-                                    kv_len, layer=layer, **scales)
-        x = _block_out(cfg, x, o, lp)
+            _write_token_kv(c, view, layer, k[:, t], v[:, t], rows.to(d),
+                            pos_w[:, t].to(d), fits[:, t].to(d))
+        scales = ({"k_scale": view["k_scale"], "v_scale": view["v_scale"]}
+                  if c.kv_quant else {})
+        return cached_decode_attention(q.contiguous(), view["k"], view["v"],
+                                       kv_len.to(d), layer=layer, **scales)
+
+    x = _blocks(params, cfg, x, cos, sin, attend, cache)
     return _window_logits(params, cfg, x), cache
 
 
@@ -1063,11 +1270,19 @@ def init_paged_cache(cfg: LlamaConfig, batch: int, n_pages: int, page_s: int,
     pages ``[d * N/sp, (d+1) * N/sp)`` (a ``ShardedTensor`` along the page
     axis, one block a shard on its device) plus one dump page of its own
     past its block, where a write of a page it does not own lands (JAX
-    drops such writes as out of bounds); ``len`` stays on ``device``."""
+    drops such writes as out of bounds); ``len`` stays on ``device``. A
+    mesh with tp > 1 splits the KV-head axis of every page over its tp
+    devices instead (tensor-parallel serving; the page ids, the table and
+    the free list are shared by the shards)."""
     from .. import resolve_device
 
     device = resolve_device(device)
     L, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    if _mesh_tp(mesh) > 1:
+        return _split_cache(
+            cfg, mesh.axis_devices("tp"), batch,
+            lambda c, dev: init_paged_cache(c, batch, n_pages, page_s, dev),
+            device)
     if mesh is not None:
         devs = mesh.axis_devices("sp")
         if n_pages % len(devs):
@@ -1168,16 +1383,17 @@ def paged_prefill_into(params: dict, tokens, seq_lens, cfg: LlamaConfig,
     pages = _int32(np.asarray(table_row)[:n_pg], dev).long()
     span = n_pg * page_s
 
-    def write(layer, k, v):
-        for name, (new, axis) in _kv_planes(cfg, k, v).items():
+    def write(c, view, layer, k, v):
+        for name, (new, axis) in _kv_planes(c, k, v).items():
             row = new[0].narrow(axis, 0, span)
             if axis == 0:    # values [S, ...] -> [n_pg, ps, ...]
                 slabs = row.reshape(n_pg, page_s, *row.shape[1:])
             else:            # planes [KV, S] -> [n_pg, KV, ps]
                 slabs = row.reshape(row.shape[0], n_pg, page_s).transpose(0, 1)
-            pool_put(cache[name], layer, pages, (), slabs)
+            pool_put(view[name], layer, pages.to(slabs.device), (), slabs)
 
-    logits = _prefill_layers(params, tokens, seq_lens, cfg, write, mesh)
+    logits = _prefill_layers(params, tokens, seq_lens, cfg, cache, write,
+                             mesh)
     if set_len:
         cache["len"][int(slot)] = seq_lens[0]
     return logits, cache
@@ -1217,15 +1433,16 @@ def paged_suffix_prefill(params: dict, tokens, seq_lens, cfg: LlamaConfig,
                           cfg.head_dim, cfg.rope_theta,
                           scaling=cfg.rope_scaling)
     x = _embed(params, tokens, cfg)
-    for layer in range(cfg.n_layers):
-        lp = _layer_params(params, layer)
-        q, k, v = _qkv(cfg, x, lp, cos, sin)
-        _write_paged(cfg, cache, layer, k[0], v[0], page_d, off_d)
-        k_virt, v_virt = _virtual_kv(cfg, _gather_pages(cfg, cache, layer,
-                                                        virt, 1))
-        o = flash_attention(q.contiguous(), k_virt, v_virt, causal=True,
-                            q_offset=start)
-        x = _block_out(cfg, x, o, lp)
+
+    def attend(c, view, layer, q, k, v):
+        d = q.device
+        _write_paged(c, view, layer, k[0], v[0], page_d.to(d), off_d.to(d))
+        k_virt, v_virt = _virtual_kv(c, _gather_pages(c, view, layer,
+                                                      virt.to(d), 1))
+        return flash_attention(q.contiguous(), k_virt, v_virt, causal=True,
+                               q_offset=start)
+
+    x = _blocks(params, cfg, x, cos, sin, attend, cache)
     last = int(np.asarray(seq_lens).reshape(-1)[0]) - 1
     return _logits_at(params, cfg, x, last), cache
 
@@ -1284,14 +1501,16 @@ def paged_decode_step(params: dict, tokens, cache: dict, table,
     x = _embed(params, tokens, cfg)[:, None, :]
     cos, sin = rope_table(pos[:, None], cfg.head_dim, cfg.rope_theta,
                           scaling=cfg.rope_scaling)
-    for layer in range(cfg.n_layers):
-        lp = _layer_params(params, layer)
-        q, k, v = _qkv(cfg, x, lp, cos, sin)
-        _write_paged(cfg, cache, layer, k[:, 0], v[:, 0], page, off)
-        o = _paged_attention(cfg, q.contiguous(), cache, layer, virt, kv_len)
-        x = _block_out(cfg, x, o, lp)
+
+    def attend(c, view, layer, q, k, v):
+        d = q.device
+        _write_paged(c, view, layer, k[:, 0], v[:, 0], page.to(d), off.to(d))
+        return _paged_attention(c, q.contiguous(), view, layer, virt.to(d),
+                                kv_len.to(d))
+
+    x = _blocks(params, cfg, x, cos, sin, attend, cache)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = _mm(x[:, 0], params["lm_head"]).float()
+    logits = _head(params, x[:, 0])
     cache["len"].copy_(torch.clamp(kv_len, max=s_virt))
     return logits, cache
 
@@ -1343,20 +1562,20 @@ def sp_paged_decode_step(params: dict, tokens, cache: dict, table,
     x = _embed(params, tokens, cfg)[:, None, :]
     cos, sin = rope_table(pos[:, None], cfg.head_dim, cfg.rope_theta,
                           scaling=cfg.rope_scaling)
-    for layer in range(cfg.n_layers):
-        lp = _layer_params(params, layer)
-        q, k, v = _qkv(cfg, x, lp, cos, sin)
-        _write_paged(cfg, cache, layer, k[:, 0], v[:, 0], page, off)
+
+    def attend(c, _, layer, q, k, v):
+        _write_paged(c, cache, layer, k[:, 0], v[:, 0], page, off)
         parts = []
         for d, ltab, valid in views:
             local = {name: arr.block_of(d) for name, arr in pool.items()}
             k_virt, v_virt = _virtual_kv(
-                cfg, _gather_pages(cfg, local, layer, ltab, b))
+                c, _gather_pages(c, local, layer, ltab, b))
             parts.append((k_virt, v_virt, valid))
-        o = combine_decode(q[:, 0], parts, x.dtype)
-        x = _block_out(cfg, x, o, lp)
+        return combine_decode(q[:, 0], parts, x.dtype)
+
+    x = _blocks(params, cfg, x, cos, sin, attend)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = _mm(x[:, 0], params["lm_head"]).float()
+    logits = _head(params, x[:, 0])
     cache["len"].copy_(torch.clamp(kv_len, max=s_virt))
     return logits, cache
 
@@ -1396,11 +1615,13 @@ def paged_decode_window(params: dict, tokens, cache: dict, table,
     x = _embed(params, tokens, cfg)
     cos, sin = rope_table(positions, cfg.head_dim, cfg.rope_theta,
                           scaling=cfg.rope_scaling)
-    for layer in range(cfg.n_layers):
-        lp = _layer_params(params, layer)
-        q, k, v = _qkv(cfg, x, lp, cos, sin)
-        _write_paged(cfg, cache, layer, k.reshape(b * w, *k.shape[2:]),
-                     v.reshape(b * w, *v.shape[2:]), page, off)
-        o = _paged_attention(cfg, q.contiguous(), cache, layer, virt, kv_len)
-        x = _block_out(cfg, x, o, lp)
+
+    def attend(c, view, layer, q, k, v):
+        d = q.device
+        _write_paged(c, view, layer, k.reshape(b * w, *k.shape[2:]),
+                     v.reshape(b * w, *v.shape[2:]), page.to(d), off.to(d))
+        return _paged_attention(c, q.contiguous(), view, layer, virt.to(d),
+                                kv_len.to(d))
+
+    x = _blocks(params, cfg, x, cos, sin, attend, cache)
     return _window_logits(params, cfg, x), cache

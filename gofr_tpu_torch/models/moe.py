@@ -13,12 +13,18 @@ formulation:
 - combine: a weighted scatter back, zeros for dropped tokens, plus the
   Switch load-balancing loss.
 
-Expert parallelism (``ep`` > 1) is GSPMD placement in JAX: the port's
-``shard_params`` raises for it (ROADMAP A.11), so ``MOE_SHARDING_RULES``
-serves only to say so; the two ``constrain`` calls check their specs
-against an ambient mesh. ``init_moe_params`` draws with torch, not JAX's
-PRNG: to hold the port against the JAX package, carry its tree across
-with ``params_from_jax``.
+Expert parallelism: ``parallel.shard_params`` with ``MOE_SHARDING_RULES``
+over a mesh with ``ep`` > 1 splits the stacked experts over the ep devices
+(E/ep experts a shard) and, with ``tp`` > 1, each expert's ffn over the tp
+devices at that ep position, as Llama's MLP is split. ``moe_layer`` runs
+each shard's experts on its device over its slice of ``expert_in`` (the
+all_to_all boundary in JAX: here a copy to the shard), combines each
+shard's outputs with its slice of the combine weights, and a ``psum``
+adds the shards' partial results: the row-parallel ``w_down`` partials
+and the ep shards' disjoint experts at once. Unsplit experts are one
+shard. ``constrain`` checks ``expert_in``'s spec against an ambient mesh.
+``init_moe_params`` draws with torch, not JAX's PRNG: to hold the port
+against the JAX package, carry its tree across with ``params_from_jax``.
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..parallel import P, constrain
+from ..parallel import P, ShardedTensor, constrain, psum
 from . import normal, tree_from_numpy
 
 __all__ = ["MoEConfig", "init_moe_params", "params_from_jax", "moe_layer",
@@ -133,10 +139,38 @@ def moe_layer(params: dict, x: torch.Tensor, cfg: MoEConfig
     # [N, D] x [N, E, C] -> [E, C, D]: the all_to_all boundary when ep > 1
     expert_in = torch.einsum("nd,nec->ecd", xf.float(), dispatch).to(dt)
     expert_in = constrain(expert_in, P("ep", None, None))
-    ex = params["experts"]
-    g = F.silu(torch.einsum("ecd,edf->ecf", expert_in, ex["w_gate"]))
-    u = torch.einsum("ecd,edf->ecf", expert_in, ex["w_up"])
-    out = torch.einsum("ecf,efd->ecd", g * u, ex["w_down"])
-    out = constrain(out, P("ep", None, None))
-    y = torch.einsum("ecd,nec->nd", out.float(), combine)
+    y = psum(_expert_shards(params["experts"], expert_in, combine),
+             to=x.device)
     return y.reshape(b, s, d).to(x.dtype), aux
+
+
+def _blocks_of(w, axis: int) -> list:
+    """(block, its offset along ``axis``) of a weight split along that
+    axis, or the weight whole at offset 0."""
+    if isinstance(w, ShardedTensor) and w.axis == axis:
+        return [(sh, i * w.block) for i, sh in enumerate(w.shards)]
+    return [(w, 0)]
+
+
+def _expert_shards(ex: dict, expert_in, combine) -> list:
+    """Each shard's partial [N, D] f32 result: its experts (a block of the
+    stacked axis) over their rows of ``expert_in``, through its ffn slice
+    (a block of the tp split, whose ``w_down`` rows give a partial sum),
+    combined with its experts' columns of ``combine``, on its device.
+    Unsplit experts are one shard."""
+    parts = []
+    for (wg, e0), (wu, _), (wd, _) in zip(
+            _blocks_of(ex["w_gate"], 0), _blocks_of(ex["w_up"], 0),
+            _blocks_of(ex["w_down"], 0), strict=True):
+        n_e = wg.shape[0]
+        for (g_w, _), (u_w, _), (d_w, _) in zip(
+                _blocks_of(wg, 2), _blocks_of(wu, 2), _blocks_of(wd, 1),
+                strict=True):
+            dev = g_w.device
+            xin = expert_in[e0:e0 + n_e].to(dev)
+            g = F.silu(torch.einsum("ecd,edf->ecf", xin, g_w))
+            u = torch.einsum("ecd,edf->ecf", xin, u_w)
+            out = torch.einsum("ecf,efd->ecd", g * u, d_w)
+            parts.append(torch.einsum("ecd,nec->nd", out.float(),
+                                      combine[:, e0:e0 + n_e].to(dev)))
+    return parts

@@ -16,13 +16,20 @@ What differs from JAX, and why:
   ring rotation, the online-softmax merge across shards, the Ulysses
   reshard, the striped page pool, the decode combine) with the same code
   that spreads over several cards with peer-to-peer copies;
-- GSPMD's automatic placement has no counterpart: the port shards only
-  what ``parallel.ring``, ``parallel.ulysses``, ``parallel.pipeline`` and
-  the sequence-parallel serving path shard by hand. ``shard_params``
-  with a ``tp``, ``fsdp``, ``ep`` (or any other) axis greater than 1 in a
-  parameter's spec raises naming ROADMAP A.11; otherwise it places every
-  leaf on the mesh's first device (weights and activations stay there,
-  replicated);
+- GSPMD's automatic placement is explicit here. ``shard_params`` places
+  a leaf whose spec names a ``tp``, ``ep`` or ``dp`` axis of size > 1 as
+  a ``ShardedTensor``: the dimension split into equal contiguous blocks,
+  block i on the i-th device along that axis (a second sharded dimension,
+  MoE's ``P("ep", None, "tp")``, splits each block again along its own
+  axis); every other leaf goes to the mesh's first device, replicated
+  there. The modules that run such weights (``models.llama``,
+  ``models.moe``, ``models.bert``, ``models.diffusion``) compute each
+  shard's block on its device and combine with ``psum`` after a
+  row-parallel product and ``all_gather`` after a vocabulary-split one.
+  An ``fsdp`` axis of size > 1 raises naming ROADMAP A.11 (sharded
+  training is the rest of that item); ``parallel.ring``,
+  ``parallel.ulysses``, ``parallel.pipeline`` and the sequence-parallel
+  serving path shard activations and state by hand;
 - ``constrain`` checks a spec against the ambient mesh (``with mesh:``)
   and returns its input: an unknown axis or a dimension the axis does not
   divide raises, as JAX's promises; outside a mesh it does nothing;
@@ -33,8 +40,13 @@ What differs from JAX, and why:
 tensor split along one axis into equal blocks, block i on shard i's
 device. ``row_write``, ``row_read``, ``set_at_pos``, ``pool_put`` and
 ``pool_take`` are the cache's accesses: each takes a plain tensor or a
-``ShardedTensor``, and routes every position or page of the latter to
-the shard that owns it, so the owner arithmetic lives here alone.
+``ShardedTensor`` split along its sequence or page axis (sequence
+parallelism), and routes every position or page of the latter to the
+shard that owns it, so the owner arithmetic lives here alone. A cache
+split along its KV-head axis (tensor parallelism) is read and written a
+shard at a time by the model (``ShardedTensor.shards``); its whole-page
+copies (``index_select`` / ``index_copy_`` along the page axis: the host
+tier, the KV transport) gather or scatter every shard's heads.
 """
 
 from __future__ import annotations
@@ -55,6 +67,7 @@ __all__ = [
     "mesh_shape_for",
     "visible_devices",
     "shard_params",
+    "shards_of",
     "constrain",
     "specs_from_rules",
     "init_distributed",
@@ -151,11 +164,11 @@ class Mesh:
         weights and activations live."""
         return self.devices.flat[0]
 
-    def axis_devices(self, axis: str) -> list:
-        """The devices along ``axis`` at position 0 of every other axis, in
-        axis order: shard i of a tensor sharded over ``axis`` lives on the
-        i-th."""
-        idx = [0] * len(self.axis_names)
+    def axis_devices(self, axis: str, **at) -> list:
+        """The devices along ``axis`` at position 0 of every other axis (or
+        at ``at[name]``), in axis order: shard i of a tensor sharded over
+        ``axis`` lives on the i-th."""
+        idx = [at.get(name, 0) for name in self.axis_names]
         idx[self.axis_names.index(axis)] = slice(None)
         return list(self.devices[tuple(idx)])
 
@@ -263,21 +276,62 @@ def _axes_of(entry) -> tuple:
     return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
 
 
+def _split_dims(leaf, spec, mesh: Mesh) -> list:
+    """The (dimension, axis) pairs a leaf splits along: every axis of
+    ``spec`` whose size on ``mesh`` is > 1. ``fsdp`` raises naming ROADMAP
+    A.11; a dimension the axis does not divide raises ``ValueError``, as
+    GSPMD refuses such a sharding."""
+    out = []
+    for dim, entry in enumerate(spec):
+        axes = [ax for ax in _axes_of(entry) if mesh.shape.get(ax, 1) > 1]
+        if not axes:
+            continue
+        if "fsdp" in axes:
+            raise NotImplementedError(
+                f"shard_params: placing a weight over the mesh axis 'fsdp' "
+                f"of size {mesh.shape['fsdp']} (sharded training) is not "
+                f"ported yet (ROADMAP A.11)")
+        if len(axes) > 1:
+            raise NotImplementedError(
+                f"shard_params: dimension {dim} over the axes {axes} at "
+                f"once is not ported (one mesh axis a dimension)")
+        if dim >= leaf.dim():
+            raise ValueError(f"shard_params: spec {spec!r} has more entries "
+                             f"than the rank {leaf.dim()} of the leaf")
+        n = mesh.shape[axes[0]]
+        if leaf.shape[dim] % n:
+            raise ValueError(
+                f"shard_params: dimension {dim} of size {leaf.shape[dim]} "
+                f"does not divide over {axes[0]!r} of size {n}")
+        out.append((dim, axes[0]))
+    return out
+
+
 def shard_params(params: Any, specs: Any, mesh: Mesh) -> Any:
-    """Place a parameter tree on the mesh per its spec tree. The port
-    shards no weight: a spec naming an axis of size > 1 raises (GSPMD-style
-    placement is ROADMAP A.11); otherwise every leaf goes to the mesh's
-    first device, replicated."""
+    """Place a parameter tree on the mesh per its spec tree, as JAX's
+    ``device_put`` with ``NamedSharding``s does. A leaf whose spec names an
+    axis of size > 1 becomes a ``ShardedTensor``: block i of that
+    dimension on the i-th device along the axis (the other axes at their
+    first position); a second such dimension splits each block again, a
+    ``ShardedTensor`` of ``ShardedTensor``s. Blocks on a leaf's own device
+    are views of it (nothing is copied). Every other leaf goes to the
+    mesh's first device. ``fsdp`` > 1 raises naming ROADMAP A.11."""
+
+    def split(leaf, dims, fixed):
+        (dim, ax), rest = dims[0], dims[1:]
+        devs = mesh.axis_devices(ax, **fixed)
+        blocks = leaf.chunk(len(devs), dim=dim)
+        if rest:
+            return ShardedTensor([split(b, rest, {**fixed, ax: i})
+                                  for i, b in enumerate(blocks)], dim)
+        return ShardedTensor([b.to(d) for b, d in zip(blocks, devs,
+                                                       strict=True)], dim)
 
     def place(leaf, spec):
-        for entry in spec:
-            for ax in _axes_of(entry):
-                if mesh.shape.get(ax, 1) > 1:
-                    raise NotImplementedError(
-                        f"shard_params: placing a weight over the mesh axis "
-                        f"{ax!r} of size {mesh.shape[ax]} is not ported yet "
-                        f"(ROADMAP A.11)")
-        return leaf.to(mesh.first) if isinstance(leaf, torch.Tensor) else leaf
+        if not isinstance(leaf, torch.Tensor):
+            return leaf
+        dims = _split_dims(leaf, spec, mesh)
+        return split(leaf, dims, {}) if dims else leaf.to(mesh.first)
 
     def walk(tree, spec):
         if isinstance(tree, dict):
@@ -288,6 +342,13 @@ def shard_params(params: Any, specs: Any, mesh: Mesh) -> Any:
         return place(tree, spec)
 
     return walk(params, specs)
+
+
+def shards_of(w) -> list:
+    """A weight's blocks in shard order: a ``ShardedTensor``'s shards, or
+    a plain tensor whole, the one block of an unsplit weight (so a model
+    runs one layer body over split and unsplit params alike)."""
+    return list(w.shards) if isinstance(w, ShardedTensor) else [w]
 
 
 def _ambient_mesh() -> Mesh | None:
@@ -428,11 +489,15 @@ class ShardedTensor:
         return out
 
     def index_select(self, dim: int, index) -> torch.Tensor:
-        """``index_select`` along the sharded axis, gathered on the first
-        shard's device in ``index`` order."""
+        """``index_select`` of the logical tensor, on the first shard's
+        device: along the sharded axis each index comes from its owner, in
+        ``index`` order; along another axis every shard selects from its
+        block and the blocks concatenate along the sharded axis."""
         if dim != self.axis:
-            raise ValueError(f"ShardedTensor.index_select: only along its "
-                             f"sharded axis {self.axis}, got {dim}")
+            return torch.cat(
+                [b.index_select(dim, torch.as_tensor(index, device=dev))
+                 .to(self.device) for _, dev, b in self.blocks()],
+                dim=self.axis)
         n_idx = len(index)
         shape = list(self.shape)
         shape[dim] = n_idx
@@ -447,11 +512,16 @@ class ShardedTensor:
 
     def index_copy_(self, dim: int, index, source: torch.Tensor
                     ) -> "ShardedTensor":
-        """``index_copy_`` along the sharded axis: each entry of
-        ``source`` lands on its owner."""
+        """``index_copy_`` of the logical tensor: along the sharded axis
+        each entry of ``source`` lands on its owner; along another axis
+        every shard takes its block of ``source`` (along the sharded
+        axis)."""
         if dim != self.axis:
-            raise ValueError(f"ShardedTensor.index_copy_: only along its "
-                             f"sharded axis {self.axis}, got {dim}")
+            for d, dev, b in self.blocks():
+                b.index_copy_(dim, torch.as_tensor(index, device=dev),
+                              source.narrow(self.axis, d * self.block,
+                                            self.block).to(dev))
+            return self
         for d, (pos, local) in self._route(index).items():
             sh = self.shards[d]
             part = source.index_select(
@@ -593,17 +663,25 @@ def ppermute(xs: Sequence[torch.Tensor], perm) -> list:
             for o, x in zip(out, xs, strict=True)]
 
 
-def _reduce(xs, op) -> list:
-    dev0 = xs[0].device
-    acc = xs[0]
+def _reduce(xs, op, to=None):
+    """Reduce the shards with ``op`` on the first shard's device (or
+    ``to``'s): the result on every shard's device, or the one tensor on
+    ``to``. A shard already on the target device is not copied."""
+    dev0 = torch.device(to) if to is not None else xs[0].device
+    acc = xs[0].to(dev0)
     for x in xs[1:]:
         acc = op(acc, x.to(dev0))
+    if to is not None:
+        return acc
     return [acc.to(x.device) for x in xs]
 
 
-def psum(xs: Sequence[torch.Tensor]) -> list:
-    """The sum over shards, on every shard's device (shard order)."""
-    return _reduce(xs, torch.add)
+def psum(xs: Sequence[torch.Tensor], to=None):
+    """The sum over shards, on every shard's device (shard order); with
+    ``to``, the one sum on that device: a row-parallel product's reduce
+    onto the device its activations live on. On a repeated device the
+    shards are added where they are: nothing is copied."""
+    return _reduce(xs, torch.add, to)
 
 
 def pmax(xs: Sequence[torch.Tensor]) -> list:
@@ -626,7 +704,19 @@ def all_to_all(xs: Sequence[torch.Tensor], split_axis: int,
                       dim=concat_axis) for j in range(n)]
 
 
-def all_gather(xs: Sequence[torch.Tensor], axis: int) -> list:
+def all_gather(xs: Sequence[torch.Tensor], axis: int, to=None):
     """Every shard receives all shards' tensors concatenated along
-    ``axis``, on its own device."""
-    return [torch.cat([x.to(dst.device) for x in xs], dim=axis) for dst in xs]
+    ``axis``, on its own device; with ``to``, the one concatenation on
+    that device (a vocabulary-split head's logits, gathered for sampling;
+    one shard's tensor is returned as it is). Shards on one device share
+    one concatenation."""
+    if to is not None:
+        if len(xs) == 1:
+            return xs[0].to(to)
+        return torch.cat([x.to(to) for x in xs], dim=axis)
+    done: dict = {}
+    for x in xs:
+        if x.device not in done:
+            done[x.device] = torch.cat([y.to(x.device) for y in xs],
+                                       dim=axis)
+    return [done[x.device] for x in xs]

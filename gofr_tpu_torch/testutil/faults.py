@@ -28,7 +28,7 @@ own injector (``for_replica``: base seed + index), and
 ``GOFR_ML_FAULT_REPLICA=i`` narrows the spec to replica ``i``. The
 cross-host points (``peer_*``, ``ml/multihost.py``'s framing) and the
 sequence-parallel ones (``sp_prefill``, ``sp_gather``) parse here; the
-latter fire once A.11 is ported.
+latter fire in the Generator's sequence-parallel prefill.
 
 The injector exists only when the knob is set (``from_env`` returns None
 otherwise) and the call sites guard with ``is not None``. Draws come from a

@@ -9,8 +9,9 @@ bf16 rule), for ``tiny_bert`` and a 2-layer BERT at BERT-base width (768,
 12 heads, FFN 3072, vocab 30522). Then the port's twins of
 ``tests/test_bert.py``: shapes, padding invariance, bidirectionality and
 batched serving through the engine (held against the JAX engine too);
-JAX's ``test_sharded_forward_matches`` waits for A.11, where the port's
-``sharding_specs`` raises.
+JAX's ``test_sharded_forward_matches``: the port's tensor-parallel forward
+(``sharding_specs`` over a tp = 2 mesh of repeated CPU devices) against
+JAX's sharded one at f32 within 1e-5 of range.
 """
 
 import asyncio
@@ -123,10 +124,37 @@ def test_bidirectional_not_causal(tiny):
                            b["hidden"][0, 0].float().numpy(), atol=1e-4)
 
 
-def test_sharding_specs_waits_for_a11(tiny):
-    cfg, params = tiny
-    with pytest.raises(NotImplementedError, match="A.11"):
-        tbert.Bert(cfg, params=params).sharding_specs()
+# The name is kept from when tp raised: this is now a parity test of
+# BERT over tp against JAX's sharded forward.
+@pytest.mark.parametrize("tp", [2, 4])
+def test_sharding_specs_waits_for_a11(tp):
+    """Tensor parallelism, JAX's ``test_sharded_forward_matches``: JAX's
+    rules over its (dp=2, tp) mesh, the port's ``sharding_specs`` over tp
+    repeated CPU devices; hidden, pooled and mean within 1e-5 of range at
+    f32, padded rows masked by ``seq_lens``."""
+    from gofr_tpu import parallel as jpar
+    from gofr_tpu_torch import parallel as par
+
+    jcfg, jparams, tcfg, tparams = _models("tiny", "f32")
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, jcfg.vocab_size, (4, 16)).astype(np.int32)
+    lens = np.array([16, 9, 3, 16], np.int32)
+    jmesh = jpar.make_mesh(jpar.MeshConfig(dp=2, tp=tp),
+                           devices=jax.devices()[:2 * tp])
+    jsharded = jpar.shard_params(
+        jparams, jpar.specs_from_rules(jparams, jbert.SHARDING_RULES), jmesh)
+    with jmesh:
+        want = jax.jit(lambda p, t, n: jbert.forward(p, t, jcfg, seq_lens=n))(
+            jsharded, jnp.asarray(toks), jnp.asarray(lens))
+    specs = tbert.Bert(tcfg, params=tparams).sharding_specs()
+    assert specs["layers"]["wo"] == par.P(None, "tp", None)
+    placed = par.shard_params(tparams, specs, par.make_mesh(
+        par.MeshConfig(tp=tp), devices=[torch.device("cpu")] * tp))
+    assert isinstance(placed["layers"]["wq"], par.ShardedTensor)
+    got = tbert.forward(placed, torch.from_numpy(toks), tcfg,
+                        seq_lens=torch.from_numpy(lens))
+    for key in ("hidden", "pooled", "mean"):
+        assert _range_err(got[key], want[key]) <= 1e-5, key
 
 
 def test_engine_batched_serving(run):

@@ -10,8 +10,9 @@ them with seeded noise (x 0.02), as JAX's
 given JAX's own initial noise (``jax.random.normal(key)``, which the port
 cannot draw), within 1e-4 at f32; the timestep schedule equals JAX's for
 every step count 1..50. Then the port's twins of
-``tests/test_diffusion.py``; JAX's ``test_sharded_forward_matches`` waits
-for A.11, where the port's ``sharding_specs`` raises.
+``tests/test_diffusion.py``; JAX's ``test_sharded_forward_matches``: the
+port's tensor-parallel forward (``sharding_specs`` over tp = 4 repeated
+CPU devices) against JAX's sharded one within 1e-5 of range at f32.
 """
 
 import jax
@@ -176,7 +177,30 @@ def test_ddim_sampler_runs_and_is_deterministic(f32):
         tdit.ddim_sample(params, ctx, cfg, torch.zeros((1, 8, 8, 4)))
 
 
+# The name is kept from when tp raised: this is now a parity test of
+# the DiT over tp against JAX's sharded forward.
 def test_sharding_specs_waits_for_a11(f32):
-    _, _, cfg, params = f32
-    with pytest.raises(NotImplementedError, match="A.11"):
-        tdit.DiT(cfg, params=params).sharding_specs()
+    """Tensor parallelism, JAX's ``test_sharded_forward_matches``: JAX's
+    rules over its (dp=2, tp=4) mesh, the port's ``sharding_specs`` over
+    four repeated CPU devices; the denoiser within 1e-5 of range at f32."""
+    from gofr_tpu import parallel as jpar
+    from gofr_tpu_torch import parallel as par
+
+    jcfg, jparams, cfg, params = f32
+    lat, ctx = _inputs(cfg, b=4, seed=5)
+    t = np.array([10, 200, 500, 900], np.int32)
+    jmesh = jpar.make_mesh(jpar.MeshConfig(dp=2, tp=4))
+    jsharded = jpar.shard_params(
+        jparams, jpar.specs_from_rules(jparams, jdit.SHARDING_RULES), jmesh)
+    with jmesh:
+        want = np.asarray(jax.jit(
+            lambda p, x, tt, c: jdit.forward(p, x, tt, c, jcfg))(
+            jsharded, jnp.asarray(lat), jnp.asarray(t), jnp.asarray(ctx)))
+    placed = par.shard_params(
+        params, tdit.DiT(cfg, params=params).sharding_specs(),
+        par.make_mesh(par.MeshConfig(tp=4), devices=[torch.device("cpu")] * 4))
+    assert isinstance(placed["layers"]["xq"], par.ShardedTensor)
+    got = tdit.forward(placed, torch.from_numpy(lat), torch.from_numpy(t),
+                       torch.from_numpy(ctx), cfg).numpy()
+    scale = float(want.max() - want.min())
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * scale)

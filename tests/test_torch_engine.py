@@ -288,7 +288,30 @@ def test_backends_raise_as_jax_does():
             ["pjrt_native"]
     finally:
         native.close()
-    with pytest.raises(NotImplementedError, match="A.11"):
+    # out_sharding: JAX's takes a NamedSharding, the port a (Mesh, P)
+    # pair; both answer the same outputs (they return to the host), and
+    # the port checks the output against the spec over the mesh
+    from gofr_tpu import parallel as jpar
+    from gofr_tpu.ml.engine import Engine as JEngine
+    from gofr_tpu_torch import parallel as par
+
+    x = np.arange(12, dtype=np.float32).reshape(4, 3)
+    jmesh = jpar.make_mesh(jpar.MeshConfig(dp=2, tp=4))
+    jeng = JEngine("m", lambda p, x: x * p, np.float32(2.0),
+                   out_sharding=jpar.NamedSharding(jmesh, jpar.P("dp")))
+    mesh = par.make_mesh(par.MeshConfig(dp=2),
+                         devices=[torch.device("cpu")] * 2)
+    eng = Engine("m", lambda p, x: x * p, np.float32(2.0),
+                 out_sharding=(mesh, par.P("dp")), device="cpu")
+    try:
+        assert np.array_equal(eng.predict_sync(x),
+                              np.asarray(jeng.predict_sync(x)))
+        with pytest.raises(ValueError, match="does not divide"):
+            eng.predict_sync(x[:3])
+    finally:
+        eng.close()
+        jeng.close()
+    with pytest.raises(TypeError, match="out_sharding"):
         Engine("m", lambda p, x: x, np.float32(1.0), out_sharding=object(),
                device="cpu")
 

@@ -84,14 +84,6 @@ def ref(model):
     return _ref
 
 
-def _sleep_hook(point: str, seconds: float):
-    def hook(p):
-        if p == point:
-            time.sleep(seconds)
-
-    return hook
-
-
 def _wait(pred, timeout_s: float = 10.0, msg: str = "condition"):
     deadline = time.monotonic() + timeout_s
     while time.monotonic() < deadline:
@@ -267,6 +259,20 @@ def test_register_llm_single_member_wires_federation(model, monkeypatch, run,
 
 
 # ------------------------------------------- remote routing + host failover
+def _held_steps(core):
+    """A step hook that parks ``core``'s serving thread, once a live slot
+    has emitted its first token, until the core is closed: streams on it
+    stop mid-way and queued requests stay unadmitted however fast or slow
+    the host is (a state, not a sleep a loaded host can outrun)."""
+    def hook(p):
+        if p == "step" and any(s.live and s.tokens
+                               for s in core.gen.slots):
+            while not core._closed:
+                time.sleep(0.005)
+
+    return hook
+
+
 def test_remote_route_and_kill_host_fails_over(model, run, ref):
     """A routes three prompts to B by B's gossiped hot-prefix digests;
     killing B mid-stream crashes the yielded stream typed, re-admits the
@@ -283,7 +289,8 @@ def test_remote_route_and_kill_host_fails_over(model, run, ref):
         assert len(reg) >= 8
         _wait(lambda: _routable_peer(fed_a, "b"), 10.0,
               "A never saw B up+warm with digests")
-        fed_b.local.replicas[0].gen.fault = _sleep_hook("step", 0.05)
+        core_b = fed_b.local.replicas[0]
+        core_b.gen.fault = _held_steps(core_b)
         p1, p2, p3 = reg + [17], reg + [19], reg + [23]
         cursor = ev.cursor
 

@@ -49,7 +49,8 @@ pid, n, coord, port = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
                        int(sys.argv[4]))
 cfg = llama.tiny_llama(dtype=torch.float32)
 w = MultiHostWorker(pid, n, coord, port=port if pid == 0 else 0, cfg=cfg,
-                    prompt_bucket=16, device="cpu", heartbeat_s=1.0, **KW)
+                    prompt_bucket=16, heartbeat_s=1.0,
+                    **{"device": "cpu", **KW})
 w.run()
 print(f"OK proc={pid} spec_windows={w.gen.spec_windows}", flush=True)
 """
@@ -597,17 +598,42 @@ def test_client_frames_carry_traceparent(run):
     run(scenario())
 
 
-def test_worker_without_a_card_raises():
+# The name is kept from when a rank over several devices raised: besides
+# the no-card check, this is now a parity test of a tp rank against JAX.
+def test_worker_without_a_card_raises(tmp_path, run, ckpt):
     """No fallback hides the card: a rank with no CUDA device raises
-    unless the caller asked for the CPU; a rank over several cards raises
-    naming A.11."""
-    from gofr_tpu_torch.ml.multihost import MultiHostWorker
+    unless the caller asked for the CPU. A rank over several devices is
+    tensor-parallel over them (JAX's tp over a host's chips): one rank
+    with ``device=["cpu", "cpu"]`` serves streams equal to JAX's
+    single-process greedy decode."""
+    from gofr_tpu_torch.ml.multihost import MultiHostLLMClient, MultiHostWorker
 
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             MultiHostWorker(0, 1, "127.0.0.1:1")._resolve_device()
-    with pytest.raises(NotImplementedError, match="A.11"):
-        MultiHostWorker(0, 1, "127.0.0.1:1",
-                        device=["cuda:0", "cuda:1"])._resolve_device()
     assert MultiHostWorker(0, 1, "127.0.0.1:1",
                            device="cpu")._resolve_device().type == "cpu"
+    assert [d.type for d in MultiHostWorker(
+        0, 1, "127.0.0.1:1", device=["cpu", "cpu"])._resolve_devices()] \
+        == ["cpu", "cpu"]
+    procs, logs, model_port = _spawn(tmp_path, ckpt, n=1,
+                                     device=["cpu", "cpu"])
+
+    async def scenario():
+        llm = MultiHostLLMClient("127.0.0.1", model_port)
+        await _wait_model_port(llm, procs, logs)
+        try:
+            prompts = [[5, 9, 2, 7], [3, 1]]
+            outs = await asyncio.gather(
+                *(llm.generate(p, 6) for p in prompts))
+            for p, o in zip(prompts, outs):
+                assert o == _reference_greedy(p, 6)
+            await llm.shutdown_workers()
+        finally:
+            await llm.close()
+
+    try:
+        run(scenario())
+        _expect_clean_exit(procs, logs)
+    finally:
+        _teardown(procs, logs)

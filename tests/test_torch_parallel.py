@@ -6,11 +6,13 @@ The port's mesh is a grid of ``torch.device`` and may name one device
 several times: its tests run on ``[cpu] * n`` with JAX's ``n``. Inputs are
 drawn with numpy from a seed and handed to both packages; outputs compare
 at f32 within ``TOL`` (1e-5, JAX's own tolerance for ring attention).
-``shard_params`` places no weight over an axis of size > 1 (ROADMAP A.11)
-and ``constrain`` checks a spec without placing anything: both are held
-to their errors, JAX's ``test_shard_params_places_on_mesh`` /
-``test_sharded_matmul_inserts_collectives`` / ``test_shard_like_batch_on_dp``
-(GSPMD placement) having no counterpart.
+``shard_params`` splits a leaf over a ``tp``, ``ep`` or ``dp`` axis of size
+> 1 into JAX's shard shapes (``test_shard_params_places_on_mesh``) and
+raises for ``fsdp`` (ROADMAP A.11); ``constrain`` checks a spec without
+placing anything. JAX's ``test_sharded_matmul_inserts_collectives`` /
+``test_shard_like_batch_on_dp`` (GSPMD inserting collectives) have no
+counterpart: the port's modules call ``psum`` / ``all_gather`` themselves
+(``tests/test_torch_tensor_parallel.py``).
 """
 
 import jax
@@ -99,15 +101,38 @@ def test_specs_from_rules_first_match_wins_and_default_replicates():
 
 
 def test_shard_params_replicates_or_raises():
-    """Specs over size-1 axes place every leaf on the mesh's first device;
-    an axis of size > 1 (GSPMD placement) raises naming ROADMAP A.11."""
-    params = {"w": torch.arange(32, dtype=torch.float32).reshape(4, 8)}
+    """Specs over size-1 axes place every leaf on the mesh's first device.
+    A tp, dp or ep axis of size > 1 splits the leaf into JAX's shard
+    shapes on the same mesh (its ``device_put`` with a NamedSharding),
+    block i on the i-th device of the axis; fsdp > 1 raises naming ROADMAP
+    A.11 and an axis that does not divide raises ValueError."""
+    w = np.arange(64, dtype=np.float32).reshape(8, 8)
+    params = {"w": torch.from_numpy(w)}
     placed = par.shard_params(params, {"w": P(None, "tp")}, _mesh(sp=2))
     assert torch.equal(placed["w"], params["w"])
-    for axes in ({"tp": 4, "dp": 2}, {"fsdp": 2}, {"ep": 2}):
-        spec = P(next(iter(axes)), None)
-        with pytest.raises(NotImplementedError, match="A.11"):
-            par.shard_params(params, {"w": spec}, _mesh(**axes))
+    for axes, spec in (({"dp": 2, "tp": 4}, P(None, "tp")),
+                       ({"dp": 2, "tp": 4}, P("dp", None)),
+                       ({"ep": 4, "dp": 2}, P("ep", None)),
+                       ({"dp": 2, "tp": 4}, P("dp", "tp"))):
+        jmesh = jpar.make_mesh(jpar.MeshConfig(**axes))
+        jplaced = jpar.shard_params({"w": jnp.asarray(w)},
+                                    {"w": jpar.P(*spec)}, jmesh)["w"]
+        want = {s.data.shape for s in jplaced.addressable_shards}
+        got = par.shard_params(params, {"w": spec}, _mesh(**axes))["w"]
+        assert isinstance(got, par.ShardedTensor)
+        leaves = [got]
+        while isinstance(leaves[0], par.ShardedTensor):
+            leaves = [b for x in leaves for b in x.shards]
+        assert {tuple(b.shape) for b in leaves} == want
+        assert tuple(got.shape) == w.shape
+    got = par.shard_params(params, {"w": P(None, "tp")}, _mesh(tp=4))["w"]
+    np.testing.assert_array_equal(got.full().numpy(), w)
+    for i, blk in enumerate(got.shards):
+        np.testing.assert_array_equal(blk.numpy(), w[:, 2 * i:2 * i + 2])
+    with pytest.raises(NotImplementedError, match="A.11"):
+        par.shard_params(params, {"w": P("fsdp", None)}, _mesh(fsdp=2))
+    with pytest.raises(ValueError, match="does not divide"):
+        par.shard_params(params, {"w": P(None, "tp")}, _mesh(tp=3))
 
 
 def test_constrain_noop_outside_mesh():

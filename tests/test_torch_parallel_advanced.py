@@ -9,7 +9,9 @@ outputs 1e-5 (JAX's own), the MoE layer 1e-4 against JAX's and against
 the dense per-token reference (JAX's own), the int8 sp decode 1e-5
 against JAX's int8 result (the same codes) and 0.05 against fp attention.
 JAX's ``test_expert_parallel_matches_single_device`` (GSPMD placement over
-ep = 4) becomes a test that ``ep > 1`` raises naming ROADMAP A.11.
+ep = 4) has its twin in ``test_expert_parallel_raises_naming_a11``: the
+port's experts split over ep (and tp) against JAX's sharded layer, 1e-5 of
+range.
 """
 
 import jax
@@ -190,27 +192,52 @@ class TestMoE:
         if capacity_factor < 1:
             assert float(got[0].sum()) < 32 * top_k  # some tokens dropped
 
-    def test_expert_parallel_raises_naming_a11(self, moe_pair):
-        """JAX shards the experts over ep with GSPMD; the port places no
-        weight over an axis of size > 1, so ep = 4 raises naming A.11. At
-        ep = 1 the rules place everything on the mesh's first device and
-        the layer (its ``constrain`` checks in the mesh) is unchanged."""
+    # The name is kept from when ep raised: this is now a parity test of
+    # the experts over ep (and tp) against JAX's sharded layer.
+    @pytest.mark.parametrize("axes", [{"dp": 2, "ep": 4}, {"ep": 2},
+                                      {"ep": 2, "tp": 2}])
+    def test_expert_parallel_raises_naming_a11(self, moe_pair, axes):
+        """Expert parallelism against JAX's GSPMD-sharded layer on the same
+        mesh shape: ``MOE_SHARDING_RULES`` split the experts over ep (and
+        their ffn over tp) and the layer equals JAX's sharded one within
+        1e-5 of range at f32. At ep = 1 the rules place everything on the
+        mesh's first device and the layer is unchanged; fsdp still raises
+        naming A.11."""
+        from gofr_tpu.models.moe import MOE_SHARDING_RULES as JRULES
+        from gofr_tpu.models.moe import moe_layer as jmoe_layer
         from gofr_tpu_torch.models.moe import MOE_SHARDING_RULES, moe_layer
 
-        _, params = moe_pair
-        _, cfg = _cfgs()
+        jparams, params = moe_pair
+        jcfg, cfg = _cfgs()
         specs = par.specs_from_rules(params, MOE_SHARDING_RULES)
         assert specs["experts"]["w_down"] == par.P("ep", "tp", None)
-        with pytest.raises(NotImplementedError, match="A.11"):
-            par.shard_params(params, specs, _mesh(dp=2, ep=4))
-        mesh = _mesh(dp=2, sp=4)
+        x = np.random.default_rng(4).normal(size=(4, 8, 16)).astype(
+            np.float32)
+        jmesh = _jmesh(**axes)
+        jplaced = jpar.shard_params(
+            jparams, jpar.specs_from_rules(jparams, JRULES), jmesh)
+        with jmesh:
+            want, _ = jax.jit(lambda p, x: jmoe_layer(p, x, jcfg))(
+                jplaced, jnp.asarray(x))
+        mesh = _mesh(**axes)
         placed = par.shard_params(params, specs, mesh)
-        x = torch.from_numpy(np.random.default_rng(4).normal(
-            size=(4, 8, 16)).astype(np.float32))
+        assert isinstance(placed["experts"]["w_gate"], par.ShardedTensor)
         with mesh:
-            got, _ = moe_layer(placed, x, cfg)
-        want, _ = moe_layer(params, x, cfg)
-        assert torch.equal(got, want)
+            got, _ = moe_layer(placed, torch.from_numpy(x), cfg)
+        want = np.asarray(want)
+        scale = float(want.max() - want.min())
+        np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                   atol=1e-5 * scale)
+        mesh = _mesh(dp=2, sp=4)
+        with mesh:
+            same, _ = moe_layer(par.shard_params(params, specs, mesh),
+                                torch.from_numpy(x), cfg)
+        assert torch.equal(same, moe_layer(params, torch.from_numpy(x),
+                                           cfg)[0])
+        with pytest.raises(NotImplementedError, match="A.11"):
+            par.shard_params(params, {"router": par.P("fsdp", None),
+                                      "experts": specs["experts"]},
+                             _mesh(fsdp=2))
 
 
 # ----------------------------------------------------------------- pipeline

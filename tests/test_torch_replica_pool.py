@@ -24,6 +24,9 @@ from aiohttp.test_utils import TestClient, TestServer
 
 from gofr_tpu.ml.generate import Generator as JGenerator
 from gofr_tpu.ml.replica import ReplicaPool as JReplicaPool
+from gofr_tpu.ml.replica import \
+    build_replica_generators as jbuild_replica_generators
+from gofr_tpu_torch import parallel as par
 from gofr_tpu.models import llama as jllama
 from gofr_tpu_torch.app import App
 from gofr_tpu_torch.config import MapConfig
@@ -178,9 +181,11 @@ def test_replicas_on_one_device_share_the_weights(model):
     """Replicas that land on the same device share the weight tensors (no
     copy, as JAX's ``device_put`` onto their own device); each owns its
     cache and page pool. An explicit ``sp=`` on a one-device replica
-    raises JAX's error; a multi-device replica without SP raises naming
-    A.11."""
-    _, _, cfg, params, _ = model
+    raises JAX's error. A replica over several devices without SP is
+    tensor-parallel (JAX's ``build_replica_generators``): its weights are
+    views of the shared ones, split by ``SHARDING_RULES``, and its greedy
+    output equals JAX's tensor-parallel replica's."""
+    jcfg, jparams, cfg, params, _ = model
     gens = build_replica_generators(params, cfg, 2, warmup=False,
                                     devices=[CPU], batch_slots=1,
                                     max_seq=64, prefill_buckets=(8,),
@@ -189,8 +194,16 @@ def test_replicas_on_one_device_share_the_weights(model):
     assert gens[0].cache["k"].data_ptr() != gens[1].cache["k"].data_ptr()
     with pytest.raises(ValueError, match="owns a single device"):
         build_replica_generators(params, cfg, 1, devices=[CPU], sp=True)
-    with pytest.raises(NotImplementedError, match="A.11"):
-        build_replica_generators(params, cfg, 1, devices=[CPU, CPU])
+    kw = dict(warmup=False, batch_slots=1, max_seq=64, prefill_buckets=(8,))
+    (tp_gen,) = build_replica_generators(params, cfg, 1,
+                                         devices=[CPU, CPU], **kw)
+    wq = tp_gen.params["layers"]["wq"]
+    assert isinstance(wq, par.ShardedTensor) and wq.n == 2
+    assert wq.shards[0].data_ptr() == params["layers"]["wq"].data_ptr()
+    assert isinstance(tp_gen.cache["k"], par.ShardedTensor)
+    (jgen,) = jbuild_replica_generators(jparams, jcfg, 1,
+                                        devices=jax.devices()[:2], **kw)
+    assert tp_gen.generate([5, 9, 2, 7], 8) == jgen.generate([5, 9, 2, 7], 8)
 
 
 def test_fault_per_replica_arming(monkeypatch):
@@ -558,9 +571,17 @@ def test_fleet_queue_deadline_expiry(model, run):
     async def scenario():
         for core in pool.replicas:
             core.gen.fault = _sleep_hook("step", 0.01)
+        start = event_log().cursor
         longs = [asyncio.create_task(pool.generate([9, i + 1], 40))
                  for i in range(2)]
-        await asyncio.sleep(0.15)
+        # both long requests hold their replica's one slot (their admit
+        # events are logged) before the short one arrives: a state polled,
+        # not a sleep a loaded host can outrun
+        t_end = time.monotonic() + 60.0
+        while sum(e["kind"] == "admit" for e in event_log().query(
+                since=start, model="dl-chat")["events"]) < 2:
+            assert time.monotonic() < t_end, "long requests never admitted"
+            await asyncio.sleep(0.005)
         cursor = event_log().cursor
         with pytest.raises(DeadlineExceeded) as ei:
             await pool.generate([1, 2], 4, deadline_s=0.05)

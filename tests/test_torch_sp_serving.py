@@ -582,7 +582,9 @@ def test_replica_of_several_devices_gets_an_sp_mesh(setup, plain,
                                                     monkeypatch):
     """``sp=`` on a replica that owns several devices (here the CPU named
     twice) builds an sp mesh over them; an env-armed plan stays off on a
-    one-device replica; several devices without SP raise naming A.11."""
+    one-device replica; several devices without SP make a
+    tensor-parallel replica (``tests/test_torch_tensor_parallel.py``)
+    whose tokens equal the unsharded generator's at f32."""
     from gofr_tpu_torch.ml.replica import build_replica_generators
 
     _, params, prompt = setup
@@ -595,6 +597,7 @@ def test_replica_of_several_devices_gets_an_sp_mesh(setup, plain,
                                       devices=[CPU], **KW)
     assert one.sp_stats() is None
     monkeypatch.delenv("GOFR_ML_SP")
-    with pytest.raises(NotImplementedError, match="A.11"):
-        build_replica_generators(params, _cfg(), 1, warmup=False,
-                                 devices=[CPU, CPU], **KW)
+    (tp,) = build_replica_generators(params, _cfg(), 1, warmup=False,
+                                     devices=[CPU, CPU], **KW)
+    assert tp.sp_stats() is None and tp.mesh.shape["tp"] == 2
+    assert tp.generate(prompt, N_NEW) == plain["dense"]
