@@ -377,6 +377,35 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    and BERT-base b32 at tp = 2 against tp = 1 (2 %). To make room for it,
    phase 5 runs 16 of the 32 layers, phases 9, 10, 13 and 14 run 8, and
    phases 7 and 18 run 4; 19(e)'s rank runs ``TP_RANK_LAYERS`` (8).
+20. sharded training and the rest of A.11, on Llama-3-8B at its published
+   width: (a) ``Trainer(mesh=, param_specs=SHARDING_RULES_FSDP)`` at dp 2
+   x fsdp 2 x tp 2 over ``[cuda:0] * 8`` on a copy of phase 3's first
+   ``TRAIN_LAYERS`` (4) layers, 2 x 2048 tokens, remat, adamw with f32
+   ``mu``: step 1's loss within 2e-2 relative and every gradient leaf's
+   cosine >= 0.99 against the unsharded step on the same batch, the loss
+   falling over ``SHARD_STEPS`` steps, flash launched exactly dp x tp x
+   layers x 2 a step and the plain attention only in ``_FlashDiff``'s
+   backward; measured: the step (median), its forward + backward and
+   optimizer under CUDA events, the busy share, peak memory; (b) the
+   batches from ``DataLoader(mesh=, spec=P("dp"))``, each block on its
+   group's device and equal to the batch's rows; (c) the trained params
+   saved sharded (a thread beside (d) and (e)), restored unsharded and
+   onto a tp = 4 mesh, bit for bit, with s and GB/s; (d) two
+   ``--shard-child`` ranks over gloo sharing the card (a mesh whose dp
+   axis spans them), 2 full-width layers, their own rows with uneven
+   masks, one sgd step: both ranks the same loss and first gradient, the
+   loss within 1e-4 of one process's dp = 2 step on both rows, gloo's
+   all-reduce ms; (e) prompt-lookup speculation (K = 4) over the phase-3
+   weights split tp = 2, phase 11's prompts x ``SHARD_SPEC_NEW`` tokens:
+   streams equal to or near-ties of phase 11's, the window kernel
+   launched tp x layers x windows; (f) sequence parallelism over tp: an
+   sp = 2 x tp = 2 mesh over ``[cuda:0] * 4`` at ``SP_LAYERS`` (4), one
+   11000-token prompt through ring and through Ulysses against the
+   single-device Generator (equal or a near-tie), one SP prefill, flash
+   tp x sp x layers under Ulysses and never under the ring; the training
+   flash launch of a dp group at a tp = 2 shard and the window at a tp
+   = 2 shard as rows of the kernel table. The script prints its own
+   seconds before the kernels line.
 
 Measurements under ``torch.profiler`` hold the flight recorder's
 ``PROFILE_LOCK``, so an auto-profiler capture never overlaps one.
@@ -3146,10 +3175,12 @@ def window_bound(kv_len, W: int, S: int, KV: int, D: int, H: int,
     return (*bound(4 * D * H * pairs, nbytes), nbytes)
 
 
-def window_kernel_rows(dev, tol: float) -> list[dict]:
+def window_kernel_rows(dev, tol: float, heads: tuple = (32, 8),
+                       int8s: tuple = (False, True)) -> list[dict]:
     """11(a): the verify window through the decode kernel (bf16 and int8
     caches) at Llama-3-8B's K = 4 window, q [8, 5, 32, 128] over a 32-layer
-    cache of 8 x 2048 at kv_len 2000: against its plain version (JAX's
+    cache of 8 x 2048 at kv_len 2000 (``heads``: another (query, KV) head
+    count, a tp shard's; ``int8s``: the caches): against its plain version (JAX's
     ``attention`` with ``q_offset = kv_len - 1``) within ``tol``, W = 1 of
     the window entry bit for bit the decode kernel's own launch, and timed
     by ``sweep_ms`` beside the plain version and the library call (masked
@@ -3160,7 +3191,7 @@ def window_kernel_rows(dev, tol: float) -> list[dict]:
     from gofr_tpu_torch.ops import dequantize_kv
     from gofr_tpu_torch.ops import decode_attention as da
 
-    L, B, S, KV, D, H, W = 32, 8, 2048, 8, 128, 32, SPEC_K + 1
+    (H, KV), L, B, S, D, W = heads, 32, 8, 2048, 128, SPEC_K + 1
     g = torch.Generator(device=dev).manual_seed(0)
     lens = [2000] * B
     kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
@@ -3170,7 +3201,7 @@ def window_kernel_rows(dev, tol: float) -> list[dict]:
     mask = (ar[None, None, :] <= (kv_len - 1)[:, None, None]
             + torch.arange(W, device=dev)[None, :, None])[:, None]
     rows = []
-    for int8 in (False, True):
+    for int8 in int8s:
         if int8:
             kc, vc, ks, vs = int8_cache(g, dev, L, B, S, KV, D)
             sc = {"k_scale": ks, "v_scale": vs}
@@ -3336,6 +3367,7 @@ def spec_lookup_arm(dev, params, prompts) -> dict:
     res["tok_per_s_on_over_off"] = (res["on"]["served_tok_per_s"]
                                     / res["off"]["served_tok_per_s"])
     res["_outputs_off"] = outs["off"]
+    res["_outputs_on"] = outs["on"]
     return res
 
 
@@ -3455,6 +3487,7 @@ def speculation_phase(dev, bf16_params, tol: float = 2e-2) -> dict:
     prompts = spec_prompts(bf16_params["embed"].shape[0])
     lookup = spec_lookup_arm(dev, bf16_params, prompts)
     outs_off = lookup.pop("_outputs_off")
+    outs_on = lookup.pop("_outputs_on")
     paged = spec_paged_arm(dev, bf16_params, prompts)
     draft = spec_draft_arm(dev, bf16_params, prompts, outs_off)
     for row in kernels:
@@ -3477,8 +3510,9 @@ def speculation_phase(dev, bf16_params, tol: float = 2e-2) -> dict:
     print(f"spec: draft self served_tok_per_s {draft['served_tok_per_s']}")
     print(f"spec: draft self streams_identical_to_off "
           f"{draft['streams_identical_to_off']} of {len(prompts)}")
+    # the lookup-on streams: phase 20(e)'s tp = 1 reference
     return {"kernels": kernels, "lookup": lookup, "paged_int8": paged,
-            "draft_self": draft}
+            "draft_self": draft, "outputs_on": outs_on}
 
 
 # -- phase 12: the engine path ----------------------------------------------------
@@ -7707,6 +7741,718 @@ def tp_phase(dev, bf16_params, preset: str = "8b") -> dict:
     return out
 
 
+# -- phase 20: sharded training and the rest of A.11 -------------------------------
+
+SHARD_MESH = {"dp": 2, "fsdp": 2, "tp": 2}   # over [cuda:0] * 8
+SHARD_STEPS = 3
+SHARD_LR = 1e-3
+SHARD_TOL = 2e-2            # step 1's loss against the unsharded step's
+SHARD_COS = 0.99            # every gradient leaf's cosine, likewise
+SHARD_RESTORE_TP = 4        # the other mesh a sharded save restores onto
+SHARD_RANK_LAYERS = 2       # (d): each rank's depth (bf16: the flash
+                            # kernel's type; the loss is taken in f32)
+SHARD_RANK_SEQ = 512
+SHARD_RANK_LR = 1e-2        # sgd
+SHARD_RANK_TOL = 1e-4       # the ranks' loss against one process's dp = 2
+SHARD_RANK_LIMIT_S = 240.0
+SHARD_SPEC_TP = 2
+SHARD_SPEC_NEW = 32         # (e)'s tokens a prompt: the first half of
+                            # phase 11's greedy streams, their reference
+
+
+def shard_base(preset: str):
+    """Phase 20's architecture: Llama-3-8B, or ``tiny_llama`` when the
+    phase is driven on the CPU."""
+    from gofr_tpu_torch.models import llama
+
+    return llama.llama3_8b() if preset == "8b" else llama.tiny_llama()
+
+
+def shard_cfg(base, layers: int, **kw):
+    """``base`` (Llama-3-8B) at its published width cut to ``layers``."""
+    from gofr_tpu_torch.models import llama
+
+    return llama.LlamaConfig(
+        vocab_size=base.vocab_size, dim=base.dim, n_layers=layers,
+        n_heads=base.n_heads, n_kv_heads=base.n_kv_heads,
+        ffn_dim=base.ffn_dim, max_seq_len=base.max_seq_len,
+        rope_theta=base.rope_theta, norm_eps=base.norm_eps, **kw)
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def shard_loader(rows, mesh, n: int):
+    """(b) ``n`` batches of ``DataLoader(mesh=, spec=P("dp"))`` over the
+    records ``rows`` (one batch of them, repeated), each checked: every
+    entry a ``ShardedTensor`` of dp row blocks, block g on dp group g's
+    device and equal to the unsharded batch's rows."""
+    from gofr_tpu_torch import parallel as par
+    from gofr_tpu_torch.ml.data import DataLoader
+
+    loader = DataLoader(lambda: iter([{"ids": r} for r in rows]),
+                        batch_size=len(rows), transform=_example,
+                        repeat=True, mesh=mesh, spec=par.P("dp"))
+    want = _batch_tensors(rows, torch.device("cpu"))
+    devs = mesh.axis_devices("dp")
+    out = []
+    for b in loader:
+        for key, full in zip(("tokens", "targets", "mask"), want,
+                             strict=True):
+            st = b[key]
+            check(isinstance(st, par.ShardedTensor) and st.n == len(devs),
+                  f"shard loader: {key} is not split over dp={len(devs)}")
+            for g, dev in enumerate(devs):
+                blk = st.block_of(g)
+                check(blk.device == dev, f"shard loader: {key} block {g} "
+                      f"on {blk.device}, its group's device is {dev}")
+                check(torch.equal(blk.cpu(), full.chunk(len(devs))[g]),
+                      f"shard loader: {key} block {g} differs from the "
+                      f"batch's rows")
+        out.append((b["tokens"], b["targets"], b["mask"]))
+        if len(out) == n:
+            break
+    return out
+
+
+def cosines(dev, got, want) -> dict:
+    """Each gradient leaf's cosine, sharded (``got``, gathered a leaf at a
+    time) against unsharded (``want``), f64 sums over f32 chunks."""
+    from gofr_tpu_torch import parallel as par
+
+    out = {}
+
+    def leaf(path, a, b, chunk=1 << 26):
+        a = par.gather(a, dev).reshape(-1)
+        b = b.reshape(-1)
+        dot = na = nb = 0.0
+        for i in range(0, a.numel(), chunk):
+            x, y = a[i:i + chunk].double(), b[i:i + chunk].double()
+            dot += (x * y).sum().item()
+            na += (x * x).sum().item()
+            nb += (y * y).sum().item()
+        out[path] = dot / max((na * nb) ** 0.5, 1e-300)
+
+    for k in ("embed", "final_norm", "lm_head"):
+        leaf(k, got[k], want[k])
+    for k, v in got["layers"].items():
+        leaf(f"layers/{k}", v, want["layers"][k])
+    return out
+
+
+def shard_train(dev, params, cfg) -> tuple[dict, object, object]:
+    """(a) and (b): the unsharded step's loss and gradients on the batch,
+    then ``Trainer(mesh=, param_specs=SHARDING_RULES_FSDP)`` over a copy of
+    the params on ``SHARD_MESH`` fed by (b): step 1's gradients against
+    the unsharded ones, ``SHARD_STEPS`` steps with the launch counts read
+    around them, one profiled step (busy share) and one split under CUDA
+    events. Returns (results, the trainer, its mesh)."""
+    import functools
+
+    from gofr_tpu_torch import parallel as par
+    from gofr_tpu_torch.ml.train import Trainer, value_and_grad
+    from gofr_tpu_torch.ml.tree import tree_map
+    from gofr_tpu_torch.models import llama
+
+    n_dev = int(np.prod(list(SHARD_MESH.values())))
+    mesh = par.make_mesh(par.MeshConfig(**SHARD_MESH), devices=[dev] * n_dev)
+    rows = train_batch(cfg)[:TRAIN_BATCH]
+    loss_fn = functools.partial(llama.loss_fn, cfg=cfg)
+    plain = _batch_tensors(rows, dev)
+    ref_loss, ref_grads = value_and_grad(loss_fn, params, *plain)
+    batches = shard_loader(rows, mesh, SHARD_STEPS + 3)
+    specs = par.specs_from_rules(params, llama.SHARDING_RULES_FSDP)
+    trainer = Trainer(loss_fn, tree_map(lambda t: t.clone(), params),
+                      mesh=mesh, param_specs=specs,
+                      learning_rate=SHARD_LR)
+    wq = trainer.params["layers"]["wq"]
+    check(isinstance(wq, par.ShardedTensor) and wq.mesh_axis == "tp"
+          and all(isinstance(s, par.ShardedTensor) and s.mesh_axis == "fsdp"
+                  for s in wq.shards),
+          "shard train: wq is not split over tp, each shard over fsdp")
+    per_step = SHARD_MESH["dp"] * SHARD_MESH["tp"] * cfg.n_layers * 2
+    reset_launches()
+    with plain_calls() as plain_seen, mesh:
+        loss1, grads = value_and_grad(loss_fn, trainer.params, *batches[0])
+        sync(dev)
+    check_launches = read_launches()
+    cos = cosines(dev, grads, ref_grads)
+    del grads, ref_grads
+    loss_rel = abs(loss1.item() - ref_loss.item()) / abs(ref_loss.item())
+    check(loss_rel <= SHARD_TOL, f"shard train: step 1's loss "
+          f"{loss1.item()} against unsharded {ref_loss.item()}")
+    check(min(cos.values()) >= SHARD_COS,
+          f"shard train: a gradient's cosine below {SHARD_COS}: {cos}")
+    losses, step_s = [], []
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    with plain_calls() as seen:
+        for b in batches[1:1 + SHARD_STEPS]:
+            t0 = time.perf_counter()
+            losses.append(trainer.step(*b))
+            step_s.append(time.perf_counter() - t0)
+        sync(dev)
+    launches = read_launches()
+    peak_gb = (torch.cuda.max_memory_allocated(dev) / 1e9
+               if dev.type == "cuda" else None)
+    check(all(np.isfinite(losses)), f"shard train: a loss {losses}")
+    check(losses[-1] < losses[0], f"shard train: the loss over the "
+          f"repeated batch did not fall {losses}")
+    if dev.type == "cuda":
+        check(check_launches["flash_attention_cuda"] == per_step,
+              f"shard train: step 1 launched flash "
+              f"{check_launches['flash_attention_cuda']} times, expected "
+              f"dp x tp x layers x 2 = {per_step}")
+        check(launches["flash_attention_cuda"] == per_step * SHARD_STEPS,
+              f"shard train: {launches['flash_attention_cuda']} flash "
+              f"launches in {SHARD_STEPS} steps, expected "
+              f"{per_step * SHARD_STEPS}")
+        # the plain attention runs only in _FlashDiff's backward (JAX's
+        # custom_vjp backward): one call a differentiated flash forward,
+        # half the launches under remat; a plain forward would add more
+        for what, got, n in (("step 1", plain_seen, 1),
+                             (f"{SHARD_STEPS} steps", seen, SHARD_STEPS)):
+            check(dict(got) == {"flash_attention_plain": n * per_step // 2},
+                  f"shard train: {what}: plain attention calls {dict(got)}"
+                  f", expected only the {n * per_step // 2} backward "
+                  f"recomputes")
+    out = {"mesh": SHARD_MESH, "layers": cfg.n_layers, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "loss_unsharded": ref_loss.item(),
+           "loss_step1": loss1.item(), "loss_rel_diff": loss_rel,
+           "grad_cosine_min": min(cos.values()), "grad_cosine": cos,
+           "losses": losses, "step_ms": [1e3 * s for s in step_s],
+           "step_ms_median": 1e3 * sorted(step_s)[len(step_s) // 2],
+           "flash_per_step": per_step, "launches": launches,
+           "peak_allocated_gb": peak_gb}
+    if dev.type == "cuda":
+        b = batches[1 + SHARD_STEPS]
+        prof = device_profile(lambda: trainer.step(*b), 1)
+        out["busy_share"] = prof["busy_share"]
+        out["profiled_step"] = prof
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        b = batches[2 + SHARD_STEPS]
+        with mesh:
+            ev[0].record()
+            _, grads = value_and_grad(loss_fn, trainer.params, *b)
+            ev[1].record()
+            trainer.opt_state = trainer.optimizer.apply(
+                grads, trainer.opt_state, trainer.params)
+            ev[2].record()
+        del grads
+        torch.cuda.synchronize()
+        out["fwd_bwd_ms"] = ev[0].elapsed_time(ev[1])
+        out["optimizer_ms"] = ev[1].elapsed_time(ev[2])
+    return out, trainer, mesh
+
+
+def shard_leaves(tree, path=""):
+    """(path, leaf) of a params tree, a ``ShardedTensor`` one leaf."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from shard_leaves(v, f"{path}/{k}")
+    else:
+        yield path, tree
+
+
+def host_tree(flat: dict) -> dict:
+    """{"/a/b": leaf} back to the nested tree."""
+    out: dict = {}
+    for path, leaf in flat.items():
+        node = out
+        *head, last = path.strip("/").split("/")
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = leaf
+    return out
+
+
+def shard_save(dev, trainer) -> dict:
+    """(c), first half: the trained sharded params saved (each logical
+    leaf a block at a time through the host) on a thread of its own, which
+    runs beside (d) and (e) and times itself; the params' host copy the
+    restores are held against. The trainer's optimizer state is dropped:
+    only its params are still needed, by the thread."""
+    import tempfile
+    import threading
+
+    from gofr_tpu_torch import parallel as par
+    from gofr_tpu_torch.ml.checkpoint import Checkpointer
+
+    trainer.opt_state = None
+    sync(dev)
+    host = {p: par.gather(t).cpu() for p, t in shard_leaves(trainer.params)}
+    work = tempfile.mkdtemp(prefix="chip_smoke_shard_")
+    ckpt = Checkpointer(work, max_to_keep=1)
+    state = {"work": work, "ckpt": ckpt, "host": host}
+
+    def save(params=trainer.params):
+        t0 = time.perf_counter()
+        try:
+            ckpt.save(1, params)
+        except BaseException as exc:  # re-raised by shard_restore
+            state["error"] = exc
+        state["save_s"] = time.perf_counter() - t0
+
+    state["thread"] = threading.Thread(target=save, daemon=True,
+                                       name="chip-smoke-shard-save")
+    state["thread"].start()
+    return state
+
+
+def shard_restore(dev, state) -> dict:
+    """(c), second half: once the save is written, the checkpoint restored
+    unsharded and onto a tp = ``SHARD_RESTORE_TP`` mesh (each block read
+    onto its device): every leaf and block bit for bit the trained one."""
+    import os
+    import shutil
+
+    from gofr_tpu_torch import parallel as par
+    from gofr_tpu_torch.ml.tree import tree_leaves
+    from gofr_tpu_torch.models import llama
+
+    t0 = time.perf_counter()
+    state["thread"].join()
+    waited_s = time.perf_counter() - t0
+    ckpt, host, work = state["ckpt"], state["host"], state["work"]
+    try:
+        if "error" in state:
+            raise state["error"]
+        nbytes = os.path.getsize(os.path.join(work, "1",
+                                              "leaves.safetensors"))
+        t0 = time.perf_counter()
+        whole = ckpt.restore(1, device=dev)
+        sync(dev)
+        restore_s = time.perf_counter() - t0
+        bad = [p for p, t in shard_leaves(whole)
+               if not torch.equal(t.cpu(), host[p])]
+        check(not bad, f"shard checkpoint: restored unsharded, {bad} differ")
+        del whole
+        mesh = par.make_mesh(par.MeshConfig(tp=SHARD_RESTORE_TP),
+                             devices=[dev] * SHARD_RESTORE_TP)
+        specs = llama.sharding_specs(host_tree(host))
+        t0 = time.perf_counter()
+        placed = ckpt.restore(1, mesh=mesh, specs=specs)
+        sync(dev)
+        restore_tp_s = time.perf_counter() - t0
+        wq = placed["layers"]["wq"]
+        check(isinstance(wq, par.ShardedTensor)
+              and wq.n == SHARD_RESTORE_TP,
+              f"shard checkpoint: wq restored as {wq!r}")
+        bad = []
+        for p, t in shard_leaves(placed):
+            blocks = (t.leaf_blocks() if isinstance(t, par.ShardedTensor)
+                      else [(tuple(slice(None) for _ in t.shape), t)])
+            if not all(torch.equal(b.cpu(), host[p][idx])
+                       for idx, b in blocks):
+                bad.append(p)
+        check(not bad, f"shard checkpoint: restored onto tp="
+              f"{SHARD_RESTORE_TP}, {bad} differ")
+        n_blocks = sum(1 for _ in tree_leaves(placed))
+        del placed
+        return {"bytes": nbytes, "save_s": state["save_s"],
+                "save_gb_per_s": nbytes / state["save_s"] / 1e9,
+                "save_waited_s": waited_s, "restore_s": restore_s,
+                "restore_gb_per_s": nbytes / restore_s / 1e9,
+                "restore_tp_s": restore_tp_s,
+                "restore_tp_gb_per_s": nbytes / restore_tp_s / 1e9,
+                "restore_tp_blocks": n_blocks, "bit_for_bit": True}
+    finally:
+        ckpt.close()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def shard_rank_batch(cfg, rank: int, seq: int):
+    """(d) A rank's rows (one of ``seq`` tokens from seed 100 + rank) with
+    uneven masks: rank 1 keeps half its positions."""
+    r = np.random.default_rng(100 + rank)
+    ids = r.integers(0, cfg.vocab_size, seq + 1)
+    mask = np.ones(seq, np.int32)
+    if rank:
+        mask[seq // 2:] = 0
+    return (ids[None, :-1].astype(np.int32), ids[None, 1:].astype(np.int32),
+            mask[None])
+
+
+def shard_rank_cfg(preset: str):
+    return shard_cfg(shard_base(preset), SHARD_RANK_LAYERS)
+
+
+def shard_child(argv: list[str]) -> int:
+    """(d), one rank (``--shard-child RANK COORD PRESET DEVICE SEQ``): a
+    process of a mesh whose dp axis spans the two ranks over gloo
+    (``parallel.init_distributed`` picks gloo: they share the card),
+    ``SHARD_RANK_LAYERS`` full-width bf16 layers from seed 0, its own rows;
+    one sgd step through ``value_and_grad`` and the all-reduce timed
+    apart. Prints one ``SHARD_RANK`` JSON line."""
+    import ctypes
+    import functools
+    import signal
+
+    from gofr_tpu_torch import parallel as par
+    from gofr_tpu_torch.ml import optim
+    from gofr_tpu_torch.ml.train import _value_and_grad, \
+        reduce_over_processes
+    from gofr_tpu_torch.models import llama
+
+    ctypes.CDLL("libc.so.6", use_errno=True).prctl(1, signal.SIGKILL)
+    rank, coord, preset, device, seq = argv[:5]
+    rank, seq = int(rank), int(seq)
+    dev = torch.device("cuda", 0) if device == "cuda" else torch.device(device)
+    t0 = time.perf_counter()
+    par.init_distributed({"JAX_COORDINATOR_ADDRESS": coord,
+                          "JAX_NUM_PROCESSES": "2",
+                          "JAX_PROCESS_ID": str(rank)})
+    import torch.distributed as dist
+
+    backend = dist.get_backend()
+    cfg = shard_rank_cfg(preset)
+    params = llama.params_from_config(cfg, seed=0, device=dev)
+    mesh = par.make_mesh(par.MeshConfig(dp=2), devices=[dev],
+                         process_axis="dp")
+    batch = tuple(torch.from_numpy(a).to(dev)
+                  for a in shard_rank_batch(cfg, rank, seq))
+    boot_s = time.perf_counter() - t0
+    reset_launches()
+    loss_fn = functools.partial(llama.loss_fn, cfg=cfg)
+    with mesh:
+        loss, grads = _value_and_grad(loss_fn, params, *batch)
+    sync(dev)
+    t0 = time.perf_counter()
+    reduce_over_processes(loss, grads, mesh)
+    sync(dev)
+    reduce_ms = 1e3 * (time.perf_counter() - t0)
+    grad_bytes = sum(g.numel() * g.element_size() for g in (
+        grads["embed"], grads["lm_head"], grads["final_norm"],
+        *grads["layers"].values()))
+    g_first = grads["layers"]["wq"][0, 0, :4].tolist()
+    g_sum = grads["layers"]["wq"].double().sum().item()
+    optim.sgd(SHARD_RANK_LR).apply(grads, {}, params)
+    sync(dev)
+    print("SHARD_RANK " + json.dumps({
+        "rank": rank, "backend": backend, "loss": loss.item(),
+        "g_first": g_first, "g_sum": g_sum, "allreduce_ms": reduce_ms,
+        "grad_bytes": grad_bytes, "boot_s": boot_s,
+        "launches": read_launches()}), flush=True)
+    # leave together: a rank exiting with the group up can abort in gloo's
+    # threads when its peer closes first
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def start_shard_ranks(dev, preset: str = "8b") -> dict:
+    """Start (d)'s two ranks, the coordinator on 127.0.0.1."""
+    import os
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="gofr_shard_")
+    coord = f"127.0.0.1:{free_port()}"
+    logs, procs = [], []
+    for rank in range(2):
+        log = open(os.path.join(work, f"rank{rank}.log"), "w+")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, __file__, "--shard-child", str(rank), coord,
+             preset, dev.type, str(SHARD_RANK_SEQ)], stdout=log,
+            stderr=subprocess.STDOUT,
+            env={**os.environ, "OMP_NUM_THREADS": "2"}))
+    return {"procs": procs, "logs": logs, "work": work,
+            "t0": time.perf_counter()}
+
+
+def shard_rank_reference(dev, preset: str = "8b") -> dict:
+    """(d)'s reference: one process's dp = 2 step over ``[dev] * 2`` on the
+    two ranks' rows concatenated."""
+    import functools
+    import gc
+
+    from gofr_tpu_torch import parallel as par
+    from gofr_tpu_torch.ml.train import value_and_grad
+    from gofr_tpu_torch.models import llama
+
+    cfg = shard_rank_cfg(preset)
+    params = llama.params_from_config(cfg, seed=0, device=dev)
+    rows = [shard_rank_batch(cfg, r, SHARD_RANK_SEQ) for r in range(2)]
+    whole = [np.concatenate([r[i] for r in rows]) for i in range(3)]
+    mesh = par.make_mesh(par.MeshConfig(dp=2), devices=[dev] * 2)
+    with mesh:
+        loss, grads = value_and_grad(
+            functools.partial(llama.loss_fn, cfg=cfg), params,
+            *(par.shard_like(a, par.P("dp"), mesh) for a in whole))
+    ref = {"layers": cfg.n_layers, "loss": loss.item(),
+           "g_first": grads["layers"]["wq"][0, 0, :4].tolist()}
+    del grads, params
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return ref
+
+
+def shard_ranks(ranks: dict, ref: dict) -> dict:
+    """(d) The ranks' lines: each rank's loss and first gradient equal to
+    the other's, the loss within ``SHARD_RANK_TOL`` of one process's dp =
+    2 step (``ref``), gloo the backend."""
+    import shutil
+
+    lines = []
+    try:
+        for rank, p in enumerate(ranks["procs"]):
+            left = SHARD_RANK_LIMIT_S - (time.perf_counter() - ranks["t0"])
+            try:
+                p.wait(timeout=max(left, 1.0))
+            except subprocess.TimeoutExpired:
+                p.kill()
+            log = ranks["logs"][rank]
+            log.flush()
+            with open(log.name) as f:
+                text = f.read()
+            check(p.returncode == 0,
+                  f"shard rank {rank} failed:\n{text[-3000:]}")
+            got = [ln for ln in text.splitlines()
+                   if ln.startswith("SHARD_RANK ")]
+            check(bool(got), f"shard rank {rank}: no result:\n{text[-3000:]}")
+            lines.append(json.loads(got[-1][len("SHARD_RANK "):]))
+    finally:
+        for p in ranks["procs"]:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(ranks["work"], ignore_errors=True)
+    a, b = lines
+    check(a["backend"] == b["backend"] == "gloo",
+          f"shard ranks: backend {a['backend']}, {b['backend']}")
+    check(a["loss"] == b["loss"] and a["g_first"] == b["g_first"]
+          and a["g_sum"] == b["g_sum"],
+          f"shard ranks: the ranks differ: {a} against {b}")
+    rel = abs(a["loss"] - ref["loss"]) / abs(ref["loss"])
+    check(rel <= SHARD_RANK_TOL, f"shard ranks: loss {a['loss']} against "
+          f"one process's dp = 2 step {ref['loss']}")
+    g_rel = max(abs(x - y) for x, y in zip(a["g_first"], ref["g_first"])) \
+        / max(max(abs(y) for y in ref["g_first"]), 1e-30)
+    return {"layers": ref["layers"], "seq": SHARD_RANK_SEQ,
+            "loss": a["loss"], "loss_one_process": ref["loss"],
+            "loss_rel_diff": rel, "g_first": a["g_first"],
+            "g_first_one_process": ref["g_first"], "g_first_rel_diff": g_rel,
+            "allreduce_ms": [r["allreduce_ms"] for r in lines],
+            "grad_bytes": a["grad_bytes"],
+            "boot_s": [r["boot_s"] for r in lines],
+            "wall_s": time.perf_counter() - ranks["t0"],
+            "launches": {k: a["launches"][k] + b["launches"][k]
+                         for k in a["launches"]}}
+
+
+def shard_spec(dev, params, ref_outs=None) -> dict:
+    """(e) Prompt-lookup speculation (K = ``SPEC_K``) over the phase-3
+    weights split tp = ``SHARD_SPEC_TP`` over ``[dev] * tp``, phase 11's
+    repetition prompts through ``LLMServer`` (its 8 slots x 1024, chunk 4)
+    for ``SHARD_SPEC_NEW`` tokens: streams equal to, or near-ties of, the
+    tp = 1 spec Generator's (phase 11's first tokens, or run here); the
+    window kernel launched exactly tp x layers x windows, no plain
+    attention."""
+    import gc
+
+    from gofr_tpu_torch import parallel as par
+    from gofr_tpu_torch.ml.generate import Generator
+    from gofr_tpu_torch.models import llama
+
+    cfg = shard_cfg(shard_base("8b" if params["embed"].shape[0] == 128256
+                               else "tiny"), n_layers(params))
+    prompts = spec_prompts(cfg.vocab_size)
+    kw = dict(batch_slots=8, max_seq=1024, chunk=4,
+              prefill_buckets=(128, 512), spec_k=SPEC_K, device=dev)
+    if ref_outs is None:
+        gen = Generator(params, cfg, **kw)
+        ref_outs, _ = spec_served(gen, "spec-tp1", prompts, SHARD_SPEC_NEW)
+        del gen
+    ref_outs = [o[:SHARD_SPEC_NEW] for o in ref_outs]
+    tp = SHARD_SPEC_TP
+    mesh = par.make_mesh(par.MeshConfig(tp=tp), devices=[dev] * tp)
+    split = par.shard_params(params, llama.sharding_specs(params), mesh)
+    gen = Generator(split, cfg, **kw)
+    reset_launches()
+    steps0 = gen.steps
+    with plain_calls() as seen:
+        outs, wall = spec_served(gen, "spec-tp", prompts, SHARD_SPEC_NEW)
+        sync(dev)
+    launches = read_launches()
+    windows = gen.steps - steps0
+    stats = gen.spec_stats()
+    check(all(len(o) == SHARD_SPEC_NEW for o in outs),
+          f"shard spec: every request returns {SHARD_SPEC_NEW} ids")
+    check(stats["windows"] > 0, "shard spec: no verify window ran")
+    if dev.type == "cuda":
+        want = tp * cfg.n_layers * windows
+        check(launches["gqa_decode_window_cuda"] == want,
+              f"shard spec: window kernel launched "
+              f"{launches['gqa_decode_window_cuda']} times, expected tp x "
+              f"layers x windows = {want}")
+        check(not seen, f"shard spec: a plain attention ran: {dict(seen)}")
+    agree = stream_agreement("shard spec tp", params, cfg, prompts, outs,
+                             ref_outs)
+    out = {"tp": tp, "layers": cfg.n_layers, "windows": windows,
+           "spec": stats, "accepted_per_window":
+           (stats["emitted"] - stats["windows"]) / stats["windows"],
+           "served_tok_per_s": len(prompts) * SHARD_SPEC_NEW / wall,
+           "ms_per_window": 1e3 * wall / max(windows, 1),
+           "launches": launches, **agree}
+    del gen, split
+    gc.collect()
+    return out
+
+
+SHARD_SP_MESH = {"sp": 2, "tp": 2}   # (f): over [cuda:0] * 4
+SHARD_SP_MAX_SEQ = 12288
+SHARD_SP_BUCKETS = (1024, 12288)
+SHARD_SP_NEW = 32
+
+
+def shard_sp(dev, bf16_params) -> dict:
+    """(f) Sequence parallelism over tensor-parallel weights: phase 3's
+    first ``SP_LAYERS`` layers split tp = 2 over an sp = 2 x tp = 2 mesh
+    of ``[dev] * 4``, one 11000-token prompt (phase 18's first) x
+    ``SHARD_SP_NEW`` tokens through the dense SP Generator under ring and
+    under Ulysses (each tp shard's heads over its own row of the mesh, the
+    cache split by KV head over tp and by sequence over sp): its stream
+    equal to, or a near-tie of, the single-device Generator's; one SP
+    prefill and no fallback; flash launched tp x sp x layers (Ulysses:
+    each (sp, tp) shard's heads over the whole sequence) or never (the
+    ring's f32 blocks), no plain attention."""
+    import gc
+
+    from gofr_tpu_torch import parallel as par
+    from gofr_tpu_torch.ml.generate import Generator
+    from gofr_tpu_torch.ml.sp_serving import SPConfig
+    from gofr_tpu_torch.models import llama
+
+    params = first_layers(bf16_params, SP_LAYERS)
+    cfg = shard_cfg(shard_base("8b" if params["embed"].shape[0] == 128256
+                               else "tiny"), SP_LAYERS)
+    prompt = sp_prompts(cfg.vocab_size)[0]
+    kw = dict(batch_slots=1, max_seq=SHARD_SP_MAX_SEQ,
+              prefill_buckets=SHARD_SP_BUCKETS, chunk=4, device=dev)
+    ref = Generator(params, cfg, sp=False, **kw).generate(
+        prompt, max_new_tokens=SHARD_SP_NEW)
+    n_dev = int(np.prod(list(SHARD_SP_MESH.values())))
+    mesh = par.make_mesh(par.MeshConfig(**SHARD_SP_MESH), devices=[dev] * n_dev)
+    split = par.shard_params(params, llama.sharding_specs(params), mesh)
+    out = {"mesh": SHARD_SP_MESH, "layers": SP_LAYERS,
+           "prompt_tokens": len(prompt), "new_tokens": SHARD_SP_NEW}
+    for mode in ("ring", "ulysses"):
+        gen = Generator(split, cfg, mesh=mesh,
+                        sp=SPConfig(mode, min_tokens=int(SP_MIN_TOKENS)),
+                        **kw)
+        reset_launches()
+        with plain_calls() as seen:
+            t0 = time.perf_counter()
+            got = gen.generate(prompt, max_new_tokens=SHARD_SP_NEW)
+            sync(dev)
+            wall = time.perf_counter() - t0
+        launches = read_launches()
+        stats = gen.sp_stats()
+        check(stats["prefills"] == 1 and stats["fallbacks"] == 0,
+              f"shard sp {mode}: SP prefills {stats['prefills']}, "
+              f"fallbacks {stats['fallbacks']}")
+        check(len(got) == SHARD_SP_NEW, f"shard sp {mode}: {len(got)} ids")
+        tie = sp_tie(params, cfg, prompt, got, ref,
+                     buckets=SHARD_SP_BUCKETS[-1:])
+        check(tie is None or tie["gap_over_range"] <= SP_TOL,
+              f"shard sp {mode}: the stream differs from the single "
+              f"device's at step {tie and tie['step']} by "
+              f"{tie and tie['gap_over_range']} of the logits' range")
+        if dev.type == "cuda":
+            want = (SHARD_SP_MESH["sp"] * SHARD_SP_MESH["tp"] * SP_LAYERS
+                    if mode == "ulysses" else 0)
+            check(launches["flash_attention_cuda"] == want,
+                  f"shard sp {mode}: flash launched "
+                  f"{launches['flash_attention_cuda']} times, expected "
+                  f"{want}")
+            check(not any(launches[k] for k in launches
+                          if k != "flash_attention_cuda"),
+                  f"shard sp {mode}: a decode kernel ran: {launches}")
+            check(not seen, f"shard sp {mode}: plain attention {dict(seen)}")
+        out[mode] = {"wall_s": wall, "equal": tie is None, "tie": tie,
+                     "launches": launches, "sp": stats,
+                     "cache_blocks": [tuple(t.shape) for _, t in
+                                      gen.cache["k"].leaf_blocks()]}
+        del gen
+        gc.collect()
+    del split
+    return out
+
+
+def shard_kernel_rows(dev) -> dict:
+    """The kernels at this phase's shapes as rows of the kernel table: the
+    training flash launch of one dp group at a tp = 2 shard (q [1, 2048,
+    16, 128], 4 KV heads), and the verify window at a tp = 2 shard (16 /
+    4 heads, 8 x 2000 of 2048), each against its plain version, timed as
+    phase 2 times the others, with SDPA and the bound."""
+    g = torch.Generator(device=dev).manual_seed(20)
+    H, KV, D, L = 16, 4, 128, 8
+    case = {"label": "train tp=2 shard, 1 x 2048 (a dp group)", "B": 1,
+            "T": TRAIN_SEQ, "Tk": TRAIN_SEQ, "q_offset": 0, "H": H,
+            "KV": KV, "D": D, "L": L, "kv_len": None,
+            "q": [rnd_bf16(g, dev, 1, TRAIN_SEQ, H, D) for _ in range(L)],
+            "k": [rnd_bf16(g, dev, 1, TRAIN_SEQ, KV, D) for _ in range(L)],
+            "v": [rnd_bf16(g, dev, 1, TRAIN_SEQ, KV, D) for _ in range(L)]}
+    flash = measure_flash(case, SHARD_TOL)
+    del case
+    window = window_kernel_rows(dev, SHARD_TOL, heads=(H, KV),
+                                int8s=(False,))[0]
+    window["case"] = "tp=2 shard, 8x2000 window"
+    torch.cuda.empty_cache()
+    return {"flash": flash, "window": window}
+
+
+def sharded_phase(dev, bf16_params, spec_ref=None, preset: str = "8b"
+                  ) -> dict:
+    """Phase 20: sharded training and the rest of A.11 (see the module
+    docstring), at Llama-3-8B's published width: (a)-(c) at
+    ``TRAIN_LAYERS`` of phase 3's weights, (d) in two child ranks, (e) at
+    full depth."""
+    import gc
+
+    t0 = time.perf_counter()
+    cfg = shard_cfg(shard_base(preset), TRAIN_LAYERS, remat=True)
+    params = first_layers(bf16_params, TRAIN_LAYERS)
+    out: dict = {"part_s": {}}
+
+    def part(name: str, t: float) -> float:
+        now = time.perf_counter()
+        out["part_s"][name] = now - t
+        return now
+
+    out["train"], trainer, _ = shard_train(dev, params, cfg)
+    t = part("train", t0)
+    # (d)'s ranks and (c)'s save run beside the parts that follow
+    ranks = start_shard_ranks(dev, preset)
+    saving = shard_save(dev, trainer)
+    del trainer, params
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t = part("save_started", t)
+    ref = shard_rank_reference(dev, preset)
+    t = part("ranks_reference", t)
+    out["spec"] = shard_spec(dev, bf16_params, spec_ref)
+    t = part("spec", t)
+    out["checkpoint"] = shard_restore(dev, saving)
+    t = part("checkpoint", t)
+    out["sp_tp"] = shard_sp(dev, bf16_params)
+    t = part("sp_tp", t)
+    out["ranks"] = shard_ranks(ranks, ref)
+    t = part("ranks", t)
+    if dev.type == "cuda":
+        out["kernel_rows"] = shard_kernel_rows(dev)
+        part("kernel_rows", t)
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+
+
 def main(argv: list[str]) -> int:
     import pathlib
 
@@ -7717,6 +8463,9 @@ def main(argv: list[str]) -> int:
         # one rank of phase 17(b): on the card, or on the CPU when the
         # phase is driven there at the tiny size; it prints no verdict
         return mesh_child(argv[argv.index("--mesh-child") + 1:])
+    if "--shard-child" in argv:
+        # one rank of phase 20(d), likewise
+        return shard_child(argv[argv.index("--shard-child") + 1:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -7732,6 +8481,7 @@ def main(argv: list[str]) -> int:
         return sticky_child()
     if "--native-child" in argv:
         return native_child(argv[argv.index("--native-child") + 1])
+    t_script = time.perf_counter()
     # phase 16's packages compile in a child beside phases 1-15
     child = start_native_child()
     import faulthandler
@@ -7791,6 +8541,7 @@ def main(argv: list[str]) -> int:
     res = resilience_phase(dev, first_layers(bf16_params, FRONT_LAYERS))
     done("resilience and observability", res)
     spec = speculation_phase(dev, bf16_params)
+    spec_ref = spec.pop("outputs_on")
     done("speculation", spec)
     reset_launches()
     engine = engine_phase(dev, card)
@@ -7889,6 +8640,46 @@ def main(argv: list[str]) -> int:
           f"{max(tp['bert']['err_over_range'].values()):.4f}; distinct "
           f"cards: {tp['distinct_cards']}; {card}")
     done("tensor-parallel serving", tp)
+    shard = sharded_phase(dev, bf16_params, spec_ref)
+    tr, ck, rk, sp20 = (shard[k] for k in ("train", "checkpoint", "ranks",
+                                             "spec"))
+    print(f"20a sharded Trainer dp=2 fsdp=2 tp=2 over [cuda:0] * 8, "
+          f"{tr['layers']} layers, {TRAIN_BATCH} x {TRAIN_SEQ}: step "
+          f"{tr['step_ms_median']:.1f} ms median (fwd+bwd "
+          f"{tr['fwd_bwd_ms']:.1f}, optimizer {tr['optimizer_ms']:.1f}), "
+          f"busy {tr['busy_share']:.3f}, peak {tr['peak_allocated_gb']:.1f} "
+          f"GB; step 1 loss {tr['loss_step1']:.5f} against unsharded "
+          f"{tr['loss_unsharded']:.5f} (rel {tr['loss_rel_diff']:.2e}), "
+          f"gradient cosine min {tr['grad_cosine_min']:.5f}; losses "
+          f"{[round(x, 4) for x in tr['losses']]}; flash "
+          f"{tr['flash_per_step']} a step; {card}")
+    print(f"20b DataLoader(mesh=, spec=P('dp')): every block on its "
+          f"group's device and equal to the batch's rows")
+    print(f"20c sharded save {ck['bytes'] / 1e9:.2f} GB in "
+          f"{ck['save_s']:.2f} s ({ck['save_gb_per_s']:.2f} GB/s), restore "
+          f"unsharded {ck['restore_s']:.2f} s ({ck['restore_gb_per_s']:.2f} "
+          f"GB/s), onto tp={SHARD_RESTORE_TP} {ck['restore_tp_s']:.2f} s "
+          f"({ck['restore_tp_gb_per_s']:.2f} GB/s), bit for bit; {card}")
+    print(f"20d two ranks over gloo on one card, {rk['layers']} layers: "
+          f"loss {rk['loss']:.6f} on both, one process's dp=2 "
+          f"{rk['loss_one_process']:.6f} (rel {rk['loss_rel_diff']:.2e}); "
+          f"gradient all-reduce {[round(x, 1) for x in rk['allreduce_ms']]}"
+          f" ms for {rk['grad_bytes'] / 1e9:.2f} GB; {card}")
+    print(f"20e speculation over tp={sp20['tp']}, {sp20['layers']} layers: "
+          f"{sp20['accepted_per_window']:.3f} accepted drafts a window, "
+          f"{sp20['ms_per_window']:.1f} ms a window (eager), "
+          f"{sp20['served_tok_per_s']:.1f} tok/s; streams equal "
+          f"{sp20['equal_share']:.3f}; window launches "
+          f"{sp20['launches']['gqa_decode_window_cuda']} for "
+          f"{sp20['windows']} windows; {card}")
+    for mode in ("ring", "ulysses"):
+        a = shard["sp_tp"][mode]
+        print(f"20f SP over tp ({mode}, sp=2 x tp=2 over [cuda:0] * 4, "
+              f"{SP_LAYERS} layers): an 11000-token prompt x "
+              f"{SHARD_SP_NEW} tokens in {a['wall_s']:.2f} s, stream "
+              f"{'equal' if a['equal'] else a['tie']}, flash "
+              f"{a['launches']['flash_attention_cuda']}; {card}")
+    done("sharded training and the rest of A.11", shard)
     by_name = {row["name"]: row for row in rows}
     for name, key in (("flash_attention_cuda", "flash"),
                       ("gqa_decode_attention_cuda", "bf16"),
@@ -7910,6 +8701,16 @@ def main(argv: list[str]) -> int:
     # the training shape's flash launch joins the kernel's timed shapes
     rows[0]["by_shape"].append(train["grad_check"]["flash_row"])
     rows += spec["kernels"]
+    # phase 20's shapes: the training flash launch of a dp group at a tp
+    # shard, the verify window at a tp shard
+    rows[0]["by_shape"].append(shard["kernel_rows"]["flash"])
+    for row in rows:
+        if row["name"] == "gqa_decode_window_cuda":
+            extra = shard["kernel_rows"]["window"]
+            row["by_shape"] = [{k: v for k, v in row.items()
+                                if k != "by_shape"}, extra]
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     extra["max_abs_err"])
     for row in rows:
         by_path = {"bf16": path["launches"][row["name"]],
                    "int8": qpath["launches"][row["name"]],
@@ -7952,6 +8753,11 @@ def main(argv: list[str]) -> int:
                       for arm in TP_ARMS},
                    "tp_disagg": tp["disagg"]["launches"][row["name"]],
                    "tp_rank": tp["rank"]["launches"][row["name"]],
+                   "shard_train": tr["launches"][row["name"]],
+                   "shard_ranks": rk["launches"][row["name"]],
+                   "shard_spec": sp20["launches"][row["name"]],
+                   **{f"shard_sp_{m}": shard["sp_tp"][m]["launches"][
+                       row["name"]] for m in ("ring", "ulysses")},
                    **{f"train_serve_{arm}": train["serve"][arm]["launches"][
                        row["name"]] for arm in ("checkpointer",
                                                 "checkpointer_w8", "hf")}}
@@ -7971,8 +8777,10 @@ def main(argv: list[str]) -> int:
              "speculation": spec, "engine": engine, "openai": oai,
              "fleet": fleet, "training": train, "native": native,
              "cross_host": cross, "sequence_parallel": sp,
-             "tensor_parallel": tp},
+             "tensor_parallel": tp, "sharded": shard},
             indent=1))
+    print(f"chip_smoke: the whole script took "
+          f"{time.perf_counter() - t_script:.1f} s; {card}")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -17,7 +17,15 @@ through, is not used). A step is ``<dir>/<step>/`` holding:
 A save writes both into a temporary directory beside the steps, syncs
 them, and renames it into place, so a killed process never leaves a half
 checkpoint as the latest. A restore maps and copies one leaf at a time to
-its device, so the host never holds the tree. A directory the JAX package
+its device, so the host never holds the tree.
+
+Sharded trees: a ``parallel.ShardedTensor`` leaf (a weight placed over a
+mesh) is saved as its logical tensor under its path, one block at a time
+through the host, so a sharded save restores unsharded and the other way
+round. ``restore(mesh=, specs=)`` places each leaf as
+``parallel.shard_params`` would, reading each block's slice of the file's
+map straight onto its device: no leaf is ever built whole on one device,
+as orbax's sharded restore. A directory the JAX package
 wrote (orbax) is refused: reading it needs orbax and tensorstore; the
 format both packages read is an HF directory (``ml.hf_import``).
 """
@@ -34,6 +42,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..parallel import P, ShardedTensor, place
 from .hf_import import _header, _mapped, _st_dtype, write_safetensors
 
 __all__ = ["Checkpointer"]
@@ -56,7 +65,7 @@ def _flatten(tree: Any, path: str, tensors: dict) -> dict:
                        for i, v in enumerate(tree)]}
     if isinstance(tree, np.ndarray):
         tree = torch.from_numpy(tree)
-    if isinstance(tree, torch.Tensor):
+    if isinstance(tree, (torch.Tensor, ShardedTensor)):
         name = path.lstrip("/") or "."
         tensors[name] = tree
         return {"tensor": name}
@@ -87,13 +96,21 @@ def _check(node: dict, like: Any, path: str, header: dict) -> None:
         for i, (n, v) in enumerate(zip(val, like)):
             _check(n, v, f"{path}/{i}", header)
     elif kind == "tensor":
-        if not isinstance(like, (torch.Tensor, np.ndarray)):
+        if not isinstance(like, (torch.Tensor, np.ndarray, ShardedTensor)):
             raise ValueError(f"checkpoint {where}: saved a tensor, the "
                              f"target has {type(like).__name__}")
         if tuple(header[val]["shape"]) != tuple(like.shape):
             raise ValueError(f"checkpoint {where}: saved shape "
                              f"{tuple(header[val]['shape'])}, target "
                              f"{tuple(like.shape)}")
+
+
+def _copy(src: torch.Tensor, device, dtype) -> torch.Tensor:
+    """A mapped tensor (or a slice of it) copied onto ``device`` as
+    ``dtype``."""
+    dst = torch.empty(src.shape, dtype=dtype, device=device)
+    dst.copy_(src.to(device))
+    return dst
 
 
 class Checkpointer:
@@ -139,7 +156,10 @@ class Checkpointer:
         if wait:
             self._write(step, skeleton, tensors)
             return
-        host = {k: t.detach().to("cpu", copy=True) for k, t in tensors.items()}
+        host = {k: t.map_blocks(lambda b: b.detach().to("cpu", copy=True))
+                if isinstance(t, ShardedTensor)
+                else t.detach().to("cpu", copy=True)
+                for k, t in tensors.items()}
 
         def write() -> None:
             try:
@@ -221,14 +241,16 @@ class Checkpointer:
         ``device`` when given, else on their ``like`` leaf's device, else on
         the first CUDA card (``device="cpu"`` for the host). ``item`` reads
         one entry of a saved dict alone (a training state's ``"params"``).
-        ``mesh``/``specs`` (a sharded restore) raise: not ported yet
-        (ROADMAP A.11)."""
+        With ``mesh`` and ``specs`` (a spec tree shaped like the restored
+        tree, or one ``P`` for every leaf below it; a leaf it leaves out
+        replicates) each leaf is placed as
+        ``parallel.shard_params`` places it, each block read from the file
+        onto its own device."""
         from .. import resolve_device
 
-        if mesh is not None or specs is not None:
-            raise NotImplementedError(
-                "a sharded restore (mesh=, specs=) is not ported yet "
-                "(ROADMAP A.11)")
+        if (mesh is None) != (specs is None):
+            raise ValueError("a sharded restore takes mesh= and specs= "
+                             "together")
         if step is None:
             step = self.latest_step()
         else:
@@ -248,38 +270,52 @@ class Checkpointer:
             _check(node, like, "", header)
         fixed = None if device is None else resolve_device(device)
 
-        def build(node: dict, like: Any) -> Any:
+        def sub(spec, key):
+            """The spec of entry ``key``: one ``P`` holds for every leaf
+            below it; an entry the spec tree leaves out replicates
+            (``P()``, the mesh's first device), as ``specs_from_rules``'
+            unmatched leaves do."""
+            if spec is None or isinstance(spec, P):
+                return spec
+            try:
+                return spec[key]
+            except (KeyError, IndexError):
+                return P()
+
+        def build(node: dict, like: Any, spec: Any) -> Any:
             (kind, val), = node.items()
             if kind == "dict":
-                return {k: build(v, None if like is None else like[k])
+                return {k: build(v, None if like is None else like[k],
+                                 sub(spec, k))
                         for k, v in val.items()}
             if kind in ("list", "tuple"):
-                out = [build(n, None if like is None else like[i])
+                out = [build(n, None if like is None else like[i],
+                             sub(spec, i))
                        for i, n in enumerate(val)]
                 return tuple(out) if kind == "tuple" else out
             if kind == "value":
                 return val
             meta = header[val]
+            if isinstance(like, (torch.Tensor, ShardedTensor)):
+                dtype = like.dtype
+            elif isinstance(like, np.ndarray):
+                dtype = torch.from_numpy(like[:0]).dtype
+            else:
+                dtype = _st_dtype(meta["dtype"])
+            if spec is not None:
+                with _mapped(leaves, start, meta) as t:
+                    return place(tuple(meta["shape"]), spec, mesh,
+                                 lambda idx, d: _copy(t[idx], d, dtype))
             dev = fixed
             if dev is None and isinstance(like, torch.Tensor) \
                     and like.device.type != "meta":
                 dev = like.device
             if dev is None:
                 dev = resolve_device(None)
-            if isinstance(like, torch.Tensor):
-                dtype = like.dtype
-            elif isinstance(like, np.ndarray):
-                dtype = torch.from_numpy(like[:0]).dtype
-            else:
-                dtype = _st_dtype(meta["dtype"])
-            dst = torch.empty(meta["shape"], dtype=dtype, device=dev)
             with _mapped(leaves, start, meta) as t:
-                src = t.to(dev)
-                dst.copy_(src)
-                del src, t
-            return dst
+                return _copy(t, dev, dtype)
 
-        return build(node, like)
+        return build(node, like, specs)
 
     def close(self) -> None:
         self.wait_until_finished()

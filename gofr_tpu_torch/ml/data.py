@@ -12,8 +12,15 @@ of ``gofr_tpu/ml/data.py``.
   tensors.
 - ``shard_by_process`` reads a round-robin slice of the record stream: the
   rank and world size of an initialised ``torch.distributed`` group (0 and
-  1 without one). Placement over a mesh (``sharding``, ``mesh``, ``spec``)
-  is not ported yet (ROADMAP A.11).
+  1 without one).
+- ``mesh`` and ``spec`` (or ``sharding=(mesh, spec)``, the port's
+  ``NamedSharding``) place each batch as ``parallel.shard_like`` does: under
+  ``P("dp")`` a ``ShardedTensor`` of row blocks, block g copied to dp group
+  g's device from pinned memory on that device's side stream. Over a mesh
+  whose dp axis spans processes (with ``shard_by_process``) a batch is this
+  process's rows, its part of the global batch
+  (``make_array_from_process_local_data``'s role), split over its own dp
+  positions.
 
 The record stream, the seeded shuffle buffer (numpy's ``default_rng(seed
 + epoch)``), ``repeat`` and the dropped remainder are the JAX loader's,
@@ -30,9 +37,18 @@ from typing import Any, Callable, Iterable, Iterator, Sequence
 import numpy as np
 import torch
 
+from ..parallel import P, ShardedTensor, place
+
 __all__ = ["DataLoader", "jsonl_source", "csv_source"]
 
 _END = object()
+
+
+def _blocks(v) -> list:
+    """A batch entry's tensors: its blocks when placed over a mesh."""
+    if isinstance(v, ShardedTensor):
+        return [b for _, b in v.leaf_blocks()]
+    return [v]
 
 
 def _iter_lines(fh, chunk: int = 1 << 16):
@@ -97,7 +113,7 @@ def csv_source(path: str, filesystem=None) -> Callable[[], Iterator[dict]]:
 
 class DataLoader:
     """Iterate training batches on ``device`` (default the first CUDA card;
-    ``"cpu"`` for the host).
+    ``"cpu"`` for the host), or placed over ``mesh`` by ``spec``.
 
     ``source`` is a zero-arg callable returning a fresh record iterator (so
     ``repeat`` can re-open it each epoch); records are dicts of array-likes
@@ -125,10 +141,14 @@ class DataLoader:
 
         if batch_size <= 0:
             raise ValueError("batch_size must be positive")
-        if sharding is not None or mesh is not None or spec is not None:
-            raise NotImplementedError(
-                "placing batches over a mesh (sharding=, mesh=, spec=) is "
-                "not ported yet (ROADMAP A.11)")
+        if sharding is None and mesh is not None and spec is not None:
+            sharding = (mesh, spec)
+        if sharding is not None:
+            mesh, spec = sharding
+            if not isinstance(spec, P):
+                raise ValueError(f"sharding=(mesh, spec) takes a "
+                                 f"parallel.P spec, got {spec!r}")
+        self._sharding = sharding
         self._source = source
         self.batch_size = batch_size
         self._transform = transform
@@ -137,7 +157,8 @@ class DataLoader:
         self._prefetch = max(1, prefetch)
         self._repeat = repeat
         self._shard_by_process = shard_by_process
-        self.device = resolve_device(device)
+        self.device = (resolve_device(device) if sharding is None
+                       else sharding[0].first)
 
     # -- host-side record stream ----------------------------------------------
     def _records(self) -> Iterator[Any]:
@@ -199,18 +220,43 @@ class DataLoader:
                 for key in first}
 
     # -- device placement ------------------------------------------------------
-    def _to_device(self, host_batch: dict, stream) -> tuple[dict, Any]:
-        """(the batch on the device, the event its copies end at)."""
+    def _streams(self) -> dict:
+        """A side stream for each card the batches go to."""
+        devs = ([self.device] if self._sharding is None
+                else list(self._sharding[0].devices.flat))
+        return {d: torch.cuda.Stream(d) for d in set(devs)
+                if d.type == "cuda"}
+
+    def _to_device(self, host_batch: dict, streams: dict
+                   ) -> tuple[dict, list]:
+        """(the batch on its device or placed over the mesh, the (device,
+        event) each card's copies end at)."""
         tensors = {k: torch.from_numpy(np.ascontiguousarray(v))
                    for k, v in host_batch.items()}
-        if stream is None:
-            return tensors, None
-        with torch.cuda.stream(stream):
-            out = {k: t.pin_memory().to(self.device, non_blocking=True)
+        used: set = set()
+
+        def put(block, dev):
+            stream = streams.get(dev)
+            if stream is None:
+                return block
+            used.add(dev)
+            with torch.cuda.stream(stream):
+                return block.contiguous().pin_memory().to(dev,
+                                                          non_blocking=True)
+
+        if self._sharding is None:
+            out = {k: put(t, self.device) for k, t in tensors.items()}
+        else:
+            mesh, spec = self._sharding
+            out = {k: place(tuple(t.shape), spec, mesh,
+                            lambda idx, dev, t=t: put(t[idx], dev))
                    for k, t in tensors.items()}
+        events = []
+        for dev in used:
             event = torch.cuda.Event()
-            event.record(stream)
-        return out, event
+            event.record(streams[dev])
+            events.append((dev, event))
+        return out, events
 
     def __iter__(self) -> Iterator[dict]:
         """Yield device batches; the prefetch thread keeps ``prefetch``
@@ -218,15 +264,14 @@ class DataLoader:
         consumer."""
         q: queue.Queue = queue.Queue(maxsize=self._prefetch)
         stop = threading.Event()
-        stream = (torch.cuda.Stream(self.device)
-                  if self.device.type == "cuda" else None)
+        streams = self._streams()
 
         def producer() -> None:
             try:
                 for host_batch in self._host_batches():
                     if stop.is_set():
                         return
-                    q.put(self._to_device(host_batch, stream))
+                    q.put(self._to_device(host_batch, streams))
                 q.put(_END)
             except BaseException as exc:  # surface in the consumer
                 q.put(exc)
@@ -241,13 +286,15 @@ class DataLoader:
                     return
                 if isinstance(item, BaseException):
                     raise item
-                batch, event = item
-                if event is not None:
-                    current = torch.cuda.current_stream(self.device)
+                batch, events = item
+                for dev, event in events:
+                    current = torch.cuda.current_stream(dev)
                     current.wait_event(event)
                     for v in batch.values():
-                        # the side stream's memory is in use on this one
-                        v.record_stream(current)
+                        for t in _blocks(v):
+                            if t.device == dev:
+                                # the side stream's memory is in use here
+                                t.record_stream(current)
                 yield batch
         finally:
             stop.set()

@@ -104,8 +104,14 @@ params' shards (``mesh`` defaults to a tp mesh of them; ``shard_cache``
 is accepted as in JAX and needs a mesh); prefill, segments, windows,
 prefix hits and the host tier run through the model's tensor-parallel
 path, and decode runs eagerly (no CUDA graphs: a graph cannot span
-cards). Speculation and sequence parallelism over split weights raise
-naming ROADMAP A.11.
+cards). Speculation over split weights verifies its windows through the
+same path, each shard's window launch over its KV-head block; a draft
+model over split weights (the ``self`` draft) gets a draft cache split
+the same way. Sequence parallelism over split weights (a mesh with sp
+and tp > 1, the dense cache) runs each tp shard's heads through ring or
+Ulysses over its own row of the mesh, its cache block split by sequence
+over that row, and the decode combine a shard at a time; the striped
+pool refuses a mesh with tp > 1, as JAX's plan does.
 """
 
 from __future__ import annotations
@@ -521,14 +527,6 @@ class Generator:
         if shard_cache and mesh is None and not self._tp:
             raise ValueError("shard_cache requires a mesh")
         if self._tp:
-            if self._sp is not None:
-                raise NotImplementedError(
-                    "sequence parallelism over tensor-parallel weights is "
-                    "not ported yet (ROADMAP A.11)")
-            if self.spec_k:
-                raise NotImplementedError(
-                    "speculative decoding with tensor-parallel weights is "
-                    "not ported yet (ROADMAP A.11)")
             if mesh is None:
                 mesh = par.make_mesh(par.MeshConfig(tp=len(tp_devs)),
                                      devices=tp_devs)
@@ -536,6 +534,12 @@ class Generator:
                 raise ValueError(
                     f"params split {len(tp_devs)} ways over a mesh with "
                     f"tp={mesh.shape.get('tp', 1)}")
+            local = cfg.n_heads // len(tp_devs)
+            if (self._sp is not None and self._sp.mode == "ulysses"
+                    and local % self._sp.shards):
+                raise ValueError(
+                    f"sp={self._sp.shards} must divide the local "
+                    f"(per-tp-shard) head count {local}")
         elif (mesh is not None and mesh.shape.get("tp", 1) > 1
               and self._sp is None and not cfg.sequence_parallel):
             raise ValueError(
@@ -621,7 +625,8 @@ class Generator:
         else:
             self.cache = llama.init_cache(
                 cfg, batch_slots, max_seq, device=self.device,
-                mesh=self.mesh if self._sp_dense or self._tp else None)
+                mesh=self.mesh if self._sp_dense or self._tp else None,
+                tp_heads=self._tp)
         self.slots = [_Slot() for _ in range(batch_slots)]
         self._rng = torch.Generator(device=self.device).manual_seed(seed)
         # the token row: decode reads and writes it in place (a graph input)
@@ -725,8 +730,13 @@ class Generator:
                                        dtype=torch.int32, device=self.device)
         self._spec_on = torch.zeros((B,), dtype=torch.bool, device=self.device)
         if self.draft_params is not None:
+            # a split draft (the target's own split weights) keeps its
+            # cache split by KV head over the same devices
+            d_tp = llama.tp_devices(self.draft_params)
             self._draft_cache = llama.init_cache(
-                self.draft_cfg, B, self.max_seq + K + 2, device=self.device)
+                self.draft_cfg, B, self.max_seq + K + 2, device=self.device,
+                mesh=None if d_tp is None else par.make_mesh(
+                    par.MeshConfig(tp=len(d_tp)), devices=d_tp))
         # the plain fallback needs drafting state that survives plain
         # dispatches (the history mirror does, a draft cache does not) and
         # an auto-disable floor actually set

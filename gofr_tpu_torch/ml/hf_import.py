@@ -115,9 +115,11 @@ def _mapped(path: str, start: int, meta: dict) -> Iterator[torch.Tensor]:
             pass  # a view outlived the block: the map closes with it
 
 
-def write_safetensors(path: str, tensors: dict[str, torch.Tensor]) -> None:
+def write_safetensors(path: str, tensors: dict) -> None:
     """Write ``tensors`` (any device; copied to the host one at a time) as
-    one .safetensors file, in the order given."""
+    one .safetensors file, in the order given. A
+    ``parallel.ShardedTensor`` is written as its logical tensor, one block
+    at a time through the host, each into its place in the file."""
     header: dict[str, Any] = {}
     off = 0
     for name, t in tensors.items():
@@ -129,15 +131,44 @@ def write_safetensors(path: str, tensors: dict[str, torch.Tensor]) -> None:
         off += n
     head = json.dumps(header, separators=(",", ":")).encode()
     head += b" " * (-len(head) % 8)
-    with open(path, "wb") as f:
+    start = 8 + len(head)
+    with open(path, "w+b") as f:
         f.write(struct.pack("<Q", len(head)))
         f.write(head)
-        for t in tensors.values():
-            if t.numel():
+        for name, t in tensors.items():
+            if not t.numel():
+                continue
+            f.seek(start + header[name]["data_offsets"][0])
+            if isinstance(t, torch.Tensor):
                 host = t.detach().contiguous().cpu().reshape(-1)
                 f.write(memoryview(host.view(torch.uint8).numpy()))
+            else:
+                _write_blocks(f, start + header[name]["data_offsets"][0], t)
         f.flush()
         os.fsync(f.fileno())
+
+
+_UINTS = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def _write_blocks(f, offset: int, t) -> None:
+    """A ``ShardedTensor``'s blocks into the file ``f`` at ``offset``, each
+    copied to the host and written into its box of the row-major logical
+    tensor (a map of the file's range)."""
+    import numpy as np
+
+    f.flush()
+    f.truncate(max(os.fstat(f.fileno()).st_size,
+                   offset + t.numel() * t.element_size()))
+    raw = _UINTS[t.element_size()]
+    mm = np.memmap(f, dtype=torch.empty((), dtype=raw).numpy().dtype,
+                   mode="r+", offset=offset, shape=tuple(t.shape))
+    try:
+        for idx, block in t.leaf_blocks():
+            mm[idx] = block.detach().cpu().view(raw).numpy()
+        mm.flush()
+    finally:
+        del mm
 
 
 class _ShardedWeights:

@@ -30,7 +30,9 @@ place and returned: the counterpart of JAX's trainer donating its state
 param as its update is made and dropping each gradient once used, so no
 tree of (f32) updates exists at all: ``ml.train`` steps through it. Leaves
 that are not floating-point tensors (or have a None gradient) are frozen:
-their update is None.
+their update is None. A weight split over a mesh (``parallel.
+ShardedTensor``) is a leaf a block: its state lives beside each block, on
+the block's device, and each block is updated as its own leaf.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from ..parallel import ShardedTensor
 from .tree import tree_map
 
 __all__ = ["GradientTransformation", "adamw", "adam", "sgd", "apply_updates"]
@@ -76,19 +79,18 @@ def _add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _slots(tree):
-    """(container, key) of every leaf, in ``tree_map``'s order."""
+    """(container, key) of every leaf, in ``tree_map``'s order: a
+    ``ShardedTensor``'s blocks are leaves of its shard list."""
     if isinstance(tree, dict):
-        for k, v in tree.items():
-            if isinstance(v, (dict, list, tuple)):
-                yield from _slots(v)
-            else:
-                yield tree, k
+        box, items = tree, tree.items()
     else:
-        for i, v in enumerate(tree):
-            if isinstance(v, (dict, list, tuple)):
-                yield from _slots(v)
-            else:
-                yield tree, i
+        box = tree.shards if isinstance(tree, ShardedTensor) else tree
+        items = enumerate(box)
+    for k, v in items:
+        if isinstance(v, (dict, list, tuple, ShardedTensor)):
+            yield from _slots(v)
+        else:
+            yield box, k
 
 
 def _fused(leaf: Callable, grads, params, *states) -> None:

@@ -58,7 +58,11 @@ under autograd (``ops._FlashDiff``) on a card; ``LlamaConfig(remat=True)``
 recomputes each layer in the backward pass
 (``torch.utils.checkpoint``, JAX's ``jax.checkpoint``). The stacked
 weights are unbound once a forward, so a layer's gradient lands in its
-slice of the stacked gradient in one copy. ``LLAMA_CKPT`` /
+slice of the stacked gradient in one copy. Sharded training
+(``SHARDING_RULES_FSDP`` over a mesh with dp, fsdp and tp, a batch on
+``P("dp")``: ``ml.train.Trainer(mesh=, param_specs=)``) runs each dp group
+on its devices and gathers each layer's fsdp blocks inside the layer (the
+section "tensor parallelism" below). ``LLAMA_CKPT`` /
 ``checkpoint_dir`` restore real weights (an HF directory through
 ``ml.hf_import``, a ``ml.checkpoint.Checkpointer`` directory of a params
 tree or of a training state) and ``LLM_DRAFT_CKPT`` loads an HF draft.
@@ -101,9 +105,9 @@ from . import tensor_from_numpy as _tensor_from_numpy
 from ..ops import (apply_rope, cached_decode_attention, dequantize_kv,
                    dequantize_kv4, flash_attention, quantize_kv, quantize_kv4,
                    quantize_weight, repeat_kv, rms_norm, rope_table)
-from ..parallel import (P, ShardedTensor, all_gather, pool_put, pool_take,
-                        psum, row_read, row_write, set_at_pos, shards_of,
-                        specs_from_rules)
+from ..parallel import (P, ShardedTensor, all_gather, current_mesh, dp_mean,
+                        gather, pool_put, pool_take, psum, row_read,
+                        row_write, set_at_pos, shards_of, specs_from_rules)
 
 __all__ = ["LlamaConfig", "llama3_8b", "tiny_llama", "kv_bits_from_env",
            "config_from_env", "init_params", "quantize_weights",
@@ -223,7 +227,8 @@ SHARDING_RULES = (
 )
 
 # FSDP variant (JAX's, for training): weights also sharded over the fsdp
-# axis. ``parallel.shard_params`` raises for fsdp > 1 (ROADMAP A.11).
+# axis, ZeRO-3's layout: each tp shard's entry holds its fsdp blocks, which
+# ``_blocks`` gathers onto the shard's device a layer at a time.
 SHARDING_RULES_FSDP = (
     (r"layers/(wq|wk|wv|w_gate|w_up)/s", P(None, "tp")),
     (r"layers/(wo|w_down)/s", P(None, "fsdp")),
@@ -552,14 +557,33 @@ def _swiglu(x, lp):
     return _mm(g * _mm(x, lp["w_up"]), lp["w_down"])
 
 
+def _unstack(w) -> list:
+    """A stacked weight's per-layer slices: ``unbind(0)`` of a tensor, of
+    each entry of an int8 weight's dict, of each block of a weight split
+    along a later axis (its fsdp blocks: a split slice a layer)."""
+    if isinstance(w, dict):
+        per = {n: _unstack(t) for n, t in w.items()}
+        return [{n: p[i] for n, p in per.items()}
+                for i in range(len(next(iter(per.values()))))]
+    if isinstance(w, ShardedTensor):
+        per = [_unstack(sh) for sh in w.shards]
+        return [ShardedTensor([p[i] for p in per], w.axis - 1, w.block,
+                              w.mesh_axis) for i in range(len(per[0]))]
+    return w.unbind(0)
+
+
 def _per_layer(layers: dict, n_layers: int) -> list:
     """Stacked layer weights -> one dict a layer. Each weight is unbound
     once, so a backward pass stacks its per-layer gradients in one pass."""
-    un = {k: ({n: t.unbind(0) for n, t in v.items()} if isinstance(v, dict)
-              else v.unbind(0)) for k, v in layers.items()}
-    return [{k: ({n: t[i] for n, t in v.items()} if isinstance(v, dict)
-                 else v[i]) for k, v in un.items()}
-            for i in range(n_layers)]
+    un = {k: _unstack(v) for k, v in layers.items()}
+    return [{k: v[i] for k, v in un.items()} for i in range(n_layers)]
+
+
+def _take(lp: dict, keys: tuple, device) -> dict:
+    """A layer's weights ``keys`` whole on ``device``: a weight there as it
+    is, fsdp blocks gathered (``parallel.gather``, differentiable), a
+    weight elsewhere copied (a dp group's devices)."""
+    return {k: gather(lp[k], device) for k in keys}
 
 
 # -- tensor parallelism ---------------------------------------------------------
@@ -578,6 +602,20 @@ def _per_layer(layers: dict, n_layers: int) -> list:
 # embedding stay replicated. ``lm_head`` is split by vocabulary columns and
 # ``all_gather`` joins the logits for sampling. With one shard the
 # collectives return their one input and nothing is copied.
+#
+# Training adds two splits (``SHARDING_RULES_FSDP`` and a dp-placed batch,
+# ``ml.train``). A tp shard's weight may be fsdp blocks
+# (``parallel.ShardedTensor`` over fsdp): ``_blocks`` gathers a layer's
+# blocks onto the shard's device inside the layer's body, so under
+# ``cfg.remat`` the backward pass gathers them again rather than keeping
+# them (ZeRO-3's trade), and autograd through the gather returns each block
+# its own gradient (the reduce-scatter). A batch split over dp (a
+# ``ShardedTensor`` of row blocks) runs a group at a time, group g on the
+# mesh's devices at dp position g (the ambient mesh, ``with mesh:``); its
+# weights ``.to()`` there, nothing copied on a repeated device, and the
+# backward pass of that copy adds the groups' gradients onto each weight
+# (the dp all-reduce). ``loss_fn`` sums the groups' masked sums and mask
+# counts before it divides: the global batch's mean.
 
 
 def _split(w) -> list:
@@ -618,17 +656,15 @@ def tp_devices(params: dict) -> list | None:
     return None if len(shards) == 1 else [dev for dev, _ in shards]
 
 
-def _shard_cfg(cfg: LlamaConfig, n: int) -> LlamaConfig:
-    """One shard's view of ``cfg``: H/n query heads, KV/n KV heads and an
-    ffn slice of F/n (head_dim and n_rep unchanged); ``cfg`` itself for
-    one shard. A tp that does not divide the heads raises (JAX would
-    replicate K/V, ROADMAP C)."""
+def _shard_cfg(cfg: LlamaConfig, n: int, index: int = 0) -> LlamaConfig:
+    """Shard ``index``'s view of ``cfg`` of ``n``: H/n query heads, KV/n KV
+    heads and an ffn slice of F/n (head_dim and n_rep unchanged), and
+    ``tp_shard`` = ``index`` (a sequence-parallel shard attends over its
+    own row of the mesh, ``_sp_mesh``); ``cfg`` itself for one shard. A
+    tp that does not divide the heads raises (JAX would replicate K/V,
+    ROADMAP C)."""
     if n == 1:
         return cfg
-    if cfg.sequence_parallel:
-        raise NotImplementedError(
-            "sequence parallelism over tensor-parallel weights is not "
-            "ported yet (ROADMAP A.11)")
     if cfg.n_kv_heads % n or cfg.n_heads % n or cfg.ffn_dim % n:
         raise ValueError(
             f"tp={n} must divide n_kv_heads={cfg.n_kv_heads}, "
@@ -637,18 +673,31 @@ def _shard_cfg(cfg: LlamaConfig, n: int) -> LlamaConfig:
     c = copy.copy(cfg)
     c.n_heads, c.n_kv_heads = cfg.n_heads // n, cfg.n_kv_heads // n
     c.ffn_dim = cfg.ffn_dim // n
+    c.tp_shard = index
     return c
+
+
+def _sp_mesh(cfg: LlamaConfig, mesh):
+    """The mesh a shard's heads run ring or Ulysses attention over: for a
+    tp shard's view of ``cfg`` (``_shard_cfg``), its row of ``mesh`` along
+    sp (``mesh.sub(tp=shard)``), so shard d's sequence blocks live on the
+    devices at tp position d; ``mesh`` itself for unsplit params."""
+    shard = getattr(cfg, "tp_shard", None)
+    if mesh is None or shard is None or mesh.shape.get("tp", 1) == 1:
+        return mesh
+    return mesh.sub(tp=shard)
 
 
 def _split_cache(cfg: LlamaConfig, devices, batch: int, make,
                  device) -> dict:
     """A cache split along its KV-head axis over ``devices`` (JAX's
-    ``CACHE_SPEC`` tp entry): shard d's block is ``make(shard cfg, its
+    ``CACHE_SPEC`` tp entry): shard d's block is ``make(shard d's cfg, its
     device)``, its own contiguous allocation, so values [.., KV/tp, D]
     (int8 flat [.., KV/tp * D], head-contiguous) and planes [.., KV/tp,
-    S]; ``len`` [B] stays on ``device``."""
-    scfg = _shard_cfg(cfg, len(devices))
-    blocks = [make(scfg, dev) for dev in devices]
+    S] (a block may itself be split by sequence over the shard's sp
+    devices); ``len`` [B] stays on ``device``."""
+    blocks = [make(_shard_cfg(cfg, len(devices), d), dev)
+              for d, dev in enumerate(devices)]
     cache = {name: ShardedTensor([blk[name] for blk in blocks],
                                  2 if name.endswith(("_scale", "_zero"))
                                  else 3)
@@ -659,43 +708,53 @@ def _split_cache(cfg: LlamaConfig, devices, batch: int, make,
 
 def _cache_views(cache, n: int) -> list:
     """Each of ``n`` shards' view of ``cache``: the cache itself for one
-    shard; of a head-split cache, shard d's blocks as plain tensors
-    (``len`` stays the shared one)."""
+    shard; of a head-split cache, shard d's blocks (plain tensors, or
+    split by sequence over the shard's sp devices under sequence
+    parallelism; ``len`` stays the shared one)."""
     if cache is None or n == 1:
         return [cache] * n
     return [{name: arr.shards[d] if isinstance(arr, ShardedTensor) else arr
              for name, arr in cache.items()} for d in range(n)]
 
 
+_ATTN_KEYS = ("wq", "wk", "wv", "wo")
+_MLP_KEYS = ("w_gate", "w_up", "w_down")
+
+
 def _blocks(params: dict, cfg: LlamaConfig, x, cos, sin, attend,
-            cache=None):
+            cache=None, devices=None):
     """Every decoder block over x [B, T, D], in layer order, a shard at a
     time (the section above). ``attend(cfg, cache, layer, q, k, v)`` -> o
     [B, T, H, D] is the block's attention (and its cache writes) over
     rope'd q [B, T, H, D] and k, v [B, T, KV, D], called with the shard's
-    config, its view of ``cache`` and its heads (on its device). With
-    ``cfg.remat`` (and grad on) a block keeps only its input and
-    recomputes the rest in the backward pass."""
+    config, its view of ``cache`` and its heads (on its device).
+    ``devices`` (default: the shards' own) are the devices the shards
+    compute on, a dp group's; each layer's weights are taken there
+    (``_take``). With ``cfg.remat`` (and grad on) a block keeps only its
+    input and recomputes the rest, the gathers included, in the backward
+    pass."""
     shards = _shards(params)
-    scfg = _shard_cfg(cfg, len(shards))
+    devs = devices or [dev for dev, _ in shards]
+    scfgs = [_shard_cfg(cfg, len(shards), d) for d in range(len(shards))]
     views = _cache_views(cache, len(shards))
-    ropes = [(cos.to(dev), sin.to(dev)) for dev, _ in shards]
+    ropes = [(cos.to(dev), sin.to(dev)) for dev in devs]
     lps = [_per_layer(blocks, cfg.n_layers) for _, blocks in shards]
     norms = _per_layer({k: params["layers"][k]
                         for k in ("attn_norm", "mlp_norm")}, cfg.n_layers)
 
     def block(x, layer):
-        h = rms_norm(x, norms[layer]["attn_norm"], cfg.norm_eps)
+        h = rms_norm(x, norms[layer]["attn_norm"].to(x.device), cfg.norm_eps)
         parts = []
-        for (dev, _), view, (c, s), lp in zip(shards, views, ropes, lps,
-                                              strict=True):
-            q, k, v = _project_qkv(scfg, h.to(dev), lp[layer], c, s)
+        for dev, scfg, view, (c, s), lp in zip(devs, scfgs, views, ropes,
+                                               lps, strict=True):
+            w = _take(lp[layer], _ATTN_KEYS, dev)
+            q, k, v = _project_qkv(scfg, h.to(dev), w, c, s)
             o = attend(scfg, view, layer, q, k, v)
-            parts.append(_mm(o.reshape(*o.shape[:2], -1), lp[layer]["wo"]))
+            parts.append(_mm(o.reshape(*o.shape[:2], -1), w["wo"]))
         x = x + psum(parts, to=x.device)
-        h = rms_norm(x, norms[layer]["mlp_norm"], cfg.norm_eps)
-        return x + psum([_swiglu(h.to(dev), lp[layer])
-                         for (dev, _), lp in zip(shards, lps, strict=True)],
+        h = rms_norm(x, norms[layer]["mlp_norm"].to(x.device), cfg.norm_eps)
+        return x + psum([_swiglu(h.to(dev), _take(lp[layer], _MLP_KEYS, dev))
+                         for dev, lp in zip(devs, lps, strict=True)],
                         to=x.device)
 
     remat = cfg.remat and torch.is_grad_enabled()
@@ -708,18 +767,22 @@ def _blocks(params: dict, cfg: LlamaConfig, x, cos, sin, attend,
     return x
 
 
-def _head(params: dict, x) -> torch.Tensor:
+def _head(params: dict, x, devices=None) -> torch.Tensor:
     """f32 logits of the final-normed x [..., D]: each vocabulary block of
-    ``lm_head`` on its device, gathered on the activations' device."""
-    return all_gather([_mm(x.to(_device_of(w)), w)
-                       for w in _split(params["lm_head"])], -1,
+    ``lm_head`` on its device (or on ``devices``, a dp group's; fsdp
+    blocks gathered there), joined on the activations' device."""
+    ws = _split(params["lm_head"])
+    devs = devices or [_device_of(w) for w in ws]
+    return all_gather([_mm(x.to(dev), gather(w, dev))
+                       for w, dev in zip(ws, devs, strict=True)], -1,
                       to=x.device).float()
 
 def _causal_attention(cfg: LlamaConfig, q, k, v, kv_len, mesh):
     """Full-sequence causal attention of q [B, S, H, D] over GROUPED k, v
     [B, S, KV, D]: the flash dispatcher, or for a sequence-parallel ``cfg``
     with a ``mesh`` ring or Ulysses attention over its sp axis with K/V
-    GQA-expanded first, as JAX does."""
+    GQA-expanded first, as JAX does (a tp shard's heads over its own row
+    of the mesh, ``_sp_mesh``)."""
     if cfg.sequence_parallel and mesh is not None:
         from ..parallel.ring import ring_attention
         from ..parallel.ulysses import ulysses_attention
@@ -727,14 +790,15 @@ def _causal_attention(cfg: LlamaConfig, q, k, v, kv_len, mesh):
         sp_attn = (ring_attention if cfg.attn_impl == "ring"
                    else ulysses_attention)
         return sp_attn(q, repeat_kv(k, cfg.n_rep), repeat_kv(v, cfg.n_rep),
-                       mesh, kv_len=kv_len, causal=True)
+                       _sp_mesh(cfg, mesh), kv_len=kv_len, causal=True)
     return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                            causal=True, kv_len=None if kv_len is None
                            else kv_len.to(q.device))
 
 
 def _embed(params, tokens, cfg):
-    return params["embed"][tokens.long()].to(cfg.dtype)
+    return gather(params["embed"], tokens.device)[tokens.long()].to(
+        cfg.dtype)
 
 
 def _tokens(tokens, cfg: LlamaConfig, device) -> torch.Tensor:
@@ -770,12 +834,12 @@ def _token_tensor(tokens, cfg: LlamaConfig, device) -> torch.Tensor:
 
 
 def _forward(params: dict, tokens, cfg: LlamaConfig, seq_lens=None,
-             mesh=None) -> torch.Tensor:
+             mesh=None, devices=None) -> torch.Tensor:
     """The full-sequence forward, differentiable: autograd records it when
     grad is on (``_blocks``: each stacked weight unbound once, ``cfg.remat``
-    recomputing a block in the backward pass). Training over split weights
-    is ROADMAP A.11."""
-    dev = params["embed"].device
+    recomputing a block in the backward pass). ``devices`` are a dp
+    group's devices, one a tp shard (default: the params' own)."""
+    dev = devices[0] if devices else params["embed"].device
     tokens = _token_tensor(tokens, cfg, dev)
     kv_len = None if seq_lens is None else _int32(seq_lens, dev)
     x = _embed(params, tokens, cfg)
@@ -786,8 +850,38 @@ def _forward(params: dict, tokens, cfg: LlamaConfig, seq_lens=None,
     def attend(c, _, layer, q, k, v):
         return _causal_attention(c, q, k, v, kv_len, mesh)
 
-    x = _blocks(params, cfg, x, cos, sin, attend)
-    return _head(params, rms_norm(x, params["final_norm"], cfg.norm_eps))
+    x = _blocks(params, cfg, x, cos, sin, attend, devices=devices)
+    return _head(params, rms_norm(x, params["final_norm"].to(dev),
+                                  cfg.norm_eps), devices)
+
+
+def _dp_groups(params: dict, *batch) -> list:
+    """[(a dp group's devices or None, its rows of each batch entry)]: one
+    group of the whole batch unless the first entry is split over dp
+    (a ``ShardedTensor`` of row blocks, ``parallel.shard_like``). Group g
+    computes on the ambient mesh's devices at dp position g, one a tp
+    shard (a replicated model: its rows' device); an entry that is not
+    split is cut into the same row blocks."""
+    first = batch[0]
+    if not isinstance(first, ShardedTensor):
+        return [(None, batch)]
+    n = first.n
+    n_tp = len(_shards(params))
+    mesh = current_mesh()
+    if n_tp > 1 and (mesh is None or mesh.shape.get("dp", 1) != n
+                     or mesh.shape.get("tp", 1) != n_tp):
+        raise ValueError(
+            f"a batch split {n} ways over dp with params split {n_tp} ways "
+            f"over tp runs under its mesh (with mesh:), dp={n}, tp={n_tp}")
+
+    def rows(b, g):
+        if isinstance(b, ShardedTensor):
+            return b.block_of(g)
+        return torch.as_tensor(b).chunk(n, dim=0)[g]
+
+    return [(mesh.axis_devices("tp", dp=g) if n_tp > 1
+             else [first.shards[g].device],
+             tuple(rows(b, g) for b in batch)) for g in range(n)]
 
 
 @torch.no_grad()
@@ -804,14 +898,23 @@ def loss_fn(params: dict, tokens, targets, mask, cfg: LlamaConfig
     """Masked next-token cross-entropy over f32 logits, as JAX's
     ``loss_fn``: -sum(log p(target) * mask) / max(sum(mask), 1).
     ``tokens``, ``targets`` and ``mask`` are [B, S], host arrays or tensors;
-    differentiable when grad is on (``ml.train``)."""
-    logits = _forward(params, tokens, cfg)
-    dev = logits.device
-    targets = torch.as_tensor(targets, device=dev).long()
-    logp = torch.log_softmax(logits, dim=-1)
-    ll = torch.gather(logp, -1, targets[..., None])[..., 0]
-    maskf = torch.as_tensor(mask, device=dev).float()
-    return -(ll * maskf).sum() / torch.clamp(maskf.sum(), min=1.0)
+    differentiable when grad is on (``ml.train``). Split over dp, each
+    group's masked sum and mask count are summed over the groups before
+    the one division (the global batch's mean, not a mean of the groups'
+    means); under a mesh whose dp axis spans processes the count is
+    summed over them too, so each process returns its part of the global
+    loss (``ml.train`` sums the parts)."""
+    nums, dens = [], []
+    for devs, (tok, tgt, msk) in _dp_groups(params, tokens, targets, mask):
+        logits = _forward(params, tok, cfg, devices=devs)
+        dev = logits.device
+        tgt = torch.as_tensor(tgt, device=dev).long()
+        logp = torch.log_softmax(logits, dim=-1)
+        ll = torch.gather(logp, -1, tgt[..., None])[..., 0]
+        maskf = torch.as_tensor(msk, device=dev).float()
+        nums.append(-(ll * maskf).sum())
+        dens.append(maskf.sum())
+    return dp_mean(nums, dens)
 
 
 # -- KV-cache serving path ------------------------------------------------------
@@ -870,7 +973,7 @@ def _quant_cache(cfg: LlamaConfig, lead: tuple, seq: int, device) -> dict:
 
 
 def init_cache(cfg: LlamaConfig, batch: int, max_seq: int | None = None,
-               device=None, mesh=None) -> dict:
+               device=None, mesh=None, tp_heads: bool = False) -> dict:
     """Dense cache, all zeros, with the JAX package's keys, shapes and
     dtypes: k/v [L, B, S_max, KV, D] in ``cfg.dtype``, or with
     ``kv_quant`` the values FLAT [L, B, S_max, KV*W] (int8, or uint8 holding
@@ -883,12 +986,23 @@ def init_cache(cfg: LlamaConfig, batch: int, max_seq: int | None = None,
     [.., S_max / sp, ..] block a shard on the shard's device (JAX's
     ``P(None, "dp", "sp", ...)``); ``len`` stays on ``device``. A mesh
     with tp > 1 splits the KV-head axis over its tp devices instead
-    (``CACHE_SPEC``): the cache of tensor-parallel serving."""
+    (``CACHE_SPEC``): the cache of tensor-parallel serving. With both sp
+    and tp > 1, ``tp_heads`` (params split over tp) splits the heads over
+    tp and each tp block's sequence over that shard's sp devices
+    (``mesh.sub(tp=d)``): sequence parallelism over split weights;
+    without it the tp axis is unused, as ring and Ulysses leave it."""
     from .. import resolve_device
 
     device = resolve_device(device)
     S = max_seq or cfg.max_seq_len
     L, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    if (tp_heads and mesh is not None and mesh.shape.get("tp", 1) > 1
+            and mesh.shape.get("sp", 1) > 1):
+        return _split_cache(
+            cfg, mesh.axis_devices("tp"), batch,
+            lambda c, dev: init_cache(c, batch, S, dev,
+                                      mesh=mesh.sub(tp=c.tp_shard)),
+            device)
     if _mesh_tp(mesh) > 1:
         return _split_cache(cfg, mesh.axis_devices("tp"), batch,
                             lambda c, dev: init_cache(c, batch, S, dev),

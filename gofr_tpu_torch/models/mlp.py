@@ -16,7 +16,15 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..parallel import ShardedTensor, dp_mean
 from . import normal, tensor_from_numpy
+
+
+def _row_blocks(x) -> list:
+    """A batch entry's row blocks: a dp-split one's, or the entry whole."""
+    if isinstance(x, ShardedTensor):
+        return [b for _, b in x.leaf_blocks()]
+    return [x]
 
 __all__ = ["MLP", "mnist_mlp", "params_from_jax"]
 
@@ -60,18 +68,33 @@ class MLP:
         self.example_inputs = (np.zeros((1, self.sizes[0]), np.float32),)
 
     @staticmethod
-    def apply(params: Any, x: torch.Tensor) -> torch.Tensor:
+    def apply(params: Any, x):
+        """Logits of ``x`` [B, in]; of a batch split over dp (a
+        ``ShardedTensor`` of row blocks) a ``ShardedTensor`` of the blocks'
+        logits, each block computed on its device with the weights copied
+        there (nothing is copied on the weights' own device)."""
+        if isinstance(x, ShardedTensor):
+            return x.map_blocks(lambda b: MLP.apply(params, b))
+        dev = x.device
         h = x.to(params[0]["w"].dtype)
         for layer in params[:-1]:
-            h = torch.relu(h @ layer["w"] + layer["b"].to(h.dtype))
+            h = torch.relu(h @ layer["w"].to(dev) + layer["b"].to(dev,
+                                                                h.dtype))
         last = params[-1]
-        return (h @ last["w"]).float() + last["b"]
+        return (h @ last["w"].to(dev)).float() + last["b"].to(dev)
 
     @staticmethod
-    def loss(params: Any, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        """Mean cross-entropy of the f32 logits against int labels ``y``."""
-        logp = torch.log_softmax(MLP.apply(params, x), dim=-1)
-        return -torch.gather(logp, 1, y.long()[:, None]).mean()
+    def loss(params: Any, x, y) -> torch.Tensor:
+        """Mean cross-entropy of the f32 logits against int labels ``y``:
+        over a dp-split batch the global batch's mean
+        (``parallel.dp_mean``)."""
+        sums, counts = [], []
+        for xb, yb in zip(_row_blocks(x), _row_blocks(y), strict=True):
+            logp = torch.log_softmax(MLP.apply(params, xb), dim=-1)
+            sums.append(-torch.gather(logp, 1, yb.to(logp.device).long()
+                                      [:, None]).sum())
+            counts.append(yb.shape[0])
+        return dp_mean(sums, counts)
 
 
 def mnist_mlp(hidden: int = 512, seed: int = 0, *, device=None,

@@ -32,7 +32,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..parallel import P, ShardedTensor, constrain, psum
+from ..parallel import P, ShardedTensor, constrain, gather, psum
 from . import normal, tree_from_numpy
 
 __all__ = ["MoEConfig", "init_moe_params", "params_from_jax", "moe_layer",
@@ -132,7 +132,8 @@ def moe_layer(params: dict, x: torch.Tensor, cfg: MoEConfig
     capacity = max(1, int(cfg.capacity_factor * n * cfg.top_k
                           / cfg.n_experts))
     xf = x.reshape(n, d)
-    logits = xf.float() @ params["router"]
+    # a router split over fsdp is gathered whole where the tokens are
+    logits = xf.float() @ gather(params["router"], xf.device)
     probs = torch.softmax(logits, dim=-1)
     dispatch, combine, aux = _dispatch_combine(probs, cfg.top_k, capacity)
     dt = cfg.dtype

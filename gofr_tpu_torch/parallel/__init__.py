@@ -17,24 +17,45 @@ What differs from JAX, and why:
   reshard, the striped page pool, the decode combine) with the same code
   that spreads over several cards with peer-to-peer copies;
 - GSPMD's automatic placement is explicit here. ``shard_params`` places
-  a leaf whose spec names a ``tp``, ``ep`` or ``dp`` axis of size > 1 as
-  a ``ShardedTensor``: the dimension split into equal contiguous blocks,
-  block i on the i-th device along that axis (a second sharded dimension,
-  MoE's ``P("ep", None, "tp")``, splits each block again along its own
-  axis); every other leaf goes to the mesh's first device, replicated
-  there. The modules that run such weights (``models.llama``,
-  ``models.moe``, ``models.bert``, ``models.diffusion``) compute each
-  shard's block on its device and combine with ``psum`` after a
-  row-parallel product and ``all_gather`` after a vocabulary-split one.
-  An ``fsdp`` axis of size > 1 raises naming ROADMAP A.11 (sharded
-  training is the rest of that item); ``parallel.ring``,
-  ``parallel.ulysses``, ``parallel.pipeline`` and the sequence-parallel
-  serving path shard activations and state by hand;
+  a leaf whose spec names a ``tp``, ``ep``, ``dp`` or ``fsdp`` axis of
+  size > 1 as a ``ShardedTensor``: the dimension split into equal
+  contiguous blocks, block i on the i-th device along that axis (a second
+  sharded dimension, MoE's ``P("ep", None, "tp")``, splits each block
+  again along its own axis); every other leaf goes to the mesh's first
+  device, replicated there. ``fsdp`` is always the innermost split: a
+  weight under ``P(None, "fsdp", "tp")`` is a ``ShardedTensor`` over tp
+  whose every block is a ``ShardedTensor`` over fsdp (its fsdp blocks on
+  the devices at that tp position), so ``shards_of`` still returns one
+  entry a tp shard and the model gathers that entry's fsdp blocks
+  (``gather``) onto the device it computes on, just in time, as GSPMD's
+  ZeRO-3 all-gather does; autograd through the gather returns each block
+  its own gradient (the reduce-scatter). The modules that run such
+  weights (``models.llama``, ``models.moe``, ``models.bert``,
+  ``models.diffusion``) compute each shard's block on its device and
+  combine with ``psum`` after a row-parallel product and ``all_gather``
+  after a vocabulary-split one; ``parallel.ring``, ``parallel.ulysses``,
+  ``parallel.pipeline`` and the sequence-parallel serving path shard
+  activations and state by hand;
+- a batch placed with ``shard_like(batch, P("dp"), mesh)`` is a
+  ``ShardedTensor`` of row blocks, block g on the device of dp group g;
+  a model computes each group on its own devices and the weights
+  ``.to()`` there (nothing is copied on a repeated device); the backward
+  pass of that copy adds the groups' gradients onto the weight, which is
+  GSPMD's dp all-reduce;
+- an axis may span processes (``make_mesh(..., process_axis="dp")``):
+  the mesh then holds this process's devices only (``shape`` is the local
+  grid, ``n_processes`` the count); ``process_sum`` all-reduces over
+  the ``torch.distributed`` group (gloo through the host, or NCCL on the
+  cards), which the trainer calls once a step where GSPMD inserts its
+  cross-host psum;
 - ``constrain`` checks a spec against the ambient mesh (``with mesh:``)
   and returns its input: an unknown axis or a dimension the axis does not
   divide raises, as JAX's promises; outside a mesh it does nothing;
 - ``init_distributed`` brings up ``torch.distributed`` (the role
-  ``jax.distributed.initialize`` plays) and does nothing in one process.
+  ``jax.distributed.initialize`` plays) and does nothing in one process;
+  ``dist_backend`` picks its backend: NCCL when every rank of the host
+  has a card of its own, gloo when they share one (NCCL refuses two ranks
+  on one device) or have none.
 
 ``ShardedTensor`` is the sharded state the serving path keeps: a logical
 tensor split along one axis into equal blocks, block i on shard i's
@@ -66,11 +87,18 @@ __all__ = [
     "make_mesh",
     "mesh_shape_for",
     "visible_devices",
+    "place",
     "shard_params",
+    "shard_like",
     "shards_of",
+    "gather",
+    "current_mesh",
     "constrain",
     "specs_from_rules",
     "init_distributed",
+    "dist_backend",
+    "process_sum",
+    "dp_mean",
     "pad_to_multiple",
     "ShardedTensor",
     "owner",
@@ -153,6 +181,11 @@ class Mesh:
         self.devices = devices
         self.axis_names = tuple(axis_names)
         self.shape = dict(zip(self.axis_names, devices.shape, strict=True))
+        # an axis spanning processes (make_mesh's process_axis): its name,
+        # the torch.distributed group and the process count
+        self.process_axis: str | None = None
+        self.group = None
+        self.n_processes = 1
 
     @property
     def empty(self) -> bool:
@@ -163,6 +196,17 @@ class Mesh:
         """The device of the mesh's first position: where replicated
         weights and activations live."""
         return self.devices.flat[0]
+
+    def sub(self, **at) -> "Mesh":
+        """The mesh with the named axes fixed at the given positions (each
+        of size 1): ``mesh.sub(tp=d)`` is tp shard d's sp mesh, over which
+        that shard's heads run ring or Ulysses attention."""
+        idx = tuple(slice(at[n], at[n] + 1) if n in at else slice(None)
+                    for n in self.axis_names)
+        out = Mesh(self.devices[idx], self.axis_names)
+        out.process_axis, out.group = self.process_axis, self.group
+        out.n_processes = self.n_processes
+        return out
 
     def axis_devices(self, axis: str, **at) -> list:
         """The devices along ``axis`` at position 0 of every other axis (or
@@ -194,11 +238,20 @@ def visible_devices() -> list:
 
 
 def make_mesh(config: MeshConfig | None = None, *,
-              devices: Sequence | None = None) -> Mesh:
+              devices: Sequence | None = None,
+              process_axis: str | None = None, group=None) -> Mesh:
     """The canonical mesh over ``devices`` (default: every visible card;
     without a card the caller names the CPU: ``devices=[torch.device(
     "cpu")] * n``). A device may repeat: its positions then share it.
-    Axis order is (dp, fsdp, pp, ep, tp, sp), outermost to innermost."""
+    Axis order is (dp, fsdp, pp, ep, tp, sp), outermost to innermost.
+
+    ``process_axis`` names an axis that spans the processes of the
+    ``torch.distributed`` ``group`` (default the world), as JAX's global
+    mesh over ``jax.devices()`` does: ``config`` then gives the global
+    sizes, the axis's size must be a multiple of the process count, and
+    ``devices`` are this process's own, one a position of its share
+    (``MeshConfig(dp=2, tp=4)`` over two processes: four devices each,
+    a local grid of dp 1 x tp 4)."""
     if devices is None:
         devs = visible_devices()
         if not devs:
@@ -209,15 +262,63 @@ def make_mesh(config: MeshConfig | None = None, *,
         devs = [torch.device(d) for d in devices]
         devs = [torch.device("cuda", torch.cuda.current_device())
                 if d.type == "cuda" and d.index is None else d for d in devs]
+    n_proc = 1
+    if process_axis is not None:
+        import torch.distributed as dist
+
+        if process_axis not in AXES:
+            raise ValueError(f"unknown mesh axis {process_axis!r}")
+        if config is None:
+            raise ValueError("a mesh spanning processes needs its config")
+        if not (dist.is_available() and dist.is_initialized()):
+            raise RuntimeError(
+                f"process_axis={process_axis!r} needs an initialised "
+                "torch.distributed group (parallel.init_distributed or "
+                "torch.distributed.init_process_group)")
+        n_proc = dist.get_world_size(group)
     if config is None:
         config = mesh_shape_for(len(devs))
-    sizes = config.sizes()
+    sizes = list(config.sizes())
+    if process_axis is not None:
+        i = AXES.index(process_axis)
+        if sizes[i] % n_proc:
+            raise ValueError(f"mesh axis {process_axis!r} of size {sizes[i]} "
+                             f"does not divide over {n_proc} processes")
+        sizes[i] //= n_proc
     total = int(np.prod(sizes))
     if total != len(devs):
-        raise ValueError(f"mesh sizes {sizes} != {len(devs)} devices")
+        raise ValueError(f"mesh sizes {tuple(sizes)} != {len(devs)} devices"
+                         + (" of this process" if n_proc > 1 else ""))
     grid = np.empty(len(devs), dtype=object)
     grid[:] = devs
-    return Mesh(grid.reshape(sizes), AXES)
+    mesh = Mesh(grid.reshape(sizes), AXES)
+    if process_axis is not None:
+        mesh.process_axis, mesh.group = process_axis, group
+        mesh.n_processes = n_proc
+    return mesh
+
+
+def dist_backend(local_processes: int, n_cards: int | None = None) -> str:
+    """The ``torch.distributed`` backend for ``local_processes`` ranks on
+    one host with ``n_cards`` cards (default: the visible ones): NCCL when
+    each rank has a card of its own, gloo when there is none or the ranks
+    outnumber the cards (NCCL refuses two ranks on one device; gloo
+    reduces through the host)."""
+    if n_cards is None:
+        n_cards = torch.cuda.device_count() if torch.cuda.is_available() \
+            else 0
+    return "nccl" if 0 < int(local_processes) <= n_cards else "gloo"
+
+
+def _local_processes(config, coord: str, num_procs: int) -> int:
+    """The ranks on this host: ``LOCAL_WORLD_SIZE`` (torchrun's key) when
+    set, else all of them for a coordinator on this host, else one."""
+    local = config.get("LOCAL_WORLD_SIZE")
+    if local:
+        return int(local)
+    host = coord.rsplit(":", 1)[0].strip("[]")
+    return num_procs if host in ("localhost", "::1") \
+        or host.startswith("127.") else 1
 
 
 def init_distributed(config=None) -> None:
@@ -226,8 +327,11 @@ def init_distributed(config=None) -> None:
     (``host:port``), the process count and this process's id from
     ``config`` (``JAX_COORDINATOR_ADDRESS``, ``JAX_NUM_PROCESSES``,
     ``JAX_PROCESS_ID``, the JAX package's keys) and does nothing when no
-    address is set or the group is up already. NCCL on a card, gloo on
-    the host."""
+    address is set or the group is up already. The backend is
+    ``dist_backend``'s choice for the ranks on this host
+    (``LOCAL_WORLD_SIZE``, else all of them when the coordinator is on
+    this host): gloo when they share a card or have none, NCCL when each
+    has its own."""
     if config is None:
         return
     coord = config.get("JAX_COORDINATOR_ADDRESS")
@@ -237,13 +341,61 @@ def init_distributed(config=None) -> None:
 
     if dist.is_initialized():
         return
-    num_procs = config.get("JAX_NUM_PROCESSES")
+    num_procs = int(config.get("JAX_NUM_PROCESSES") or 1)
     proc_id = config.get("JAX_PROCESS_ID")
     dist.init_process_group(
-        "nccl" if torch.cuda.is_available() else "gloo",
-        init_method=f"tcp://{coord}",
-        world_size=int(num_procs) if num_procs else 1,
+        dist_backend(_local_processes(config, coord, num_procs)),
+        init_method=f"tcp://{coord}", world_size=num_procs,
         rank=int(proc_id) if proc_id is not None else 0)
+
+
+def process_sum(tensors: Sequence[torch.Tensor], mesh: Mesh | None,
+                axis: str = "dp") -> list:
+    """Sum ``tensors`` in place over the processes ``mesh``'s ``axis``
+    spans: one ``all_reduce`` a dtype over the mesh's group, through one
+    flat host buffer under gloo (or on the first tensor's card under
+    NCCL), summed in the tensors' own dtype as GSPMD's psum sums. Nothing
+    happens when the axis spans no processes. Returns ``tensors``."""
+    tensors = list(tensors)
+    if (mesh is None or mesh.process_axis != axis or mesh.n_processes == 1
+            or not tensors):
+        return tensors
+    import torch.distributed as dist
+
+    on_host = dist.get_backend(mesh.group) != "nccl"
+    by_dtype: dict = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for dtype, ts in by_dtype.items():
+        dev = torch.device("cpu") if on_host else ts[0].device
+        flat = torch.empty(sum(t.numel() for t in ts), dtype=dtype,
+                           device=dev)
+        off = 0
+        for t in ts:
+            flat[off:off + t.numel()].copy_(t.reshape(-1))
+            off += t.numel()
+        dist.all_reduce(flat, group=mesh.group)
+        off = 0
+        for t in ts:
+            t.copy_(flat[off:off + t.numel()].view(t.shape))
+            off += t.numel()
+    return tensors
+
+
+def dp_mean(sums: Sequence[torch.Tensor], counts: Sequence) -> torch.Tensor:
+    """The global batch's mean from each dp group's sum and count: both
+    added over the groups onto the first sum's device (``psum``), the
+    counts also over the processes the ambient mesh's dp axis spans, then
+    one division (by at least 1). Not the mean of the groups' means, which
+    differs as soon as their counts do. Under a process-spanning dp axis
+    the result is this process's part of the global mean: ``ml.train``
+    sums the parts."""
+    dev = sums[0].device
+    total = psum(list(sums), to=dev)
+    count = psum([torch.as_tensor(c, dtype=torch.float32).to(dev)
+                  for c in counts], to=dev).detach().clone()
+    process_sum([count], current_mesh(), "dp")
+    return total / torch.clamp(count, min=1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -276,62 +428,77 @@ def _axes_of(entry) -> tuple:
     return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
 
 
-def _split_dims(leaf, spec, mesh: Mesh) -> list:
-    """The (dimension, axis) pairs a leaf splits along: every axis of
-    ``spec`` whose size on ``mesh`` is > 1. ``fsdp`` raises naming ROADMAP
-    A.11; a dimension the axis does not divide raises ``ValueError``, as
-    GSPMD refuses such a sharding."""
+def _split_dims(shape, spec, mesh: Mesh) -> list:
+    """The (dimension, axis) pairs a leaf of ``shape`` splits along: every
+    axis of ``spec`` whose size on ``mesh`` is > 1, ``fsdp`` last (the
+    innermost split). A dimension the axis does not divide raises
+    ``ValueError``, as GSPMD refuses such a sharding."""
     out = []
     for dim, entry in enumerate(spec):
         axes = [ax for ax in _axes_of(entry) if mesh.shape.get(ax, 1) > 1]
         if not axes:
             continue
-        if "fsdp" in axes:
-            raise NotImplementedError(
-                f"shard_params: placing a weight over the mesh axis 'fsdp' "
-                f"of size {mesh.shape['fsdp']} (sharded training) is not "
-                f"ported yet (ROADMAP A.11)")
         if len(axes) > 1:
             raise NotImplementedError(
                 f"shard_params: dimension {dim} over the axes {axes} at "
                 f"once is not ported (one mesh axis a dimension)")
-        if dim >= leaf.dim():
+        if dim >= len(shape):
             raise ValueError(f"shard_params: spec {spec!r} has more entries "
-                             f"than the rank {leaf.dim()} of the leaf")
+                             f"than the rank {len(shape)} of the leaf")
         n = mesh.shape[axes[0]]
-        if leaf.shape[dim] % n:
+        if shape[dim] % n:
             raise ValueError(
-                f"shard_params: dimension {dim} of size {leaf.shape[dim]} "
+                f"shard_params: dimension {dim} of size {shape[dim]} "
                 f"does not divide over {axes[0]!r} of size {n}")
         out.append((dim, axes[0]))
-    return out
+    return sorted(out, key=lambda d: d[1] == "fsdp")
+
+
+def place(shape, spec, mesh: Mesh, take):
+    """The layout of a leaf of ``shape`` under ``spec`` on ``mesh``, built
+    a block at a time: ``take(index, device)`` returns the block at
+    ``index`` (a tuple of slices of the whole leaf) on ``device``. An
+    unsplit leaf is ``take`` of the whole on the mesh's first device; a
+    split one a (nested) ``ShardedTensor``, each level over one axis
+    (``_split_dims``' order), block i of a level on the i-th device along
+    its axis with the outer levels' positions fixed."""
+    dims = _split_dims(shape, spec, mesh)
+    whole = tuple(slice(None) for _ in shape)
+    if not dims:
+        return take(whole, mesh.first)
+
+    def split(index, dims, fixed):
+        (dim, ax), rest = dims[0], dims[1:]
+        devs = mesh.axis_devices(ax, **fixed)
+        size = shape[dim] // len(devs)
+        blocks = []
+        for i, dev in enumerate(devs):
+            idx = list(index)
+            idx[dim] = slice(i * size, (i + 1) * size)
+            blocks.append(split(tuple(idx), rest, {**fixed, ax: i}) if rest
+                          else take(tuple(idx), dev))
+        return ShardedTensor(blocks, dim, size, mesh_axis=ax)
+
+    return split(whole, dims, {})
 
 
 def shard_params(params: Any, specs: Any, mesh: Mesh) -> Any:
     """Place a parameter tree on the mesh per its spec tree, as JAX's
-    ``device_put`` with ``NamedSharding``s does. A leaf whose spec names an
-    axis of size > 1 becomes a ``ShardedTensor``: block i of that
-    dimension on the i-th device along the axis (the other axes at their
-    first position); a second such dimension splits each block again, a
-    ``ShardedTensor`` of ``ShardedTensor``s. Blocks on a leaf's own device
-    are views of it (nothing is copied). Every other leaf goes to the
-    mesh's first device. ``fsdp`` > 1 raises naming ROADMAP A.11."""
+    ``device_put`` with ``NamedSharding``s does (``place``): a leaf whose
+    spec names an axis of size > 1 becomes a ``ShardedTensor``, block i of
+    that dimension on the i-th device along the axis (the other axes at
+    their first position); a second such dimension splits each block
+    again, ``fsdp`` innermost. Blocks on a leaf's own device are views of
+    it (nothing is copied). Every other leaf goes to the mesh's first
+    device."""
 
-    def split(leaf, dims, fixed):
-        (dim, ax), rest = dims[0], dims[1:]
-        devs = mesh.axis_devices(ax, **fixed)
-        blocks = leaf.chunk(len(devs), dim=dim)
-        if rest:
-            return ShardedTensor([split(b, rest, {**fixed, ax: i})
-                                  for i, b in enumerate(blocks)], dim)
-        return ShardedTensor([b.to(d) for b, d in zip(blocks, devs,
-                                                       strict=True)], dim)
-
-    def place(leaf, spec):
+    def put(leaf, spec):
+        if isinstance(leaf, np.ndarray):
+            leaf = torch.from_numpy(leaf)
         if not isinstance(leaf, torch.Tensor):
             return leaf
-        dims = _split_dims(leaf, spec, mesh)
-        return split(leaf, dims, {}) if dims else leaf.to(mesh.first)
+        return place(tuple(leaf.shape), spec, mesh,
+                     lambda idx, dev: leaf[idx].to(dev))
 
     def walk(tree, spec):
         if isinstance(tree, dict):
@@ -339,19 +506,55 @@ def shard_params(params: Any, specs: Any, mesh: Mesh) -> Any:
         if isinstance(tree, (list, tuple)) and not isinstance(spec, P):
             return type(tree)(walk(v, s) for v, s in zip(tree, spec,
                                                          strict=True))
-        return place(tree, spec)
+        return put(tree, spec)
 
     return walk(params, specs)
 
 
+def shard_like(tree: Any, spec: P, mesh: Mesh) -> Any:
+    """Place every leaf of ``tree`` (tensors or numpy arrays) with one
+    spec, as JAX's ``shard_like`` does: a batch under ``P("dp")`` becomes
+    a ``ShardedTensor`` of row blocks, block g on dp group g's device.
+    Over a mesh whose dp axis spans processes, the leaves are this
+    process's rows, split over its own dp positions."""
+
+    def specs(t):
+        if isinstance(t, dict):
+            return {k: specs(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(specs(v) for v in t)
+        return spec
+
+    return shard_params(tree, specs(tree), mesh)
+
+
 def shards_of(w) -> list:
-    """A weight's blocks in shard order: a ``ShardedTensor``'s shards, or
-    a plain tensor whole, the one block of an unsplit weight (so a model
-    runs one layer body over split and unsplit params alike)."""
-    return list(w.shards) if isinstance(w, ShardedTensor) else [w]
+    """A weight's compute shards in order: a ``ShardedTensor``'s shards,
+    or the weight whole, the one shard of an unsplit weight (so a model
+    runs one layer body over split and unsplit params alike). A split over
+    ``fsdp`` is no compute split: such a weight (or a tp shard's fsdp
+    blocks) is one entry, which ``gather`` joins."""
+    if isinstance(w, ShardedTensor) and w.mesh_axis != "fsdp":
+        return list(w.shards)
+    return [w]
 
 
-def _ambient_mesh() -> Mesh | None:
+def gather(w, device=None):
+    """``w`` whole on ``device`` (default: where it is): a tensor moved
+    there, a ``ShardedTensor``'s blocks (nested ones too) concatenated
+    there, a dict (an int8 weight's ``{"q", "s"}``) entry by entry. The
+    just-in-time all-gather of fsdp blocks: differentiable, so each block
+    gets its own gradient back."""
+    if isinstance(w, dict):
+        return {k: gather(v, device) for k, v in w.items()}
+    if isinstance(w, ShardedTensor):
+        return w.full(device)
+    return w if device is None else w.to(device)
+
+
+def current_mesh() -> Mesh | None:
+    """The ambient mesh (the innermost ``with mesh:`` of this thread), or
+    None."""
     stack = getattr(_AMBIENT, "stack", None)
     return stack[-1] if stack else None
 
@@ -362,7 +565,7 @@ def constrain(x: Any, spec: P) -> Any:
     not, a spec longer than ``x``'s rank or a dimension the axes' size
     does not divide raises, as JAX's ``with_sharding_constraint`` would.
     The port places nothing here: a module that shards does it itself."""
-    mesh = _ambient_mesh()
+    mesh = current_mesh()
     if mesh is None or mesh.empty:
         return x
     if len(spec) > x.dim():
@@ -397,14 +600,19 @@ class ShardedTensor:
     page pool's dump page): they are no part of the logical tensor.
     ``shape``, ``numel`` and ``element_size`` describe the logical tensor,
     so size accounting reads it as a plain one; ``index_select`` and
-    ``index_copy_`` along ``axis`` route each index to its owner."""
+    ``index_copy_`` along ``axis`` route each index to its owner. A shard
+    may itself be a ``ShardedTensor`` (a second split of its block);
+    ``mesh_axis`` names the mesh axis of a placed weight's split (None for
+    the caches' own splits)."""
 
-    def __init__(self, shards: Sequence[torch.Tensor], axis: int,
-                 block: int | None = None) -> None:
+    def __init__(self, shards: Sequence, axis: int,
+                 block: int | None = None,
+                 mesh_axis: str | None = None) -> None:
         self.shards = list(shards)
         self.axis = axis
         self.block = int(block if block is not None
                          else self.shards[0].shape[axis])
+        self.mesh_axis = mesh_axis
 
     @property
     def n(self) -> int:
@@ -441,9 +649,33 @@ class ShardedTensor:
             return x
         return cls(shard(x, devices, axis), axis)
 
-    def block_of(self, d: int) -> torch.Tensor:
+    def block_of(self, d: int):
         """Shard ``d``'s block (its entries past the block left out)."""
-        return self.shards[d].narrow(self.axis, 0, self.block)
+        sh = self.shards[d]
+        if sh.shape[self.axis] == self.block:
+            return sh
+        return sh.narrow(self.axis, 0, self.block)
+
+    def leaf_blocks(self, index: tuple | None = None):
+        """(index, tensor) of every innermost block, in shard order:
+        ``index`` is the block's tuple of slices of the logical tensor."""
+        if index is None:
+            index = tuple(slice(0, n) for n in self.shape)
+        for d, _, b in self.blocks():
+            idx = list(index)
+            lo = index[self.axis].start + d * self.block
+            idx[self.axis] = slice(lo, lo + self.block)
+            if isinstance(b, ShardedTensor):
+                yield from b.leaf_blocks(tuple(idx))
+            else:
+                yield tuple(idx), b
+
+    def map_blocks(self, fn) -> "ShardedTensor":
+        """A ``ShardedTensor`` of the same layout whose innermost blocks
+        are ``fn(block)``."""
+        return ShardedTensor(
+            [sh.map_blocks(fn) if isinstance(sh, ShardedTensor) else fn(sh)
+             for sh in self.shards], self.axis, self.block, self.mesh_axis)
 
     def blocks(self):
         """(shard index, its device, its block) in shard order."""
@@ -472,7 +704,7 @@ class ShardedTensor:
         """The logical tensor, concatenated on ``device`` (default: the
         first shard's)."""
         device = device or self.device
-        return torch.cat([b.to(device) for _, _, b in self.blocks()],
+        return torch.cat([gather(b, device) for _, _, b in self.blocks()],
                          dim=self.axis)
 
     def _route(self, index) -> dict:
@@ -532,7 +764,7 @@ class ShardedTensor:
 
     def __repr__(self) -> str:  # pragma: no cover - debug aid
         return (f"ShardedTensor(shape={tuple(self.shape)}, axis={self.axis}, "
-                f"n={self.n}, dtype={self.dtype})")
+                f"n={self.n}, dtype={self.dtype}, mesh_axis={self.mesh_axis})")
 
 
 # The cache layout: one call a cache access, on a plain tensor or on a

@@ -2,7 +2,8 @@
 port's ``Checkpointer`` keeps the JAX one's surface in a format of its own
 (a safetensors file of the leaves and a JSON skeleton a step): round trip
 with dtypes, latest step and rotation, a missing checkpoint, a sharded
-restore (not ported: raises naming A.11), a ``Trainer`` resumed from a
+restore (each block read onto its device, JAX's shard shapes), a
+``Trainer`` resumed from a
 checkpoint at f32 (within the JAX test's 1e-6, and the losses within 1e-5
 of JAX's ``Trainer`` with optax), and ``LLAMA_CKPT`` serving the saved
 weights (a params tree, a training state, through w8). A directory the JAX
@@ -88,13 +89,35 @@ def test_restore_missing_raises(tmp_path):
 
 
 def test_sharded_restore(tmp_path, tree):
-    """JAX restores leaves straight onto a mesh; the port's mesh is A.11."""
+    """Twin of ``tests/test_checkpoint.py::test_sharded_restore``: leaves
+    restore straight onto the mesh with the requested specs (each block
+    read from the file onto its device), ``w`` in JAX's shard shapes on the
+    same mesh, values bit for bit; leaves the specs leave out replicate on
+    the mesh's first device; a save of the placed tree restores unsharded
+    bit for bit."""
+    from gofr_tpu import parallel as jpar
+    from gofr_tpu_torch import parallel as par
+
     ckpt = Checkpointer(str(tmp_path / "ckpt"))
     ckpt.save(5, tree)
-    with pytest.raises(NotImplementedError, match="A.11"):
-        ckpt.restore(like=tree, mesh=object(), specs={"w": None})
-    out = ckpt.restore(like=tree)
-    np.testing.assert_array_equal(out["w"].numpy(), tree["w"].numpy())
+    mesh = par.make_mesh(par.MeshConfig(dp=2, tp=4),
+                         devices=[torch.device("cpu")] * 8)
+    specs = {"w": par.P(None, "tp"), "nested": {"b": par.P()}}
+    out = ckpt.restore(like=tree, mesh=mesh, specs=specs)
+    jmesh = jpar.make_mesh(jpar.MeshConfig(dp=2, tp=4))
+    jw = jax.device_put(jnp.asarray(tree["w"].numpy()),
+                        jax.sharding.NamedSharding(jmesh, jpar.P(None, "tp")))
+    assert isinstance(out["w"], par.ShardedTensor)
+    assert {tuple(b.shape) for _, b in out["w"].leaf_blocks()} == \
+        {s.data.shape for s in jw.addressable_shards} == {(4, 2)}
+    np.testing.assert_array_equal(out["w"].full().numpy(),
+                                  tree["w"].numpy())
+    assert torch.equal(out["nested"]["b"], tree["nested"]["b"])
+    assert torch.equal(out["nested"]["i"], tree["nested"]["i"])
+    assert out["step"] == 3 and out["pair"][1] == [1.5, None]
+    ckpt.save(6, out)
+    back = ckpt.restore(6, like=tree, device="cpu")
+    assert torch.equal(back["w"], tree["w"])
     ckpt.close()
 
 

@@ -3,8 +3,8 @@
 ``device="cpu"``) yields the JAX loader's batches: the same static shapes
 and dropped remainder, the same seeded shuffle order, per-epoch reshuffles,
 transforms, producer errors, JSONL / CSV sources over a path or a duck-typed
-``filesystem``, and batches a training step consumes. Placement over a mesh
-is not ported (A.11) and raises.
+``filesystem``, batches a training step consumes, and batches placed over
+a mesh (dp row blocks on the groups' devices).
 """
 
 from __future__ import annotations
@@ -78,10 +78,41 @@ def test_repeat_reshuffles_each_epoch():
 
 
 def test_sharded_placement_on_mesh():
-    """JAX places dp-sharded batches on a mesh; the port's mesh is A.11."""
-    for kw in ({"mesh": object(), "spec": ("dp",)}, {"sharding": object()}):
-        with pytest.raises(NotImplementedError, match="A.11"):
-            DataLoader(_range_source(16), batch_size=8, device="cpu", **kw)
+    """Twin of ``tests/test_data_loader.py::test_sharded_placement_on_mesh``:
+    over a dp = 8 mesh (``[cpu] * 8``) each batch entry is a
+    ``ShardedTensor`` of 8 row blocks, block g on dp group g's device and
+    equal to JAX's shard g of the same batch; ``sharding=(mesh, spec)`` is
+    the same placement, and a dp-split batch feeds a sharded step (the
+    MLP's global mean over its blocks). One process without a
+    ``torch.distributed`` group reads every record under
+    ``shard_by_process``."""
+    from gofr_tpu import parallel as jpar
+    from gofr_tpu_torch import parallel as par
+
+    mesh = par.make_mesh(par.MeshConfig(dp=8),
+                         devices=[torch.device("cpu")] * 8)
+    batch = next(iter(DataLoader(_range_source(16), batch_size=8, mesh=mesh,
+                                 spec=par.P("dp"))))
+    jmesh = jpar.make_mesh(jpar.MeshConfig(dp=8))
+    jbatch = next(iter(JDataLoader(_range_source(16), batch_size=8,
+                                   mesh=jmesh, spec=jpar.P("dp"))))
+    for key in ("x", "y"):
+        st = batch[key]
+        assert isinstance(st, par.ShardedTensor) and st.n == 8
+        want = {s.index[0].start or 0: np.asarray(s.data)
+                for s in jbatch[key].addressable_shards}
+        for g in range(8):
+            np.testing.assert_array_equal(st.block_of(g).numpy(), want[g])
+    assert float(batch["x"].full().sum()) == float(sum(i * 4
+                                                       for i in range(8)))
+    same = next(iter(DataLoader(_range_source(16), batch_size=8,
+                                sharding=(mesh, par.P("dp")))))
+    assert torch.equal(same["y"].full(), batch["y"].full())
+    model = MLP((4, 8, 16), device="cpu")
+    with mesh:
+        loss = MLP.loss(model.params, batch["x"], batch["y"])
+    want = MLP.loss(model.params, batch["x"].full(), batch["y"].full())
+    assert float(loss) == pytest.approx(float(want), rel=1e-6)
     # one process without a torch.distributed group reads every record
     dl = DataLoader(_range_source(16), batch_size=8, shard_by_process=True,
                     device="cpu")

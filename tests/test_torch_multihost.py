@@ -258,6 +258,37 @@ def test_multihost_serving_with_speculation(tmp_path, run, ckpt):
         _teardown(procs, logs)
 
 
+def test_tp_rank_serving_with_speculation(tmp_path, run, ckpt):
+    """``MultiHostWorker(spec_k=)`` over a tp rank (``device=["cpu",
+    "cpu"]``: its Generator over split weights) drafts and verifies
+    through each shard's window: the output equals JAX's greedy decode
+    and windows ran, as JAX's multi-host Generator keeps ``spec_k`` over
+    ``SHARDING_RULES`` params."""
+    procs, logs, model_port = _spawn(tmp_path, ckpt, n=1, spec_k=2,
+                                     device=["cpu", "cpu"])
+    prompt = [5, 9, 2, 5, 9, 2, 5, 9]
+
+    async def scenario():
+        from gofr_tpu_torch.ml.multihost import MultiHostLLMClient
+
+        llm = MultiHostLLMClient("127.0.0.1", model_port)
+        await _wait_model_port(llm, procs, logs)
+        try:
+            assert await llm.generate(prompt, 8) == \
+                _reference_greedy(prompt, 8)
+            await llm.shutdown_workers()
+        finally:
+            await llm.close()
+
+    try:
+        run(scenario())
+        outs = _expect_clean_exit(procs, logs)
+        windows = int(outs[0].rsplit("spec_windows=", 1)[1].split()[0])
+        assert windows > 0
+    finally:
+        _teardown(procs, logs)
+
+
 def test_four_rank_serving_and_rank_kill(tmp_path, run, ckpt):
     """Four ranks, concurrent distinct prompts equal to their decodes, a
     prompt past ``prefill_chunk`` segmented in lock-step; then rank 0

@@ -6,10 +6,10 @@ The port's mesh is a grid of ``torch.device`` and may name one device
 several times: its tests run on ``[cpu] * n`` with JAX's ``n``. Inputs are
 drawn with numpy from a seed and handed to both packages; outputs compare
 at f32 within ``TOL`` (1e-5, JAX's own tolerance for ring attention).
-``shard_params`` splits a leaf over a ``tp``, ``ep`` or ``dp`` axis of size
-> 1 into JAX's shard shapes (``test_shard_params_places_on_mesh``) and
-raises for ``fsdp`` (ROADMAP A.11); ``constrain`` checks a spec without
-placing anything. JAX's ``test_sharded_matmul_inserts_collectives`` /
+``shard_params`` splits a leaf over a ``tp``, ``ep``, ``dp`` or ``fsdp``
+axis of size > 1 into JAX's shard shapes (``test_shard_params_places_on_mesh``;
+fsdp innermost, so ``shards_of`` stays one entry a tp shard);
+``constrain`` checks a spec without placing anything. JAX's ``test_sharded_matmul_inserts_collectives`` /
 ``test_shard_like_batch_on_dp`` (GSPMD inserting collectives) have no
 counterpart: the port's modules call ``psum`` / ``all_gather`` themselves
 (``tests/test_torch_tensor_parallel.py``).
@@ -102,10 +102,12 @@ def test_specs_from_rules_first_match_wins_and_default_replicates():
 
 def test_shard_params_replicates_or_raises():
     """Specs over size-1 axes place every leaf on the mesh's first device.
-    A tp, dp or ep axis of size > 1 splits the leaf into JAX's shard
+    A tp, dp, ep or fsdp axis of size > 1 splits the leaf into JAX's shard
     shapes on the same mesh (its ``device_put`` with a NamedSharding),
-    block i on the i-th device of the axis; fsdp > 1 raises naming ROADMAP
-    A.11 and an axis that does not divide raises ValueError."""
+    block i on the i-th device of the axis; fsdp is the innermost split
+    (a weight over fsdp and tp is one entry a tp shard for ``shards_of``,
+    its fsdp blocks inside), every block equal to JAX's shard at its
+    index; an axis that does not divide raises ValueError."""
     w = np.arange(64, dtype=np.float32).reshape(8, 8)
     params = {"w": torch.from_numpy(w)}
     placed = par.shard_params(params, {"w": P(None, "tp")}, _mesh(sp=2))
@@ -113,7 +115,10 @@ def test_shard_params_replicates_or_raises():
     for axes, spec in (({"dp": 2, "tp": 4}, P(None, "tp")),
                        ({"dp": 2, "tp": 4}, P("dp", None)),
                        ({"ep": 4, "dp": 2}, P("ep", None)),
-                       ({"dp": 2, "tp": 4}, P("dp", "tp"))):
+                       ({"dp": 2, "tp": 4}, P("dp", "tp")),
+                       ({"fsdp": 2, "dp": 4}, P("fsdp", None)),
+                       ({"dp": 2, "fsdp": 2, "tp": 2}, P("fsdp", "tp")),
+                       ({"dp": 2, "fsdp": 2, "tp": 2}, P("tp", "fsdp"))):
         jmesh = jpar.make_mesh(jpar.MeshConfig(**axes))
         jplaced = jpar.shard_params({"w": jnp.asarray(w)},
                                     {"w": jpar.P(*spec)}, jmesh)["w"]
@@ -125,12 +130,21 @@ def test_shard_params_replicates_or_raises():
             leaves = [b for x in leaves for b in x.shards]
         assert {tuple(b.shape) for b in leaves} == want
         assert tuple(got.shape) == w.shape
+        jdata = {tuple((sl.start or 0) for sl in s.index): np.asarray(s.data)
+                 for s in jplaced.addressable_shards}
+        for idx, b in got.leaf_blocks():
+            np.testing.assert_array_equal(
+                b.numpy(), jdata[tuple(sl.start for sl in idx)])
+        if "tp" in spec and "fsdp" in spec:
+            assert got.mesh_axis == "tp"
+            assert len(par.shards_of(got)) == axes["tp"]
     got = par.shard_params(params, {"w": P(None, "tp")}, _mesh(tp=4))["w"]
     np.testing.assert_array_equal(got.full().numpy(), w)
     for i, blk in enumerate(got.shards):
         np.testing.assert_array_equal(blk.numpy(), w[:, 2 * i:2 * i + 2])
-    with pytest.raises(NotImplementedError, match="A.11"):
-        par.shard_params(params, {"w": P("fsdp", None)}, _mesh(fsdp=2))
+    fs = par.shard_params(params, {"w": P("fsdp", None)}, _mesh(fsdp=2))["w"]
+    assert fs.mesh_axis == "fsdp" and par.shards_of(fs) == [fs]
+    assert torch.equal(par.gather(fs), params["w"])
     with pytest.raises(ValueError, match="does not divide"):
         par.shard_params(params, {"w": P(None, "tp")}, _mesh(tp=3))
 

@@ -201,8 +201,9 @@ class TestMoE:
         mesh shape: ``MOE_SHARDING_RULES`` split the experts over ep (and
         their ffn over tp) and the layer equals JAX's sharded one within
         1e-5 of range at f32. At ep = 1 the rules place everything on the
-        mesh's first device and the layer is unchanged; fsdp still raises
-        naming A.11."""
+        mesh's first device and the layer is unchanged; a router split over
+        fsdp is gathered where the tokens are and the layer equals JAX's
+        over the same placement."""
         from gofr_tpu.models.moe import MOE_SHARDING_RULES as JRULES
         from gofr_tpu.models.moe import moe_layer as jmoe_layer
         from gofr_tpu_torch.models.moe import MOE_SHARDING_RULES, moe_layer
@@ -234,10 +235,23 @@ class TestMoE:
                                 torch.from_numpy(x), cfg)
         assert torch.equal(same, moe_layer(params, torch.from_numpy(x),
                                            cfg)[0])
-        with pytest.raises(NotImplementedError, match="A.11"):
-            par.shard_params(params, {"router": par.P("fsdp", None),
-                                      "experts": specs["experts"]},
-                             _mesh(fsdp=2))
+        fspecs = {"router": par.P("fsdp", None), "experts": specs["experts"]}
+        fmesh = _mesh(fsdp=2, **{k: v for k, v in axes.items()
+                                 if k != "dp"})
+        fplaced = par.shard_params(params, fspecs, fmesh)
+        assert fplaced["router"].mesh_axis == "fsdp"
+        with fmesh:
+            fgot, _ = moe_layer(fplaced, torch.from_numpy(x), cfg)
+        jfmesh = _jmesh(fsdp=2, **{k: v for k, v in axes.items()
+                                   if k != "dp"})
+        jfspecs = {"router": jpar.P("fsdp", None),
+                   "experts": jpar.specs_from_rules(jparams,
+                                                    JRULES)["experts"]}
+        with jfmesh:
+            fwant, _ = jax.jit(lambda p, x: jmoe_layer(p, x, jcfg))(
+                jpar.shard_params(jparams, jfspecs, jfmesh), jnp.asarray(x))
+        np.testing.assert_allclose(fgot.numpy(), np.asarray(fwant), rtol=0,
+                                   atol=1e-5 * scale)
 
 
 # ----------------------------------------------------------------- pipeline

@@ -22,7 +22,8 @@ both) with JAX's weights (``PRNGKey(0)``) carried across at f32:
 - a KV ship from a tp = 2 replica lands bit for bit on a tp = 1 one, and
   back;
 - a tp that does not divide the KV heads raises (JAX replicates K/V);
-  speculation and sequence parallelism over split weights raise A.11;
+  speculation over split weights equals JAX's spec Generator; sequence
+  parallelism over split weights raises A.11;
 - ``psum`` / ``all_gather`` on a repeated device copy nothing; unsplit
   params are one shard.
 """
@@ -409,15 +410,43 @@ def test_tp_must_divide_the_kv_heads(setup):
 
 def test_speculation_and_sp_over_split_weights_raise(setup):
     """Speculative decoding and sequence parallelism over split weights
-    name ROADMAP A.11; a tp mesh over unsplit weights raises with the
-    call that splits them."""
-    _, _, params = setup
+    (no longer raises: the name is kept from when they did).
+    Speculation gives JAX's spec Generator's greedy tokens and counts,
+    dense and paged, its windows through each shard's window launch; the
+    forward with ring or Ulysses over an sp = 2 x tp = 2 mesh (each tp
+    shard's heads over its own row of the mesh) equals JAX's sharded
+    forward within 1e-4 of range; the striped pool over a mesh with tp >
+    1 raises JAX's message; a tp mesh over unsplit weights raises with
+    the call that splits them."""
+    jcfg, jparams, params = setup
     placed = _split(params, 2)
-    with pytest.raises(NotImplementedError, match="A.11"):
-        Generator(placed, _cfg(), device="cpu", spec_k=2, **KW)
-    with pytest.raises(NotImplementedError, match="A.11"):
-        tllama.forward(placed, np.ones((1, 4), np.int32),
-                       _cfg(attn_impl="ring"), mesh=_mesh(2))
+    prompt = [5, 9, 2, 7, 5, 9, 2, 7, 5, 9, 2, 7]
+    for page_size in (0, 8):
+        jgen = JGenerator(jparams, jcfg, page_size=page_size, spec_k=2, **KW)
+        want = jgen.generate(prompt, max_new_tokens=N_NEW)
+        gen = Generator(placed, _cfg(), device="cpu", spec_k=2,
+                        page_size=page_size, **KW)
+        assert gen.generate(prompt, max_new_tokens=N_NEW) == want
+        assert (gen.spec_windows, gen.spec_emitted) == (
+            jgen.spec_windows, jgen.spec_emitted)
+    tokens = np.random.default_rng(6).integers(0, 512, (2, 16)).astype(
+        np.int32)
+    mesh = par.make_mesh(par.MeshConfig(sp=2, tp=2), devices=[CPU] * 4)
+    sp_placed = par.shard_params(params, tllama.sharding_specs(params), mesh)
+    jmesh = jpar.make_mesh(jpar.MeshConfig(sp=2, tp=2),
+                           devices=jax.devices()[:4])
+    jplaced = jpar.shard_params(
+        jparams, jpar.specs_from_rules(jparams, jllama.SHARDING_RULES), jmesh)
+    for impl in ("ring", "ulysses"):
+        with jmesh:
+            want = jax.jit(lambda p, t, impl=impl: jllama.forward(
+                p, t, _jcfg(attn_impl=impl), mesh=jmesh))(jplaced, tokens)
+        got = tllama.forward(sp_placed, tokens, _cfg(attn_impl=impl),
+                             mesh=mesh)
+        assert _range_err(got.numpy(), want) <= TOL
+    with pytest.raises(ValueError, match="striped KV pages"):
+        Generator(sp_placed, _cfg(), device="cpu", mesh=mesh, sp="ring",
+                  page_size=8, **{**KW, "prefill_buckets": (16,)})
     with pytest.raises(ValueError, match="shard_params"):
         Generator(params, _cfg(), device="cpu", mesh=_mesh(2), **KW)
     with pytest.raises(ValueError, match="shard_cache requires a mesh"):
