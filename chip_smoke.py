@@ -404,8 +404,27 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    single-device Generator (equal or a near-tie), one SP prefill, flash
    tp x sp x layers under Ulysses and never under the ring; the training
    flash launch of a dp group at a tp = 2 shard and the window at a tp
-   = 2 shard as rows of the kernel table. The script prints its own
-   seconds before the kernels line.
+   = 2 shard as rows of the kernel table.
+21. the app around the model: the port's ``examples/chat_store`` app on
+   Llama-3-8B at its published width cut to ``TRAIN_LAYERS`` (4) of phase
+   3's weights, booted from a ``.env`` in a temporary config directory
+   (``DB_DIALECT=sqlite``, the database beside it): its migration creates
+   the ``chat`` table (one ``gofr_migrations`` row); 8 concurrent ``PUT
+   /chat/{id}`` behind API-key auth generate 32 tokens each through
+   ``ctx.ml`` and store them through the CRUD entity, ``GET /chat/{id}``
+   reads them back, and the stored streams equal ``LLMServer.generate``
+   on the same prompts or sit on a near-tie (``FLEET_TIE``); a request
+   without the key gets 401; a 6-field cron job (every second)
+   generates through the same LLM at least twice; ``POST /relay`` calls
+   the app's own ``/generate`` through ``add_http_service`` (circuit
+   breaker, retry, API key) on a second site of the app's server, and
+   the breaker opens when that site is shut and closes when it returns;
+   flash launched layers x prefill waves and decode layers x decode
+   steps exactly; shutdown runs the ``on_shutdown`` hook, then the
+   container's close (the LLM server and the SQL worker stop), and the
+   generator and its device memory are freed. It prints the PUT round
+   trip p50 and p99 (host wall). The script prints its own seconds
+   before the kernels line.
 
 Measurements under ``torch.profiler`` hold the flight recorder's
 ``PROFILE_LOCK``, so an auto-profiler capture never overlaps one.
@@ -8451,6 +8470,292 @@ def sharded_phase(dev, bf16_params, spec_ref=None, preset: str = "8b"
     return out
 
 
+# -- phase 21: the app around the model -------------------------------------------
+
+APP_PROMPTS = (5, 17, 60, 128, 200, 333, 480, 500)   # the 8 PUTs' lengths
+APP_MAX_NEW = 32
+APP_CRON_NEW = 4           # the cron job's tokens a tick
+APP_RELAY_NEW = 8          # the relayed /generate's tokens
+APP_KEY = "chip-smoke-key"
+APP_BREAKER = (2, 0.25)    # threshold (failures past it open), probe s
+APP_RELEASED = 16 * 2**20  # device bytes a shut-down app may leave behind
+
+
+def tensor_bytes() -> int:
+    """The card's bytes held by live tensors, after cuBLAS's workspaces
+    are let go: cuBLAS keeps one (32 MiB on Hopper) for each stream that
+    ran a matmul, for the process's life, whoever made the stream."""
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    return torch.cuda.memory_allocated()
+
+
+def breaker_of(svc):
+    """The circuit breaker and the base client inside a service's chain of
+    options."""
+    from gofr_tpu_torch.service import HTTPService, _CircuitBreaker
+
+    cb = None
+    while not isinstance(svc, HTTPService):
+        cb = svc if isinstance(svc, _CircuitBreaker) else cb
+        svc = svc._inner
+    return cb, svc
+
+
+async def wait_for(pred, limit_s: float, what: str) -> float:
+    """Poll ``pred`` every 50 ms; the seconds it took, or fail."""
+    t0 = time.perf_counter()
+    while not pred():
+        check(time.perf_counter() - t0 < limit_s, f"app: {what} within "
+              f"{limit_s} s")
+        await asyncio.sleep(0.05)
+    return time.perf_counter() - t0
+
+
+async def drive_app(app, llm, prompts, down: int) -> dict:
+    """Phase 21's requests against the started app (see ``app_phase``)."""
+    import aiohttp
+    from aiohttp import web
+
+    base = f"http://127.0.0.1:{app.http_port}"
+    key = {"X-Api-Key": APP_KEY}
+    out: dict = {}
+    # the downstream of the "self" service: a second site of the app's
+    # own server, shut and reopened below
+    site = web.TCPSite(app._runner, "127.0.0.1", down)
+    await site.start()
+    async with aiohttp.ClientSession() as s:
+        async def call(method, path, body=None, headers=key):
+            t = time.perf_counter()
+            async with s.request(method, base + path, json=body,
+                                 headers=headers) as r:
+                data = await r.json()
+            return r.status, data, time.perf_counter() - t
+
+        st, _, _ = await call("PUT", "/chat/1", {"prompt_ids": prompts[0]},
+                              headers={})
+        check(st == 401, f"app: a PUT without the key got {st}, want 401")
+        out["no_key_status"] = st
+        puts = await asyncio.gather(*(
+            call("PUT", f"/chat/{i}", {"prompt_ids": p,
+                                       "max_new_tokens": APP_MAX_NEW})
+            for i, p in enumerate(prompts, 1)))
+        for i, (st, data, _) in enumerate(puts, 1):
+            check(st == 200 and data["data"]["id"] == i
+                  and len(data["data"]["tokens"]) == APP_MAX_NEW,
+                  f"app: PUT /chat/{i} answered {st} {str(data)[:200]}")
+        walls = [w * 1e3 for _, _, w in puts]
+        out["put_ms"] = {"p50": pct(walls, 0.5), "p99": pct(walls, 0.99),
+                         "all": walls}
+        out["put_tokens"] = [data["data"]["tokens"] for _, data, _ in puts]
+        stored = []
+        for i in range(1, len(prompts) + 1):
+            st, data, _ = await call("GET", f"/chat/{i}")
+            check(st == 200, f"app: GET /chat/{i} answered {st}")
+            row = data["data"]
+            check(json.loads(row["prompt"]) == prompts[i - 1],
+                  f"app: row {i} holds another prompt")
+            stored.append(json.loads(row["tokens"]))
+        check(stored == out["put_tokens"],
+              "app: the stored tokens differ from the PUTs' answers")
+        out["stored_tokens"] = stored
+
+        relay = {"prompt_ids": prompts[2], "max_new_tokens": APP_RELAY_NEW}
+        st, data, _ = await call("POST", "/relay", relay)
+        check(st == 201 and len(data["data"]["tokens"]) == APP_RELAY_NEW,
+              f"app: /relay answered {st} {str(data)[:200]}")
+        relayed = data["data"]["tokens"]
+        cb, client = breaker_of(app.container.get_http_service("self"))
+        states = ["open" if cb._open else "closed"]
+        await site.stop()
+        await client.close()  # its pooled connection to the site goes too
+        failed = []
+        while not cb._open and len(failed) < 4:
+            st, _, _ = await call("POST", "/relay", relay)
+            failed.append(st)
+        check(cb._open and all(st >= 500 for st in failed),
+              f"app: the breaker did not open on a shut downstream "
+              f"({failed})")
+        states.append("open")
+        st, _, fast = await call("POST", "/relay", relay)
+        check(st >= 500, f"app: an open breaker let a call through ({st})")
+        site = web.TCPSite(app._runner, "127.0.0.1", down)
+        await site.start()
+        close_s = await wait_for(lambda: not cb._open, 10 * APP_BREAKER[1],
+                                 "the breaker closes after the downstream "
+                                 "returns")
+        states.append("closed")
+        st, data, _ = await call("POST", "/relay", relay)
+        check(st == 201 and len(data["data"]["tokens"]) == APP_RELAY_NEW,
+              f"app: /relay after the breaker closed answered {st}")
+        out["breaker"] = {"states": states, "failed_statuses": failed,
+                          "open_fail_fast_ms": fast * 1e3,
+                          "close_s": close_s}
+        # both relayed streams, each held against LLMServer.generate alone
+        # (a cron tick may share a batch with either)
+        out["relay_tokens"] = [relayed, data["data"]["tokens"]]
+        st, data, _ = await call("GET", "/.well-known/health", headers={})
+        out["health"] = {"status": st, "sql": data["data"]["sql"]["status"],
+                         "self": data["data"]["self-service"]["status"]}
+        check(st == 200 and out["health"]["sql"] == "UP"
+              and out["health"]["self"] == "UP",
+              f"app: health {st} {str(data)[:300]}")
+    # the reference: LLMServer.generate on the same prompts, one at a time
+    out["reference_tokens"] = [await llm.generate(p, APP_MAX_NEW)
+                               for p in prompts]
+    out["relay_reference"] = await llm.generate(prompts[2], APP_RELAY_NEW)
+    return out
+
+
+def app_phase(dev, bf16_params, preset: str = "8b") -> dict:
+    """Phase 21: the port's ``examples/chat_store`` app at ``TRAIN_LAYERS``
+    of phase 3's weights, booted from a ``.env`` in a temporary config
+    directory (sqlite in the same directory), driven over its sockets and
+    shut down (see the module docstring)."""
+    import gc
+    import os
+    import tempfile
+    import weakref
+
+    from gofr_tpu_torch.app import new_app
+    from gofr_tpu_torch.examples.chat_store import mount
+    from gofr_tpu_torch.models import llama
+    from gofr_tpu_torch.service import (APIKeyConfig, CircuitBreakerConfig,
+                                        RetryConfig)
+
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    cfg = shard_cfg(shard_base(preset), TRAIN_LAYERS)
+    params = first_layers(bf16_params, TRAIN_LAYERS)
+    r = np.random.default_rng(21)
+    prompts = [r.integers(0, cfg.vocab_size, n).tolist() for n in APP_PROMPTS]
+    cron_prompt = r.integers(0, cfg.vocab_size, 9).tolist()
+    mem0 = tensor_bytes() if cuda else 0
+    down = free_port()
+    with tempfile.TemporaryDirectory() as tmp:
+        configs = os.path.join(tmp, "configs")
+        os.mkdir(configs)
+        with open(os.path.join(configs, ".env"), "w") as f:
+            f.write(f"APP_NAME=chip-smoke-chat\nDB_DIALECT=sqlite\n"
+                    f"DB_NAME={tmp}/chat.db\nHTTP_PORT={free_port()}\n"
+                    f"METRICS_PORT={free_port()}\nLOG_LEVEL=FATAL\n"
+                    f"CHAT_API_KEYS={APP_KEY}\n")
+        app = new_app(config_dir=configs)
+        keys = app.config.get("CHAT_API_KEYS").split(",")
+        t0 = time.perf_counter()
+        mount(app, params, cfg, api_keys=keys, device=dev, batch_slots=8,
+              max_seq=1024, chunk=4, prefill_buckets=(128, 512))
+        boot_s = time.perf_counter() - t0
+        llm = app.container.ml.llm("chat")
+        gen = llm.gen
+        tables = {row["name"] for row in app.container.sql.query(
+            "SELECT name FROM sqlite_master WHERE type = 'table'")}
+        migrations = app.container.sql.query(
+            "SELECT version, method FROM gofr_migrations")
+        check({"chat", "gofr_migrations"} <= tables
+              and [m["version"] for m in migrations] == [1],
+              f"app: migrations left tables {tables}, rows {migrations}")
+
+        cron_runs: list = []
+
+        async def tick(ctx):
+            cron_runs.append(await ctx.ml.llm("chat").generate(
+                cron_prompt, APP_CRON_NEW))
+
+        app.add_cron_job("* * * * * *", "generate", tick)
+        app.add_http_service("self", f"http://127.0.0.1:{down}",
+                             CircuitBreakerConfig(*APP_BREAKER),
+                             RetryConfig(max_retries=1),
+                             APIKeyConfig(APP_KEY))
+
+        async def relay(ctx):
+            resp = await ctx.get_http_service("self").post(
+                "generate", json_body=await ctx.bind())
+            if not resp.ok:
+                raise RuntimeError(f"/generate answered {resp.status_code}")
+            return resp.json()["data"]
+
+        app.post("/relay", relay)
+        closing: list = []
+        app.on_shutdown(lambda: closing.append("on_shutdown"))
+        container_close = app.container.close
+
+        async def close():
+            closing.append("container")
+            await container_close()
+
+        app.container.close = close
+        held = tensor_bytes() - mem0 if cuda else 0
+        steps0, waves0 = gen.steps, gen.prefill_waves
+        reset_launches()
+
+        async def run():
+            await app.start()
+            try:
+                res = await drive_app(app, llm, prompts, down)
+                res["cron_wait_s"] = await wait_for(
+                    lambda: len(cron_runs) >= 2, 5.0,
+                    "the cron job ran twice")
+                res["cron_reference"] = await llm.generate(cron_prompt,
+                                                           APP_CRON_NEW)
+                return res
+            finally:
+                await app.shutdown()
+
+        with flash_shapes(llama) as shapes:
+            res = asyncio.run(run())
+        if cuda:
+            torch.cuda.synchronize()
+        launches = read_launches()
+        steps, waves = gen.steps - steps0, gen.prefill_waves - waves0
+        sql_worker = app.container.sql._worker._thread
+        sql_worker.join(2.0)
+        check(closing == ["on_shutdown", "container"]
+              and llm._closed and not llm._thread.is_alive()
+              and not sql_worker.is_alive(),
+              f"app: shutdown ran {closing}; LLM closed {llm._closed}, "
+              f"SQL worker alive {sql_worker.is_alive()}")
+    check(len(cron_runs) >= 2 and all(len(t) == APP_CRON_NEW
+                                      for t in cron_runs),
+          f"app: cron ran {len(cron_runs)} times")
+    cron_agree = stream_agreement(
+        "app cron", params, cfg, [cron_prompt] * len(cron_runs), cron_runs,
+        [res["cron_reference"]] * len(cron_runs))
+    agree = stream_agreement("app", params, cfg, prompts, res["put_tokens"],
+                             res["reference_tokens"])
+    relay_agree = stream_agreement(
+        "app relay", params, cfg, [prompts[2]] * 2, res["relay_tokens"],
+        [res["relay_reference"]] * 2)
+    # on the CPU the plain versions run and nothing counts a launch: the
+    # flash calls are the model's, tallied by ``flash_shapes``
+    flash = (launches["flash_attention_cuda"] if cuda
+             else sum(shapes.values()))
+    check(flash == cfg.n_layers * waves > 0 and steps > 0,
+          f"app: {flash} flash launches for {cfg.n_layers} layers x "
+          f"{waves} prefill waves")
+    if cuda:
+        check(launches["gqa_decode_attention_cuda"] == cfg.n_layers * steps
+              and launches["gqa_decode_attention_int8_cuda"] == 0,
+              f"app: decode launches {launches} for {cfg.n_layers} layers "
+              f"x {steps} decode steps")
+    gen_ref = weakref.ref(gen)
+    del app, llm, gen, close, container_close
+    gc.collect()
+    check(gen_ref() is None, "app: the generator outlives the app")
+    left = tensor_bytes() - mem0 if cuda else 0
+    check(left <= APP_RELEASED, f"app: {left} bytes of the {held} the app "
+          f"held stay allocated after shutdown")
+    for k in ("reference_tokens", "relay_reference", "cron_reference"):
+        res.pop(k)
+    res.update(layers=cfg.n_layers, boot_s=boot_s, launches=launches,
+               prefill_waves=waves, decode_steps=steps,
+               flash_calls_by_shape=dict(shapes), cron_runs=len(cron_runs),
+               agreement=agree, relay_agreement=relay_agree,
+               cron_agreement=cron_agree,
+               shutdown=closing,
+               held_bytes=held, left_bytes=left,
+               migrations=migrations, phase_s=time.perf_counter() - t_phase)
+    return res
 
 
 def main(argv: list[str]) -> int:
@@ -8680,6 +8985,22 @@ def main(argv: list[str]) -> int:
               f"{'equal' if a['equal'] else a['tie']}, flash "
               f"{a['launches']['flash_attention_cuda']}; {card}")
     done("sharded training and the rest of A.11", shard)
+    app21 = app_phase(dev, bf16_params)
+    put, brk = app21["put_ms"], app21["breaker"]
+    print(f"21 the app around the model ({app21['layers']} layers, sqlite "
+          f"from a .env): {len(APP_PROMPTS)} API-key PUTs x {APP_MAX_NEW} "
+          f"tokens, round trip p50 {put['p50']:.1f} ms p99 {put['p99']:.1f} "
+          f"ms (host wall), stored streams equal "
+          f"{app21['agreement']['equal_share']:.3f} to LLMServer.generate; "
+          f"no key -> {app21['no_key_status']}; cron ran "
+          f"{app21['cron_runs']} times; breaker {' -> '.join(brk['states'])}"
+          f" (closed {brk['close_s']:.2f} s after the downstream returned); "
+          f"flash {app21['launches']['flash_attention_cuda']} = "
+          f"{app21['layers']} x {app21['prefill_waves']} prefill waves, "
+          f"decode {app21['launches']['gqa_decode_attention_cuda']} = "
+          f"{app21['layers']} x {app21['decode_steps']} steps; shutdown "
+          f"{app21['shutdown']}, {app21['left_bytes']} bytes left; {card}")
+    done("the app around the model", app21)
     by_name = {row["name"]: row for row in rows}
     for name, key in (("flash_attention_cuda", "flash"),
                       ("gqa_decode_attention_cuda", "bf16"),
@@ -8760,7 +9081,8 @@ def main(argv: list[str]) -> int:
                        row["name"]] for m in ("ring", "ulysses")},
                    **{f"train_serve_{arm}": train["serve"][arm]["launches"][
                        row["name"]] for arm in ("checkpointer",
-                                                "checkpointer_w8", "hf")}}
+                                                "checkpointer_w8", "hf")},
+                   "app": app21["launches"][row["name"]]}
         own = {"gqa_decode_attention_int8_cuda": "int8",
                "gqa_decode_window_cuda": "spec_lookup",
                "gqa_decode_window_int8_cuda": "spec_paged_int8"}.get(
@@ -8777,7 +9099,7 @@ def main(argv: list[str]) -> int:
              "speculation": spec, "engine": engine, "openai": oai,
              "fleet": fleet, "training": train, "native": native,
              "cross_host": cross, "sequence_parallel": sp,
-             "tensor_parallel": tp, "sharded": shard},
+             "tensor_parallel": tp, "sharded": shard, "app": app21},
             indent=1))
     print(f"chip_smoke: the whole script took "
           f"{time.perf_counter() - t_script:.1f} s; {card}")

@@ -8,27 +8,40 @@ Pallas kernels on the serving path are CUDA C++ kernels here
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card and without an explicit ``cpu`` they raise instead of
-quietly running on the host. ``EventStream`` (SSE) and ``Raw`` (a JSON
-body without the envelope) are exported as ``gofr_tpu`` exports them,
-imported on first use so ``import gofr_tpu_torch`` stays torch alone.
+quietly running on the host. The framework's names are exported as
+``gofr_tpu`` exports them (``new_app``, ``App``, ``Context``, ``errors``,
+``Raw``, ``Redirect``, ``Response``, ``Template``, ``File``,
+``EventStream``, ``UploadedFile``, ``Zip``, ``Migrate``, the config and
+logging types), imported on first use so ``import gofr_tpu_torch`` stays
+torch alone.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device", "EventStream", "Raw"]
+# name -> the module that defines it
+_EXPORTS = {
+    "App": "app", "new_app": "app", "Context": "context",
+    "Config": "config", "EnvConfig": "config", "MapConfig": "config",
+    "Zip": "fileutil", "errors": "http", "UploadedFile": "http.request",
+    "File": "http.response", "Raw": "http.response",
+    "Redirect": "http.response", "Response": "http.response",
+    "Template": "http.response", "EventStream": "http.sse",
+    "Level": "logging", "Logger": "logging", "new_logger": "logging",
+    "Migrate": "migration"}
+
+__all__ = ["resolve_device", "new", *_EXPORTS]
 
 
 def __getattr__(name: str):
-    if name == "EventStream":
-        from .http.sse import EventStream
+    if name == "new":  # the JAX package's constructor alias
+        name = "new_app"
+    if name in _EXPORTS:
+        import importlib
 
-        return EventStream
-    if name == "Raw":
-        from .http.response import Raw
-
-        return Raw
+        return getattr(importlib.import_module(f".{_EXPORTS[name]}",
+                                               __name__), name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 

@@ -1,28 +1,70 @@
 """Dependency-injection container — counterpart of
-``gofr_tpu/container``, cut to the serving front: the logger, the metrics
-manager with the framework's metric set registered (the model runtime's
-``app_tpu_*`` and ``app_ml_*`` series and the LLM's ``app_llm_*``), the
-tracer, the
-``ml`` datasource, ``health()`` (the
-aggregate readiness behind ``/.well-known/health``) and ``close()``. The
-SQL, Redis, KV and pub/sub datasources of the JAX package are not
-ported."""
+``gofr_tpu/container``: the logger, the metrics manager with the
+framework's metric set registered (the front's, SQL's and outbound
+calls', the model runtime's ``app_tpu_*`` and ``app_ml_*`` series and the
+LLM's ``app_llm_*``), the tracer, the datasources, the inter-service HTTP
+clients (``services``), the live websocket connections, ``health()`` (the
+aggregate readiness behind ``/.well-known/health``) and ``close()``.
+
+``new_container`` builds SQL from ``DB_DIALECT=sqlite`` (``DB_NAME``, an
+in-memory database by default), which migrations (``migration/``) and
+CRUD (``crud.py``) run on. Other datasources come in through
+``add_datasource`` (the ``Provider`` contract: logger, metrics and
+tracer injected, then ``connect()``); outbound clients through
+``App.add_http_service``. The ``ml`` datasource holds the models and LLM
+servers.
+
+Not ported yet, each queued in ROADMAP A: pub/sub and the subscriber
+(A.18); Redis, the KV and file stores, and SQL's ``mysql`` and
+``postgres`` dialects, for which ``new_sql`` raises ``ValueError``
+(A.19); the wire-protocol stores (Mongo, Cassandra, ClickHouse, Dgraph,
+Solr, OpenTSDB; A.20); the CLI and ``container/mock.py`` (A.21). Their
+attributes stay None.
+"""
 
 from __future__ import annotations
 
 import inspect
 import threading
 import time
+from typing import Any, Protocol, runtime_checkable
 
 from .config import Config, MapConfig
 from .logging import Logger, new_logger
 from .metrics import Manager
 
-__all__ = ["Container", "new_container"]
+__all__ = ["Container", "HealthChecker", "Provider", "new_container"]
 
 STATUS_UP = "UP"
 STATUS_DOWN = "DOWN"
 STATUS_DEGRADED = "DEGRADED"
+
+# the datasource attributes, in the order health and close visit them
+DATASOURCES = ("sql", "redis", "kv", "file", "pubsub", "cassandra",
+               "clickhouse", "mongo", "dgraph", "solr", "opentsdb", "ml")
+
+
+@runtime_checkable
+class HealthChecker(Protocol):
+    def health_check(self) -> dict: ...
+
+
+@runtime_checkable
+class Provider(Protocol):
+    """An injected datasource: the container gives it the app's
+    observability, then connects it."""
+
+    def use_logger(self, logger: Any) -> None: ...
+    def use_metrics(self, metrics: Any) -> None: ...
+    def use_tracer(self, tracer: Any) -> None: ...
+    def connect(self) -> None: ...
+
+
+async def _call(fn) -> Any:
+    result = fn()
+    if inspect.isawaitable(result):
+        result = await result
+    return result
 
 
 class Container:
@@ -36,7 +78,11 @@ class Container:
         self.tracer = None  # set by the App
         self.app_name = self.config.get_or_default("APP_NAME", "gofr-app")
         self.app_version = self.config.get_or_default("APP_VERSION", "dev")
-        self.ml = None  # the model runtime datasource (ml.MLDatasource)
+        for name in DATASOURCES:
+            setattr(self, name, None)  # ml: the model runtime (MLDatasource)
+        self.services: dict[str, Any] = {}  # inter-service HTTP clients
+        self.websocket_connections: dict[str, Any] = {}
+        self._extra_datasources: dict[str, Any] = {}
         self._start_time = time.time()
 
     def register_framework_metrics(self) -> None:
@@ -47,6 +93,9 @@ class Container:
         m.set_gauge("app_info", 1, app_name=self.app_name,
                     app_version=self.app_version)
         m.new_histogram("app_http_response", "HTTP response time in seconds")
+        m.new_histogram("app_http_service_response",
+                        "outbound HTTP call time in seconds")
+        m.new_histogram("app_sql_stats", "SQL statement time in seconds")
         m.new_gauge("app_process_memory_bytes", "resident set size")
         m.new_gauge("app_process_threads", "thread count")
         m.new_gauge("app_process_uptime_seconds", "seconds since start")
@@ -221,38 +270,91 @@ class Container:
         m.set_gauge("app_process_uptime_seconds",
                     time.time() - self._start_time)
 
+    def metrics(self) -> Manager:
+        return self.metrics_manager
+
+    def add_datasource(self, name: str, ds: Any) -> None:
+        """Inject ``ds`` through the ``Provider`` contract; it lands on
+        its attribute when ``name`` is one of ``DATASOURCES`` still
+        unset, else among the extra datasources."""
+        if hasattr(ds, "use_logger"):
+            ds.use_logger(self.logger)
+        if hasattr(ds, "use_metrics"):
+            ds.use_metrics(self.metrics_manager)
+        if hasattr(ds, "use_tracer"):
+            ds.use_tracer(self.tracer)
+        if hasattr(ds, "connect"):
+            ds.connect()
+        if name in DATASOURCES and getattr(self, name) is None:
+            setattr(self, name, ds)
+        else:
+            self._extra_datasources[name] = ds
+
+    def get_datasource(self, name: str) -> Any:
+        if name in DATASOURCES and getattr(self, name) is not None:
+            return getattr(self, name)
+        return self._extra_datasources.get(name)
+
+    def get_http_service(self, name: str) -> Any:
+        return self.services.get(name)
+
+    def _datasource_items(self) -> list[tuple[str, Any]]:
+        items = [(n, getattr(self, n)) for n in DATASOURCES
+                 if getattr(self, n) is not None]
+        return items + list(self._extra_datasources.items())
+
     async def health(self) -> dict:
-        """Aggregate readiness: each datasource's ``health_check()``, and
-        overall DEGRADED when any is not UP."""
+        """Aggregate readiness: each datasource's and each service's
+        ``health_check()``; overall DEGRADED when any is not UP."""
         out: dict = {}
         overall = STATUS_UP
-        if self.ml is not None:
+        checks = self._datasource_items()
+        checks += [(f"{n}-service", svc) for n, svc in self.services.items()]
+        for name, target in checks:
+            checker = getattr(target, "health_check", None)
+            if checker is None:
+                continue
             try:
-                result = self.ml.health_check()
-                if inspect.isawaitable(result):
-                    result = await result
-            except Exception as exc:
+                result = await _call(checker)
+            except Exception as exc:  # a failing check reports DOWN
                 result = {"status": STATUS_DOWN, "error": str(exc)}
+            if not isinstance(result, dict):
+                result = {"status": STATUS_UP, "details": result}
             if result.get("status") != STATUS_UP:
                 overall = STATUS_DEGRADED
-            out["ml"] = result
+            out[name] = result
         out["status"] = overall
         out["name"] = self.app_name
         out["version"] = self.app_version
         return out
 
     async def close(self) -> None:
-        if self.ml is None:
-            return
-        try:
-            result = self.ml.close()
-            if inspect.isawaitable(result):
-                await result
-        except Exception as exc:
-            self.logger.warnf("error closing datasource: %s", exc)
+        """Close every datasource, then every service client."""
+        for _, ds in self._datasource_items():
+            closer = getattr(ds, "close", None)
+            if closer is None:
+                continue
+            try:
+                await _call(closer)
+            except Exception as exc:  # one failing close must not stop
+                self.logger.warnf("error closing datasource: %s", exc)
+        for svc in self.services.values():
+            closer = getattr(svc, "close", None)
+            if closer is None:
+                continue
+            try:
+                await _call(closer)
+            except Exception as exc:
+                self.logger.warnf("error closing service client: %s", exc)
 
 
 def new_container(config: Config, logger: Logger | None = None) -> Container:
+    """A container with the framework's metrics, and SQL when
+    ``DB_DIALECT`` is set."""
     c = Container(config, logger=logger)
     c.register_framework_metrics()
+    if config.get("DB_DIALECT"):
+        from .datasource.sql import new_sql
+
+        c.sql = new_sql(config, c.logger, c.metrics_manager)
     return c

@@ -10,10 +10,10 @@ from __future__ import annotations
 
 from http import HTTPStatus
 
-__all__ = ["GofrError", "MissingParam", "InvalidParam", "InvalidInput",
-           "InvalidRoute",
+__all__ = ["GofrError", "EntityNotFound", "EntityAlreadyExists",
+           "MissingParam", "InvalidParam", "InvalidInput", "InvalidRoute",
            "RequestTimeout", "PanicRecovery", "ServiceUnavailable",
-           "status_code_of"]
+           "Unauthorized", "Forbidden", "status_code_of"]
 
 
 class GofrError(Exception):
@@ -30,6 +30,23 @@ class GofrError(Exception):
     @property
     def message(self) -> str:
         return str(self)
+
+
+class EntityNotFound(GofrError):
+    status_code = HTTPStatus.NOT_FOUND
+
+    def __init__(self, name: str = "", value: str = "") -> None:
+        if name:
+            super().__init__(f"No entity found with {name}: {value}")
+        else:
+            super().__init__("entity not found")
+
+
+class EntityAlreadyExists(GofrError):
+    status_code = HTTPStatus.CONFLICT
+
+    def __init__(self, message: str = "entity already exists") -> None:
+        super().__init__(message)
 
 
 class MissingParam(GofrError):
@@ -77,6 +94,14 @@ class PanicRecovery(GofrError):
 
 class ServiceUnavailable(GofrError):
     status_code = HTTPStatus.SERVICE_UNAVAILABLE
+
+
+class Unauthorized(GofrError):
+    status_code = HTTPStatus.UNAUTHORIZED
+
+
+class Forbidden(GofrError):
+    status_code = HTTPStatus.FORBIDDEN
 
 
 def status_code_of(err: BaseException) -> int:

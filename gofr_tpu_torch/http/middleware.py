@@ -4,12 +4,19 @@
 by the route template), request logging with panic recovery (an
 unexpected exception logs its stack and answers an opaque 500, every
 request logs a ``RequestLog`` with its duration, and the trace id goes
-back as ``X-Correlation-ID``), and the ``app_http_response`` histogram by
-route template, method and status. The CORS and auth middlewares of the
-JAX package are not ported."""
+back as ``X-Correlation-ID``), CORS from the ``ACCESS_CONTROL_*`` keys,
+the ``app_http_response`` histogram by route template, method and
+status, then the auth guards the app enabled: HTTP Basic, ``X-Api-Key``
+and OAuth bearer tokens (a caller's decoder, or RS256 against a JWKS
+document, ``jwks.py``). The guards let ``/.well-known/*`` and ``OPTIONS``
+through, answer 401 with the JSON envelope, and leave the identity on
+the request for ``ctx.get_auth_info()``."""
 
 from __future__ import annotations
 
+import base64
+import hmac
+import json
 import time
 import traceback
 from dataclasses import dataclass
@@ -21,7 +28,10 @@ from aiohttp import web
 from ..tracing import parse_traceparent
 
 __all__ = ["RequestLog", "CORSConfig", "tracer_middleware",
-           "logging_middleware", "cors_middleware", "metrics_middleware"]
+           "logging_middleware", "cors_middleware", "metrics_middleware",
+           "basic_auth_middleware", "api_key_auth_middleware",
+           "oauth_middleware", "jwks_oauth_middleware", "is_well_known",
+           "constant_time_equals"]
 
 Handler = Callable[[web.Request], Awaitable[web.StreamResponse]]
 Middleware = Callable[[web.Request, Handler], Awaitable[web.StreamResponse]]
@@ -208,5 +218,116 @@ def metrics_middleware(metrics) -> Middleware:
                 "app_http_response", time.perf_counter() - start,
                 path=_route_template(request) or request.path,
                 method=request.method, status=str(status))
+
+    return mw
+
+
+def is_well_known(path: str) -> bool:
+    """Health and liveness stay reachable without credentials."""
+    return path.startswith("/.well-known/")
+
+
+def _bypass(request: web.Request) -> bool:
+    return is_well_known(request.path) or request.method == "OPTIONS"
+
+
+def _unauthorized(message: str = "Unauthorized") -> web.Response:
+    return web.json_response({"error": {"message": message}},
+                             status=HTTPStatus.UNAUTHORIZED)
+
+
+def constant_time_equals(a: str, b: str) -> bool:
+    return hmac.compare_digest(a.encode(), b.encode())
+
+
+def basic_auth_middleware(validator: Callable[[str, str], bool]
+                          ) -> Middleware:
+    """HTTP Basic: ``validator(username, password)`` admits."""
+
+    async def mw(request: web.Request, nxt: Handler) -> web.StreamResponse:
+        if _bypass(request):
+            return await nxt(request)
+        header = request.headers.get("Authorization", "")
+        if not header.startswith("Basic "):
+            return _unauthorized()
+        try:
+            decoded = base64.b64decode(header[6:]).decode()
+        except ValueError:  # bad base64 or bad UTF-8
+            return _unauthorized("invalid authorization header")
+        username, _, password = decoded.partition(":")
+        if not validator(username, password):
+            return _unauthorized()
+        request["gofr_auth"] = ("basic", username)
+        return await nxt(request)
+
+    return mw
+
+
+def api_key_auth_middleware(validator: Callable[[str], bool]) -> Middleware:
+    """``X-Api-Key``: ``validator(key)`` admits."""
+
+    async def mw(request: web.Request, nxt: Handler) -> web.StreamResponse:
+        if _bypass(request):
+            return await nxt(request)
+        key = request.headers.get("X-Api-Key", "")
+        if not key or not validator(key):
+            return _unauthorized()
+        request["gofr_auth"] = ("apikey", key)
+        return await nxt(request)
+
+    return mw
+
+
+def _decode_unverified(token: str) -> dict:
+    parts = token.split(".")
+    if len(parts) != 3:
+        raise ValueError("malformed JWT")
+    payload = parts[1] + "=" * (-len(parts[1]) % 4)
+    return json.loads(base64.urlsafe_b64decode(payload))
+
+
+def oauth_middleware(decoder: Callable[[str], dict] | None = None
+                     ) -> Middleware:
+    """Bearer tokens through the caller's verifying ``decoder``, else
+    their unverified claims (tests only; ``App.enable_oauth`` refuses it
+    unless asked); an ``exp`` in the past is refused either way."""
+
+    async def mw(request: web.Request, nxt: Handler) -> web.StreamResponse:
+        if _bypass(request):
+            return await nxt(request)
+        header = request.headers.get("Authorization", "")
+        if not header.startswith("Bearer "):
+            return _unauthorized()
+        token = header[7:]
+        try:
+            claims = (decoder(token) if decoder is not None
+                      else _decode_unverified(token))
+        except Exception as exc:  # the decoder's own failure: a 401
+            return _unauthorized(f"invalid token: {exc}")
+        exp = claims.get("exp")
+        if isinstance(exp, (int, float)) and exp < time.time():
+            return _unauthorized("token expired")
+        request["gofr_auth"] = ("oauth", claims)
+        return await nxt(request)
+
+    return mw
+
+
+def jwks_oauth_middleware(provider) -> Middleware:
+    """Bearer tokens verified RS256 against ``provider``'s cached JWKS
+    document (``jwks.JWKSProvider``)."""
+
+    async def mw(request: web.Request, nxt: Handler) -> web.StreamResponse:
+        if _bypass(request):
+            return await nxt(request)
+        header = request.headers.get("Authorization", "")
+        if not header.startswith("Bearer "):
+            return _unauthorized()
+        try:
+            claims = await provider.verify(header[7:])
+        except Exception as exc:  # any token it cannot verify: a 401
+            return _unauthorized(f"invalid token: {exc}")
+        request["gofr_auth"] = ("oauth", claims)
+        return await nxt(request)
 
     return mw

@@ -1,22 +1,26 @@
 """Leveled, structured logging — counterpart of ``gofr_tpu/logging``.
 
-JSON lines on a pipe or file, colored lines on a terminal; payloads with
-``pretty_print`` (request and RPC logs) render themselves there. Levels
-DEBUG < INFO < NOTICE < WARN < ERROR < FATAL; ``LOG_LEVEL`` picks the
-floor. ERROR and above go to stderr.
+JSON lines on a pipe or file, colored lines on a terminal; payloads that
+implement ``PrettyPrint`` (request, SQL and RPC logs) render themselves
+there. Levels DEBUG < INFO < NOTICE < WARN < ERROR < FATAL; ``LOG_LEVEL``
+picks the floor, ``change_level`` moves it live (``remote.py`` polls a URL
+for it). ERROR and above go to stderr. ``new_file_logger`` writes JSON
+lines to a file.
 """
 
 from __future__ import annotations
 
+import io
 import json
 import os
 import sys
 import threading
 import time
 from enum import IntEnum
-from typing import Any, TextIO
+from typing import Any, Protocol, TextIO, runtime_checkable
 
-__all__ = ["Level", "Logger", "new_logger"]
+__all__ = ["Level", "Logger", "PrettyPrint", "new_logger", "new_file_logger",
+           "get_level_from_string", "NULL"]
 
 
 class Level(IntEnum):
@@ -40,6 +44,13 @@ def get_level_from_string(level: str | None) -> Level:
         return Level[level.strip().upper()]
     except KeyError:
         return Level.INFO
+
+
+@runtime_checkable
+class PrettyPrint(Protocol):
+    """A structured log payload that renders itself on a terminal."""
+
+    def pretty_print(self, writer: TextIO) -> None: ...
 
 
 def _json_default(obj: Any) -> Any:
@@ -87,7 +98,7 @@ class Logger:
               fields: dict) -> None:
         if len(args) == 1:
             message = args[0]
-            if hasattr(message, "pretty_print") and hasattr(message,
+            if isinstance(message, PrettyPrint) and hasattr(message,
                                                             "to_dict"):
                 message = message.to_dict()
         else:
@@ -103,7 +114,7 @@ class Logger:
         ts = time.strftime("%H:%M:%S", time.localtime(now))
         w.write(f"\x1b[38;5;{level.color}m{level.name:5s}\x1b[0m [{ts}] ")
         for a in args:
-            if hasattr(a, "pretty_print"):
+            if isinstance(a, PrettyPrint):
                 a.pretty_print(w)
             else:
                 w.write(f"{a} ")
@@ -114,11 +125,17 @@ class Logger:
     def debug(self, *args: Any, **fields: Any) -> None:
         self.log_at(Level.DEBUG, *args, **fields)
 
+    def debugf(self, fmt: str, *args: Any) -> None:
+        self.log_at(Level.DEBUG, fmt % args if args else fmt)
+
     def info(self, *args: Any, **fields: Any) -> None:
         self.log_at(Level.INFO, *args, **fields)
 
     def infof(self, fmt: str, *args: Any) -> None:
         self.log_at(Level.INFO, fmt % args if args else fmt)
+
+    def notice(self, *args: Any, **fields: Any) -> None:
+        self.log_at(Level.NOTICE, *args, **fields)
 
     def warn(self, *args: Any, **fields: Any) -> None:
         self.log_at(Level.WARN, *args, **fields)
@@ -132,6 +149,27 @@ class Logger:
     def errorf(self, fmt: str, *args: Any) -> None:
         self.log_at(Level.ERROR, fmt % args if args else fmt)
 
+    def fatal(self, *args: Any, **fields: Any) -> None:
+        self.log_at(Level.FATAL, *args, **fields)
+
+    def log(self, *args: Any, **fields: Any) -> None:
+        self.log_at(Level.INFO, *args, **fields)
+
+    def change_level(self, level: Level) -> None:
+        self.level = level
+
+
+class _NullLogger(Logger):
+    def __init__(self) -> None:
+        super().__init__(Level.FATAL, out=io.StringIO(), err=io.StringIO(),
+                         is_terminal=False)
+
+    def log_at(self, level: Level, *args: Any, **fields: Any) -> None:
+        pass
+
+
+NULL = _NullLogger()
+
 
 def new_logger(level: Level | str | None = None) -> Logger:
     """A logger at ``level`` (default ``LOG_LEVEL``, else INFO)."""
@@ -139,3 +177,12 @@ def new_logger(level: Level | str | None = None) -> Logger:
         level = get_level_from_string(
             level if isinstance(level, str) else os.environ.get("LOG_LEVEL"))
     return Logger(level)
+
+
+def new_file_logger(path: str, level: Level = Level.INFO) -> Logger:
+    """A logger writing JSON lines to ``path`` (appended); an empty path
+    logs nothing."""
+    if not path:
+        return NULL
+    fh = open(path, "a", encoding="utf-8")
+    return Logger(level, out=fh, err=fh, is_terminal=False)

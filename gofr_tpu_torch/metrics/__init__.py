@@ -6,7 +6,8 @@ the app's metrics server.
 (registering a name twice, or recording to an unknown one, raises) and
 renders them with ``expose_text``. Gauge samplers registered with
 ``register_sampler`` refresh runtime gauges on every scrape and from a
-``SamplerThread`` between scrapes. Bucket edges, label rendering and
+``SamplerThread`` between scrapes; ``Timer`` records a block's seconds
+into a histogram. Bucket edges, label rendering and
 number formatting are the JAX package's, so the two expose the same text
 for the same values.
 """
@@ -15,10 +16,12 @@ from __future__ import annotations
 
 import math
 import threading
+import time
 from typing import Iterable, Mapping
 
 __all__ = ["Manager", "MetricsError", "DuplicateMetricError",
-           "MetricNotFoundError", "DEFAULT_BUCKETS", "SamplerThread"]
+           "MetricNotFoundError", "DEFAULT_BUCKETS", "SamplerThread",
+           "Timer"]
 
 DEFAULT_BUCKETS = (
     0.001, 0.003, 0.005, 0.01, 0.02, 0.03, 0.05, 0.1, 0.2, 0.3, 0.5,
@@ -192,6 +195,9 @@ class Manager:
             raise MetricNotFoundError(name)
         return metric
 
+    def increment_counter(self, name: str, **labels: str) -> None:
+        self._get(name, _Counter).add(1.0, labels)
+
     def add_counter(self, name: str, delta: float, **labels: str) -> None:
         self._get(name, _Counter).add(delta, labels)
 
@@ -263,3 +269,23 @@ class SamplerThread:
         if self._thread is not None:
             self._thread.join(timeout=2)
             self._thread = None
+
+
+class Timer:
+    """Context manager recording its block's elapsed seconds into a
+    histogram."""
+
+    def __init__(self, manager: Manager, name: str, **labels: str) -> None:
+        self._m = manager
+        self._name = name
+        self._labels = labels
+        self._start = 0.0
+
+    def __enter__(self) -> "Timer":
+        self._start = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._m.record_histogram(self._name,
+                                 time.perf_counter() - self._start,
+                                 **self._labels)

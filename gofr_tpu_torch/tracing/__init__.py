@@ -2,14 +2,18 @@
 carried through ``contextvars``, W3C ``traceparent`` parse and format, and
 a batch processor feeding an exporter.
 
-``TRACE_EXPORTER=console`` logs each finished span at DEBUG; unset (or any
-other value) exports nothing. The JAX package's OTLP and Zipkin HTTP
-exporters are not ported: the port's front makes no outbound calls.
+``new_tracer(config)`` picks the exporter as the JAX package does:
+``TRACE_EXPORTER=otlp`` or ``jaeger`` with ``TRACER_URL`` posts OTLP/HTTP
+JSON to the collector's ``/v1/traces`` (a URL naming Zipkin's
+``/api/v2/spans`` keeps the Zipkin format), ``zipkin`` or ``gofr`` posts
+Zipkin-v2 JSON, ``console`` logs each finished span at DEBUG, and
+anything else exports nothing. ``NoopTracer`` samples nothing.
 """
 
 from __future__ import annotations
 
 import contextvars
+import json
 import queue
 import random
 import threading
@@ -17,9 +21,10 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Mapping
 
-__all__ = ["Span", "SpanContext", "Tracer", "new_tracer",
-           "current_span", "current_context", "current_traceparent",
-           "parse_traceparent", "format_traceparent"]
+__all__ = ["Span", "SpanContext", "Tracer", "NoopTracer", "SpanExporter",
+           "ConsoleExporter", "ZipkinJSONExporter", "OTLPHTTPExporter",
+           "new_tracer", "current_span", "current_context",
+           "current_traceparent", "parse_traceparent", "format_traceparent"]
 
 _current_span: contextvars.ContextVar["Span | None"] = contextvars.ContextVar(
     "gofr_torch_current_span", default=None)
@@ -146,7 +151,17 @@ def current_traceparent() -> str | None:
     return format_traceparent(ctx) if ctx is not None else None
 
 
-class ConsoleExporter:
+class SpanExporter:
+    """What the batch processor hands finished spans to."""
+
+    def export(self, spans: list[Span]) -> None:
+        raise NotImplementedError
+
+    def shutdown(self) -> None:
+        pass
+
+
+class ConsoleExporter(SpanExporter):
     """Logs each finished span at DEBUG through the app's logger."""
 
     def __init__(self, logger=None) -> None:
@@ -160,6 +175,131 @@ class ConsoleExporter:
                                span_id=s.span_id, name=s.name,
                                duration_us=int(((s.end_time or s.start_time)
                                                 - s.start_time) * 1e6))
+
+
+class _HTTPJSONExporter(SpanExporter):
+    """POSTs each batch, encoded as JSON, to an HTTP collector."""
+
+    def __init__(self, url: str, service_name: str, logger=None,
+                 timeout: float = 5.0) -> None:
+        self.url = url
+        self.service_name = service_name
+        self._logger = logger
+        self._timeout = timeout
+
+    def encode(self, spans: list[Span]) -> Any:
+        raise NotImplementedError
+
+    def export(self, spans: list[Span]) -> None:
+        import http.client
+        import urllib.request
+
+        body = json.dumps(self.encode(spans)).encode()
+        req = urllib.request.Request(
+            self.url, data=body, method="POST",
+            headers={"Content-Type": "application/json"})
+        try:
+            urllib.request.urlopen(req, timeout=self._timeout).close()
+        except (OSError, http.client.HTTPException) as exc:
+            # a collector that is down never breaks serving; warn, so a
+            # wrong TRACER_URL does not drop every span unseen
+            if self._logger is not None:
+                self._logger.warn(f"trace export to {self.url} failed: {exc}")
+
+
+class ZipkinJSONExporter(_HTTPJSONExporter):
+    """Batches of Zipkin-v2 JSON spans."""
+
+    def _encode(self, s: Span) -> dict:
+        out: dict[str, Any] = {
+            "traceId": s.trace_id,
+            "id": s.span_id,
+            "name": s.name,
+            "kind": (s.kind if s.kind in ("SERVER", "CLIENT", "PRODUCER",
+                                          "CONSUMER") else None),
+            "timestamp": int(s.start_time * 1e6),
+            "duration": max(1, int(((s.end_time or s.start_time)
+                                    - s.start_time) * 1e6)),
+            "localEndpoint": {"serviceName": self.service_name},
+            "tags": {str(k): str(v) for k, v in s.attributes.items()},
+        }
+        if s.parent_span_id:
+            out["parentId"] = s.parent_span_id
+        if s.status_code == "ERROR":
+            out["tags"]["error"] = s.status_message or "true"
+        return {k: v for k, v in out.items() if v is not None}
+
+    def encode(self, spans: list[Span]) -> list[dict]:
+        return [self._encode(s) for s in spans]
+
+
+_OTLP_KIND = {"INTERNAL": 1, "SERVER": 2, "CLIENT": 3, "PRODUCER": 4,
+              "CONSUMER": 5}
+_OTLP_STATUS = {"UNSET": 0, "OK": 1, "ERROR": 2}
+# the instrumentation scope keeps the JAX package's name, so a collector's
+# queries select both packages' spans alike
+_OTLP_SCOPE = "gofr_tpu.tracing"
+
+
+def _otlp_any_value(value: Any) -> dict:
+    """A value as an OTLP AnyValue; 64-bit ints travel as decimal
+    strings (the OTLP/JSON mapping)."""
+    if isinstance(value, bool):
+        return {"boolValue": value}
+    if isinstance(value, int):
+        return {"intValue": str(value)}
+    if isinstance(value, float):
+        return {"doubleValue": value}
+    return {"stringValue": str(value)}
+
+
+def _otlp_attrs(attrs: Mapping[str, Any]) -> list[dict]:
+    return [{"key": str(k), "value": _otlp_any_value(v)}
+            for k, v in attrs.items()]
+
+
+class OTLPHTTPExporter(_HTTPJSONExporter):
+    """OTLP/HTTP JSON batches to a collector's ``/v1/traces`` (any
+    OpenTelemetry collector; Jaeger 1.35 and later ingest it): hex ids,
+    unix-nano timestamps as strings, typed attributes, numeric kind and
+    status."""
+
+    def __init__(self, url: str, service_name: str, logger=None,
+                 timeout: float = 5.0) -> None:
+        # a collector's base URL or the full signal path
+        if not url.rstrip("/").endswith("/v1/traces"):
+            url = url.rstrip("/") + "/v1/traces"
+        super().__init__(url, service_name, logger, timeout)
+
+    def _encode_span(self, s: Span) -> dict:
+        end = s.end_time or s.start_time
+        out: dict[str, Any] = {
+            "traceId": s.trace_id,
+            "spanId": s.span_id,
+            "name": s.name,
+            "kind": _OTLP_KIND.get(s.kind, 1),
+            "startTimeUnixNano": str(int(s.start_time * 1e9)),
+            "endTimeUnixNano": str(int(end * 1e9)),
+            "attributes": _otlp_attrs(s.attributes),
+            "status": {"code": _OTLP_STATUS.get(s.status_code, 0)},
+        }
+        if s.parent_span_id:
+            out["parentSpanId"] = s.parent_span_id
+        if s.status_message:
+            out["status"]["message"] = s.status_message
+        if s.events:
+            out["events"] = [{"timeUnixNano": str(int(ts * 1e9)),
+                              "name": name, "attributes": _otlp_attrs(attrs)}
+                             for ts, name, attrs in s.events]
+        return out
+
+    def encode(self, spans: list[Span]) -> dict:
+        return {"resourceSpans": [{
+            "resource": {"attributes": _otlp_attrs(
+                {"service.name": self.service_name})},
+            "scopeSpans": [{"scope": {"name": _OTLP_SCOPE},
+                            "spans": [self._encode_span(s)
+                                      for s in spans]}]}]}
 
 
 class _BatchProcessor:
@@ -196,8 +336,10 @@ class _BatchProcessor:
             if item:
                 buf.append(item)
             if buf and (len(buf) >= self._max_batch or item is False):
-                self._exporter.export(buf)
-                buf = []
+                try:
+                    self._exporter.export(buf)
+                finally:
+                    buf = []
         if buf:
             self._exporter.export(buf)
 
@@ -205,6 +347,7 @@ class _BatchProcessor:
         self._stopped = True
         self._queue.put(None)
         self._thread.join(timeout=5)
+        self._exporter.shutdown()
 
 
 class Tracer:
@@ -258,15 +401,34 @@ class Tracer:
             self._processor.shutdown()
 
 
+class NoopTracer(Tracer):
+    """Samples nothing and exports nothing."""
+
+    def __init__(self) -> None:
+        super().__init__("noop", None, 0.0)
+
+
 def new_tracer(config, logger=None) -> Tracer:
-    """A tracer from ``TRACE_EXPORTER`` (``console`` or none),
-    ``TRACER_RATIO`` and ``APP_NAME``."""
+    """A tracer from ``TRACE_EXPORTER``, ``TRACER_URL``, ``TRACER_RATIO``
+    and ``APP_NAME`` (see the module docstring)."""
     try:
         ratio = float(config.get_or_default("TRACER_RATIO", "1"))
     except ValueError:
         ratio = 1.0
-    exporter = None
-    if (config.get("TRACE_EXPORTER") or "").lower() == "console":
+    name = (config.get("TRACE_EXPORTER") or "").lower()
+    url = config.get("TRACER_URL")
+    service = config.get_or_default("APP_NAME", "gofr-app")
+    exporter: SpanExporter | None = None
+    if name in ("otlp", "jaeger") and url:
+        # posting OTLP at a Zipkin ingest path would 404 every batch
+        if "/api/v2/spans" in url:
+            exporter = ZipkinJSONExporter(url, service, logger)
+        else:
+            exporter = OTLPHTTPExporter(url, service, logger)
+    elif name in ("zipkin", "gofr") and url:
+        exporter = ZipkinJSONExporter(url, service, logger)
+    elif name == "console":
         exporter = ConsoleExporter(logger)
-    return Tracer(config.get_or_default("APP_NAME", "gofr-app"), exporter,
-                  ratio)
+    if isinstance(exporter, _HTTPJSONExporter) and logger is not None:
+        logger.infof("exporting traces to %s at %s", name, exporter.url)
+    return Tracer(service, exporter, ratio)

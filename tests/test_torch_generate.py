@@ -384,7 +384,11 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
                 "ml/kv_transport.py", "ml/multihost.py", "ml/train.py",
                 "ml/optim.py", "ml/checkpoint.py", "ml/data.py",
                 "ml/hf_import.py", "ml/pjrt_backend.py", "native/__init__.py",
-                "native/aoti.py", "native/aoti_selftest.py"):
+                "native/aoti.py", "native/aoti_selftest.py", "cron.py",
+                "crud.py", "swagger.py", "fileutil.py", "http/jwks.py",
+                "logging/remote.py", "service/__init__.py",
+                "migration/__init__.py", "datasource/sql/__init__.py",
+                "examples/chat_store.py"):
         assert f"gofr_tpu_torch/{new}" in scanned
     for path in files:
         for name in _imports(path):
@@ -426,7 +430,13 @@ def test_importing_the_port_loads_no_jax():
             "gofr_tpu_torch.tokenizer, gofr_tpu_torch.parallel.ring, "
             "gofr_tpu_torch.parallel.ulysses, "
             "gofr_tpu_torch.parallel.pipeline, gofr_tpu_torch.models.moe, "
-            "gofr_tpu_torch.ml.sp_serving; "
+            "gofr_tpu_torch.ml.sp_serving, gofr_tpu_torch.cron, "
+            "gofr_tpu_torch.crud, gofr_tpu_torch.swagger, "
+            "gofr_tpu_torch.fileutil, gofr_tpu_torch.http.jwks, "
+            "gofr_tpu_torch.logging.remote, gofr_tpu_torch.service, "
+            "gofr_tpu_torch.migration, gofr_tpu_torch.datasource.sql, "
+            "gofr_tpu_torch.examples.chat_store, "
+            "gofr_tpu_torch.examples.http_server; "
             "from gofr_tpu_torch.ml.multihost import MultiHostWorker, "
             "MultiHostLLMClient; "
             "from gofr_tpu_torch.ml.federation import FederatedPool; "
